@@ -1,0 +1,869 @@
+#!/usr/bin/env python3
+"""Drive vpp_tpu_torch on one CUDA card: build, check, run, time.
+
+    python3 chip_smoke.py [--seed N]
+
+Run it from the root of a checkout on a machine with one NVIDIA Hopper
+card (H100), the CUDA toolkit (``nvcc``) and PyTorch built for CUDA. It
+imports torch, numpy and vpp_tpu_torch only, and exits nonzero without
+a result line when no CUDA device is present. Its phases, each of which
+raises on failure:
+
+1. the card: torch's device name, and nvidia-smi's name and power limit;
+2. build: every ``vpp_tpu_torch/csrc/*.cu`` compiled for sm_90a, one
+   ``nvcc`` per source, all started together, into ``csrc/build/``;
+3. each kernel against its plain PyTorch version on the card, bit-exact,
+   at edge shapes and at the slice's shapes on random data;
+4. the main path: the slice's full-size ``Dataplane`` on the card
+   (10,240 global rules, 8 pods on 128-rule local tables, 2^20 session
+   slots, ~4,000 routes, a 100-backend ClusterIP) runs forward vectors
+   of 256 and 4,096 packets (the bench traffic mix, 1/8 to the VIP),
+   each followed by its reply vector, through ``Dataplane.process``.
+   The kernels' launch counters are zeroed just before and read just
+   after; each must be > 0. The same staging and packets then run
+   through ``Dataplane(device="cpu")``, which takes the plain versions:
+   every StepResult field, every StepStats counter and the final session
+   / NAT state must be equal. The first forward vector's ACL verdicts
+   must equal the rule oracle (``ir.rule.rule_matches``) on its first
+   packets;
+5. timing with CUDA events: ms per ``process`` step and Mpps at P = 256
+   and 4,096, and a ``torch.profiler`` window per size (device
+   operations, host syncs and idle share per step, host and device ms
+   per layer); each kernel at the main path's own inputs beside its
+   plain version and its bound.
+
+Every comparison is between integers: the tolerance is exact equality.
+The line before the last is the kernels JSON object; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ipaddress
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+from vpp_tpu_torch.ir.rule import (  # noqa: E402
+    Action,
+    ContivRule,
+    Protocol,
+    rule_matches,
+)
+from vpp_tpu_torch.ops import _cuda, acl_bv, lpm, session  # noqa: E402
+from vpp_tpu_torch.ops.acl import first_true  # noqa: E402
+from vpp_tpu_torch.pipeline.dataplane import Dataplane  # noqa: E402
+from vpp_tpu_torch.pipeline import graph  # noqa: E402
+from vpp_tpu_torch.pipeline.graph import DROP_ACL  # noqa: E402
+from vpp_tpu_torch.pipeline.tables import (  # noqa: E402
+    SESSION_FIELDS,
+    DataplaneConfig,
+)
+from vpp_tpu_torch.pipeline.vector import (  # noqa: E402
+    FLAG_VALID,
+    VEC,
+    Disposition,
+    PacketVector,
+    bias,
+    ip4,
+    ip4_str,
+    packet_vector_from_numpy,
+    to_i32,
+    u32,
+)
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, and the
+# non-tensor-core FP32 rate, used as the ceiling of the kernels' integer
+# compare / logic work (Hopper's INT32 lanes are no more than its FP32
+# lanes, so this bound is never above the true one).
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
+
+BIG_VEC = 4096
+ROUNDS = 4            # (forward, reply) rounds per size: 16 main-path steps
+TIMED_STEPS = 30      # timed process steps (and eager calls) per size
+PROFILED_STEPS = 10   # profiled process steps per size
+VIP = "10.96.0.10"
+N_PODS = 8
+N_BACKENDS = 100
+
+KERNELS = {
+    "sess_probe_ways": dict(
+        source="vpp_tpu_torch/csrc/sess_probe.cu",
+        replaces="vpp_tpu/ops/session.py:1032"),
+    "bv_first_set": dict(
+        source="vpp_tpu_torch/csrc/bv_first_set.cu",
+        replaces="vpp_tpu/ops/acl_bv.py:449"),
+    "lpm_fused_lookup": dict(
+        source="vpp_tpu_torch/csrc/lpm_lookup.cu",
+        replaces="vpp_tpu/ops/lpm.py:372"),
+}
+WRAPPERS = {"sess_probe_ways": session.sess_probe_ways,
+            "bv_first_set": acl_bv.bv_first_set,
+            "lpm_fused_lookup": lpm.lpm_fused_lookup}
+
+RESULT_FIELDS = ("disp", "tx_if", "node_id", "next_hop", "drop_cause",
+                 "established", "dnat_applied", "snat_applied",
+                 "ml_flagged", "ml_scores")
+STATE_FIELDS = tuple(SESSION_FIELDS) + ("fib_ecmp_c",)
+
+
+def say(*parts) -> None:
+    print(*parts, flush=True)
+
+
+# --- the slice's configuration ------------------------------------------
+
+
+def slice_config(n_rules: int = 10240, sess_slots: int = 1 << 20,
+                 fib_slots: int = 4096) -> DataplaneConfig:
+    """One Kubernetes node at the scale the reference targets, every
+    ladder on its fused-kernel rung."""
+    return DataplaneConfig(
+        max_tables=16, max_rules=128, max_global_rules=n_rules,
+        max_ifaces=64, fib_slots=fib_slots, fib_impl="pallas",
+        sess_slots=sess_slots, sess_ways=4, session_impl="pallas",
+        nat_mappings=64, nat_backends=512, fastpath=False,
+        classifier="pallas")
+
+
+def global_rules(n: int):
+    """The gen-policy.py shape (bench.py ``build_rules``): /24 CIDR
+    blocks x ports with every 6th rule a deny, then a permit of the
+    service backends' port and the terminal deny-all; ``n`` rules."""
+    rules = []
+    i = 0
+    while len(rules) < n - 2:
+        block = i % 1000
+        port = 8000 + (i // 1000) % 20
+        net = ipaddress.ip_network(
+            f"172.{16 + block // 256}.{block % 256}.0/24")
+        rules.append(ContivRule(
+            action=Action.DENY if i % 6 == 5 else Action.PERMIT,
+            src_network=net, protocol=Protocol.TCP, dest_port=port))
+        i += 1
+    rules.append(ContivRule(
+        action=Action.PERMIT, protocol=Protocol.TCP, dest_port=80,
+        dest_network=ipaddress.ip_network("10.1.1.0/24")))
+    rules.append(ContivRule(action=Action.DENY))
+    return rules
+
+
+def local_rules(pod: int, n: int):
+    """A pod's egress policy of ``n`` rules: TCP from its service ports
+    to client /24 blocks (every 5th a deny), DNS, then deny-all."""
+    rules = []
+    for k in range(n - 2):
+        block = (37 * pod + 11 * k) % 1000
+        rules.append(ContivRule(
+            action=Action.DENY if k % 5 == 4 else Action.PERMIT,
+            dest_network=ipaddress.ip_network(
+                f"172.{16 + block // 256}.{block % 256}.0/24"),
+            protocol=Protocol.TCP, src_port=8000 + k % 20))
+    rules.append(ContivRule(action=Action.PERMIT, protocol=Protocol.UDP,
+                            dest_port=53))
+    rules.append(ContivRule(action=Action.DENY))
+    return rules
+
+
+def pod_of(host: np.ndarray) -> np.ndarray:
+    """Index into the pod list of the pod owning 10.1.1.<host>."""
+    return host % N_PODS
+
+
+def stage(dp: Dataplane, n_rules: int, n_nodes: int):
+    """Stage the slice on ``dp`` and swap it in. Returns (uplink, pods).
+    Routes: the pod /24, 250 pod /32s, ``n_nodes`` per-node /24s and an
+    SNAT default route; one ClusterIP VIP with 100 weighted backends."""
+    up = dp.add_uplink()
+    dp.add_host_interface()
+    pods = [dp.add_pod_interface(("default", f"pod{i}"))
+            for i in range(N_PODS)]
+    b = dp.builder
+    for i in range(N_PODS):
+        table = f"pod{i}-policy"
+        slot = dp.alloc_table_slot(table)
+        b.set_local_table(slot, local_rules(i, dp.config.max_rules))
+        dp.assign_pod_table(("default", f"pod{i}"), table)
+    b.set_global_table(global_rules(n_rules))
+    b.add_route("10.1.1.0/24", pods[0], Disposition.LOCAL)
+    for h in range(1, 251):
+        b.add_route(f"10.1.1.{h}/32", pods[int(pod_of(np.int64(h)))],
+                    Disposition.LOCAL)
+    for n in range(n_nodes):
+        b.add_route(f"10.{2 + n // 256}.{n % 256}.0/24", up,
+                    Disposition.REMOTE, next_hop=ip4("192.168.0.0") + n,
+                    node_id=n + 2)
+    b.add_route("0.0.0.0/0", up, Disposition.REMOTE,
+                next_hop=ip4("192.168.255.254"), snat=True)
+    b.set_nat_mapping(
+        0, ip4(VIP), 80, 6,
+        [(ip4("10.1.1.2") + i, 80, 1 + i % 2) for i in range(N_BACKENDS)],
+        boff=0)
+    b.set_snat_ip(ip4("192.168.16.1"))
+    dp.swap()
+    return up, pods
+
+
+def forward_traffic(n: int, uplink: int, seed: int) -> dict:
+    """bench.py ``build_traffic``: TCP from the rule-space CIDR blocks
+    toward the pod subnet, 1/8 of it to the ClusterIP VIP."""
+    rng = np.random.default_rng(seed)
+    block = rng.integers(0, 1000, n)
+    src = ((172 << 24) | ((16 + block // 256) << 16)
+           | ((block % 256) << 8) | rng.integers(1, 255, n)).astype(np.uint32)
+    dst = (ip4("10.1.1.0") + rng.integers(2, 250, n)).astype(np.uint32)
+    vip = rng.random(n) < 0.125
+    dst = np.where(vip, np.uint32(ip4(VIP)), dst)
+    dport = np.where(vip, 80, 8000 + rng.integers(0, 20, n)).astype(np.int32)
+    sport = rng.integers(1024, 65535, n).astype(np.int32)
+    full = lambda v: np.full(n, v, np.int32)  # noqa: E731
+    return dict(src_ip=src, dst_ip=dst, proto=full(6), sport=sport,
+                dport=dport, ttl=full(64), pkt_len=full(512),
+                rx_if=full(uplink), flags=full(FLAG_VALID))
+
+
+def reply_traffic(snap: dict, pods) -> dict:
+    """The reply of a processed forward vector: its post-NAT endpoints
+    swapped, received on the pod interface that owns the reply's
+    source."""
+    src = snap["pkts.dst_ip"].view(np.uint32)
+    n = src.shape[0]
+    pod_ifs = np.asarray(pods, np.int32)
+    full = lambda v: np.full(n, v, np.int32)  # noqa: E731
+    return dict(src_ip=src.copy(),
+                dst_ip=snap["pkts.src_ip"].view(np.uint32).copy(),
+                proto=full(6), sport=snap["pkts.dport"].copy(),
+                dport=snap["pkts.sport"].copy(), ttl=full(64),
+                pkt_len=full(512),
+                rx_if=pod_ifs[pod_of(src.astype(np.int64) & 0xFF)],
+                flags=full(FLAG_VALID))
+
+
+def snapshot(res) -> dict:
+    """Every StepResult field and StepStats counter as numpy."""
+    out = {f"pkts.{f}": getattr(res.pkts, f).cpu().numpy()
+           for f in PacketVector._fields}
+    out.update({f: getattr(res, f).cpu().numpy() for f in RESULT_FIELDS})
+    out.update({f"stats.{f}": getattr(res.stats, f).cpu().numpy()
+                for f in res.stats._fields})
+    return out
+
+
+def state_of(dp: Dataplane) -> dict:
+    return {f: getattr(dp.tables, f).cpu().numpy() for f in STATE_FIELDS}
+
+
+def drive(dp: Dataplane, up: int, pods, rounds: int, seed: int,
+          sizes=(VEC, BIG_VEC), now0: int = 100):
+    """The main path: ``rounds`` x (forward, reply) at each size through
+    ``dp.process``. Returns the input vectors (numpy) and the results."""
+    inputs, snaps = [], []
+    now = now0
+    for r in range(rounds):
+        for n in sizes:
+            vec = forward_traffic(n, up, seed + 7919 * r + n)
+            for _ in range(2):
+                res = dp.process(packet_vector_from_numpy(vec, dp.device),
+                                 now=now)
+                snap = snapshot(res)
+                inputs.append((vec, now))
+                snaps.append(snap)
+                now += 1
+                vec = reply_traffic(snap, pods)
+    return inputs, snaps
+
+
+def replay(dp: Dataplane, inputs):
+    return [snapshot(dp.process(packet_vector_from_numpy(vec, dp.device),
+                                now=now)) for vec, now in inputs]
+
+
+def assert_equal(a: dict, b: dict, what: str) -> None:
+    for k in a:
+        if a[k].shape != b[k].shape or not np.array_equal(a[k], b[k]):
+            bad = int(np.sum(a[k] != b[k])) if a[k].shape == b[k].shape \
+                else "shape"
+            raise AssertionError(f"{what}: {k} differs ({bad})")
+
+
+def oracle_check(rules, snap: dict, n: int) -> int:
+    """The first ``n`` packets of a fresh forward vector (no session,
+    no local table on the uplink): ACL-dropped iff the first rule of the
+    global list that matches the post-DNAT header denies. Returns the
+    number of denied packets."""
+    denied = 0
+    for i in range(n):
+        hdr = (ip4_str(int(snap["pkts.src_ip"][i])),
+               ip4_str(int(snap["pkts.dst_ip"][i])), Protocol.TCP,
+               int(snap["pkts.sport"][i]), int(snap["pkts.dport"][i]))
+        rule = next((r for r in rules if rule_matches(r, *hdr)), None)
+        deny = rule is not None and rule.action == Action.DENY
+        got = int(snap["drop_cause"][i]) == DROP_ACL
+        if deny != got:
+            raise AssertionError(f"packet {i} {hdr}: oracle deny={deny}, "
+                                 f"dataplane deny={got}")
+        denied += deny
+    return denied
+
+
+# --- kernel checks --------------------------------------------------------
+
+
+def _t(a: np.ndarray, dev) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    a = a.view(np.int32) if a.dtype == np.uint32 else a.astype(np.int32)
+    return torch.from_numpy(a).to(dev)
+
+
+class Errors:
+    """Largest |kernel - plain| seen per kernel (as int64)."""
+
+    def __init__(self):
+        self.max = {k: 0 for k in KERNELS}
+
+    def hold(self, name: str, got, want, what: str) -> None:
+        for g, w in zip(got, want):
+            err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) \
+                if g.numel() else 0
+            if g.shape != w.shape:
+                raise AssertionError(f"{name} {what}: shape {tuple(g.shape)}"
+                                     f" != {tuple(w.shape)}")
+            self.max[name] = max(self.max[name], err)
+            if err:
+                raise AssertionError(f"{name} {what}: kernel differs from "
+                                     f"its plain version (max |err| {err})")
+
+
+def sess_case(rng, p: int, nb: int, w: int, dev):
+    """Random bucket columns with a planted matching way for every
+    third packet (half of them stale at now = 1000, max_age = 200)."""
+    valid = (rng.random((nb, w)) < 0.5).astype(np.int32)
+    cols = [rng.integers(0, 1 << 32, (nb, w), dtype=np.uint32)
+            for _ in range(3)]
+    proto = rng.integers(0, 256, (nb, w)).astype(np.int32)
+    tm = rng.integers(0, 1000, (nb, w)).astype(np.int32)
+    b = rng.integers(0, nb, p).astype(np.int32)
+    key = [rng.integers(0, 1 << 32, p, dtype=np.uint32) for _ in range(3)]
+    key.append(rng.integers(0, 256, p).astype(np.int32))
+    for i in range(0, p, 3):
+        ww, bb = int(rng.integers(0, w)), b[i]
+        valid[bb, ww] = 1
+        for c, k in zip(cols + [proto], key):
+            c[bb, ww] = k[i]
+        tm[bb, ww] = 100 if i % 2 else 950
+    return ([_t(b, dev)] + [_t(k, dev) for k in key]
+            + [_t(x, dev) for x in (valid, *cols, proto, tm)])
+
+
+def bv_case(rng, p: int, rows: int, w: int, tables, dev):
+    shp = (rows, w) if tables is None else (tables, rows, w)
+    pshp = (acl_bv.PROTO_ROWS, w) if tables is None else \
+        (tables, acl_bv.PROTO_ROWS, w)
+    # bit density 1/2, or 1/8 for wide rows, so both hits and misses
+    # occur at every width
+    dense = 1 if w < 16 else 3
+    planes = []
+    for _ in range(4):
+        pl = rng.integers(0, 1 << 32, shp, dtype=np.uint32)
+        for _ in range(dense - 1):
+            pl &= rng.integers(0, 1 << 32, shp, dtype=np.uint32)
+        planes.append(pl)
+    planes.append(rng.integers(0, 1 << 32, pshp, dtype=np.uint32))
+    idx = [rng.integers(0, rows, p).astype(np.int32) for _ in range(4)]
+    idx.append(rng.integers(0, acl_bv.PROTO_ROWS, p).astype(np.int32))
+    table = None if tables is None else \
+        _t(rng.integers(0, tables, p).astype(np.int32), dev)
+    return [_t(x, dev) for x in planes + idx], table
+
+
+def lpm_case(rng, p: int, lens, npad: int, dev):
+    """A random biased stack over ``lens`` (longest first) with half the
+    packets inside a staged prefix."""
+    n_len = len(lens)
+    pfx = np.full((n_len, npad), 0x7FFFFFFF, np.int32)
+    slot = np.zeros((n_len, npad), np.int32)
+    cnt = np.zeros(n_len, np.int32)
+    for r, ln in enumerate(lens):
+        mask = ((0xFFFFFFFF << (32 - ln)) & 0xFFFFFFFF) if ln else 0
+        n = int(rng.integers(0, npad + 1)) if ln else 1
+        vals = np.unique(rng.integers(0, 1 << 32, n, dtype=np.uint64) & mask)
+        n = len(vals)
+        pfx[r, :n] = (vals ^ 0x80000000).astype(np.uint32).view(np.int32)
+        slot[r, :n] = rng.integers(0, 4096, n)
+        cnt[r] = n
+    dst = rng.integers(0, 1 << 32, p, dtype=np.uint32)
+    for i in range(0, p, 2):
+        r = int(rng.integers(0, max(n_len, 1)))
+        if n_len and cnt[r]:
+            v = (int(pfx[r, int(rng.integers(0, cnt[r]))]) & 0xFFFFFFFF) \
+                ^ 0x80000000
+            host = (1 << (32 - lens[r])) - 1
+            dst[i] = v | (int(dst[i]) & host)
+    return [_t(dst, dev), _t(np.asarray(lens, np.int32), dev), _t(cnt, dev),
+            _t(pfx, dev), _t(slot, dev)]
+
+
+def check_kernels(dev, errors: Errors, seed: int, n_rules: int,
+                  sess_buckets: int, npad: int) -> None:
+    """Phase 3: each kernel against its plain version, edge shapes and
+    the slice's shapes, synchronising after each."""
+    rng = np.random.default_rng(seed)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    for p, nb, w in ((1, 1, 1), (33, 32, 4), (100, 16, 1), (64, 8, 16),
+                     (VEC, sess_buckets, 4), (BIG_VEC, sess_buckets, 4)):
+        args = sess_case(rng, p, nb, w, dev)
+        for now, age in ((1000, 200), (0, 0x7FFFFFFF)):
+            max_age = torch.tensor(age, dtype=torch.int32, device=dev)
+            got = session.sess_probe_ways(*args, now, max_age)
+            want = session.sess_probe_ways_plain(*args, now, age)
+            sync()
+            errors.hold("sess_probe_ways", got, want,
+                        f"P={p} NB={nb} W={w} now={now}")
+            say(f"check sess_probe_ways P={p} NB={nb} W={w} now={now}: "
+                f"exact, {int(want[0].sum())} hits")
+    words = (n_rules + 31) // 32
+    for p, rows, w, tables in ((1, 4, 1, None), (5, 7, 3, None),
+                               (300, 50, 20, None),
+                               (VEC, 2 * n_rules + 2, words, None),
+                               (BIG_VEC, 2 * n_rules + 2, words, None),
+                               (VEC, 258, 4, 16), (BIG_VEC, 258, 4, 16)):
+        args, table = bv_case(rng, p, rows, w, tables, dev)
+        got = acl_bv.bv_first_set(*args, table=table)
+        want = acl_bv.bv_first_set_plain(*args, table=table)
+        sync()
+        errors.hold("bv_first_set", (got,), (want,),
+                    f"P={p} I={rows} W={w} T={tables}")
+        say(f"check bv_first_set P={p} I={rows} W={w} T={tables}: exact, "
+            f"{int((want != acl_bv.BV_ENC_MISS).sum())} matched")
+    for p, lens, npad_ in ((7, [32, 24, 0], 16), (5, [], 1), (33, [0], 1),
+                           (64, [32], 8), (VEC, list(range(32, -1, -1)), npad),
+                           (BIG_VEC, list(range(32, -1, -1)), npad)):
+        args = lpm_case(rng, p, lens, npad_, dev)
+        got = lpm.lpm_fused_lookup(*args)
+        want = lpm.lpm_fused_lookup_plain(*args)
+        sync()
+        errors.hold("lpm_fused_lookup", got, want,
+                    f"P={p} L={len(lens)} Npad={npad_}")
+        say(f"check lpm_fused_lookup P={p} L={len(lens)} Npad={npad_}: "
+            f"exact, {int(want[0].sum())} found")
+
+
+# --- the kernels' inputs on the main path, and their bounds -------------
+
+
+def main_path_inputs(dp: Dataplane, fwd: dict, rep: dict, now: int):
+    """Each kernel's arguments as ``process`` builds them from the live
+    tables: the session probe and the local classify on a reply vector,
+    the global classify and the FIB walk on a forward vector."""
+    t = dp.tables
+    fpk = packet_vector_from_numpy(fwd, dp.device)
+    rpk = packet_vector_from_numpy(rep, dp.device)
+    keys = session._reverse_keys(rpk)
+    b = session._reverse_bucket(rpk, keys, t.sess_valid.shape[0], False)
+    sess = (b, *keys, *session._columns(t), now, t.sess_max_age)
+    glb = (*acl_bv._glb_planes(t), *acl_bv._global_rows(t, fpk))
+    _, tl, rows = acl_bv._local_rows(t, rpk)
+    loc = (*acl_bv._acl_planes(t), *rows)
+    fib = (fpk.dst_ip, *lpm._stack(t))
+    return dict(sess=sess, glb=glb, loc=(loc, tl), fib=fib)
+
+
+def bound(nbytes: float, ops: float):
+    """(ms, what bounds it): the larger of bytes over HBM bandwidth and
+    operations over the ALU peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ALU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sess_bound(args):
+    """Keys in, the distinct home buckets' W ways of six columns, and
+    found/first out; ~12 integer operations per way."""
+    b, ways, p = args[0], args[5].shape[1], args[0].shape[0]
+    buckets = torch.unique(b).numel()
+    return bound(p * 5 * 4 + buckets * ways * 6 * 4 + 4 + p * 2 * 4,
+                 p * ways * 12)
+
+
+def bv_bound(planes, rows, table=None):
+    """Row indices in, the distinct bitmap rows gathered (W words each)
+    and the encodes out; ~8 integer operations per packet word."""
+    words = planes[0].shape[-1]
+    p = rows[0].shape[0]
+    nbytes = p * (len(rows) + (table is not None)) * 4 + p * 4
+    for pl, r in zip(planes, rows):
+        key = r.long() if table is None else \
+            table.long() * pl.shape[-2] + r.long()
+        nbytes += torch.unique(key).numel() * words * 4
+    return bound(nbytes, p * words * 8)
+
+
+def lpm_bound(dst, lens, cnt, pfx, slot):
+    """Destinations in, the live plane entries (prefix and slot), and
+    found/slot out; the operations of the walk this data needs: each
+    packet bisects the lengths down to its first hit (~5 operations a
+    probe, ~8 a length)."""
+    p, n_len = dst.shape[0], lens.shape[0]
+    nbytes = p * 4 + n_len * 8 + int(cnt.sum()) * 8 + p * 8
+    if n_len == 0:
+        return bound(nbytes, 0)
+    m = bias(to_i32(u32(dst)[None, :] & lpm._len_masks(lens)[:, None]))
+    i = torch.searchsorted(pfx, m.contiguous())
+    ic = torch.clamp(i, max=pfx.shape[1] - 1)
+    hit = (torch.gather(pfx, 1, ic) == m) & (i < cnt[:, None])
+    walked = torch.where(hit.any(dim=0), first_true(hit.t()) + 1, n_len)
+    steps = torch.ceil(torch.log2(cnt.double() + 1))          # [L]
+    per_len = torch.cumsum(steps * 5 + 8, 0)                  # [L]
+    ops = float(per_len[walked.long() - 1].sum())
+    return bound(nbytes, ops)
+
+
+# --- timing -----------------------------------------------------------------
+
+
+def time_eager(fn, iters: int) -> float:
+    """Median device ms of ``fn()`` called eagerly, each call between
+    its own pair of CUDA events (host launch overhead included where
+    the device waits on it)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    evs = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        evs.append((a, b))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in evs]))
+
+
+def time_graph(fn, per_graph: int = 20, replays: int = 10) -> float:
+    """Device ms of one ``fn()`` launch: ``per_graph`` launches captured
+    in a CUDA graph, replayed back to back between CUDA events, so no
+    host launch overhead is counted."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(per_graph):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (replays * per_graph)
+
+
+def time_steps(dp: Dataplane, up: int, pods, n: int, steps: int,
+               seed: int, now: int):
+    """Median device ms per ``process`` step (CUDA events around each
+    call) and median host wall ms per synchronised step, over
+    alternating forward / reply vectors of ``n`` packets."""
+    fwd = forward_traffic(n, up, seed)
+    first = dp.process(packet_vector_from_numpy(fwd, dp.device), now=now)
+    rep = reply_traffic(snapshot(first), pods)
+    vecs = [packet_vector_from_numpy(v, dp.device) for v in (fwd, rep)]
+    for k in range(4):
+        dp.process(vecs[k % 2], now=now)
+    torch.cuda.synchronize()
+    dev_ms, wall_ms = [], []
+    for k in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        dp.process(vecs[k % 2], now=now + 1 + k)
+        b.record()
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(a.elapsed_time(b))
+    return float(np.median(dev_ms)), float(np.median(wall_ms)), fwd, rep
+
+
+# the step's layers, as the functions pipeline_step calls
+STAGES = ((graph, ("_ingress", "session_lookup_reverse_idx",
+                   "session_touch", "nat44_reverse", "nat44_touch",
+                   "nat44_dnat", "nat44_snat", "session_insert",
+                   "nat44_record", "_finish_step")),
+          (acl_bv, ("acl_classify_global_pallas",
+                    "acl_classify_local_pallas")),
+          (lpm, ("fib_lookup_lpm_fused",)))
+
+
+@contextlib.contextmanager
+def stage_spans():
+    """Wrap every layer of the step in a ``record_function`` span named
+    ``stage:<function>`` (for the profile only; restored after)."""
+    from torch.profiler import record_function
+
+    def spanned(name, fn):
+        def run(*a, **kw):
+            with record_function(f"stage:{name}"):
+                return fn(*a, **kw)
+        return run
+
+    saved = [(mod, name, getattr(mod, name))
+             for mod, names in STAGES for name in names]
+    for mod, name, fn in saved:
+        setattr(mod, name, spanned(name, fn))
+    graph.make_pipeline_step.cache_clear()
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        graph.make_pipeline_step.cache_clear()
+
+
+def profile_steps(dp: Dataplane, vecs, steps: int, now: int) -> dict:
+    """``torch.profiler`` over ``steps`` process steps: device operations
+    and host syncs per step, their summed device time per step, the
+    window's wall time, the device's idle share (one stream: operations
+    do not overlap, so busy = the sum), host and device ms per step of
+    each layer, and the costliest host-side ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with stage_spans():
+        for k in range(4):
+            dp.process(vecs[k % 2], now=now)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for k in range(steps):
+                dp.process(vecs[k % 2], now=now + 1 + k)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    # device work: kernels, copies and fills (not the device-side
+    # copies of the stage spans)
+    work = [e for e in prof.events() if e.device_type == cuda
+            and not e.name.startswith("stage:")]
+    busy_ms = sum(e.time_range.elapsed_us() for e in work) / 1e3
+    table = prof.key_averages()
+    stages = [e for e in table
+              if e.key.startswith("stage:") and e.device_type == cpu]
+    syncs = sum(e.count for e in table if e.key == "cudaStreamSynchronize")
+    ops = sorted((e for e in table if e.device_type == cpu
+                  and not e.key.startswith("stage:")),
+                 key=lambda e: -e.self_cpu_time_total)[:8]
+    return dict(
+        device_ops_per_step=len(work) / steps,
+        host_syncs_per_step=syncs / steps,
+        device_busy_ms_per_step=busy_ms / steps,
+        wall_ms_per_step=wall_ms / steps,
+        device_idle_share=1.0 - busy_ms / wall_ms,
+        host_ms_per_step_by_layer={
+            e.key[6:]: e.cpu_time_total / 1e3 / steps for e in stages},
+        device_ms_per_step_by_layer={
+            e.key[6:]: e.device_time_total / 1e3 / steps for e in stages},
+        top_host_ops={e.key: [e.count / steps,
+                              e.self_cpu_time_total / 1e3 / steps]
+                      for e in ops})
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip()
+    return out.splitlines()[0]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random kernel inputs and traffic")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port runs on the card",
+              file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+
+    # 1. the card
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    say(f"device: {kind} (torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
+    say(f"nvidia-smi: {smi}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    built = _cuda.build_all()
+    for name in ("sess_probe", "bv_first_set", "lpm_lookup"):
+        _cuda.library(name)
+    say(f"build: {len(list(_cuda.CSRC.glob('*.cu')))} kernels, nvcc "
+        f"{built:.2f} s, loaded in {time.perf_counter() - t0:.2f} s")
+
+    # 3. kernels vs plain versions
+    n_rules, sess_slots, n_nodes = 10240, 1 << 20, 3744
+    cfg = slice_config(n_rules, sess_slots)
+    errors = Errors()
+    check_kernels(dev, errors, args.seed, n_rules,
+                  sess_slots // cfg.sess_ways, cfg.fib_slots)
+
+    # 4. the main path on the card, then the same on the CPU
+    t0 = time.perf_counter()
+    gpu = Dataplane(cfg)
+    up, pods = stage(gpu, n_rules, n_nodes)
+    routes = gpu.builder.fib_route_count()
+    say(f"staged: {n_rules} global rules, {N_PODS} pods on "
+        f"{cfg.max_rules}-rule local tables, {routes} routes, "
+        f"{sess_slots} session slots, VIP with {N_BACKENDS} backends "
+        f"in {time.perf_counter() - t0:.1f} s; rungs "
+        f"{gpu.classifier_impl}/{gpu.fib_impl}/{gpu.session_impl}")
+    if (gpu.classifier_impl, gpu.fib_impl, gpu.session_impl) != (
+            "pallas", "pallas", "pallas"):
+        raise AssertionError("the fused-kernel rungs were not selected")
+    if tuple(gpu.tables.fib_lpm_stk_pfx.shape) != (33, cfg.fib_slots):
+        raise AssertionError("unexpected LPM stack shape "
+                             f"{tuple(gpu.tables.fib_lpm_stk_pfx.shape)}")
+    for w in WRAPPERS.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inputs, gsnaps = drive(gpu, up, pods, ROUNDS, args.seed + 1)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    say(f"main path: {len(inputs)} process steps on the card in "
+        f"{time.perf_counter() - t0:.2f} s; launches {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched: {launches}")
+    gstate = state_of(gpu)
+
+    t0 = time.perf_counter()
+    cpu = Dataplane(cfg, device="cpu")
+    stage(cpu, n_rules, n_nodes)
+    csnaps = replay(cpu, inputs)
+    for k, (g, c) in enumerate(zip(gsnaps, csnaps)):
+        assert_equal(c, g, f"step {k}")
+    assert_equal(state_of(cpu), gstate, "final state")
+    say(f"reference: the same {len(inputs)} steps on the CPU (plain "
+        f"versions) in {time.perf_counter() - t0:.1f} s; every result "
+        f"field, counter and the session/NAT state bit-exact")
+    totals = {f: int(sum(int(s[f"stats.{f}"].sum()) for s in gsnaps))
+              for f in ("rx", "tx", "drop_acl", "sess_hits", "dnat",
+                        "nat_reversed", "snat", "drop_no_route")}
+    totals["sess_occupancy"] = int(gsnaps[-1]["stats.sess_occupancy"])
+    say(f"main path totals: {totals}")
+    for f in ("tx", "drop_acl", "sess_hits", "dnat", "nat_reversed"):
+        if totals[f] <= 0:
+            raise AssertionError(f"the traffic mix never fired {f}")
+    for s, (vec, _) in zip(gsnaps, inputs):
+        if s["disp"].shape != vec["src_ip"].shape:
+            raise AssertionError("result shape differs from its vector")
+    denied = oracle_check(global_rules(n_rules), gsnaps[0], 64)
+    say(f"oracle: first 64 packets' global ACL verdicts equal the rule "
+        f"oracle ({denied} denied)")
+
+    # 5. timing
+    say(f"timing on {smi}")
+    steps = {}
+    now = 10_000
+    feeds = {}
+    for n in (VEC, BIG_VEC):
+        dev_ms, wall_ms, fwd, rep = time_steps(gpu, up, pods, n,
+                                               TIMED_STEPS, args.seed + n,
+                                               now)
+        now += TIMED_STEPS + 10
+        feeds[n] = (fwd, rep)
+        steps[n] = dict(ms=dev_ms, wall_ms=wall_ms,
+                        mpps=n / (dev_ms * 1e3))
+        say(f"process step P={n}: {dev_ms:.4f} ms on the device "
+            f"(CUDA events), {wall_ms:.4f} ms wall synchronised, "
+            f"{steps[n]['mpps']:.4f} Mpps")
+        vecs = [packet_vector_from_numpy(v, dev) for v in (fwd, rep)]
+        prof = profile_steps(gpu, vecs, PROFILED_STEPS, now)
+        now += PROFILED_STEPS + 10
+        steps[n]["profile"] = prof
+        say(f"profile P={n}: {json.dumps(prof)}")
+
+    rows = []
+    timed = {}
+    for n in (VEC, BIG_VEC):
+        inp = main_path_inputs(gpu, *feeds[n], now)
+        loc, tl = inp["loc"]
+        cases = {
+            "sess_probe_ways": (
+                lambda a=inp["sess"]: session.sess_probe_ways(*a),
+                lambda a=inp["sess"]: session.sess_probe_ways_plain(*a),
+                sess_bound(inp["sess"])),
+            "bv_first_set": (
+                lambda a=inp["glb"]: acl_bv.bv_first_set(*a),
+                lambda a=inp["glb"]: acl_bv.bv_first_set_plain(*a),
+                bv_bound(inp["glb"][:5], inp["glb"][5:])),
+            "bv_first_set.local": (
+                lambda a=loc, t=tl: acl_bv.bv_first_set(*a, table=t),
+                lambda a=loc, t=tl: acl_bv.bv_first_set_plain(*a, table=t),
+                bv_bound(loc[:5], loc[5:], tl)),
+            "lpm_fused_lookup": (
+                lambda a=inp["fib"]: lpm.lpm_fused_lookup(*a),
+                lambda a=inp["fib"]: lpm.lpm_fused_lookup_plain(*a),
+                lpm_bound(*inp["fib"])),
+        }
+        for name, (kern, plain, (b_ms, b_by)) in cases.items():
+            base = name.split(".")[0]
+            got, want = kern(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            torch.cuda.synchronize()
+            errors.hold(base, got, want, f"{name} main-path P={n}")
+            k_ms = time_graph(kern)
+            k_eager = time_eager(kern, TIMED_STEPS)
+            p_ms = time_eager(plain, TIMED_STEPS)
+            timed[(name, n)] = dict(ms=k_ms, call_ms=k_eager, plain_ms=p_ms,
+                                    bound_ms=b_ms, bound_by=b_by)
+            say(f"kernel {name} P={n}: {k_ms:.5f} ms (graph replay), "
+                f"{k_eager:.5f} ms per eager call, plain {p_ms:.5f} ms, "
+                f"bound {b_ms:.6f} ms ({b_by}), bit-exact")
+
+    for name, meta in KERNELS.items():
+        main = timed[(name, VEC)]
+        row = dict(name=name, route="cuda", source=meta["source"],
+                   replaces=meta["replaces"], launches=launches[name],
+                   max_abs_err=errors.max[name], ms=main["ms"],
+                   plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                   bound_by=main["bound_by"], library_ms=None,
+                   shape=f"P={VEC}", call_ms=main["call_ms"],
+                   at_4096=timed[(name, BIG_VEC)])
+        if name == "bv_first_set":
+            row["local"] = {f"P={n}": timed[("bv_first_set.local", n)]
+                            for n in (VEC, BIG_VEC)}
+        rows.append(row)
+    say(json.dumps({"steps": {f"P={n}": v for n, v in steps.items()},
+                    "power": smi}))
+    say(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
+    say(smi)
+    say(json.dumps({"kernels": rows}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,155 @@
+"""Package hygiene of vpp_tpu_torch: what it imports and where it runs.
+
+* An AST scan of every module of ``vpp_tpu_torch`` and of
+  ``chip_smoke.py`` finds no import of ``jax`` nor of the JAX package
+  ``vpp_tpu`` (the module itself or any ``vpp_tpu.`` submodule; the
+  port's own ``vpp_tpu_torch`` is of course allowed).
+* The entry points run on the card unless the caller asks for the CPU:
+  with no CUDA device, ``Dataplane(cfg)`` and ``TableBuilder(cfg)``
+  raise instead of running on the CPU.
+* On CPU tensors every kernel wrapper serves through its plain version:
+  a CPU run of the fused-kernel rungs leaves each launch counter at 0.
+* Knobs that turn on a stage the port has not ported raise.
+
+Every quantity compared is an integer: the tolerance is exact equality.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from vpp_tpu_torch.ops import acl_bv as tbv
+from vpp_tpu_torch.ops import lpm as tlpm
+from vpp_tpu_torch.ops import session as tsess
+from vpp_tpu_torch.pipeline import dataplane as tdp
+from vpp_tpu_torch.pipeline import tables as ttables
+from vpp_tpu_torch.pipeline import vector as tvector
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "vpp_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+_SMALL = dict(max_tables=2, max_rules=8, max_global_rules=8, max_ifaces=8,
+              fib_slots=16, sess_slots=64, nat_mappings=2, nat_backends=4,
+              fastpath=False)
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "vpp_tpu")
+
+
+def imported_modules(path: Path):
+    """Every module name an ``import`` or ``from ... import`` of the
+    file names (relative imports resolve to nothing outside it)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+def test_scan_sees_the_whole_package():
+    names = {p.name for p in PORT_FILES}
+    assert {"chip_smoke.py", "dataplane.py", "session.py", "acl_bv.py",
+            "lpm.py", "_cuda.py", "interop.py"} <= names
+    assert all(p.exists() for p in PORT_FILES)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    bad = [(ln, m) for ln, m in imported_modules(path) if _forbidden(m)]
+    assert bad == [], f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_matches_the_jax_package_but_not_the_port():
+    assert _forbidden("vpp_tpu") and _forbidden("vpp_tpu.ops.session")
+    assert _forbidden("jax.numpy") and _forbidden("jax")
+    assert not _forbidden("vpp_tpu_torch")
+    assert not _forbidden("vpp_tpu_torch.ops.session")
+
+
+def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ttables.DataplaneConfig(**_SMALL)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tdp.Dataplane(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttables.TableBuilder(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttables.resolve_device(None)
+    # asking for the CPU is allowed
+    assert tdp.Dataplane(cfg, device="cpu").device.type == "cpu"
+
+
+def test_default_device_is_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert ttables.resolve_device(None) == torch.device("cuda")
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("fastpath", True), ("ml_stage", "enforce"), ("telemetry", "latency"),
+    ("tenancy", "on"), ("overlay", "vxlan"), ("svc_vips", 4),
+    ("fib_ecmp_groups", 2), ("classifier", "mxu")])
+def test_unported_stages_refuse(knob, value):
+    cfg = ttables.DataplaneConfig(**dict(_SMALL, **{knob: value}))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdp.Dataplane(cfg, device="cpu")
+
+
+def test_cpu_runs_never_launch_a_kernel():
+    """The fused-kernel rungs on CPU tensors take the plain versions."""
+    before = (tsess.sess_probe_ways.launches, tbv.bv_first_set.launches,
+              tlpm.lpm_fused_lookup.launches)
+    cfg = ttables.DataplaneConfig(**dict(
+        _SMALL, classifier="pallas", fib_impl="pallas",
+        session_impl="pallas"))
+    dp = tdp.Dataplane(cfg, device="cpu")
+    up = dp.add_uplink()
+    pod = dp.add_pod_interface(("ns", "p"))
+    dp.builder.add_route("10.1.1.0/24", pod, tvector.Disposition.LOCAL)
+    dp.builder.add_route("0.0.0.0/0", up, tvector.Disposition.REMOTE)
+    dp.swap()
+    pkts = tvector.make_packet_vector(
+        [dict(src="192.0.2.1", dst="10.1.1.7", sport=40000, dport=80,
+              rx_if=up)], n=8)
+    res = dp.process(pkts, now=10)
+    assert int(res.stats.tx) == 1
+    # the same wrappers called directly on CPU tensors
+    t = dp.tables
+    tsess.sess_probe_ways(
+        torch.zeros(8, dtype=torch.int32), pkts.src_ip, pkts.dst_ip,
+        pkts.sport, pkts.proto, t.sess_valid, t.sess_src, t.sess_dst,
+        t.sess_ports, t.sess_proto, t.sess_time, 10, t.sess_max_age)
+    tlpm.lpm_fused_lookup(pkts.dst_ip, t.fib_lpm_lens, t.fib_lpm_stk_cnt,
+                          t.fib_lpm_stk_pfx, t.fib_lpm_stk_slot)
+    z = torch.zeros(8, dtype=torch.int32)
+    tbv.bv_first_set(t.glb_bv_src, t.glb_bv_dst, t.glb_bv_sport,
+                     t.glb_bv_dport, t.glb_bv_proto, z, z, z, z, z)
+    after = (tsess.sess_probe_ways.launches, tbv.bv_first_set.launches,
+             tlpm.lpm_fused_lookup.launches)
+    assert after == before == (0, 0, 0)
+
+
+def test_kernel_argument_checks_refuse_what_the_kernels_do_not_take():
+    """The wrapper-side checks that run on this machine: a CPU tensor is
+    refused before any pointer reaches a kernel, and a nonzero CUDA
+    error code from a C entry raises."""
+    from vpp_tpu_torch.ops import _cuda
+
+    t = torch.zeros(4, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        _cuda.require(t, "x")
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        _cuda.check(9, "kernel")
+    _cuda.check(0, "kernel")
+    assert not _cuda.use_kernels(t)
+    # the source digest covers every kernel source and the flags
+    assert len(_cuda._digest()) == 16
+    assert {p.name for p in _cuda._sources()} == {
+        "sess_probe.cu", "bv_first_set.cu", "lpm_lookup.cu"}

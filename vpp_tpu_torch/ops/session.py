@@ -1,0 +1,436 @@
+"""Reflective-flow session table: a W-way set-associative hash map.
+
+The PyTorch counterpart of ``vpp_tpu/ops/session.py``: every session
+column is a ``[n_buckets, W]`` tensor, a flow hashes to ONE bucket, a
+lookup fetches the bucket's W ways, and a batch insert resolves in one
+election round (the reference's module doc explains the rep / leader /
+rank scheme; only its ``sort`` election — the ``auto`` choice — is
+ported). The mesh (``shard=``) and tenancy (``tnt=``) forms are later
+slices and raise here.
+
+In place. JAX arrays are immutable, so the reference returns new
+columns; here the touch, insert and sweep scatters write the session
+tensors IN PLACE (the table is the largest state on the card, and a
+copy per step would move it whole). The returned ``tables`` is the
+same NamedTuple. Callers that need a side-effect-free step clone the
+state first (``Dataplane.probe``).
+
+Scatters without ``mode="drop"``. The reference sends masked lanes to an
+out-of-range index that is dropped. ``_scatter_set`` instead redirects
+every masked lane to the slot of the first writing lane, carrying that
+lane's value (or, when no lane writes, to slot 0 carrying slot 0's own
+value), so each slot receives only identical values: deterministic on
+CUDA without a host sync, O(P) work.
+
+The session probe — kernel 1 — is ``sess_probe_ways``: the CUDA kernel
+of csrc/sess_probe.cu for CUDA tensors, its plain version for CPU
+tensors. The reference gates its TPU kernel on a VMEM budget
+(``session_pallas_fits``); the Hopper kernel reads the columns from
+device memory, so there is no such budget and no such gate.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from vpp_tpu_torch.ops import _cuda
+from vpp_tpu_torch.ops.acl import first_true
+from vpp_tpu_torch.pipeline.vector import PacketVector, to_i32, u32
+
+_BIG = 0x7FFFFFFF
+_M32 = 0xFFFFFFFF
+
+
+def _refuse(shard=None, tnt=False) -> None:
+    if shard is not None or tnt:
+        raise NotImplementedError(
+            "sharded (mesh) and tenant-sliced session tables are not "
+            "ported to vpp_tpu_torch yet: ROADMAP Queue 1 items 6 and 8")
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for int64 ``a`` in [0, 2^32) without int64
+    overflow: split the constant into 16-bit halves."""
+    lo = a * (c & 0xFFFF)
+    hi = (a * (c >> 16)) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def _hash_mix(src, dst, ports, proto) -> torch.Tensor:
+    """Full 32-bit multiplicative xor mix of the 5-tuple; int32-bit
+    inputs, returns the uint32 value as int64."""
+    h = _mul32(u32(src), 0x9E3779B1)
+    h ^= _mul32(u32(dst), 0x85EBCA77)
+    h ^= _mul32(u32(ports), 0xC2B2AE3D)
+    h ^= _mul32(u32(proto), 0x27D4EB2F)
+    h ^= h >> 15
+    h = _mul32(h, 0x2545F491)
+    h ^= h >> 13
+    return h
+
+
+def _bucket(mix: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    return (mix & (n_buckets - 1)).to(torch.int32)
+
+
+def _pack_ports(sport, dport) -> torch.Tensor:
+    """sport << 16 | dport as a uint32 bit pattern (int32 tensor)."""
+    return to_i32((u32(sport) << 16) | u32(dport))
+
+
+def canon_mix(src, dst, sport, dport, proto) -> torch.Tensor:
+    """Direction-invariant 5-tuple mix (the ``sess_hash: sym`` bucket
+    family): endpoints ordered by unsigned address, ports following
+    their endpoints, before the same ``_hash_mix``."""
+    swap = (u32(src) > u32(dst)) | ((src == dst) & (sport > dport))
+    a = torch.where(swap, dst, src)
+    b = torch.where(swap, src, dst)
+    ports = torch.where(swap, _pack_ports(dport, sport),
+                        _pack_ports(sport, dport))
+    return _hash_mix(a, b, ports, proto)
+
+
+def _age(now, time: torch.Tensor) -> torch.Tensor:
+    """now - time in int32 with wraparound (JAX's int32 arithmetic)."""
+    return to_i32(now - time.to(torch.int64))
+
+
+def _scatter_set(flat: torch.Tensor, idx: torch.Tensor,
+                 mask: torch.Tensor, vals) -> None:
+    """``flat[idx[i]] = vals[i]`` for the lanes of ``mask``, in place,
+    deterministically (module doc). ``vals`` is [P] or a scalar; the
+    written slots of distinct masked lanes must agree on their value."""
+    if torch.is_tensor(vals):
+        vals = vals.to(flat.dtype).expand(mask.shape)
+    else:  # a fill on the device, not a host-to-device copy
+        vals = torch.full(mask.shape, int(vals), dtype=flat.dtype,
+                          device=flat.device)
+    # a [1] index, not a 0-d one: indexing with a 0-d tensor reads it
+    # back to the host
+    first = first_true(mask).view(1)
+    safe = torch.where(mask, idx.to(torch.int64), 0)
+    fill = torch.where(mask.any(), vals[first], flat[:1])
+    flat.index_put_((torch.where(mask, safe, safe[first]),),
+                    torch.where(mask, vals, fill))
+
+
+# --- kernel 1: the fused bucket probe ---------------------------------
+
+
+def sess_probe_ways_plain(b, key_src, key_dst, key_ports, key_proto, valid,
+                          src, dst, ports, proto, time, now, max_age):
+    """The plain PyTorch version of ``sess_probe_ways`` (the gather
+    rung's math on the kernel's signature)."""
+    bl = b.long()
+    match = ((valid[bl] == 1)
+             & (src[bl] == key_src[:, None])
+             & (dst[bl] == key_dst[:, None])
+             & (ports[bl] == key_ports[:, None])
+             & (proto[bl] == key_proto[:, None])
+             & (_age(now, time[bl]) <= max_age))
+    return match.any(dim=1), first_true(match).to(torch.int32)
+
+
+def sess_probe_ways(b, key_src, key_dst, key_ports, key_proto, valid, src,
+                    dst, ports, proto, time, now, max_age):
+    """Fused bucket probe + election: ``b`` [P] home buckets, ``key_*``
+    [P] the reversed 5-tuple, the six [NB, W] columns, ``now`` an int
+    and ``max_age`` an int or a 0-d int32 tensor. Returns (found [P]
+    bool, first [P] int32 — the lowest matching way, 0 on a miss). The
+    CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
+    if not _cuda.use_kernels(valid):
+        return sess_probe_ways_plain(b, key_src, key_dst, key_ports,
+                                     key_proto, valid, src, dst, ports,
+                                     proto, time, now, max_age)
+    dev = valid.device
+    nb, ways = valid.shape
+    p = b.shape[0]
+    cols = (valid, src, dst, ports, proto, time)
+    for c in cols:
+        _cuda.require(c, "sess_probe_ways.column", ndim=2, device=dev)
+        if tuple(c.shape) != (nb, ways):
+            raise ValueError("sess_probe_ways: column shape mismatch")
+    vecs = (b, key_src, key_dst, key_ports, key_proto)
+    for v in vecs:
+        _cuda.require(v, "sess_probe_ways.keys", ndim=1, device=dev)
+        if v.shape[0] != p:
+            raise ValueError("sess_probe_ways: key length mismatch")
+    if not torch.is_tensor(max_age):
+        max_age = torch.tensor(int(max_age), dtype=torch.int32, device=dev)
+    _cuda.require(max_age, "sess_probe_ways.max_age", ndim=0, device=dev)
+    found = torch.empty(p, dtype=torch.int32, device=dev)
+    first = torch.empty(p, dtype=torch.int32, device=dev)
+    fn = _cuda.library("sess_probe").sess_probe_ways
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int32] * 3
+                   + [ctypes.c_void_p] * 4)
+    fn.restype = ctypes.c_int
+    err = fn(*(_cuda.ptr(x) for x in vecs + cols), p, ways, int(now),
+             _cuda.ptr(max_age), _cuda.ptr(found), _cuda.ptr(first),
+             _cuda.stream())
+    _cuda.check(err, "sess_probe_ways")
+    sess_probe_ways.launches += 1
+    return found != 0, first
+
+
+sess_probe_ways.launches = 0
+
+
+# --- lookup / touch ----------------------------------------------------
+
+
+def _reverse_keys(pkts: PacketVector):
+    return (pkts.dst_ip, pkts.src_ip, _pack_ports(pkts.dport, pkts.sport),
+            pkts.proto)
+
+
+def _reverse_bucket(pkts, keys, n_buckets: int, sym: bool):
+    if sym:
+        mix = canon_mix(pkts.src_ip, pkts.dst_ip, pkts.sport, pkts.dport,
+                        pkts.proto)
+    else:
+        mix = _hash_mix(*keys)
+    return _bucket(mix, n_buckets)
+
+
+def _columns(tables):
+    return (tables.sess_valid, tables.sess_src, tables.sess_dst,
+            tables.sess_ports, tables.sess_proto, tables.sess_time)
+
+
+def session_lookup_reverse(tables, pkts: PacketVector, now=None,
+                           impl: str = "gather", sym: bool = False,
+                           tnt: bool = False) -> torch.Tensor:
+    """Is each packet the return traffic of an established session?
+    Bool [P]; with ``now``, entries idle past ``sess_max_age`` are dead
+    (without it the (0, _BIG) no-age convention applies)."""
+    _refuse(tnt=tnt)
+    keys = _reverse_keys(pkts)
+    b = _reverse_bucket(pkts, keys, tables.sess_valid.shape[0], sym)
+    t_now, max_age = ((now, tables.sess_max_age) if now is not None
+                      else (0, _BIG))
+    probe = sess_probe_ways if impl == "pallas" else sess_probe_ways_plain
+    found, _ = probe(b, *keys, *_columns(tables), t_now, max_age)
+    return found
+
+
+def session_lookup_reverse_idx(tables, pkts: PacketVector, now,
+                               shard=None, tnt: bool = False,
+                               impl: str = "gather", sym: bool = False
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(found [P] bool, flat matched slot [P] int32 = bucket·W + way)
+    of the reversed 5-tuple. ``impl`` is the session ladder's rung:
+    ``pallas`` probes through ``sess_probe_ways``, ``gather`` through
+    its plain version."""
+    _refuse(shard, tnt)
+    n_buckets, ways = tables.sess_valid.shape
+    keys = _reverse_keys(pkts)
+    b = _reverse_bucket(pkts, keys, n_buckets, sym)
+    probe = sess_probe_ways if impl == "pallas" else sess_probe_ways_plain
+    found, first = probe(b, *keys, *_columns(tables), now,
+                         tables.sess_max_age)
+    return found, b * ways + first
+
+
+def session_hit_age(tables, hit_idx, mask, now, shard=None) -> torch.Tensor:
+    """Ticks since the matched session's last hit (int32 [P]; 0 where
+    ``mask`` is False). Read before ``session_touch``."""
+    _refuse(shard)
+    n = tables.sess_time.numel()
+    t = tables.sess_time.reshape(-1)[torch.clamp(hit_idx, 0, n - 1).long()]
+    return torch.where(mask, _age(now, t), 0).to(torch.int32)
+
+
+def session_touch(tables, hit_idx, mask, now, shard=None):
+    """Refresh sess_time of matched sessions (in place)."""
+    _refuse(shard)
+    _scatter_set(tables.sess_time.view(-1), hit_idx, mask, now)
+    return tables
+
+
+# --- insert: one sort-based election round -----------------------------
+
+
+def _bucket_reps(h: torch.Tensor, pending: torch.Tensor,
+                 ways: int) -> torch.Tensor:
+    """Per packet, the packet indices of the first ``ways`` pending
+    packets of its bucket in packet order — [B, ways] int64, sentinel B
+    where the bucket has fewer (the reference's sort election: one
+    stable sort of (not-pending, bucket), runs in packet order)."""
+    batch = pending.shape[0]
+    dev = h.device
+    key = ((~pending).to(torch.int64) << 40) | h.to(torch.int64)
+    runid, order = torch.sort(key, stable=True)
+    pos = torch.arange(batch, device=dev)
+    run_start = torch.ones(batch, dtype=torch.bool, device=dev)
+    run_start[1:] = runid[1:] != runid[:-1]
+    start_pos = torch.cummax(torch.where(run_start, pos, 0), dim=0).values
+    rp = start_pos[:, None] + torch.arange(ways, device=dev)[None, :]
+    rp_c = torch.clamp(rp, max=batch - 1)
+    ok = (rp < batch) & (runid[rp_c] == runid[:, None])
+    rep_s = torch.where(ok, order[rp_c], batch)
+    out = torch.empty_like(rep_s)
+    out[order] = rep_s  # order is a permutation: each row written once
+    return out
+
+
+def hashmap_insert(valid, time, keys, key_vals, extras, extra_vals, h,
+                   want, now, max_age=None) -> tuple:
+    """Generic W-way set-associative batch insert, IN PLACE on the
+    columns (the reference's ``hashmap_insert`` semantics: idempotent
+    refresh, fail-closed payload conflicts, expired/victim reclaim,
+    one election round). Returns (inserted, conflict, failed,
+    evict_expired, evict_victim) masks [P]."""
+    n_buckets, ways = valid.shape
+    batch = want.shape[0]
+    dev = valid.device
+    hl = h.to(torch.int64)
+    vw = valid[hl]
+    tw = time[hl]
+    live = vw == 1
+    if max_age is not None:
+        live = live & (_age(now, tw) <= max_age)
+    key_match = live
+    for arr, val in zip(keys, key_vals):
+        key_match = key_match & (arr[hl] == val[:, None])
+    exists = key_match.any(dim=1)
+    exist_way = first_true(key_match)
+    pay_same = torch.ones_like(exists)
+    for arr, val in zip(extras, extra_vals):
+        pay_same = pay_same & (arr[hl, exist_way] == val)
+    conflict = want & exists & ~pay_same
+    refresh = want & exists & pay_same
+    pending = want & ~exists
+    inserted = refresh
+    # the refresh lands before the election so victim priorities see
+    # this batch's refreshes (the reference's ordering)
+    _scatter_set(time.view(-1), hl * ways + exist_way, refresh, now)
+    tw = time[hl]
+
+    p_idx = torch.arange(batch, device=dev)
+    reps = _bucket_reps(h, pending, ways)
+    kmat = torch.stack([u32(v) for v in key_vals], dim=1)
+    rep_c = torch.clamp(reps, max=batch - 1)
+    rk = kmat[rep_c]                                     # [B, W, K]
+    ok_rep = reps < batch
+    same = ok_rep & (rk == kmat[:, None, :]).all(dim=2)
+    found = same.any(dim=1)
+    lead_slot = first_true(same)
+    leader = torch.gather(rep_c, 1, lead_slot[:, None])[:, 0]
+    winner = pending & found & (leader == p_idx)
+    follower = pending & found & (leader != p_idx)
+    tril = torch.tril(torch.ones(ways, ways, dtype=torch.bool, device=dev),
+                      diagonal=-1)
+    rep_dup = ((rk[:, :, None, :] == rk[:, None, :, :]).all(dim=3)
+               & tril[None] & ok_rep[:, :, None]
+               & ok_rep[:, None, :]).any(dim=2)
+    rep_new = (ok_rep & ~rep_dup).to(torch.int64)
+    distinct_before = torch.cumsum(rep_new, dim=1) - rep_new
+    rank = torch.gather(distinct_before, 1, lead_slot[:, None])[:, 0]
+
+    # way priority: free ways first (by way index), then live ways
+    # oldest-time first (victims)
+    wid = torch.arange(ways, device=dev)
+    way_pri = torch.where(live, tw.to(torch.int64),
+                          -(1 << 30) + wid[None, :])
+    ahead = (way_pri[:, :, None] > way_pri[:, None, :]) | (
+        (way_pri[:, :, None] == way_pri[:, None, :])
+        & (wid[None, :, None] > wid[None, None, :]))
+    pos = ahead.sum(dim=2)
+    way = first_true(pos == rank[:, None])
+    pri_way = torch.gather(way_pri, 1, way[:, None])[:, 0]
+    was_live = pri_way >= 0
+    was_valid = torch.gather(vw, 1, way[:, None])[:, 0] == 1
+    evict_expired = winner & was_valid & ~was_live
+    evict_victim = winner & was_live
+
+    slot = hl * ways + way
+    for arr, val in zip(tuple(keys) + tuple(extras),
+                        tuple(key_vals) + tuple(extra_vals)):
+        _scatter_set(arr.view(-1), slot, winner, val)
+    _scatter_set(valid.view(-1), slot, winner, 1)
+    _scatter_set(time.view(-1), slot, winner, now)
+
+    if extra_vals:
+        emat = torch.stack([u32(v) for v in extra_vals], dim=1)
+        f_pay = (emat[leader] == emat).all(dim=1)
+    else:
+        f_pay = torch.ones_like(follower)
+    conflict = conflict | (follower & ~f_pay)
+    inserted = inserted | winner | (follower & f_pay)
+    failed = pending & ~found
+    return inserted, conflict, failed, evict_expired, evict_victim
+
+
+def session_insert(tables, pkts: PacketVector, want, now, shard=None,
+                   tnt: bool = False, sym: bool = False) -> tuple:
+    """Insert the forward 5-tuples of ``want`` packets (in place);
+    returns (tables, inserted, failed, evict_expired, evict_victim)."""
+    _refuse(shard, tnt)
+    key_vals = (pkts.src_ip, pkts.dst_ip,
+                _pack_ports(pkts.sport, pkts.dport), pkts.proto)
+    if sym:
+        mix = canon_mix(pkts.src_ip, pkts.dst_ip, pkts.sport, pkts.dport,
+                        pkts.proto)
+    else:
+        mix = _hash_mix(*key_vals)
+    h = _bucket(mix, tables.sess_valid.shape[0])
+    inserted, _, failed, ev_exp, ev_vic = hashmap_insert(
+        tables.sess_valid, tables.sess_time,
+        (tables.sess_src, tables.sess_dst, tables.sess_ports,
+         tables.sess_proto),
+        key_vals, (), (), h, want, now, max_age=tables.sess_max_age)
+    return tables, inserted, failed, ev_exp, ev_vic
+
+
+# --- aging ---------------------------------------------------------------
+
+
+def _sweep_one(valid, time, cursor, now, max_age, stride: int) -> None:
+    """Age ONE stride of buckets from ``cursor`` and advance it, in
+    place (the cursor stays on the device: no host sync). The start
+    clamps to ``n_buckets - s`` as ``lax.dynamic_slice`` clamps it."""
+    n_buckets = valid.shape[0]
+    s = min(int(stride), n_buckets)
+    start = torch.clamp(cursor.to(torch.int64), 0, n_buckets - s)
+    rows = start + torch.arange(s, device=valid.device)
+    v = valid[rows]
+    stale = (v == 1) & (_age(now, time[rows]) > max_age)
+    valid.index_copy_(0, rows, torch.where(stale, 0, v))
+    cursor.copy_((cursor + s) % n_buckets)
+
+
+def session_sweep(tables, now, stride: int):
+    """Amortized aging inside the step: clear idle-expired entries in
+    one stride of buckets per table (reflective + NAT) and advance the
+    sweep cursors. ``stride`` 0 disables."""
+    if not stride:
+        return tables
+    _sweep_one(tables.sess_valid, tables.sess_time,
+               tables.sess_sweep_cursor, now, tables.sess_max_age, stride)
+    _sweep_one(tables.natsess_valid, tables.natsess_time,
+               tables.natsess_sweep_cursor, now, tables.sess_max_age,
+               stride)
+    return tables
+
+
+def sweep_covered(steps: int, stride: int, tables) -> bool:
+    """True when ``steps`` steps of ``stride`` buckets have cycled the
+    whole ring of both session tables."""
+    if not stride:
+        return False
+    n = max(tables.sess_valid.shape[0], tables.natsess_valid.shape[0])
+    return steps * stride >= n
+
+
+def session_expire(tables, now, max_age):
+    """On-demand bulk reclaim of both session tables. Returns NEW valid
+    columns (not in place), like the reference."""
+    stale = (tables.sess_valid == 1) & (_age(now, tables.sess_time) > max_age)
+    nat_stale = (tables.natsess_valid == 1) & (
+        _age(now, tables.natsess_time) > max_age)
+    return tables._replace(
+        sess_valid=torch.where(stale, 0, tables.sess_valid),
+        natsess_valid=torch.where(nat_stale, 0, tables.natsess_valid))

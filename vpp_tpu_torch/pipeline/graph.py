@@ -1,0 +1,406 @@
+"""The fused packet pipeline: one step over a packet vector.
+
+The PyTorch counterpart of ``vpp_tpu/pipeline/graph.py``: ip4-input ->
+reflective session lookup + touch -> NAT44 reverse -> DNAT -> ACL
+classify (local + global) -> FIB -> SNAT -> session insert + NAT
+record -> the shared tail (counters, drop attribution, session sweep).
+
+Compiled out in this slice: the ML, telemetry, tenancy and overlay
+stages (their StepStats counters read 0 and the StepResult fields they
+fill are the reference's off-state values), and the two-tier
+established-flow dispatcher (``pipeline_step_auto``, ROADMAP Queue 1
+item 5). ``make_pipeline_step`` refuses the gates that would turn them
+on.
+
+PyTorch runs eagerly, so the step is plain Python over tensors; it
+never synchronises with the device (every counter stays a 0-d tensor),
+and it updates the session/NAT state and the ECMP accounting plane in
+place (ops/session.py module doc): ``StepResult.tables`` is the tables
+object it was given.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional
+
+import torch
+
+from vpp_tpu_torch.ops.acl import acl_classify_global, acl_classify_local
+from vpp_tpu_torch.ops.fib import fib_lookup_dense
+from vpp_tpu_torch.ops.ip4 import ip4_input
+from vpp_tpu_torch.ops.nat44 import (
+    nat44_dnat,
+    nat44_record,
+    nat44_reverse,
+    nat44_snat,
+    nat44_touch,
+)
+from vpp_tpu_torch.ops.session import (
+    _age,
+    session_insert,
+    session_lookup_reverse_idx,
+    session_sweep,
+    session_touch,
+)
+from vpp_tpu_torch.pipeline.vector import (
+    Disposition,
+    PacketVector,
+    gather_index,
+    scatter_index,
+)
+
+
+class StepStats(NamedTuple):
+    """Per-step counters: 0-d int32 tensors, [I] for the per-interface
+    ones (the reference's field set and meaning)."""
+
+    rx: torch.Tensor
+    tx: torch.Tensor
+    drop_ip4: torch.Tensor
+    drop_acl: torch.Tensor
+    drop_no_route: torch.Tensor
+    punt: torch.Tensor
+    dnat: torch.Tensor
+    snat: torch.Tensor
+    nat_reversed: torch.Tensor
+    drop_nat: torch.Tensor
+    sess_insert_fail: torch.Tensor
+    natsess_insert_fail: torch.Tensor
+    sess_occupancy: torch.Tensor
+    natsess_occupancy: torch.Tensor
+    if_rx: torch.Tensor
+    if_tx: torch.Tensor
+    if_rx_bytes: torch.Tensor
+    if_tx_bytes: torch.Tensor
+    if_drops: torch.Tensor
+    sess_hits: torch.Tensor
+    fastpath: torch.Tensor
+    sess_evict_expired: torch.Tensor
+    sess_evict_victim: torch.Tensor
+    natsess_evict_expired: torch.Tensor
+    natsess_evict_victim: torch.Tensor
+    ml_scored: torch.Tensor
+    ml_flagged: torch.Tensor
+    ml_drops: torch.Tensor
+    tel_sketched: torch.Tensor
+    tnt_limited: torch.Tensor
+    tnt_qfail: torch.Tensor
+    ovl_decap: torch.Tensor
+    ovl_encap: torch.Tensor
+    drop_overlay: torch.Tensor
+
+
+# Per-packet drop attribution (the reference's codes).
+DROP_NONE = 0
+DROP_IP4 = 1        # ip4-input: TTL/length/bad interface
+DROP_ACL = 2        # policy deny
+DROP_NO_ROUTE = 3   # FIB miss
+DROP_FIB = 4        # matched a drop route
+DROP_NAT = 5        # NAT fail-closed (port collision / un-NATable proto)
+DROP_ML = 6         # ML-stage enforce verdict (stage not ported yet)
+DROP_TENANT = 7     # tenant quota (stage not ported yet)
+DROP_OVERLAY = 8    # overlay fail-closed (stage not ported yet)
+
+
+class StepResult(NamedTuple):
+    pkts: PacketVector            # header fields after rewrites
+    disp: torch.Tensor            # int32 [P] Disposition
+    tx_if: torch.Tensor           # int32 [P] egress interface (-1 dropped)
+    node_id: torch.Tensor         # int32 [P] destination node (-1 local)
+    next_hop: torch.Tensor        # int32 [P] peer IP (uint32 bits)
+    tables: object                # the tables, session state updated
+    stats: StepStats
+    drop_cause: torch.Tensor      # int32 [P] DROP_* (0 = none)
+    established: torch.Tensor     # bool [P] admitted via a session
+    dnat_applied: torch.Tensor    # bool [P]
+    snat_applied: torch.Tensor    # bool [P]
+    ml_flagged: torch.Tensor      # bool [P] (all False: stage off)
+    ml_scores: torch.Tensor       # int32 [P] (all 0: stage off)
+    ovl_outer: Optional[PacketVector] = None
+    ovl_encap: Optional[torch.Tensor] = None
+    ovl_vni: Optional[torch.Tensor] = None
+
+
+SWEEP_STRIDE_DEFAULT = 256
+
+
+def _ingress(tables, pkts: PacketVector):
+    """ip4-input plus the unconfigured-interface drop. Returns (pkts,
+    drop_ip4, alive)."""
+    pkts, drop_ip4 = ip4_input(pkts)
+    n = tables.if_type.shape[0]
+    bad_if = tables.if_type[gather_index(pkts.rx_if, n)] == 0
+    drop_ip4 = drop_ip4 | (bad_if & pkts.valid)
+    return pkts, drop_ip4, pkts.valid & ~drop_ip4
+
+
+def _count(n: int, idx: torch.Tensor, mask: torch.Tensor,
+           weight=None) -> torch.Tensor:
+    """int32 [n] histogram of ``idx`` over the lanes of ``mask``
+    (``weight`` per lane, default 1) — ``zeros.at[idx].add(w,
+    mode="drop")`` of the reference. Integer index_add_ is exact in any
+    order."""
+    keep, i = scatter_index(idx, mask, n)
+    w = keep.to(torch.int32) if weight is None else \
+        torch.where(keep, weight, 0).to(torch.int32)
+    return torch.zeros(n, dtype=torch.int32, device=idx.device) \
+        .index_add_(0, i, w)
+
+
+def _sum(mask: torch.Tensor) -> torch.Tensor:
+    return mask.sum(dtype=torch.int32)
+
+
+def _finish_step(tables, pkts: PacketVector, now, alive, drop_ip4,
+                 drop_acl, permit, fib, forwarded, disp, tx_if,
+                 established, nat_reversed, dnat_applied, snat_applied,
+                 dropped_nat, sess_fail, natsess_fail, sess_evict_expired,
+                 sess_evict_victim, natsess_evict_expired,
+                 natsess_evict_victim, sweep_stride: int = 0
+                 ) -> StepResult:
+    """Shared tail: session sweep, ECMP member accounting, drop
+    attribution, counters and the StepResult."""
+    session_sweep(tables, now, sweep_stride)
+    # per-member ECMP accounting into the carried [G, W] plane
+    n_grp, n_way = tables.fib_ecmp_c.shape
+    sel = forwarded & (fib.grp >= 0)
+    gw = torch.where(sel, fib.grp * n_way + fib.way, 0).long()
+    tables.fib_ecmp_c.view(-1).index_add_(0, gw, sel.to(torch.int32))
+
+    n_ifaces = tables.if_type.shape[0]
+    max_age = tables.sess_max_age
+
+    def occupancy(valid, time):
+        return _sum((valid == 1) & (_age(now, time) <= max_age))
+
+    drop_no_route = alive & permit & ~fib.matched
+    fib_dropped = alive & permit & fib.matched & (
+        fib.disp == int(Disposition.DROP))
+    dropped = ((pkts.valid & (drop_ip4 | drop_acl | drop_no_route))
+               | fib_dropped | dropped_nat)
+    zero = torch.zeros((), dtype=torch.int32, device=alive.device)
+    stats = StepStats(
+        rx=_sum(alive),
+        tx=_sum(forwarded),
+        drop_ip4=_sum(drop_ip4),
+        drop_acl=_sum(drop_acl),
+        drop_no_route=_sum(drop_no_route),
+        punt=_sum(forwarded & (disp == int(Disposition.HOST))),
+        dnat=_sum(dnat_applied & forwarded),
+        snat=_sum(snat_applied & forwarded),
+        nat_reversed=_sum(nat_reversed & forwarded),
+        drop_nat=_sum(dropped_nat),
+        sess_insert_fail=_sum(sess_fail),
+        natsess_insert_fail=_sum(natsess_fail),
+        sess_occupancy=occupancy(tables.sess_valid, tables.sess_time),
+        natsess_occupancy=occupancy(tables.natsess_valid,
+                                    tables.natsess_time),
+        if_rx=_count(n_ifaces, pkts.rx_if, alive),
+        if_tx=_count(n_ifaces, tx_if, forwarded),
+        if_rx_bytes=_count(n_ifaces, pkts.rx_if, alive, pkts.pkt_len),
+        if_tx_bytes=_count(n_ifaces, tx_if, forwarded, pkts.pkt_len),
+        if_drops=_count(n_ifaces, pkts.rx_if, dropped),
+        sess_hits=_sum(established),
+        fastpath=zero,
+        sess_evict_expired=_sum(sess_evict_expired),
+        sess_evict_victim=_sum(sess_evict_victim),
+        natsess_evict_expired=_sum(natsess_evict_expired),
+        natsess_evict_victim=_sum(natsess_evict_victim),
+        ml_scored=zero, ml_flagged=zero, ml_drops=zero,
+        tel_sketched=zero, tnt_limited=zero, tnt_qfail=zero,
+        ovl_decap=zero, ovl_encap=zero, drop_overlay=zero,
+    )
+    drop_cause = (torch.where(pkts.valid & drop_ip4, DROP_IP4, 0)
+                  + torch.where(drop_acl, DROP_ACL, 0)
+                  + torch.where(drop_no_route, DROP_NO_ROUTE, 0)
+                  + torch.where(fib_dropped, DROP_FIB, 0)
+                  + torch.where(dropped_nat, DROP_NAT, 0)
+                  ).to(torch.int32)
+    return StepResult(
+        pkts=pkts,
+        disp=disp,
+        tx_if=tx_if,
+        node_id=torch.where(forwarded, fib.node_id, -1).to(torch.int32),
+        next_hop=torch.where(forwarded, fib.next_hop, 0).to(torch.int32),
+        tables=tables,
+        stats=stats,
+        drop_cause=drop_cause,
+        established=established,
+        dnat_applied=dnat_applied,
+        snat_applied=snat_applied,
+        ml_flagged=torch.zeros_like(alive),
+        ml_scores=torch.zeros(alive.shape, dtype=torch.int32,
+                              device=alive.device),
+    )
+
+
+def pipeline_step(tables, pkts: PacketVector, now: int,
+                  acl_global_fn=acl_classify_global,
+                  acl_local_fn=acl_classify_local,
+                  sweep_stride: int = SWEEP_STRIDE_DEFAULT,
+                  fib_fn=fib_lookup_dense, sess_impl: str = "gather",
+                  sess_hash: str = "fwd") -> StepResult:
+    """Process one packet vector through the full forwarding chain
+    (the reference's ``pipeline_step`` with its off-state gates).
+    ``now`` is the session clock in ticks (a Python int)."""
+    sym = sess_hash == "sym"
+    pkts, drop_ip4, alive = _ingress(tables, pkts)
+
+    # reflective session bypass, looked up on the raw (pre-NAT) header
+    established, sess_hit_idx = session_lookup_reverse_idx(
+        tables, pkts, now, impl=sess_impl, sym=sym)
+    established = established & alive
+    session_touch(tables, sess_hit_idx, established, now)
+
+    # NAT44: reverse-translate return traffic, then DNAT new flows
+    pkts, nat_reversed, nat_hit_idx = nat44_reverse(tables, pkts, alive,
+                                                    now)
+    nat44_touch(tables, nat_hit_idx, nat_reversed, now)
+    orig_dst, orig_dport = pkts.dst_ip, pkts.dport
+    pkts, dnat_applied, dnat_self_snat = nat44_dnat(
+        tables, pkts, alive & ~nat_reversed)
+
+    # ACL classify (per-interface local table + node-global table)
+    local_v = acl_local_fn(tables, pkts)
+    glob_v = acl_global_fn(tables, pkts)
+    permit = (local_v.permit & glob_v.permit) | established
+    drop_acl = alive & ~permit
+
+    # ip4-lookup on the possibly DNAT-rewritten destination
+    fib = fib_fn(tables, pkts)
+    forwarded = (alive & permit & fib.matched
+                 & (fib.disp != int(Disposition.DROP)))
+    disp = torch.where(forwarded, fib.disp,
+                       int(Disposition.DROP)).to(torch.int32)
+    tx_if = torch.where(forwarded, fib.tx_if, -1).to(torch.int32)
+
+    # SNAT for cluster-egress routes and self-snat DNAT mappings, new
+    # outbound flows only
+    is_l4 = (pkts.proto == 6) | (pkts.proto == 17)
+    nat_capable = is_l4 | (pkts.proto == 1)
+    fresh = ~nat_reversed & ~established
+    orig_src, orig_sport = pkts.src_ip, pkts.sport
+    want_snat = forwarded & fresh & nat_capable & (fib.snat | dnat_self_snat)
+    pkts, snat_applied = nat44_snat(tables, pkts, want_snat)
+    nat_unsupported = (forwarded & fresh & ~nat_capable & fib.snat
+                       & (tables.nat_snat_ip != 0))
+
+    # session install for newly permitted flows (post-NAT keys)
+    want_sess = forwarded & ~established & nat_capable & ~nat_unsupported
+    _, _, sess_fail, sess_ev_exp, sess_ev_vic = session_insert(
+        tables, pkts, want_sess, now, sym=sym)
+    nat_kind = (torch.where(dnat_applied, 1, 0)
+                + torch.where(snat_applied, 2, 0)).to(torch.int32)
+    _, nat_conflict, natsess_fail, nat_ev_exp, nat_ev_vic = nat44_record(
+        tables, pkts, orig_dst, orig_dport, orig_src, orig_sport,
+        nat_kind, (dnat_applied | snat_applied) & forwarded, now)
+    # fail closed on reply-key collisions
+    dropped_nat = nat_conflict | nat_unsupported
+    forwarded = forwarded & ~dropped_nat
+    disp = torch.where(dropped_nat, int(Disposition.DROP),
+                       disp).to(torch.int32)
+    tx_if = torch.where(dropped_nat, -1, tx_if).to(torch.int32)
+
+    return _finish_step(
+        tables, pkts, now, alive, drop_ip4, drop_acl, permit, fib,
+        forwarded, disp, tx_if, established, nat_reversed, dnat_applied,
+        snat_applied, dropped_nat, sess_fail, natsess_fail,
+        sess_ev_exp, sess_ev_vic, nat_ev_exp, nat_ev_vic,
+        sweep_stride=sweep_stride)
+
+
+def _classifier_fns(impl: str):
+    """(global, local) classify functions of one classifier rung."""
+    if impl == "bv":
+        from vpp_tpu_torch.ops.acl_bv import (
+            acl_classify_global_bv,
+            acl_classify_local_bv,
+        )
+
+        return acl_classify_global_bv, acl_classify_local_bv
+    if impl == "pallas":
+        from vpp_tpu_torch.ops.acl_bv import (
+            acl_classify_global_pallas,
+            acl_classify_local_pallas,
+        )
+
+        return acl_classify_global_pallas, acl_classify_local_pallas
+    if impl == "mxu":
+        raise NotImplementedError(
+            "the mxu classifier rung is not ported to vpp_tpu_torch yet: "
+            "ROADMAP Queue 2 item 4 (mxu_first_match)")
+    if impl != "dense":
+        raise ValueError(f"unknown classifier impl {impl!r}")
+    return acl_classify_global, acl_classify_local
+
+
+def _fib_fn(fib_impl: str):
+    """The ip4-lookup of one FIB rung."""
+    if fib_impl == "lpm":
+        from vpp_tpu_torch.ops.lpm import fib_lookup_lpm
+
+        return fib_lookup_lpm
+    if fib_impl == "pallas":
+        from vpp_tpu_torch.ops.lpm import fib_lookup_lpm_fused
+
+        return fib_lookup_lpm_fused
+    if fib_impl != "dense":
+        raise ValueError(f"unknown fib impl {fib_impl!r}")
+    return fib_lookup_dense
+
+
+_NOT_PORTED_GATES = {
+    "ml_mode": ("off", "ROADMAP Queue 1 item 6 (ops/mlscore.py)"),
+    "tel_mode": ("off", "ROADMAP Queue 1 item 6 (ops/telemetry.py)"),
+    "tnt_mode": ("off", "ROADMAP Queue 1 item 6 (tenancy/derive.py)"),
+    "overlay": ("off", "ROADMAP Queue 1 item 6 (ops/vxlan.py)"),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def make_pipeline_step(impl: str = "dense", skip_local: bool = False,
+                       fast: bool = False,
+                       sweep_stride: int = SWEEP_STRIDE_DEFAULT,
+                       ml_mode: str = "off", ml_kind: str = "mlp",
+                       tel_mode: str = "off", tnt_mode: str = "off",
+                       fib_impl: str = "dense", sess_impl: str = "gather",
+                       sess_hash: str = "fwd", overlay: str = "off"):
+    """Compose one step callable ``step(tables, pkts, now)`` from the
+    epoch's gates (the reference's factory and key). Gates of stages
+    this package has not ported raise NotImplementedError."""
+    from vpp_tpu_torch.ops.acl import acl_local_none
+
+    gates = {"ml_mode": ml_mode, "tel_mode": tel_mode,
+             "tnt_mode": tnt_mode, "overlay": overlay}
+    for name, value in gates.items():
+        off, item = _NOT_PORTED_GATES[name]
+        if value != off:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported to vpp_tpu_torch yet: "
+                f"{item}")
+    if fast:
+        raise NotImplementedError(
+            "the two-tier established-flow dispatcher (fastpath) is not "
+            "ported to vpp_tpu_torch yet: ROADMAP Queue 1 item 5")
+    if sess_impl not in ("gather", "pallas"):
+        raise ValueError(f"unknown sess_impl {sess_impl!r}")
+    if sess_hash not in ("fwd", "sym"):
+        raise ValueError(f"unknown sess_hash {sess_hash!r}")
+    acl_global_fn, acl_local_fn = _classifier_fns(impl)
+    fib_fn = _fib_fn(fib_impl)
+    if skip_local:
+        acl_local_fn = acl_local_none
+
+    def step(tables, pkts: PacketVector, now: int) -> StepResult:
+        return pipeline_step(tables, pkts, now, acl_global_fn=acl_global_fn,
+                             acl_local_fn=acl_local_fn,
+                             sweep_stride=sweep_stride, fib_fn=fib_fn,
+                             sess_impl=sess_impl, sess_hash=sess_hash)
+
+    step.__name__ = "pipeline_step_{}{}{}{}{}".format(
+        impl, "_nolocal" if skip_local else "",
+        "" if fib_impl == "dense" else f"_fib{fib_impl}",
+        "" if sess_impl == "gather" else f"_sess{sess_impl}",
+        "" if sess_hash == "fwd" else f"_h{sess_hash}")
+    return step

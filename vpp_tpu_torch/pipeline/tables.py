@@ -1,0 +1,827 @@
+"""Device-resident table state + host-side table compiler.
+
+The PyTorch counterpart of ``vpp_tpu/pipeline/tables.py``: the same
+``DataplaneConfig`` knobs, the same ``DataplaneTables`` field names and
+host layouts (``TableBuilder.host_arrays()`` equals the reference's,
+field by field), loaded into torch tensors on the builder's device.
+uint32 fields are int32 tensors holding the same bits
+(pipeline/vector.py).
+
+Cut to the main path: every ``to_device`` is a full upload (the
+reference's incremental upload groups are a later slice), the ML,
+telemetry, tenancy, overlay, service-VIP and ECMP fields carry the
+reference's placeholder shapes, and config values that would turn those
+stages on raise ``NotImplementedError`` naming the ROADMAP item that
+ports them. The MXU bit-plane fields stay at their empty placeholder:
+the ``mxu`` classifier rung is not ported yet (ROADMAP Queue 2), so the
+builder compiles no bit-planes — the reference's builder with
+``mxu_enabled = False`` stages the same arrays.
+
+Derived tensors: ``to_device`` also stacks the populated LPM planes into
+the biased ``[L, Npad]`` prefix and slot matrices the fused LPM kernel
+walks (``fib_lpm_stk_*``), ONCE per swap — the reference rebuilds them
+inside every traced step (vpp_tpu/ops/lpm.py ``_fib_lookup_lpm_pallas``).
+"""
+
+from __future__ import annotations
+
+import ipaddress
+import logging
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from vpp_tpu_torch.ir.rule import ANY_PORT, ContivRule
+from vpp_tpu_torch.ops.acl_bv import (
+    bv_capacity,
+    bv_enabled_for,
+    compile_bv,
+    empty_bv,
+)
+from vpp_tpu_torch.ops.lpm import (
+    LPM_FIELDS,
+    LPM_LENGTHS,
+    LPM_PAD,
+    build_lpm_stack,
+    ecmp_capacity,
+    lpm_enabled_for,
+    lpm_field,
+    lpm_hint_layout,
+    lpm_len_caps,
+)
+from vpp_tpu_torch.pipeline.vector import Disposition, as_i32
+
+log = logging.getLogger("vpp_tpu_torch.tables")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the caller's choice, else the
+    card. With no card present it raises — the port never quietly runs
+    on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "vpp_tpu_torch runs on a CUDA device and none is available; "
+            "pass device='cpu' to run the plain PyTorch versions")
+    return torch.device("cuda")
+
+
+class InterfaceType:
+    NONE = 0
+    POD = 1      # pod-facing interface
+    UPLINK = 2   # node uplink toward other nodes / cluster edge
+    HOST = 3     # host-stack interface
+
+
+class DataplaneConfig(NamedTuple):
+    """Static sizing of the device tables — the reference's knobs,
+    names and defaults (vpp_tpu/pipeline/tables.py DataplaneConfig)."""
+
+    max_tables: int = 16
+    max_rules: int = 128
+    max_global_rules: int = 128
+    max_ifaces: int = 64
+    fib_slots: int = 128
+    fib_impl: str = "auto"
+    fib_lpm_min_routes: int = 256
+    fib_lpm_mem_mb: int = 256
+    fib_lpm_plen_caps: tuple = ()
+    fib_ecmp_groups: int = 0
+    fib_ecmp_ways: int = 8
+    sess_slots: int = 4096
+    sess_ways: int = 4
+    session_impl: str = "auto"
+    sess_hash: str = "fwd"
+    natsess_slots: int = 0
+    sess_sweep_stride: int = 256
+    sess_max_age: int = 3000
+    nat_mappings: int = 64
+    nat_backends: int = 512
+    fastpath: bool = True
+    fastpath_min_rules: int = 0
+    classifier: str = "auto"
+    classifier_bv_min_rules: int = 1024
+    classifier_bv_mem_mb: int = 256
+    ml_stage: str = "off"
+    ml_hidden: int = 16
+    ml_trees: int = 4
+    ml_depth: int = 3
+    telemetry: str = "off"
+    telemetry_lat_buckets: int = 24
+    telemetry_sketch_rows: int = 2
+    telemetry_sketch_cols: int = 1024
+    telemetry_topk: int = 8
+    tenancy: str = "off"
+    tenancy_tenants: int = 8
+    tenancy_prefixes: int = 64
+    overlay: str = "off"
+    svc_vips: int = 0
+    svc_backend_ways: int = 8
+
+
+# --- the DataplaneTables field set (reference order) -----------------
+
+_ACL_FIELDS = (
+    "acl_src_net", "acl_src_mask", "acl_dst_net", "acl_dst_mask",
+    "acl_proto", "acl_sport_lo", "acl_sport_hi", "acl_dport_lo",
+    "acl_dport_hi", "acl_action", "acl_nrules",
+    "acl_bv_bnd_src", "acl_bv_bnd_dst", "acl_bv_bnd_sport",
+    "acl_bv_bnd_dport", "acl_bv_nbnd", "acl_bv_src", "acl_bv_dst",
+    "acl_bv_sport", "acl_bv_dport", "acl_bv_proto",
+)
+_GLB_FIELDS = (
+    "glb_src_net", "glb_src_mask", "glb_dst_net", "glb_dst_mask",
+    "glb_proto", "glb_sport_lo", "glb_sport_hi", "glb_dport_lo",
+    "glb_dport_hi", "glb_action", "glb_nrules",
+    "glb_mxu_coeff", "glb_mxu_k", "glb_mxu_act",
+    "glb_bv_bnd_src", "glb_bv_bnd_dst", "glb_bv_bnd_sport",
+    "glb_bv_bnd_dport", "glb_bv_nbnd", "glb_bv_src", "glb_bv_dst",
+    "glb_bv_sport", "glb_bv_dport", "glb_bv_proto",
+)
+_ML_FIELDS = (
+    "glb_ml_w1", "glb_ml_b1", "glb_ml_s1", "glb_ml_w2", "glb_ml_b2",
+    "glb_ml_f_feat", "glb_ml_f_thresh", "glb_ml_f_leaf", "glb_ml_thresh",
+    "glb_ml_action", "glb_ml_rl_shift", "glb_ml_version",
+)
+_IF_FIELDS = ("if_type", "if_local_table", "if_apply_global")
+_FIB_FIELDS = (
+    "fib_prefix", "fib_mask", "fib_plen", "fib_tx_if", "fib_disp",
+    "fib_next_hop", "fib_node_id", "fib_snat", "fib_grp",
+) + LPM_FIELDS + (
+    "fib_lpm_cnt", "fib_lpm_hint",
+    "fib_grp_nh", "fib_grp_tx_if", "fib_grp_node", "fib_grp_n",
+)
+_NAT_FIELDS = (
+    "nat_ext_ip", "nat_ext_port", "nat_proto", "nat_boff", "nat_bcnt",
+    "nat_total_w", "nat_self_snat", "natb_ip", "natb_port", "natb_cumw",
+    "nat_snat_ip",
+)
+_TNT_FIELDS = (
+    "tnt_pfx_net", "tnt_pfx_mask", "tnt_pfx_id", "tnt_rate", "tnt_burst",
+    "tnt_sess_base", "tnt_sess_mask", "tnt_nat_base", "tnt_nat_mask",
+    "glb_ml_tnt_mode", "glb_ml_tnt_thresh", "tnt_vni",
+)
+_SVC_FIELDS = (
+    "svc_vip_ip", "svc_vip_port", "svc_vip_proto", "svc_vip_snat",
+    "svc_bk_n", "svc_bk_ip", "svc_bk_port",
+)
+
+# State fields (carried across swaps by reference) with numpy dtypes.
+SESSION_FIELDS: Dict[str, type] = {
+    "sess_src": np.uint32, "sess_dst": np.uint32, "sess_ports": np.uint32,
+    "sess_proto": np.int32, "sess_valid": np.int32, "sess_time": np.int32,
+    "natsess_a": np.uint32, "natsess_b": np.uint32,
+    "natsess_ports": np.uint32, "natsess_proto": np.int32,
+    "natsess_valid": np.int32, "natsess_time": np.int32,
+    "natsess_orig_ip": np.uint32, "natsess_orig_port": np.int32,
+    "natsess_src_ip": np.uint32, "natsess_sport": np.int32,
+    "natsess_kind": np.int32,
+    "sess_sweep_cursor": np.int32, "natsess_sweep_cursor": np.int32,
+}
+TELEMETRY_FIELDS: Dict[str, type] = {
+    "tel_lat_hist": np.int32, "tel_sketch": np.int32,
+    "tel_sketched": np.int32, "tel_top_key": np.uint32,
+    "tel_top_src": np.uint32, "tel_top_dst": np.uint32,
+    "tel_top_ports": np.uint32, "tel_top_cnt": np.int32,
+}
+TENANCY_STATE_FIELDS: Dict[str, type] = {
+    f: np.int32 for f in ("tnt_tokens", "tnt_tok_time", "tnt_rx_c",
+                          "tnt_tx_c", "tnt_rl_c", "tnt_qf_c")
+}
+FIB_STATE_FIELDS: Dict[str, type] = {"fib_ecmp_c": np.int32}
+STATE_FIELDS: Dict[str, type] = {
+    **SESSION_FIELDS, **TELEMETRY_FIELDS, **TENANCY_STATE_FIELDS,
+    **FIB_STATE_FIELDS,
+}
+
+# The staged (non-state) fields, i.e. TableBuilder.host_arrays() keys.
+HOST_FIELDS: Tuple[str, ...] = (
+    _ACL_FIELDS + _GLB_FIELDS + _ML_FIELDS + _TNT_FIELDS + _IF_FIELDS
+    + _FIB_FIELDS + ("sess_max_age",) + _NAT_FIELDS + ("ovl_vtep_ip",)
+    + _SVC_FIELDS
+)
+
+# Derived per swap from the LPM planes (build_lpm_stack): the populated
+# lengths longest first, their live counts and the stacked biased
+# prefix / slot planes. Not part of the reference's field set.
+DERIVED_FIELDS: Tuple[str, ...] = (
+    "fib_lpm_lens", "fib_lpm_stk_cnt", "fib_lpm_stk_pfx",
+    "fib_lpm_stk_slot",
+)
+
+TABLE_FIELDS: Tuple[str, ...] = (HOST_FIELDS + tuple(STATE_FIELDS)
+                                 + DERIVED_FIELDS)
+
+DataplaneTables = NamedTuple(
+    "DataplaneTables", [(f, torch.Tensor) for f in TABLE_FIELDS])
+DataplaneTables.__doc__ = (
+    "The device table pytree: one tensor per reference field (uint32 "
+    "as int32 bits) plus the derived LPM stack (module doc).")
+
+# numpy dtype of every non-derived field (the reference's staging
+# dtypes): uint32, int8 and float32 fields named, int32 otherwise.
+_U32_FIELDS = frozenset(
+    ("acl_src_net", "acl_src_mask", "acl_dst_net", "acl_dst_mask",
+     "acl_bv_bnd_src", "acl_bv_bnd_dst", "acl_bv_src", "acl_bv_dst",
+     "acl_bv_sport", "acl_bv_dport", "acl_bv_proto",
+     "glb_src_net", "glb_src_mask", "glb_dst_net", "glb_dst_mask",
+     "glb_bv_bnd_src", "glb_bv_bnd_dst", "glb_bv_src", "glb_bv_dst",
+     "glb_bv_sport", "glb_bv_dport", "glb_bv_proto",
+     "tnt_pfx_net", "tnt_pfx_mask",
+     "fib_prefix", "fib_mask", "fib_next_hop", "fib_grp_nh",
+     "nat_ext_ip", "natb_ip", "nat_snat_ip", "ovl_vtep_ip",
+     "svc_vip_ip", "svc_bk_ip") + LPM_FIELDS
+    + tuple(f for f, dt in STATE_FIELDS.items() if dt == np.uint32))
+FIELD_DTYPES: Dict[str, type] = {
+    f: (np.uint32 if f in _U32_FIELDS
+        else np.int8 if f in ("glb_ml_w1", "glb_ml_w2")
+        else np.float32 if f in ("glb_mxu_coeff", "glb_mxu_k")
+        else np.int32)
+    for f in HOST_FIELDS + tuple(STATE_FIELDS)
+}
+
+
+def tensor_of(arr, device) -> torch.Tensor:
+    """One staged numpy array -> tensor on ``device`` (uint32 keeps its
+    bits as int32; int8/float32 keep their type)."""
+    a = np.asarray(arr)
+    if a.dtype not in (np.int8, np.float32):
+        a = as_i32(a)
+    # np.array keeps a 0-d array 0-d (ascontiguousarray would not)
+    return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
+def numpy_of(field: str, t: torch.Tensor) -> np.ndarray:
+    """One table tensor -> numpy in the reference's dtype."""
+    a = t.detach().cpu().numpy()
+    if FIELD_DTYPES[field] == np.uint32:
+        return a.view(np.uint32)
+    return a
+
+
+# --- session / state geometry -----------------------------------------
+
+
+def natsess_slots_of(config: DataplaneConfig) -> int:
+    n = int(config.natsess_slots or 0)
+    return n if n else config.sess_slots
+
+
+def state_shapes(config: DataplaneConfig) -> Dict[str, Tuple[int, ...]]:
+    """Shapes of every state field: the [slots/ways, ways] session
+    grids, () cursors, and the placeholder telemetry / tenancy / ECMP
+    state planes of the stages this slice compiles out."""
+    w = config.sess_ways
+    sess = (config.sess_slots // w, w)
+    nat = (natsess_slots_of(config) // w, w)
+    g, gw = ecmp_capacity(config)
+    out = {}
+    for f in SESSION_FIELDS:
+        out[f] = (() if f.endswith("_sweep_cursor")
+                  else nat if f.startswith("natsess_") else sess)
+    out.update({"tel_lat_hist": (1,), "tel_sketch": (1, 1),
+                "tel_sketched": ()})
+    for f in ("tel_top_key", "tel_top_src", "tel_top_dst",
+              "tel_top_ports", "tel_top_cnt"):
+        out[f] = (1,)
+    for f in TENANCY_STATE_FIELDS:
+        out[f] = (1,)
+    out["fib_ecmp_c"] = (g, gw)
+    return out
+
+
+def zero_sessions(config: DataplaneConfig) -> Dict[str, np.ndarray]:
+    """Fresh (empty) session-state arrays (host numpy)."""
+    shapes = state_shapes(config)
+    return {k: np.zeros(shapes[k], dt) for k, dt in SESSION_FIELDS.items()}
+
+
+def zero_state_device(config: DataplaneConfig,
+                      device) -> Dict[str, torch.Tensor]:
+    """Every state field zero-filled on ``device`` (no host upload)."""
+    shapes = state_shapes(config)
+    return {f: torch.zeros(shapes[f], dtype=torch.int32, device=device)
+            for f in STATE_FIELDS}
+
+
+# --- config validation -------------------------------------------------
+
+
+def _is_pow2(n: int) -> bool:
+    return n > 0 and (n & (n - 1)) == 0
+
+
+# knob -> (value that keeps the stage off, ROADMAP item that ports it)
+_NOT_PORTED = (
+    ("ml_stage", lambda v: v == "off",
+     "ROADMAP Queue 1 item 6 (ops/mlscore.py)"),
+    ("telemetry", lambda v: v == "off",
+     "ROADMAP Queue 1 item 6 (ops/telemetry.py)"),
+    ("tenancy", lambda v: v == "off",
+     "ROADMAP Queue 1 item 6 (tenancy/derive.py)"),
+    ("overlay", lambda v: v == "off",
+     "ROADMAP Queue 1 item 6 (ops/vxlan.py)"),
+    ("svc_vips", lambda v: int(v) == 0,
+     "ROADMAP Queue 1 item 6 (overlay + service staging)"),
+    ("fib_ecmp_groups", lambda v: int(v) == 0,
+     "ROADMAP Queue 1 item 6 (ECMP staging)"),
+    ("classifier", lambda v: v != "mxu",
+     "ROADMAP Queue 2 item 4 (mxu_first_match)"),
+)
+
+
+def validate_dataplane_config(config: DataplaneConfig) -> None:
+    """Fail fast on a bad knob (the reference's checks, same messages),
+    and on a knob that turns on a stage this package has not ported."""
+    c = config
+    ways, stride = c.sess_ways, c.sess_sweep_stride
+    if not _is_pow2(c.sess_slots):
+        raise ValueError(f"dataplane.sess_slots must be a power of two, "
+                         f"got {c.sess_slots}")
+    if not _is_pow2(ways):
+        raise ValueError(
+            f"dataplane.sess_ways must be a power of two, got {ways}")
+    if ways > c.sess_slots:
+        raise ValueError(f"dataplane.sess_ways ({ways}) exceeds "
+                         f"sess_slots ({c.sess_slots})")
+    nns = int(c.natsess_slots or 0)
+    if nns and not _is_pow2(nns):
+        raise ValueError(
+            f"dataplane.natsess_slots must be a power of two (or 0 = "
+            f"sess_slots), got {nns}")
+    if nns and ways > nns:
+        raise ValueError(
+            f"dataplane.sess_ways ({ways}) exceeds natsess_slots ({nns})")
+    if stride < 0 or (stride and not _is_pow2(stride)):
+        raise ValueError(
+            f"dataplane.sess_sweep_stride must be 0 (disabled) or a "
+            f"power of two, got {stride}")
+    if c.fib_impl not in ("dense", "lpm", "pallas", "auto"):
+        raise ValueError(f"dataplane.fib_impl must be dense | lpm | "
+                         f"pallas | auto, got {c.fib_impl!r}")
+    if c.session_impl not in ("gather", "pallas", "auto"):
+        raise ValueError(f"dataplane.session_impl must be gather | "
+                         f"pallas | auto, got {c.session_impl!r}")
+    if c.sess_hash not in ("fwd", "sym"):
+        raise ValueError(
+            f"dataplane.sess_hash must be fwd | sym, got {c.sess_hash!r}")
+    if c.classifier not in ("dense", "mxu", "bv", "pallas", "auto"):
+        raise ValueError(
+            f"unknown dataplane.classifier {c.classifier!r} "
+            f"(expected dense | mxu | bv | pallas | auto)")
+    if int(c.fib_lpm_min_routes) < 0:
+        raise ValueError(f"dataplane.fib_lpm_min_routes must be >= 0, "
+                         f"got {c.fib_lpm_min_routes}")
+    caps = tuple(c.fib_lpm_plen_caps or ())
+    if len(caps) > 33:
+        raise ValueError(
+            f"dataplane.fib_lpm_plen_caps has {len(caps)} entries "
+            f"(index = prefix length, max 33: /0../32)")
+    for L, cap in enumerate(caps):
+        if int(cap) < 0:
+            raise ValueError(f"dataplane.fib_lpm_plen_caps[/{L}] must "
+                             f"be >= 0, got {cap}")
+    for knob, off, item in _NOT_PORTED:
+        if not off(getattr(c, knob)):
+            raise NotImplementedError(
+                f"dataplane.{knob}={getattr(c, knob)!r} is not ported to "
+                f"vpp_tpu_torch yet: {item}")
+
+
+# --- rule packing (vpp_tpu/pipeline/tables.py pack_rules) --------------
+
+
+def _mask_of(plen: int, bits: int = 32) -> int:
+    return ((1 << bits) - 1) ^ ((1 << (bits - plen)) - 1) if plen else 0
+
+
+def _empty_packed(max_rules: int) -> Dict[str, np.ndarray]:
+    """All-padding match arrays (rows that can never match)."""
+    return {
+        "src_net": np.zeros(max_rules, np.uint32),
+        "src_mask": np.zeros(max_rules, np.uint32),
+        "dst_net": np.zeros(max_rules, np.uint32),
+        "dst_mask": np.zeros(max_rules, np.uint32),
+        "proto": np.full(max_rules, -2, np.int32),
+        "sport_lo": np.ones(max_rules, np.int32),
+        "sport_hi": np.zeros(max_rules, np.int32),
+        "dport_lo": np.ones(max_rules, np.int32),
+        "dport_hi": np.zeros(max_rules, np.int32),
+        "action": np.full(max_rules, -1, np.int32),
+    }
+
+
+def _rule_row(r: ContivRule) -> tuple:
+    """One rule's 10-value match row; an IPv6 rule is a never-match row
+    (non-IPv4 frames never reach the v4 classifier)."""
+    if (r.src_network is not None and r.src_network.version != 4) or (
+        r.dest_network is not None and r.dest_network.version != 4
+    ):
+        log.warning("skipping IPv6 rule in v4 table: %s", r)
+        return (0, 0, 0, 0, -2, 1, 0, 1, 0, -1)
+    if r.src_network is not None:
+        sm = _mask_of(r.src_network.prefixlen)
+        sn = int(r.src_network.network_address) & sm
+    else:
+        sm = sn = 0
+    if r.dest_network is not None:
+        dm = _mask_of(r.dest_network.prefixlen)
+        dn = int(r.dest_network.network_address) & dm
+    else:
+        dm = dn = 0
+    sp, dp = r.src_port, r.dest_port
+    return (
+        sn, sm, dn, dm, r.protocol.ip_proto,
+        0 if sp == ANY_PORT else sp, 65535 if sp == ANY_PORT else sp,
+        0 if dp == ANY_PORT else dp, 65535 if dp == ANY_PORT else dp,
+        int(r.action),
+    )
+
+
+def pack_rules(rules: Sequence[ContivRule],
+               max_rules: int) -> Dict[str, np.ndarray]:
+    """Compile an ordered rule list into padded match arrays (first
+    match wins; padding rows never match)."""
+    n = len(rules)
+    if n > max_rules:
+        raise ValueError(f"{n} rules exceed table capacity {max_rules}")
+    out = _empty_packed(max_rules)
+    if not n:
+        return out
+    rows = np.array([_rule_row(r) for r in rules], np.int64)
+    for j, arr in enumerate(out.values()):
+        arr[:n] = rows[:, j].astype(arr.dtype)
+    return out
+
+
+# --- placeholder planes of the stages this slice compiles out ---------
+
+_ML_FEATURES = 18   # vpp_tpu/ml/model.py ML_FEATURES
+_MXU_PLANES = 128   # vpp_tpu/ops/acl_mxu.py PLANES
+_MXU_RT = 1024      # vpp_tpu/ops/acl_mxu.py rule tile
+_DEFAULT_VNI = 10   # vpp_tpu/ops/vxlan.py DEFAULT_VNI
+_ML_TNT_THRESH_INHERIT = -(1 << 31)
+
+
+def _empty_mxu(max_rules: int) -> Dict[str, np.ndarray]:
+    r = max_rules if max_rules <= _MXU_RT else \
+        ((max_rules + _MXU_RT - 1) // _MXU_RT) * _MXU_RT
+    return {"glb_mxu_coeff": np.zeros((_MXU_PLANES, r), np.float32),
+            "glb_mxu_k": np.ones(r, np.float32),
+            "glb_mxu_act": np.full(r, -1, np.int32)}
+
+
+def _empty_ml() -> Dict[str, np.ndarray]:
+    f, h, t, d = _ML_FEATURES, 1, 1, 1
+    return {
+        "glb_ml_w1": np.zeros((f, h), np.int8),
+        "glb_ml_b1": np.zeros(h, np.int32),
+        "glb_ml_s1": np.int32(0),
+        "glb_ml_w2": np.zeros(h, np.int8),
+        "glb_ml_b2": np.int32(0),
+        "glb_ml_f_feat": np.zeros((t, d), np.int32),
+        "glb_ml_f_thresh": np.zeros((t, d), np.int32),
+        "glb_ml_f_leaf": np.zeros((t, 1 << d), np.int32),
+        "glb_ml_thresh": np.int32(0x7FFFFFFF),
+        "glb_ml_action": np.int32(0),
+        "glb_ml_rl_shift": np.int32(0),
+        "glb_ml_version": np.int32(0),
+    }
+
+
+def _empty_tenancy(config: DataplaneConfig) -> Dict[str, np.ndarray]:
+    """The tenancy-off tenant planes: one default tenant, unsliced —
+    its session/NAT masks cover the largest power of two of each
+    table, its VNI the default."""
+    w = config.sess_ways
+
+    def full_mask(nb):
+        return (1 << (nb.bit_length() - 1)) - 1
+
+    return {
+        "tnt_pfx_net": np.zeros(1, np.uint32),
+        "tnt_pfx_mask": np.zeros(1, np.uint32),
+        "tnt_pfx_id": np.full(1, -1, np.int32),
+        "tnt_rate": np.zeros(1, np.int32),
+        "tnt_burst": np.zeros(1, np.int32),
+        "tnt_sess_base": np.zeros(1, np.int32),
+        "tnt_sess_mask": np.full(
+            1, full_mask(config.sess_slots // w), np.int32),
+        "tnt_nat_base": np.zeros(1, np.int32),
+        "tnt_nat_mask": np.full(
+            1, full_mask(natsess_slots_of(config) // w), np.int32),
+        "glb_ml_tnt_mode": np.zeros(1, np.int32),
+        "glb_ml_tnt_thresh": np.full(1, _ML_TNT_THRESH_INHERIT, np.int32),
+        "tnt_vni": np.full(1, _DEFAULT_VNI, np.int32),
+    }
+
+
+def _empty_svc(config: DataplaneConfig) -> Dict[str, np.ndarray]:
+    b = config.svc_backend_ways
+    z = np.zeros
+    return {
+        "svc_vip_ip": z(1, np.uint32), "svc_vip_port": z(1, np.int32),
+        "svc_vip_proto": z(1, np.int32), "svc_vip_snat": z(1, np.int32),
+        "svc_bk_n": z(1, np.int32), "svc_bk_ip": z((1, b), np.uint32),
+        "svc_bk_port": z((1, b), np.int32),
+    }
+
+
+class TableBuilder:
+    """Mutable host-side (numpy) staging area for the device tables;
+    ``to_device()`` produces the next epoch's DataplaneTables on the
+    builder's device, grafting the live session state of the previous
+    epoch so established flows survive the swap."""
+
+    def __init__(self, config: DataplaneConfig = DataplaneConfig(),
+                 device=None):
+        validate_dataplane_config(config)
+        self.config = c = config
+        self.device = resolve_device(device)
+        z = np.zeros
+        self.acl = {k: np.tile(v, (c.max_tables, 1))
+                    for k, v in pack_rules([], c.max_rules).items()}
+        self.acl_nrules = z(c.max_tables, np.int32)
+        self.glb = pack_rules([], c.max_global_rules)
+        self.glb_nrules = 0
+        self.bv_enabled = bv_enabled_for(c)
+        self.glb_bv = empty_bv(c.max_global_rules, self.bv_enabled)
+        self._bv_cols = None
+        local_bv = empty_bv(c.max_rules, self.bv_enabled)
+        lib, lw, lpr = bv_capacity(c.max_rules, self.bv_enabled)
+        self.acl_bv = {
+            "bnd_src": np.tile(local_bv.bnd_src, (c.max_tables, 1)),
+            "bnd_dst": np.tile(local_bv.bnd_dst, (c.max_tables, 1)),
+            "bnd_sport": np.tile(local_bv.bnd_sport, (c.max_tables, 1)),
+            "bnd_dport": np.tile(local_bv.bnd_dport, (c.max_tables, 1)),
+            "nbnd": np.tile(local_bv.nbnd, (c.max_tables, 1)),
+            "src": z((c.max_tables, lib, lw), np.uint32),
+            "dst": z((c.max_tables, lib, lw), np.uint32),
+            "sport": z((c.max_tables, lib, lw), np.uint32),
+            "dport": z((c.max_tables, lib, lw), np.uint32),
+            "proto": z((c.max_tables, lpr, lw), np.uint32),
+        }
+        self.acl_bv_ok = np.ones(c.max_tables, bool)
+        self.if_type = z(c.max_ifaces, np.int32)
+        self.if_local_table = np.full(c.max_ifaces, -1, np.int32)
+        self.if_apply_global = z(c.max_ifaces, np.int32)
+        self.fib_prefix = z(c.fib_slots, np.uint32)
+        self.fib_mask = z(c.fib_slots, np.uint32)
+        self.fib_plen = np.full(c.fib_slots, -1, np.int32)
+        self.fib_tx_if = z(c.fib_slots, np.int32)
+        self.fib_disp = np.full(c.fib_slots, int(Disposition.DROP),
+                                np.int32)
+        self.fib_next_hop = z(c.fib_slots, np.uint32)
+        self.fib_node_id = np.full(c.fib_slots, -1, np.int32)
+        self.fib_snat = z(c.fib_slots, np.int32)
+        self.fib_grp = np.full(c.fib_slots, -1, np.int32)
+        self.lpm_enabled = lpm_enabled_for(c)
+        self.lpm_caps = lpm_len_caps(c)
+        self._lpm_layout, hint_rows = lpm_hint_layout(self.lpm_caps)
+        self.lpm_hint = z(hint_rows, np.int32)
+        self.lpm_planes = {}
+        for length in range(LPM_LENGTHS):
+            plane = z((2, self.lpm_caps[length]), np.uint32)
+            plane[0, :] = LPM_PAD
+            self.lpm_planes[lpm_field(length)] = plane
+        self.lpm_cnt = z(LPM_LENGTHS, np.int32)
+        self.lpm_counts = z(LPM_LENGTHS, np.int64)
+        self._lpm_dirty_lens = set(range(LPM_LENGTHS))
+        gcap, ways = ecmp_capacity(c)
+        self.fib_grp_nh = z((gcap, ways), np.uint32)
+        self.fib_grp_tx_if = np.full((gcap, ways), -1, np.int32)
+        self.fib_grp_node = np.full((gcap, ways), -1, np.int32)
+        self.fib_grp_n = z(gcap, np.int32)
+        self.nat_ext_ip = z(c.nat_mappings, np.uint32)
+        self.nat_ext_port = z(c.nat_mappings, np.int32)
+        self.nat_proto = z(c.nat_mappings, np.int32)
+        self.nat_boff = z(c.nat_mappings, np.int32)
+        self.nat_bcnt = z(c.nat_mappings, np.int32)
+        self.nat_total_w = z(c.nat_mappings, np.int32)
+        self.nat_self_snat = z(c.nat_mappings, np.int32)
+        self.natb_ip = z(c.nat_backends, np.uint32)
+        self.natb_port = z(c.nat_backends, np.int32)
+        self.natb_cumw = z(c.nat_backends, np.int32)
+        self.nat_snat_ip = np.uint32(0)
+        self._fixed = {**_empty_mxu(c.max_global_rules), **_empty_ml(),
+                       **_empty_tenancy(c), **_empty_svc(c),
+                       "ovl_vtep_ip": np.uint32(0)}
+
+    def bv_ok(self) -> bool:
+        """Whether the BV classifier can serve this staged config."""
+        return (self.bv_enabled and self.glb_bv.ok
+                and bool(self.acl_bv_ok.all()))
+
+    # --- ACL ---
+    def set_local_table(self, slot: int,
+                        rules: Sequence[ContivRule]) -> None:
+        packed = pack_rules(rules, self.config.max_rules)
+        for k, v in packed.items():
+            self.acl[k][slot] = v
+        self.acl_nrules[slot] = len(rules)
+        if self.bv_enabled:
+            bv, _, _ = compile_bv(packed, self.config.max_rules)
+            for dim in ("src", "dst", "sport", "dport"):
+                self.acl_bv[f"bnd_{dim}"][slot] = getattr(bv, f"bnd_{dim}")
+                self.acl_bv[dim][slot] = getattr(bv, f"bm_{dim}")
+            self.acl_bv["nbnd"][slot] = bv.nbnd
+            self.acl_bv["proto"][slot] = bv.bm_proto
+            self.acl_bv_ok[slot] = bv.ok
+
+    def clear_local_table(self, slot: int) -> None:
+        self.set_local_table(slot, [])
+
+    def set_global_table(self, rules: Sequence[ContivRule]) -> None:
+        cap = self.config.max_global_rules
+        packed = pack_rules(rules, cap)
+        if self.bv_enabled:
+            # per-dimension incremental: planes whose intervals did not
+            # move since the last commit are carried over
+            self.glb_bv, self._bv_cols, _ = compile_bv(
+                packed, cap, prev=self.glb_bv, prev_cols=self._bv_cols)
+        self.glb = packed
+        self.glb_nrules = len(rules)
+
+    # --- interfaces ---
+    def set_interface(self, if_index: int, if_type: int,
+                      local_table: int = -1,
+                      apply_global: bool = False) -> None:
+        self.if_type[if_index] = int(if_type)
+        self.if_local_table[if_index] = local_table
+        self.if_apply_global[if_index] = int(apply_global)
+
+    def set_if_local_table(self, if_index: int, slot: int) -> None:
+        self.if_local_table[if_index] = slot
+
+    # --- FIB ---
+    def _mark_fib_lengths(self, *plens: int) -> None:
+        if self.lpm_enabled:
+            self._lpm_dirty_lens.update(
+                int(p) for p in plens if 0 <= p <= 32)
+
+    def add_route(self, prefix: str, tx_if: int, disposition: Disposition,
+                  next_hop: int = 0, node_id: int = -1,
+                  slot: Optional[int] = None, snat: bool = False) -> int:
+        """Install one route in ``slot`` (default: the first free one)."""
+        net = ipaddress.ip_network(prefix)
+        if slot is None:
+            free = np.nonzero(self.fib_plen < 0)[0]
+            if len(free) == 0:
+                raise ValueError("FIB full")
+            slot = int(free[0])
+        old_plen = int(self.fib_plen[slot])
+        mask = _mask_of(net.prefixlen)
+        self.fib_prefix[slot] = int(net.network_address) & mask
+        self.fib_mask[slot] = mask
+        self.fib_plen[slot] = net.prefixlen
+        self.fib_tx_if[slot] = tx_if
+        self.fib_disp[slot] = int(disposition)
+        self.fib_next_hop[slot] = next_hop
+        self.fib_node_id[slot] = node_id
+        self.fib_snat[slot] = int(snat)
+        self.fib_grp[slot] = -1
+        self._mark_fib_lengths(old_plen, net.prefixlen)
+        return slot
+
+    def del_route(self, prefix: str) -> bool:
+        net = ipaddress.ip_network(prefix)
+        mask = _mask_of(net.prefixlen)
+        want = int(net.network_address) & mask
+        hit = np.nonzero((self.fib_plen == net.prefixlen)
+                         & (self.fib_prefix == want))[0]
+        if len(hit) == 0:
+            return False
+        self.fib_plen[hit[0]] = -1
+        self._mark_fib_lengths(net.prefixlen)
+        return True
+
+    def _restage_lpm(self) -> None:
+        """Recompile the dirty per-length LPM planes: each length's
+        slots sorted by prefix, the LOWEST slot kept per duplicate
+        prefix (the dense lookup's tie-break), plus its stride hint
+        rows (ops/lpm.py lpm_hint_layout)."""
+        if not self._lpm_dirty_lens or not self.lpm_enabled:
+            self._lpm_dirty_lens.clear()
+            return
+        for length in sorted(self._lpm_dirty_lens):
+            cap = self.lpm_caps[length]
+            slots = np.nonzero(self.fib_plen == length)[0]
+            pfx = self.fib_prefix[slots]
+            order = np.argsort(pfx, kind="stable")
+            pfx, slots = pfx[order], slots[order]
+            if len(pfx):
+                keep = np.ones(len(pfx), bool)
+                keep[1:] = pfx[1:] != pfx[:-1]
+                pfx, slots = pfx[keep], slots[keep]
+            n = len(pfx)
+            self.lpm_counts[length] = n
+            plane = np.zeros((2, cap), np.uint32)
+            plane[0, :] = LPM_PAD
+            nc = min(n, cap)
+            plane[0, :nc] = pfx[:nc]
+            plane[1, :nc] = slots[:nc]
+            self.lpm_planes[lpm_field(length)] = plane
+            self.lpm_cnt[length] = nc
+            b, off, _steps = self._lpm_layout[length]
+            if off >= 0:
+                bounds = (np.arange((1 << b) + 1, dtype=np.uint64)
+                          << (32 - b))
+                self.lpm_hint[off:off + (1 << b) + 1] = np.searchsorted(
+                    pfx[:nc], bounds).astype(np.int32)
+        self._lpm_dirty_lens.clear()
+
+    def lpm_ok(self) -> bool:
+        """Whether the LPM planes can serve this staged FIB (allocated,
+        and every populated length within its capacity)."""
+        if not self.lpm_enabled:
+            return False
+        self._restage_lpm()
+        caps = np.asarray(self.lpm_caps, np.int64)
+        return bool((self.lpm_counts <= caps).all())
+
+    def fib_route_count(self) -> int:
+        return int(np.count_nonzero(self.fib_plen >= 0))
+
+    # --- NAT ---
+    def set_nat_mapping(self, slot: int, ext_ip: int, ext_port: int,
+                        proto: int,
+                        backends: Sequence[Tuple[int, int, int]],
+                        boff: int, self_snat: bool = False) -> None:
+        """Install a DNAT mapping with weighted ``(ip, port, weight)``
+        backends at ``slot``, placed at ``boff`` in the backend arrays."""
+        if boff + len(backends) > self.config.nat_backends:
+            raise ValueError("NAT backend arrays full")
+        cum = 0
+        for j, (bip, bport, w) in enumerate(backends):
+            cum += w
+            self.natb_ip[boff + j] = bip
+            self.natb_port[boff + j] = bport
+            self.natb_cumw[boff + j] = cum
+        self.nat_ext_ip[slot] = ext_ip
+        self.nat_ext_port[slot] = ext_port
+        self.nat_proto[slot] = proto
+        self.nat_boff[slot] = boff
+        self.nat_bcnt[slot] = len(backends)
+        self.nat_total_w[slot] = cum
+        self.nat_self_snat[slot] = int(self_snat)
+
+    def clear_nat(self) -> None:
+        self.nat_bcnt[:] = 0
+
+    def set_snat_ip(self, ip: int) -> None:
+        """Set the node's SNAT address (0 disables SNAT)."""
+        self.nat_snat_ip = np.uint32(ip)
+
+    # --- device upload ---
+    def host_arrays(self) -> Dict[str, np.ndarray]:
+        """The staged configuration as numpy arrays keyed by field name
+        (everything except state) — equal to the reference's."""
+        self._restage_lpm()
+        out = {f"acl_{k}": v for k, v in self.acl.items()}
+        out["acl_nrules"] = self.acl_nrules
+        for k in ("bnd_src", "bnd_dst", "bnd_sport", "bnd_dport", "nbnd",
+                  "src", "dst", "sport", "dport", "proto"):
+            out[f"acl_bv_{k}"] = self.acl_bv[k]
+        out.update({f"glb_{k}": v for k, v in self.glb.items()})
+        out["glb_nrules"] = np.int32(self.glb_nrules)
+        bv = self.glb_bv
+        for dim in ("src", "dst", "sport", "dport"):
+            out[f"glb_bv_bnd_{dim}"] = getattr(bv, f"bnd_{dim}")
+            out[f"glb_bv_{dim}"] = getattr(bv, f"bm_{dim}")
+        out["glb_bv_nbnd"] = bv.nbnd
+        out["glb_bv_proto"] = bv.bm_proto
+        for f in _IF_FIELDS + _FIB_FIELDS[:9]:
+            out[f] = getattr(self, f)
+        out.update(self.lpm_planes)
+        out["fib_lpm_cnt"] = self.lpm_cnt
+        out["fib_lpm_hint"] = self.lpm_hint
+        for f in ("fib_grp_nh", "fib_grp_tx_if", "fib_grp_node",
+                  "fib_grp_n") + _NAT_FIELDS:
+            out[f] = getattr(self, f)
+        out["sess_max_age"] = np.int32(self.config.sess_max_age)
+        out.update(self._fixed)
+        return {f: out[f] for f in HOST_FIELDS}
+
+    def to_device(self, sessions=None) -> DataplaneTables:
+        """The next epoch's tables on the builder's device (a full
+        upload of the staged arrays). ``sessions`` — the previous
+        epoch's DataplaneTables — hands its live state tensors over by
+        reference; a ``{field: numpy}`` mapping of SESSION_FIELDS (a
+        restored snapshot) is uploaded; None starts empty."""
+        state = zero_state_device(self.config, self.device)
+        if isinstance(sessions, dict):
+            shapes = state_shapes(self.config)
+            for f in SESSION_FIELDS:
+                arr = np.asarray(sessions[f])
+                if tuple(arr.shape) != shapes[f]:
+                    raise ValueError(
+                        f"restored session field {f!r} shape "
+                        f"{tuple(arr.shape)} != configured {shapes[f]}")
+                state[f] = tensor_of(arr, self.device)
+        elif sessions is not None:
+            state = {f: getattr(sessions, f) for f in STATE_FIELDS}
+        host = {f: tensor_of(a, self.device)
+                for f, a in self.host_arrays().items()}
+        return DataplaneTables(**host, **state, **build_lpm_stack(host))
