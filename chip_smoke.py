@@ -13,24 +13,46 @@ raises on failure:
 2. build: every ``vpp_tpu_torch/csrc/*.cu`` compiled for sm_90a, one
    ``nvcc`` per source, all started together, into ``csrc/build/``;
 3. each kernel against its plain PyTorch version on the card, bit-exact,
-   at edge shapes and at the slice's shapes on random data;
+   at edge shapes and at the slice's shapes on random data
+   (``mxu_first_match`` on tables compiled from random exact-port rules,
+   an all-miss table and tables where many rules match each packet);
 4. the main path: the slice's full-size ``Dataplane`` on the card
    (10,240 global rules, 8 pods on 128-rule local tables, 2^20 session
-   slots, ~4,000 routes, a 100-backend ClusterIP) runs forward vectors
-   of 256 and 4,096 packets (the bench traffic mix, 1/8 to the VIP),
-   each followed by its reply vector, through ``Dataplane.process``.
-   The kernels' launch counters are zeroed just before and read just
-   after; each must be > 0. The same staging and packets then run
-   through ``Dataplane(device="cpu")``, which takes the plain versions:
-   every StepResult field, every StepStats counter and the final session
-   / NAT state must be equal. The first forward vector's ACL verdicts
+   slots, ~4,000 routes, a 100-backend ClusterIP; the ``pallas`` rungs,
+   fast path off) runs forward vectors of 256 and 4,096 packets (the
+   bench traffic mix, 1/8 to the VIP), each followed by two reply
+   vectors through ``Dataplane.process``: the replies of the packets it
+   forwarded (established flows) and those of the packets it dropped
+   (fresh flows from the pods, which SNAT). The kernels' launch counters
+   are zeroed just before and read just after; each of the path's must
+   be > 0. The same staging and packets then run through
+   ``Dataplane(device="cpu")``, which takes the plain versions: every
+   StepResult field, every StepStats counter and the final session / NAT
+   state must be equal. DNAT, reverse NAT, SNAT, session hits and ACL
+   drops must each have fired. The first forward vector's ACL verdicts
    must equal the rule oracle (``ir.rule.rule_matches``) on its first
    packets;
-5. timing with CUDA events: ms per ``process`` step and Mpps at P = 256
-   and 4,096, and a ``torch.profiler`` window per size (device
-   operations, host syncs and idle share per step, host and device ms
-   per layer); each kernel at the main path's own inputs beside its
-   plain version and its bound.
+4b. the MXU path at the same width: ``classifier: mxu`` with the fast
+   path on (the two-tier dispatcher), driven with the same vectors.
+   ``mxu_first_match``, ``sess_probe_ways`` and ``lpm_fused_lookup``
+   must launch, ``bv_first_set`` must not; every reply to forwarded
+   packets must ride the fast tier (``stats.fastpath`` 1), every
+   forward vector and every reply to dropped packets the full chain
+   (0); the CPU replay must be bit-exact, and every result field and
+   the final state must equal phase 4's (the verdicts do not depend on
+   the classifier) but for ``stats.fastpath``;
+5. timing with CUDA events: ms per ``process`` step and Mpps (valid
+   packets per device second) at P = 256 and 4,096, and a
+   ``torch.profiler`` window per size (device operations, host syncs
+   and idle share per step, host and device ms per layer) — for phase
+   4's path on forward vectors alternating with the replies to all
+   their packets (0 host syncs per step) and, split by tier, for the
+   MXU path (fast tier on replies to forwarded packets, full chain on
+   forward vectors; 1 host sync per step, the dispatch flag); each
+   kernel at the main path's own inputs beside its plain version and
+   its bound (``mxu_first_match`` also beside a bare bf16
+   ``torch.matmul`` of its operands, ``matmul_ms``, a yardstick the
+   port never calls).
 
 Every comparison is between integers: the tolerance is exact equality.
 The line before the last is the kernels JSON object; the last line is
@@ -59,7 +81,13 @@ from vpp_tpu_torch.ir.rule import (  # noqa: E402
     Protocol,
     rule_matches,
 )
-from vpp_tpu_torch.ops import _cuda, acl_bv, lpm, session  # noqa: E402
+from vpp_tpu_torch.ops import (  # noqa: E402
+    _cuda,
+    acl_bv,
+    acl_mxu,
+    lpm,
+    session,
+)
 from vpp_tpu_torch.ops.acl import first_true  # noqa: E402
 from vpp_tpu_torch.pipeline.dataplane import Dataplane  # noqa: E402
 from vpp_tpu_torch.pipeline import graph  # noqa: E402
@@ -81,15 +109,17 @@ from vpp_tpu_torch.pipeline.vector import (  # noqa: E402
     u32,
 )
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, and the
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, the
 # non-tensor-core FP32 rate, used as the ceiling of the kernels' integer
 # compare / logic work (Hopper's INT32 lanes are no more than its FP32
-# lanes, so this bound is never above the true one).
+# lanes, so this bound is never above the true one), and the dense bf16
+# tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+TC_BF16_FLOPS = 989e12
 
 BIG_VEC = 4096
-ROUNDS = 4            # (forward, reply) rounds per size: 16 main-path steps
+ROUNDS = 4            # (forward, 2 replies) rounds per size: 24 main-path steps
 TIMED_STEPS = 30      # timed process steps (and eager calls) per size
 PROFILED_STEPS = 10   # profiled process steps per size
 VIP = "10.96.0.10"
@@ -106,10 +136,19 @@ KERNELS = {
     "lpm_fused_lookup": dict(
         source="vpp_tpu_torch/csrc/lpm_lookup.cu",
         replaces="vpp_tpu/ops/lpm.py:372"),
+    "mxu_first_match": dict(
+        source="vpp_tpu_torch/csrc/mxu_first_match.cu",
+        replaces="vpp_tpu/ops/acl_mxu.py:246"),
 }
 WRAPPERS = {"sess_probe_ways": session.sess_probe_ways,
             "bv_first_set": acl_bv.bv_first_set,
-            "lpm_fused_lookup": lpm.lpm_fused_lookup}
+            "lpm_fused_lookup": lpm.lpm_fused_lookup,
+            "mxu_first_match": acl_mxu.mxu_first_match}
+# the kernels each main path runs (phase 4: pallas rungs; 4b: mxu)
+PATH_KERNELS = {"pallas": ("sess_probe_ways", "bv_first_set",
+                           "lpm_fused_lookup"),
+                "mxu": ("sess_probe_ways", "mxu_first_match",
+                        "lpm_fused_lookup")}
 
 RESULT_FIELDS = ("disp", "tx_if", "node_id", "next_hop", "drop_cause",
                  "established", "dnat_applied", "snat_applied",
@@ -232,21 +271,27 @@ def forward_traffic(n: int, uplink: int, seed: int) -> dict:
                 rx_if=full(uplink), flags=full(FLAG_VALID))
 
 
-def reply_traffic(snap: dict, pods) -> dict:
+def reply_traffic(snap: dict, pods, to: str = "all") -> dict:
     """The reply of a processed forward vector: its post-NAT endpoints
     swapped, received on the pod interface that owns the reply's
-    source."""
+    source. ``to`` picks the packets that get a reply (the other slots
+    are invalid): ``forwarded`` (established flows, all of which hit a
+    session), ``dropped`` (fresh flows from the pods, which take the
+    full chain and SNAT) or ``all``."""
     src = snap["pkts.dst_ip"].view(np.uint32)
     n = src.shape[0]
     pod_ifs = np.asarray(pods, np.int32)
     full = lambda v: np.full(n, v, np.int32)  # noqa: E731
+    dropped = snap["disp"] == int(Disposition.DROP)
+    keep = {"all": np.ones(n, bool), "forwarded": ~dropped,
+            "dropped": dropped}[to]
     return dict(src_ip=src.copy(),
                 dst_ip=snap["pkts.src_ip"].view(np.uint32).copy(),
                 proto=full(6), sport=snap["pkts.dport"].copy(),
                 dport=snap["pkts.sport"].copy(), ttl=full(64),
                 pkt_len=full(512),
                 rx_if=pod_ifs[pod_of(src.astype(np.int64) & 0xFF)],
-                flags=full(FLAG_VALID))
+                flags=np.where(keep, FLAG_VALID, 0).astype(np.int32))
 
 
 def snapshot(res) -> dict:
@@ -265,21 +310,25 @@ def state_of(dp: Dataplane) -> dict:
 
 def drive(dp: Dataplane, up: int, pods, rounds: int, seed: int,
           sizes=(VEC, BIG_VEC), now0: int = 100):
-    """The main path: ``rounds`` x (forward, reply) at each size through
+    """The main path: ``rounds`` x (forward, reply to the forwarded
+    packets, reply to the dropped ones) at each size through
     ``dp.process``. Returns the input vectors (numpy) and the results."""
     inputs, snaps = [], []
     now = now0
+
+    def step(vec):
+        nonlocal now
+        res = dp.process(packet_vector_from_numpy(vec, dp.device), now=now)
+        inputs.append((vec, now))
+        snaps.append(snapshot(res))
+        now += 1
+        return snaps[-1]
+
     for r in range(rounds):
         for n in sizes:
-            vec = forward_traffic(n, up, seed + 7919 * r + n)
-            for _ in range(2):
-                res = dp.process(packet_vector_from_numpy(vec, dp.device),
-                                 now=now)
-                snap = snapshot(res)
-                inputs.append((vec, now))
-                snaps.append(snap)
-                now += 1
-                vec = reply_traffic(snap, pods)
+            first = step(forward_traffic(n, up, seed + 7919 * r + n))
+            for to in ("forwarded", "dropped"):
+                step(reply_traffic(first, pods, to))
     return inputs, snaps
 
 
@@ -413,6 +462,79 @@ def lpm_case(rng, p: int, lens, npad: int, dev):
             _t(pfx, dev), _t(slot, dev)]
 
 
+def _prefix_masks(lens: np.ndarray) -> np.ndarray:
+    return np.where(lens == 0, 0, (0xFFFFFFFF << (32 - lens)) & 0xFFFFFFFF
+                    ).astype(np.uint64)
+
+
+def mxu_case(rng, p: int, r: int, dev, kind: str = "random"):
+    """(bits, coeff_t, k) of ``r`` rules compiled by the port's
+    ``compile_bitplanes`` and cut to R' = r columns, and ``p`` packets,
+    half of them drawn from the rules so that matches happen.
+    ``random``: prefixes /0../32, proto any/TCP/UDP, exact or any ports.
+    ``miss``: TCP-only rules, UDP packets. ``multi``: nested dst
+    prefixes of one /8, each exact on one of 64 ports, so every packet
+    matches about R'/64 rules and the lowest must win."""
+    u = lambda a: a.astype(np.uint32)  # noqa: E731
+    src_len = rng.integers(0, 33, r)
+    dst_len = rng.integers(0, 33, r)
+    proto = rng.choice([-1, 6, 17], r).astype(np.int32)
+    dport = np.where(rng.random(r) < 0.7, rng.integers(0, 65536, r), -1)
+    sport = np.where(rng.random(r) < 0.2, rng.integers(0, 65536, r), -1)
+    base = rng.integers(0, 1 << 32, r, dtype=np.uint64)
+    if kind == "miss":
+        proto[:] = 6
+    if kind == "multi":
+        src_len[:] = 0
+        dst_len = rng.integers(0, 9, r)
+        base[:] = 0x0A000000
+        proto[:] = -1
+        sport[:] = -1
+        dport = rng.integers(1, 65, r)
+    packed = dict(
+        src_net=u(base & _prefix_masks(src_len)),
+        src_mask=u(_prefix_masks(src_len)),
+        dst_net=u(base & _prefix_masks(dst_len)),
+        dst_mask=u(_prefix_masks(dst_len)), proto=proto,
+        sport_lo=np.where(sport < 0, 0, sport).astype(np.int32),
+        sport_hi=np.where(sport < 0, 65535, sport).astype(np.int32),
+        dport_lo=np.where(dport < 0, 0, dport).astype(np.int32),
+        dport_hi=np.where(dport < 0, 65535, dport).astype(np.int32),
+        action=rng.integers(0, 2, r).astype(np.int32))
+    table = acl_mxu.compile_bitplanes(packed, r)
+    cols = dict(src_ip=rng.integers(0, 1 << 32, p, dtype=np.uint64),
+                dst_ip=rng.integers(0, 1 << 32, p, dtype=np.uint64),
+                proto=rng.choice([1, 6, 17], p).astype(np.int32),
+                sport=rng.integers(0, 65536, p).astype(np.int32),
+                dport=rng.integers(0, 65536, p).astype(np.int32))
+    drawn = np.arange(p) % 2 == 0
+    j = rng.integers(0, r, p)
+    for f, net, mask in (("src_ip", "src_net", "src_mask"),
+                         ("dst_ip", "dst_net", "dst_mask")):
+        m = packed[mask][j].astype(np.uint64)
+        inside = packed[net][j].astype(np.uint64) | (cols[f] & ~m
+                                                    & 0xFFFFFFFF)
+        cols[f] = u(np.where(drawn, inside, cols[f]))
+    cols["proto"] = np.where(drawn & (proto[j] >= 0), proto[j],
+                             cols["proto"]).astype(np.int32)
+    for f, ports in (("sport", sport), ("dport", dport)):
+        cols[f] = np.where(drawn & (ports[j] >= 0), ports[j],
+                           cols[f]).astype(np.int32)
+    if kind == "miss":
+        cols["proto"][:] = 17
+    if kind == "multi":
+        cols["dst_ip"] = u(0x0A000000 | rng.integers(0, 1 << 16, p))
+        cols["dport"] = rng.integers(1, 65, p).astype(np.int32)
+    full = lambda v: np.full(p, v, np.int32)  # noqa: E731
+    pkts = packet_vector_from_numpy(dict(
+        cols, ttl=full(64), pkt_len=full(64), rx_if=full(0),
+        flags=full(FLAG_VALID)), dev)
+    op = acl_mxu.mxu_operand({"glb_mxu_coeff": torch.from_numpy(
+        np.ascontiguousarray(table.coeff[:, :r])).to(dev)})
+    return (acl_mxu.packet_bit_planes(pkts), op["glb_mxu_coeff_t"],
+            torch.from_numpy(table.k[:r].copy()).to(dev))
+
+
 def check_kernels(dev, errors: Errors, seed: int, n_rules: int,
                   sess_buckets: int, npad: int) -> None:
     """Phase 3: each kernel against its plain version, edge shapes and
@@ -456,6 +578,25 @@ def check_kernels(dev, errors: Errors, seed: int, n_rules: int,
                     f"P={p} L={len(lens)} Npad={npad_}")
         say(f"check lpm_fused_lookup P={p} L={len(lens)} Npad={npad_}: "
             f"exact, {int(want[0].sum())} found")
+    r_cap = acl_mxu.mxu_rule_capacity(n_rules)
+    for p, r, kind in ((1, 1, "random"), (7, 8, "random"),
+                       (70, 100, "random"), (255, 1023, "random"),
+                       (VEC, 1024, "random"), (VEC, 1025, "random"),
+                       (VEC, r_cap, "random"), (BIG_VEC, r_cap, "random"),
+                       (VEC, r_cap, "miss"), (VEC, 1025, "multi"),
+                       (BIG_VEC, r_cap, "multi")):
+        args = mxu_case(rng, p, r, dev, kind)
+        got = acl_mxu.mxu_first_match(*args)
+        want = acl_mxu.mxu_first_match_plain(*args)
+        sync()
+        errors.hold("mxu_first_match", (got,), (want,),
+                    f"P={p} R'={r} {kind}")
+        hits = int((want != int(acl_mxu.ENC_MISS)).sum())
+        if (hits == 0) != (kind == "miss"):
+            raise AssertionError(f"mxu_first_match case P={p} R'={r} "
+                                 f"{kind}: {hits} matched")
+        say(f"check mxu_first_match P={p} R'={r} {kind}: exact, {hits} "
+            f"matched, {torch.unique(want).numel()} distinct columns")
 
 
 # --- the kernels' inputs on the main path, and their bounds -------------
@@ -478,12 +619,22 @@ def main_path_inputs(dp: Dataplane, fwd: dict, rep: dict, now: int):
     return dict(sess=sess, glb=glb, loc=(loc, tl), fib=fib)
 
 
-def bound(nbytes: float, ops: float):
-    """(ms, what bounds it): the larger of bytes over HBM bandwidth and
-    operations over the ALU peak."""
+def bound(nbytes: float, ops: float, tc_flops: float = 0.0):
+    """(ms, what bounds it): the largest of bytes over HBM bandwidth,
+    ALU operations over the ALU peak and bf16 tensor-core FLOP over the
+    tensor-core peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ALU_OPS_PER_S * 1e3
+    t_ops = max(ops / ALU_OPS_PER_S, tc_flops / TC_BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mxu_bound(bits, coeff_t, k):
+    """Bits, coefficients and k in, the encodes out; 2 * P * 128 * R'
+    tensor-core FLOP and ~3 ALU operations per (packet, rule) in the
+    epilogue (add k, compare, min)."""
+    p, r = bits.shape[0], coeff_t.shape[0]
+    nbytes = p * acl_mxu.PLANES * 2 + r * acl_mxu.PLANES * 2 + r * 4 + p * 4
+    return bound(nbytes, 3.0 * p * r, 2.0 * p * acl_mxu.PLANES * r)
 
 
 def sess_bound(args):
@@ -576,17 +727,13 @@ def time_graph(fn, per_graph: int = 20, replays: int = 10) -> float:
     return a.elapsed_time(b) / (replays * per_graph)
 
 
-def time_steps(dp: Dataplane, up: int, pods, n: int, steps: int,
-               seed: int, now: int):
-    """Median device ms per ``process`` step (CUDA events around each
-    call) and median host wall ms per synchronised step, over
-    alternating forward / reply vectors of ``n`` packets."""
-    fwd = forward_traffic(n, up, seed)
-    first = dp.process(packet_vector_from_numpy(fwd, dp.device), now=now)
-    rep = reply_traffic(snapshot(first), pods)
-    vecs = [packet_vector_from_numpy(v, dp.device) for v in (fwd, rep)]
+def time_process(dp: Dataplane, vecs, steps: int, now: int, tier=None):
+    """Median device ms (CUDA events around each call) and median host
+    wall ms per synchronised ``process`` step, cycling through ``vecs``;
+    with ``tier``, every timed step must ride it (1: the fast tier, 0:
+    the full chain)."""
     for k in range(4):
-        dp.process(vecs[k % 2], now=now)
+        dp.process(vecs[k % len(vecs)], now=now)
     torch.cuda.synchronize()
     dev_ms, wall_ms = [], []
     for k in range(steps):
@@ -594,21 +741,37 @@ def time_steps(dp: Dataplane, up: int, pods, n: int, steps: int,
         b = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         a.record()
-        dp.process(vecs[k % 2], now=now + 1 + k)
+        res = dp.process(vecs[k % len(vecs)], now=now + 1 + k)
         b.record()
         torch.cuda.synchronize()
         wall_ms.append((time.perf_counter() - t0) * 1e3)
         dev_ms.append(a.elapsed_time(b))
-    return float(np.median(dev_ms)), float(np.median(wall_ms)), fwd, rep
+        if tier is not None and int(res.stats.fastpath) != tier:
+            raise AssertionError(f"a timed step left tier {tier}")
+    return float(np.median(dev_ms)), float(np.median(wall_ms))
+
+
+def time_steps(dp: Dataplane, up: int, pods, n: int, steps: int,
+               seed: int, now: int):
+    """``time_process`` over a forward vector of ``n`` packets
+    alternating with the replies to all its packets; also returns the
+    two vectors (numpy)."""
+    fwd = forward_traffic(n, up, seed)
+    first = dp.process(packet_vector_from_numpy(fwd, dp.device), now=now)
+    rep = reply_traffic(snapshot(first), pods)
+    vecs = [packet_vector_from_numpy(v, dp.device) for v in (fwd, rep)]
+    return (*time_process(dp, vecs, steps, now), fwd, rep)
 
 
 # the step's layers, as the functions pipeline_step calls
 STAGES = ((graph, ("_ingress", "session_lookup_reverse_idx",
+                   "session_batch_summary", "nat44_dnat_match",
                    "session_touch", "nat44_reverse", "nat44_touch",
                    "nat44_dnat", "nat44_snat", "session_insert",
-                   "nat44_record", "_finish_step")),
+                   "nat44_record", "_finish_step", "acl_classify_local")),
           (acl_bv, ("acl_classify_global_pallas",
                     "acl_classify_local_pallas")),
+          (acl_mxu, ("acl_classify_global_mxu",)),
           (lpm, ("fib_lookup_lpm_fused",)))
 
 
@@ -684,6 +847,56 @@ def profile_steps(dp: Dataplane, vecs, steps: int, now: int) -> dict:
                       for e in ops})
 
 
+def run_path(cfg: DataplaneConfig, path: str, n_rules: int, n_nodes: int,
+             seed: int):
+    """Stage ``cfg`` on the card, drive the main path with every launch
+    counter set to 0 just before and read just after (each kernel of
+    ``path`` must have launched, no other), then replay the same steps
+    on the CPU: every result field, counter and the final state must be
+    equal. Returns (dp, uplink, pods, inputs, snapshots, launches)."""
+    t0 = time.perf_counter()
+    gpu = Dataplane(cfg)
+    up, pods = stage(gpu, n_rules, n_nodes)
+    rungs = (gpu.classifier_impl, gpu.fib_impl, gpu.session_impl)
+    say(f"staged {path}: {n_rules} global rules, {N_PODS} pods on "
+        f"{cfg.max_rules}-rule local tables, "
+        f"{gpu.builder.fib_route_count()} routes, {cfg.sess_slots} "
+        f"session slots, VIP with {N_BACKENDS} backends in "
+        f"{time.perf_counter() - t0:.1f} s; rungs {'/'.join(rungs)}, "
+        f"fast path {'on' if gpu._use_fastpath else 'off'}")
+    if rungs != (path, "pallas", "pallas"):
+        raise AssertionError(f"rungs {rungs} selected for the {path} path")
+    if tuple(gpu.tables.fib_lpm_stk_pfx.shape) != (33, cfg.fib_slots):
+        raise AssertionError("unexpected LPM stack shape "
+                             f"{tuple(gpu.tables.fib_lpm_stk_pfx.shape)}")
+    for w in WRAPPERS.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inputs, snaps = drive(gpu, up, pods, ROUNDS, seed)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    say(f"main path {path}: {len(inputs)} process steps on the card in "
+        f"{time.perf_counter() - t0:.2f} s; launches {launches}")
+    if any((launches[k] > 0) != (k in PATH_KERNELS[path])
+           for k in WRAPPERS):
+        raise AssertionError(f"the {path} path launched {launches}, "
+                             f"expected exactly {PATH_KERNELS[path]}")
+
+    t0 = time.perf_counter()
+    cpu = Dataplane(cfg, device="cpu")
+    stage(cpu, n_rules, n_nodes)
+    csnaps = replay(cpu, inputs)
+    for k, (g, c) in enumerate(zip(snaps, csnaps)):
+        assert_equal(c, g, f"{path} step {k}")
+    assert_equal(state_of(cpu), state_of(gpu), f"{path} final state")
+    say(f"reference {path}: the same {len(inputs)} steps on the CPU "
+        f"(plain versions, rungs {cpu.classifier_impl}/{cpu.fib_impl}/"
+        f"{cpu.session_impl}) in {time.perf_counter() - t0:.1f} s; every "
+        f"result field, counter and the session/NAT state bit-exact")
+    return gpu, up, pods, inputs, snaps, launches
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -714,7 +927,8 @@ def main(argv=None) -> int:
     # 2. build
     t0 = time.perf_counter()
     built = _cuda.build_all()
-    for name in ("sess_probe", "bv_first_set", "lpm_lookup"):
+    for name in ("sess_probe", "bv_first_set", "lpm_lookup",
+                 "mxu_first_match"):
         _cuda.library(name)
     say(f"build: {len(list(_cuda.CSRC.glob('*.cu')))} kernels, nvcc "
         f"{built:.2f} s, loaded in {time.perf_counter() - t0:.2f} s")
@@ -727,50 +941,16 @@ def main(argv=None) -> int:
                   sess_slots // cfg.sess_ways, cfg.fib_slots)
 
     # 4. the main path on the card, then the same on the CPU
-    t0 = time.perf_counter()
-    gpu = Dataplane(cfg)
-    up, pods = stage(gpu, n_rules, n_nodes)
-    routes = gpu.builder.fib_route_count()
-    say(f"staged: {n_rules} global rules, {N_PODS} pods on "
-        f"{cfg.max_rules}-rule local tables, {routes} routes, "
-        f"{sess_slots} session slots, VIP with {N_BACKENDS} backends "
-        f"in {time.perf_counter() - t0:.1f} s; rungs "
-        f"{gpu.classifier_impl}/{gpu.fib_impl}/{gpu.session_impl}")
-    if (gpu.classifier_impl, gpu.fib_impl, gpu.session_impl) != (
-            "pallas", "pallas", "pallas"):
-        raise AssertionError("the fused-kernel rungs were not selected")
-    if tuple(gpu.tables.fib_lpm_stk_pfx.shape) != (33, cfg.fib_slots):
-        raise AssertionError("unexpected LPM stack shape "
-                             f"{tuple(gpu.tables.fib_lpm_stk_pfx.shape)}")
-    for w in WRAPPERS.values():
-        w.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    inputs, gsnaps = drive(gpu, up, pods, ROUNDS, args.seed + 1)
-    torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in WRAPPERS.items()}
-    say(f"main path: {len(inputs)} process steps on the card in "
-        f"{time.perf_counter() - t0:.2f} s; launches {launches}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel never launched: {launches}")
+    gpu, up, pods, inputs, gsnaps, launches = run_path(
+        cfg, "pallas", n_rules, n_nodes, args.seed + 1)
     gstate = state_of(gpu)
-
-    t0 = time.perf_counter()
-    cpu = Dataplane(cfg, device="cpu")
-    stage(cpu, n_rules, n_nodes)
-    csnaps = replay(cpu, inputs)
-    for k, (g, c) in enumerate(zip(gsnaps, csnaps)):
-        assert_equal(c, g, f"step {k}")
-    assert_equal(state_of(cpu), gstate, "final state")
-    say(f"reference: the same {len(inputs)} steps on the CPU (plain "
-        f"versions) in {time.perf_counter() - t0:.1f} s; every result "
-        f"field, counter and the session/NAT state bit-exact")
     totals = {f: int(sum(int(s[f"stats.{f}"].sum()) for s in gsnaps))
               for f in ("rx", "tx", "drop_acl", "sess_hits", "dnat",
                         "nat_reversed", "snat", "drop_no_route")}
     totals["sess_occupancy"] = int(gsnaps[-1]["stats.sess_occupancy"])
     say(f"main path totals: {totals}")
-    for f in ("tx", "drop_acl", "sess_hits", "dnat", "nat_reversed"):
+    for f in ("tx", "drop_acl", "sess_hits", "dnat", "nat_reversed",
+              "snat"):
         if totals[f] <= 0:
             raise AssertionError(f"the traffic mix never fired {f}")
     for s, (vec, _) in zip(gsnaps, inputs):
@@ -779,6 +959,27 @@ def main(argv=None) -> int:
     denied = oracle_check(global_rules(n_rules), gsnaps[0], 64)
     say(f"oracle: first 64 packets' global ACL verdicts equal the rule "
         f"oracle ({denied} denied)")
+
+    # 4b. the MXU path: classifier mxu, the two-tier dispatcher on
+    mcfg = cfg._replace(classifier="mxu", fastpath=True)
+    gpu_m, up_m, pods_m, m_inputs, msnaps, m_launches = run_path(
+        mcfg, "mxu", n_rules, n_nodes, args.seed + 1)
+    if not gpu_m._use_fastpath or (up_m, pods_m) != (up, pods):
+        raise AssertionError("the MXU path did not engage the fast path")
+    tiers = [int(s["stats.fastpath"]) for s in msnaps]
+    if tiers != [int(k % 3 == 1) for k in range(len(msnaps))]:
+        raise AssertionError(f"tiers per step {tiers}: every reply to "
+                             f"forwarded packets must ride the fast "
+                             f"tier, every forward step and every reply "
+                             f"to dropped packets the full chain")
+    for k, (g, m) in enumerate(zip(gsnaps, msnaps)):
+        assert_equal(inputs[k][0], m_inputs[k][0], f"input {k}")
+        assert_equal({f: v for f, v in g.items() if f != "stats.fastpath"},
+                     m, f"mxu vs pallas step {k}")
+    assert_equal(gstate, state_of(gpu_m), "mxu vs pallas final state")
+    say(f"mxu path: tiers per step {tiers}; every result field, counter "
+        f"(but stats.fastpath) and the final state equal the pallas "
+        f"path's")
 
     # 5. timing
     say(f"timing on {smi}")
@@ -791,22 +992,54 @@ def main(argv=None) -> int:
                                                now)
         now += TIMED_STEPS + 10
         feeds[n] = (fwd, rep)
-        steps[n] = dict(ms=dev_ms, wall_ms=wall_ms,
-                        mpps=n / (dev_ms * 1e3))
-        say(f"process step P={n}: {dev_ms:.4f} ms on the device "
-            f"(CUDA events), {wall_ms:.4f} ms wall synchronised, "
-            f"{steps[n]['mpps']:.4f} Mpps")
+        # valid packets per timed step (the steps alternate the two)
+        valid = sum(int(np.count_nonzero(v["flags"])) for v in feeds[n]) / 2
+        steps[n] = dict(ms=dev_ms, wall_ms=wall_ms, valid=valid,
+                        mpps=valid / (dev_ms * 1e3))
+        say(f"process step P={n} ({valid:g} valid): {dev_ms:.4f} ms on "
+            f"the device (CUDA events), {wall_ms:.4f} ms wall "
+            f"synchronised, {steps[n]['mpps']:.4f} Mpps")
         vecs = [packet_vector_from_numpy(v, dev) for v in (fwd, rep)]
         prof = profile_steps(gpu, vecs, PROFILED_STEPS, now)
         now += PROFILED_STEPS + 10
         steps[n]["profile"] = prof
         say(f"profile P={n}: {json.dumps(prof)}")
+        if prof["host_syncs_per_step"] != 0:
+            raise AssertionError("the full chain synchronised with the "
+                                 "host")
+    mxu_steps = {}
+    for n in (VEC, BIG_VEC):
+        fwd = feeds[n][0]
+        first = gpu_m.process(packet_vector_from_numpy(fwd, dev), now=now)
+        rep = reply_traffic(snapshot(first), pods, "forwarded")
+        for tier, cols, fast in (("full", fwd, 0), ("fast", rep, 1)):
+            v = packet_vector_from_numpy(cols, dev)
+            dev_ms, wall_ms = time_process(gpu_m, [v], TIMED_STEPS, now + 1,
+                                           tier=fast)
+            now += TIMED_STEPS + 10
+            prof = profile_steps(gpu_m, [v, v], PROFILED_STEPS, now)
+            now += PROFILED_STEPS + 10
+            if prof["host_syncs_per_step"] != 1:
+                raise AssertionError(f"the auto path's {tier} steps made "
+                                     f"{prof['host_syncs_per_step']} host "
+                                     f"syncs per step, not 1")
+            valid = int(np.count_nonzero(cols["flags"]))
+            mxu_steps[f"{tier} P={n}"] = dict(
+                ms=dev_ms, wall_ms=wall_ms, valid=valid,
+                mpps=valid / (dev_ms * 1e3), profile=prof)
+            say(f"mxu {tier} step P={n} ({valid} valid): {dev_ms:.4f} ms "
+                f"on the device (CUDA events), {wall_ms:.4f} ms wall "
+                f"synchronised, {valid / (dev_ms * 1e3):.4f} Mpps")
+            say(f"profile mxu {tier} P={n}: {json.dumps(prof)}")
 
     rows = []
     timed = {}
     for n in (VEC, BIG_VEC):
         inp = main_path_inputs(gpu, *feeds[n], now)
         loc, tl = inp["loc"]
+        mx = (acl_mxu.packet_bit_planes(packet_vector_from_numpy(
+            feeds[n][0], dev)), gpu_m.tables.glb_mxu_coeff_t,
+              gpu_m.tables.glb_mxu_k)
         cases = {
             "sess_probe_ways": (
                 lambda a=inp["sess"]: session.sess_probe_ways(*a),
@@ -824,6 +1057,10 @@ def main(argv=None) -> int:
                 lambda a=inp["fib"]: lpm.lpm_fused_lookup(*a),
                 lambda a=inp["fib"]: lpm.lpm_fused_lookup_plain(*a),
                 lpm_bound(*inp["fib"])),
+            "mxu_first_match": (
+                lambda a=mx: acl_mxu.mxu_first_match(*a),
+                lambda a=mx: acl_mxu.mxu_first_match_plain(*a),
+                mxu_bound(*mx)),
         }
         for name, (kern, plain, (b_ms, b_by)) in cases.items():
             base = name.split(".")[0]
@@ -840,11 +1077,18 @@ def main(argv=None) -> int:
             say(f"kernel {name} P={n}: {k_ms:.5f} ms (graph replay), "
                 f"{k_eager:.5f} ms per eager call, plain {p_ms:.5f} ms, "
                 f"bound {b_ms:.6f} ms ({b_by}), bit-exact")
+        # the yardstick: a bare bf16 product of the same operands (no
+        # epilogue; the port never calls it)
+        mm = time_graph(lambda a=mx: torch.matmul(a[0], a[1].t()))
+        timed[("mxu_first_match", n)]["matmul_ms"] = mm
+        say(f"yardstick torch.matmul bf16 [{n}, 128] x [128, "
+            f"{mx[1].shape[0]}] P={n}: {mm:.5f} ms (graph replay)")
 
     for name, meta in KERNELS.items():
         main = timed[(name, VEC)]
+        on_path = launches if name in PATH_KERNELS["pallas"] else m_launches
         row = dict(name=name, route="cuda", source=meta["source"],
-                   replaces=meta["replaces"], launches=launches[name],
+                   replaces=meta["replaces"], launches=on_path[name],
                    max_abs_err=errors.max[name], ms=main["ms"],
                    plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                    bound_by=main["bound_by"], library_ms=None,
@@ -853,9 +1097,13 @@ def main(argv=None) -> int:
         if name == "bv_first_set":
             row["local"] = {f"P={n}": timed[("bv_first_set.local", n)]
                             for n in (VEC, BIG_VEC)}
+        if name == "mxu_first_match":
+            row["matmul_ms"] = main["matmul_ms"]
+        else:
+            row["launches_mxu_path"] = m_launches[name]
         rows.append(row)
     say(json.dumps({"steps": {f"P={n}": v for n, v in steps.items()},
-                    "power": smi}))
+                    "mxu_steps": mxu_steps, "power": smi}))
     say(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     say(smi)
     say(json.dumps({"kernels": rows}))

@@ -9,21 +9,26 @@
   raise instead of running on the CPU.
 * On CPU tensors every kernel wrapper serves through its plain version:
   a CPU run of the fused-kernel rungs leaves each launch counter at 0.
-* Knobs that turn on a stage the port has not ported raise.
+* Knobs that turn on a stage the port has not ported raise, and each
+  refusal names the ``ROADMAP.md`` Queue 1 item, number and title, that
+  ports it.
 
 Every quantity compared is an integer: the tolerance is exact equality.
 """
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
 import torch
 
 from vpp_tpu_torch.ops import acl_bv as tbv
+from vpp_tpu_torch.ops import acl_mxu as tmxu
 from vpp_tpu_torch.ops import lpm as tlpm
 from vpp_tpu_torch.ops import session as tsess
 from vpp_tpu_torch.pipeline import dataplane as tdp
+from vpp_tpu_torch.pipeline import graph as tgraph
 from vpp_tpu_torch.pipeline import tables as ttables
 from vpp_tpu_torch.pipeline import vector as tvector
 
@@ -56,7 +61,7 @@ def imported_modules(path: Path):
 def test_scan_sees_the_whole_package():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "dataplane.py", "session.py", "acl_bv.py",
-            "lpm.py", "_cuda.py", "interop.py"} <= names
+            "acl_mxu.py", "lpm.py", "_cuda.py", "interop.py"} <= names
     assert all(p.exists() for p in PORT_FILES)
 
 
@@ -93,19 +98,81 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("fastpath", True), ("ml_stage", "enforce"), ("telemetry", "latency"),
-    ("tenancy", "on"), ("overlay", "vxlan"), ("svc_vips", 4),
-    ("fib_ecmp_groups", 2), ("classifier", "mxu")])
+    ("ml_stage", "enforce"), ("telemetry", "latency"), ("tenancy", "on"),
+    ("overlay", "vxlan"), ("svc_vips", 4), ("fib_ecmp_groups", 2)])
 def test_unported_stages_refuse(knob, value):
     cfg = ttables.DataplaneConfig(**dict(_SMALL, **{knob: value}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdp.Dataplane(cfg, device="cpu")
 
 
+def _queue1_titles():
+    """ROADMAP.md Queue 1 as {item number: bold title}."""
+    text = (ROOT / "ROADMAP.md").read_text()
+    start = text.index("### Queue 1")
+    section = text[start:text.index("\n### ", start + 1)]
+    return {int(n): t.rstrip(".:") for n, t in
+            re.findall(r"^(\d+)\. \*\*(.+?)\*\*", section, re.M)}
+
+
+def _refusal(kind, arg):
+    """The NotImplementedError message of one remaining refusal."""
+    with pytest.raises(NotImplementedError) as err:
+        if kind == "config":
+            knob, value = arg
+            tdp.Dataplane(ttables.DataplaneConfig(**dict(
+                _SMALL, **{knob: value})), device="cpu")
+        elif kind == "gate":
+            tgraph.make_pipeline_step(**{arg: "on"})
+        else:
+            tsess._refuse(**arg)
+    return str(err.value)
+
+
+_REFUSALS = {
+    "ml_stage": ("config", ("ml_stage", "enforce")),
+    "telemetry": ("config", ("telemetry", "full")),
+    "tenancy": ("config", ("tenancy", "on")),
+    "overlay": ("config", ("overlay", "vxlan")),
+    "svc_vips": ("config", ("svc_vips", 4)),
+    "fib_ecmp_groups": ("config", ("fib_ecmp_groups", 2)),
+    "gate-ml_mode": ("gate", "ml_mode"),
+    "gate-tel_mode": ("gate", "tel_mode"),
+    "gate-tnt_mode": ("gate", "tnt_mode"),
+    "gate-overlay": ("gate", "overlay"),
+    "session-shard": ("session", dict(shard=True)),
+    "session-tnt": ("session", dict(tnt=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_REFUSALS))
+def test_refusals_name_their_roadmap_item(case):
+    """Every remaining refusal cites ``Queue 1 item N (Title)`` and
+    ROADMAP.md's Queue 1 lists item N under that title."""
+    msg = _refusal(*_REFUSALS[case])
+    cited = re.findall(r"item (\d+) \(([^)]+)\)", msg)
+    assert cited, msg
+    titles = _queue1_titles()
+    for n, title in cited:
+        assert titles.get(int(n)) == title, (msg, titles)
+
+
+def test_default_config_constructs():
+    """The reference's defaults (``fastpath=True``, ``classifier:
+    auto``) and the MXU knob construct and engage the fast path; on an
+    empty table ``auto`` stays dense and ``mxu`` is eligible."""
+    for knob, impl in (("auto", "dense"), ("mxu", "mxu")):
+        dp = tdp.Dataplane(ttables.DataplaneConfig(classifier=knob),
+                           device="cpu")
+        assert dp._use_fastpath
+        assert dp.classifier_impl == impl
+
+
 def test_cpu_runs_never_launch_a_kernel():
     """The fused-kernel rungs on CPU tensors take the plain versions."""
-    before = (tsess.sess_probe_ways.launches, tbv.bv_first_set.launches,
-              tlpm.lpm_fused_lookup.launches)
+    wrappers = (tsess.sess_probe_ways, tbv.bv_first_set,
+                tlpm.lpm_fused_lookup, tmxu.mxu_first_match)
+    before = tuple(w.launches for w in wrappers)
     cfg = ttables.DataplaneConfig(**dict(
         _SMALL, classifier="pallas", fib_impl="pallas",
         session_impl="pallas"))
@@ -131,9 +198,10 @@ def test_cpu_runs_never_launch_a_kernel():
     z = torch.zeros(8, dtype=torch.int32)
     tbv.bv_first_set(t.glb_bv_src, t.glb_bv_dst, t.glb_bv_sport,
                      t.glb_bv_dport, t.glb_bv_proto, z, z, z, z, z)
-    after = (tsess.sess_probe_ways.launches, tbv.bv_first_set.launches,
-             tlpm.lpm_fused_lookup.launches)
-    assert after == before == (0, 0, 0)
+    tmxu.mxu_first_match(tmxu.packet_bit_planes(pkts), t.glb_mxu_coeff_t,
+                         t.glb_mxu_k)
+    after = tuple(w.launches for w in wrappers)
+    assert after == before == (0, 0, 0, 0)
 
 
 def test_kernel_argument_checks_refuse_what_the_kernels_do_not_take():
@@ -152,4 +220,5 @@ def test_kernel_argument_checks_refuse_what_the_kernels_do_not_take():
     # the source digest covers every kernel source and the flags
     assert len(_cuda._digest()) == 16
     assert {p.name for p in _cuda._sources()} == {
-        "sess_probe.cu", "bv_first_set.cu", "lpm_lookup.cu"}
+        "sess_probe.cu", "bv_first_set.cu", "lpm_lookup.cu",
+        "mxu_first_match.cu"}

@@ -9,13 +9,16 @@ go through several ``process`` steps at explicit clocks. After every
 step every ``StepResult`` field, every ``StepStats`` counter and the
 session, NAT and ECMP state columns must agree.
 
-Two rung sets: the reference rungs (``dense`` classifier, ``lpm`` FIB,
-``gather`` session probe) on both sides, and the fused-kernel rungs
-(``pallas`` everywhere). On the CPU the JAX ladders resolve ``pallas``
-to the jnp rungs; the port's Dataplane is made to select its
-``pallas`` rungs anyway, whose wrappers then take their plain versions
-because the tensors lie on the CPU (the launch counters stay 0). Every
-quantity is an integer: the tolerance is exact equality.
+Four rung sets: the reference rungs (``dense`` classifier, ``lpm`` FIB,
+``gather`` session probe) on both sides; the fused-kernel rungs
+(``pallas`` everywhere); the ``mxu`` classifier with the fast path on;
+and the fused-kernel rungs with the fast path on (``fastpath``). On the
+CPU the JAX ladders resolve ``pallas`` to the jnp rungs; the port's
+Dataplane is made to select its ``pallas`` rungs anyway, whose wrappers
+then take their plain versions because the tensors lie on the CPU (the
+launch counters stay 0). With the fast path on, ``stats.fastpath`` is
+compared too: both packages must pick the same tier at every step.
+Every quantity is an integer: the tolerance is exact equality.
 """
 
 import ipaddress
@@ -31,6 +34,7 @@ from vpp_tpu.pipeline import tables as jtables
 from vpp_tpu.pipeline import vector as jvector
 from vpp_tpu_torch.ir import rule as trule
 from vpp_tpu_torch.ops import acl_bv as tbv
+from vpp_tpu_torch.ops import acl_mxu as tmxu
 from vpp_tpu_torch.ops import lpm as tlpm
 from vpp_tpu_torch.ops import session as tsess
 from vpp_tpu_torch.pipeline import dataplane as tdp
@@ -54,7 +58,13 @@ RUNGS = {
                       session_impl="gather"),
     "kernel": dict(classifier="pallas", fib_impl="pallas",
                    session_impl="pallas"),
+    "mxu": dict(classifier="mxu", fib_impl="lpm", session_impl="gather",
+                fastpath=True),
+    "fastpath": dict(classifier="pallas", fib_impl="pallas",
+                     session_impl="pallas", fastpath=True),
 }
+# rung sets whose port Dataplane is forced onto its kernel rungs
+_FORCED = ("kernel", "fastpath")
 _STATE = tuple(ttables.SESSION_FIELDS) + ("fib_ecmp_c",)
 
 
@@ -93,26 +103,30 @@ class Pair:
     def __init__(self, rungs: str):
         kw = dict(_SMALL, **RUNGS[rungs])
         self.j = jdp.Dataplane(jtables.DataplaneConfig(**kw))
-        cls = _KernelRungs if rungs == "kernel" else tdp.Dataplane
+        cls = _KernelRungs if rungs in _FORCED else tdp.Dataplane
         self.t = cls(ttables.DataplaneConfig(**kw), device="cpu")
         self.rungs = rungs
+        self.fast_steps = 0
 
     def stage(self, fn):
         fn(self.j, JAX)
         fn(self.t, TORCH)
         self.j.swap()
         self.t.swap()
-        if self.rungs == "kernel":
+        if self.rungs in _FORCED:
             assert (self.t.classifier_impl, self.t.fib_impl,
                     self.t.session_impl) == ("pallas", "pallas", "pallas")
         else:
+            assert self.t.classifier_impl == self.j.classifier_impl
             assert self.t.fib_impl == self.j.fib_impl
             assert self.t.session_impl == self.j.session_impl
+        assert self.t._use_fastpath == self.j._use_fastpath
 
     def step(self, specs, now):
         jr = self.j.process(JAX.make(specs), now=now)
         tr = self.t.process(TORCH.make(specs), now=now)
         _assert_results(jr, tr)
+        self.fast_steps += int(tr.stats.fastpath)
         return jr
 
 
@@ -336,18 +350,28 @@ def sc_snat_reverse(pair):
     assert int(r2.stats.nat_reversed) == 20
 
 
-SCENARIOS = [sc_forwarding_ttl, sc_longest_prefix, sc_fib_miss,
-             sc_acl_enforcement, sc_reflective_and_expiry, sc_dnat_reverse,
+# A scenario with local tables runs first: the reference Dataplane then
+# reuses its (always-correct) non-skip step variant for the policy-free
+# scenarios instead of compiling a second program per rung set.
+SCENARIOS = [sc_acl_enforcement, sc_forwarding_ttl, sc_longest_prefix,
+             sc_fib_miss, sc_reflective_and_expiry, sc_dnat_reverse,
              sc_nat_balance, sc_many_flows, sc_unconfigured_interface,
              sc_snat_reverse]
 
 
-@pytest.mark.parametrize("rungs", ["reference", "kernel"])
+@pytest.mark.parametrize("rungs", sorted(RUNGS))
 @pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda f: f.__name__)
 def test_process_matches_reference(scenario, rungs):
-    scenario(Pair(rungs))
+    pair = Pair(rungs)
+    scenario(pair)
+    # the reply steps of these scenarios ride the fast tier when it is on
+    # (an all-dropped batch rides it vacuously)
+    fast = RUNGS[rungs].get("fastpath", False) and scenario in (
+        sc_dnat_reverse, sc_unconfigured_interface, sc_snat_reverse)
+    assert (pair.fast_steps > 0) == bool(fast), pair.fast_steps
     assert (tsess.sess_probe_ways.launches, tbv.bv_first_set.launches,
-            tlpm.lpm_fused_lookup.launches) == (0, 0, 0)
+            tlpm.lpm_fused_lookup.launches,
+            tmxu.mxu_first_match.launches) == (0, 0, 0, 0)
 
 
 def test_registry_and_probe_match_reference():

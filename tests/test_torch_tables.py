@@ -145,7 +145,6 @@ def _stage(b, rule_cls, action, proto, seed=7):
 
 def _builders():
     jb = jtables.TableBuilder(_cfg(jtables))
-    jb.mxu_enabled = False  # the mxu rung is not ported: no bit-planes
     _stage(jb, JRule, JAction, JProto)
     tb = _stage(ttables.TableBuilder(_cfg(ttables), device="cpu"),
                 ContivRule, Action, Protocol)
@@ -219,8 +218,7 @@ def test_swap_carries_session_state_by_reference():
 
 @pytest.mark.parametrize("knob,value", [
     ("ml_stage", "score"), ("telemetry", "latency"), ("tenancy", "on"),
-    ("overlay", "vxlan"), ("svc_vips", 4), ("fib_ecmp_groups", 2),
-    ("classifier", "mxu")])
+    ("overlay", "vxlan"), ("svc_vips", 4), ("fib_ecmp_groups", 2)])
 def test_unported_stages_refused_with_roadmap_item(knob, value):
     cfg = _cfg(ttables)._replace(**{knob: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -14,6 +14,10 @@
 // BV_ENC_MISS): every real rule index is < 32 * W <= 2^20.
 #define VPP_BV_ENC_MISS 0x7FFFFFF
 
+// Encoded "no rule matched" of mxu_first_match (vpp_tpu/ops/acl_mxu.py
+// ENC_MISS): 27 bits, above every rule column.
+#define VPP_MXU_ENC_MISS 0x7FFFFFF
+
 extern "C" {
 
 int sess_probe_ways(const int32_t* b, const int32_t* key_src,
@@ -39,5 +43,8 @@ int lpm_fused_lookup(const int32_t* dst, const int32_t* lens,
                      const int32_t* slot, int32_t p, int32_t n_len,
                      int32_t npad, int32_t* found, int32_t* out,
                      void* stream);
+
+int mxu_first_match(const void* bits, const void* coeff_t, const float* k,
+                    int32_t p, int32_t r, int32_t* enc, void* stream);
 
 }  // extern "C"

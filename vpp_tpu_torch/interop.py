@@ -15,12 +15,12 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 
-from vpp_tpu_torch.ops.lpm import build_lpm_stack
 from vpp_tpu_torch.pipeline.tables import (
     HOST_FIELDS,
     STATE_FIELDS,
     DataplaneConfig,
     DataplaneTables,
+    derive,
     numpy_of,
     state_shapes,
     tensor_of,
@@ -46,11 +46,11 @@ def tables_from_numpy(arrays: Mapping[str, np.ndarray], device,
     for f, dt in STATE_FIELDS.items():
         a = arrays[f] if f in arrays else np.zeros(shapes[f], dt)
         out[f] = tensor_of(a, device)
-    return DataplaneTables(**out, **build_lpm_stack(out))
+    return DataplaneTables(**out, **derive(out))
 
 
 def tables_to_numpy(tables: DataplaneTables) -> Dict[str, np.ndarray]:
     """Every staged and state field as NumPy in the reference's dtype
-    (uint32 fields as uint32); the derived LPM stack is left out."""
+    (uint32 fields as uint32); the derived tensors are left out."""
     return {f: numpy_of(f, getattr(tables, f))
             for f in tuple(HOST_FIELDS) + tuple(STATE_FIELDS)}

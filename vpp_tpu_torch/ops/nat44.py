@@ -69,6 +69,16 @@ def _svc_lookup(tables, pkts: PacketVector):
     return hit.any(dim=1), first_true(hit)
 
 
+def nat44_dnat_match(tables, pkts: PacketVector,
+                     eligible: torch.Tensor) -> torch.Tensor:
+    """Would ``nat44_dnat`` translate any of these packets? The
+    match-only probe (no rewrite, no backend pick) of the two-tier
+    dispatch predicate: the dense mappings OR the service-VIP rows."""
+    matched, _ = _dnat_lookup(tables, pkts)
+    svc_matched, _ = _svc_lookup(tables, pkts)
+    return (matched | svc_matched) & eligible
+
+
 def nat44_dnat(tables, pkts: PacketVector, eligible: torch.Tensor
                ) -> Tuple[PacketVector, torch.Tensor, torch.Tensor]:
     """Translate service VIP traffic to a weighted-chosen backend.

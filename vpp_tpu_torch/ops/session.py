@@ -48,7 +48,8 @@ def _refuse(shard=None, tnt=False) -> None:
     if shard is not None or tnt:
         raise NotImplementedError(
             "sharded (mesh) and tenant-sliced session tables are not "
-            "ported to vpp_tpu_torch yet: ROADMAP Queue 1 items 6 and 8")
+            "ported to vpp_tpu_torch yet: ROADMAP Queue 1 item 6 "
+            "(Tenancy) and item 10 (Mesh / cluster)")
 
 
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -232,6 +233,24 @@ def session_lookup_reverse_idx(tables, pkts: PacketVector, now,
     found, first = probe(b, *keys, *_columns(tables), now,
                          tables.sess_max_age)
     return found, b * ways + first
+
+
+def session_batch_summary(tables, pkts: PacketVector, alive, now,
+                          shard=None, tnt: bool = False,
+                          impl: str = "gather", sym: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Batched hit summary for the two-tier dispatch (pipeline/graph.py
+    ``pipeline_step_auto``): ``(hits, hit_idx, all_hit)`` — ``hits``
+    masks alive packets admitted by a live reflective session,
+    ``hit_idx`` their matched slots, ``all_hit`` the 0-d bool that
+    EVERY alive packet rides a session (vacuously true for a batch
+    with none alive)."""
+    found, hit_idx = session_lookup_reverse_idx(tables, pkts, now,
+                                                shard=shard, tnt=tnt,
+                                                impl=impl, sym=sym)
+    hits = found & alive
+    return hits, hit_idx, (hits == alive).all()
 
 
 def session_hit_age(tables, hit_idx, mask, now, shard=None) -> torch.Tensor:

@@ -11,10 +11,14 @@ same selection ladders re-gated at every swap, and the same
 resolves to ``cuda`` and raises when no GPU is present. Tests pass
 ``device="cpu"``, where every kernel wrapper takes its plain version.
 
-Not in this slice: ``process_packed`` and the chain/ring forms, the
-jit caches, spans, journal and tracer (the port compiles nothing), and
-the two-tier dispatcher — ``fastpath=True`` raises until ROADMAP
-Queue 1 item 5 ports it.
+With the fast path engaged (``fastpath=True``, the default, and at
+least ``fastpath_min_rules`` global rules — re-gated at every swap)
+``process`` and ``probe`` run the two-tier dispatcher, which reads its
+dispatch flag to the host once per step (pipeline/graph.py
+``pipeline_step_auto``); the full chain alone never synchronises.
+
+Not ported: ``process_packed`` and the chain/ring forms, the jit
+caches, spans, journal and tracer (the port compiles nothing).
 """
 
 from __future__ import annotations
@@ -51,11 +55,6 @@ class Dataplane:
                  device=None):
         self.device = resolve_device(device)
         self.config = config or DataplaneConfig()
-        if bool(self.config.fastpath):
-            raise NotImplementedError(
-                "fastpath=True needs the two-tier established-flow "
-                "dispatcher, not ported to vpp_tpu_torch yet (ROADMAP "
-                "Queue 1 item 5): set DataplaneConfig(fastpath=False)")
         self.builder = TableBuilder(self.config, device=self.device)
         self.tables = self.builder.to_device()
         self.epoch = 0
@@ -68,6 +67,10 @@ class Dataplane:
         self.fib_impl_knob = c.fib_impl
         self.fib_lpm_min_routes = int(c.fib_lpm_min_routes)
         self.session_impl_knob = c.session_impl
+        # the two-tier dispatch: master switch + rule-count gate
+        self.fastpath_enabled = bool(c.fastpath)
+        self.fastpath_min_rules = int(c.fastpath_min_rules)
+        self._use_fastpath = False
         self._sess_hash = c.sess_hash
         self._sweep_stride = int(c.sess_sweep_stride)
         self._classifier_impl = "dense"
@@ -217,15 +220,17 @@ class Dataplane:
 
     def _refresh_selection(self) -> None:
         """Re-gate the per-epoch choices against the staged builder:
-        the three ladders and the policy-free local-classify skip. The
-        MXU rung is not ported, so it never counts as eligible (the
-        reference's MXU and dense rungs give the same results)."""
+        the three ladders, the policy-free local-classify skip and the
+        fast-path engagement."""
         b = self.builder
         p_ok = self._kernels_serve()
         self._classifier_impl = select_impl(
-            self.classifier, b.bv_ok(), False, b.glb_nrules,
-            self.bv_min_rules, self.mxu_threshold, pallas_ok=p_ok)
+            self.classifier, b.bv_ok(), b.mxu_enabled and b.glb_mxu.ok,
+            b.glb_nrules, self.bv_min_rules, self.mxu_threshold,
+            pallas_ok=p_ok)
         self._skip_local = bool((b.if_local_table < 0).all())
+        self._use_fastpath = (self.fastpath_enabled
+                              and b.glb_nrules >= self.fastpath_min_rules)
         self._fib_impl = select_fib_impl(
             self.fib_impl_knob, b.lpm_ok(), b.fib_route_count(),
             self.fib_lpm_min_routes, pallas_ok=p_ok)
@@ -234,7 +239,7 @@ class Dataplane:
 
     def _get_step(self):
         return make_pipeline_step(
-            self._classifier_impl, self._skip_local, False,
+            self._classifier_impl, self._skip_local, self._use_fastpath,
             self._sweep_stride, fib_impl=self._fib_impl,
             sess_impl=self._session_impl, sess_hash=self._sess_hash)
 
@@ -248,8 +253,9 @@ class Dataplane:
     def process(self, pkts: PacketVector,
                 now: Optional[int] = None) -> StepResult:
         """Run one packet vector through the step; the session state of
-        the live epoch is updated in place. Never synchronises with the
-        device."""
+        the live epoch is updated in place. The full chain never
+        synchronises with the device; the two-tier dispatcher reads
+        its dispatch flag once."""
         self._check(pkts)
         with self._lock:
             step = self._get_step()

@@ -3,20 +3,22 @@
 The PyTorch counterpart of ``vpp_tpu/pipeline/graph.py``: ip4-input ->
 reflective session lookup + touch -> NAT44 reverse -> DNAT -> ACL
 classify (local + global) -> FIB -> SNAT -> session insert + NAT
-record -> the shared tail (counters, drop attribution, session sweep).
+record -> the shared tail (counters, drop attribution, session sweep),
+and the two-tier established-flow dispatcher ``pipeline_step_auto``
+over it and the classify-free ``pipeline_step_fast``.
 
-Compiled out in this slice: the ML, telemetry, tenancy and overlay
-stages (their StepStats counters read 0 and the StepResult fields they
-fill are the reference's off-state values), and the two-tier
-established-flow dispatcher (``pipeline_step_auto``, ROADMAP Queue 1
-item 5). ``make_pipeline_step`` refuses the gates that would turn them
-on.
+Compiled out: the ML, telemetry, tenancy and overlay stages (their
+StepStats counters read 0 and the StepResult fields they fill are the
+reference's off-state values). ``make_pipeline_step`` refuses the gates
+that would turn them on.
 
-PyTorch runs eagerly, so the step is plain Python over tensors; it
-never synchronises with the device (every counter stays a 0-d tensor),
-and it updates the session/NAT state and the ECMP accounting plane in
-place (ops/session.py module doc): ``StepResult.tables`` is the tables
-object it was given.
+PyTorch runs eagerly, so the step is plain Python over tensors; the
+full chain never synchronises with the device (every counter stays a
+0-d tensor), and it updates the session/NAT state and the ECMP
+accounting plane in place (ops/session.py module doc):
+``StepResult.tables`` is the tables object it was given. The auto
+dispatcher reads its one predicate flag to the host per step (its
+docstring says why).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from vpp_tpu_torch.ops.fib import fib_lookup_dense
 from vpp_tpu_torch.ops.ip4 import ip4_input
 from vpp_tpu_torch.ops.nat44 import (
     nat44_dnat,
+    nat44_dnat_match,
     nat44_record,
     nat44_reverse,
     nat44_snat,
@@ -38,6 +41,7 @@ from vpp_tpu_torch.ops.nat44 import (
 )
 from vpp_tpu_torch.ops.session import (
     _age,
+    session_batch_summary,
     session_insert,
     session_lookup_reverse_idx,
     session_sweep,
@@ -157,10 +161,11 @@ def _finish_step(tables, pkts: PacketVector, now, alive, drop_ip4,
                  established, nat_reversed, dnat_applied, snat_applied,
                  dropped_nat, sess_fail, natsess_fail, sess_evict_expired,
                  sess_evict_victim, natsess_evict_expired,
-                 natsess_evict_victim, sweep_stride: int = 0
-                 ) -> StepResult:
+                 natsess_evict_victim, sweep_stride: int = 0,
+                 fastpath: int = 0) -> StepResult:
     """Shared tail: session sweep, ECMP member accounting, drop
-    attribution, counters and the StepResult."""
+    attribution, counters and the StepResult. ``fastpath`` is the
+    tier that ran (1 = the classify-free fast tier)."""
     session_sweep(tables, now, sweep_stride)
     # per-member ECMP accounting into the carried [G, W] plane
     n_grp, n_way = tables.fib_ecmp_c.shape
@@ -202,7 +207,8 @@ def _finish_step(tables, pkts: PacketVector, now, alive, drop_ip4,
         if_tx_bytes=_count(n_ifaces, tx_if, forwarded, pkts.pkt_len),
         if_drops=_count(n_ifaces, pkts.rx_if, dropped),
         sess_hits=_sum(established),
-        fastpath=zero,
+        fastpath=(torch.ones((), dtype=torch.int32, device=alive.device)
+                  if fastpath else zero),
         sess_evict_expired=_sum(sess_evict_expired),
         sess_evict_victim=_sum(sess_evict_victim),
         natsess_evict_expired=_sum(natsess_evict_expired),
@@ -310,8 +316,112 @@ def pipeline_step(tables, pkts: PacketVector, now: int,
         sweep_stride=sweep_stride)
 
 
+# --- two-tier established-flow fast path ----------------------------
+#
+# Steady-state traffic is return flows the reflective session table
+# already admits. The dispatch granularity is the batch: when EVERY
+# alive packet hits a live session and none would DNAT-match after
+# un-NAT, the classify-free tier below runs for the whole vector; any
+# other batch takes the full chain unchanged.
+
+
+def _pipeline_fast_finish(tables, pkts: PacketVector, now, alive, drop_ip4,
+                          established, sess_hit_idx, nat_reversed,
+                          nat_hit_idx,
+                          sweep_stride: int = SWEEP_STRIDE_DEFAULT,
+                          fib_fn=fib_lookup_dense) -> StepResult:
+    """Tail of the classify-free tier, from the post-reverse header on.
+    Valid ONLY under the dispatch invariant (every alive packet is
+    established, none DNAT-matches): ``permit`` collapses to
+    ``established``, and SNAT, session insert and NAT record are
+    statically empty (each needs a fresh flow or a DNAT hit), so they
+    are elided — that elision is the tier's purpose."""
+    session_touch(tables, sess_hit_idx, established, now)
+    nat44_touch(tables, nat_hit_idx, nat_reversed, now)
+    permit = established
+    drop_acl = alive & ~permit
+    fib = fib_fn(tables, pkts)
+    forwarded = (alive & permit & fib.matched
+                 & (fib.disp != int(Disposition.DROP)))
+    disp = torch.where(forwarded, fib.disp,
+                       int(Disposition.DROP)).to(torch.int32)
+    tx_if = torch.where(forwarded, fib.tx_if, -1).to(torch.int32)
+    false_p = torch.zeros_like(alive)
+    return _finish_step(
+        tables, pkts, now, alive, drop_ip4, drop_acl, permit, fib,
+        forwarded, disp, tx_if, established, nat_reversed, false_p,
+        false_p, false_p, false_p, false_p, false_p, false_p, false_p,
+        false_p, sweep_stride=sweep_stride, fastpath=1)
+
+
+def pipeline_step_fast(tables, pkts: PacketVector, now: int,
+                       sweep_stride: int = SWEEP_STRIDE_DEFAULT,
+                       fib_fn=fib_lookup_dense, sess_impl: str = "gather",
+                       sess_hash: str = "fwd") -> StepResult:
+    """The classify-free tier on its own: ip4-input -> session
+    lookup/touch -> NAT reverse/touch -> FIB -> tx. Equal to
+    ``pipeline_step`` ONLY under the dispatch invariant that
+    ``pipeline_step_auto`` checks."""
+    pkts, drop_ip4, alive = _ingress(tables, pkts)
+    established, sess_hit_idx = session_lookup_reverse_idx(
+        tables, pkts, now, impl=sess_impl, sym=sess_hash == "sym")
+    established = established & alive
+    pkts, nat_reversed, nat_hit_idx = nat44_reverse(tables, pkts, alive,
+                                                    now)
+    return _pipeline_fast_finish(
+        tables, pkts, now, alive, drop_ip4, established, sess_hit_idx,
+        nat_reversed, nat_hit_idx, sweep_stride=sweep_stride, fib_fn=fib_fn)
+
+
+def pipeline_step_auto(tables, pkts: PacketVector, now: int,
+                       acl_global_fn=acl_classify_global,
+                       acl_local_fn=acl_classify_local,
+                       sweep_stride: int = SWEEP_STRIDE_DEFAULT,
+                       fib_fn=fib_lookup_dense, sess_impl: str = "gather",
+                       sess_hash: str = "fwd") -> StepResult:
+    """Two-tier dispatch: the fast tier when the whole batch rides
+    established sessions, the full chain otherwise.
+
+    The prefix — ip4-input, the session summary, NAT reverse and the
+    DNAT probe — is computed once and reads the state without writing
+    it. The dispatch flag ``ok = all_hit & ~any(dnat_would)`` is
+    computed on the device exactly as the reference computes it, and
+    then read to the host: the ONE host sync of this step. The
+    reference branches on the device with ``lax.cond``; eager PyTorch
+    cannot branch on a device value without reading it, and running
+    both tiers to select with ``torch.where`` would elide nothing,
+    which is the tier's only purpose. So exactly one tier runs: the
+    fast tier reuses the prefix's lookups; the full chain re-derives
+    its ingress from the original vector, as the reference does."""
+    sym = sess_hash == "sym"
+    pkts1, drop_ip4, alive = _ingress(tables, pkts)
+    hits, sess_hit_idx, all_hit = session_batch_summary(
+        tables, pkts1, alive, now, impl=sess_impl, sym=sym)
+    # NAT reverse runs before the DNAT probe: the un-NAT'd header is
+    # what the full chain would hand nat44_dnat
+    rpkts, nat_reversed, nat_hit_idx = nat44_reverse(tables, pkts1, alive,
+                                                     now)
+    dnat_would = nat44_dnat_match(tables, rpkts, alive & ~nat_reversed)
+    ok = all_hit & ~dnat_would.any()
+    if bool(ok):  # the step's one host sync (docstring)
+        return _pipeline_fast_finish(
+            tables, rpkts, now, alive, drop_ip4, hits, sess_hit_idx,
+            nat_reversed, nat_hit_idx, sweep_stride=sweep_stride,
+            fib_fn=fib_fn)
+    return pipeline_step(tables, pkts, now, acl_global_fn=acl_global_fn,
+                         acl_local_fn=acl_local_fn,
+                         sweep_stride=sweep_stride, fib_fn=fib_fn,
+                         sess_impl=sess_impl, sess_hash=sess_hash)
+
+
 def _classifier_fns(impl: str):
-    """(global, local) classify functions of one classifier rung."""
+    """(global, local) classify functions of one classifier rung. Only
+    BV swaps the local classify too: the MXU rung reformulates the
+    global table alone, so ``mxu`` keeps the dense local classify."""
+    if impl == "mxu":
+        from vpp_tpu_torch.ops.acl_mxu import acl_classify_global_mxu
+
+        return acl_classify_global_mxu, acl_classify_local
     if impl == "bv":
         from vpp_tpu_torch.ops.acl_bv import (
             acl_classify_global_bv,
@@ -326,10 +436,6 @@ def _classifier_fns(impl: str):
         )
 
         return acl_classify_global_pallas, acl_classify_local_pallas
-    if impl == "mxu":
-        raise NotImplementedError(
-            "the mxu classifier rung is not ported to vpp_tpu_torch yet: "
-            "ROADMAP Queue 2 item 4 (mxu_first_match)")
     if impl != "dense":
         raise ValueError(f"unknown classifier impl {impl!r}")
     return acl_classify_global, acl_classify_local
@@ -351,10 +457,11 @@ def _fib_fn(fib_impl: str):
 
 
 _NOT_PORTED_GATES = {
-    "ml_mode": ("off", "ROADMAP Queue 1 item 6 (ops/mlscore.py)"),
-    "tel_mode": ("off", "ROADMAP Queue 1 item 6 (ops/telemetry.py)"),
-    "tnt_mode": ("off", "ROADMAP Queue 1 item 6 (tenancy/derive.py)"),
-    "overlay": ("off", "ROADMAP Queue 1 item 6 (ops/vxlan.py)"),
+    "ml_mode": ("off", "ROADMAP Queue 1 item 4 (ML stage)"),
+    "tel_mode": ("off", "ROADMAP Queue 1 item 5 (Telemetry)"),
+    "tnt_mode": ("off", "ROADMAP Queue 1 item 6 (Tenancy)"),
+    "overlay": ("off", "ROADMAP Queue 1 item 7 (Overlay, service VIPs "
+                "and ECMP staging)"),
 }
 
 
@@ -367,8 +474,9 @@ def make_pipeline_step(impl: str = "dense", skip_local: bool = False,
                        fib_impl: str = "dense", sess_impl: str = "gather",
                        sess_hash: str = "fwd", overlay: str = "off"):
     """Compose one step callable ``step(tables, pkts, now)`` from the
-    epoch's gates (the reference's factory and key). Gates of stages
-    this package has not ported raise NotImplementedError."""
+    epoch's gates (the reference's factory and key): ``fast`` builds
+    the two-tier ``pipeline_step_auto``, else the full chain. Gates of
+    stages this package has not ported raise NotImplementedError."""
     from vpp_tpu_torch.ops.acl import acl_local_none
 
     gates = {"ml_mode": ml_mode, "tel_mode": tel_mode,
@@ -379,10 +487,6 @@ def make_pipeline_step(impl: str = "dense", skip_local: bool = False,
             raise NotImplementedError(
                 f"{name}={value!r} is not ported to vpp_tpu_torch yet: "
                 f"{item}")
-    if fast:
-        raise NotImplementedError(
-            "the two-tier established-flow dispatcher (fastpath) is not "
-            "ported to vpp_tpu_torch yet: ROADMAP Queue 1 item 5")
     if sess_impl not in ("gather", "pallas"):
         raise ValueError(f"unknown sess_impl {sess_impl!r}")
     if sess_hash not in ("fwd", "sym"):
@@ -391,15 +495,15 @@ def make_pipeline_step(impl: str = "dense", skip_local: bool = False,
     fib_fn = _fib_fn(fib_impl)
     if skip_local:
         acl_local_fn = acl_local_none
+    base = pipeline_step_auto if fast else pipeline_step
 
     def step(tables, pkts: PacketVector, now: int) -> StepResult:
-        return pipeline_step(tables, pkts, now, acl_global_fn=acl_global_fn,
-                             acl_local_fn=acl_local_fn,
-                             sweep_stride=sweep_stride, fib_fn=fib_fn,
-                             sess_impl=sess_impl, sess_hash=sess_hash)
+        return base(tables, pkts, now, acl_global_fn=acl_global_fn,
+                    acl_local_fn=acl_local_fn, sweep_stride=sweep_stride,
+                    fib_fn=fib_fn, sess_impl=sess_impl, sess_hash=sess_hash)
 
-    step.__name__ = "pipeline_step_{}{}{}{}{}".format(
-        impl, "_nolocal" if skip_local else "",
+    step.__name__ = "pipeline_step_{}{}{}{}{}{}".format(
+        impl, "_nolocal" if skip_local else "", "_auto" if fast else "",
         "" if fib_impl == "dense" else f"_fib{fib_impl}",
         "" if sess_impl == "gather" else f"_sess{sess_impl}",
         "" if sess_hash == "fwd" else f"_h{sess_hash}")

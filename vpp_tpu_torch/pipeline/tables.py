@@ -12,15 +12,19 @@ reference's incremental upload groups are a later slice), the ML,
 telemetry, tenancy, overlay, service-VIP and ECMP fields carry the
 reference's placeholder shapes, and config values that would turn those
 stages on raise ``NotImplementedError`` naming the ROADMAP item that
-ports them. The MXU bit-plane fields stay at their empty placeholder:
-the ``mxu`` classifier rung is not ported yet (ROADMAP Queue 2), so the
-builder compiles no bit-planes — the reference's builder with
-``mxu_enabled = False`` stages the same arrays.
+ports them. The global table's MXU bit-planes are compiled in full at
+every ``set_global_table`` (the reference diffs rule identities and
+recompiles only the changed columns; that joins the incremental upload
+groups, ROADMAP Queue 1 item 8).
 
-Derived tensors: ``to_device`` also stacks the populated LPM planes into
-the biased ``[L, Npad]`` prefix and slot matrices the fused LPM kernel
-walks (``fib_lpm_stk_*``), ONCE per swap — the reference rebuilds them
-inside every traced step (vpp_tpu/ops/lpm.py ``_fib_lookup_lpm_pallas``).
+Derived tensors, built ONCE per swap by ``to_device``: the populated LPM
+planes stacked into the biased ``[L, Npad]`` prefix and slot matrices
+the fused LPM kernel walks (``fib_lpm_stk_*`` — the reference rebuilds
+them inside every traced step, vpp_tpu/ops/lpm.py
+``_fib_lookup_lpm_pallas``), and the MXU coefficients as the rule-major
+bf16 ``[R', 128]`` operand ``mxu_first_match`` reads
+(``glb_mxu_coeff_t`` — the reference casts float32 to bf16 inside every
+call, vpp_tpu/ops/acl_mxu.py ``mxu_first_match``).
 """
 
 from __future__ import annotations
@@ -38,6 +42,11 @@ from vpp_tpu_torch.ops.acl_bv import (
     bv_enabled_for,
     compile_bv,
     empty_bv,
+)
+from vpp_tpu_torch.ops.acl_mxu import (
+    compile_bitplanes_full,
+    empty_bitplanes,
+    mxu_operand,
 )
 from vpp_tpu_torch.ops.lpm import (
     LPM_FIELDS,
@@ -203,22 +212,29 @@ HOST_FIELDS: Tuple[str, ...] = (
     + _SVC_FIELDS
 )
 
-# Derived per swap from the LPM planes (build_lpm_stack): the populated
+# Derived per swap: from the LPM planes (build_lpm_stack) the populated
 # lengths longest first, their live counts and the stacked biased
-# prefix / slot planes. Not part of the reference's field set.
+# prefix / slot planes; from the MXU coefficients (mxu_operand) the
+# kernel's bf16 operand. Not part of the reference's field set.
 DERIVED_FIELDS: Tuple[str, ...] = (
     "fib_lpm_lens", "fib_lpm_stk_cnt", "fib_lpm_stk_pfx",
-    "fib_lpm_stk_slot",
+    "fib_lpm_stk_slot", "glb_mxu_coeff_t",
 )
 
 TABLE_FIELDS: Tuple[str, ...] = (HOST_FIELDS + tuple(STATE_FIELDS)
                                  + DERIVED_FIELDS)
 
+
+def derive(host: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Every DERIVED_FIELDS tensor, from the staged tensors ``host``."""
+    return {**build_lpm_stack(host), **mxu_operand(host)}
+
 DataplaneTables = NamedTuple(
     "DataplaneTables", [(f, torch.Tensor) for f in TABLE_FIELDS])
 DataplaneTables.__doc__ = (
     "The device table pytree: one tensor per reference field (uint32 "
-    "as int32 bits) plus the derived LPM stack (module doc).")
+    "as int32 bits) plus the derived LPM stack and MXU operand (module "
+    "doc).")
 
 # numpy dtype of every non-derived field (the reference's staging
 # dtypes): uint32, int8 and float32 fields named, int32 otherwise.
@@ -316,19 +332,17 @@ def _is_pow2(n: int) -> bool:
 # knob -> (value that keeps the stage off, ROADMAP item that ports it)
 _NOT_PORTED = (
     ("ml_stage", lambda v: v == "off",
-     "ROADMAP Queue 1 item 6 (ops/mlscore.py)"),
+     "ROADMAP Queue 1 item 4 (ML stage)"),
     ("telemetry", lambda v: v == "off",
-     "ROADMAP Queue 1 item 6 (ops/telemetry.py)"),
+     "ROADMAP Queue 1 item 5 (Telemetry)"),
     ("tenancy", lambda v: v == "off",
-     "ROADMAP Queue 1 item 6 (tenancy/derive.py)"),
+     "ROADMAP Queue 1 item 6 (Tenancy)"),
     ("overlay", lambda v: v == "off",
-     "ROADMAP Queue 1 item 6 (ops/vxlan.py)"),
+     "ROADMAP Queue 1 item 7 (Overlay, service VIPs and ECMP staging)"),
     ("svc_vips", lambda v: int(v) == 0,
-     "ROADMAP Queue 1 item 6 (overlay + service staging)"),
+     "ROADMAP Queue 1 item 7 (Overlay, service VIPs and ECMP staging)"),
     ("fib_ecmp_groups", lambda v: int(v) == 0,
-     "ROADMAP Queue 1 item 6 (ECMP staging)"),
-    ("classifier", lambda v: v != "mxu",
-     "ROADMAP Queue 2 item 4 (mxu_first_match)"),
+     "ROADMAP Queue 1 item 7 (Overlay, service VIPs and ECMP staging)"),
 )
 
 
@@ -459,18 +473,8 @@ def pack_rules(rules: Sequence[ContivRule],
 # --- placeholder planes of the stages this slice compiles out ---------
 
 _ML_FEATURES = 18   # vpp_tpu/ml/model.py ML_FEATURES
-_MXU_PLANES = 128   # vpp_tpu/ops/acl_mxu.py PLANES
-_MXU_RT = 1024      # vpp_tpu/ops/acl_mxu.py rule tile
 _DEFAULT_VNI = 10   # vpp_tpu/ops/vxlan.py DEFAULT_VNI
 _ML_TNT_THRESH_INHERIT = -(1 << 31)
-
-
-def _empty_mxu(max_rules: int) -> Dict[str, np.ndarray]:
-    r = max_rules if max_rules <= _MXU_RT else \
-        ((max_rules + _MXU_RT - 1) // _MXU_RT) * _MXU_RT
-    return {"glb_mxu_coeff": np.zeros((_MXU_PLANES, r), np.float32),
-            "glb_mxu_k": np.ones(r, np.float32),
-            "glb_mxu_act": np.full(r, -1, np.int32)}
 
 
 def _empty_ml() -> Dict[str, np.ndarray]:
@@ -549,6 +553,9 @@ class TableBuilder:
         self.bv_enabled = bv_enabled_for(c)
         self.glb_bv = empty_bv(c.max_global_rules, self.bv_enabled)
         self._bv_cols = None
+        # opt-out of the bit-plane compile, the reference's default on
+        self.mxu_enabled = True
+        self.glb_mxu = empty_bitplanes(c.max_global_rules)
         local_bv = empty_bv(c.max_rules, self.bv_enabled)
         lib, lw, lpr = bv_capacity(c.max_rules, self.bv_enabled)
         self.acl_bv = {
@@ -605,7 +612,7 @@ class TableBuilder:
         self.natb_port = z(c.nat_backends, np.int32)
         self.natb_cumw = z(c.nat_backends, np.int32)
         self.nat_snat_ip = np.uint32(0)
-        self._fixed = {**_empty_mxu(c.max_global_rules), **_empty_ml(),
+        self._fixed = {**_empty_ml(),
                        **_empty_tenancy(c), **_empty_svc(c),
                        "ovl_vtep_ip": np.uint32(0)}
 
@@ -636,6 +643,8 @@ class TableBuilder:
     def set_global_table(self, rules: Sequence[ContivRule]) -> None:
         cap = self.config.max_global_rules
         packed = pack_rules(rules, cap)
+        self.glb_mxu = (compile_bitplanes_full(packed, cap)[0]
+                        if self.mxu_enabled else empty_bitplanes(cap))
         if self.bv_enabled:
             # per-dimension incremental: planes whose intervals did not
             # move since the last commit are carried over
@@ -792,6 +801,9 @@ class TableBuilder:
             out[f"glb_bv_{dim}"] = getattr(bv, f"bm_{dim}")
         out["glb_bv_nbnd"] = bv.nbnd
         out["glb_bv_proto"] = bv.bm_proto
+        out["glb_mxu_coeff"] = self.glb_mxu.coeff
+        out["glb_mxu_k"] = self.glb_mxu.k
+        out["glb_mxu_act"] = self.glb_mxu.act
         for f in _IF_FIELDS + _FIB_FIELDS[:9]:
             out[f] = getattr(self, f)
         out.update(self.lpm_planes)
@@ -824,4 +836,4 @@ class TableBuilder:
             state = {f: getattr(sessions, f) for f in STATE_FIELDS}
         host = {f: tensor_of(a, self.device)
                 for f, a in self.host_arrays().items()}
-        return DataplaneTables(**host, **state, **build_lpm_stack(host))
+        return DataplaneTables(**host, **state, **derive(host))
