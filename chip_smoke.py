@@ -14,8 +14,12 @@ raises on failure:
    ``nvcc`` per source, all started together, into ``csrc/build/``;
 3. each kernel against its plain PyTorch version on the card, bit-exact,
    at edge shapes and at the slice's shapes on random data
-   (``mxu_first_match`` on tables compiled from random exact-port rules,
-   an all-miss table and tables where many rules match each packet);
+   (``mxu_first_match`` on header columns and tables compiled from
+   random exact-port rules, an all-miss table and tables where many
+   rules match each packet, at P and R' on and off its 128-packet and
+   128-rule tiles; ``lpm_fused_lookup`` also on stacks whose live set
+   is exactly its shared-memory budget, one entry over it, and far over
+   it, so that both sides of the kernel's on-device choice run);
 4. the main path: the slice's full-size ``Dataplane`` on the card
    (10,240 global rules, 8 pods on 128-rule local tables, 2^20 session
    slots, ~4,000 routes, a 100-backend ClusterIP; the ``pallas`` rungs,
@@ -50,9 +54,10 @@ raises on failure:
    MXU path (fast tier on replies to forwarded packets, full chain on
    forward vectors; 1 host sync per step, the dispatch flag); each
    kernel at the main path's own inputs beside its plain version and
-   its bound (``mxu_first_match`` also beside a bare bf16
-   ``torch.matmul`` of its operands, ``matmul_ms``, a yardstick the
-   port never calls).
+   its bound (``mxu_first_match`` also beside two yardsticks the port
+   never calls: a bare bf16 ``torch.matmul`` of the exploded bits and
+   the coefficients, ``matmul_ms``, and ``torch._int_mm`` of the same
+   as int8, ``int8_matmul_ms``).
 
 Every comparison is between integers: the tolerance is exact equality.
 The line before the last is the kernels JSON object; the last line is
@@ -113,10 +118,11 @@ from vpp_tpu_torch.pipeline.vector import (  # noqa: E402
 # non-tensor-core FP32 rate, used as the ceiling of the kernels' integer
 # compare / logic work (Hopper's INT32 lanes are no more than its FP32
 # lanes, so this bound is never above the true one), and the dense bf16
-# tensor-core rate.
+# and int8 tensor-core rates.
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 TC_BF16_FLOPS = 989e12
+TC_INT8_OPS = 1979e12
 
 BIG_VEC = 4096
 ROUNDS = 4            # (forward, 2 replies) rounds per size: 24 main-path steps
@@ -435,17 +441,20 @@ def bv_case(rng, p: int, rows: int, w: int, tables, dev):
     return [_t(x, dev) for x in planes + idx], table
 
 
-def lpm_case(rng, p: int, lens, npad: int, dev):
+def lpm_case(rng, p: int, lens, npad: int, dev, fill=False):
     """A random biased stack over ``lens`` (longest first) with half the
-    packets inside a staged prefix."""
+    packets inside a staged prefix; ``fill``: every length draws ``npad``
+    distinct prefixes (fewer where it has fewer distinct values)."""
     n_len = len(lens)
     pfx = np.full((n_len, npad), 0x7FFFFFFF, np.int32)
     slot = np.zeros((n_len, npad), np.int32)
     cnt = np.zeros(n_len, np.int32)
     for r, ln in enumerate(lens):
         mask = ((0xFFFFFFFF << (32 - ln)) & 0xFFFFFFFF) if ln else 0
-        n = int(rng.integers(0, npad + 1)) if ln else 1
-        vals = np.unique(rng.integers(0, 1 << 32, n, dtype=np.uint64) & mask)
+        n = (npad if fill else int(rng.integers(0, npad + 1))) if ln else 1
+        vals = np.unique(rng.integers(0, 1 << 32, 2 * n, dtype=np.uint64)
+                         & mask)
+        vals = np.sort(rng.permutation(vals)[:n])
         n = len(vals)
         pfx[r, :n] = (vals ^ 0x80000000).astype(np.uint32).view(np.int32)
         slot[r, :n] = rng.integers(0, 4096, n)
@@ -468,9 +477,10 @@ def _prefix_masks(lens: np.ndarray) -> np.ndarray:
 
 
 def mxu_case(rng, p: int, r: int, dev, kind: str = "random"):
-    """(bits, coeff_t, k) of ``r`` rules compiled by the port's
-    ``compile_bitplanes`` and cut to R' = r columns, and ``p`` packets,
-    half of them drawn from the rules so that matches happen.
+    """(src_ip, dst_ip, proto, sport, dport, op): the header columns of
+    ``p`` packets, half of them drawn from the rules so that matches
+    happen, and the ``mxu_operand`` of ``r`` rules compiled by the port's
+    ``compile_bitplanes`` and cut to R' = r columns.
     ``random``: prefixes /0../32, proto any/TCP/UDP, exact or any ports.
     ``miss``: TCP-only rules, UDP packets. ``multi``: nested dst
     prefixes of one /8, each exact on one of 64 ports, so every packet
@@ -529,10 +539,12 @@ def mxu_case(rng, p: int, r: int, dev, kind: str = "random"):
     pkts = packet_vector_from_numpy(dict(
         cols, ttl=full(64), pkt_len=full(64), rx_if=full(0),
         flags=full(FLAG_VALID)), dev)
-    op = acl_mxu.mxu_operand({"glb_mxu_coeff": torch.from_numpy(
-        np.ascontiguousarray(table.coeff[:, :r])).to(dev)})
-    return (acl_mxu.packet_bit_planes(pkts), op["glb_mxu_coeff_t"],
-            torch.from_numpy(table.k[:r].copy()).to(dev))
+    op = acl_mxu.mxu_operand({
+        "glb_mxu_coeff": torch.from_numpy(
+            np.ascontiguousarray(table.coeff[:, :r])).to(dev),
+        "glb_mxu_k": torch.from_numpy(table.k[:r].copy()).to(dev)})
+    return (pkts.src_ip, pkts.dst_ip, pkts.proto, pkts.sport, pkts.dport,
+            op["glb_mxu_op"])
 
 
 def check_kernels(dev, errors: Errors, seed: int, n_rules: int,
@@ -567,23 +579,39 @@ def check_kernels(dev, errors: Errors, seed: int, n_rules: int,
                     f"P={p} I={rows} W={w} T={tables}")
         say(f"check bv_first_set P={p} I={rows} W={w} T={tables}: exact, "
             f"{int((want != acl_bv.BV_ENC_MISS).sum())} matched")
-    for p, lens, npad_ in ((7, [32, 24, 0], 16), (5, [], 1), (33, [0], 1),
-                           (64, [32], 8), (VEC, list(range(32, -1, -1)), npad),
-                           (BIG_VEC, list(range(32, -1, -1)), npad)):
-        args = lpm_case(rng, p, lens, npad_, dev)
+    # the last four: live sets (each length rounded up to 4 entries)
+    # exactly at the kernel's shared-memory budget, one length over it,
+    # and all 33 lengths full (far over it): the kernel searches device
+    # memory for the last three
+    at_budget = [32, 28, 24, 20][:lpm.LPM_SMEM_ENTRIES // npad]
+    all_lens = list(range(32, -1, -1))
+    for p, lens, npad_, fill in (
+            (7, [32, 24, 0], 16, False), (5, [], 1, False),
+            (33, [0], 1, False), (64, [32], 8, False), (65, [32, 0], 6, False),
+            (VEC, all_lens, npad, False), (BIG_VEC, all_lens, npad, False),
+            (BIG_VEC, at_budget, npad, True),
+            (BIG_VEC, at_budget + [8], npad, True),
+            (VEC, all_lens, npad, True), (BIG_VEC, all_lens, npad, True)):
+        args = lpm_case(rng, p, lens, npad_, dev, fill)
         got = lpm.lpm_fused_lookup(*args)
         want = lpm.lpm_fused_lookup_plain(*args)
         sync()
         errors.hold("lpm_fused_lookup", got, want,
                     f"P={p} L={len(lens)} Npad={npad_}")
-        say(f"check lpm_fused_lookup P={p} L={len(lens)} Npad={npad_}: "
-            f"exact, {int(want[0].sum())} found")
+        live = int(((args[2] + 3) // 4 * 4).sum())
+        where = ("shared memory" if npad_ % 4 == 0
+                 and live <= lpm.LPM_SMEM_ENTRIES else "device memory")
+        say(f"check lpm_fused_lookup P={p} L={len(lens)} Npad={npad_} "
+            f"live {live} ({where}): exact, {int(want[0].sum())} found")
     r_cap = acl_mxu.mxu_rule_capacity(n_rules)
     for p, r, kind in ((1, 1, "random"), (7, 8, "random"),
                        (70, 100, "random"), (255, 1023, "random"),
                        (VEC, 1024, "random"), (VEC, 1025, "random"),
+                       (65, 4000, "random"), (129, 1100, "random"),
+                       (BIG_VEC - 1, r_cap - 40, "random"),
                        (VEC, r_cap, "random"), (BIG_VEC, r_cap, "random"),
                        (VEC, r_cap, "miss"), (VEC, 1025, "multi"),
+                       (BIG_VEC - 1, 1000, "multi"),
                        (BIG_VEC, r_cap, "multi")):
         args = mxu_case(rng, p, r, dev, kind)
         got = acl_mxu.mxu_first_match(*args)
@@ -619,22 +647,26 @@ def main_path_inputs(dp: Dataplane, fwd: dict, rep: dict, now: int):
     return dict(sess=sess, glb=glb, loc=(loc, tl), fib=fib)
 
 
-def bound(nbytes: float, ops: float, tc_flops: float = 0.0):
+def bound(nbytes: float, ops: float, tc_ops: float = 0.0,
+          tc_rate: float = TC_BF16_FLOPS):
     """(ms, what bounds it): the largest of bytes over HBM bandwidth,
-    ALU operations over the ALU peak and bf16 tensor-core FLOP over the
-    tensor-core peak."""
+    ALU operations over the ALU peak and tensor-core operations over the
+    tensor-core peak of their type (``tc_rate``)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(ops / ALU_OPS_PER_S, tc_flops / TC_BF16_FLOPS) * 1e3
+    t_ops = max(ops / ALU_OPS_PER_S, tc_ops / tc_rate) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mxu_bound(bits, coeff_t, k):
-    """Bits, coefficients and k in, the encodes out; 2 * P * 128 * R'
-    tensor-core FLOP and ~3 ALU operations per (packet, rule) in the
-    epilogue (add k, compare, min)."""
-    p, r = bits.shape[0], coeff_t.shape[0]
-    nbytes = p * acl_mxu.PLANES * 2 + r * acl_mxu.PLANES * 2 + r * 4 + p * 4
-    return bound(nbytes, 3.0 * p * r, 2.0 * p * acl_mxu.PLANES * r)
+def mxu_bound(*args, tc_rate: float = TC_INT8_OPS):
+    """Five header columns and the int8 operand (k folded in) in, the
+    encodes out; 2 * P * 128 * R' tensor-core operations (int8 by
+    default, ``TC_BF16_FLOPS`` for the bf16 figure) and ~2 ALU
+    operations per (packet, rule) in the epilogue (compare with 0,
+    select)."""
+    p, r = args[0].shape[0], args[5].shape[0]
+    nbytes = p * 5 * 4 + r * acl_mxu.PLANES + p * 4
+    return bound(nbytes, 2.0 * p * r, 2.0 * p * acl_mxu.PLANES * r,
+                 tc_rate)
 
 
 def sess_bound(args):
@@ -1037,9 +1069,9 @@ def main(argv=None) -> int:
     for n in (VEC, BIG_VEC):
         inp = main_path_inputs(gpu, *feeds[n], now)
         loc, tl = inp["loc"]
-        mx = (acl_mxu.packet_bit_planes(packet_vector_from_numpy(
-            feeds[n][0], dev)), gpu_m.tables.glb_mxu_coeff_t,
-              gpu_m.tables.glb_mxu_k)
+        fpk = packet_vector_from_numpy(feeds[n][0], dev)
+        mx = (fpk.src_ip, fpk.dst_ip, fpk.proto, fpk.sport, fpk.dport,
+              gpu_m.tables.glb_mxu_op)
         cases = {
             "sess_probe_ways": (
                 lambda a=inp["sess"]: session.sess_probe_ways(*a),
@@ -1077,12 +1109,21 @@ def main(argv=None) -> int:
             say(f"kernel {name} P={n}: {k_ms:.5f} ms (graph replay), "
                 f"{k_eager:.5f} ms per eager call, plain {p_ms:.5f} ms, "
                 f"bound {b_ms:.6f} ms ({b_by}), bit-exact")
-        # the yardstick: a bare bf16 product of the same operands (no
-        # epilogue; the port never calls it)
-        mm = time_graph(lambda a=mx: torch.matmul(a[0], a[1].t()))
-        timed[("mxu_first_match", n)]["matmul_ms"] = mm
-        say(f"yardstick torch.matmul bf16 [{n}, 128] x [128, "
-            f"{mx[1].shape[0]}] P={n}: {mm:.5f} ms (graph replay)")
+        # the yardsticks: a bare product of the exploded bits and the
+        # coefficients, bf16 and int8 (no explode, no epilogue; the port
+        # never calls them)
+        bits = acl_mxu.packet_bit_planes(fpk)
+        coeff_t = acl_mxu.mxu_operand_rows(mx[5])[0]
+        mm = time_graph(lambda a=bits, b=coeff_t.to(torch.bfloat16):
+                        torch.matmul(a, b.t()))
+        mm8 = time_graph(lambda a=bits.to(torch.int8), b=coeff_t:
+                         torch._int_mm(a, b.t()))
+        timed[("mxu_first_match", n)].update(
+            matmul_ms=mm, int8_matmul_ms=mm8,
+            bound_bf16_ms=mxu_bound(*mx, tc_rate=TC_BF16_FLOPS)[0])
+        say(f"yardsticks [{n}, 128] x [128, {coeff_t.shape[0]}] P={n}: "
+            f"torch.matmul bf16 {mm:.5f} ms, torch._int_mm int8 "
+            f"{mm8:.5f} ms (graph replay)")
 
     for name, meta in KERNELS.items():
         main = timed[(name, VEC)]
@@ -1098,7 +1139,8 @@ def main(argv=None) -> int:
             row["local"] = {f"P={n}": timed[("bv_first_set.local", n)]
                             for n in (VEC, BIG_VEC)}
         if name == "mxu_first_match":
-            row["matmul_ms"] = main["matmul_ms"]
+            for key in ("matmul_ms", "int8_matmul_ms", "bound_bf16_ms"):
+                row[key] = main[key]
         else:
             row["launches_mxu_path"] = m_launches[name]
         rows.append(row)

@@ -7,10 +7,17 @@ Each check hands the same NumPy-seeded inputs to both packages:
   includes range-port rows (``ok=False``: their column is zeroed and
   ``k`` pinned to 1, so they fail closed);
 * ``packet_bit_planes``, compared as float32;
-* ``mxu_first_match_plain`` against the reference's Pallas kernel in
-  interpret mode and its jnp ``mxu_first_match_reference``, at odd P and
-  R', R' above 1,024 and not a multiple of it, with packets drawn from
-  the rules so that single and multiple matches and misses all occur;
+* the kernel operand ``mxu_operand``: unpacked (``mxu_operand_rows``)
+  it gives back the reference's coefficients and ``k`` exactly, its
+  chunk permutation is its own inverse, and a NumPy model of the
+  kernel's in-shared-memory explode (four header words, bits spread to
+  bytes, the constant plane 104, the same swizzle) times the operand is
+  the reference's mismatch count;
+* ``mxu_first_match`` on CPU tensors (its plain version: header
+  columns -> enc) against the reference's Pallas kernel in interpret
+  mode and its jnp ``mxu_first_match_reference``, at odd P and R', R'
+  above 1,024 and not a multiple of it, with packets drawn from the
+  rules so that single and multiple matches and misses all occur;
 * ``acl_classify_global_mxu`` against the reference's on staged tables;
 * the ``auto`` ladder picking ``mxu`` (BV ineligible, >= 512 rules) as
   the reference's Dataplane does.
@@ -154,6 +161,98 @@ def _packets(rng, n, packed, n_rules):
     return cols
 
 
+def _operand(table) -> torch.Tensor:
+    """``mxu_operand`` of a compiled table."""
+    return tmxu.mxu_operand({"glb_mxu_coeff": torch.from_numpy(table.coeff),
+                             "glb_mxu_k": torch.from_numpy(table.k)}
+                            )["glb_mxu_op"]
+
+
+def _headers(pkts):
+    return (pkts.src_ip, pkts.dst_ip, pkts.proto, pkts.sport, pkts.dport)
+
+
+def _unswizzle(rows: np.ndarray) -> np.ndarray:
+    """Row r's 16-byte chunk c read back from slot c ^ (r % 8)."""
+    r = rows.shape[0]
+    slot = np.arange(8)[None, :] ^ (np.arange(r)[:, None] % 8)
+    chunks = rows.reshape(r, 8, 16)
+    return np.take_along_axis(chunks, slot[:, :, None], axis=1).reshape(
+        r, 128)
+
+
+def _kernel_a_rows(cols) -> np.ndarray:
+    """NumPy model of csrc/mxu_first_match.cu's explode: the four
+    32-bit words of a packet's planes, each 16-bit half spread to 16
+    bytes four bits at a time, stored in the swizzled chunk order."""
+    u = lambda a: np.asarray(a).astype(np.int64) & 0xFFFFFFFF  # noqa: E731
+    src, dst, proto, sport, dport = (u(c) for c in cols)
+    words = [src, dst,
+             (proto & 0xFF) | ((sport & 0xFFFF) << 8) | ((dport << 24)
+                                                         & 0xFFFFFFFF),
+             ((dport >> 8) & 0xFF) | (1 << (104 - 96))]
+    p = src.shape[0]
+    rows = np.zeros((p, 128), np.int8)
+    for c in range(8):
+        b16 = (words[c // 2] >> (16 * (c % 2))) & 0xFFFF
+        for q in range(4):
+            spread = ((b16 >> (4 * q)) & 0xF) * 0x00204081 & 0x01010101
+            for byte in range(4):
+                rows[:, c * 16 + 4 * q + byte] = (spread >> (8 * byte)) & 1
+    slot = np.arange(8)[None, :] ^ (np.arange(p)[:, None] % 8)
+    out = np.zeros_like(rows)
+    for c in range(8):
+        for r in range(p):
+            out[r, slot[r, c] * 16:(slot[r, c] + 1) * 16] = \
+                rows[r, c * 16:(c + 1) * 16]
+    return out
+
+
+@pytest.mark.parametrize("n_rules,cap,ranges", [
+    (1, 1, ()), (100, 100, ()), (1100, 1100, (3, 700)), (200, 2500, ())])
+def test_operand_unpacks_to_reference_coefficients(n_rules, cap, ranges):
+    """The int8 operand holds the reference's float32 coefficients and
+    k exactly (range-port rows fail closed in both), in the swizzled
+    chunk order, and the permutation is its own inverse."""
+    rng = np.random.default_rng(n_rules + cap)
+    jp, _ = _packed(rng, n_rules, cap, ranges)
+    jt = jmxu.compile_bitplanes(jp, cap)
+    op = _operand(jt)
+    r_cap = jmxu.mxu_rule_capacity(cap)
+    assert op.dtype == torch.int8 and tuple(op.shape) == (r_cap, 128)
+    coeff_t, k = tmxu.mxu_operand_rows(op)
+    assert coeff_t.dtype == torch.int8 and k.dtype == torch.int32
+    np.testing.assert_array_equal(coeff_t.numpy().astype(np.float32),
+                                  jt.coeff.T)
+    np.testing.assert_array_equal(k.numpy().astype(np.float32), jt.k)
+    rows = _unswizzle(op.numpy())
+    np.testing.assert_array_equal(rows[:, :104], jt.coeff.T[:, :104])
+    np.testing.assert_array_equal(rows[:, 104], jt.k)
+    assert not rows[:, 105:].any()
+    assert torch.equal(tmxu._swizzle_rows(tmxu._swizzle_rows(op)), op)
+
+
+def test_kernel_explode_times_operand_is_the_mismatch_count():
+    """The kernel's A rows (modelled in NumPy) unswizzle to the
+    reference's ``packet_bit_planes`` plus the constant plane 104, and
+    their int32 product with the unswizzled operand equals the
+    reference's ``bits @ coeff + k`` for every packet and rule."""
+    rng = np.random.default_rng(17)
+    jp, tp = _packed(rng, 300, 320)
+    jt = jmxu.compile_bitplanes(jp, 320)
+    cols = _packets(rng, 129, tp, 300)
+    cols["proto"][:3] = [-1, 256, 1 << 20]
+    cols["dport"][:2] = [-1, 70000]
+    jpk, tpk = packet_pair(cols)
+    a = _unswizzle(_kernel_a_rows([c.numpy() for c in _headers(tpk)]))
+    bits = np.asarray(jmxu.packet_bit_planes(jpk).astype(jnp.float32))
+    np.testing.assert_array_equal(a[:, :104], bits[:, :104])
+    assert (a[:, 104] == 1).all() and not a[:, 105:].any()
+    b = _unswizzle(_operand(jt).numpy()).astype(np.int32)
+    want = bits @ jt.coeff + jt.k
+    np.testing.assert_array_equal(a.astype(np.int32) @ b.T, want)
+
+
 def test_packet_bit_planes_match_reference():
     rng = np.random.default_rng(2)
     cols = _packets(rng, 300, jtables.pack_rules([], 4), 0)
@@ -182,10 +281,8 @@ def test_first_match_plain_matches_reference(p, n_rules, cap):
     ref = np.asarray(jmxu.mxu_first_match_reference(bits, coeff, k))
     kern = np.asarray(jmxu.mxu_first_match(bits, coeff, k, interpret=True))
     np.testing.assert_array_equal(kern, ref)
-    op = tmxu.mxu_operand({"glb_mxu_coeff": torch.from_numpy(table.coeff)})
-    got = tmxu.mxu_first_match(tmxu.packet_bit_planes(tpk),
-                               op["glb_mxu_coeff_t"],
-                               torch.from_numpy(table.k))
+    op = _operand(table)
+    got = tmxu.mxu_first_match(*_headers(tpk), op)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), ref)
     if p > 1:  # the drawn half matches
@@ -210,18 +307,12 @@ def test_first_match_lowest_rule_wins_and_all_miss():
     ref = np.asarray(jmxu.mxu_first_match_reference(
         jmxu.packet_bit_planes(jpk), jnp.asarray(jt.coeff),
         jnp.asarray(jt.k)))
-    op = tmxu.mxu_operand({"glb_mxu_coeff": torch.from_numpy(jt.coeff)})
-    got = tmxu.mxu_first_match_plain(tmxu.packet_bit_planes(tpk),
-                                     op["glb_mxu_coeff_t"],
-                                     torch.from_numpy(jt.k)).numpy()
+    got = tmxu.mxu_first_match_plain(*_headers(tpk), _operand(jt)).numpy()
     np.testing.assert_array_equal(got, ref)
     assert (got[:25] == 1).all()            # /8 is rule 1, the first
     assert set(got[25:]) == {0, 1}          # DNS lanes hit rule 0
-    empty = tmxu.empty_bitplanes(3000)
-    op = tmxu.mxu_operand({"glb_mxu_coeff": torch.from_numpy(empty.coeff)})
-    miss = tmxu.mxu_first_match_plain(tmxu.packet_bit_planes(tpk),
-                                      op["glb_mxu_coeff_t"],
-                                      torch.from_numpy(empty.k))
+    miss = tmxu.mxu_first_match_plain(
+        *_headers(tpk), _operand(tmxu.empty_bitplanes(3000)))
     assert (miss == int(tmxu.ENC_MISS)).all()
 
 
@@ -251,7 +342,7 @@ def test_classify_global_mxu_matches_reference():
     # the port's own builder stages the same operand
     tb = ttables.TableBuilder(ttables.DataplaneConfig(**kw), device="cpu")
     _stage(tb, trule, np.random.default_rng(9))
-    assert torch.equal(tb.to_device().glb_mxu_coeff_t, tt.glb_mxu_coeff_t)
+    assert torch.equal(tb.to_device().glb_mxu_op, tt.glb_mxu_op)
 
 
 @pytest.mark.parametrize("n_rules,want", [(520, "mxu"), (100, "dense")])

@@ -198,10 +198,23 @@ def test_cpu_runs_never_launch_a_kernel():
     z = torch.zeros(8, dtype=torch.int32)
     tbv.bv_first_set(t.glb_bv_src, t.glb_bv_dst, t.glb_bv_sport,
                      t.glb_bv_dport, t.glb_bv_proto, z, z, z, z, z)
-    tmxu.mxu_first_match(tmxu.packet_bit_planes(pkts), t.glb_mxu_coeff_t,
-                         t.glb_mxu_k)
+    tmxu.mxu_first_match(pkts.src_ip, pkts.dst_ip, pkts.proto, pkts.sport,
+                         pkts.dport, t.glb_mxu_op)
     after = tuple(w.launches for w in wrappers)
     assert after == before == (0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("kernel", ["mxu_first_match", "lpm_fused_lookup"])
+def test_kernel_probe_variants_apply_to_the_sources(kernel):
+    """``kernel_probe``'s cut variants still find the text they replace
+    in the kernel source, each exactly once, and change it."""
+    from vpp_tpu_torch import kernel_probe
+    from vpp_tpu_torch.ops import _cuda
+
+    src = (_cuda.CSRC / kernel_probe.VARIANTS[kernel][0]).read_text()
+    variants = kernel_probe.variant_sources(kernel)
+    assert len(variants) >= 3
+    assert all(text != src for text in variants.values())
 
 
 def test_kernel_argument_checks_refuse_what_the_kernels_do_not_take():

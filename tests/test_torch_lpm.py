@@ -7,7 +7,9 @@ rungs and the independent NumPy oracle of tests/test_lpm.py, over
 seeded random tables (ECMP groups included, staged through the
 reference builder and carried over with ``tables_from_numpy``) and the
 edge tables: empty planes, /0 only, /32 host routes and a duplicate
-prefix. The ``pallas`` rung runs on CPU tensors, so the wrapper takes
+prefix. A NumPy model of the CUDA kernel's search (populated lengths,
+the shared-memory fits rule, the 8-ary search) is held against the
+plain version on both sides of the fits rule. The ``pallas`` rung runs on CPU tensors, so the wrapper takes
 its plain version; the launch counter proves it. Every quantity is an
 integer: the tolerance is exact equality.
 """
@@ -129,6 +131,64 @@ def test_lpm_edge_tables(case):
     (jf, js), (tf, ts) = _kernel_pair(tt, jp)
     assert_same(jf, tf, "found")
     assert_same(js, ts, "slot")
+
+
+def _find8(row, n, m):
+    """csrc/lpm_lookup.cu ``find``: 8-ary lower bound, then the hit."""
+    lo, hi = 0, n
+    while hi - lo > 8:
+        span = hi - lo
+        below = sum(int(row[lo + span * j // 8] < m) for j in range(1, 8))
+        new_lo = lo + span * below // 8 + 1 if below else lo
+        hi = lo + span * (below + 1) // 8 if below < 7 else hi
+        lo = new_lo
+    at = lo + sum(1 for j in range(8) if lo + j < hi and row[lo + j] < m)
+    return at if at < n and row[at] == m else -1
+
+
+def _kernel_model(dst, lens, cnt, pfx, slot, budget):
+    """NumPy model of csrc/lpm_lookup.cu: the populated lengths, their
+    4-rounded live regions packed by a prefix sum, the on-device fits
+    rule, and the longest-first walk with the 8-ary search. Returns
+    (found, slot, fits)."""
+    pop = [k for k in range(len(lens)) if cnt[k] > 0]
+    fits = pfx.shape[1] % 4 == 0 and sum(
+        (int(cnt[k]) + 3) // 4 * 4 for k in pop) <= budget
+    found = np.zeros(len(dst), bool)
+    out = np.zeros(len(dst), np.int32)
+    for i, d in enumerate(dst.astype(np.int64) & 0xFFFFFFFF):
+        for k in pop:
+            mask = (0xFFFFFFFF << (32 - int(lens[k]))) & 0xFFFFFFFF \
+                if lens[k] else 0
+            u = (int(d) & mask) ^ 0x80000000  # the int32 bits of m
+            m = u - (1 << 32) if u >> 31 else u
+            at = _find8(pfx[k].astype(np.int64), int(cnt[k]), m)
+            if at >= 0:
+                found[i], out[i] = True, slot[k, at]
+                break
+    return found, out, fits
+
+
+@pytest.mark.parametrize("seed,n_routes,fib_slots,budget", [
+    (3, 40, 64, 16384), (7, 200, 256, 16384), (7, 200, 256, 8)])
+def test_kernel_search_model_matches_plain(seed, n_routes, fib_slots,
+                                           budget):
+    """The kernel's search, modelled in NumPy, equals the plain version
+    on staged tables, whether the live set fits the shared-memory budget
+    or not (a budget of 8 entries forces the device-memory walk)."""
+    b = _random_table(seed, n_routes, fib_slots)
+    tt = torch_tables(b.to_device())
+    jp = _probe_traffic(b, np.random.default_rng(seed + 2), 257)
+    dst = torch_packets(jp).dst_ip
+    stack = (tt.fib_lpm_lens, tt.fib_lpm_stk_cnt, tt.fib_lpm_stk_pfx,
+             tt.fib_lpm_stk_slot)
+    found, slot, fits = _kernel_model(dst.numpy(),
+                                      *(t.numpy() for t in stack), budget)
+    assert fits == (budget > 8)
+    want = tlpm.lpm_fused_lookup_plain(dst, *stack)
+    assert found.any()
+    np.testing.assert_array_equal(found, want[0].numpy())
+    np.testing.assert_array_equal(slot, want[1].numpy())
 
 
 def test_lpm_disabled_stack_is_empty_and_misses():

@@ -41,10 +41,12 @@ int bv_first_set(const int32_t* bm_src, const int32_t* bm_dst,
 int lpm_fused_lookup(const int32_t* dst, const int32_t* lens,
                      const int32_t* cnt, const int32_t* pfx,
                      const int32_t* slot, int32_t p, int32_t n_len,
-                     int32_t npad, int32_t* found, int32_t* out,
-                     void* stream);
+                     int32_t npad, int32_t budget, uint8_t* found,
+                     int32_t* out, void* stream);
 
-int mxu_first_match(const void* bits, const void* coeff_t, const float* k,
-                    int32_t p, int32_t r, int32_t* enc, void* stream);
+int mxu_first_match(const int32_t* src, const int32_t* dst,
+                    const int32_t* proto, const int32_t* sport,
+                    const int32_t* dport, const int8_t* op, int32_t p,
+                    int32_t r, int32_t* enc, void* stream);
 
 }  // extern "C"

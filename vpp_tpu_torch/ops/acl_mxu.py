@@ -1,4 +1,4 @@
-"""MXU bit-plane ACL classify: 5-tuple first match as a bf16 matrix product.
+"""MXU bit-plane ACL classify: 5-tuple first match as an int8 matrix product.
 
 The PyTorch counterpart of ``vpp_tpu/ops/acl_mxu.py``. For one header
 bit ``b`` and a rule with mask bit ``m`` and value bit ``v`` the
@@ -11,21 +11,25 @@ dst 32, proto 8, sport 16, dport 16, zero-padded to 128):
 with ``coeff`` in {-1, 0, 1} and ``k[r] = sum(m*v)``. A rule matches iff
 its mismatch count is exactly 0; first match wins, so the classify is a
 min over the matching rule columns (``ENC_MISS`` when none matches).
-Sums stay within +-(128 + k), so bf16 operands with float32
-accumulation are exact in any order.
+Sums stay within +-(128 + k), so every product is exact.
 
 Commit time (host, NumPy — copied from the reference): the bit-plane
 compile, its incremental update and the fail-closed handling of
 range-port rules (``ok=False``: their column can never match).
 
-Device time: ``packet_bit_planes`` (plain PyTorch) explodes the headers
-into ``[P, 128]`` bf16, and ``mxu_first_match`` — the CUDA kernel of
-csrc/mxu_first_match.cu on a CUDA tensor, its plain version on a CPU
-tensor — computes the first matching column without ever writing the
-``[P, R']`` mismatch matrix. The kernel reads the coefficients as the
-rule-major ``[R', 128]`` bf16 matrix ``glb_mxu_coeff_t`` that
-``mxu_operand`` derives once per swap (the reference casts float32 to
-bf16 inside every call).
+Device time: ``mxu_first_match`` takes the five header columns and the
+operand ``glb_mxu_op`` that ``mxu_operand`` derives once per swap: the
+coefficients as rule-major int8 ``[R', 128]`` with ``k`` (0..104) in
+the first zero-pad plane (``_K_PLANE``; the kernel sets that plane's
+bit to 1 for every packet, so the product is the mismatch count) and
+each row's 16-byte chunks in the 128-byte-swizzled order the tensor
+cores read. On a CUDA tensor it launches csrc/mxu_first_match.cu, which
+explodes the headers into bit-planes in shared memory, multiplies on
+the int8 tensor cores and keeps the first matching column, never
+writing the ``[P, 128]`` bits or the ``[P, R']`` mismatch matrix. On a
+CPU tensor it takes ``mxu_first_match_plain``: ``packet_bit_planes``'s
+explode, the operand unpacked (``mxu_operand_rows``) and the chunked
+float32 first match ``bitplane_first_match``.
 """
 
 from __future__ import annotations
@@ -175,84 +179,126 @@ def compile_bitplanes_update(packed: dict, max_rules: int,
     return MxuTable(coeff=coeff, k=k, act=act, ok=not bad.any()), bad
 
 
+# The first zero-pad plane: it carries k in the kernel operand.
+_K_PLANE = _DPORT0 + 16
+
+
+def _swizzle_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Permute the eight 16-byte chunks of each 128-byte row ``r`` by
+    ``c -> c ^ (r % 8)`` (the 128-byte swizzle); its own inverse."""
+    r = rows.shape[0]
+    dev = rows.device
+    chunk = (torch.arange(8, device=dev)[None, :]
+             ^ (torch.arange(r, device=dev)[:, None] % 8))
+    idx = (chunk[:, :, None] * 16
+           + torch.arange(16, device=dev)).reshape(r, PLANES)
+    return torch.gather(rows, 1, idx)
+
+
 def mxu_operand(host: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The derived kernel operand of the staged float32 ``glb_mxu_coeff``
-    [PLANES, R']: the rule-major, K-contiguous [R', PLANES] bf16 matrix
-    (exact: every coefficient is -1, 0 or 1). Built once per swap."""
-    return {"glb_mxu_coeff_t": host["glb_mxu_coeff"].t().contiguous()
-            .to(torch.bfloat16)}
+    [PLANES, R'] and ``glb_mxu_k`` [R']: rule-major int8 [R', PLANES]
+    with k in plane ``_K_PLANE`` (exact: coefficients are -1, 0, 1 and
+    0 <= k <= 104), rows in the 128-byte-swizzled chunk order. Built
+    once per swap."""
+    rows = host["glb_mxu_coeff"].t().to(torch.int8, copy=True)
+    rows[:, _K_PLANE] = host["glb_mxu_k"].to(torch.int8)
+    return {"glb_mxu_op": _swizzle_rows(rows)}
 
 
-def packet_bit_planes(pkts: PacketVector) -> torch.Tensor:
-    """Explode packet headers into the [P, PLANES] bf16 bit matrix."""
-    dev = pkts.src_ip.device
+def mxu_operand_rows(op: torch.Tensor):
+    """The inverse of ``mxu_operand``: (coeff_t [R', PLANES] int8, the
+    k plane cleared; k [R'] int32)."""
+    rows = _swizzle_rows(op)
+    k = rows[:, _K_PLANE].to(torch.int32)
+    rows[:, _K_PLANE] = 0
+    return rows, k
+
+
+def header_bit_planes(src_ip, dst_ip, proto, sport, dport) -> torch.Tensor:
+    """Explode header columns into the [P, PLANES] bf16 bit matrix."""
+    dev = src_ip.device
     cols = []
-    for field, nbits in ((pkts.src_ip, 32), (pkts.dst_ip, 32),
-                         (pkts.proto, 8), (pkts.sport, 16),
-                         (pkts.dport, 16)):
+    for field, nbits in ((src_ip, 32), (dst_ip, 32), (proto, 8),
+                         (sport, 16), (dport, 16)):
         shifts = torch.arange(nbits, dtype=torch.int64, device=dev)
         cols.append((u32(field)[:, None] >> shifts[None, :]) & 1)
-    p = pkts.src_ip.shape[0]
+    p = src_ip.shape[0]
     cols.append(torch.zeros((p, PLANES - _DPORT0 - 16), dtype=torch.int64,
                             device=dev))
     return torch.cat(cols, dim=1).to(torch.bfloat16)
 
 
-# --- kernel 4: the fused first match -----------------------------------
+def packet_bit_planes(pkts: PacketVector) -> torch.Tensor:
+    """Explode packet headers into the [P, PLANES] bf16 bit matrix."""
+    return header_bit_planes(pkts.src_ip, pkts.dst_ip, pkts.proto,
+                             pkts.sport, pkts.dport)
 
 
-def mxu_first_match_plain(bits: torch.Tensor, coeff_t: torch.Tensor,
-                          k: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of ``mxu_first_match``: float32
-    products, ``+ k``, ``where(== 0, col, ENC_MISS)`` and a min, over
-    rule chunks of ``_RT`` columns with a running min, so a large table
-    never materialises the whole [P, R'] mismatch matrix."""
+def bitplane_first_match(bits: torch.Tensor, coeff_t: torch.Tensor,
+                         k: torch.Tensor) -> torch.Tensor:
+    """The first match over exploded bits: float32 products, ``+ k``,
+    ``where(== 0, col, ENC_MISS)`` and a min, over rule chunks of
+    ``_RT`` columns with a running min, so a large table never
+    materialises the whole [P, R'] mismatch matrix. ``bits`` [P, PLANES]
+    in {0, 1}, ``coeff_t`` [R', PLANES] in {-1, 0, 1}, ``k`` [R']."""
     p, r = bits.shape[0], coeff_t.shape[0]
     dev = bits.device
     enc = torch.full((p,), int(ENC_MISS), dtype=torch.int32, device=dev)
     b = bits.to(torch.float32)
+    kf = k.to(torch.float32)
     for c0 in range(0, r, _RT):
         c1 = min(c0 + _RT, r)
-        mism = b @ coeff_t[c0:c1].to(torch.float32).t() + k[c0:c1]
+        mism = b @ coeff_t[c0:c1].to(torch.float32).t() + kf[c0:c1]
         col = torch.arange(c0, c1, dtype=torch.int32, device=dev)
         cand = torch.where(mism == 0.0, col, int(ENC_MISS)).amin(dim=1)
         enc = torch.minimum(enc, cand.to(torch.int32))
     return enc
 
 
-def mxu_first_match(bits: torch.Tensor, coeff_t: torch.Tensor,
-                    k: torch.Tensor) -> torch.Tensor:
-    """Encoded first match over the bit-plane table: ``bits`` [P, PLANES]
-    bf16 in {0, 1}, ``coeff_t`` [R', PLANES] bf16 in {-1, 0, 1}, ``k``
-    [R'] float32 integral -> enc [P] int32, the lowest matching rule
+# --- kernel 4: the fused explode + first match ---------------------------
+
+
+def mxu_first_match_plain(src_ip, dst_ip, proto, sport, dport,
+                          op: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of ``mxu_first_match``: the header
+    explode, the operand unpacked, the chunked float32 first match."""
+    return bitplane_first_match(
+        header_bit_planes(src_ip, dst_ip, proto, sport, dport),
+        *mxu_operand_rows(op))
+
+
+def mxu_first_match(src_ip, dst_ip, proto, sport, dport,
+                    op: torch.Tensor) -> torch.Tensor:
+    """Encoded first match of each packet over the bit-plane table:
+    the header columns [P] int32 (uint32 bits) and the ``mxu_operand``
+    ``op`` [R', PLANES] int8 -> enc [P] int32, the lowest matching rule
     column or ``ENC_MISS``. The CUDA kernel on CUDA tensors, the plain
     version on CPU tensors."""
-    if not _cuda.use_kernels(bits):
-        return mxu_first_match_plain(bits, coeff_t, k)
-    dev = bits.device
-    _cuda.require(bits, "mxu_first_match.bits", dtype=torch.bfloat16,
-                  ndim=2)
-    _cuda.require(coeff_t, "mxu_first_match.coeff_t",
-                  dtype=torch.bfloat16, ndim=2, device=dev)
-    _cuda.require(k, "mxu_first_match.k", dtype=torch.float32, ndim=1,
-                  device=dev)
-    p, r = bits.shape[0], coeff_t.shape[0]
-    if bits.shape[1] != PLANES or coeff_t.shape[1] != PLANES:
-        raise ValueError(f"mxu_first_match: planes {bits.shape[1]} / "
-                         f"{coeff_t.shape[1]}, expected {PLANES}")
-    if k.shape[0] != r:
-        raise ValueError(f"mxu_first_match: k has {k.shape[0]} columns, "
-                         f"coeff_t {r}")
-    for t, name in ((bits, "bits"), (coeff_t, "coeff_t")):
-        if t.data_ptr() % 16:
-            raise ValueError(f"mxu_first_match.{name}: not 16-byte aligned")
+    cols = (src_ip, dst_ip, proto, sport, dport)
+    if not _cuda.use_kernels(op):
+        return mxu_first_match_plain(*cols, op)
+    dev = op.device
+    _cuda.require(op, "mxu_first_match.op", dtype=torch.int8, ndim=2)
+    p, r = src_ip.shape[0], op.shape[0]
+    for name, t in zip(("src_ip", "dst_ip", "proto", "sport", "dport"),
+                       cols):
+        _cuda.require(t, f"mxu_first_match.{name}", ndim=1, device=dev)
+        if t.shape[0] != p:
+            raise ValueError(f"mxu_first_match: {name} has {t.shape[0]} "
+                             f"packets, src_ip {p}")
+    if op.shape[1] != PLANES:
+        raise ValueError(f"mxu_first_match: {op.shape[1]} planes, "
+                         f"expected {PLANES}")
+    if op.data_ptr() % 16:
+        raise ValueError("mxu_first_match.op: not 16-byte aligned")
     # the kernel lowers each packet's entry with atomicMin
     enc = torch.full((p,), int(ENC_MISS), dtype=torch.int32, device=dev)
     fn = _cuda.library("mxu_first_match").mxu_first_match
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int32] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int32] * 2
                    + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
-    err = fn(_cuda.ptr(bits), _cuda.ptr(coeff_t), _cuda.ptr(k), p, r,
+    err = fn(*(_cuda.ptr(t) for t in cols), _cuda.ptr(op), p, r,
              _cuda.ptr(enc), _cuda.stream())
     _cuda.check(err, "mxu_first_match")
     mxu_first_match.launches += 1
@@ -264,10 +310,10 @@ mxu_first_match.launches = 0
 
 def mxu_classify_columns(tables, pkts: PacketVector) -> torch.Tensor:
     """First-match COLUMN index of each packet against the bit-plane
-    table (``ENC_MISS`` = no match): the header bit explode, then
-    ``mxu_first_match`` on the derived operand."""
-    return mxu_first_match(packet_bit_planes(pkts), tables.glb_mxu_coeff_t,
-                           tables.glb_mxu_k)
+    table (``ENC_MISS`` = no match): ``mxu_first_match`` on the header
+    columns and the derived operand."""
+    return mxu_first_match(pkts.src_ip, pkts.dst_ip, pkts.proto,
+                           pkts.sport, pkts.dport, tables.glb_mxu_op)
 
 
 def acl_classify_global_mxu(tables, pkts: PacketVector) -> AclVerdict:

@@ -21,11 +21,15 @@ Rungs. ``lpm`` walks the stack with ``lpm_fused_lookup_plain`` (plain
 PyTorch, one batched ``torch.searchsorted``); ``pallas`` (the
 reference's name for the fused-kernel rung) calls
 ``lpm_fused_lookup``, which launches csrc/lpm_lookup.cu on CUDA
-tensors and takes the plain version on CPU tensors. The stride hint
-table (``fib_lpm_hint``) is staged for layout parity, but neither rung
-reads it: a hinted bisection and a flat one find the same prefix when
-it is present and both miss when it is not, so ``(found, slot)`` are
-identical.
+tensors and takes the plain version on CPU tensors. The kernel stages
+the stack's live prefixes in shared memory when they fit
+``LPM_SMEM_ENTRIES`` (each length's count rounded up to 4) and searches
+them there; it decides that on the device from ``fib_lpm_stk_cnt``, so
+the host never reads the counts, and searches device memory otherwise.
+The stride hint table (``fib_lpm_hint``) is staged for layout parity,
+but neither rung reads it: a hinted bisection and a flat one find the
+same prefix when it is present and both miss when it is not, so
+``(found, slot)`` are identical.
 """
 
 from __future__ import annotations
@@ -53,6 +57,10 @@ LPM_MASKS: Tuple[int, ...] = tuple(
 LPM_PAD = _ADDR_MAX
 # its biased form (int32 max)
 _PAD_BIASED = 0x7FFFFFFF
+
+# shared memory of one lpm_fused_lookup block, in stacked prefix
+# entries (64 KB): a live set up to this size is searched there
+LPM_SMEM_ENTRIES = 16384
 
 # stride-hint layout constants (vpp_tpu/ops/lpm.py)
 LPM_HINT_BITS = 16
@@ -203,8 +211,9 @@ def lpm_fused_lookup_plain(dst, lens, cnt, pfx, slot):
 
 def lpm_fused_lookup(dst, lens, cnt, pfx, slot):
     """Fused all-lengths LPM search: the kernel of csrc/lpm_lookup.cu on
-    CUDA tensors (one thread per packet, early exit at the first hit),
-    the plain version on CPU tensors. ``dst`` [P] int32 (uint32 bits),
+    CUDA tensors (the live prefixes staged in shared memory when they
+    fit, one thread per packet, early exit at the first hit), the plain
+    version on CPU tensors. ``dst`` [P] int32 (uint32 bits),
     ``lens``/``cnt`` [L] int32, ``pfx``/``slot`` [L, Npad] int32 (the
     ``build_lpm_stack`` layout). Returns (found [P] bool, slot [P]
     int32)."""
@@ -223,18 +232,19 @@ def lpm_fused_lookup(dst, lens, cnt, pfx, slot):
         _cuda.require(t, f"lpm_fused_lookup.{name}", ndim=2, device=dev)
         if tuple(t.shape) != (n_len, npad):
             raise ValueError(f"lpm_fused_lookup: {name} shape mismatch")
-    found = torch.empty(p, dtype=torch.int32, device=dev)
+    found = torch.empty(p, dtype=torch.bool, device=dev)
     out = torch.empty(p, dtype=torch.int32, device=dev)
     fn = _cuda.library("lpm_lookup").lpm_fused_lookup
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int32] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int32] * 4
                    + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     err = fn(_cuda.ptr(dst), _cuda.ptr(lens), _cuda.ptr(cnt),
              _cuda.ptr(pfx), _cuda.ptr(slot), p, n_len, npad,
-             _cuda.ptr(found), _cuda.ptr(out), _cuda.stream())
+             LPM_SMEM_ENTRIES, _cuda.ptr(found), _cuda.ptr(out),
+             _cuda.stream())
     _cuda.check(err, "lpm_fused_lookup")
     lpm_fused_lookup.launches += 1
-    return found != 0, out
+    return found, out
 
 
 lpm_fused_lookup.launches = 0

@@ -21,9 +21,10 @@ Derived tensors, built ONCE per swap by ``to_device``: the populated LPM
 planes stacked into the biased ``[L, Npad]`` prefix and slot matrices
 the fused LPM kernel walks (``fib_lpm_stk_*`` — the reference rebuilds
 them inside every traced step, vpp_tpu/ops/lpm.py
-``_fib_lookup_lpm_pallas``), and the MXU coefficients as the rule-major
-bf16 ``[R', 128]`` operand ``mxu_first_match`` reads
-(``glb_mxu_coeff_t`` — the reference casts float32 to bf16 inside every
+``_fib_lookup_lpm_pallas``), and the MXU coefficients and ``k`` as the
+rule-major int8 ``[R', 128]`` operand ``mxu_first_match`` reads, laid
+out as its shared-memory tiles (``glb_mxu_op``, ops/acl_mxu.py
+``mxu_operand`` — the reference casts float32 to bf16 inside every
 call, vpp_tpu/ops/acl_mxu.py ``mxu_first_match``).
 """
 
@@ -214,11 +215,13 @@ HOST_FIELDS: Tuple[str, ...] = (
 
 # Derived per swap: from the LPM planes (build_lpm_stack) the populated
 # lengths longest first, their live counts and the stacked biased
-# prefix / slot planes; from the MXU coefficients (mxu_operand) the
-# kernel's bf16 operand. Not part of the reference's field set.
+# prefix / slot planes; from the MXU coefficients and k (mxu_operand)
+# the kernel's int8 operand, k folded into a pad plane, rows in the
+# tensor cores' swizzled chunk order. Not part of the reference's field
+# set.
 DERIVED_FIELDS: Tuple[str, ...] = (
     "fib_lpm_lens", "fib_lpm_stk_cnt", "fib_lpm_stk_pfx",
-    "fib_lpm_stk_slot", "glb_mxu_coeff_t",
+    "fib_lpm_stk_slot", "glb_mxu_op",
 )
 
 TABLE_FIELDS: Tuple[str, ...] = (HOST_FIELDS + tuple(STATE_FIELDS)
