@@ -14,7 +14,13 @@ raises on failure:
    ``nvcc`` per source, all started together, into ``csrc/build/``;
 3. each kernel against its plain PyTorch version on the card, bit-exact,
    at edge shapes and at the slice's shapes on random data
-   (``mxu_first_match`` on header columns and tables compiled from
+   (``sess_probe_ways`` on header columns with high addresses and
+   address ties, both bucket hashes, W = 1, 2, 4, 16, columns off a
+   16-byte boundary and the slice's 2^18-bucket table at P = 256, 4,095
+   and 4,096; ``bv_first_set`` on header columns at, next to and off
+   the boundaries of tables with partial live counts, the global
+   20,482 x 320 shape and 16 local 258 x 4 tables with interfaces that
+   have none; ``mxu_first_match`` on header columns and tables compiled from
    random exact-port rules, an all-miss table and tables where many
    rules match each packet, at P and R' on and off its 128-packet and
    128-rule tiles; ``lpm_fused_lookup`` also on stacks whose live set
@@ -107,6 +113,7 @@ from vpp_tpu_torch.pipeline.vector import (  # noqa: E402
     Disposition,
     PacketVector,
     bias,
+    gather_index,
     ip4,
     ip4_str,
     packet_vector_from_numpy,
@@ -399,46 +406,123 @@ class Errors:
                                      f"its plain version (max |err| {err})")
 
 
-def sess_case(rng, p: int, nb: int, w: int, dev):
-    """Random bucket columns with a planted matching way for every
-    third packet (half of them stale at now = 1000, max_age = 200)."""
+def sess_case(rng, p: int, nb: int, w: int, dev, misalign: bool = False):
+    """Header columns (addresses with the top bit set, a quarter of the
+    packets with src == dst, half of those with sport > dport) and
+    random [nb, w] session columns with the reply key of every third
+    packet planted in its home bucket under both bucket hashes (half of
+    the plants stale at now = 1000, max_age = 200). ``misalign``: the
+    columns start 4 bytes off a 16-byte boundary."""
+    u = lambda n: rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(  # noqa
+        np.uint32)
+    src, dst = u(p) | np.uint32(1 << 31), u(p)
+    tie = np.arange(p) % 4 == 1
+    dst[tie] = src[tie]
+    sport = rng.integers(0, 65536, p).astype(np.int32)
+    dport = rng.integers(0, 65536, p).astype(np.int32)
+    proto = rng.choice([1, 6, 17, 255], p).astype(np.int32)
+    hdr = [_t(x, torch.device("cpu")) for x in (src, dst, proto, sport,
+                                                 dport)]
+    keys = [k.numpy() for k in session._reverse_keys(*hdr)]
     valid = (rng.random((nb, w)) < 0.5).astype(np.int32)
-    cols = [rng.integers(0, 1 << 32, (nb, w), dtype=np.uint32)
-            for _ in range(3)]
-    proto = rng.integers(0, 256, (nb, w)).astype(np.int32)
+    cols = [u((nb, w)).view(np.int32) for _ in range(3)]
+    sproto = rng.integers(0, 256, (nb, w)).astype(np.int32)
     tm = rng.integers(0, 1000, (nb, w)).astype(np.int32)
-    b = rng.integers(0, nb, p).astype(np.int32)
-    key = [rng.integers(0, 1 << 32, p, dtype=np.uint32) for _ in range(3)]
-    key.append(rng.integers(0, 256, p).astype(np.int32))
-    for i in range(0, p, 3):
-        ww, bb = int(rng.integers(0, w)), b[i]
-        valid[bb, ww] = 1
-        for c, k in zip(cols + [proto], key):
-            c[bb, ww] = k[i]
-        tm[bb, ww] = 100 if i % 2 else 950
-    return ([_t(b, dev)] + [_t(k, dev) for k in key]
-            + [_t(x, dev) for x in (valid, *cols, proto, tm)])
+    for sym in (False, True):
+        b = session._reverse_bucket(*hdr, session._reverse_keys(*hdr), nb,
+                                    sym).numpy()
+        for i in range(int(sym), p, 6):
+            ww, bb = int(rng.integers(0, w)), b[i]
+            valid[bb, ww] = 1
+            for c, k in zip(cols + [sproto], keys):
+                c[bb, ww] = k[i]
+            tm[bb, ww] = 100 if i % 4 < 2 else 950
+    out = []
+    for x in (valid, *cols, sproto, tm):
+        flat = torch.empty(x.size + int(misalign), dtype=torch.int32,
+                           device=dev)
+        col = flat[int(misalign):].view(nb, w)
+        col.copy_(torch.from_numpy(x))
+        out.append(col)
+    return [h.to(dev) for h in hdr] + out
 
 
-def bv_case(rng, p: int, rows: int, w: int, tables, dev):
-    shp = (rows, w) if tables is None else (tables, rows, w)
-    pshp = (acl_bv.PROTO_ROWS, w) if tables is None else \
-        (tables, acl_bv.PROTO_ROWS, w)
+def _boundaries(rng, size: int, n: int, signed: bool) -> np.ndarray:
+    """One dimension's boundary row as ``compile_bv`` lays it out: ``n``
+    sorted distinct live values from 0, pads above them."""
+    top = 1 << 16 if signed else 1 << 32
+    vals = np.unique(rng.integers(1, top, 2 * n + 2, dtype=np.uint64))
+    vals = np.sort(rng.permutation(vals)[:max(n - 1, 0)])
+    out = np.full(size, 0x7FFFFFFF if signed else 0xFFFFFFFF, np.uint64)
+    out[0] = 0
+    out[1:1 + len(vals)] = vals
+    return out.astype(np.uint32).view(np.int32)
+
+
+def bv_case(rng, p: int, n_int: int, words: int, tables, dev,
+            misalign: bool = False):
+    """``bv_first_set``'s arguments: header columns, one table
+    (``tables`` None) or ``tables`` per-interface tables with
+    ``rx_if`` / ``if_local_table`` (a third of the interfaces without a
+    table; rx_if also -1 and past the end). Live counts below the padded
+    length but one full table; a third of the header values on a
+    boundary, a third one off it, the extremes 0 and 2^32 - 1 / 65535.
+    ``misalign``: the planes start 4 bytes off a 16-byte boundary."""
+    n_t = tables or 1
+    bnd = np.zeros((4, n_t, n_int), np.int32)
+    nbnd = np.zeros((n_t, 4), np.int32)
+    for t in range(n_t):
+        for k in range(4):
+            n = n_int if t == n_t - 1 and k == 0 else int(
+                rng.integers(1, n_int + 1))
+            bnd[k, t] = _boundaries(rng, n_int, n, signed=k >= 2)
+            nbnd[t, k] = n
     # bit density 1/2, or 1/8 for wide rows, so both hits and misses
     # occur at every width
-    dense = 1 if w < 16 else 3
+    dense = 1 if words < 16 else 3
     planes = []
-    for _ in range(4):
-        pl = rng.integers(0, 1 << 32, shp, dtype=np.uint32)
+    for rows in (n_int,) * 4 + (acl_bv.PROTO_ROWS,):
+        pl = rng.integers(0, 1 << 32, (n_t, rows, words), dtype=np.uint64)
         for _ in range(dense - 1):
-            pl &= rng.integers(0, 1 << 32, shp, dtype=np.uint32)
-        planes.append(pl)
-    planes.append(rng.integers(0, 1 << 32, pshp, dtype=np.uint32))
-    idx = [rng.integers(0, rows, p).astype(np.int32) for _ in range(4)]
-    idx.append(rng.integers(0, acl_bv.PROTO_ROWS, p).astype(np.int32))
-    table = None if tables is None else \
-        _t(rng.integers(0, tables, p).astype(np.int32), dev)
-    return [_t(x, dev) for x in planes + idx], table
+            pl &= rng.integers(0, 1 << 32, (n_t, rows, words),
+                               dtype=np.uint64)
+        planes.append(pl.astype(np.uint32).view(np.int32))
+    t_of = rng.integers(0, n_t, p)
+    hdr = []
+    for k, top in ((0, 0xFFFFFFFF), (1, 0xFFFFFFFF), (None, 255),
+                   (2, 65535), (3, 65535)):
+        v = rng.integers(0, top + 1, p, dtype=np.int64)
+        if k is not None:
+            live = bnd[k, t_of, (rng.random(p) * nbnd[t_of, k]).astype(
+                np.int64)].astype(np.int64) & 0xFFFFFFFF
+            kind = np.arange(p) % 3
+            v = np.where(kind == 0, live, v)
+            v = np.where(kind == 1, np.clip(live + rng.choice([-1, 1], p), 0,
+                                            top), v)
+            v[:2] = np.array([0, top])[:p]
+        hdr.append(v.astype(np.uint32).view(np.int32))
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    args = [to(x) for x in hdr]
+    squeeze = (lambda a: a[0]) if tables is None else (lambda a: a)
+    args += [to(squeeze(bnd[k])) for k in range(4)] + [to(squeeze(nbnd))]
+    for pl in planes:
+        flat = torch.empty(pl.size + int(misalign), dtype=torch.int32,
+                           device=dev)
+        dest = flat[int(misalign):].view(pl.shape)
+        dest.copy_(torch.from_numpy(pl))
+        args.append(squeeze(dest))
+    if tables is not None:
+        n_if = 24
+        table = rng.integers(0, tables, n_if).astype(np.int32)
+        table[::3] = -1
+        # the interface of each packet: one whose table is t_of, or one
+        # without a table, or an index that wraps or clamps
+        rx = np.array([int(rng.choice(np.flatnonzero(table == t)))
+                       if np.any(table == t) else 0 for t in t_of])
+        rx[::5] = 0
+        rx[1::17], rx[2::17] = -1, n_if + 3
+        args += [to(rx.astype(np.int32)), to(table)]
+    return args
 
 
 def lpm_case(rng, p: int, lens, npad: int, dev, fill=False):
@@ -553,32 +637,51 @@ def check_kernels(dev, errors: Errors, seed: int, n_rules: int,
     the slice's shapes, synchronising after each."""
     rng = np.random.default_rng(seed)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    for p, nb, w in ((1, 1, 1), (33, 32, 4), (100, 16, 1), (64, 8, 16),
-                     (VEC, sess_buckets, 4), (BIG_VEC, sess_buckets, 4)):
-        args = sess_case(rng, p, nb, w, dev)
-        for now, age in ((1000, 200), (0, 0x7FFFFFFF)):
-            max_age = torch.tensor(age, dtype=torch.int32, device=dev)
-            got = session.sess_probe_ways(*args, now, max_age)
-            want = session.sess_probe_ways_plain(*args, now, age)
-            sync()
-            errors.hold("sess_probe_ways", got, want,
-                        f"P={p} NB={nb} W={w} now={now}")
-            say(f"check sess_probe_ways P={p} NB={nb} W={w} now={now}: "
-                f"exact, {int(want[0].sum())} hits")
+    for p, nb, w, misalign in (
+            (1, 1, 1, False), (33, 32, 2, False), (100, 16, 1, False),
+            (64, 8, 16, False), (33, 64, 4, True),
+            (VEC, sess_buckets, 4, False), (BIG_VEC - 1, sess_buckets, 4,
+                                            False),
+            (BIG_VEC, sess_buckets, 4, False)):
+        args = sess_case(rng, p, nb, w, dev, misalign)
+        for sym in (False, True):
+            for now, age in ((1000, 200), (0, 0x7FFFFFFF)):
+                # the device scalar, then the int the no-age lookup passes
+                max_age = torch.tensor(age, dtype=torch.int32, device=dev) \
+                    if now else age
+                got = session.sess_probe_ways(*args, now, max_age, sym=sym)
+                want = session.sess_probe_reverse_plain(*args, now, age,
+                                                        sym=sym)
+                sync()
+                what = (f"P={p} NB={nb} W={w}{' misaligned' * misalign} "
+                        f"sym={int(sym)} now={now}")
+                errors.hold("sess_probe_ways", got, want, what)
+                say(f"check sess_probe_ways {what}: exact, "
+                    f"{int(want[0].sum())} hits")
     words = (n_rules + 31) // 32
-    for p, rows, w, tables in ((1, 4, 1, None), (5, 7, 3, None),
-                               (300, 50, 20, None),
-                               (VEC, 2 * n_rules + 2, words, None),
-                               (BIG_VEC, 2 * n_rules + 2, words, None),
-                               (VEC, 258, 4, 16), (BIG_VEC, 258, 4, 16)):
-        args, table = bv_case(rng, p, rows, w, tables, dev)
-        got = acl_bv.bv_first_set(*args, table=table)
-        want = acl_bv.bv_first_set_plain(*args, table=table)
+    n_int = 2 * n_rules + 2
+    for p, rows, w, tables, misalign in (
+            (1, 4, 1, None, False), (5, 7, 3, None, False),
+            (300, 50, 20, None, False), (300, 50, 20, None, True),
+            (65, 90, 33, None, False), (70, 300, 36, None, False),
+            (VEC, n_int, words, None, False),
+            (BIG_VEC - 1, n_int, words, None, False),
+            (BIG_VEC, n_int, words, None, False),
+            (1, 258, 4, 16, False), (33, 258, 4, 16, False),
+            (VEC, 258, 4, 16, False), (BIG_VEC, 258, 4, 16, False)):
+        args = bv_case(rng, p, rows, w, tables, dev, misalign)
+        got = acl_bv.bv_first_set(*args)
+        want = acl_bv.bv_search_first_set_plain(*args)
         sync()
-        errors.hold("bv_first_set", (got,), (want,),
-                    f"P={p} I={rows} W={w} T={tables}")
-        say(f"check bv_first_set P={p} I={rows} W={w} T={tables}: exact, "
-            f"{int((want != acl_bv.BV_ENC_MISS).sum())} matched")
+        got = got if tables else (got,)
+        want = want if tables else (want,)
+        what = (f"P={p} I={rows} W={w} T={tables}"
+                f"{' misaligned' * misalign}")
+        errors.hold("bv_first_set", got, want, what)
+        say(f"check bv_first_set {what}: exact, "
+            f"{int((want[-1] != acl_bv.BV_ENC_MISS).sum())} matched"
+            + (f", {int((want[0] < 0).sum())} without a table"
+               if tables else ""))
     # the last four: live sets (each length rounded up to 4 entries)
     # exactly at the kernel's shared-memory budget, one length over it,
     # and all 33 lengths full (far over it): the kernel searches device
@@ -632,19 +735,18 @@ def check_kernels(dev, errors: Errors, seed: int, n_rules: int,
 
 def main_path_inputs(dp: Dataplane, fwd: dict, rep: dict, now: int):
     """Each kernel's arguments as ``process`` builds them from the live
-    tables: the session probe and the local classify on a reply vector,
-    the global classify and the FIB walk on a forward vector."""
+    tables: the session lookup and the local classify on a reply
+    vector, the global classify and the FIB walk on a forward vector."""
     t = dp.tables
     fpk = packet_vector_from_numpy(fwd, dp.device)
     rpk = packet_vector_from_numpy(rep, dp.device)
-    keys = session._reverse_keys(rpk)
-    b = session._reverse_bucket(rpk, keys, t.sess_valid.shape[0], False)
-    sess = (b, *keys, *session._columns(t), now, t.sess_max_age)
-    glb = (*acl_bv._glb_planes(t), *acl_bv._global_rows(t, fpk))
-    _, tl, rows = acl_bv._local_rows(t, rpk)
-    loc = (*acl_bv._acl_planes(t), *rows)
+    sess = (*rpk.five_tuple, *session._columns(t), now,
+            t.sess_max_age)
+    glb = (*fpk.five_tuple, *acl_bv._glb_args(t))
+    loc = (*rpk.five_tuple, *acl_bv._acl_args(t), rpk.rx_if,
+           t.if_local_table)
     fib = (fpk.dst_ip, *lpm._stack(t))
-    return dict(sess=sess, glb=glb, loc=(loc, tl), fib=fib)
+    return dict(sess=sess, glb=glb, loc=loc, fib=fib)
 
 
 def bound(nbytes: float, ops: float, tc_ops: float = 0.0,
@@ -670,25 +772,80 @@ def mxu_bound(*args, tc_rate: float = TC_INT8_OPS):
 
 
 def sess_bound(args):
-    """Keys in, the distinct home buckets' W ways of six columns, and
-    found/first out; ~12 integer operations per way."""
-    b, ways, p = args[0], args[5].shape[1], args[0].shape[0]
+    """Header columns in, the distinct home buckets' W ways of six
+    columns and max_age, found (1 B) and slot (4 B) out; ~20 integer
+    operations a packet for the key and the hash, ~12 a way."""
+    hdr, cols = args[:5], args[5:11]
+    nb, ways = cols[0].shape
+    p = hdr[0].shape[0]
+    b = session._reverse_bucket(*hdr, session._reverse_keys(*hdr), nb,
+                                False)
     buckets = torch.unique(b).numel()
-    return bound(p * 5 * 4 + buckets * ways * 6 * 4 + 4 + p * 2 * 4,
-                 p * ways * 12)
+    return bound(p * 5 * 4 + buckets * ways * 6 * 4 + 4 + p * 5,
+                 p * (20 + 12 * ways))
 
 
-def bv_bound(planes, rows, table=None):
-    """Row indices in, the distinct bitmap rows gathered (W words each)
-    and the encodes out; ~8 integer operations per packet word."""
+def _bisect_visits(bnd, t, n, vals, signed: bool):
+    """(the distinct flat entries of ``bnd`` [T, I] that a bisection of
+    each packet's value over its table's live prefix [0, n) visits, the
+    probes it makes in all)."""
+    size = bnd.shape[1]
+    key = (lambda x: x.to(torch.int64)) if signed else u32
+    v = key(vals)
+    base = t.to(torch.int64) * size
+    lo = torch.zeros_like(v)
+    hi = torch.clamp(n.to(torch.int64), 0, size)
+    seen, probes = [], 0
+    while bool((lo < hi).any()):
+        act = lo < hi
+        mid = (lo + hi) // 2
+        flat = base + torch.clamp(mid, max=size - 1)
+        seen.append(flat[act])
+        probes += int(act.sum())
+        le = key(bnd.reshape(-1)[flat]) <= v
+        lo = torch.where(act & le, mid + 1, lo)
+        hi = torch.where(act & ~le, mid, hi)
+    visited = torch.unique(torch.cat(seen)).numel() if seen else 0
+    return visited, probes
+
+
+def bv_bound(args):
+    """Header columns in (and for a local classify rx_if, the interface
+    table entries and the counts rows it reads), the distinct boundary
+    entries a bisection of these packets visits, the distinct bitmap
+    rows (W words each), and enc (and tid) out; ~4 integer operations a
+    bisection probe and ~8 a packet word."""
+    hdr, bnds, nbnd, planes = args[:5], args[5:9], args[9], args[10:15]
+    local = len(args) > 15
+    p = hdr[0].shape[0]
     words = planes[0].shape[-1]
-    p = rows[0].shape[0]
-    nbytes = p * (len(rows) + (table is not None)) * 4 + p * 4
+    if local:
+        rx_if, table = args[15:17]
+        tid = table[gather_index(rx_if, table.shape[0])]
+        t = torch.clamp(tid, min=0)
+        nbytes = p * 6 * 4 + p * 8 + 4 * (
+            torch.unique(rx_if).numel() + torch.unique(t).numel() * 4)
+    else:
+        bnds = [b[None] for b in bnds]
+        planes = [pl[None] for pl in planes]
+        nbnd = nbnd[None]
+        t = torch.zeros_like(hdr[0])
+        nbytes = p * 5 * 4 + p * 4 + 16
+    probes = 0
+    for k, (b, v) in enumerate(zip(bnds, (hdr[0], hdr[1], hdr[3], hdr[4]))):
+        visited, pr = _bisect_visits(b, t, nbnd[t.long(), k], v, k >= 2)
+        nbytes += visited * 4
+        probes += pr
+    # the segment rows, as the plain version finds them
+    if local:
+        _, _, rows = acl_bv._local_rows(*hdr, *args[15:17], *args[5:10],
+                                        planes[4].shape[1])
+    else:
+        rows = acl_bv._global_rows(*hdr, *args[5:10], planes[4].shape[1])
     for pl, r in zip(planes, rows):
-        key = r.long() if table is None else \
-            table.long() * pl.shape[-2] + r.long()
+        key = t.long() * pl.shape[-2] + r.long()
         nbytes += torch.unique(key).numel() * words * 4
-    return bound(nbytes, p * words * 8)
+    return bound(nbytes, probes * 4 + p * words * 8)
 
 
 def lpm_bound(dst, lens, cnt, pfx, slot):
@@ -1068,23 +1225,22 @@ def main(argv=None) -> int:
     timed = {}
     for n in (VEC, BIG_VEC):
         inp = main_path_inputs(gpu, *feeds[n], now)
-        loc, tl = inp["loc"]
         fpk = packet_vector_from_numpy(feeds[n][0], dev)
         mx = (fpk.src_ip, fpk.dst_ip, fpk.proto, fpk.sport, fpk.dport,
               gpu_m.tables.glb_mxu_op)
         cases = {
             "sess_probe_ways": (
                 lambda a=inp["sess"]: session.sess_probe_ways(*a),
-                lambda a=inp["sess"]: session.sess_probe_ways_plain(*a),
+                lambda a=inp["sess"]: session.sess_probe_reverse_plain(*a),
                 sess_bound(inp["sess"])),
             "bv_first_set": (
                 lambda a=inp["glb"]: acl_bv.bv_first_set(*a),
-                lambda a=inp["glb"]: acl_bv.bv_first_set_plain(*a),
-                bv_bound(inp["glb"][:5], inp["glb"][5:])),
+                lambda a=inp["glb"]: acl_bv.bv_search_first_set_plain(*a),
+                bv_bound(inp["glb"])),
             "bv_first_set.local": (
-                lambda a=loc, t=tl: acl_bv.bv_first_set(*a, table=t),
-                lambda a=loc, t=tl: acl_bv.bv_first_set_plain(*a, table=t),
-                bv_bound(loc[:5], loc[5:], tl)),
+                lambda a=inp["loc"]: acl_bv.bv_first_set(*a),
+                lambda a=inp["loc"]: acl_bv.bv_search_first_set_plain(*a),
+                bv_bound(inp["loc"])),
             "lpm_fused_lookup": (
                 lambda a=inp["fib"]: lpm.lpm_fused_lookup(*a),
                 lambda a=inp["fib"]: lpm.lpm_fused_lookup_plain(*a),

@@ -189,22 +189,22 @@ def test_cpu_runs_never_launch_a_kernel():
     assert int(res.stats.tx) == 1
     # the same wrappers called directly on CPU tensors
     t = dp.tables
-    tsess.sess_probe_ways(
-        torch.zeros(8, dtype=torch.int32), pkts.src_ip, pkts.dst_ip,
-        pkts.sport, pkts.proto, t.sess_valid, t.sess_src, t.sess_dst,
-        t.sess_ports, t.sess_proto, t.sess_time, 10, t.sess_max_age)
+    hdr = pkts.five_tuple
+    tsess.sess_probe_ways(*hdr, t.sess_valid, t.sess_src, t.sess_dst,
+                          t.sess_ports, t.sess_proto, t.sess_time, 10,
+                          t.sess_max_age)
     tlpm.lpm_fused_lookup(pkts.dst_ip, t.fib_lpm_lens, t.fib_lpm_stk_cnt,
                           t.fib_lpm_stk_pfx, t.fib_lpm_stk_slot)
-    z = torch.zeros(8, dtype=torch.int32)
-    tbv.bv_first_set(t.glb_bv_src, t.glb_bv_dst, t.glb_bv_sport,
-                     t.glb_bv_dport, t.glb_bv_proto, z, z, z, z, z)
+    tbv.bv_first_set(*hdr, *tbv._glb_args(t))
+    tbv.bv_first_set(*hdr, *tbv._acl_args(t), pkts.rx_if, t.if_local_table)
     tmxu.mxu_first_match(pkts.src_ip, pkts.dst_ip, pkts.proto, pkts.sport,
                          pkts.dport, t.glb_mxu_op)
     after = tuple(w.launches for w in wrappers)
     assert after == before == (0, 0, 0, 0)
 
 
-@pytest.mark.parametrize("kernel", ["mxu_first_match", "lpm_fused_lookup"])
+@pytest.mark.parametrize("kernel", ["mxu_first_match", "lpm_fused_lookup",
+                                    "sess_probe_ways", "bv_first_set"])
 def test_kernel_probe_variants_apply_to_the_sources(kernel):
     """``kernel_probe``'s cut variants still find the text they replace
     in the kernel source, each exactly once, and change it."""
@@ -235,3 +235,93 @@ def test_kernel_argument_checks_refuse_what_the_kernels_do_not_take():
     assert {p.name for p in _cuda._sources()} == {
         "sess_probe.cu", "bv_first_set.cu", "lpm_lookup.cu",
         "mxu_first_match.cu"}
+
+
+def _c_params(entry: str):
+    """The ctypes types of a C entry's parameters, read from
+    csrc/kernels.cuh (pointers and the stream: c_void_p; int32_t:
+    c_int32)."""
+    import ctypes
+
+    from vpp_tpu_torch.ops import _cuda
+
+    text = (_cuda.CSRC / "kernels.cuh").read_text()
+    decl = re.search(rf"int {entry}\((.*?)\);", text, re.S).group(1)
+    return [ctypes.c_void_p if "*" in p else ctypes.c_int32
+            for p in decl.split(",")]
+
+
+@pytest.mark.parametrize("entry", ["sess_probe_ways", "bv_first_set"])
+def test_launch_arguments_match_the_c_declarations(entry, monkeypatch):
+    """The argument types a wrapper hands ctypes are the C entry's, in
+    its order, and the arguments it builds (on CPU tensors, with the
+    CUDA-only checks lifted) pass through a ctypes function of those
+    types: the shape integers land in their places."""
+    import ctypes
+
+    from vpp_tpu_torch.ops import _cuda
+
+    argtypes = (tsess.SESS_ARGTYPES if entry == "sess_probe_ways"
+                else tbv.BV_ARGTYPES)
+    assert argtypes == _c_params(entry)
+    monkeypatch.setattr(_cuda, "require", lambda *a, **k: None)
+    cfg = ttables.DataplaneConfig(**dict(_SMALL, classifier="pallas"))
+    dp = tdp.Dataplane(cfg, device="cpu")
+    pkts = tvector.make_packet_vector([], n=8)
+    hdr = pkts.five_tuple
+    t = dp.tables
+    got = []
+    fn = ctypes.CFUNCTYPE(ctypes.c_int, *argtypes)(
+        lambda *a: got.append(a) or 0)
+    if entry == "sess_probe_ways":
+        args, (found, slot) = tsess.sess_launch_args(
+            *hdr, *tsess._columns(t), 10, 3000, True)
+        assert found.dtype == torch.bool and slot.dtype == torch.int32
+        fn(*args, 0)
+        nb, ways = t.sess_valid.shape
+        # sym, then p, n_buckets, ways, vec4, now, the null max_age
+        # pointer and its value
+        assert got[0][5] == 1
+        assert got[0][12:19] == (8, nb, ways, int(ways == 4), 10, None,
+                                 3000)
+    else:
+        for local in (False, True):
+            extra = (pkts.rx_if, t.if_local_table) if local else ()
+            args, out = tbv.bv_launch_args(
+                *hdr, *(tbv._acl_args(t) if local else tbv._glb_args(t)),
+                *extra)
+            fn(*args, 0)
+            planes = t.acl_bv_src if local else t.glb_bv_src[None]
+            n_t, n_int, words = planes.shape
+            assert got[-1][17:24] == (
+                8, n_t, n_int, 256, words,
+                t.if_local_table.shape[0] if local else 0,
+                int(words % 4 == 0))
+            assert (got[-1][15] is None) != local
+            assert isinstance(out, tuple) == local
+
+
+def test_step_pairs_alternates_sides_and_counts_wins(monkeypatch, capsys):
+    """``step_pairs`` alternates which checkout runs first, and its
+    summary counts the pairs each side won per cell (ties for
+    neither); the run snippet it hands each checkout compiles."""
+    import json
+
+    from vpp_tpu_torch import step_pairs
+
+    compile(step_pairs._RUN.replace("STEPS", "3"), "<run>", "exec")
+    calls = []
+    fake = {"this": [5.0, 3.0, 4.0, 2.0], "other": [4.0, 4.0, 4.0, 4.0]}
+
+    def run(root, steps):
+        side = "this" if root == step_pairs.Path.cwd() else "other"
+        calls.append(side)
+        return {"cell": fake[side][sum(c == side for c in calls) - 1]}
+
+    monkeypatch.setattr(step_pairs, "run", run)
+    assert step_pairs.main(["/nonexistent", "--pairs", "4"]) == 0
+    assert calls == ["other", "this", "this", "other"] * 2
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cell = out["summary"]["cell"]
+    assert (cell["this_won"], cell["other_won"]) == (2, 1)
+    assert cell["this_ms"] == 3.5 and cell["other_ms"] == 4.0

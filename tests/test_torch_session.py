@@ -228,7 +228,7 @@ def test_probe_plain_vs_interpret_kernel(ways):
                               else np.array(a)) for a in args]
     jf, jw = jsess.sess_probe_ways(*args, now, max_age, interpret=True)
     rf, rw = jsess._probe_ways_reference(*args, now, max_age)
-    tf, tw = tsess.sess_probe_ways(*targs, now, max_age)
+    tf, tw = tsess.sess_probe_ways_plain(*targs, now, max_age)
     assert bool(np.asarray(jf).any())
     for ref in ((jf, jw), (rf, rw)):
         assert_same(ref[0], tf, "found")
@@ -251,3 +251,133 @@ def test_probe_all_miss_and_no_age_convention():
     tf, tw = tsess.sess_probe_ways_plain(*targs, 0, tsess._BIG)
     assert_same(jf, tf)
     assert_same(jw, tw)
+
+
+# --- the fused lookup kernel: its NumPy model and its plain version -------
+
+_U = np.uint32
+
+
+def _np_mix(a, b, ports, proto):
+    """csrc/sess_probe.cu ``hash_mix``: uint32 arithmetic, so every
+    multiply wraps mod 2^32 (the Python splits the constants instead)."""
+    with np.errstate(over="ignore"):
+        h = ((a * _U(0x9E3779B1)) ^ (b * _U(0x85EBCA77))
+             ^ (ports * _U(0xC2B2AE3D)) ^ (proto * _U(0x27D4EB2F)))
+        h ^= h >> _U(15)
+        h = h * _U(0x2545F491)
+        h ^= h >> _U(13)
+    return h
+
+
+def _np_pack(hi, lo):
+    return (hi.view(_U) << _U(16)) | lo.view(_U)
+
+
+def _np_sess_kernel(hdr, cols, now, max_age, sym, vec4):
+    """A NumPy model of csrc/sess_probe.cu, statement by statement:
+    reversed key, the fwd / canon bucket, the W-way compare (one bit
+    mask and its lowest bit when ``vec4``, else the downward scan), and
+    (found, slot = b * W + first)."""
+    src, dst, proto, sport, dport = (np.asarray(c, np.int32) for c in hdr)
+    s, d, pr = src.view(_U), dst.view(_U), proto.view(_U)
+    ks, kd, kp = d, s, _np_pack(dport, sport)
+    fwd = (not sym) | (s > d) | ((s == d) & (sport > dport))
+    mix = np.where(fwd, _np_mix(ks, kd, kp, pr),
+                   _np_mix(s, d, _np_pack(sport, dport), pr))
+    valid, csrc, cdst, cports, cproto, ctime = (
+        np.asarray(c, np.int32) for c in cols)
+    nb, ways = valid.shape
+    b = (mix & _U(nb - 1)).astype(np.int64)
+    age = (_U(now & 0xFFFFFFFF) - ctime[b].view(_U)).view(np.int32)
+    match = ((valid[b] == 1) & (csrc[b].view(_U) == ks[:, None])
+             & (cdst[b].view(_U) == kd[:, None])
+             & (cports[b].view(_U) == kp[:, None])
+             & (cproto[b].view(_U) == pr[:, None]) & (age <= max_age))
+    if vec4:
+        hit = (match.astype(np.int64) << np.arange(ways)).sum(axis=1)
+        low = hit & -hit  # __ffs
+        first = np.where(hit != 0, np.log2(np.maximum(low, 1)).astype(
+            np.int64), -1)
+    else:
+        first = np.full(len(b), -1)
+        for w in range(ways - 1, -1, -1):
+            first = np.where(match[:, w], w, first)
+    slot = b.astype(np.int32) * ways + np.maximum(first, 0)
+    return first >= 0, slot.astype(np.int32)
+
+
+def test_kernel_hash_model_matches_mixes():
+    """The kernel's uint32 hash (both branches of its sym select) equals
+    the port's ``_hash_mix`` of the reversed key and its ``canon_mix``,
+    and the reference's, at high addresses, address ties with
+    sport > dport, and the extremes 0 / 2^32 - 1."""
+    rng = np.random.default_rng(21)
+    cols = _flows(rng, 512)
+    cols["src_ip"][:8] = [0, 0xFFFFFFFF, 0x80000000, 1, 0xFFFFFFFF, 7, 7, 0]
+    cols["dst_ip"][:8] = [0, 0xFFFFFFFF, 0x7FFFFFFF, 1, 0, 7, 7, 0xFFFFFFFF]
+    cols["sport"][:8] = [65535, 1, 2, 80, 0, 443, 80, 3]
+    cols["dport"][:8] = [1, 65535, 2, 443, 0, 80, 443, 3]
+    cols["proto"][:8] = [255, 0, 6, 17, 1, 6, 6, 17]
+    jp, tp = packet_pair(cols)
+    hdr = tp.five_tuple
+    s, d, pr = (c.numpy().view(_U) for c in (tp.src_ip, tp.dst_ip, tp.proto))
+    sp, dp = tp.sport.numpy(), tp.dport.numpy()
+    fwd_model = _np_mix(d, s, _np_pack(dp, sp), pr)
+    keys = tsess._reverse_keys(*hdr)
+    assert np.array_equal(fwd_model.astype(np.int64),
+                          tsess._hash_mix(*keys).numpy())
+    jkeys = (jp.dst_ip, jp.src_ip, jsess._pack_ports(jp.dport, jp.sport),
+             jp.proto)
+    np.testing.assert_array_equal(fwd_model,
+                                  np.asarray(jsess._hash_mix(*jkeys)))
+    swap = (s > d) | ((s == d) & (sp > dp))
+    sym_model = np.where(swap, fwd_model, _np_mix(s, d, _np_pack(sp, dp), pr))
+    assert np.array_equal(sym_model.astype(np.int64), tsess.canon_mix(
+        tp.src_ip, tp.dst_ip, tp.sport, tp.dport, tp.proto).numpy())
+    np.testing.assert_array_equal(sym_model, np.asarray(jsess.canon_mix(
+        jp.src_ip, jp.dst_ip, jp.sport, jp.dport, jp.proto)))
+    assert swap[:8].tolist() == [True, False, True, False, True, True,
+                                 False, False]
+
+
+@pytest.mark.parametrize("ways", [1, 2, 4, 16])
+@pytest.mark.parametrize("sym", [False, True])
+def test_lookup_plain_and_kernel_model_match_reference(ways, sym):
+    """``sess_probe_ways`` on CPU tensors (its plain version) and the
+    NumPy model of the kernel, on both of its load paths, against the
+    reference's ``session_lookup_reverse_idx``: fwd and sym hashing,
+    high addresses and ports, hairpins, live / expired / absent
+    sessions; and the no-age convention against
+    ``session_lookup_reverse``."""
+    rng = np.random.default_rng(40 + ways + 7 * sym)
+    jt = _base(sess_slots=16 * ways, ways=ways, rng=rng)
+    fwd = _flows(rng, 150, pool=100)
+    jp, _ = packet_pair(fwd)
+    jt, *_ = jsess.session_insert(jt, jp, jnp.ones(150, bool),
+                                  jnp.int32(3500), sym=sym)
+    tt = torch_tables(jt)
+    rev = _reverse(fwd)
+    junk = _flows(rng, 50)
+    rev = {f: np.concatenate([rev[f], junk[f]]) for f in rev}
+    jr, tr = packet_pair(rev)
+    hdr = tr.five_tuple
+    cols = tsess._columns(tt)
+    for now in (4200, 3600):  # the random-state entries are expired
+        jf, jidx = jsess.session_lookup_reverse_idx(jt, jr, jnp.int32(now),
+                                                    sym=sym)
+        assert 0 < int(np.asarray(jf).sum()) < len(jf)
+        tf, tidx = tsess.sess_probe_ways(*hdr, *cols, now, tt.sess_max_age,
+                                         sym=sym)
+        assert_same(jf, tf, "found")
+        assert_same(jidx, tidx, "slot")
+        for vec4 in (False, True):
+            mf, mslot = _np_sess_kernel(
+                hdr, [c.numpy() for c in cols], now,
+                int(tt.sess_max_age), sym, vec4)
+            np.testing.assert_array_equal(mf, np.asarray(jf))
+            np.testing.assert_array_equal(mslot, np.asarray(jidx))
+    jf = jsess.session_lookup_reverse(jt, jr, sym=sym)
+    tf, _ = tsess.sess_probe_ways(*hdr, *cols, 0, tsess._BIG, sym=sym)
+    assert_same(jf, tf, "found, no age")
+    assert tsess.sess_probe_ways.launches == 0

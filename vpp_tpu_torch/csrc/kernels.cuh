@@ -20,22 +20,30 @@
 
 extern "C" {
 
-int sess_probe_ways(const int32_t* b, const int32_t* key_src,
-                    const int32_t* key_dst, const int32_t* key_ports,
-                    const int32_t* key_proto, const int32_t* valid,
+// max_age: a device scalar, or null to take max_age_v
+int sess_probe_ways(const int32_t* src_ip, const int32_t* dst_ip,
+                    const int32_t* proto, const int32_t* sport,
+                    const int32_t* dport, int32_t sym, const int32_t* valid,
                     const int32_t* src, const int32_t* dst,
-                    const int32_t* ports, const int32_t* proto,
-                    const int32_t* time, int32_t p, int32_t ways,
-                    int32_t now, const int32_t* max_age, int32_t* found,
-                    int32_t* first, void* stream);
+                    const int32_t* ports, const int32_t* prot,
+                    const int32_t* time, int32_t p, int32_t n_buckets,
+                    int32_t ways, int32_t vec4, int32_t now,
+                    const int32_t* max_age, int32_t max_age_v,
+                    uint8_t* found, int32_t* slot, void* stream);
 
-int bv_first_set(const int32_t* bm_src, const int32_t* bm_dst,
+// One table (n_tables = 1, rx_if and if_table null) or per-interface
+// tables ([T, ...] arrays; tid written per packet)
+int bv_first_set(const int32_t* src_ip, const int32_t* dst_ip,
+                 const int32_t* proto, const int32_t* sport,
+                 const int32_t* dport, const int32_t* bnd_src,
+                 const int32_t* bnd_dst, const int32_t* bnd_sport,
+                 const int32_t* bnd_dport, const int32_t* nbnd,
+                 const int32_t* bm_src, const int32_t* bm_dst,
                  const int32_t* bm_sport, const int32_t* bm_dport,
-                 const int32_t* bm_proto, const int32_t* row_src,
-                 const int32_t* row_dst, const int32_t* row_sport,
-                 const int32_t* row_dport, const int32_t* row_proto,
-                 const int32_t* table, int32_t p, int32_t n_int,
-                 int32_t n_proto, int32_t words, int32_t* enc,
+                 const int32_t* bm_proto, const int32_t* rx_if,
+                 const int32_t* if_table, int32_t p, int32_t n_tables,
+                 int32_t n_int, int32_t n_proto, int32_t words,
+                 int32_t n_if, int32_t vec4, int32_t* enc, int32_t* tid,
                  void* stream);
 
 int lpm_fused_lookup(const int32_t* dst, const int32_t* lens,

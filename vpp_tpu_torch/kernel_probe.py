@@ -1,13 +1,18 @@
 """Where a hand-written kernel's time goes: source variants timed on the card.
 
-    python3 -m vpp_tpu_torch.kernel_probe [mxu_first_match] [lpm_fused_lookup]
+    python3 -m vpp_tpu_torch.kernel_probe [kernel ...]
+
+(kernels: mxu_first_match, lpm_fused_lookup, sess_probe_ways,
+bv_first_set; default all)
 
 Run from the repo root on a machine with one NVIDIA Hopper card and the
 CUDA toolkit. Each variant is the kernel's source with one part cut out
 (a text substitution), built with ``nvcc`` beside the real kernel and
 timed like ``chip_smoke.py`` times kernels (device ms per launch from a
 replayed CUDA graph) at the smoke's main-path shapes, in turns with the
-unmodified kernel. A cut kernel computes a wrong answer by design; the
+unmodified kernel. ``sess_probe_ways`` and ``bv_first_set`` run on the
+main path's own inputs: the smoke's slice is staged and driven for one
+round first. A cut kernel computes a wrong answer by design; the
 unmodified one is held bit-exact against its plain version first. The
 differences between the lines say what a redesign can win.
 """
@@ -23,7 +28,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from vpp_tpu_torch.ops import _cuda, acl_mxu, lpm
+from vpp_tpu_torch.ops import _cuda, acl_bv, acl_mxu, lpm, session
 
 # kernel -> (its source in csrc/, {variant: [(text, replacement), ...]})
 _MXU_EPI = ("for (int i = kN / 8 - 1; i >= 0; --i) {",
@@ -34,6 +39,18 @@ _LPM_STAGE = ("  if (fits) {\n    for (int k = 0; k < n_pop; ++k) {",
               "  if (false) {\n    for (int k = 0; k < n_pop; ++k) {")
 _LPM_SEARCH = ("      const int32_t at = fits ?",
                "      const int32_t at = true ? -1 : fits ?")
+_SESS_HASH = ("const uint32_t b = mix & static_cast<uint32_t>(n_buckets - 1);",
+              "const uint32_t b = s & static_cast<uint32_t>(n_buckets - 1);")
+_SESS_LOADS = ("return __ldg(reinterpret_cast<const int4*>(col) + b);",
+               "return make_int4(0, 0, 0, static_cast<int>(b));")
+_BV_SEARCH = ("while (__any_sync(kFull, busy)) {",
+              "while (false && __any_sync(kFull, busy)) {")
+# the rows stay live (their top bit, always 0, feeds the word) so that
+# the search is not cut with the AND
+_BV_AND = ("and5<kVec4>(rows, c)",
+           "make_uint4(0u, 0u, 0u, static_cast<uint32_t>(("
+           + " | ".join(f"reinterpret_cast<uintptr_t>(rows[{k}])"
+                        for k in range(5)) + ") >> 63))")
 VARIANTS = {
     "mxu_first_match": ("mxu_first_match.cu", {
         "epilogue on 8 of 128 columns": [_MXU_EPI],
@@ -46,6 +63,22 @@ VARIANTS = {
         "no staging": [_LPM_STAGE],
         "no search": [_LPM_SEARCH],
         "no staging, no search": [_LPM_STAGE, _LPM_SEARCH],
+    }),
+    "sess_probe_ways": ("sess_probe.cu", {
+        "no hash (bucket = src & (NB - 1))": [_SESS_HASH],
+        "no loads": [_SESS_LOADS],
+        "no hash, no loads": [_SESS_HASH, _SESS_LOADS],
+        "256-thread blocks": [("constexpr int kBlock = 32;",
+                               "constexpr int kBlock = 256;")],
+    }),
+    "bv_first_set": ("bv_first_set.cu", {
+        "no search (row 0)": [_BV_SEARCH],
+        "no AND": [_BV_AND],
+        "no search, no AND": [_BV_SEARCH, _BV_AND],
+        "16 lanes a narrow packet": [("constexpr int kNarrowLanes = 8;",
+                                      "constexpr int kNarrowLanes = 16;")],
+        "16 lanes a wide packet": [("constexpr int kWideLanes = 32;",
+                                    "constexpr int kWideLanes = 16;")],
     }),
 }
 
@@ -114,7 +147,35 @@ def lpm_stack(rng, dev):
         t(np.arange(32, -1, -1, dtype=np.int32)), t(cnt), t(pfx), t(slot)]
 
 
-def probe(kernel: str, out: Path, seed: int) -> None:
+def main_path(seed: int):
+    """{(P, what): (wrapper, plain, args)}: the session lookup and the
+    global and local classify at the main path's inputs (the smoke's
+    slice staged on the card and driven one round, then each size's
+    forward vector and its replies)."""
+    import chip_smoke as cs
+
+    dp = cs.Dataplane(cs.slice_config())
+    up, pods = cs.stage(dp, 10240, 3744)
+    cs.drive(dp, up, pods, 1, seed)
+    out = {}
+    for p in (cs.VEC, cs.BIG_VEC):
+        fwd = cs.forward_traffic(p, up, seed + p)
+        first = dp.process(cs.packet_vector_from_numpy(fwd, dp.device),
+                           now=1000)
+        inp = cs.main_path_inputs(dp, fwd, cs.reply_traffic(
+            cs.snapshot(first), pods), 1001)
+        out[(p, "session")] = (session.sess_probe_ways,
+                               session.sess_probe_reverse_plain,
+                               inp["sess"])
+        for what in ("glb", "loc"):
+            out[(p, what)] = (acl_bv.bv_first_set,
+                              acl_bv.bv_search_first_set_plain, inp[what])
+    return out
+
+
+def probe(kernel: str, out: Path, seed: int, inputs=None) -> None:
+    """Time ``kernel``'s variants in turns with it; ``inputs``: the
+    ``main_path`` of the session and classify kernels."""
     import chip_smoke as cs
 
     dev = torch.device("cuda")
@@ -139,7 +200,7 @@ def probe(kernel: str, out: Path, seed: int) -> None:
                 enc.fill_(int(acl_mxu.ENC_MISS))
                 f(*ptrs, p, 10240, _cuda.ptr(enc), _cuda.stream())
             runs[f"P={p} (with the fill)"] = run
-    else:
+    elif kernel == "lpm_fused_lookup":
         for f in entries.values():
             f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int32] * 4
                           + [ctypes.c_void_p] * 3)
@@ -162,6 +223,24 @@ def probe(kernel: str, out: Path, seed: int) -> None:
                 f(*ptrs, p, n_len, 4096, budget, _cuda.ptr(found),
                   _cuda.ptr(slot), _cuda.stream())
             runs[f"P={p} {where}"] = run
+    else:
+        sess = kernel == "sess_probe_ways"
+        for f in entries.values():
+            f.argtypes = session.SESS_ARGTYPES if sess else acl_bv.BV_ARGTYPES
+        for (p, what), (wrapper, plain, args) in inputs.items():
+            if (what == "session") != sess:
+                continue
+            got, want = wrapper(*args), plain(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{kernel} {what} P={p} is not exact")
+            c_args, _ = (session.sess_launch_args if sess
+                         else acl_bv.bv_launch_args)(*args)
+
+            def run(f, c_args=c_args):
+                f(*c_args, _cuda.stream())
+            runs[f"P={p} {what}"] = run
     for shape, run in runs.items():
         kernel_ms = []
         for name, f in entries.items():
@@ -186,8 +265,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device", file=sys.stderr)
         return 2
-    for kernel in args.kernels or sorted(VARIANTS):
-        probe(kernel, args.out, args.seed)
+    kernels = args.kernels or sorted(VARIANTS)
+    inputs = (main_path(args.seed) if {"sess_probe_ways", "bv_first_set"}
+              & set(kernels) else None)
+    for kernel in kernels:
+        probe(kernel, args.out, args.seed, inputs)
     return 0
 
 

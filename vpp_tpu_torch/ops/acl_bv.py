@@ -6,11 +6,14 @@ dimension to an interval, the distinct interval boundaries split each
 dimension into at most 2R+1 segments, and every segment carries the
 bitmap of rules covering it (``ceil(R/32)`` uint32 words); protocol gets
 a direct [256, W] plane. Device time, per packet: 4 sorted searches for
-the segment rows (plain PyTorch, ``torch.searchsorted``) and the fused
-row-AND + first-set-bit — ``bv_first_set``, a CUDA kernel on the card
-(csrc/bv_first_set.cu) with its plain PyTorch version beside it.
+the segment rows, the row AND and the first set bit — ``bv_first_set``,
+one CUDA kernel on the card (csrc/bv_first_set.cu) that takes the header
+columns and the table (for a local classify also ``rx_if`` and
+``if_local_table``), with its plain PyTorch version
+``bv_search_first_set_plain`` beside it (``torch.searchsorted``, then
+``bv_first_set_plain``, the reference kernel's row-AND step).
 
-Rungs: ``bv`` runs the plain first-set everywhere; ``pallas`` (the
+Rungs: ``bv`` runs the plain version everywhere; ``pallas`` (the
 reference's name for the fused-kernel rung, kept so one config means
 the same in both packages) calls ``bv_first_set``, which launches the
 kernel for CUDA tensors and takes the plain version for CPU tensors.
@@ -323,79 +326,150 @@ def bv_first_set_plain(bm_src, bm_dst, bm_sport, bm_dport, bm_proto,
     return cand.min(dim=1).values.to(torch.int32)
 
 
-def bv_first_set(bm_src, bm_dst, bm_sport, bm_dport, bm_proto,
-                 row_src, row_dst, row_sport, row_dport, row_proto,
-                 table=None) -> torch.Tensor:
-    """Fused row gather + word-AND + first-set-bit (the kernel of
-    csrc/bv_first_set.cu on a CUDA tensor, the plain version on a CPU
-    tensor). Planes are [I, W] (one table) or [T, I, W] with ``table``
-    [P] naming each packet's table; rows are [P] int32 segment / proto
-    row indices. Returns enc [P] int32."""
-    if not _cuda.use_kernels(bm_src):
-        return bv_first_set_plain(bm_src, bm_dst, bm_sport, bm_dport,
-                                  bm_proto, row_src, row_dst, row_sport,
-                                  row_dport, row_proto, table)
+def _global_rows(src_ip, dst_ip, proto, sport, dport, bnd_src, bnd_dst,
+                 bnd_sport, bnd_dport, nbnd, n_proto: int):
+    """The five row indices of each packet in one table: its segment
+    rows (src, dst, sport, dport) and its clamped protocol."""
+    si = _segment_of(bnd_src, src_ip, nbnd[0], True)
+    di = _segment_of(bnd_dst, dst_ip, nbnd[1], True)
+    pi = _segment_of(bnd_sport, sport, nbnd[2], False)
+    qi = _segment_of(bnd_dport, dport, nbnd[3], False)
+    return si, di, pi, qi, torch.clamp(proto, 0, n_proto - 1)
+
+
+def _local_rows(src_ip, dst_ip, proto, sport, dport, rx_if, if_local_table,
+                bnd_src, bnd_dst, bnd_sport, bnd_dport, nbnd, n_proto: int):
+    """(tid [P], table [P], rows): each packet's local table (-1: none;
+    the rows then index table 0) and its five row indices there, each
+    packet searching its own table's [I] boundary rows."""
+    tid = if_local_table[gather_index(rx_if, if_local_table.shape[0])]
+    t = torch.clamp(tid, min=0)
+    tl = t.long()
+    nb = nbnd[tl]  # [P, 4]
+    si = _segment_of(bnd_src[tl], src_ip, nb[:, 0], True)
+    di = _segment_of(bnd_dst[tl], dst_ip, nb[:, 1], True)
+    pi = _segment_of(bnd_sport[tl], sport, nb[:, 2], False)
+    qi = _segment_of(bnd_dport[tl], dport, nb[:, 3], False)
+    return tid, t, (si, di, pi, qi, torch.clamp(proto, 0, n_proto - 1))
+
+
+def bv_search_first_set_plain(src_ip, dst_ip, proto, sport, dport, bnd_src,
+                              bnd_dst, bnd_sport, bnd_dport, nbnd, bm_src,
+                              bm_dst, bm_sport, bm_dport, bm_proto,
+                              rx_if=None, if_local_table=None):
+    """The plain PyTorch version of ``bv_first_set``: ``_global_rows``
+    (or ``_local_rows``) and ``bv_first_set_plain``."""
+    hdr = (src_ip, dst_ip, proto, sport, dport)
+    bnd = (bnd_src, bnd_dst, bnd_sport, bnd_dport, nbnd)
+    planes = (bm_src, bm_dst, bm_sport, bm_dport, bm_proto)
+    if if_local_table is None:
+        rows = _global_rows(*hdr, *bnd, bm_proto.shape[0])
+        return bv_first_set_plain(*planes, *rows)
+    tid, t, rows = _local_rows(*hdr, rx_if, if_local_table, *bnd,
+                               bm_proto.shape[1])
+    return tid, bv_first_set_plain(*planes, *rows, table=t)
+
+
+# the C entry's argument types (kernels.cuh), the stream last
+BV_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int32] * 7 \
+    + [ctypes.c_void_p] * 3
+
+
+def bv_launch_args(src_ip, dst_ip, proto, sport, dport, bnd_src, bnd_dst,
+                   bnd_sport, bnd_dport, nbnd, bm_src, bm_dst, bm_sport,
+                   bm_dport, bm_proto, rx_if=None, if_local_table=None):
+    """The checked arguments of csrc/bv_first_set.cu's C entry but the
+    stream, and the outputs (enc, or (tid, enc) for the local form)."""
+    hdr = [src_ip, dst_ip, proto, sport, dport]
+    bnds = [bnd_src, bnd_dst, bnd_sport, bnd_dport]
     planes = [bm_src, bm_dst, bm_sport, bm_dport, bm_proto]
-    if bm_src.dim() == 2:
+    local = if_local_table is not None
+    if not local:
+        bnds = [b[None] for b in bnds]
         planes = [pl[None] for pl in planes]
-        table = None
-    n_int, words = planes[0].shape[1], planes[0].shape[2]
+        nbnd = nbnd[None]
+    dev = bm_src.device
+    n_tables, n_int, words = planes[0].shape
     n_proto = planes[4].shape[1]
-    p = row_src.shape[0]
-    for name, pl in zip(("src", "dst", "sport", "dport", "proto"), planes):
-        _cuda.require(pl, f"bv_first_set.bm_{name}", ndim=3)
-        if pl.shape[2] != words or pl.shape[0] != planes[0].shape[0]:
+    p = src_ip.shape[0]
+    for name, pl in zip(DIMS + ("proto",), planes):
+        _cuda.require(pl, f"bv_first_set.bm_{name}", ndim=3, device=dev)
+        rows = n_proto if name == "proto" else n_int
+        if tuple(pl.shape) != (n_tables, rows, words):
             raise ValueError(f"bv_first_set: plane {name} has shape "
                              f"{tuple(pl.shape)}")
-    rows = [row_src, row_dst, row_sport, row_dport, row_proto]
-    rows += [table] if table is not None else []
-    for r in rows:
-        _cuda.require(r, "bv_first_set.rows", ndim=1,
-                      device=bm_src.device)
-        if r.shape[0] != p:
-            raise ValueError("bv_first_set: row index length mismatch")
-    enc = torch.empty(p, dtype=torch.int32, device=bm_src.device)
-    lib = _cuda.library("bv_first_set")
-    fn = lib.bv_first_set
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int32] * 4
-                   + [ctypes.c_void_p] * 2)
+    for name, b in zip(DIMS, bnds):
+        _cuda.require(b, f"bv_first_set.bnd_{name}", ndim=2, device=dev)
+        if tuple(b.shape) != (n_tables, n_int):
+            raise ValueError(f"bv_first_set: bnd_{name} has shape "
+                             f"{tuple(b.shape)}")
+    _cuda.require(nbnd, "bv_first_set.nbnd", ndim=2, device=dev)
+    if tuple(nbnd.shape) != (n_tables, 4):
+        raise ValueError(f"bv_first_set: nbnd has shape {tuple(nbnd.shape)}")
+    for c in hdr + ([rx_if] if local else []):
+        _cuda.require(c, "bv_first_set.header", ndim=1, device=dev)
+        if c.shape[0] != p:
+            raise ValueError("bv_first_set: header length mismatch")
+    if local:
+        _cuda.require(if_local_table, "bv_first_set.if_local_table", ndim=1,
+                      device=dev)
+    vec4 = words % 4 == 0 and all(pl.data_ptr() % 16 == 0 for pl in planes)
+    enc = torch.empty(p, dtype=torch.int32, device=dev)
+    tid = torch.empty(p, dtype=torch.int32, device=dev) if local else None
+    args = (*(_cuda.ptr(x) for x in hdr + bnds + [nbnd] + planes),
+            _cuda.ptr(rx_if) if local else None,
+            _cuda.ptr(if_local_table) if local else None, p, n_tables, n_int,
+            n_proto, words, if_local_table.shape[0] if local else 0,
+            int(vec4), _cuda.ptr(enc), _cuda.ptr(tid) if local else None)
+    return args, ((tid, enc) if local else enc)
+
+
+def bv_first_set(src_ip, dst_ip, proto, sport, dport, bnd_src, bnd_dst,
+                 bnd_sport, bnd_dport, nbnd, bm_src, bm_dst, bm_sport,
+                 bm_dport, bm_proto, rx_if=None, if_local_table=None):
+    """The BV first match of a packet vector: the kernel of
+    csrc/bv_first_set.cu on CUDA tensors (segment searches, table
+    lookup, row AND and first set bit in one launch), the plain version
+    on CPU tensors. Header columns [P] int32; one table's boundaries
+    [I], live counts ``nbnd`` [4] and planes [I, W] / [PR, W] — or,
+    with ``rx_if`` and ``if_local_table``, the per-interface tables'
+    [T, I], [T, 4] and [T, I, W] / [T, PR, W]. Returns enc [P] int32
+    (rule index, ``BV_ENC_MISS`` on a miss); the local form returns
+    (tid [P] int32, enc), ``tid`` = -1 where the interface has no
+    table."""
+    args = (src_ip, dst_ip, proto, sport, dport, bnd_src, bnd_dst,
+            bnd_sport, bnd_dport, nbnd, bm_src, bm_dst, bm_sport, bm_dport,
+            bm_proto, rx_if, if_local_table)
+    if not _cuda.use_kernels(bm_src):
+        return bv_search_first_set_plain(*args)
+    c_args, out = bv_launch_args(*args)
+    fn = _cuda.library("bv_first_set").bv_first_set
+    fn.argtypes = BV_ARGTYPES
     fn.restype = ctypes.c_int
-    err = fn(*(_cuda.ptr(x) for x in planes),
-             *(_cuda.ptr(x) for x in rows[:5]),
-             _cuda.ptr(table) if table is not None else None,
-             p, n_int, n_proto, words, _cuda.ptr(enc), _cuda.stream())
-    _cuda.check(err, "bv_first_set")
+    _cuda.check(fn(*c_args, _cuda.stream()), "bv_first_set")
     bv_first_set.launches += 1
-    return enc
+    return out
 
 
 bv_first_set.launches = 0
 
 
-def _global_rows(tables, pkts: PacketVector):
-    nb = tables.glb_bv_nbnd
-    si = _segment_of(tables.glb_bv_bnd_src, pkts.src_ip, nb[0], True)
-    di = _segment_of(tables.glb_bv_bnd_dst, pkts.dst_ip, nb[1], True)
-    pi = _segment_of(tables.glb_bv_bnd_sport, pkts.sport, nb[2], False)
-    qi = _segment_of(tables.glb_bv_bnd_dport, pkts.dport, nb[3], False)
-    pr = torch.clamp(pkts.proto, 0, tables.glb_bv_proto.shape[0] - 1)
-    return si, di, pi, qi, pr
+
+def _glb_args(tables):
+    """The global table's boundaries, live counts and planes, in the
+    order ``bv_first_set`` takes them."""
+    return (tables.glb_bv_bnd_src, tables.glb_bv_bnd_dst,
+            tables.glb_bv_bnd_sport, tables.glb_bv_bnd_dport,
+            tables.glb_bv_nbnd, tables.glb_bv_src, tables.glb_bv_dst,
+            tables.glb_bv_sport, tables.glb_bv_dport, tables.glb_bv_proto)
 
 
-def _local_rows(tables, pkts: PacketVector):
-    tid = tables.if_local_table[
-        gather_index(pkts.rx_if, tables.if_local_table.shape[0])]
-    t = torch.clamp(tid, min=0)
-    tl = t.long()
-    nb = tables.acl_bv_nbnd[tl]  # [P, 4]
-    si = _segment_of(tables.acl_bv_bnd_src[tl], pkts.src_ip, nb[:, 0], True)
-    di = _segment_of(tables.acl_bv_bnd_dst[tl], pkts.dst_ip, nb[:, 1], True)
-    pi = _segment_of(tables.acl_bv_bnd_sport[tl], pkts.sport, nb[:, 2],
-                     False)
-    qi = _segment_of(tables.acl_bv_bnd_dport[tl], pkts.dport, nb[:, 3],
-                     False)
-    pr = torch.clamp(pkts.proto, 0, tables.acl_bv_proto.shape[1] - 1)
-    return tid, t, (si, di, pi, qi, pr)
+def _acl_args(tables):
+    """The per-interface tables' boundaries, counts and planes."""
+    return (tables.acl_bv_bnd_src, tables.acl_bv_bnd_dst,
+            tables.acl_bv_bnd_sport, tables.acl_bv_bnd_dport,
+            tables.acl_bv_nbnd, tables.acl_bv_src, tables.acl_bv_dst,
+            tables.acl_bv_sport, tables.acl_bv_dport, tables.acl_bv_proto)
 
 
 def _global_verdict(tables, pkts, enc) -> AclVerdict:
@@ -405,27 +479,17 @@ def _global_verdict(tables, pkts, enc) -> AclVerdict:
     return assemble_global_verdict(tables, pkts, matched, act == 1, rule)
 
 
-def _local_verdict(tables, pkts, tid, t, enc) -> AclVerdict:
+def _local_verdict(tables, pkts, tid, enc) -> AclVerdict:
+    t = torch.clamp(tid, min=0).long()
     has_table = tid >= 0
     matched = enc != BV_ENC_MISS
     rule = torch.where(matched, enc, -1)
-    act = tables.acl_action[t.long(), torch.where(matched, enc, 0).long()]
+    act = tables.acl_action[t, torch.where(matched, enc, 0).long()]
     permit = torch.where(matched, act == 1,
-                         acl_unmatched_default(pkts, tables.acl_nrules[
-                             t.long()]))
+                         acl_unmatched_default(pkts, tables.acl_nrules[t]))
     return AclVerdict(permit=torch.where(has_table, permit, True),
                       rule_idx=torch.where(has_table & matched, rule, -1)
                       .to(torch.int32))
-
-
-def _glb_planes(tables):
-    return (tables.glb_bv_src, tables.glb_bv_dst, tables.glb_bv_sport,
-            tables.glb_bv_dport, tables.glb_bv_proto)
-
-
-def _acl_planes(tables):
-    return (tables.acl_bv_src, tables.acl_bv_dst, tables.acl_bv_sport,
-            tables.acl_bv_dport, tables.acl_bv_proto)
 
 
 def bv_first_match(bnd_src, bnd_dst, bnd_sport, bnd_dport, nbnd,
@@ -433,41 +497,36 @@ def bv_first_match(bnd_src, bnd_dst, bnd_sport, bnd_dport, nbnd,
                    pkts: PacketVector) -> Tuple[torch.Tensor, torch.Tensor]:
     """(matched [P] bool, rule_idx [P] int32, -1 = miss) over one BV
     table, plain PyTorch throughout."""
-    si = _segment_of(bnd_src, pkts.src_ip, nbnd[0], True)
-    di = _segment_of(bnd_dst, pkts.dst_ip, nbnd[1], True)
-    pi = _segment_of(bnd_sport, pkts.sport, nbnd[2], False)
-    qi = _segment_of(bnd_dport, pkts.dport, nbnd[3], False)
-    pr = torch.clamp(pkts.proto, 0, bm_proto.shape[0] - 1)
-    enc = bv_first_set_plain(bm_src, bm_dst, bm_sport, bm_dport, bm_proto,
-                             si, di, pi, qi, pr)
+    enc = bv_search_first_set_plain(
+        *pkts.five_tuple, bnd_src, bnd_dst, bnd_sport, bnd_dport, nbnd,
+        bm_src, bm_dst, bm_sport, bm_dport, bm_proto)
     matched = enc != BV_ENC_MISS
     return matched, torch.where(matched, enc, -1)
 
 
 def acl_classify_global_bv(tables, pkts: PacketVector) -> AclVerdict:
     """The ``bv`` rung, global table (plain PyTorch)."""
-    enc = bv_first_set_plain(*_glb_planes(tables),
-                             *_global_rows(tables, pkts))
+    enc = bv_search_first_set_plain(*pkts.five_tuple, *_glb_args(tables))
     return _global_verdict(tables, pkts, enc)
 
 
 def acl_classify_local_bv(tables, pkts: PacketVector) -> AclVerdict:
     """The ``bv`` rung, per-interface local tables (plain PyTorch)."""
-    tid, t, rows = _local_rows(tables, pkts)
-    enc = bv_first_set_plain(*_acl_planes(tables), *rows, table=t)
-    return _local_verdict(tables, pkts, tid, t, enc)
+    tid, enc = bv_search_first_set_plain(*pkts.five_tuple, *_acl_args(tables),
+                                         pkts.rx_if, tables.if_local_table)
+    return _local_verdict(tables, pkts, tid, enc)
 
 
 def acl_classify_global_pallas(tables, pkts: PacketVector) -> AclVerdict:
     """The fused-kernel rung, global table: ``bv_first_set`` over the
-    global planes."""
-    enc = bv_first_set(*_glb_planes(tables), *_global_rows(tables, pkts))
+    global table."""
+    enc = bv_first_set(*pkts.five_tuple, *_glb_args(tables))
     return _global_verdict(tables, pkts, enc)
 
 
 def acl_classify_local_pallas(tables, pkts: PacketVector) -> AclVerdict:
-    """The fused-kernel rung, local tables: ``bv_first_set`` with each
-    packet's table index."""
-    tid, t, rows = _local_rows(tables, pkts)
-    enc = bv_first_set(*_acl_planes(tables), *rows, table=t)
-    return _local_verdict(tables, pkts, tid, t, enc)
+    """The fused-kernel rung, local tables: ``bv_first_set`` looks up
+    each packet's table from its receiving interface."""
+    tid, enc = bv_first_set(*pkts.five_tuple, *_acl_args(tables), pkts.rx_if,
+                            tables.if_local_table)
+    return _local_verdict(tables, pkts, tid, enc)

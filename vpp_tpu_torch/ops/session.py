@@ -22,11 +22,14 @@ lane's value (or, when no lane writes, to slot 0 carrying slot 0's own
 value), so each slot receives only identical values: deterministic on
 CUDA without a host sync, O(P) work.
 
-The session probe — kernel 1 — is ``sess_probe_ways``: the CUDA kernel
-of csrc/sess_probe.cu for CUDA tensors, its plain version for CPU
-tensors. The reference gates its TPU kernel on a VMEM budget
-(``session_pallas_fits``); the Hopper kernel reads the columns from
-device memory, so there is no such budget and no such gate.
+The session lookup — kernel 1 — is ``sess_probe_ways``: the CUDA kernel
+of csrc/sess_probe.cu for CUDA tensors, which takes the header columns
+and forms the reversed key, the bucket hash and the flat slot itself
+(the reference computes them around its TPU kernel), and its plain
+version ``sess_probe_reverse_plain`` for CPU tensors. The reference
+gates its TPU kernel on a VMEM budget (``session_pallas_fits``); the
+Hopper kernel reads the columns from device memory, so there is no such
+budget and no such gate.
 """
 
 from __future__ import annotations
@@ -118,13 +121,15 @@ def _scatter_set(flat: torch.Tensor, idx: torch.Tensor,
                     torch.where(mask, vals, fill))
 
 
-# --- kernel 1: the fused bucket probe ---------------------------------
+# --- kernel 1: the fused session lookup ---------------------------------
 
 
 def sess_probe_ways_plain(b, key_src, key_dst, key_ports, key_proto, valid,
                           src, dst, ports, proto, time, now, max_age):
-    """The plain PyTorch version of ``sess_probe_ways`` (the gather
-    rung's math on the kernel's signature)."""
+    """The bucket probe of the gather rung on the reference kernel's
+    signature: ``b`` [P] home buckets, ``key_*`` [P] the key, the six
+    [NB, W] columns. Returns (found [P] bool, first [P] int32 — the
+    lowest matching way, 0 on a miss)."""
     bl = b.long()
     match = ((valid[bl] == 1)
              & (src[bl] == key_src[:, None])
@@ -135,65 +140,102 @@ def sess_probe_ways_plain(b, key_src, key_dst, key_ports, key_proto, valid,
     return match.any(dim=1), first_true(match).to(torch.int32)
 
 
-def sess_probe_ways(b, key_src, key_dst, key_ports, key_proto, valid, src,
-                    dst, ports, proto, time, now, max_age):
-    """Fused bucket probe + election: ``b`` [P] home buckets, ``key_*``
-    [P] the reversed 5-tuple, the six [NB, W] columns, ``now`` an int
-    and ``max_age`` an int or a 0-d int32 tensor. Returns (found [P]
-    bool, first [P] int32 — the lowest matching way, 0 on a miss). The
-    CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
-    if not _cuda.use_kernels(valid):
-        return sess_probe_ways_plain(b, key_src, key_dst, key_ports,
-                                     key_proto, valid, src, dst, ports,
-                                     proto, time, now, max_age)
+def _reverse_keys(src_ip, dst_ip, proto, sport, dport):
+    """The key a packet's reply looks up: the forward 5-tuple its
+    session was stored under."""
+    return dst_ip, src_ip, _pack_ports(dport, sport), proto
+
+
+def _reverse_bucket(src_ip, dst_ip, proto, sport, dport, keys,
+                    n_buckets: int, sym: bool):
+    if sym:
+        mix = canon_mix(src_ip, dst_ip, sport, dport, proto)
+    else:
+        mix = _hash_mix(*keys)
+    return _bucket(mix, n_buckets)
+
+
+def sess_probe_reverse_plain(src_ip, dst_ip, proto, sport, dport, valid, src,
+                             dst, ports, sess_proto, time, now, max_age,
+                             sym: bool = False):
+    """The plain PyTorch version of ``sess_probe_ways``: the reversed
+    key, the bucket, ``sess_probe_ways_plain`` and the flat slot."""
+    n_buckets, ways = valid.shape
+    hdr = (src_ip, dst_ip, proto, sport, dport)
+    keys = _reverse_keys(*hdr)
+    b = _reverse_bucket(*hdr, keys, n_buckets, sym)
+    found, first = sess_probe_ways_plain(b, *keys, valid, src, dst, ports,
+                                         sess_proto, time, now, max_age)
+    return found, b * ways + first
+
+
+# the C entry's argument types (kernels.cuh), the stream last
+SESS_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int32]
+                 + [ctypes.c_void_p] * 6 + [ctypes.c_int32] * 5
+                 + [ctypes.c_void_p, ctypes.c_int32]
+                 + [ctypes.c_void_p] * 3)
+
+
+def sess_launch_args(src_ip, dst_ip, proto, sport, dport, valid, src, dst,
+                     ports, sess_proto, time, now, max_age, sym=False):
+    """The checked arguments of csrc/sess_probe.cu's C entry but the
+    stream, and the outputs (found, slot) they point at."""
+    hdr = (src_ip, dst_ip, proto, sport, dport)
+    cols = (valid, src, dst, ports, sess_proto, time)
     dev = valid.device
     nb, ways = valid.shape
-    p = b.shape[0]
-    cols = (valid, src, dst, ports, proto, time)
+    p = src_ip.shape[0]
     for c in cols:
         _cuda.require(c, "sess_probe_ways.column", ndim=2, device=dev)
         if tuple(c.shape) != (nb, ways):
             raise ValueError("sess_probe_ways: column shape mismatch")
-    vecs = (b, key_src, key_dst, key_ports, key_proto)
-    for v in vecs:
-        _cuda.require(v, "sess_probe_ways.keys", ndim=1, device=dev)
+    for v in hdr:
+        _cuda.require(v, "sess_probe_ways.header", ndim=1, device=dev)
         if v.shape[0] != p:
-            raise ValueError("sess_probe_ways: key length mismatch")
-    if not torch.is_tensor(max_age):
-        max_age = torch.tensor(int(max_age), dtype=torch.int32, device=dev)
-    _cuda.require(max_age, "sess_probe_ways.max_age", ndim=0, device=dev)
-    found = torch.empty(p, dtype=torch.int32, device=dev)
-    first = torch.empty(p, dtype=torch.int32, device=dev)
+            raise ValueError("sess_probe_ways: header length mismatch")
+    if nb & (nb - 1):
+        raise ValueError(f"sess_probe_ways: {nb} buckets, not a power of 2")
+    if torch.is_tensor(max_age):
+        _cuda.require(max_age, "sess_probe_ways.max_age", ndim=0,
+                      device=dev)
+        age_ptr, age_val = _cuda.ptr(max_age), 0
+    else:
+        age_ptr, age_val = None, int(max_age)
+    vec4 = ways == 4 and all(c.data_ptr() % 16 == 0 for c in cols)
+    found = torch.empty(p, dtype=torch.bool, device=dev)
+    slot = torch.empty(p, dtype=torch.int32, device=dev)
+    args = (*(_cuda.ptr(x) for x in hdr), int(sym),
+            *(_cuda.ptr(x) for x in cols), p, nb, ways, int(vec4), int(now),
+            age_ptr, age_val, _cuda.ptr(found), _cuda.ptr(slot))
+    return args, (found, slot)
+
+
+def sess_probe_ways(src_ip, dst_ip, proto, sport, dport, valid, src, dst,
+                    ports, sess_proto, time, now, max_age, sym: bool = False):
+    """The reflective-session lookup of a packet vector: the kernel of
+    csrc/sess_probe.cu on CUDA tensors (reversed key, bucket hash —
+    ``canon_mix`` with ``sym`` — W-way probe and slot in one launch),
+    the plain version on CPU tensors. Header columns [P] int32, the six
+    [NB, W] session columns, ``now`` an int, ``max_age`` an int or a 0-d
+    int32 tensor. Returns (found [P] bool, slot [P] int32 = bucket·W +
+    the lowest matching way, bucket·W on a miss)."""
+    cols = (src_ip, dst_ip, proto, sport, dport, valid, src, dst, ports,
+            sess_proto, time)
+    if not _cuda.use_kernels(valid):
+        return sess_probe_reverse_plain(*cols, now, max_age, sym=sym)
+    args, out = sess_launch_args(*cols, now, max_age, sym)
     fn = _cuda.library("sess_probe").sess_probe_ways
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int32] * 3
-                   + [ctypes.c_void_p] * 4)
+    fn.argtypes = SESS_ARGTYPES
     fn.restype = ctypes.c_int
-    err = fn(*(_cuda.ptr(x) for x in vecs + cols), p, ways, int(now),
-             _cuda.ptr(max_age), _cuda.ptr(found), _cuda.ptr(first),
-             _cuda.stream())
-    _cuda.check(err, "sess_probe_ways")
+    _cuda.check(fn(*args, _cuda.stream()), "sess_probe_ways")
     sess_probe_ways.launches += 1
-    return found != 0, first
+    return out
 
 
 sess_probe_ways.launches = 0
 
 
 # --- lookup / touch ----------------------------------------------------
-
-
-def _reverse_keys(pkts: PacketVector):
-    return (pkts.dst_ip, pkts.src_ip, _pack_ports(pkts.dport, pkts.sport),
-            pkts.proto)
-
-
-def _reverse_bucket(pkts, keys, n_buckets: int, sym: bool):
-    if sym:
-        mix = canon_mix(pkts.src_ip, pkts.dst_ip, pkts.sport, pkts.dport,
-                        pkts.proto)
-    else:
-        mix = _hash_mix(*keys)
-    return _bucket(mix, n_buckets)
 
 
 def _columns(tables):
@@ -208,12 +250,11 @@ def session_lookup_reverse(tables, pkts: PacketVector, now=None,
     Bool [P]; with ``now``, entries idle past ``sess_max_age`` are dead
     (without it the (0, _BIG) no-age convention applies)."""
     _refuse(tnt=tnt)
-    keys = _reverse_keys(pkts)
-    b = _reverse_bucket(pkts, keys, tables.sess_valid.shape[0], sym)
     t_now, max_age = ((now, tables.sess_max_age) if now is not None
                       else (0, _BIG))
-    probe = sess_probe_ways if impl == "pallas" else sess_probe_ways_plain
-    found, _ = probe(b, *keys, *_columns(tables), t_now, max_age)
+    probe = sess_probe_ways if impl == "pallas" else sess_probe_reverse_plain
+    found, _ = probe(*pkts.five_tuple, *_columns(tables), t_now, max_age,
+                     sym=sym)
     return found
 
 
@@ -223,16 +264,12 @@ def session_lookup_reverse_idx(tables, pkts: PacketVector, now,
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(found [P] bool, flat matched slot [P] int32 = bucket·W + way)
     of the reversed 5-tuple. ``impl`` is the session ladder's rung:
-    ``pallas`` probes through ``sess_probe_ways``, ``gather`` through
+    ``pallas`` looks up through ``sess_probe_ways``, ``gather`` through
     its plain version."""
     _refuse(shard, tnt)
-    n_buckets, ways = tables.sess_valid.shape
-    keys = _reverse_keys(pkts)
-    b = _reverse_bucket(pkts, keys, n_buckets, sym)
-    probe = sess_probe_ways if impl == "pallas" else sess_probe_ways_plain
-    found, first = probe(b, *keys, *_columns(tables), now,
-                         tables.sess_max_age)
-    return found, b * ways + first
+    probe = sess_probe_ways if impl == "pallas" else sess_probe_reverse_plain
+    return probe(*pkts.five_tuple, *_columns(tables), now,
+                 tables.sess_max_age, sym=sym)
 
 
 def session_batch_summary(tables, pkts: PacketVector, alive, now,

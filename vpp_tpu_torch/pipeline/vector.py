@@ -70,6 +70,12 @@ class PacketVector(NamedTuple):
     def valid(self) -> torch.Tensor:
         return (self.flags & 1) == 1
 
+    @property
+    def five_tuple(self):
+        """(src_ip, dst_ip, proto, sport, dport): the header columns the
+        session and classify kernels take, in their order."""
+        return self.src_ip, self.dst_ip, self.proto, self.sport, self.dport
+
 
 def u32(x: torch.Tensor) -> torch.Tensor:
     """int32 bit pattern -> its uint32 value as int64 (non-negative)."""
