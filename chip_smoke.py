@@ -29,7 +29,9 @@ raises on failure:
 4. the main path: the slice's full-size ``Dataplane`` on the card
    (10,240 global rules, 8 pods on 128-rule local tables, 2^20 session
    slots, ~4,000 routes, a 100-backend ClusterIP; the ``pallas`` rungs,
-   fast path off) runs forward vectors of 256 and 4,096 packets (the
+   fast path off), its steps replayed from captured CUDA graphs (the
+   step program cache, pipeline/capture.py), runs forward vectors of
+   256 and 4,096 packets (the
    bench traffic mix, 1/8 to the VIP), each followed by two reply
    vectors through ``Dataplane.process``: the replies of the packets it
    forwarded (established flows) and those of the packets it dropped
@@ -51,14 +53,28 @@ raises on failure:
    (0); the CPU replay must be bit-exact, and every result field and
    the final state must equal phase 4's (the verdicts do not depend on
    the classifier) but for ``stats.fastpath``;
+4c. eager against captured, on each path: two fresh dataplanes, one
+   stepping eagerly (``graphs=False``) and one replaying its captured
+   programs, take the same vectors at P = 256 through ``process``,
+   ``process_packed`` and ``process_packed_chain`` (K = 8), with a swap
+   that changes no shape and an ``expire_sessions`` between two rounds:
+   every result, every aux row and the final state must be equal, and
+   the swap and the expiry must keep every live table tensor. Then every
+   key of the run must have been captured exactly once, and every
+   graph's dump (``CUDAGraph.debug_dump``) must hold a node of each
+   kernel its capture launched, the graphs of a path together every
+   kernel of the path;
 5. timing with CUDA events: ms per ``process`` step and Mpps (valid
-   packets per device second) at P = 256 and 4,096, and a
-   ``torch.profiler`` window per size (device operations, host syncs
-   and idle share per step, host and device ms per layer) — for phase
-   4's path on forward vectors alternating with the replies to all
-   their packets (0 host syncs per step) and, split by tier, for the
-   MXU path (fast tier on replies to forwarded packets, full chain on
-   forward vectors; 1 host sync per step, the dispatch flag); each
+   packets per device second) at P = 256 and 4,096, captured and eager,
+   and a ``torch.profiler`` window per size (device operations, graph
+   launches, host syncs and idle share per step; for the eager steps
+   host and device ms per layer) — for phase 4's path on forward
+   vectors alternating with the replies to all their packets (0 host
+   syncs per step) and, split by tier, for the MXU path (fast tier on
+   replies to forwarded packets, full chain on forward vectors; 1 host
+   sync per step, the dispatch flag); the capture ms and the memory of
+   each graph's private pool; the device ms of each graph's replay alone
+   and the host ms of its launch; each
    kernel at the main path's own inputs beside its plain version and
    its bound (``mxu_first_match`` also beside two yardsticks the port
    never calls: a bare bf16 ``torch.matmul`` of the exploded bits and
@@ -78,6 +94,7 @@ import ipaddress
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -100,8 +117,13 @@ from vpp_tpu_torch.ops import (  # noqa: E402
     session,
 )
 from vpp_tpu_torch.ops.acl import first_true  # noqa: E402
-from vpp_tpu_torch.pipeline.dataplane import Dataplane  # noqa: E402
-from vpp_tpu_torch.pipeline import graph  # noqa: E402
+from vpp_tpu_torch.pipeline.dataplane import (  # noqa: E402
+    Dataplane,
+    pack_packet_columns,
+    packed_input_zeros,
+    unpack_packet_result,
+)
+from vpp_tpu_torch.pipeline import capture, graph  # noqa: E402
 from vpp_tpu_torch.pipeline.graph import DROP_ACL  # noqa: E402
 from vpp_tpu_torch.pipeline.tables import (  # noqa: E402
     SESSION_FIELDS,
@@ -162,6 +184,12 @@ PATH_KERNELS = {"pallas": ("sess_probe_ways", "bv_first_set",
                            "lpm_fused_lookup"),
                 "mxu": ("sess_probe_ways", "mxu_first_match",
                         "lpm_fused_lookup")}
+# each kernel's __global__ function, as a captured graph's nodes name it
+KERNEL_SYMBOLS = {"sess_probe_ways": "sess_probe_kernel",
+                  "bv_first_set": "bv_first_set_kernel",
+                  "lpm_fused_lookup": "lpm_kernel",
+                  "mxu_first_match": "mxu_first_match_kernel"}
+CHAIN_K = 8           # sub-batches of phase 4c's process_packed_chain
 
 RESULT_FIELDS = ("disp", "tx_if", "node_id", "next_hop", "drop_cause",
                  "established", "dnat_applied", "snat_applied",
@@ -646,10 +674,14 @@ def check_kernels(dev, errors: Errors, seed: int, n_rules: int,
         args = sess_case(rng, p, nb, w, dev, misalign)
         for sym in (False, True):
             for now, age in ((1000, 200), (0, 0x7FFFFFFF)):
-                # the device scalar, then the int the no-age lookup passes
-                max_age = torch.tensor(age, dtype=torch.int32, device=dev) \
-                    if now else age
-                got = session.sess_probe_ways(*args, now, max_age, sym=sym)
+                # the device scalars (a captured step's clock and age
+                # limit), then the ints the no-age lookup passes
+                max_age, now_arg = (
+                    (torch.tensor(age, dtype=torch.int32, device=dev),
+                     torch.tensor(now, dtype=torch.int32, device=dev))
+                    if now else (age, now))
+                got = session.sess_probe_ways(*args, now_arg, max_age,
+                                              sym=sym)
                 want = session.sess_probe_reverse_plain(*args, now, age,
                                                         sym=sym)
                 sync()
@@ -989,15 +1021,17 @@ def stage_spans():
         graph.make_pipeline_step.cache_clear()
 
 
-def profile_steps(dp: Dataplane, vecs, steps: int, now: int) -> dict:
-    """``torch.profiler`` over ``steps`` process steps: device operations
-    and host syncs per step, their summed device time per step, the
-    window's wall time, the device's idle share (one stream: operations
-    do not overlap, so busy = the sum), host and device ms per step of
-    each layer, and the costliest host-side ops."""
+def profile_steps(dp: Dataplane, vecs, steps: int, now: int,
+                  spans: bool = True) -> dict:
+    """``torch.profiler`` over ``steps`` process steps: device operations,
+    graph launches and host syncs per step, their summed device time per
+    step, the window's wall time, the device's idle share (one stream:
+    operations do not overlap, so busy = the sum), host and device ms
+    per step of each layer (``spans``: eager steps only, a graph replay
+    has no layers on the host), and the costliest host-side ops."""
     from torch.profiler import ProfilerActivity, profile
 
-    with stage_spans():
+    with stage_spans() if spans else contextlib.nullcontext():
         for k in range(4):
             dp.process(vecs[k % 2], now=now)
         torch.cuda.synchronize()
@@ -1018,11 +1052,13 @@ def profile_steps(dp: Dataplane, vecs, steps: int, now: int) -> dict:
     stages = [e for e in table
               if e.key.startswith("stage:") and e.device_type == cpu]
     syncs = sum(e.count for e in table if e.key == "cudaStreamSynchronize")
+    launches = sum(e.count for e in table if e.key == "cudaGraphLaunch")
     ops = sorted((e for e in table if e.device_type == cpu
                   and not e.key.startswith("stage:")),
                  key=lambda e: -e.self_cpu_time_total)[:8]
     return dict(
         device_ops_per_step=len(work) / steps,
+        graph_launches_per_step=launches / steps,
         host_syncs_per_step=syncs / steps,
         device_busy_ms_per_step=busy_ms / steps,
         wall_ms_per_step=wall_ms / steps,
@@ -1034,6 +1070,39 @@ def profile_steps(dp: Dataplane, vecs, steps: int, now: int) -> dict:
         top_host_ops={e.key: [e.count / steps,
                               e.self_cpu_time_total / 1e3 / steps]
                       for e in ops})
+
+
+def graph_times(dp: Dataplane, n: int, replays: int = 20) -> dict:
+    """Per captured part of ``dp``'s P = ``n`` step program: the device
+    ms of one replay (CUDA events around ``replays`` back-to-back
+    replays) and the host ms one ``CUDAGraph.replay`` call takes
+    (median). The replays step the live state again with the last
+    batch; they are not main-path launches and count nowhere."""
+    prog = next(p for p in dp.programs() if p.shape == (9, n))
+    out = {}
+    for part in (p for p in prog.parts() if p.graph is not None):
+        torch.cuda.synchronize()
+        host = []
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(replays):
+            t0 = time.perf_counter()
+            part.graph.replay()
+            host.append((time.perf_counter() - t0) * 1e3)
+        b.record()
+        torch.cuda.synchronize()
+        out[part.label.split(":")[-1] if ":" in part.label else "full"] = \
+            dict(ms=a.elapsed_time(b) / replays,
+                 launch_host_ms=float(np.median(host)))
+    return out
+
+
+def idle_share(prof: dict, step_ms: float) -> float:
+    """The device's idle share of a timed step: 1 - the profiled window's
+    busy ms per step over the step's ms timed without the profiler
+    (which slows the host's graph launches)."""
+    return max(0.0, 1.0 - prof["device_busy_ms_per_step"] / step_ms)
 
 
 def run_path(cfg: DataplaneConfig, path: str, n_rules: int, n_nodes: int,
@@ -1086,6 +1155,142 @@ def run_path(cfg: DataplaneConfig, path: str, n_rules: int, n_nodes: int,
     return gpu, up, pods, inputs, snaps, launches
 
 
+def packed_batch(cols: dict) -> np.ndarray:
+    """A vector's columns as the ``[5, n]`` bit-packed batch."""
+    n = cols["src_ip"].shape[0]
+    flat = packed_input_zeros(n)
+    pack_packet_columns(flat.view(np.uint32), cols, n)
+    return flat
+
+
+def packed_snap(out: np.ndarray) -> dict:
+    """The fields of a packed result ``reply_traffic`` reads."""
+    dec = unpack_packet_result(np.array(out))
+    return {"pkts.src_ip": dec["src_ip"].view(np.int32),
+            "pkts.dst_ip": dec["dst_ip"].view(np.int32),
+            "pkts.sport": dec["sport"], "pkts.dport": dec["dport"],
+            "disp": dec["disp"]}
+
+
+def eager_vs_captured(cfg: DataplaneConfig, path: str, n_rules: int,
+                      n_nodes: int, seed: int, n: int = VEC):
+    """Phase 4c: a captured dataplane and an eager one (``graphs=False``)
+    staged alike take the same vectors through ``process``,
+    ``process_packed`` and ``process_packed_chain`` (K = CHAIN_K), with
+    a swap that changes no shape and an ``expire_sessions`` between the
+    two rounds; every result, aux row and the final state must be equal,
+    and the captured side's table tensors must stay where they were.
+    The clock starts far above the wall-clock ticks, and the expiry
+    runs at the last step's clock, so it cuts at the same point on both.
+    Returns (captured, eager, tiers of the
+    chains' sub-batches)."""
+    t0 = time.perf_counter()
+    dps = [Dataplane(cfg, graphs=g) for g in (True, False)]
+    up, pods = stage(dps[0], n_rules, n_nodes)
+    if stage(dps[1], n_rules, n_nodes) != (up, pods):
+        raise AssertionError("the two stagings differ")
+    ptrs = [t.data_ptr() for t in dps[0].tables]
+    now = 10 ** 6
+    tiers = []
+
+    def both(fn, what):
+        got = [fn(dp) for dp in dps]
+        assert_equal(got[1], got[0], f"{path} eager vs captured {what}")
+        return got[0]
+
+    def arrays(ts):
+        return {f"{k}": t.cpu().numpy() for k, t in enumerate(ts)}
+
+    for rnd in range(2):
+        fwd = forward_traffic(n, up, seed + 31 * rnd)
+        snap = both(lambda dp: snapshot(dp.process(
+            packet_vector_from_numpy(fwd, dp.device), now=now)), "process")
+        rep = reply_traffic(snap, pods, "forwarded")
+        both(lambda dp: snapshot(dp.process(
+            packet_vector_from_numpy(rep, dp.device), now=now + 1)),
+            "process (replies)")
+        flat = packed_batch(forward_traffic(n, up, seed + 31 * rnd + 1))
+        got = both(lambda dp: arrays(dp.process_packed(
+            flat, now=now + 2, with_aux=True)), "process_packed")
+        first = packed_snap(got["0"])
+        flats = np.stack(
+            [packed_batch(forward_traffic(n, up, seed + 31 * rnd + 2 + i))
+             for i in range(CHAIN_K - 2)]
+            + [packed_batch(reply_traffic(first, pods, to))
+               for to in ("forwarded", "dropped")])
+        got = both(lambda dp: arrays(dp.process_packed_chain(
+            flats, now=now + 3, with_aux=True)), "process_packed_chain")
+        tiers.append(got["1"][:, 0].tolist())
+        both(state_of, "state")
+        if rnd == 0:
+            for dp in dps:
+                dp.builder.add_route("10.250.0.0/24", up, Disposition.REMOTE,
+                                     next_hop=ip4("192.168.250.1"),
+                                     node_id=250)
+                dp.swap()
+            for dp in dps:
+                dp._now = now + 3  # the clock of the last step
+            # the sessions last hit at ``now + 1`` or before expire
+            expired = both(lambda dp: {"n": np.array(
+                dp.expire_sessions(max_age=1))}, "expire_sessions")["n"]
+            if int(expired) <= 0:
+                raise AssertionError("the expiry reclaimed nothing")
+            if [t.data_ptr() for t in dps[0].tables] != ptrs:
+                raise AssertionError("a same-shape swap or the expiry "
+                                     "replaced a live table tensor")
+        now += 10
+    say(f"eager vs captured {path}: 2 rounds of process, process_packed "
+        f"and process_packed_chain (K={CHAIN_K}) at P={n} around a "
+        f"same-shape swap and an expiry of {int(expired)} sessions, "
+        f"{time.perf_counter() - t0:.1f} s with the staging; every result, "
+        f"aux row and the final state equal; chain tiers {tiers}; every "
+        f"table tensor kept")
+    return dps[0], dps[1], tiers
+
+
+def check_graphs(paths) -> list:
+    """Every part of the captured dataplanes ``paths`` ({path: [dp]}):
+    captured exactly once, its graph's dump naming each kernel its
+    capture launched, the parts of a path together every kernel of the
+    path. Returns one row per part (label, P, capture ms, pool MB,
+    launches per replay, kernel nodes)."""
+    twice = {k: n for k, n in capture.capture_counts().items() if n != 1}
+    if twice:
+        raise AssertionError(f"keys captured more than once: "
+                             f"{sorted(k[0] for k in twice)}")
+    rows = []
+    for path, dps in paths.items():
+        for dp in dps:
+            seen = set()
+            for prog in dp.programs():
+                for part in (p for p in prog.parts() if p.built):
+                    if part.graph is None or part.dump is None:
+                        raise AssertionError(f"{part.label} was not "
+                                             f"captured and dumped")
+                    text = Path(part.dump).read_text()
+                    nodes = {k: text.count(sym)
+                             for k, sym in KERNEL_SYMBOLS.items()}
+                    launched = {w.__name__: c
+                                for w, c in part.launches.items()}
+                    for k in launched:
+                        if not nodes[k]:
+                            raise AssertionError(
+                                f"{part.label}: {k} launched under "
+                                f"capture but not among the graph's nodes")
+                    seen |= set(launched)
+                    rows.append(dict(
+                        label=part.label, P=prog.shape[-1],
+                        capture_ms=part.capture_ms,
+                        pool_mb=part.pool_bytes / 2 ** 20,
+                        replays=part.replays, launches=launched,
+                        kernel_nodes={k: v for k, v in nodes.items() if v}))
+            if not set(PATH_KERNELS[path]) <= seen:
+                raise AssertionError(f"the {path} graphs hold "
+                                     f"{sorted(seen)}, not every kernel "
+                                     f"of {PATH_KERNELS[path]}")
+    return rows
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1105,6 +1310,9 @@ def main(argv=None) -> int:
         return 2
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    # every capture keeps its graph's nodes for phase 4c's check
+    dumps = tempfile.TemporaryDirectory(prefix="vpp_tpu_torch_graphs_")
+    capture.debug_dump_dir = dumps.name
 
     # 1. the card
     kind = torch.cuda.get_device_name(0)
@@ -1170,56 +1378,87 @@ def main(argv=None) -> int:
         f"(but stats.fastpath) and the final state equal the pallas "
         f"path's")
 
-    # 5. timing
+    # 4c. eager against captured, on each path; the graphs
+    cap_p, eager_p, _ = eager_vs_captured(cfg, "pallas", n_rules, n_nodes,
+                                          args.seed + 2)
+    cap_m, eager_m, chain_tiers = eager_vs_captured(
+        mcfg, "mxu", n_rules, n_nodes, args.seed + 2)
+    if chain_tiers[0][-2:] != [1, 0]:
+        raise AssertionError(f"mxu chain tiers {chain_tiers}: the replies "
+                             f"to forwarded packets must ride the fast "
+                             f"tier, those to dropped ones the full chain")
+    graphs = check_graphs({"pallas": [gpu, cap_p], "mxu": [gpu_m, cap_m]})
+    say(f"graphs: {len(graphs)} parts, each key captured once; every "
+        f"kernel launched under capture is a node of its graph")
+    for row in graphs:
+        say(f"graph {json.dumps(row)}")
+
+    # 5. timing, captured (the phase 4 / 4b dataplanes) and eager (4c's)
     say(f"timing on {smi}")
     steps = {}
     now = 10_000
     feeds = {}
     for n in (VEC, BIG_VEC):
-        dev_ms, wall_ms, fwd, rep = time_steps(gpu, up, pods, n,
-                                               TIMED_STEPS, args.seed + n,
-                                               now)
-        now += TIMED_STEPS + 10
-        feeds[n] = (fwd, rep)
-        # valid packets per timed step (the steps alternate the two)
-        valid = sum(int(np.count_nonzero(v["flags"])) for v in feeds[n]) / 2
-        steps[n] = dict(ms=dev_ms, wall_ms=wall_ms, valid=valid,
-                        mpps=valid / (dev_ms * 1e3))
-        say(f"process step P={n} ({valid:g} valid): {dev_ms:.4f} ms on "
-            f"the device (CUDA events), {wall_ms:.4f} ms wall "
-            f"synchronised, {steps[n]['mpps']:.4f} Mpps")
-        vecs = [packet_vector_from_numpy(v, dev) for v in (fwd, rep)]
-        prof = profile_steps(gpu, vecs, PROFILED_STEPS, now)
-        now += PROFILED_STEPS + 10
-        steps[n]["profile"] = prof
-        say(f"profile P={n}: {json.dumps(prof)}")
-        if prof["host_syncs_per_step"] != 0:
-            raise AssertionError("the full chain synchronised with the "
-                                 "host")
+        for mode, dp in (("captured", gpu), ("eager", eager_p)):
+            dev_ms, wall_ms, fwd, rep = time_steps(
+                dp, up, pods, n, TIMED_STEPS, args.seed + n, now)
+            now += TIMED_STEPS + 10
+            feeds[n] = (fwd, rep)
+            # valid packets per timed step (the steps alternate the two)
+            valid = sum(int(np.count_nonzero(v["flags"]))
+                        for v in feeds[n]) / 2
+            vecs = [packet_vector_from_numpy(v, dev) for v in (fwd, rep)]
+            prof = profile_steps(dp, vecs, PROFILED_STEPS, now,
+                                 spans=mode == "eager")
+            now += PROFILED_STEPS + 10
+            steps[f"{mode} P={n}"] = dict(
+                ms=dev_ms, wall_ms=wall_ms, valid=valid,
+                mpps=valid / (dev_ms * 1e3), profile=prof,
+                idle_share_timed=idle_share(prof, dev_ms))
+            say(f"process step {mode} P={n} ({valid:g} valid): {dev_ms:.4f} "
+                f"ms on the device (CUDA events), {wall_ms:.4f} ms wall "
+                f"synchronised, {valid / (dev_ms * 1e3):.4f} Mpps")
+            if mode == "captured":
+                steps[f"{mode} P={n}"]["graphs"] = graph_times(dp, n)
+                say(f"graph replay P={n}: "
+                    f"{json.dumps(steps[f'{mode} P={n}']['graphs'])}")
+            say(f"profile {mode} P={n}: {json.dumps(prof)}")
+            if prof["host_syncs_per_step"] != 0:
+                raise AssertionError(f"the {mode} full chain synchronised "
+                                     f"with the host")
     mxu_steps = {}
     for n in (VEC, BIG_VEC):
         fwd = feeds[n][0]
-        first = gpu_m.process(packet_vector_from_numpy(fwd, dev), now=now)
-        rep = reply_traffic(snapshot(first), pods, "forwarded")
-        for tier, cols, fast in (("full", fwd, 0), ("fast", rep, 1)):
-            v = packet_vector_from_numpy(cols, dev)
-            dev_ms, wall_ms = time_process(gpu_m, [v], TIMED_STEPS, now + 1,
-                                           tier=fast)
-            now += TIMED_STEPS + 10
-            prof = profile_steps(gpu_m, [v, v], PROFILED_STEPS, now)
-            now += PROFILED_STEPS + 10
-            if prof["host_syncs_per_step"] != 1:
-                raise AssertionError(f"the auto path's {tier} steps made "
-                                     f"{prof['host_syncs_per_step']} host "
-                                     f"syncs per step, not 1")
-            valid = int(np.count_nonzero(cols["flags"]))
-            mxu_steps[f"{tier} P={n}"] = dict(
-                ms=dev_ms, wall_ms=wall_ms, valid=valid,
-                mpps=valid / (dev_ms * 1e3), profile=prof)
-            say(f"mxu {tier} step P={n} ({valid} valid): {dev_ms:.4f} ms "
-                f"on the device (CUDA events), {wall_ms:.4f} ms wall "
-                f"synchronised, {valid / (dev_ms * 1e3):.4f} Mpps")
-            say(f"profile mxu {tier} P={n}: {json.dumps(prof)}")
+        for mode, dp in (("captured", gpu_m), ("eager", eager_m)):
+            first = dp.process(packet_vector_from_numpy(fwd, dev), now=now)
+            rep = reply_traffic(snapshot(first), pods, "forwarded")
+            for tier, cols, fast in (("full", fwd, 0), ("fast", rep, 1)):
+                v = packet_vector_from_numpy(cols, dev)
+                dev_ms, wall_ms = time_process(dp, [v], TIMED_STEPS,
+                                               now + 1, tier=fast)
+                now += TIMED_STEPS + 10
+                prof = profile_steps(dp, [v, v], PROFILED_STEPS, now,
+                                     spans=mode == "eager")
+                now += PROFILED_STEPS + 10
+                if prof["host_syncs_per_step"] != 1:
+                    raise AssertionError(
+                        f"the auto path's {mode} {tier} steps made "
+                        f"{prof['host_syncs_per_step']} host syncs per "
+                        f"step, not 1")
+                valid = int(np.count_nonzero(cols["flags"]))
+                mxu_steps[f"{mode} {tier} P={n}"] = dict(
+                    ms=dev_ms, wall_ms=wall_ms, valid=valid,
+                    mpps=valid / (dev_ms * 1e3), profile=prof,
+                    idle_share_timed=idle_share(prof, dev_ms))
+                say(f"mxu {mode} {tier} step P={n} ({valid} valid): "
+                    f"{dev_ms:.4f} ms on the device (CUDA events), "
+                    f"{wall_ms:.4f} ms wall synchronised, "
+                    f"{valid / (dev_ms * 1e3):.4f} Mpps")
+                say(f"profile mxu {mode} {tier} P={n}: {json.dumps(prof)}")
+            if mode == "captured":
+                mxu_steps[f"graphs P={n}"] = graph_times(dp, n)
+                say(f"mxu graph replay P={n}: "
+                    f"{json.dumps(mxu_steps[f'graphs P={n}'])}")
 
     rows = []
     timed = {}
@@ -1300,8 +1539,12 @@ def main(argv=None) -> int:
         else:
             row["launches_mxu_path"] = m_launches[name]
         rows.append(row)
-    say(json.dumps({"steps": {f"P={n}": v for n, v in steps.items()},
-                    "mxu_steps": mxu_steps, "power": smi}))
+    say(json.dumps({"steps": steps, "mxu_steps": mxu_steps,
+                    "captures": graphs, "power": smi}))
+    if any(n != 1 for n in capture.capture_counts().values()):
+        raise AssertionError("the timing captured a key again")
+    capture.debug_dump_dir = None
+    dumps.cleanup()
     say(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     say(smi)
     say(json.dumps({"kernels": rows}))

@@ -244,3 +244,26 @@ def test_predicate_pieces_match_reference():
             alive), 6)
         for a, b, what in zip(jw, tw, ("hits", "hit_idx", "all_hit")):
             assert_same(a, b, what)
+
+
+def test_probe_runs_the_full_chain_like_the_reference():
+    """``probe`` always runs the forced full chain, as the reference's
+    does (``_get_step(fast=False)``): on an all-established batch with
+    the fast path engaged, every StepResult field and StepStats counter
+    and the probe's own state equal the reference's, ``stats.fastpath``
+    0 included, and neither package's live state moves."""
+    pair = Pair()
+    assert pair.t._use_fastpath and pair.j._use_fastpath
+    r1 = pair.step(_mixed(pair.up), 5, expect_fast=False)
+    rep = _replies(r1)
+    t_live = {f: getattr(pair.t.tables, f).clone() for f in _STATE}
+    j_live = {f: np.asarray(getattr(pair.j.tables, f)) for f in _STATE}
+    jr = pair.j.probe(jvector.make_packet_vector(rep, n=N), now=6)
+    tr = pair.t.probe(tvector.make_packet_vector(rep, n=N), now=6)
+    _assert_results(jr, tr)
+    assert int(jr.stats.fastpath) == int(tr.stats.fastpath) == 0
+    assert int(tr.stats.sess_hits) == len(rep) == 3
+    for f in _STATE:
+        assert torch.equal(getattr(pair.t.tables, f), t_live[f]), f
+        assert np.array_equal(np.asarray(getattr(pair.j.tables, f)),
+                              j_live[f]), f

@@ -124,6 +124,14 @@ def _refusal(kind, arg):
                 _SMALL, **{knob: value})), device="cpu")
         elif kind == "gate":
             tgraph.make_pipeline_step(**{arg: "on"})
+        elif kind == "entry":
+            dp = tdp.Dataplane(ttables.DataplaneConfig(**_SMALL),
+                               device="cpu")
+            pkts = tvector.make_packet_vector([], n=8)
+            if arg == "ring":
+                dp._program(False, "ring", (5, 8))
+            else:
+                dp.process(pkts, now=1, ovl_inner=pkts)
         else:
             tsess._refuse(**arg)
     return str(err.value)
@@ -140,6 +148,8 @@ _REFUSALS = {
     "gate-tel_mode": ("gate", "tel_mode"),
     "gate-tnt_mode": ("gate", "tnt_mode"),
     "gate-overlay": ("gate", "overlay"),
+    "entry-ring": ("entry", "ring"),
+    "entry-overlay-sidecar": ("entry", "sidecar"),
     "session-shard": ("session", dict(shard=True)),
     "session-tnt": ("session", dict(tnt=True)),
 }
@@ -279,11 +289,18 @@ def test_launch_arguments_match_the_c_declarations(entry, monkeypatch):
         assert found.dtype == torch.bool and slot.dtype == torch.int32
         fn(*args, 0)
         nb, ways = t.sess_valid.shape
-        # sym, then p, n_buckets, ways, vec4, now, the null max_age
-        # pointer and its value
+        # sym, then p, n_buckets, ways, vec4, and the null now and
+        # max_age pointers, each followed by its value
         assert got[0][5] == 1
-        assert got[0][12:19] == (8, nb, ways, int(ways == 4), 10, None,
-                                 3000)
+        assert got[0][12:20] == (8, nb, ways, int(ways == 4), None, 10,
+                                 None, 3000)
+        # the device scalars go by pointer (a captured step reads them)
+        now = torch.tensor(10, dtype=torch.int32)
+        args, _ = tsess.sess_launch_args(*hdr, *tsess._columns(t), now,
+                                         t.sess_max_age, True)
+        fn(*args, 0)
+        assert got[1][16:20] == (now.data_ptr(), 0,
+                                 t.sess_max_age.data_ptr(), 0)
     else:
         for local in (False, True):
             extra = (pkts.rx_if, t.if_local_table) if local else ()

@@ -20,16 +20,17 @@
 
 extern "C" {
 
-// max_age: a device scalar, or null to take max_age_v
+// now, max_age: device scalars, or null to take now_v / max_age_v
 int sess_probe_ways(const int32_t* src_ip, const int32_t* dst_ip,
                     const int32_t* proto, const int32_t* sport,
                     const int32_t* dport, int32_t sym, const int32_t* valid,
                     const int32_t* src, const int32_t* dst,
                     const int32_t* ports, const int32_t* prot,
                     const int32_t* time, int32_t p, int32_t n_buckets,
-                    int32_t ways, int32_t vec4, int32_t now,
-                    const int32_t* max_age, int32_t max_age_v,
-                    uint8_t* found, int32_t* slot, void* stream);
+                    int32_t ways, int32_t vec4, const int32_t* now,
+                    int32_t now_v, const int32_t* max_age,
+                    int32_t max_age_v, uint8_t* found, int32_t* slot,
+                    void* stream);
 
 // One table (n_tables = 1, rx_if and if_table null) or per-interface
 // tables ([T, ...] arrays; tid written per packet)

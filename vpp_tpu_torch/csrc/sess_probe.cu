@@ -92,7 +92,8 @@ __global__ void __launch_bounds__(kBlock) sess_probe_kernel(
     const int32_t* __restrict__ valid, const int32_t* __restrict__ src,
     const int32_t* __restrict__ dst, const int32_t* __restrict__ ports,
     const int32_t* __restrict__ prot, const int32_t* __restrict__ time,
-    int32_t p, int32_t n_buckets, int32_t ways, int32_t now,
+    int32_t p, int32_t n_buckets, int32_t ways,
+    const int32_t* __restrict__ now_p, int32_t now_v,
     const int32_t* __restrict__ max_age_p, int32_t max_age_v,
     uint8_t* __restrict__ found, int32_t* __restrict__ slot) {
   const int32_t i = blockIdx.x * kBlock + threadIdx.x;
@@ -102,6 +103,9 @@ __global__ void __launch_bounds__(kBlock) sess_probe_kernel(
   const int32_t sp = sport[i];
   const int32_t dp = dport[i];
   const uint32_t pr = static_cast<uint32_t>(proto[i]);
+  // the clock and the age limit: device scalars (a captured step reads
+  // each replay's values) or values
+  const int32_t now = now_p ? __ldg(now_p) : now_v;
   const int32_t max_age = max_age_p ? __ldg(max_age_p) : max_age_v;
   // the reply's key: the forward 5-tuple its session was stored under
   const uint32_t ks = d, kd = s, kp = pack_ports(dp, sp);
@@ -150,8 +154,9 @@ extern "C" int sess_probe_ways(const int32_t* src_ip, const int32_t* dst_ip,
                                const int32_t* dst, const int32_t* ports,
                                const int32_t* prot, const int32_t* time,
                                int32_t p, int32_t n_buckets, int32_t ways,
-                               int32_t vec4, int32_t now,
-                               const int32_t* max_age, int32_t max_age_v,
+                               int32_t vec4, const int32_t* now,
+                               int32_t now_v, const int32_t* max_age,
+                               int32_t max_age_v,
                                uint8_t* found, int32_t* slot, void* stream) {
   if (p > 0) {
     const int blocks = (p + kBlock - 1) / kBlock;
@@ -159,13 +164,13 @@ extern "C" int sess_probe_ways(const int32_t* src_ip, const int32_t* dst_ip,
     if (vec4) {
       sess_probe_kernel<true><<<blocks, kBlock, 0, st>>>(
           src_ip, dst_ip, proto, sport, dport, sym, valid, src, dst, ports,
-          prot, time, p, n_buckets, ways, now, max_age, max_age_v, found,
-          slot);
+          prot, time, p, n_buckets, ways, now, now_v, max_age, max_age_v,
+          found, slot);
     } else {
       sess_probe_kernel<false><<<blocks, kBlock, 0, st>>>(
           src_ip, dst_ip, proto, sport, dport, sym, valid, src, dst, ports,
-          prot, time, p, n_buckets, ways, now, max_age, max_age_v, found,
-          slot);
+          prot, time, p, n_buckets, ways, now, now_v, max_age, max_age_v,
+          found, slot);
     }
   }
   return static_cast<int>(cudaGetLastError());

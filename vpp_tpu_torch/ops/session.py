@@ -98,15 +98,18 @@ def canon_mix(src, dst, sport, dport, proto) -> torch.Tensor:
 
 
 def _age(now, time: torch.Tensor) -> torch.Tensor:
-    """now - time in int32 with wraparound (JAX's int32 arithmetic)."""
+    """now - time in int32 with wraparound (JAX's int32 arithmetic).
+    ``now`` is an int or a 0-d int32 tensor (the step's clock: read on
+    the device, so a captured step bakes no clock in)."""
     return to_i32(now - time.to(torch.int64))
 
 
 def _scatter_set(flat: torch.Tensor, idx: torch.Tensor,
                  mask: torch.Tensor, vals) -> None:
     """``flat[idx[i]] = vals[i]`` for the lanes of ``mask``, in place,
-    deterministically (module doc). ``vals`` is [P] or a scalar; the
-    written slots of distinct masked lanes must agree on their value."""
+    deterministically (module doc). ``vals`` is [P], a 0-d tensor (the
+    step's clock) or an int; the written slots of distinct masked lanes
+    must agree on their value."""
     if torch.is_tensor(vals):
         vals = vals.to(flat.dtype).expand(mask.shape)
     else:  # a fill on the device, not a host-to-device copy
@@ -171,9 +174,21 @@ def sess_probe_reverse_plain(src_ip, dst_ip, proto, sport, dport, valid, src,
 
 # the C entry's argument types (kernels.cuh), the stream last
 SESS_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int32]
-                 + [ctypes.c_void_p] * 6 + [ctypes.c_int32] * 5
-                 + [ctypes.c_void_p, ctypes.c_int32]
+                 + [ctypes.c_void_p] * 6 + [ctypes.c_int32] * 4
+                 + [ctypes.c_void_p, ctypes.c_int32] * 2
                  + [ctypes.c_void_p] * 3)
+
+
+def _scalar_arg(v, name: str, dev):
+    """(device pointer, value) of a scalar argument of the C entry: a
+    0-d int32 tensor is read by the kernel through its pointer (a CUDA
+    graph replays it with the value of the day), an int goes by value
+    (wrapped to int32, as the reference's ``jnp.int32``)."""
+    if torch.is_tensor(v):
+        _cuda.require(v, name, ndim=0, device=dev)
+        return _cuda.ptr(v), 0
+    v = int(v) & _M32
+    return None, v - (1 << 32) if v >= (1 << 31) else v
 
 
 def sess_launch_args(src_ip, dst_ip, proto, sport, dport, valid, src, dst,
@@ -195,18 +210,14 @@ def sess_launch_args(src_ip, dst_ip, proto, sport, dport, valid, src, dst,
             raise ValueError("sess_probe_ways: header length mismatch")
     if nb & (nb - 1):
         raise ValueError(f"sess_probe_ways: {nb} buckets, not a power of 2")
-    if torch.is_tensor(max_age):
-        _cuda.require(max_age, "sess_probe_ways.max_age", ndim=0,
-                      device=dev)
-        age_ptr, age_val = _cuda.ptr(max_age), 0
-    else:
-        age_ptr, age_val = None, int(max_age)
+    now_arg = _scalar_arg(now, "sess_probe_ways.now", dev)
+    age_arg = _scalar_arg(max_age, "sess_probe_ways.max_age", dev)
     vec4 = ways == 4 and all(c.data_ptr() % 16 == 0 for c in cols)
     found = torch.empty(p, dtype=torch.bool, device=dev)
     slot = torch.empty(p, dtype=torch.int32, device=dev)
     args = (*(_cuda.ptr(x) for x in hdr), int(sym),
-            *(_cuda.ptr(x) for x in cols), p, nb, ways, int(vec4), int(now),
-            age_ptr, age_val, _cuda.ptr(found), _cuda.ptr(slot))
+            *(_cuda.ptr(x) for x in cols), p, nb, ways, int(vec4), *now_arg,
+            *age_arg, _cuda.ptr(found), _cuda.ptr(slot))
     return args, (found, slot)
 
 
@@ -216,9 +227,10 @@ def sess_probe_ways(src_ip, dst_ip, proto, sport, dport, valid, src, dst,
     csrc/sess_probe.cu on CUDA tensors (reversed key, bucket hash —
     ``canon_mix`` with ``sym`` — W-way probe and slot in one launch),
     the plain version on CPU tensors. Header columns [P] int32, the six
-    [NB, W] session columns, ``now`` an int, ``max_age`` an int or a 0-d
-    int32 tensor. Returns (found [P] bool, slot [P] int32 = bucket·W +
-    the lowest matching way, bucket·W on a miss)."""
+    [NB, W] session columns, ``now`` and ``max_age`` each an int or a
+    0-d int32 tensor (which the kernel reads on the device). Returns
+    (found [P] bool, slot [P] int32 = bucket·W + the lowest matching
+    way, bucket·W on a miss)."""
     cols = (src_ip, dst_ip, proto, sport, dport, valid, src, dst, ports,
             sess_proto, time)
     if not _cuda.use_kernels(valid):

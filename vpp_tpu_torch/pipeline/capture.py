@@ -1,0 +1,379 @@
+"""The step program cache: each step variant captured once in CUDA graphs.
+
+The port's counterpart of the reference's jit program cache
+(``vpp_tpu/pipeline/dataplane.py`` ``_jitted_step`` :557, ``_step_label``
+:356, the compile counters and budget :393-470): ``jax.jit`` compiles
+each step variant once into one device program, and here a ``Program``
+captures it once into CUDA graphs and replays them, so a step costs a
+graph launch instead of ~500-1,600 eager launches from the host.
+
+A program holds
+
+* static inputs: the ``[9, P]`` header columns (``plain``), the
+  ``[5, B]`` bit-packed batch (``packed``) or ``K`` of them (``chain``),
+  and the clock ``now`` (0-d int32); each call writes them, then
+  replays;
+* the live table tensors, which the step reads and mutates in place:
+  their addresses are baked into the graphs, so ``Dataplane.swap`` and
+  ``expire_sessions`` write into the held tensors, and a program whose
+  tables are no longer all the live ones is dropped, never replayed;
+* its parts, one graph each: ``full`` on the forced full chain; on the
+  auto path ``prefix`` (ending in the dispatch flag), ``fast`` and
+  ``full``, with the flag read to the host between them, outside every
+  graph: the auto path's one host sync per step;
+* its static output: a final part writes every result tensor into ONE
+  buffer (``Packing``, or the packed rows and aux); the call clones it
+  after the replay and hands out views of the clone, so a result never
+  aliases graph memory (the result of step N is unchanged by step N+1)
+  and the copy-out is one launch.
+
+Warm-up. Torch wants a warm-up before a capture, but a second run of a
+step on live state would insert its sessions twice and advance the
+sweep cursors twice. So a part's first call runs it eagerly — the
+warm-up, whose result is the real one — and then captures it, which
+executes nothing; from the second call on it replays. The kernels'
+one-time host setup (``cudaFuncSetAttribute``, the SM-count queries)
+thus runs before any capture. A capture or replay that fails raises;
+nothing falls back to the eager step.
+
+Launch counters. A kernel wrapper counts its launches while its Python
+body runs, which under capture launches nothing: each part records what
+its capture counted, takes it back, and adds it at every replay, so
+``launches`` keeps meaning device launches.
+
+On the CPU the same program runs — copy in, the parts eagerly, copy
+out — without graphs, so the tests exercise its buffers; its first call
+counts as its capture.
+
+``capture_counts`` / ``capture_totals`` / ``capture_budget`` mirror
+``jit_compile_counts`` / ``jit_compile_totals`` / ``jit_compile_budget``;
+the key adds the dataplane (graphs hold its tensors) to the reference's
+(the label, the input shape and every table tensor's shape and dtype),
+and a budget also raises when its scope captures one key twice.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+import os
+import threading
+import time
+from typing import Dict, Optional, Sequence
+
+import torch
+
+from vpp_tpu_torch.ops import acl_bv, acl_mxu, lpm, session
+from vpp_tpu_torch.pipeline.graph import (
+    SWEEP_STRIDE_DEFAULT,
+    packed_fields,
+    packed_vector,
+    result_fields,
+    result_of,
+)
+from vpp_tpu_torch.pipeline.vector import PacketVector
+
+# the kernel wrappers whose launch counters replays keep
+WRAPPERS = (session.sess_probe_ways, acl_bv.bv_first_set,
+            lpm.lpm_fused_lookup, acl_mxu.mxu_first_match)
+
+# (label, signature) -> captures in this process
+_CAPTURES: Dict[tuple, int] = {}
+_CAPTURES_LOCK = threading.Lock()
+_owners = itertools.count()
+_dumps = itertools.count()
+
+# when set (a directory), every capture keeps its graph's nodes and
+# writes them there as ``<label>-<n>.dot`` (CUDAGraph.debug_dump)
+debug_dump_dir: Optional[str] = None
+
+
+def new_owner() -> int:
+    """A serial number for one dataplane's programs."""
+    return next(_owners)
+
+
+def step_label(impl: str, skip_local: bool, fast: bool, form: str,
+               sweep_stride: int, fib_impl: str = "dense",
+               sess_impl: str = "gather", sess_hash: str = "fwd") -> str:
+    """The reference's ``_step_label`` with the unported stages off."""
+    return "{}{}{}{}{}{}{}_{}".format(
+        impl, "_nolocal" if skip_local else "", "_auto" if fast else "",
+        "" if fib_impl == "dense" else f"_fib{fib_impl}",
+        "" if sess_impl == "gather" else f"_sess{sess_impl}",
+        "" if sess_hash == "fwd" else f"_h{sess_hash}",
+        "" if sweep_stride == SWEEP_STRIDE_DEFAULT else f"_sw{sweep_stride}",
+        form)
+
+
+def table_signature(tables) -> tuple:
+    """The shape and dtype of every table tensor, in field order."""
+    return tuple((tuple(t.shape), t.dtype) for t in tables)
+
+
+def _count(label: str, sig: tuple) -> None:
+    with _CAPTURES_LOCK:
+        _CAPTURES[(label, sig)] = _CAPTURES.get((label, sig), 0) + 1
+
+
+def capture_counts() -> Dict[tuple, int]:
+    """Snapshot of {(part label, signature): captures}."""
+    with _CAPTURES_LOCK:
+        return dict(_CAPTURES)
+
+
+def capture_totals() -> Dict[str, int]:
+    """Captures per part label."""
+    totals: Dict[str, int] = {}
+    for (label, _sig), n in capture_counts().items():
+        totals[label] = totals.get(label, 0) + n
+    return totals
+
+
+class CaptureBudgetExceeded(AssertionError):
+    """Raised by capture_budget() when a scope captures more step
+    programs than it declared, or one key twice."""
+
+
+class _CaptureBudget:
+    def __init__(self, budget: int):
+        self.budget = budget
+        self._before: Dict[tuple, int] = {}
+
+    def __enter__(self) -> "_CaptureBudget":
+        self._before = capture_counts()
+        return self
+
+    @property
+    def spent(self) -> int:
+        return (sum(capture_counts().values())
+                - sum(self._before.values()))
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is not None:
+            return
+        after = capture_counts()
+        new = {k: n - self._before.get(k, 0) for k, n in after.items()
+               if n > self._before.get(k, 0)}
+        twice = sorted(key[0] for key in new if after[key] > 1)
+        spent = sum(new.values())
+        if spent > self.budget or twice:
+            detail = ", ".join(f"{label}@{n}x"
+                               for (label, _sig), n in sorted(
+                                   new.items(), key=lambda kv: kv[0][0]))
+            raise CaptureBudgetExceeded(
+                f"step capture budget exceeded: {spent} captures, declared "
+                f"budget {self.budget}"
+                + (f", captured again: {', '.join(twice)}" if twice else "")
+                + f" ({detail})")
+
+
+def capture_budget(budget: int) -> _CaptureBudget:
+    """Context manager: fail if the enclosed scope captures more than
+    ``budget`` step parts, or any key a second time."""
+    return _CaptureBudget(budget)
+
+
+class Packing:
+    """Where each tensor of a fixed list (int32 or bool, any shapes)
+    lies in one byte buffer: the int32 ones first, then the bool ones.
+    ``pack`` writes them with two launches; ``unpack`` gives views."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor]):
+        self.specs = [(tuple(t.shape), t.dtype) for t in tensors]
+        other = {d for _, d in self.specs} - {torch.int32, torch.bool}
+        if other:
+            raise TypeError(f"Packing takes int32 and bool tensors, got "
+                            f"{sorted(map(str, other))}")
+        self.words = sum(math.prod(s) for s, d in self.specs
+                         if d == torch.int32)
+        self.nbytes = 4 * self.words + sum(
+            math.prod(s) for s, d in self.specs if d == torch.bool)
+
+    def pack(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+        if [(tuple(t.shape), t.dtype) for t in tensors] != self.specs:
+            raise ValueError("Packing: the tensors changed shape or dtype")
+        buf = torch.empty(self.nbytes, dtype=torch.uint8,
+                          device=tensors[0].device)
+        words, flags = self._regions(buf)
+        for dtype, out in ((torch.int32, words), (torch.bool, flags)):
+            parts = [t.reshape(-1) for t in tensors if t.dtype == dtype]
+            if parts:
+                torch.cat(parts, out=out)
+        return buf
+
+    def _regions(self, buf: torch.Tensor):
+        return (buf[:4 * self.words].view(torch.int32),
+                buf[4 * self.words:].view(torch.bool))
+
+    def unpack(self, buf: torch.Tensor) -> list:
+        regions = dict(zip((torch.int32, torch.bool), self._regions(buf)))
+        at = {torch.int32: 0, torch.bool: 0}
+        out = []
+        for shape, dtype in self.specs:
+            n = math.prod(shape)
+            out.append(regions[dtype][at[dtype]:at[dtype] + n].view(shape))
+            at[dtype] += n
+        return out
+
+
+def encode_packed(results) -> torch.Tensor:
+    """The packed output of ``K`` results as one int32 buffer: the
+    ``[5, B]`` rows of each, then the ``[12]`` aux rows of each."""
+    fields = [packed_fields(r) for r in results]
+    return torch.cat([t.reshape(-1) for f in fields for t in f[:5]]
+                     + [t.reshape(-1) for f in fields for t in f[5:]])
+
+
+def packed_views(words: torch.Tensor, batch: int, k: Optional[int] = None):
+    """(out, aux) views of an ``encode_packed`` buffer: ``[5, B]`` and
+    ``[12]``, or with ``k`` ``[K, 5, B]`` and ``[K, 12]``."""
+    n = (k or 1) * 5 * batch
+    out, aux = words[:n], words[n:]
+    if k is None:
+        return out.view(5, batch), aux
+    return out.view(k, 5, batch), aux.view(k, -1)
+
+
+class Part:
+    """One piece of a program, ``fn(*args)``: run eagerly at its first
+    call and captured right after (on CUDA), replayed from then on."""
+
+    def __init__(self, label: str, sig: tuple, fn, cuda: bool):
+        self.label, self.sig, self.fn, self.cuda = label, sig, fn, cuda
+        self.built = False
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out = None           # the static outputs of the graph
+        self.launches: Dict[object, int] = {}  # wrapper -> per replay
+        self.capture_ms = 0.0
+        self.pool_bytes = 0
+        self.replays = 0
+        self.dump: Optional[str] = None  # its graph's DOT file, if dumped
+
+    def __call__(self, args, static_args=None):
+        """The part's outputs for ``args`` (the static ones once it is
+        captured); ``static_args``: what the capture reads, where they
+        differ from this first call's ``args``."""
+        if self.graph is not None:
+            self.graph.replay()
+            for w, n in self.launches.items():
+                w.launches += n
+            self.replays += 1
+            return self.out
+        out = self.fn(*args)
+        if not self.built:
+            self.built = True
+            _count(self.label, self.sig)
+            if self.cuda:
+                self._capture(args if static_args is None else static_args)
+        return out
+
+    def _capture(self, args) -> None:
+        before = [w.launches for w in WRAPPERS]
+        # a graph to dump keeps its nodes past the instantiation
+        graph = torch.cuda.CUDAGraph(keep_graph=bool(debug_dump_dir))
+        if debug_dump_dir:
+            graph.enable_debug_mode()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph):
+                out = self.fn(*args)
+        finally:
+            counted = [w.launches - n for w, n in zip(WRAPPERS, before)]
+            for w, n in zip(WRAPPERS, before):
+                w.launches = n
+        if debug_dump_dir:  # else capture_end instantiated it
+            graph.instantiate()
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        self.launches = {w: n for w, n in zip(WRAPPERS, counted) if n}
+        if debug_dump_dir:
+            os.makedirs(debug_dump_dir, exist_ok=True)
+            self.dump = os.path.join(debug_dump_dir,
+                                     f"{self.label}-{next(_dumps)}.dot")
+            graph.debug_dump(self.dump)
+        self.graph, self.out = graph, out
+
+
+class Program:
+    """One step variant over one dataplane's live tables: static inputs
+    (``x`` of ``shape``, ``now``), the parts, the copy-out (module
+    doc). ``run`` returns the clone of the final part's output; ``result``
+    / ``packed`` read it."""
+
+    def __init__(self, label: str, sig: tuple, tables, step, form: str,
+                 shape, device: torch.device):
+        self.tables, self.form = tables, form
+        self.shape = tuple(shape)
+        cuda = device.type == "cuda"
+        self.now = torch.zeros((), dtype=torch.int32, device=device)
+        self.x = torch.zeros(self.shape, dtype=torch.int32, device=device)
+        self.packing: Optional[Packing] = None
+        decode = (packed_vector if form != "plain"
+                  else lambda x: PacketVector(*x.unbind(0)))
+
+        if form == "chain":
+            def full(x, now):
+                return encode_packed([step.full(tables, packed_vector(xk),
+                                                now) for xk in x.unbind(0)])
+        else:
+            def full(x, now):
+                return self._encode(step.full(tables, decode(x), now))
+        self.prefix = self.fast = None
+        if hasattr(step, "prefix"):
+            if form == "chain":
+                raise ValueError("the auto path's chain runs the packed "
+                                 "program once a sub-batch")
+            self.prefix = Part(f"{label}:prefix", sig,
+                               lambda x, now: step.prefix(
+                                   tables, decode(x), now), cuda)
+            self.fast = Part(f"{label}:fast", sig,
+                             lambda pre, now: self._encode(
+                                 step.fast(tables, pre, now)), cuda)
+            label = f"{label}:full"
+        self.full = Part(label, sig, full, cuda)
+
+    def parts(self):
+        return [p for p in (self.prefix, self.fast, self.full)
+                if p is not None]
+
+    def holds(self, tables) -> bool:
+        """Whether ``tables`` are exactly the tensors the graphs read."""
+        return len(tables) == len(self.tables) and all(
+            a is b for a, b in zip(tables, self.tables))
+
+    def _encode(self, res) -> torch.Tensor:
+        if self.form != "plain":
+            return encode_packed([res])
+        fields = result_fields(res)
+        if self.packing is None:
+            self.packing = Packing(fields)
+        return self.packing.pack(fields)
+
+    def run(self, now: int, load) -> torch.Tensor:
+        """Copy in (``now``, then ``load(x)`` writes the batch), run the
+        parts, and return the clone of the output."""
+        self.now.fill_(now)
+        load(self.x)
+        args = (self.x, self.now)
+        if self.prefix is None:
+            out = self.full(args)
+        else:
+            pre = self.prefix(args)
+            if bool(pre.ok):  # the auto path's one host sync
+                out = self.fast((pre, self.now), (self.prefix.out, self.now))
+            else:
+                out = self.full(args)
+        return out.clone()
+
+    def result(self, buf: torch.Tensor):
+        """The StepResult of a ``plain`` program's output."""
+        return result_of(self.packing.unpack(buf), self.tables)
+
+    def packed(self, buf: torch.Tensor):
+        """(out, aux) of a ``packed`` or ``chain`` program's output."""
+        k = self.shape[0] if self.form == "chain" else None
+        return packed_views(buf, self.shape[-1], k)

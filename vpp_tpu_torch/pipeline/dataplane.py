@@ -1,24 +1,41 @@
-"""The Dataplane: table epochs, interface registry and the step entry.
+"""The Dataplane: table epochs, interface registry and the step entries.
 
 The PyTorch counterpart of ``vpp_tpu/pipeline/dataplane.py``
 ``Dataplane``: the same registry (uplink, host and pod interfaces, ACL
 table slots), the same epoch ``swap`` (the staged configuration is
 uploaded and the live session state carried over by reference), the
 same selection ladders re-gated at every swap, and the same
-``process``/``probe`` entries.
+``process`` / ``probe`` / ``process_packed`` / ``process_packed_chain``
+entries, with the reference's bit-packed ``[5, B]`` boundary and its
+numpy helpers (``PACKED_*``, ``packed_input_zeros``,
+``pack_packet_columns``, ``unpack_packet_input``,
+``unpack_packet_result``).
 
-``Dataplane(config, device=None)`` runs on the card: ``device`` None
-resolves to ``cuda`` and raises when no GPU is present. Tests pass
-``device="cpu"``, where every kernel wrapper takes its plain version.
+``Dataplane(config, device=None, graphs=True)`` runs on the card:
+``device`` None resolves to ``cuda`` and raises when no GPU is present.
+Tests pass ``device="cpu"``, where every kernel wrapper takes its plain
+version.
+
+The step program cache (pipeline/capture.py) is the counterpart of the
+reference's jit cache: with ``graphs`` (the default) ``process``,
+``process_packed`` and ``process_packed_chain`` run each step variant
+through one ``Program`` per key — captured CUDA graphs on the card, the
+same buffers without graphs on the CPU — and ``graphs=False`` runs each
+step eagerly, op by op. ``probe`` and ``process_packed(commit=False)``
+run eagerly on clones of the mutable state. The clock reaches the
+device as a 0-d int32 tensor, as the reference passes ``jnp.int32``.
 
 With the fast path engaged (``fastpath=True``, the default, and at
 least ``fastpath_min_rules`` global rules — re-gated at every swap)
-``process`` and ``probe`` run the two-tier dispatcher, which reads its
+the stepping entries run the two-tier dispatcher, which reads its
 dispatch flag to the host once per step (pipeline/graph.py
 ``pipeline_step_auto``); the full chain alone never synchronises.
+``probe`` always runs the full chain, as the reference's does.
 
-Not ported: ``process_packed`` and the chain/ring forms, the jit
-caches, spans, journal and tracer (the port compiles nothing).
+Not ported: the ring form (ROADMAP Queue 1 item 11 (IO pump and
+rings)), the overlay sidecar (Queue 1 item 7 (Overlay, service VIPs and
+ECMP staging)), the telemetry stamps (Queue 1 item 5 (Telemetry)),
+spans, journal and tracer.
 """
 
 from __future__ import annotations
@@ -27,9 +44,17 @@ import threading
 import time as _time
 from typing import Dict, Optional
 
+import numpy as np
+import torch
+
 from vpp_tpu_torch.ir.rule import PodID
 from vpp_tpu_torch.ops.session import session_expire, sweep_covered
-from vpp_tpu_torch.pipeline.graph import StepResult, make_pipeline_step
+from vpp_tpu_torch.pipeline import capture
+from vpp_tpu_torch.pipeline.graph import (
+    StepResult,
+    make_pipeline_step,
+    packed_vector,
+)
 from vpp_tpu_torch.pipeline.selection import (
     select_fib_impl,
     select_impl,
@@ -47,13 +72,130 @@ from vpp_tpu_torch.pipeline.vector import PacketVector
 # the step mutates these in place; ``probe`` runs on copies
 _MUTABLE_FIELDS = tuple(SESSION_FIELDS) + ("fib_ecmp_c",)
 
+# --- the bit-packed boundary (the reference's numpy surface) ------------
+
+# packed-boundary shape: [PACKED_IN_ROWS, B] in, [PACKED_OUT_ROWS_N, B] out
+PACKED_IN_ROWS = 5
+PACKED_OUT_ROWS_N = 5
+# The aux rider's row names, IN ORDER (graph.py ``packed_fields`` builds
+# the rows): the two-tier dispatch trio, session-table pressure, the ML
+# verdicts, device telemetry and tenancy. The stages the port has not
+# ported read 0.
+PACKED_AUX_SCHEMA = (
+    "fastpath", "rx", "sess_hits",
+    "insert_fails", "evictions",
+    "ml_scored", "ml_flagged", "ml_drops",
+    "tel_observed", "tel_sketched",
+    "tnt_limited", "tnt_qfail",
+)
+PACKED_AUX_ROWS = len(PACKED_AUX_SCHEMA)
+
+
+def packed_input_zeros(n: int):
+    """An all-invalid packed input batch (flags=0) — the pre-compile /
+    warm-up argument for ``process_packed``."""
+    return np.zeros((PACKED_IN_ROWS, n), np.int32)
+
+
+def pack_packet_columns(fu, cols, n: int, off: int = 0) -> None:
+    """Pack ring columns into a packed input batch. ``fu`` is the uint32
+    view of a [5, B] int32 batch; writes packets [off, off+n)."""
+    def u(name):
+        return cols[name][:n].view(np.uint32)
+
+    fu[0, off:off + n] = u("src_ip")
+    fu[1, off:off + n] = u("dst_ip")
+    fu[2, off:off + n] = (u("sport") << 16) | (u("dport") & 0xFFFF)
+    fu[3, off:off + n] = (
+        ((u("pkt_len") & 0xFFFF) << 16) | ((u("proto") & 0xFF) << 8)
+        | (u("ttl") & 0xFF)
+    )
+    fu[4, off:off + n] = (u("rx_if") << 8) | (u("flags") & 0xFF)
+
+
+def unpack_packet_input(flat) -> dict:
+    """Host-side inverse of ``pack_packet_columns``: decode a [5, B]
+    packed input batch back into named PacketVector column arrays."""
+    fu = flat.view(np.uint32)
+    return {
+        "src_ip": fu[0],
+        "dst_ip": fu[1],
+        "proto": ((fu[3] >> 8) & 0xFF).astype(np.int32),
+        "sport": (fu[2] >> 16).astype(np.int32),
+        "dport": (fu[2] & 0xFFFF).astype(np.int32),
+        "ttl": (fu[3] & 0xFF).astype(np.int32),
+        "pkt_len": (fu[3] >> 16).astype(np.int32),
+        "rx_if": (fu[4] >> 8).astype(np.int32),
+        "flags": (fu[4] & 0xFF).astype(np.int32),
+    }
+
+
+def unpack_packet_result(out) -> dict:
+    """Decode a fetched [5, B] packed result into named host arrays.
+    ``out`` must be a writable int32 array. tx_if 0xFFFF decodes to -1
+    (no egress interface)."""
+    if out.shape[0] != PACKED_OUT_ROWS_N:
+        raise ValueError(f"packed result of shape {out.shape}, expected "
+                         f"{PACKED_OUT_ROWS_N} rows")
+    ou = out.view(np.uint32)
+    row3 = ou[3]
+    tx_if = (row3 & 0xFFFF).astype(np.int32)
+    tx_if[tx_if == 0xFFFF] = -1
+    return {
+        "src_ip": ou[0],
+        "dst_ip": ou[1],
+        "sport": (ou[2] >> 16).astype(np.int32),
+        "dport": (ou[2] & 0xFFFF).astype(np.int32),
+        "ttl": ((row3 >> 16) & 0xFF).astype(np.int32),
+        "disp": ((row3 >> 24) & 0xF).astype(np.int32),
+        "drop_cause": (row3 >> 28).astype(np.int32),
+        "tx_if": tx_if,
+        "next_hop": ou[4],
+    }
+
+
+def _i32(v: int) -> int:
+    """An int as the int32 it wraps to (the reference's ``jnp.int32``)."""
+    return ((int(v) + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+class _PinnedUpload:
+    """Host-to-device copies of packed batches through pinned staging
+    buffers, non-blocking: two buffers per shape, used in turn, each
+    refilled only once the copy out of it has finished (its event)."""
+
+    def __init__(self):
+        self._slots: Dict[tuple, list] = {}  # shape -> [next, slot, slot]
+
+    def __call__(self, arr: np.ndarray, dest: torch.Tensor) -> None:
+        ring = self._slots.get(arr.shape)
+        if ring is None:
+            ring = self._slots[arr.shape] = [0] + [
+                [torch.empty(arr.shape, dtype=torch.int32, pin_memory=True),
+                 None] for _ in range(2)]
+        ring[0] ^= 1
+        slot = ring[1 + ring[0]]
+        buf, done = slot
+        if done is not None and not done.query():
+            done.synchronize()
+        buf.numpy()[...] = arr
+        dest.copy_(buf, non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record()
+
 
 class Dataplane:
     TICKS_PER_SEC = 10
 
     def __init__(self, config: Optional[DataplaneConfig] = None,
-                 device=None):
+                 device=None, graphs: bool = True):
         self.device = resolve_device(device)
+        # the step program cache (module doc): key -> capture.Program
+        self.graphs = bool(graphs)
+        self._programs: Dict[tuple, capture.Program] = {}
+        self._owner = capture.new_owner()
+        self._signed = (None, ())  # (tables, their table_signature)
+        self._upload = _PinnedUpload()
         self.config = config or DataplaneConfig()
         self.builder = TableBuilder(self.config, device=self.device)
         self.tables = self.builder.to_device()
@@ -160,10 +302,16 @@ class Dataplane:
     # --- epochs ---
     def swap(self) -> int:
         """Publish the staged configuration as a new table epoch; the
-        live session state carries over by reference."""
+        live session state carries over by reference, and every staged
+        tensor whose shape and dtype are unchanged is written into the
+        live one in place, so the captured programs stay valid; those
+        that no longer hold the live tables are dropped."""
         with self._lock:
-            self.tables = self.builder.to_device(sessions=self.tables)
+            self.tables = self.builder.to_device(sessions=self.tables,
+                                                 into=self.tables)
             self._refresh_selection()
+            self._programs = {k: p for k, p in self._programs.items()
+                              if p.holds(self.tables)}
             self.epoch += 1
             return self.epoch
 
@@ -197,7 +345,9 @@ class Dataplane:
                 (before.sess_valid - after.sess_valid).sum()
                 + (before.natsess_valid - after.natsess_valid).sum())
             if expired:
-                self.tables = after
+                # into the live columns: the captured programs hold them
+                before.sess_valid.copy_(after.sess_valid)
+                before.natsess_valid.copy_(after.natsess_valid)
         return expired
 
     # --- selection ---
@@ -237,11 +387,56 @@ class Dataplane:
         self._session_impl = select_session_impl(self.session_impl_knob,
                                                  p_ok)
 
-    def _get_step(self):
+    def _get_step(self, fast: bool, skip_local: Optional[bool] = None):
+        """The step variant of the current selection (``fast``: the
+        two-tier dispatcher). Call under ``_lock``."""
         return make_pipeline_step(
-            self._classifier_impl, self._skip_local, self._use_fastpath,
+            self._classifier_impl,
+            self._skip_local if skip_local is None else skip_local, fast,
             self._sweep_stride, fib_impl=self._fib_impl,
             sess_impl=self._session_impl, sess_hash=self._sess_hash)
+
+    def _program(self, fast: bool, form: str, shape) -> capture.Program:
+        """The step program of the current selection for inputs of
+        ``shape`` (``form``: plain, packed or chain), built on first use.
+        As the reference's ``_get_step`` does, a policy-free epoch keeps
+        the program with the local classify where that one exists
+        rather than capture the skip variant too: its results are the
+        same. The reference's ring form is refused. Call under
+        ``_lock``."""
+        if form not in ("plain", "packed", "chain"):
+            raise NotImplementedError(
+                f"the {form!r} step form is not ported to vpp_tpu_torch "
+                f"yet: ROADMAP Queue 1 item 11 (IO pump and rings)")
+        if self._signed[0] is not self.tables:
+            self._signed = (self.tables,
+                            capture.table_signature(self.tables))
+        shape = tuple(shape)
+
+        def key(skip):
+            return (self._classifier_impl, skip, fast, form,
+                    self._sweep_stride, self._fib_impl, self._session_impl,
+                    self._sess_hash, shape, self._signed[1])
+
+        skip = self._skip_local
+        if skip and key(True) not in self._programs \
+                and key(False) in self._programs:
+            skip = False
+        prog = self._programs.get(key(skip))
+        if prog is None or not prog.holds(self.tables):
+            label = capture.step_label(
+                self._classifier_impl, skip, fast, form, self._sweep_stride,
+                self._fib_impl, self._session_impl, self._sess_hash)
+            prog = capture.Program(
+                label, (self._owner, shape, self._signed[1]), self.tables,
+                self._get_step(fast, skip), form, shape, self.device)
+            self._programs[key(skip)] = prog
+        return prog
+
+    def programs(self):
+        """The step programs built so far (pipeline/capture.py)."""
+        with self._lock:
+            return list(self._programs.values())
 
     # --- traffic ---
     def _check(self, pkts: PacketVector) -> None:
@@ -250,34 +445,155 @@ class Dataplane:
                 f"packet vector on {pkts.src_ip.device}, dataplane on "
                 f"{self.tables.sess_valid.device}")
 
-    def process(self, pkts: PacketVector,
-                now: Optional[int] = None) -> StepResult:
+    def _clock(self, now: Optional[int]) -> int:
+        """The step's clock: ``now``, else the wall-clock ticks, kept
+        monotone."""
+        if now is None:
+            self._now = max(self._now, self.clock_ticks())
+            now = self._now
+        return int(now)
+
+    def _now_tensor(self, now: int) -> torch.Tensor:
+        return torch.full((), _i32(now), dtype=torch.int32,
+                          device=self.device)
+
+    def _scratch(self):
+        """The live tables with copies of the state a step mutates."""
+        t = self.tables
+        return t._replace(**{f: getattr(t, f).clone()
+                             for f in _MUTABLE_FIELDS})
+
+    def _load_packed(self, flat, dest: Optional[torch.Tensor] = None):
+        """A packed batch (host numpy / tensor, or a tensor on this
+        device) as int32 on the device, in ``dest`` when given. From the
+        host it goes through the pinned staging buffers (non-blocking)."""
+        if torch.is_tensor(flat) and flat.device == self.device:
+            if dest is None:
+                return flat.to(torch.int32).contiguous()
+            return dest.copy_(flat)
+        arr = flat.numpy() if torch.is_tensor(flat) else np.asarray(flat)
+        arr = (arr.view(np.int32) if arr.dtype == np.uint32
+               else arr.astype(np.int32, copy=False))
+        if dest is None:
+            dest = torch.empty(arr.shape, dtype=torch.int32,
+                               device=self.device)
+        if self.device.type == "cuda":
+            self._upload(arr, dest)
+        else:
+            dest.copy_(torch.from_numpy(arr))
+        return dest
+
+    def process(self, pkts: PacketVector, now: Optional[int] = None,
+                ovl_inner: Optional[PacketVector] = None,
+                ovl_vni=None) -> StepResult:
         """Run one packet vector through the step; the session state of
-        the live epoch is updated in place. The full chain never
-        synchronises with the device; the two-tier dispatcher reads
-        its dispatch flag once."""
+        the live epoch is updated in place. With ``graphs`` the step
+        replays its program (the header is copied into its static
+        columns, the result is a copy of its output); the full chain
+        never synchronises with the device, the two-tier dispatcher
+        reads its dispatch flag once. The overlay's inner-header
+        sidecar (``ovl_inner``, ``ovl_vni``) is refused."""
+        if ovl_inner is not None or ovl_vni is not None:
+            raise NotImplementedError(
+                "the overlay's inner-header sidecar is not ported to "
+                "vpp_tpu_torch yet: ROADMAP Queue 1 item 7 (Overlay, "
+                "service VIPs and ECMP staging)")
         self._check(pkts)
         with self._lock:
-            step = self._get_step()
             self._steps_since_expire += 1
-            if now is None:
-                self._now = max(self._now, self.clock_ticks())
-                now = self._now
-            result = step(self.tables, pkts, int(now))
-            self.tables = result.tables
-        return result
+            now = self._clock(now)
+            if not self.graphs:
+                result = self._get_step(self._use_fastpath)(
+                    self.tables, pkts, self._now_tensor(now))
+                self.tables = result.tables
+                return result
+            prog = self._program(self._use_fastpath, "plain",
+                                 (len(PacketVector._fields),
+                                  pkts.src_ip.shape[0]))
+            buf = prog.run(_i32(now),
+                           lambda x: torch.stack(tuple(pkts), out=x))
+            return prog.result(buf)
 
     def probe(self, pkts: PacketVector,
               now: Optional[int] = None) -> StepResult:
-        """Side-effect-free step against the live tables: the step runs
-        on copies of the state it would update, so no session is
-        installed and no counter of the live epoch moves."""
+        """Side-effect-free step against the live tables: the forced
+        full chain (as the reference's ``probe``) runs eagerly on copies
+        of the state it would update, so no session is installed and no
+        counter of the live epoch moves."""
         self._check(pkts)
         with self._lock:
-            step = self._get_step()
+            step = self._get_step(False)
             if now is None:
                 now = max(self._now, self.clock_ticks())
-            t = self.tables
-            scratch = t._replace(**{f: getattr(t, f).clone()
-                                    for f in _MUTABLE_FIELDS})
-        return step(scratch, pkts, int(now))
+            scratch = self._scratch()
+        return step(scratch, pkts, self._now_tensor(now))
+
+    def process_packed(self, flat, now: Optional[int] = None,
+                       commit: bool = True, with_aux: bool = False):
+        """One bit-packed ``[5, B]`` int32 batch (host numpy or tensor;
+        ``pack_packet_columns`` / ``packed_input_zeros``, the row layout
+        of graph.py ``packed_vector``) through the step; returns the
+        DEVICE ``[5, B]`` packed result (graph.py ``packed_fields``),
+        and with ``with_aux`` also the ``[PACKED_AUX_ROWS]`` aux rider,
+        without a host sync on the full chain. ``commit=False`` runs the
+        step eagerly on copies of the mutable state (a probe-like
+        classify that keeps nothing)."""
+        if not torch.is_tensor(flat):
+            flat = np.asarray(flat)
+        with self._lock:
+            if commit:
+                self._steps_since_expire += 1
+            now = self._clock(now)
+            batch = flat.shape[1]
+            if commit and self.graphs:
+                prog = self._program(self._use_fastpath, "packed",
+                                     (PACKED_IN_ROWS, batch))
+                buf = prog.run(_i32(now),
+                               lambda x: self._load_packed(flat, x))
+                out, aux = prog.packed(buf)
+            else:
+                tables = self.tables if commit else self._scratch()
+                res = self._get_step(self._use_fastpath)(
+                    tables, packed_vector(self._load_packed(flat)),
+                    self._now_tensor(now))
+                out, aux = capture.packed_views(
+                    capture.encode_packed([res]), batch)
+        return (out, aux) if with_aux else out
+
+    def process_packed_chain(self, flats, now: Optional[int] = None,
+                             with_aux: bool = False):
+        """K packed batches (a host ``[K, 5, B]`` int32 stack) stepped in
+        turn at one clock, the sessions threaded from each to the next
+        as K ``process_packed`` calls would; returns the DEVICE
+        ``[K, 5, B]`` results (and ``[K, PACKED_AUX_ROWS]`` aux rows).
+        With ``graphs`` the forced full chain is ONE graph of K steps;
+        the auto path runs the packed program K times (prefix, flag
+        read, tier)."""
+        if not torch.is_tensor(flats):
+            flats = np.asarray(flats)
+        with self._lock:
+            k, batch = len(flats), flats.shape[-1]
+            # a K-chain sweeps once per sub-batch
+            self._steps_since_expire += max(1, k)
+            now = self._clock(now)
+            if self.graphs and not self._use_fastpath:
+                prog = self._program(False, "chain",
+                                     (k, PACKED_IN_ROWS, batch))
+                outs, auxs = prog.packed(prog.run(
+                    _i32(now), lambda x: self._load_packed(flats, x)))
+            elif self.graphs:
+                x = self._load_packed(flats)
+                prog = self._program(True, "packed", (PACKED_IN_ROWS, batch))
+                views = [prog.packed(prog.run(
+                    _i32(now), lambda d, xk=xk: d.copy_(xk)))
+                    for xk in x.unbind(0)]
+                outs = torch.stack([o for o, _ in views])
+                auxs = torch.stack([a for _, a in views])
+            else:
+                x = self._load_packed(flats)
+                step = self._get_step(self._use_fastpath)
+                now_t = self._now_tensor(now)
+                outs, auxs = capture.packed_views(capture.encode_packed(
+                    [step(self.tables, packed_vector(xk), now_t)
+                     for xk in x.unbind(0)]), batch, k)
+        return (outs, auxs) if with_aux else outs

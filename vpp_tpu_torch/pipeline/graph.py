@@ -14,11 +14,22 @@ that would turn them on.
 
 PyTorch runs eagerly, so the step is plain Python over tensors; the
 full chain never synchronises with the device (every counter stays a
-0-d tensor), and it updates the session/NAT state and the ECMP
-accounting plane in place (ops/session.py module doc):
-``StepResult.tables`` is the tables object it was given. The auto
+0-d tensor, and the clock ``now`` is a 0-d int32 tensor, as the
+reference passes ``jnp.int32(now)``), and it updates the session/NAT
+state and the ECMP accounting plane in place (ops/session.py module
+doc): ``StepResult.tables`` is the tables object it was given. The auto
 dispatcher reads its one predicate flag to the host per step (its
 docstring says why).
+
+Capture. Nothing in a step depends on the data or the clock on the
+host: the op stream is the same for every batch of one shape and every
+``now`` (tests/test_torch_capture.py records it), so
+pipeline/capture.py can capture it in a CUDA graph. For that the auto
+dispatcher comes in three parts a program captures one by one —
+``auto_prefix`` (ending in the dispatch flag), ``auto_fast`` and the
+full chain — with the flag read between them; ``result_fields`` /
+``result_of`` and ``packed_vector`` / ``packed_fields`` are the
+tensors a program copies in and out.
 """
 
 from __future__ import annotations
@@ -52,6 +63,8 @@ from vpp_tpu_torch.pipeline.vector import (
     PacketVector,
     gather_index,
     scatter_index,
+    to_i32,
+    u32,
 )
 
 
@@ -241,7 +254,7 @@ def _finish_step(tables, pkts: PacketVector, now, alive, drop_ip4,
     )
 
 
-def pipeline_step(tables, pkts: PacketVector, now: int,
+def pipeline_step(tables, pkts: PacketVector, now,
                   acl_global_fn=acl_classify_global,
                   acl_local_fn=acl_classify_local,
                   sweep_stride: int = SWEEP_STRIDE_DEFAULT,
@@ -249,7 +262,8 @@ def pipeline_step(tables, pkts: PacketVector, now: int,
                   sess_hash: str = "fwd") -> StepResult:
     """Process one packet vector through the full forwarding chain
     (the reference's ``pipeline_step`` with its off-state gates).
-    ``now`` is the session clock in ticks (a Python int)."""
+    ``now`` is the session clock in ticks: a 0-d int32 tensor on the
+    tables' device (an int still works, for direct callers)."""
     sym = sess_hash == "sym"
     pkts, drop_ip4, alive = _ingress(tables, pkts)
 
@@ -354,7 +368,7 @@ def _pipeline_fast_finish(tables, pkts: PacketVector, now, alive, drop_ip4,
         false_p, sweep_stride=sweep_stride, fastpath=1)
 
 
-def pipeline_step_fast(tables, pkts: PacketVector, now: int,
+def pipeline_step_fast(tables, pkts: PacketVector, now,
                        sweep_stride: int = SWEEP_STRIDE_DEFAULT,
                        fib_fn=fib_lookup_dense, sess_impl: str = "gather",
                        sess_hash: str = "fwd") -> StepResult:
@@ -373,7 +387,50 @@ def pipeline_step_fast(tables, pkts: PacketVector, now: int,
         nat_reversed, nat_hit_idx, sweep_stride=sweep_stride, fib_fn=fib_fn)
 
 
-def pipeline_step_auto(tables, pkts: PacketVector, now: int,
+class AutoPrefix(NamedTuple):
+    """What the dispatch prefix hands the fast tier, and the flag."""
+
+    pkts: PacketVector           # the header after NAT reverse
+    drop_ip4: torch.Tensor
+    alive: torch.Tensor
+    hits: torch.Tensor           # alive and admitted by a session
+    sess_hit_idx: torch.Tensor
+    nat_reversed: torch.Tensor
+    nat_hit_idx: torch.Tensor
+    ok: torch.Tensor             # 0-d bool: the fast tier may serve
+
+
+def auto_prefix(tables, pkts: PacketVector, now, sess_impl: str = "gather",
+                sess_hash: str = "fwd") -> AutoPrefix:
+    """The dispatch prefix: ip4-input, the session summary, NAT reverse
+    and the DNAT probe, computed once and reading the state without
+    writing it; ``ok = all_hit & ~any(dnat_would)`` exactly as the
+    reference computes its ``lax.cond`` predicate."""
+    pkts1, drop_ip4, alive = _ingress(tables, pkts)
+    hits, sess_hit_idx, all_hit = session_batch_summary(
+        tables, pkts1, alive, now, impl=sess_impl, sym=sess_hash == "sym")
+    # NAT reverse runs before the DNAT probe: the un-NAT'd header is
+    # what the full chain would hand nat44_dnat
+    rpkts, nat_reversed, nat_hit_idx = nat44_reverse(tables, pkts1, alive,
+                                                     now)
+    dnat_would = nat44_dnat_match(tables, rpkts, alive & ~nat_reversed)
+    return AutoPrefix(rpkts, drop_ip4, alive, hits, sess_hit_idx,
+                      nat_reversed, nat_hit_idx,
+                      all_hit & ~dnat_would.any())
+
+
+def auto_fast(tables, pre: AutoPrefix, now,
+              sweep_stride: int = SWEEP_STRIDE_DEFAULT,
+              fib_fn=fib_lookup_dense) -> StepResult:
+    """The fast tier behind the prefix: it reuses the prefix's lookups
+    (valid only where ``pre.ok`` holds)."""
+    return _pipeline_fast_finish(
+        tables, pre.pkts, now, pre.alive, pre.drop_ip4, pre.hits,
+        pre.sess_hit_idx, pre.nat_reversed, pre.nat_hit_idx,
+        sweep_stride=sweep_stride, fib_fn=fib_fn)
+
+
+def pipeline_step_auto(tables, pkts: PacketVector, now,
                        acl_global_fn=acl_classify_global,
                        acl_local_fn=acl_classify_local,
                        sweep_stride: int = SWEEP_STRIDE_DEFAULT,
@@ -382,36 +439,83 @@ def pipeline_step_auto(tables, pkts: PacketVector, now: int,
     """Two-tier dispatch: the fast tier when the whole batch rides
     established sessions, the full chain otherwise.
 
-    The prefix — ip4-input, the session summary, NAT reverse and the
-    DNAT probe — is computed once and reads the state without writing
-    it. The dispatch flag ``ok = all_hit & ~any(dnat_would)`` is
-    computed on the device exactly as the reference computes it, and
-    then read to the host: the ONE host sync of this step. The
-    reference branches on the device with ``lax.cond``; eager PyTorch
-    cannot branch on a device value without reading it, and running
-    both tiers to select with ``torch.where`` would elide nothing,
-    which is the tier's only purpose. So exactly one tier runs: the
-    fast tier reuses the prefix's lookups; the full chain re-derives
-    its ingress from the original vector, as the reference does."""
-    sym = sess_hash == "sym"
-    pkts1, drop_ip4, alive = _ingress(tables, pkts)
-    hits, sess_hit_idx, all_hit = session_batch_summary(
-        tables, pkts1, alive, now, impl=sess_impl, sym=sym)
-    # NAT reverse runs before the DNAT probe: the un-NAT'd header is
-    # what the full chain would hand nat44_dnat
-    rpkts, nat_reversed, nat_hit_idx = nat44_reverse(tables, pkts1, alive,
-                                                     now)
-    dnat_would = nat44_dnat_match(tables, rpkts, alive & ~nat_reversed)
-    ok = all_hit & ~dnat_would.any()
-    if bool(ok):  # the step's one host sync (docstring)
-        return _pipeline_fast_finish(
-            tables, rpkts, now, alive, drop_ip4, hits, sess_hit_idx,
-            nat_reversed, nat_hit_idx, sweep_stride=sweep_stride,
-            fib_fn=fib_fn)
+    ``auto_prefix`` computes the dispatch flag on the device exactly as
+    the reference computes it, and then it is read to the host: the ONE
+    host sync of this step. The reference branches on the device with
+    ``lax.cond``; eager PyTorch cannot branch on a device value without
+    reading it, and running both tiers to select with ``torch.where``
+    would elide nothing, which is the tier's only purpose. So exactly
+    one tier runs: the fast tier reuses the prefix's lookups; the full
+    chain re-derives its ingress from the original vector, as the
+    reference does."""
+    pre = auto_prefix(tables, pkts, now, sess_impl=sess_impl,
+                      sess_hash=sess_hash)
+    if bool(pre.ok):  # the step's one host sync (docstring)
+        return auto_fast(tables, pre, now, sweep_stride=sweep_stride,
+                         fib_fn=fib_fn)
     return pipeline_step(tables, pkts, now, acl_global_fn=acl_global_fn,
                          acl_local_fn=acl_local_fn,
                          sweep_stride=sweep_stride, fib_fn=fib_fn,
                          sess_impl=sess_impl, sess_hash=sess_hash)
+
+
+# --- what a step program copies in and out ----------------------------
+
+_RESULT_FIELDS = ("disp", "tx_if", "node_id", "next_hop", "drop_cause",
+                  "established", "dnat_applied", "snat_applied",
+                  "ml_flagged", "ml_scores")
+
+
+def result_fields(res: StepResult) -> list:
+    """Every tensor of a StepResult but the tables, in a fixed order:
+    the header, the per-packet fields, then the counters."""
+    return (list(res.pkts) + [getattr(res, f) for f in _RESULT_FIELDS]
+            + list(res.stats))
+
+
+def result_of(fields, tables) -> StepResult:
+    """The inverse of ``result_fields`` over ``tables``."""
+    n_pk, n_res = len(PacketVector._fields), len(_RESULT_FIELDS)
+    res = dict(zip(_RESULT_FIELDS, fields[n_pk:n_pk + n_res]))
+    return StepResult(pkts=PacketVector(*fields[:n_pk]), tables=tables,
+                      stats=StepStats(*fields[n_pk + n_res:]), **res)
+
+
+def packed_vector(flat: torch.Tensor) -> PacketVector:
+    """Decode a ``[5, B]`` bit-packed int32 batch (the reference's
+    ``_packed_call`` input rows: src_ip, dst_ip, sport<<16 | dport,
+    pkt_len<<16 | proto<<8 | ttl, rx_if<<8 | flags) on the device. The
+    address columns are views of its rows."""
+    def field(row, shift, mask):
+        return (flat[row] >> shift) & mask  # the mask drops the sign
+
+    return PacketVector(
+        src_ip=flat[0], dst_ip=flat[1], proto=field(3, 8, 0xFF),
+        sport=field(2, 16, 0xFFFF), dport=field(2, 0, 0xFFFF),
+        ttl=field(3, 0, 0xFF), pkt_len=field(3, 16, 0xFFFF),
+        rx_if=field(4, 8, 0xFFFFFF), flags=field(4, 0, 0xFF))
+
+
+def packed_fields(res: StepResult) -> list:
+    """The reference's ``_packed_call`` output (``with_aux``): the five
+    [B] rows of the packed result — src_ip, dst_ip, sport<<16 | dport,
+    drop_cause<<28 | disp<<24 | ttl<<16 | tx_if (0xFFFF: none), next_hop
+    — and the twelve 0-d aux rows of ``PACKED_AUX_SCHEMA`` (the
+    telemetry counters read 0: the stage is not ported)."""
+    p, s = res.pkts, res.stats
+    row2 = (u32(p.sport) << 16) | (u32(p.dport) & 0xFFFF)
+    row3 = (((u32(res.drop_cause) & 0xF) << 28)
+            | ((u32(res.disp) & 0xF) << 24)
+            | ((u32(p.ttl) & 0xFF) << 16) | (u32(res.tx_if) & 0xFFFF))
+    rows = [p.src_ip, p.dst_ip, to_i32(row2), to_i32(row3), res.next_hop]
+    aux = [s.fastpath, s.rx, s.sess_hits,
+           s.sess_insert_fail + s.natsess_insert_fail,
+           (s.sess_evict_expired + s.sess_evict_victim
+            + s.natsess_evict_expired + s.natsess_evict_victim),
+           s.ml_scored, s.ml_flagged, s.ml_drops,
+           torch.zeros_like(s.rx), s.tel_sketched, s.tnt_limited,
+           s.tnt_qfail]
+    return rows + aux
 
 
 def _classifier_fns(impl: str):
@@ -475,8 +579,11 @@ def make_pipeline_step(impl: str = "dense", skip_local: bool = False,
                        sess_hash: str = "fwd", overlay: str = "off"):
     """Compose one step callable ``step(tables, pkts, now)`` from the
     epoch's gates (the reference's factory and key): ``fast`` builds
-    the two-tier ``pipeline_step_auto``, else the full chain. Gates of
-    stages this package has not ported raise NotImplementedError."""
+    the two-tier ``pipeline_step_auto``, else the full chain. Its parts
+    ride along as attributes: ``step.full(tables, pkts, now)`` and, with
+    ``fast``, ``step.prefix(tables, pkts, now)`` and ``step.fast(tables,
+    prefix, now)``. Gates of stages this package has not ported raise
+    NotImplementedError."""
     from vpp_tpu_torch.ops.acl import acl_local_none
 
     gates = {"ml_mode": ml_mode, "tel_mode": tel_mode,
@@ -497,10 +604,21 @@ def make_pipeline_step(impl: str = "dense", skip_local: bool = False,
         acl_local_fn = acl_local_none
     base = pipeline_step_auto if fast else pipeline_step
 
-    def step(tables, pkts: PacketVector, now: int) -> StepResult:
+    def step(tables, pkts: PacketVector, now) -> StepResult:
         return base(tables, pkts, now, acl_global_fn=acl_global_fn,
                     acl_local_fn=acl_local_fn, sweep_stride=sweep_stride,
                     fib_fn=fib_fn, sess_impl=sess_impl, sess_hash=sess_hash)
+
+    # the parts a step program captures one by one
+    step.full = functools.partial(
+        pipeline_step, acl_global_fn=acl_global_fn,
+        acl_local_fn=acl_local_fn, sweep_stride=sweep_stride, fib_fn=fib_fn,
+        sess_impl=sess_impl, sess_hash=sess_hash)
+    if fast:
+        step.prefix = functools.partial(auto_prefix, sess_impl=sess_impl,
+                                        sess_hash=sess_hash)
+        step.fast = functools.partial(auto_fast, sweep_stride=sweep_stride,
+                                      fib_fn=fib_fn)
 
     step.__name__ = "pipeline_step_{}{}{}{}{}{}".format(
         impl, "_nolocal" if skip_local else "", "_auto" if fast else "",

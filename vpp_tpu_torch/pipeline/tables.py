@@ -819,12 +819,19 @@ class TableBuilder:
         out.update(self._fixed)
         return {f: out[f] for f in HOST_FIELDS}
 
-    def to_device(self, sessions=None) -> DataplaneTables:
+    def to_device(self, sessions=None, into=None) -> DataplaneTables:
         """The next epoch's tables on the builder's device (a full
         upload of the staged arrays). ``sessions`` — the previous
         epoch's DataplaneTables — hands its live state tensors over by
         reference; a ``{field: numpy}`` mapping of SESSION_FIELDS (a
-        restored snapshot) is uploaded; None starts empty."""
+        restored snapshot) is uploaded; None starts empty.
+
+        ``into`` — the live DataplaneTables — refreshes its tensors IN
+        PLACE: every staged or derived field whose shape and dtype are
+        unchanged is written into the tensor ``into`` holds (``copy_``),
+        so a captured step (pipeline/capture.py), which holds their
+        addresses, stays valid; a field whose shape or dtype changed
+        gets a new tensor (and the tables' signature, a new program)."""
         state = zero_state_device(self.config, self.device)
         if isinstance(sessions, dict):
             shapes = state_shapes(self.config)
@@ -839,4 +846,17 @@ class TableBuilder:
             state = {f: getattr(sessions, f) for f in STATE_FIELDS}
         host = {f: tensor_of(a, self.device)
                 for f, a in self.host_arrays().items()}
-        return DataplaneTables(**host, **state, **derive(host))
+        derived = derive(host)
+        if into is not None:
+            host, derived = (
+                {f: _refresh(getattr(into, f), t) for f, t in d.items()}
+                for d in (host, derived))
+        return DataplaneTables(**host, **state, **derived)
+
+
+def _refresh(held: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """``held`` with ``new``'s contents where the two agree in shape and
+    dtype (written in place), else ``new``."""
+    if held.shape != new.shape or held.dtype != new.dtype:
+        return new
+    return held.copy_(new)

@@ -10,10 +10,14 @@ one checkout's root that stages ``chip_smoke.py``'s slice and times
 ms between CUDA events, median of ``--steps``): the ``pallas`` path on
 forward vectors alternating with the replies to all their packets (phase
 5's cell) and the MXU path's fast tier on the replies to forwarded
-packets, at P = 256 and 4,096. The pairs alternate which checkout runs
-first. Prints one JSON line per run, then a summary per cell: each
-side's median and quartiles over the runs, and the pairs this checkout
-won (ties count for neither).
+packets, at P = 256 and 4,096. Each cell runs the checkout's default
+step — the captured one where the checkout has the step program cache,
+the eager one before it — and, where the checkout has the cache, the
+same cell again with the dataplane stepping eagerly (``eager`` cells).
+The pairs alternate which checkout runs first. Prints one JSON line per
+run, then a summary per cell: each side's median and quartiles over
+the runs, and, for a cell both sides ran, the pairs this checkout won
+(ties count for neither).
 """
 
 from __future__ import annotations
@@ -40,17 +44,20 @@ for path in ("pallas", "mxu fast"):
         cfg = cfg._replace(classifier="mxu", fastpath=True)
     dp = cs.Dataplane(cfg)
     up, pods = cs.stage(dp, 10240, 3744)
-    for n in (cs.VEC, cs.BIG_VEC):
-        if path == "pallas":
-            ms = cs.time_steps(dp, up, pods, n, STEPS, 7 + n, 1000)[0]
-        else:
-            fwd = cs.forward_traffic(n, up, 7 + n)
-            first = dp.process(cs.packet_vector_from_numpy(fwd, dp.device),
-                               now=1000)
-            rep = cs.packet_vector_from_numpy(cs.reply_traffic(
-                cs.snapshot(first), pods, "forwarded"), dp.device)
-            ms = cs.time_process(dp, [rep], STEPS, 1001, tier=1)[0]
-        out[f"{path} P={n}"] = ms
+    modes = ("", "eager ") if hasattr(dp, "graphs") else ("",)
+    for mode in modes:
+        dp.graphs = mode == ""
+        for n in (cs.VEC, cs.BIG_VEC):
+            if path == "pallas":
+                ms = cs.time_steps(dp, up, pods, n, STEPS, 7 + n, 1000)[0]
+            else:
+                fwd = cs.forward_traffic(n, up, 7 + n)
+                first = dp.process(cs.packet_vector_from_numpy(
+                    fwd, dp.device), now=1000)
+                rep = cs.packet_vector_from_numpy(cs.reply_traffic(
+                    cs.snapshot(first), pods, "forwarded"), dp.device)
+                ms = cs.time_process(dp, [rep], STEPS, 1001, tier=1)[0]
+            out[f"{mode}{path} P={n}"] = ms
 print(json.dumps(out))
 """
 
@@ -82,16 +89,18 @@ def main(argv=None) -> int:
             print(json.dumps({"pair": k, "side": side, "ms": ms}),
                   flush=True)
     summary = {}
-    for cell in runs["this"][0]:
-        this = np.array([r[cell] for r in runs["this"]])
-        other = np.array([r[cell] for r in runs["other"]])
-        summary[cell] = dict(
-            this_ms=float(np.median(this)),
-            this_quartiles=np.percentile(this, [25, 75]).tolist(),
-            other_ms=float(np.median(other)),
-            other_quartiles=np.percentile(other, [25, 75]).tolist(),
-            this_won=int((this < other).sum()),
-            other_won=int((other < this).sum()))
+    for cell in dict.fromkeys([*runs["this"][0], *runs["other"][0]]):
+        ms = {side: np.array([r[cell] for r in runs[side]])
+              for side in runs if cell in runs[side][0]}
+        summary[cell] = {}
+        for side, v in ms.items():
+            summary[cell][f"{side}_ms"] = float(np.median(v))
+            summary[cell][f"{side}_quartiles"] = np.percentile(
+                v, [25, 75]).tolist()
+        if len(ms) == 2:
+            summary[cell].update(
+                this_won=int((ms["this"] < ms["other"]).sum()),
+                other_won=int((ms["other"] < ms["this"]).sum()))
     print(json.dumps({"pairs": args.pairs, "summary": summary}))
     return 0
 
