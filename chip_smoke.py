@@ -25,7 +25,12 @@ raises on failure:
    rules match each packet, at P and R' on and off its 128-packet and
    128-rule tiles; ``lpm_fused_lookup`` also on stacks whose live set
    is exactly its shared-memory budget, one entry over it, and far over
-   it, so that both sides of the kernel's on-device choice run);
+   it, so that both sides of the kernel's on-device choice run;
+   ``ml_score`` (the ML stage, ``mlscore.ml_stage``) on random weights,
+   all-zero weights, a single-feature model, the flag threshold at
+   INT32_MIN / INT32_MAX, wrapping biases and shifts past 31, each of
+   the four actions, MLP and forest, at P = 1, 33, 256, 4,095, 4,096,
+   and a model past 48 KB of shared memory);
 4. the main path: the slice's full-size ``Dataplane`` on the card
    (10,240 global rules, 8 pods on 128-rule local tables, 2^20 session
    slots, ~4,000 routes, a 100-backend ClusterIP; the ``pallas`` rungs,
@@ -64,6 +69,25 @@ raises on failure:
    graph's dump (``CUDAGraph.debug_dump``) must hold a node of each
    kernel its capture launched, the graphs of a path together every
    kernel of the path;
+4d. the ML stage and telemetry, on each path: the slice with
+   ``ml_stage: enforce`` (16 hidden, 4 trees x depth 3) and
+   ``telemetry: full`` (24 buckets, a 2 x 1,024 sketch, top-8), staged
+   with bench.py ``ml_stage_bench``'s trained MLP, on the card captured
+   and eager and on the CPU. The run sequence: the MLP; a forest swapped
+   in (a new program key must be captured); its action swapped to
+   ratelimit with ``rl_shift`` 1 (table values: nothing may be
+   captured). Each drives, at P = 256 and 4,096, the three vectors of a
+   round through ``process``, packed batches stamped ``now_us`` minus
+   latencies across the bucket edges (and an unstamped one and a
+   negative latency) through ``process_packed``, and a stamped K = 4
+   ``process_packed_chain``. ``ml_score`` must launch with the path's
+   kernels; every call's result (StepResult, counters, packed and aux
+   rows), the final session / NAT / ECMP / telemetry planes and
+   ``telemetry_snapshot`` must be equal captured, eager and on the CPU;
+   ML flags and drops must occur on every tier the path runs; the
+   sketched count must equal the alive packets; the histogram must
+   equal the known latencies' buckets; a ``probe`` and a
+   ``process_packed(commit=False)`` must move no live plane;
 5. timing with CUDA events: ms per ``process`` step and Mpps (valid
    packets per device second) at P = 256 and 4,096, captured and eager,
    and a ``torch.profiler`` window per size (device operations, graph
@@ -79,7 +103,11 @@ raises on failure:
    its bound (``mxu_first_match`` also beside two yardsticks the port
    never calls: a bare bf16 ``torch.matmul`` of the exploded bits and
    the coefficients, ``matmul_ms``, and ``torch._int_mm`` of the same
-   as int8, ``int8_matmul_ms``).
+   as int8, ``int8_matmul_ms``; ``ml_score`` beside ``torch._int_mm``
+   of its layer-1 product padded to [P, 24] x [24, 16],
+   ``library_ms``); and the ML stage's and telemetry's cost: ms and
+   device operations per step of phase 4d's dataplanes against phase 4
+   / 4b's on the same vectors, in turns.
 
 Every comparison is between integers: the tolerance is exact equality.
 The line before the last is the kernels JSON object; the last line is
@@ -90,8 +118,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import ipaddress
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -109,13 +139,21 @@ from vpp_tpu_torch.ir.rule import (  # noqa: E402
     Protocol,
     rule_matches,
 )
+from vpp_tpu_torch.ml.model import (  # noqa: E402
+    MlModel,
+    packet_features,
+    score_oracle,
+)
+from vpp_tpu_torch.ml.train import train_and_pack  # noqa: E402
 from vpp_tpu_torch.ops import (  # noqa: E402
     _cuda,
     acl_bv,
     acl_mxu,
     lpm,
+    mlscore,
     session,
 )
+from vpp_tpu_torch.ops.telemetry import lat_bucket_np  # noqa: E402
 from vpp_tpu_torch.ops.acl import first_true  # noqa: E402
 from vpp_tpu_torch.pipeline.dataplane import (  # noqa: E402
     Dataplane,
@@ -127,6 +165,7 @@ from vpp_tpu_torch.pipeline import capture, graph  # noqa: E402
 from vpp_tpu_torch.pipeline.graph import DROP_ACL  # noqa: E402
 from vpp_tpu_torch.pipeline.tables import (  # noqa: E402
     SESSION_FIELDS,
+    TELEMETRY_FIELDS,
     DataplaneConfig,
 )
 from vpp_tpu_torch.pipeline.vector import (  # noqa: E402
@@ -174,21 +213,32 @@ KERNELS = {
     "mxu_first_match": dict(
         source="vpp_tpu_torch/csrc/mxu_first_match.cu",
         replaces="vpp_tpu/ops/acl_mxu.py:246"),
+    # no Pallas counterpart: the reference's stage is plain jnp
+    # (ml_score and ml_policy)
+    "ml_score": dict(
+        source="vpp_tpu_torch/csrc/ml_score.cu",
+        replaces="vpp_tpu/ops/mlscore.py:167"),
 }
 WRAPPERS = {"sess_probe_ways": session.sess_probe_ways,
             "bv_first_set": acl_bv.bv_first_set,
             "lpm_fused_lookup": lpm.lpm_fused_lookup,
-            "mxu_first_match": acl_mxu.mxu_first_match}
-# the kernels each main path runs (phase 4: pallas rungs; 4b: mxu)
+            "mxu_first_match": acl_mxu.mxu_first_match,
+            "ml_score": mlscore.ml_stage}
+NAME_OF = {w: k for k, w in WRAPPERS.items()}
+# the kernels each main path runs (phase 4: pallas rungs; 4b: mxu; 4d:
+# the same with the ML stage and telemetry on)
 PATH_KERNELS = {"pallas": ("sess_probe_ways", "bv_first_set",
                            "lpm_fused_lookup"),
                 "mxu": ("sess_probe_ways", "mxu_first_match",
                         "lpm_fused_lookup")}
+PATH_KERNELS.update({f"{p}+ml": k + ("ml_score",)
+                     for p, k in list(PATH_KERNELS.items())})
 # each kernel's __global__ function, as a captured graph's nodes name it
 KERNEL_SYMBOLS = {"sess_probe_ways": "sess_probe_kernel",
                   "bv_first_set": "bv_first_set_kernel",
                   "lpm_fused_lookup": "lpm_kernel",
-                  "mxu_first_match": "mxu_first_match_kernel"}
+                  "mxu_first_match": "mxu_first_match_kernel",
+                  "ml_score": "ml_score_kernel"}
 CHAIN_K = 8           # sub-batches of phase 4c's process_packed_chain
 
 RESULT_FIELDS = ("disp", "tx_if", "node_id", "next_hop", "drop_cause",
@@ -659,6 +709,120 @@ def mxu_case(rng, p: int, r: int, dev, kind: str = "random"):
             op["glb_mxu_op"])
 
 
+ML_VARIANTS = ("random", "zero", "single", "thresh-min", "thresh-max",
+               "wrap", "mark", "drop", "ratelimit", "mirror")
+I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def ml_case(rng, p: int, dev, kind: str = "mlp", variant: str = "random",
+            hidden: int = 16, trees: int = 4, depth: int = 3):
+    """``ml_stage``'s arguments: model planes (a namespace of the
+    ``glb_ml_*`` tensors), header columns with every edge the features
+    see (addresses with the top bit set, ports past 16 bits, negative
+    lengths, flags past 255), alive, established and the session age.
+    ``variant``: ``random`` weights (drop action); ``zero`` weights;
+    ``single``: one feature (the length bucket) through one hidden unit;
+    ``thresh-min`` / ``thresh-max``: the flag threshold at INT32_MIN /
+    INT32_MAX; ``wrap``: full-range int32 biases and leaf votes (the sums
+    wrap), shifts of -1, 31, 32 and feature indices off the vector;
+    ``mark`` / ``drop`` / ``ratelimit`` / ``mirror``: that action, with
+    ``rl_shift`` 1 (ratelimit also 31 and 32 by seed)."""
+    full = (I32_MIN, I32_MAX + 1)
+    w = dict(
+        glb_ml_w1=rng.integers(-128, 128, (18, hidden)).astype(np.int8),
+        glb_ml_b1=rng.integers(-(1 << 16), 1 << 16, hidden).astype(
+            np.int32),
+        glb_ml_s1=np.int32(rng.integers(0, 12)),
+        glb_ml_w2=rng.integers(-128, 128, hidden).astype(np.int8),
+        glb_ml_b2=np.int32(rng.integers(-1000, 1000)),
+        glb_ml_f_feat=rng.integers(0, 18, (trees, depth)).astype(np.int32),
+        glb_ml_f_thresh=rng.integers(0, 256, (trees, depth)).astype(
+            np.int32),
+        glb_ml_f_leaf=rng.integers(-500, 500, (trees, 1 << depth)).astype(
+            np.int32),
+        glb_ml_thresh=np.int32(0), glb_ml_action=np.int32(1),
+        glb_ml_rl_shift=np.int32(0))
+    if variant == "zero":
+        for f in ("glb_ml_w1", "glb_ml_b1", "glb_ml_w2", "glb_ml_f_leaf"):
+            w[f] = np.zeros_like(w[f])
+        w["glb_ml_b2"] = np.int32(0)
+    elif variant == "single":
+        w["glb_ml_w1"] = np.zeros_like(w["glb_ml_w1"])
+        w["glb_ml_w1"][13, 0] = 2
+        w["glb_ml_w2"] = np.zeros_like(w["glb_ml_w2"])
+        w["glb_ml_w2"][0] = 3
+        w["glb_ml_b1"][0] = 256 - 10
+        w["glb_ml_s1"] = np.int32(1)
+        w["glb_ml_thresh"] = np.int32(50)
+    elif variant in ("thresh-min", "thresh-max"):
+        w["glb_ml_thresh"] = np.int32(I32_MIN if variant == "thresh-min"
+                                      else I32_MAX)
+    elif variant == "wrap":
+        w["glb_ml_b1"] = rng.integers(*full, hidden, dtype=np.int64).astype(
+            np.int32)
+        w["glb_ml_b2"] = np.int32(rng.integers(*full, dtype=np.int64))
+        w["glb_ml_s1"] = np.int32(rng.choice([-1, 31, 32]))
+        w["glb_ml_f_feat"] = rng.integers(-2, 21, (trees, depth)).astype(
+            np.int32)
+        w["glb_ml_f_thresh"] = rng.choice(
+            [I32_MIN, -1, 0, 127, 128, 255, I32_MAX], (trees, depth)).astype(
+            np.int32)
+        w["glb_ml_f_leaf"] = rng.integers(*full, (trees, 1 << depth),
+                                          dtype=np.int64).astype(np.int32)
+        w["glb_ml_thresh"] = np.int32(rng.integers(*full, dtype=np.int64))
+        w["glb_ml_action"] = np.int32(2)
+        w["glb_ml_rl_shift"] = np.int32(rng.choice([-1, 0, 31, 32]))
+    elif variant in ("mark", "drop", "ratelimit", "mirror"):
+        w["glb_ml_action"] = np.int32(("mark", "drop", "ratelimit",
+                                       "mirror").index(variant))
+        w["glb_ml_rl_shift"] = np.int32(rng.choice([1, 31, 32])
+                                        if variant == "ratelimit" else 1)
+        w["glb_ml_thresh"] = np.int32(rng.integers(-200, 200))
+    planes = type("MlPlanes", (), {f: torch.from_numpy(np.array(a)).to(dev)
+                                   for f, a in w.items()})
+    u = lambda: rng.integers(0, 1 << 32, p, dtype=np.uint64).astype(  # noqa
+        np.uint32)
+    cols = dict(src_ip=u() | np.uint32(1 << 31), dst_ip=u(),
+                proto=rng.integers(-300, 300, p).astype(np.int32),
+                sport=rng.integers(-70000, 70000, p).astype(np.int32),
+                dport=rng.integers(0, 65536, p).astype(np.int32),
+                ttl=np.full(p, 64, np.int32),
+                pkt_len=rng.integers(-5000, 9000, p).astype(np.int32),
+                rx_if=np.zeros(p, np.int32),
+                flags=rng.integers(0, 1024, p).astype(np.int32))
+    est = rng.random(p) < 0.4
+    age = np.where(est, rng.integers(-20, 400, p), 0).astype(np.int32)
+    alive = rng.random(p) < 0.9
+    return (planes, packet_vector_from_numpy(cols, dev),
+            torch.from_numpy(alive).to(dev), torch.from_numpy(est).to(dev),
+            torch.from_numpy(age).to(dev))
+
+
+def check_ml_kernel(dev, errors: Errors, seed: int) -> None:
+    """``ml_stage`` (csrc/ml_score.cu) against ``ml_stage_plain`` on the
+    card: every variant of ``ml_case`` for both kinds at P = 1, 33, 256,
+    4,095 and 4,096, a forest of 16 trees x depth 8, and an MLP wide
+    enough (H = 700) that its staged model passes 48 KB of shared
+    memory."""
+    rng = np.random.default_rng(seed + 17)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cases = [(p, kind, v, {}) for p in (1, 33, VEC, BIG_VEC - 1, BIG_VEC)
+             for kind in ("mlp", "forest") for v in ML_VARIANTS]
+    cases += [(VEC, "forest", "random", dict(trees=16, depth=8)),
+              (VEC, "mlp", "random", dict(hidden=700))]
+    for p, kind, variant, geo in cases:
+        args = ml_case(rng, p, dev, kind, variant, **geo)
+        got = mlscore.ml_stage(*args, kind=kind)
+        want = mlscore.ml_stage_plain(*args, kind=kind)
+        sync()
+        what = f"P={p} {kind} {variant}{' ' + str(geo) if geo else ''}"
+        errors.hold("ml_score", got, want, what)
+        if p == BIG_VEC or geo:
+            say(f"check ml_score {what}: exact, {int(want[1].sum())} "
+                f"flagged, {int(want[2].sum())} drop requests")
+    say(f"check ml_score: {len(cases)} cases exact")
+
+
 def check_kernels(dev, errors: Errors, seed: int, n_rules: int,
                   sess_buckets: int, npad: int) -> None:
     """Phase 3: each kernel against its plain version, edge shapes and
@@ -760,6 +924,7 @@ def check_kernels(dev, errors: Errors, seed: int, n_rules: int,
                                  f"{kind}: {hits} matched")
         say(f"check mxu_first_match P={p} R'={r} {kind}: exact, {hits} "
             f"matched, {torch.unique(want).numel()} distinct columns")
+    check_ml_kernel(dev, errors, seed)
 
 
 # --- the kernels' inputs on the main path, and their bounds -------------
@@ -1098,6 +1263,88 @@ def graph_times(dp: Dataplane, n: int, replays: int = 20) -> dict:
     return out
 
 
+# the model planes and policy scalars csrc/ml_score.cu reads, by kind
+ML_READS = {
+    "mlp": ("glb_ml_w1", "glb_ml_b1", "glb_ml_s1", "glb_ml_w2", "glb_ml_b2",
+            "glb_ml_thresh", "glb_ml_action", "glb_ml_rl_shift"),
+    "forest": ("glb_ml_b2", "glb_ml_f_feat", "glb_ml_f_thresh",
+               "glb_ml_f_leaf", "glb_ml_thresh", "glb_ml_action",
+               "glb_ml_rl_shift"),
+}
+
+
+def ml_bound(p: int, kind: str, planes):
+    """Header columns (7 int32), established and alive (1 B each) and
+    the age (int32) in; the model planes and scalars the kind reads, at
+    their own element sizes (int8 W1 and w2); scores (int32), flagged
+    and drop (1 B each) out. Operations: 2 per multiply-add (P x (18 H
+    + H) for the MLP; the forest's P x T x D selects of 18 compares
+    each), and ~60 a packet for the features, the hash and the
+    policy."""
+    model = sum(getattr(planes, f).numel() * getattr(planes, f).element_size()
+                for f in ML_READS[kind])
+    hidden = planes.glb_ml_w1.shape[1]
+    trees, depth = planes.glb_ml_f_feat.shape
+    nbytes = p * (7 * 4 + 1 + 4 + 1) + model + p * (4 + 1 + 1)
+    per = (2 * (18 * hidden + hidden) if kind == "mlp"
+           else trees * depth * (2 * 18 + 4) + trees)
+    return bound(nbytes, p * (per + 60))
+
+
+def ml_kernel_times(dp: Dataplane, cols: dict, n: int, errors: Errors,
+                    seed: int):
+    """``ml_stage`` at the main path's shapes: the header of one of its
+    reply vectors, the session hit as ``established`` and a spread of
+    ages, through the trained MLP (planes staged as phase 4d stages
+    them) and the seeded forest; kernel ms (graph replay), the eager
+    call, the plain version, and ``torch._int_mm`` of the layer-1
+    product padded to [P, 24] x [24, 16] (the port never calls it)."""
+    from vpp_tpu_torch.pipeline.tables import _fold_ml
+
+    dev = dp.device
+    pk = packet_vector_from_numpy(cols, dev)
+    alive = pk.valid
+    age = (torch.arange(n, device=dev, dtype=torch.int32) * 7) % 300
+    models = dict(ml_models(seed))
+    out = {}
+    for kind in ("mlp", "forest"):
+        folded, _ = _fold_ml(models[kind], dp.config)
+        planes = type("MlPlanes", (), {
+            f: torch.from_numpy(np.array(a)).to(dev)
+            for f, a in folded.items()})
+        args = (planes, pk, alive, alive, age)
+
+        def kern(a=args, k=kind):
+            return mlscore.ml_stage(*a, kind=k)
+
+        def plain(a=args, k=kind):
+            return mlscore.ml_stage_plain(*a, kind=k)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        errors.hold("ml_score", got, want, f"{kind} main-path P={n}")
+        b_ms, b_by = ml_bound(n, kind, planes)
+        row = dict(ms=time_graph(kern), call_ms=time_eager(kern, TIMED_STEPS),
+                   plain_ms=time_eager(plain, TIMED_STEPS), bound_ms=b_ms,
+                   bound_by=b_by)
+        if kind == "mlp":
+            xc = mlscore._centered(mlscore.ml_features(pk, alive, age))
+            xpad = torch.nn.functional.pad(xc, (0, 6))
+            # the second operand column-major, as cuBLASLt takes it
+            wpad = torch.nn.functional.pad(
+                planes.glb_ml_w1, (0, 0, 0, 6)).t().contiguous().t()
+            row["library_ms"] = time_graph(
+                lambda a=xpad, b=wpad: torch._int_mm(a, b))
+        out[("ml_score" if kind == "mlp" else "ml_score.forest", n)] = row
+        say(f"kernel ml_score {kind} P={n}: {row['ms']:.5f} ms (graph "
+            f"replay), {row['call_ms']:.5f} ms per eager call, plain "
+            f"{row['plain_ms']:.5f} ms, bound {b_ms:.6f} ms ({b_by})"
+            + (f", torch._int_mm [{n}, 24] x [24, 16] "
+               f"{row['library_ms']:.5f} ms" if kind == "mlp" else "")
+            + ", bit-exact")
+    return out
+
+
 def idle_share(prof: dict, step_ms: float) -> float:
     """The device's idle share of a timed step: 1 - the profiled window's
     busy ms per step over the step's ms timed without the profiler
@@ -1248,6 +1495,299 @@ def eager_vs_captured(cfg: DataplaneConfig, path: str, n_rules: int,
     return dps[0], dps[1], tiers
 
 
+# --- phase 4d: the ML stage and telemetry on the slice -------------------
+
+# latencies (µs) of the stamped packed batches: 0..3, both sides of 2^3
+# and 2^10, and past the last of the 24 buckets (2^23 and up)
+TEL_OFFSETS = (0, 1, 2, 3, 7, 8, 1023, 1024, (1 << 24) + 5)
+NOW_US = 1 << 30      # the dispatch clock of every stamped call
+CHAIN_ML_K = 4        # sub-batches of phase 4d's stamped chain
+
+
+def ml_slice_config(cfg: DataplaneConfig) -> DataplaneConfig:
+    """The slice with the ML stage enforcing (capacity: 16 hidden, 4
+    trees of depth 3) and full telemetry at the reference's defaults
+    (24 log2 µs buckets, a 2 x 1,024 count-min sketch, top-8)."""
+    return cfg._replace(ml_stage="enforce", ml_hidden=16, ml_trees=4,
+                        ml_depth=3, telemetry="full")
+
+
+@functools.lru_cache(maxsize=None)
+def ml_models(seed: int):
+    """The run sequence's models: bench.py ``ml_stage_bench``'s MLP
+    (``train_and_pack(kind="mlp", hidden=16, samples=2048,
+    action="drop")``, from ``seed``); a forest of 4 trees x depth 3
+    drawn from ``seed`` (features, thresholds and leaf votes at random;
+    the flag threshold at the median score of a forward vector and its
+    replies, so that it flags on both tiers: the trained models treat
+    an established flow as benign); then that forest with
+    ``action="ratelimit"``, ``rl_shift=1`` (table values only)."""
+    mlp, _ = train_and_pack(kind="mlp", hidden=16, samples=2048,
+                            action="drop", seed=seed)
+    rng = np.random.default_rng(seed)
+    forest = MlModel(
+        kind="forest", version=2, n_features=18,
+        f_feat=rng.integers(0, 12, (4, 3)).astype(np.int32),
+        f_thresh=rng.integers(0, 256, (4, 3)).astype(np.int32),
+        f_leaf=rng.integers(-500, 500, (4, 8)).astype(np.int32),
+        action="drop").validate()
+    fwd = ml_forward_traffic(VEC, 0, seed)
+    rep = dict(fwd, src_ip=fwd["dst_ip"], dst_ip=fwd["src_ip"],
+               sport=fwd["dport"], dport=fwd["sport"])
+    scores = np.concatenate([
+        score_oracle(forest, packet_features(fwd, np.zeros(VEC, bool),
+                                             np.zeros(VEC))),
+        score_oracle(forest, packet_features(rep, np.ones(VEC, bool),
+                                             np.ones(VEC)))])
+    forest.flag_thresh = int(np.median(scores))
+    rl = dict(forest.to_dict(), version=3, action="ratelimit",
+              rl_shift=1)
+    return [("mlp", mlp.to_dict()), ("forest", forest.to_dict()),
+            ("ratelimit", rl)]
+
+
+def ml_forward_traffic(n: int, uplink: int, seed: int) -> dict:
+    """``forward_traffic`` with the trained model's attack profile on
+    1/8 of the packets (the ``make_synth_dataset`` attack slice: 40-79
+    byte frames from source ports below 1024), from the permitted rule
+    blocks, so the ACL permits them and the enforcing model drops
+    them."""
+    cols = forward_traffic(n, uplink, seed)
+    rng = np.random.default_rng(seed + 1)
+    attack = rng.random(n) < 0.125
+    cols["pkt_len"] = np.where(attack, rng.integers(40, 80, n),
+                               cols["pkt_len"]).astype(np.int32)
+    cols["sport"] = np.where(attack, rng.integers(1, 1024, n),
+                             cols["sport"]).astype(np.int32)
+    return cols
+
+
+def apply_op(dp: Dataplane, op) -> dict:
+    """One recorded call on ``dp``; returns what it gave, as numpy."""
+    kind = op[0]
+    if kind == "model":
+        dp.builder.set_ml_model(op[1])
+        dp.swap()
+        return {}
+    if kind == "process":
+        _, vec, now = op
+        return snapshot(dp.process(packet_vector_from_numpy(vec, dp.device),
+                                   now=now))
+    if kind == "packed":
+        _, flat, now, stamp, now_us = op
+        out, aux = dp.process_packed(flat, now=now, with_aux=True,
+                                     stamp_us=stamp, now_us=now_us)
+    else:
+        _, flat, now, stamp, now_us = op
+        out, aux = dp.process_packed_chain(flat, now=now, with_aux=True,
+                                           stamps_us=stamp, now_us=now_us)
+    return {"out": out.cpu().numpy(), "aux": aux.cpu().numpy()}
+
+
+def tel_state_of(dp: Dataplane) -> dict:
+    return {f: getattr(dp.tables, f).cpu().numpy()
+            for f in STATE_FIELDS + tuple(TELEMETRY_FIELDS)}
+
+
+def _valid(flat: np.ndarray) -> int:
+    return int(np.count_nonzero(flat[4] & 1))
+
+
+def ml_tel_path(cfg: DataplaneConfig, path: str, n_rules: int,
+                n_nodes: int, seed: int):
+    """Phase 4d on one path: the slice with the ML stage and telemetry
+    on, on the card captured and eager and on the CPU. The run sequence,
+    each step recorded: the MLP; a forest swapped in (a new program key
+    must be captured); the forest's action swapped to ratelimit (table
+    values: nothing may be captured). Each sequence drives, at P = 256
+    and 4,096, a forward vector and the replies to its forwarded and
+    dropped packets through ``process``; packed batches stamped at
+    ``NOW_US`` minus ``TEL_OFFSETS`` (and an unstamped one, a negative
+    latency, two at P = 4,096) through ``process_packed``; and a stamped
+    K = 4 ``process_packed_chain``. The launch counters are set to 0
+    just before and read just after. Returns (captured dataplane,
+    uplink, pods, launches, summary)."""
+    t0 = time.perf_counter()
+    mcfg = ml_slice_config(cfg)
+    models = ml_models(seed)
+    seed += 3  # the traffic's
+    made = {}
+    for mode, graphs in (("captured", True), ("eager", False)):
+        dp = Dataplane(mcfg, graphs=graphs)
+        up, pods = stage(dp, n_rules, n_nodes)
+        dp.builder.set_ml_model(models[0][1])
+        dp.swap()
+        made[mode] = dp
+    gpu = made["captured"]
+    if (gpu._ml_mode, gpu._ml_kind, gpu._tel_mode) != ("enforce", "mlp",
+                                                        "full"):
+        raise AssertionError(f"{path}+ml: gates {gpu._ml_mode} "
+                             f"{gpu._ml_kind} {gpu._tel_mode}")
+    say(f"staged {path}+ml: ML enforce (trained MLP, version "
+        f"{int(gpu.tables.glb_ml_version)}), telemetry full "
+        f"{tuple(gpu.tables.tel_sketch.shape)} sketch, "
+        f"{gpu.tables.tel_lat_hist.shape[0]} buckets, in "
+        f"{time.perf_counter() - t0:.1f} s (two dataplanes)")
+    for w in WRAPPERS.values():
+        w.launches = 0
+    _sync(gpu.device)
+    t1 = time.perf_counter()
+    ops, outs = [], []
+    nb = gpu.tables.tel_lat_hist.shape[0]
+    bins = np.zeros(nb, np.int64)
+    keys_by_seq = []
+    now = 100
+
+    def run(op):
+        ops.append(op)
+        outs.append(apply_op(gpu, op))
+        return outs[-1]
+
+    def observe(n_valid, off):
+        if off is not None and off >= 0:
+            bins[int(lat_bucket_np(np.asarray([off]), nb)[0])] += n_valid
+
+    for s, (name, model) in enumerate(models):
+        if s:
+            run(("model", model))
+        keys = set(gpu._programs)
+        caps = capture.capture_counts()
+        firsts = {}
+        for n in (VEC, BIG_VEC):
+            firsts[n] = run(("process", ml_forward_traffic(
+                n, up, seed + 7919 * s + n), now))
+            now += 1
+            for to in ("forwarded", "dropped"):
+                run(("process", reply_traffic(firsts[n], pods, to), now))
+                now += 1
+        stamped = ([(VEC, off) for off in TEL_OFFSETS]
+                   + [(VEC, None), (VEC, -5), (BIG_VEC, 1024),
+                      (BIG_VEC, 0)])
+        for k, (n, off) in enumerate(stamped):
+            flat = packed_batch(ml_forward_traffic(
+                n, up, seed + 31 * s + 101 * k + 1))
+            run(("packed", flat, now, 0 if off is None else NOW_US - off,
+                 NOW_US))
+            observe(_valid(flat), off)
+            now += 1
+        flats = np.stack(
+            [packed_batch(ml_forward_traffic(VEC, up, seed + 977 * s + i))
+             for i in range(CHAIN_ML_K - 1)]
+            + [packed_batch(reply_traffic(firsts[VEC], pods, "forwarded"))])
+        offs = (3, 1024, None, 8)
+        run(("chain", flats, now,
+             [0 if o is None else NOW_US - o for o in offs], NOW_US))
+        for f, o in zip(flats, offs):
+            observe(_valid(f), o)
+        now += 1
+        new_keys = set(gpu._programs) - keys
+        new_caps = sum(capture.capture_counts().values()) - sum(
+            caps.values())
+        keys_by_seq.append((name, len(new_keys), new_caps))
+        if s == 1 and not any(k[9] == "forest" for k in new_keys):
+            raise AssertionError(f"{path}+ml: the forest swap captured "
+                                 f"no forest program ({new_keys})")
+        if s == 2 and (new_keys or new_caps):
+            raise AssertionError(f"{path}+ml: the action swap built "
+                                 f"{len(new_keys)} keys, {new_caps} "
+                                 f"captures")
+    _sync(gpu.device)
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    want = PATH_KERNELS.get(f"{path}+ml", ())
+    say(f"main path {path}+ml: {len(ops)} calls on the card in "
+        f"{time.perf_counter() - t1:.2f} s; launches {launches}; new "
+        f"keys / captures per sequence {keys_by_seq}")
+    if any((launches[k] > 0) != (k in want) for k in WRAPPERS):
+        raise AssertionError(f"the {path}+ml path launched {launches}, "
+                             f"expected exactly {want}")
+
+    # the gates on the card's own results
+    tiers = {0: np.zeros(3, np.int64), 1: np.zeros(3, np.int64)}
+    sketched = alive = 0
+    aux_i = {k: i for i, k in enumerate(
+        ("fastpath", "rx", "sess_hits", "insert_fails", "evictions",
+         "ml_scored", "ml_flagged", "ml_drops", "tel_observed",
+         "tel_sketched", "tnt_limited", "tnt_qfail"))}
+    for op, out in zip(ops, outs):
+        if op[0] == "process":
+            tier = int(out["stats.fastpath"])
+            tiers[tier] += [int(out[f"stats.{f}"]) for f in (
+                "ml_scored", "ml_flagged", "ml_drops")]
+            sketched += int(out["stats.tel_sketched"])
+            alive += int(out["stats.rx"])
+        elif op[0] in ("packed", "chain"):
+            aux = out["aux"].reshape(-1, len(aux_i))
+            for row in aux:
+                tiers[int(row[0])] += row[[aux_i["ml_scored"],
+                                           aux_i["ml_flagged"],
+                                           aux_i["ml_drops"]]]
+            sketched += int(aux[:, aux_i["tel_sketched"]].sum())
+            alive += int(aux[:, aux_i["rx"]].sum())
+    for tier in ((0, 1) if path == "mxu" else (0,)):
+        if tiers[tier][1] <= 0 or tiers[tier][2] <= 0:
+            raise AssertionError(f"{path}+ml tier {tier}: scored / "
+                                 f"flagged / dropped {tiers[tier]}")
+    snap = gpu.telemetry_snapshot()
+    if sketched != alive or snap["sketched"] != alive:
+        raise AssertionError(f"{path}+ml: {sketched} sketched in the "
+                             f"steps, {snap['sketched']} in the plane, "
+                             f"{alive} alive packets")
+    if not np.array_equal(snap["bins"], bins):
+        raise AssertionError(f"{path}+ml: histogram {snap['bins']} != "
+                             f"the known latencies' {bins}")
+    # a probe and a commit=False packed call move no live plane
+    before = tel_state_of(gpu)
+    vec = forward_traffic(VEC, up, seed + 5)
+    gpu.probe(packet_vector_from_numpy(vec, gpu.device), now=now)
+    gpu.process_packed(packed_batch(vec), now=now, commit=False,
+                       stamp_us=NOW_US - 2, now_us=NOW_US)
+    _sync(gpu.device)
+    assert_equal(tel_state_of(gpu), before, f"{path}+ml probe")
+    if gpu.telemetry_snapshot()["sketched"] != snap["sketched"]:
+        raise AssertionError(f"{path}+ml: a probe moved the counters")
+
+    # captured against eager on the card, then the CPU replay
+    t1 = time.perf_counter()
+    for k, (op, out) in enumerate(zip(ops, outs)):
+        assert_equal(out, apply_op(made["eager"], op),
+                     f"{path}+ml eager vs captured call {k} ({op[0]})")
+    assert_equal(tel_state_of(made["eager"]), tel_state_of(gpu),
+                 f"{path}+ml eager vs captured final state")
+    t_eager = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cpu = Dataplane(mcfg, device="cpu", graphs=False)
+    stage(cpu, n_rules, n_nodes)
+    cpu.builder.set_ml_model(models[0][1])
+    cpu.swap()
+    for k, (op, out) in enumerate(zip(ops, outs)):
+        assert_equal(apply_op(cpu, op), out,
+                     f"{path}+ml CPU vs card call {k} ({op[0]})")
+    assert_equal(tel_state_of(cpu), before, f"{path}+ml final state")
+    csnap = cpu.telemetry_snapshot()
+    assert_equal({k: np.asarray(v) for k, v in csnap.items()
+                  if k != "mode"},
+                 {k: np.asarray(v) for k, v in snap.items()
+                  if k != "mode"}, f"{path}+ml telemetry_snapshot")
+    summary = dict(
+        calls=len(ops), tiers={t: v.tolist() for t, v in tiers.items()},
+        sketched=alive, bins=bins.tolist(), keys_by_seq=keys_by_seq,
+        eager_s=t_eager, cpu_s=time.perf_counter() - t1,
+        seconds=time.perf_counter() - t0)
+    say(f"ml+telemetry {path}: {len(ops)} calls captured = eager = CPU "
+        f"replay, bit-exact (every StepResult field, counter, packed row "
+        f"and aux row, the session/NAT/ECMP/telemetry planes and "
+        f"telemetry_snapshot); scored/flagged/dropped per tier "
+        f"{summary['tiers']}; {alive} sketched = alive; bins {bins.tolist()}"
+        f" = the known latencies'; probe and commit=False moved nothing; "
+        f"{summary['seconds']:.1f} s")
+    return gpu, up, pods, launches, summary
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
 def check_graphs(paths) -> list:
     """Every part of the captured dataplanes ``paths`` ({path: [dp]}):
     captured exactly once, its graph's dump naming each kernel its
@@ -1270,7 +1810,7 @@ def check_graphs(paths) -> list:
                     text = Path(part.dump).read_text()
                     nodes = {k: text.count(sym)
                              for k, sym in KERNEL_SYMBOLS.items()}
-                    launched = {w.__name__: c
+                    launched = {NAME_OF[w]: c
                                 for w, c in part.launches.items()}
                     for k in launched:
                         if not nodes[k]:
@@ -1280,6 +1820,10 @@ def check_graphs(paths) -> list:
                     seen |= set(launched)
                     rows.append(dict(
                         label=part.label, P=prog.shape[-1],
+                        graph_nodes=sum(
+                            1 for line in text.splitlines()
+                            if "->" not in line
+                            and re.search(r'node_\d+"\s*\[', line)),
                         capture_ms=part.capture_ms,
                         pool_mb=part.pool_bytes / 2 ** 20,
                         replays=part.replays, launches=launched,
@@ -1387,7 +1931,16 @@ def main(argv=None) -> int:
         raise AssertionError(f"mxu chain tiers {chain_tiers}: the replies "
                              f"to forwarded packets must ride the fast "
                              f"tier, those to dropped ones the full chain")
-    graphs = check_graphs({"pallas": [gpu, cap_p], "mxu": [gpu_m, cap_m]})
+
+    # 4d. the ML stage and telemetry on the slice, on each path
+    t4d = time.perf_counter()
+    ml_p, _, _, ml_launches, ml_sum_p = ml_tel_path(
+        cfg, "pallas", n_rules, n_nodes, args.seed)
+    ml_m, _, _, ml_m_launches, ml_sum_m = ml_tel_path(
+        mcfg, "mxu", n_rules, n_nodes, args.seed)
+    say(f"phase 4d: {time.perf_counter() - t4d:.1f} s")
+    graphs = check_graphs({"pallas": [gpu, cap_p], "mxu": [gpu_m, cap_m],
+                           "pallas+ml": [ml_p], "mxu+ml": [ml_m]})
     say(f"graphs: {len(graphs)} parts, each key captured once; every "
         f"kernel launched under capture is a node of its graph")
     for row in graphs:
@@ -1460,6 +2013,59 @@ def main(argv=None) -> int:
                 say(f"mxu graph replay P={n}: "
                     f"{json.dumps(mxu_steps[f'graphs P={n}'])}")
 
+    # the ML stage's and telemetry's cost: each path with both on (the
+    # phase 4d dataplanes, the trained MLP swapped back in: the bench's
+    # model, whose program the run sequence captured) against the same
+    # path with both off (phase 4 / 4b's), in turns, on the same vectors
+    for dp in (ml_p, ml_m):
+        dp.builder.set_ml_model(ml_models(args.seed)[0][1])
+        dp.swap()
+        if (dp._ml_mode, dp._ml_kind) != ("enforce", "mlp"):
+            raise AssertionError(f"stage cost: gates {dp._ml_mode} "
+                                 f"{dp._ml_kind}, not the trained MLP")
+    stage_cost = {}
+    for n in (VEC, BIG_VEC):
+        fwd, rep = feeds[n]
+        cells = [("pallas", None, gpu, ml_p, [fwd, rep])]
+        for tier, fast in (("full", 0), ("fast", 1)):
+            cells.append((f"mxu {tier}", fast, gpu_m, ml_m, None))
+        for name, fast, off_dp, on_dp, cols in cells:
+            got = {}
+            for side, dp in (("off", off_dp), ("on", on_dp),
+                             ("on", on_dp), ("off", off_dp),
+                             ("off", off_dp), ("on", on_dp)):
+                if cols is None:  # the replies to this dataplane's own
+                    first = dp.process(packet_vector_from_numpy(fwd, dev),
+                                       now=now)
+                    vcols = [fwd] if not fast else [reply_traffic(
+                        snapshot(first), pods, "forwarded")]
+                else:
+                    vcols = cols
+                vecs = [packet_vector_from_numpy(v, dev) for v in vcols]
+                dev_ms, _ = time_process(dp, vecs, TIMED_STEPS, now + 1,
+                                         tier=fast)
+                now += TIMED_STEPS + 10
+                got.setdefault(side, []).append(dev_ms)
+                if len(got[side]) == 1:
+                    prof = profile_steps(dp, vecs * (3 - len(vecs)),
+                                         PROFILED_STEPS, now, spans=False)
+                    now += PROFILED_STEPS + 10
+                    got[f"{side}_ops"] = prof["device_ops_per_step"]
+            cell = dict(off_ms=float(np.mean(got["off"])),
+                        on_ms=float(np.mean(got["on"])),
+                        off_turns=got["off"], on_turns=got["on"],
+                        off_ops=got["off_ops"], on_ops=got["on_ops"])
+            cell["added_ms"] = cell["on_ms"] - cell["off_ms"]
+            cell["added_ops"] = cell["on_ops"] - cell["off_ops"]
+            stage_cost[f"{name} P={n}"] = cell
+            say(f"stage cost {name} P={n}: ML + telemetry on "
+                f"{cell['on_ms']:.4f} ms against off {cell['off_ms']:.4f} "
+                f"ms per step (+{cell['added_ms']:.4f}; turns on "
+                f"{[round(x, 4) for x in got['on']]}, off "
+                f"{[round(x, 4) for x in got['off']]}); device ops per "
+                f"step {cell['on_ops']:g} against {cell['off_ops']:g} "
+                f"(+{cell['added_ops']:g})")
+
     rows = []
     timed = {}
     for n in (VEC, BIG_VEC):
@@ -1519,6 +2125,8 @@ def main(argv=None) -> int:
         say(f"yardsticks [{n}, 128] x [128, {coeff_t.shape[0]}] P={n}: "
             f"torch.matmul bf16 {mm:.5f} ms, torch._int_mm int8 "
             f"{mm8:.5f} ms (graph replay)")
+        timed.update(ml_kernel_times(ml_p, feeds[n][1], n, errors,
+                                     args.seed))
 
     for name, meta in KERNELS.items():
         main = timed[(name, VEC)]
@@ -1536,10 +2144,19 @@ def main(argv=None) -> int:
         if name == "mxu_first_match":
             for key in ("matmul_ms", "int8_matmul_ms", "bound_bf16_ms"):
                 row[key] = main[key]
+        elif name == "ml_score":
+            row.update(launches=ml_launches[name],
+                       launches_mxu_path=ml_m_launches[name],
+                       library_ms=main["library_ms"],
+                       library="torch._int_mm [P, 24] x [24, 16] (layer 1)",
+                       forest={f"P={n}": timed[("ml_score.forest", n)]
+                               for n in (VEC, BIG_VEC)})
         else:
             row["launches_mxu_path"] = m_launches[name]
         rows.append(row)
     say(json.dumps({"steps": steps, "mxu_steps": mxu_steps,
+                    "stage_cost": stage_cost,
+                    "ml_telemetry": {"pallas": ml_sum_p, "mxu": ml_sum_m},
                     "captures": graphs, "power": smi}))
     if any(n != 1 for n in capture.capture_counts().values()):
         raise AssertionError("the timing captured a key again")

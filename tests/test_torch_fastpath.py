@@ -267,3 +267,120 @@ def test_probe_runs_the_full_chain_like_the_reference():
         assert torch.equal(getattr(pair.t.tables, f), t_live[f]), f
         assert np.array_equal(np.asarray(getattr(pair.j.tables, f)),
                               j_live[f]), f
+
+
+def test_probe_sees_one_whole_epoch(monkeypatch):
+    """ROADMAP Queue 3 item 4: ``probe`` must run its step against one
+    epoch. A swap that lands while the probe is inside its FIB lookup
+    (it stages a deny-all-TCP table and deletes the pod route, then
+    swaps, in another thread) must wait for the probe: the epoch does
+    not move during the probe, and the result is epoch N's (forwarded to
+    the pod), never a mix (the ACL of N and the FIB of N+1 give
+    DROP_NO_ROUTE, which is neither). The hook waits for the swap at
+    most a second, so a probe that holds the lock does not deadlock."""
+    import threading
+
+    cfg = ttables.DataplaneConfig(**dict(
+        _CFG, max_ifaces=8, fib_impl="dense", fastpath=False))
+    dp = tdp.Dataplane(cfg, device="cpu")
+    up = dp.add_uplink()
+    pod = dp.add_pod_interface(("default", "web"))
+    R, A, P = trule.ContivRule, trule.Action, trule.Protocol
+    dp.builder.set_global_table([R(action=A.PERMIT, protocol=P.TCP,
+                                   dest_port=80)])
+    dp.builder.add_route("10.1.1.0/24", pod, tvector.Disposition.LOCAL)
+    dp.swap()
+    epoch = dp.epoch
+    pkts = tvector.make_packet_vector(
+        [dict(src="172.16.0.9", dst="10.1.1.2", sport=40000, dport=80,
+              rx_if=up)], n=8)
+
+    def swap_next_epoch():
+        with dp.commit_lock:
+            dp.builder.set_global_table([R(action=A.DENY,
+                                           protocol=P.TCP)])
+            dp.builder.del_route("10.1.1.0/24")
+            dp.swap()
+        swapped.set()
+
+    real = tgraph.fib_lookup_dense
+    swapped, seen = threading.Event(), []
+
+    def hooked(tables, p):
+        if not seen:
+            seen.append(dp.epoch)
+            threading.Thread(target=swap_next_epoch, daemon=True).start()
+            swapped.wait(timeout=1.0)
+            seen.append(dp.epoch)
+        return real(tables, p)
+
+    monkeypatch.setattr(tgraph, "fib_lookup_dense", hooked)
+    tgraph.make_pipeline_step.cache_clear()
+    try:
+        res = dp.probe(pkts, now=5)
+        assert swapped.wait(timeout=10)
+        assert seen == [epoch, epoch]
+        assert (int(res.disp[0]), int(res.tx_if[0]),
+                int(res.drop_cause[0])) == (
+            int(tvector.Disposition.LOCAL), pod, 0)
+        # and the next probe sees epoch N + 1 whole: an ACL drop
+        assert dp.epoch == epoch + 1
+        res = dp.probe(pkts, now=6)
+        assert int(res.drop_cause[0]) == tgraph.DROP_ACL
+    finally:
+        monkeypatch.undo()
+        tgraph.make_pipeline_step.cache_clear()
+
+
+@pytest.mark.parametrize("entry", ["probe", "process_packed"])
+def test_side_effect_free_entries_move_no_live_plane(entry):
+    """``probe`` and ``process_packed(commit=False)`` run on copies of
+    every state plane a step writes: with the ML stage (enforce) and
+    telemetry (full) on, the live session, NAT, ECMP and telemetry
+    planes keep their values, and a twin that never ran the entry steps
+    on to the same results and counters (the ML ones included)."""
+    from test_ml_stage import proto_model
+
+    cfg = ttables.DataplaneConfig(**dict(
+        _CFG, ml_stage="enforce", telemetry="full", fastpath=True))
+    dps = [tdp.Dataplane(cfg, device="cpu") for _ in range(2)]
+    for dp in dps:
+        up, pod = _stage(dp, trule, tvector.Disposition)
+        dp.builder.set_ml_model(proto_model(flag_thresh=10).to_dict())
+        dp.swap()
+    first = [dp.process(tvector.make_packet_vector(_mixed(up), n=N), now=5)
+             for dp in dps]
+    live = {f: getattr(dps[0].tables, f).clone()
+            for f in tdp._MUTABLE_FIELDS}
+    assert int(live["tel_sketched"]) > 0
+    probe = _mixed(up) + [dict(src="198.18.0.1", dst="10.1.1.7", proto=17,
+                               sport=53, dport=9000, rx_if=up)]
+    if entry == "probe":
+        res = dps[0].probe(tvector.make_packet_vector(probe, n=N), now=6)
+        assert int(res.stats.ml_flagged) == 1
+        assert int(res.stats.tel_sketched) == len(probe)
+    else:
+        flat = tdp.packed_input_zeros(N)
+        jp = jvector.make_packet_vector(probe, n=N)
+        tdp.pack_packet_columns(flat.view(np.uint32), {
+            f: np.asarray(getattr(jp, f)) for f in jvector.PacketVector
+            ._fields}, N)
+        _, aux = dps[0].process_packed(flat, now=6, commit=False,
+                                       with_aux=True, stamp_us=1,
+                                       now_us=100)
+        schema = tdp.PACKED_AUX_SCHEMA
+        assert int(aux[schema.index("tel_observed")]) == len(probe)
+        assert int(aux[schema.index("ml_flagged")]) == 1
+    for f, t in live.items():
+        assert torch.equal(getattr(dps[0].tables, f), t), f
+    rep = _replies(first[0])
+    after = [dp.process(tvector.make_packet_vector(rep, n=N), now=7)
+             for dp in dps]
+    for f in ("disp", "drop_cause", "ml_scores", "ml_flagged"):
+        assert torch.equal(getattr(after[0], f), getattr(after[1], f)), f
+    for a, b, f in zip(after[0].stats, after[1].stats,
+                       after[0].stats._fields):
+        assert torch.equal(a, b), f
+    for f in tdp._MUTABLE_FIELDS:
+        assert torch.equal(getattr(dps[0].tables, f),
+                           getattr(dps[1].tables, f)), f

@@ -11,7 +11,10 @@
   a CPU run of the fused-kernel rungs leaves each launch counter at 0.
 * Knobs that turn on a stage the port has not ported raise, and each
   refusal names the ``ROADMAP.md`` Queue 1 item, number and title, that
-  ports it.
+  ports it. The ML stage and telemetry are ported: their knobs
+  construct, and what of them is still refused (the tenant and sharded
+  forms of the ML stage, the telemetry ring rider, the ring form) names
+  its item.
 
 Every quantity compared is an integer: the tolerance is exact equality.
 """
@@ -26,7 +29,9 @@ import torch
 from vpp_tpu_torch.ops import acl_bv as tbv
 from vpp_tpu_torch.ops import acl_mxu as tmxu
 from vpp_tpu_torch.ops import lpm as tlpm
+from vpp_tpu_torch.ops import mlscore as tml
 from vpp_tpu_torch.ops import session as tsess
+from vpp_tpu_torch.ops import telemetry as ttel
 from vpp_tpu_torch.pipeline import dataplane as tdp
 from vpp_tpu_torch.pipeline import graph as tgraph
 from vpp_tpu_torch.pipeline import tables as ttables
@@ -61,7 +66,9 @@ def imported_modules(path: Path):
 def test_scan_sees_the_whole_package():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "dataplane.py", "session.py", "acl_bv.py",
-            "acl_mxu.py", "lpm.py", "_cuda.py", "interop.py"} <= names
+            "acl_mxu.py", "lpm.py", "_cuda.py", "interop.py", "mlscore.py",
+            "telemetry.py", "model.py", "train.py"} <= names
+    assert (ROOT / "vpp_tpu_torch" / "ml" / "model.py") in PORT_FILES
     assert all(p.exists() for p in PORT_FILES)
 
 
@@ -97,11 +104,23 @@ def test_default_device_is_the_card(monkeypatch):
     assert ttables.resolve_device(None) == torch.device("cuda")
 
 
+# knobs of the stages ported since: they construct, and a value the
+# reference refuses raises its ValueError naming the knob
+_PORTED_KNOBS = ("ml_stage", "telemetry")
+
+
 @pytest.mark.parametrize("knob,value", [
     ("ml_stage", "enforce"), ("telemetry", "latency"), ("tenancy", "on"),
     ("overlay", "vxlan"), ("svc_vips", 4), ("fib_ecmp_groups", 2)])
 def test_unported_stages_refuse(knob, value):
     cfg = ttables.DataplaneConfig(**dict(_SMALL, **{knob: value}))
+    if knob in _PORTED_KNOBS:
+        dp = tdp.Dataplane(cfg, device="cpu")
+        # the ML stage stays off until a model is staged
+        assert dp._ml_mode == "off" and dp._tel_mode == cfg.telemetry
+        with pytest.raises(ValueError, match=knob):
+            tdp.Dataplane(cfg._replace(**{knob: "bogus"}), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdp.Dataplane(cfg, device="cpu")
 
@@ -124,6 +143,22 @@ def _refusal(kind, arg):
                 _SMALL, **{knob: value})), device="cpu")
         elif kind == "gate":
             tgraph.make_pipeline_step(**{arg: "on"})
+        elif kind == "ml":
+            pkts = tvector.make_packet_vector([], n=8)
+            t = tdp.Dataplane(ttables.DataplaneConfig(**_SMALL),
+                              device="cpu").tables
+            if arg == "tid":
+                tml.ml_policy(t, pkts, pkts.valid, pkts.proto,
+                              tid=pkts.rx_if)
+            else:
+                tml.ml_score(t, pkts, pkts.valid, pkts.proto, shard=True)
+        elif kind == "tel":
+            dp = tdp.Dataplane(ttables.DataplaneConfig(**dict(
+                _SMALL, telemetry="full")), device="cpu")
+            if arg == "rider":
+                ttel.pack_tel_rider(dp.tables)
+            else:
+                dp._program(False, "ring", (5, 8))
         elif kind == "entry":
             dp = tdp.Dataplane(ttables.DataplaneConfig(**_SMALL),
                                device="cpu")
@@ -138,14 +173,17 @@ def _refusal(kind, arg):
 
 
 _REFUSALS = {
-    "ml_stage": ("config", ("ml_stage", "enforce")),
-    "telemetry": ("config", ("telemetry", "full")),
+    # the ML stage and telemetry are ported; what of each is still
+    # refused: the tenant and sharded ML forms, the telemetry rider and
+    # the ring form of a telemetry dataplane
+    "ml_stage": ("ml", "tid"),
+    "telemetry": ("tel", "rider"),
     "tenancy": ("config", ("tenancy", "on")),
     "overlay": ("config", ("overlay", "vxlan")),
     "svc_vips": ("config", ("svc_vips", 4)),
     "fib_ecmp_groups": ("config", ("fib_ecmp_groups", 2)),
-    "gate-ml_mode": ("gate", "ml_mode"),
-    "gate-tel_mode": ("gate", "tel_mode"),
+    "gate-ml_mode": ("ml", "shard"),
+    "gate-tel_mode": ("tel", "ring"),
     "gate-tnt_mode": ("gate", "tnt_mode"),
     "gate-overlay": ("gate", "overlay"),
     "entry-ring": ("entry", "ring"),
@@ -244,7 +282,7 @@ def test_kernel_argument_checks_refuse_what_the_kernels_do_not_take():
     assert len(_cuda._digest()) == 16
     assert {p.name for p in _cuda._sources()} == {
         "sess_probe.cu", "bv_first_set.cu", "lpm_lookup.cu",
-        "mxu_first_match.cu"}
+        "mxu_first_match.cu", "ml_score.cu"}
 
 
 def _c_params(entry: str):
@@ -342,3 +380,50 @@ def test_step_pairs_alternates_sides_and_counts_wins(monkeypatch, capsys):
     cell = out["summary"]["cell"]
     assert (cell["this_won"], cell["other_won"]) == (2, 1)
     assert cell["this_ms"] == 3.5 and cell["other_ms"] == 4.0
+
+
+@pytest.mark.parametrize("kind", ["mlp", "forest"])
+def test_ml_launch_arguments_match_the_c_declaration(kind, monkeypatch):
+    """``ML_ARGTYPES`` is csrc/ml_score.cu's C entry, in its order; the
+    arguments ``ml_launch_args`` builds (on CPU tensors, the CUDA-only
+    checks lifted) pass through a ctypes function of those types with
+    the shape integers in their places and every model value and policy
+    scalar by pointer (a captured step reads the values of the day)."""
+    import ctypes
+
+    from vpp_tpu_torch.ops import _cuda
+
+    assert tml.ML_ARGTYPES == _c_params("ml_score")
+    monkeypatch.setattr(_cuda, "require", lambda *a, **k: None)
+    cfg = ttables.DataplaneConfig(**dict(
+        _SMALL, ml_stage="enforce", ml_hidden=5, ml_trees=3, ml_depth=2))
+    t = tdp.Dataplane(cfg, device="cpu").tables
+    pkts = tvector.make_packet_vector([], n=8)
+    got = []
+    fn = ctypes.CFUNCTYPE(ctypes.c_int, *tml.ML_ARGTYPES)(
+        lambda *a: got.append(a) or 0)
+    valid = pkts.valid
+    args, (scores, flagged, drop) = tml.ml_launch_args(
+        t, pkts, valid, valid, pkts.proto, kind)
+    fn(*args, 0)
+    smem = tml.ml_smem_bytes(kind, 5, 3, 2)
+    assert smem == (4 * (18 * 5 + 10) if kind == "mlp"
+                    else 4 * (2 * 3 * 2 + 3 * 4))
+    assert got[0][21:27] == (8, 1 if kind == "mlp" else 2, 5, 3, 2, smem)
+    planes = ("glb_ml_w1", "glb_ml_b1", "glb_ml_s1", "glb_ml_w2",
+              "glb_ml_b2", "glb_ml_f_feat", "glb_ml_f_thresh",
+              "glb_ml_f_leaf", "glb_ml_thresh", "glb_ml_action",
+              "glb_ml_rl_shift")
+    assert got[0][10:21] == tuple(getattr(t, f).data_ptr() for f in planes)
+    assert got[0][27:30] == (scores.data_ptr(), flagged.data_ptr(),
+                             drop.data_ptr())
+    assert (scores.dtype, flagged.dtype, drop.dtype) == (
+        torch.int32, torch.bool, torch.bool)
+    with pytest.raises(ValueError, match="unknown ML kind"):
+        tml.ml_launch_args(t, pkts, valid, valid, pkts.proto, "tree")
+    # a model too wide for a block's shared memory is refused
+    wide = t._replace(glb_ml_w1=torch.zeros(18, 3000, dtype=torch.int8),
+                      glb_ml_b1=torch.zeros(3000, dtype=torch.int32),
+                      glb_ml_w2=torch.zeros(3000, dtype=torch.int8))
+    with pytest.raises(ValueError, match="shared memory"):
+        tml.ml_launch_args(wide, pkts, valid, valid, pkts.proto, "mlp")

@@ -2,8 +2,9 @@
 
 A second implementation of ``vpp_tpu``'s packet path for one NVIDIA
 H100: the same fused step (ip4-input -> reflective sessions -> NAT44
-reverse/DNAT -> ACL classify -> FIB -> SNAT -> session/NAT record) and
-its two-tier established-flow dispatcher, the same table layout and the
+reverse/DNAT -> ACL classify -> FIB -> SNAT -> session/NAT record,
+with the per-packet ML scoring stage and the telemetry plane) and its
+two-tier established-flow dispatcher, the same table layout and the
 same results bit for bit, with the TPU's Pallas kernels rewritten as
 CUDA kernels for Hopper (``csrc/``).
 

@@ -18,6 +18,15 @@
 // ENC_MISS): 27 bits, above every rule column.
 #define VPP_MXU_ENC_MISS 0x7FFFFFF
 
+// The ML stage (vpp_tpu/ops/mlscore.py): the feature-vector width
+// (vpp_tpu/ml/model.py ML_FEATURES), the model kinds (ML_KIND_*) and the
+// actions the policy drops on (ML_ACTION_*).
+#define VPP_ML_FEATURES 18
+#define VPP_ML_KIND_MLP 1
+#define VPP_ML_KIND_FOREST 2
+#define VPP_ML_ACTION_DROP 1
+#define VPP_ML_ACTION_RATELIMIT 2
+
 extern "C" {
 
 // now, max_age: device scalars, or null to take now_v / max_age_v
@@ -57,5 +66,22 @@ int mxu_first_match(const int32_t* src, const int32_t* dst,
                     const int32_t* proto, const int32_t* sport,
                     const int32_t* dport, const int8_t* op, int32_t p,
                     int32_t r, int32_t* enc, void* stream);
+
+// kind: VPP_ML_KIND_MLP or VPP_ML_KIND_FOREST; every model value and
+// policy scalar by device pointer; smem: the block's dynamic shared
+// memory in bytes (the staged model)
+int ml_score(const int32_t* src_ip, const int32_t* dst_ip,
+             const int32_t* proto, const int32_t* sport,
+             const int32_t* dport, const int32_t* pkt_len,
+             const int32_t* flags, const uint8_t* established,
+             const int32_t* sess_age, const uint8_t* alive,
+             const int8_t* w1, const int32_t* b1, const int32_t* s1,
+             const int8_t* w2, const int32_t* b2, const int32_t* f_feat,
+             const int32_t* f_thresh, const int32_t* f_leaf,
+             const int32_t* thresh, const int32_t* action,
+             const int32_t* rl_shift, int32_t p, int32_t kind,
+             int32_t hidden, int32_t trees, int32_t depth, int32_t smem,
+             int32_t* scores, uint8_t* flagged, uint8_t* drop,
+             void* stream);
 
 }  // extern "C"

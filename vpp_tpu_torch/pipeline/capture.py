@@ -11,8 +11,10 @@ A program holds
 
 * static inputs: the ``[9, P]`` header columns (``plain``), the
   ``[5, B]`` bit-packed batch (``packed``) or ``K`` of them (``chain``),
-  and the clock ``now`` (0-d int32); each call writes them, then
-  replays;
+  the clock ``now`` (0-d int32) and, for a packed or chain program of a
+  telemetry step, the rx stamp (0-d, or ``[K]``) and ``now_us`` the
+  latency histogram reads (graph.py ``tel_observe``); each call writes
+  them, then replays;
 * the live table tensors, which the step reads and mutates in place:
   their addresses are baked into the graphs, so ``Dataplane.swap`` and
   ``expire_sessions`` write into the held tensors, and a program whose
@@ -63,19 +65,21 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from vpp_tpu_torch.ops import acl_bv, acl_mxu, lpm, session
+from vpp_tpu_torch.ops import acl_bv, acl_mxu, lpm, mlscore, session
 from vpp_tpu_torch.pipeline.graph import (
     SWEEP_STRIDE_DEFAULT,
     packed_fields,
     packed_vector,
     result_fields,
     result_of,
+    tel_observe,
 )
 from vpp_tpu_torch.pipeline.vector import PacketVector
 
 # the kernel wrappers whose launch counters replays keep
 WRAPPERS = (session.sess_probe_ways, acl_bv.bv_first_set,
-            lpm.lpm_fused_lookup, acl_mxu.mxu_first_match)
+            lpm.lpm_fused_lookup, acl_mxu.mxu_first_match,
+            mlscore.ml_stage)
 
 # (label, signature) -> captures in this process
 _CAPTURES: Dict[tuple, int] = {}
@@ -93,15 +97,12 @@ def new_owner() -> int:
     return next(_owners)
 
 
-def step_label(impl: str, skip_local: bool, fast: bool, form: str,
-               sweep_stride: int, fib_impl: str = "dense",
-               sess_impl: str = "gather", sess_hash: str = "fwd") -> str:
-    """The reference's ``_step_label`` with the unported stages off."""
-    return "{}{}{}{}{}{}{}_{}".format(
-        impl, "_nolocal" if skip_local else "", "_auto" if fast else "",
-        "" if fib_impl == "dense" else f"_fib{fib_impl}",
-        "" if sess_impl == "gather" else f"_sess{sess_impl}",
-        "" if sess_hash == "fwd" else f"_h{sess_hash}",
+def step_label(step, form: str, sweep_stride: int) -> str:
+    """The reference's ``_step_label``: the variant in ``step``'s name
+    (graph.py ``make_pipeline_step``), then the sweep stride where it
+    is not the default, then the form."""
+    return "{}{}_{}".format(
+        step.__name__[len("pipeline_step_"):],
         "" if sweep_stride == SWEEP_STRIDE_DEFAULT else f"_sw{sweep_stride}",
         form)
 
@@ -217,12 +218,25 @@ class Packing:
         return out
 
 
-def encode_packed(results) -> torch.Tensor:
+def encode_packed(results, observed=None) -> torch.Tensor:
     """The packed output of ``K`` results as one int32 buffer: the
-    ``[5, B]`` rows of each, then the ``[12]`` aux rows of each."""
-    fields = [packed_fields(r) for r in results]
+    ``[5, B]`` rows of each, then the ``[12]`` aux rows of each
+    (``observed``: each result's ``tel_observe`` count, or None)."""
+    observed = observed or [None] * len(results)
+    fields = [packed_fields(r, n) for r, n in zip(results, observed)]
     return torch.cat([t.reshape(-1) for f in fields for t in f[:5]]
                      + [t.reshape(-1) for f in fields for t in f[5:]])
+
+
+def encode_observed(tables, results, stamps, now_us) -> torch.Tensor:
+    """The packed boundary after ``K`` steps: with telemetry on
+    (``now_us`` a 0-d tensor, else None) each result's wire latency is
+    observed with its batch's 0-d ``stamps`` entry (graph.py
+    ``tel_observe``), then the results are encoded (``encode_packed``)."""
+    observed = None if now_us is None else [
+        tel_observe(tables, r, stamp, now_us)
+        for r, stamp in zip(results, stamps)]
+    return encode_packed(results, observed)
 
 
 def packed_views(words: torch.Tensor, batch: int, k: Optional[int] = None):
@@ -300,9 +314,9 @@ class Part:
 
 class Program:
     """One step variant over one dataplane's live tables: static inputs
-    (``x`` of ``shape``, ``now``), the parts, the copy-out (module
-    doc). ``run`` returns the clone of the final part's output; ``result``
-    / ``packed`` read it."""
+    (``x`` of ``shape``, ``now``, and the telemetry stamps), the parts,
+    the copy-out (module doc). ``run`` returns the clone of the final
+    part's output; ``result`` / ``packed`` read it."""
 
     def __init__(self, label: str, sig: tuple, tables, step, form: str,
                  shape, device: torch.device):
@@ -311,14 +325,24 @@ class Program:
         cuda = device.type == "cuda"
         self.now = torch.zeros((), dtype=torch.int32, device=device)
         self.x = torch.zeros(self.shape, dtype=torch.int32, device=device)
+        # the latency histogram's inputs: packed and chain forms of a
+        # telemetry step observe it (graph.py tel_observe)
+        self.observes = (form != "plain"
+                         and getattr(step, "tel_mode", "off") != "off")
+        self.stamp = torch.zeros(self.shape[:1] if form == "chain" else (),
+                                 dtype=torch.int32, device=device)
+        self.now_us = torch.zeros((), dtype=torch.int32, device=device)
         self.packing: Optional[Packing] = None
         decode = (packed_vector if form != "plain"
                   else lambda x: PacketVector(*x.unbind(0)))
+        self._us = self.now_us if self.observes else None
 
         if form == "chain":
             def full(x, now):
-                return encode_packed([step.full(tables, packed_vector(xk),
-                                                now) for xk in x.unbind(0)])
+                results = [step.full(tables, packed_vector(xk), now)
+                           for xk in x.unbind(0)]
+                return encode_observed(tables, results, self.stamp.unbind(0),
+                                       self._us)
         else:
             def full(x, now):
                 return self._encode(step.full(tables, decode(x), now))
@@ -330,9 +354,10 @@ class Program:
             self.prefix = Part(f"{label}:prefix", sig,
                                lambda x, now: step.prefix(
                                    tables, decode(x), now), cuda)
-            self.fast = Part(f"{label}:fast", sig,
-                             lambda pre, now: self._encode(
-                                 step.fast(tables, pre, now)), cuda)
+
+            def fast(pre, now):
+                return self._encode(step.fast(tables, pre, now))
+            self.fast = Part(f"{label}:fast", sig, fast, cuda)
             label = f"{label}:full"
         self.full = Part(label, sig, full, cuda)
 
@@ -347,17 +372,26 @@ class Program:
 
     def _encode(self, res) -> torch.Tensor:
         if self.form != "plain":
-            return encode_packed([res])
+            return encode_observed(self.tables, [res], [self.stamp],
+                                   self._us)
         fields = result_fields(res)
         if self.packing is None:
             self.packing = Packing(fields)
         return self.packing.pack(fields)
 
-    def run(self, now: int, load) -> torch.Tensor:
-        """Copy in (``now``, then ``load(x)`` writes the batch), run the
-        parts, and return the clone of the output."""
+    def run(self, now: int, load, stamp=0, now_us: int = 0) -> torch.Tensor:
+        """Copy in (``now``, then ``load(x)`` writes the batch, and for
+        an observing program ``stamp`` — an int, or K of them for a
+        chain — and ``now_us``), run the parts, and return the clone of
+        the output."""
         self.now.fill_(now)
         load(self.x)
+        if self.observes:
+            if self.form == "chain":
+                self.stamp.copy_(torch.as_tensor(stamp, dtype=torch.int32))
+            else:
+                self.stamp.fill_(stamp)
+            self.now_us.fill_(now_us)
         args = (self.x, self.now)
         if self.prefix is None:
             out = self.full(args)

@@ -30,12 +30,21 @@ least ``fastpath_min_rules`` global rules — re-gated at every swap)
 the stepping entries run the two-tier dispatcher, which reads its
 dispatch flag to the host once per step (pipeline/graph.py
 ``pipeline_step_auto``); the full chain alone never synchronises.
-``probe`` always runs the full chain, as the reference's does.
+``probe`` always runs the full chain, as the reference's does, and
+runs it under ``_lock``, so a concurrent ``swap`` (which writes the
+configuration tensors in place) can never hand it parts of two epochs.
+
+The ML stage engages only once a model is staged (``ml_stage`` is the
+ceiling; the staged kind picks the MLP or the forest variant, re-gated
+at every swap). With ``telemetry`` on, ``process_packed`` /
+``process_packed_chain`` take the rx stamps (``stamp_us`` /
+``stamps_us``) and the dispatch clock ``now_us`` and observe the wire
+latency on the device; ``telemetry_snapshot`` reads the bins and the
+top-K rows back, never the sketch.
 
 Not ported: the ring form (ROADMAP Queue 1 item 11 (IO pump and
 rings)), the overlay sidecar (Queue 1 item 7 (Overlay, service VIPs and
-ECMP staging)), the telemetry stamps (Queue 1 item 5 (Telemetry)),
-spans, journal and tracer.
+ECMP staging)), spans, journal and tracer.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import torch
 
 from vpp_tpu_torch.ir.rule import PodID
 from vpp_tpu_torch.ops.session import session_expire, sweep_covered
+from vpp_tpu_torch.ops.telemetry import tel_clock_us
 from vpp_tpu_torch.pipeline import capture
 from vpp_tpu_torch.pipeline.graph import (
     StepResult,
@@ -62,6 +72,7 @@ from vpp_tpu_torch.pipeline.selection import (
 )
 from vpp_tpu_torch.pipeline.tables import (
     SESSION_FIELDS,
+    TELEMETRY_FIELDS,
     DataplaneConfig,
     InterfaceType,
     TableBuilder,
@@ -69,8 +80,12 @@ from vpp_tpu_torch.pipeline.tables import (
 )
 from vpp_tpu_torch.pipeline.vector import PacketVector
 
-# the step mutates these in place; ``probe`` runs on copies
-_MUTABLE_FIELDS = tuple(SESSION_FIELDS) + ("fib_ecmp_c",)
+# every state field a step writes in place; ``probe`` and
+# ``process_packed(commit=False)`` run on copies of them. The tenancy
+# state (TENANCY_STATE_FIELDS) joins once a step writes it (ROADMAP
+# Queue 1 item 6 (Tenancy)).
+_MUTABLE_FIELDS = (tuple(SESSION_FIELDS) + tuple(TELEMETRY_FIELDS)
+                   + ("fib_ecmp_c",))
 
 # --- the bit-packed boundary (the reference's numpy surface) ------------
 
@@ -215,6 +230,11 @@ class Dataplane:
         self._use_fastpath = False
         self._sess_hash = c.sess_hash
         self._sweep_stride = int(c.sess_sweep_stride)
+        # the ML stage's ceiling; it engages once a model is staged
+        self.ml_stage = c.ml_stage
+        self._ml_mode = "off"
+        self._ml_kind = "mlp"
+        self._tel_mode = c.telemetry
         self._classifier_impl = "dense"
         self._fib_impl = "dense"
         self._session_impl = "gather"
@@ -370,9 +390,12 @@ class Dataplane:
 
     def _refresh_selection(self) -> None:
         """Re-gate the per-epoch choices against the staged builder:
-        the three ladders, the policy-free local-classify skip and the
-        fast-path engagement."""
+        the three ladders, the policy-free local-classify skip, the
+        fast-path engagement and the ML stage (on only with a model
+        staged, in the variant of its kind)."""
         b = self.builder
+        self._ml_mode = self.ml_stage if b.ml_kind_name else "off"
+        self._ml_kind = b.ml_kind_name or "mlp"
         p_ok = self._kernels_serve()
         self._classifier_impl = select_impl(
             self.classifier, b.bv_ok(), b.mxu_enabled and b.glb_mxu.ok,
@@ -393,8 +416,10 @@ class Dataplane:
         return make_pipeline_step(
             self._classifier_impl,
             self._skip_local if skip_local is None else skip_local, fast,
-            self._sweep_stride, fib_impl=self._fib_impl,
-            sess_impl=self._session_impl, sess_hash=self._sess_hash)
+            self._sweep_stride, ml_mode=self._ml_mode,
+            ml_kind=self._ml_kind, tel_mode=self._tel_mode,
+            fib_impl=self._fib_impl, sess_impl=self._session_impl,
+            sess_hash=self._sess_hash)
 
     def _program(self, fast: bool, form: str, shape) -> capture.Program:
         """The step program of the current selection for inputs of
@@ -413,10 +438,12 @@ class Dataplane:
                             capture.table_signature(self.tables))
         shape = tuple(shape)
 
+        gates = (self._ml_mode, self._ml_kind, self._tel_mode)
+
         def key(skip):
             return (self._classifier_impl, skip, fast, form,
                     self._sweep_stride, self._fib_impl, self._session_impl,
-                    self._sess_hash, shape, self._signed[1])
+                    self._sess_hash) + gates + (shape, self._signed[1])
 
         skip = self._skip_local
         if skip and key(True) not in self._programs \
@@ -424,12 +451,11 @@ class Dataplane:
             skip = False
         prog = self._programs.get(key(skip))
         if prog is None or not prog.holds(self.tables):
-            label = capture.step_label(
-                self._classifier_impl, skip, fast, form, self._sweep_stride,
-                self._fib_impl, self._session_impl, self._sess_hash)
+            step = self._get_step(fast, skip)
             prog = capture.Program(
-                label, (self._owner, shape, self._signed[1]), self.tables,
-                self._get_step(fast, skip), form, shape, self.device)
+                capture.step_label(step, form, self._sweep_stride),
+                (self._owner, shape, self._signed[1]), self.tables, step,
+                form, shape, self.device)
             self._programs[key(skip)] = prog
         return prog
 
@@ -519,17 +545,45 @@ class Dataplane:
         """Side-effect-free step against the live tables: the forced
         full chain (as the reference's ``probe``) runs eagerly on copies
         of the state it would update, so no session is installed and no
-        counter of the live epoch moves."""
+        counter or telemetry plane of the live epoch moves. It runs
+        under ``_lock``: a swap writes the configuration tensors in
+        place and must not land mid-step."""
         self._check(pkts)
         with self._lock:
             step = self._get_step(False)
             if now is None:
                 now = max(self._now, self.clock_ticks())
-            scratch = self._scratch()
-        return step(scratch, pkts, self._now_tensor(now))
+            return step(self._scratch(), pkts, self._now_tensor(now))
+
+    def _stamps(self, stamps, k: Optional[int], now_us: Optional[int]):
+        """The telemetry inputs of a packed call: the rx stamp (K of
+        them for a chain; None: unstamped) and ``now_us`` (None: the
+        clock now), each wrapped to int32; zeros with telemetry off."""
+        if self._tel_mode == "off":
+            return (0 if k is None else [0] * k), 0
+        if now_us is None:
+            now_us = tel_clock_us()
+        if k is None:
+            return _i32(stamps or 0), _i32(now_us)
+        if stamps is None:
+            stamps = np.zeros(k, np.int64)
+        return [_i32(s) for s in np.asarray(stamps).reshape(k)], \
+            _i32(now_us)
+
+    def _packed_eager(self, step, tables, flats, now: int, stamps,
+                      now_us: int):
+        """The packed steps of ``flats`` (``[5, B]`` device batches, one
+        rx stamp each) run eagerly on ``tables``, and their
+        ``capture.encode_observed`` buffer."""
+        now_t = self._now_tensor(now)
+        us = self._now_tensor(now_us) if self._tel_mode != "off" else None
+        results = [step(tables, packed_vector(xk), now_t) for xk in flats]
+        return capture.encode_observed(
+            tables, results, [self._now_tensor(s) for s in stamps], us)
 
     def process_packed(self, flat, now: Optional[int] = None,
-                       commit: bool = True, with_aux: bool = False):
+                       commit: bool = True, with_aux: bool = False,
+                       stamp_us: int = 0, now_us: Optional[int] = None):
         """One bit-packed ``[5, B]`` int32 batch (host numpy or tensor;
         ``pack_packet_columns`` / ``packed_input_zeros``, the row layout
         of graph.py ``packed_vector``) through the step; returns the
@@ -537,38 +591,44 @@ class Dataplane:
         and with ``with_aux`` also the ``[PACKED_AUX_ROWS]`` aux rider,
         without a host sync on the full chain. ``commit=False`` runs the
         step eagerly on copies of the mutable state (a probe-like
-        classify that keeps nothing)."""
+        classify that keeps nothing). With telemetry on, ``stamp_us`` is
+        the batch's rx-enqueue stamp in µs (``tel_clock_us``; 0:
+        unstamped, not observed) and ``now_us`` the dispatch clock (None:
+        read here): the device histograms ``now_us - stamp_us`` of every
+        valid packet."""
         if not torch.is_tensor(flat):
             flat = np.asarray(flat)
         with self._lock:
             if commit:
                 self._steps_since_expire += 1
             now = self._clock(now)
+            stamp, us = self._stamps(stamp_us, None, now_us)
             batch = flat.shape[1]
             if commit and self.graphs:
                 prog = self._program(self._use_fastpath, "packed",
                                      (PACKED_IN_ROWS, batch))
                 buf = prog.run(_i32(now),
-                               lambda x: self._load_packed(flat, x))
+                               lambda x: self._load_packed(flat, x),
+                               stamp, us)
                 out, aux = prog.packed(buf)
             else:
                 tables = self.tables if commit else self._scratch()
-                res = self._get_step(self._use_fastpath)(
-                    tables, packed_vector(self._load_packed(flat)),
-                    self._now_tensor(now))
-                out, aux = capture.packed_views(
-                    capture.encode_packed([res]), batch)
+                out, aux = capture.packed_views(self._packed_eager(
+                    self._get_step(self._use_fastpath), tables,
+                    [self._load_packed(flat)], now, [stamp], us), batch)
         return (out, aux) if with_aux else out
 
     def process_packed_chain(self, flats, now: Optional[int] = None,
-                             with_aux: bool = False):
+                             with_aux: bool = False, stamps_us=None,
+                             now_us: Optional[int] = None):
         """K packed batches (a host ``[K, 5, B]`` int32 stack) stepped in
         turn at one clock, the sessions threaded from each to the next
         as K ``process_packed`` calls would; returns the DEVICE
         ``[K, 5, B]`` results (and ``[K, PACKED_AUX_ROWS]`` aux rows).
         With ``graphs`` the forced full chain is ONE graph of K steps;
         the auto path runs the packed program K times (prefix, flag
-        read, tier)."""
+        read, tier). ``stamps_us`` ([K] µs rx stamps; None: unstamped)
+        and ``now_us`` feed the latency histogram with telemetry on."""
         if not torch.is_tensor(flats):
             flats = np.asarray(flats)
         with self._lock:
@@ -576,24 +636,50 @@ class Dataplane:
             # a K-chain sweeps once per sub-batch
             self._steps_since_expire += max(1, k)
             now = self._clock(now)
+            stamps, us = self._stamps(stamps_us, k, now_us)
             if self.graphs and not self._use_fastpath:
                 prog = self._program(False, "chain",
                                      (k, PACKED_IN_ROWS, batch))
                 outs, auxs = prog.packed(prog.run(
-                    _i32(now), lambda x: self._load_packed(flats, x)))
+                    _i32(now), lambda x: self._load_packed(flats, x),
+                    stamps, us))
             elif self.graphs:
                 x = self._load_packed(flats)
                 prog = self._program(True, "packed", (PACKED_IN_ROWS, batch))
                 views = [prog.packed(prog.run(
-                    _i32(now), lambda d, xk=xk: d.copy_(xk)))
-                    for xk in x.unbind(0)]
+                    _i32(now), lambda d, xk=xk: d.copy_(xk), sk, us))
+                    for xk, sk in zip(x.unbind(0), stamps)]
                 outs = torch.stack([o for o, _ in views])
                 auxs = torch.stack([a for _, a in views])
             else:
                 x = self._load_packed(flats)
-                step = self._get_step(self._use_fastpath)
-                now_t = self._now_tensor(now)
-                outs, auxs = capture.packed_views(capture.encode_packed(
-                    [step(self.tables, packed_vector(xk), now_t)
-                     for xk in x.unbind(0)]), batch, k)
+                outs, auxs = capture.packed_views(self._packed_eager(
+                    self._get_step(self._use_fastpath), self.tables,
+                    x.unbind(0), now, stamps, us), batch, k)
         return (outs, auxs) if with_aux else outs
+
+    # --- device telemetry (ops/telemetry.py) ---
+    def telemetry_snapshot(self) -> Optional[dict]:
+        """Host copy of the collect-facing telemetry planes: the latency
+        bins, the sketched-packet count and the top-K candidate rows (a
+        few hundred bytes; the ``[d, w]`` sketch stays on the card).
+        None with telemetry off."""
+        if self._tel_mode == "off":
+            return None
+        with self._lock:
+            t = self.tables
+            planes = [getattr(t, f).cpu().numpy() for f in (
+                "tel_lat_hist", "tel_sketched", "tel_top_key",
+                "tel_top_src", "tel_top_dst", "tel_top_ports",
+                "tel_top_cnt")]
+        bins, sketched, key, src, dst, ports, cnt = planes
+        return {
+            "mode": self._tel_mode,
+            "bins": bins.astype(np.int64),
+            "sketched": int(sketched),
+            "top_key": key.view(np.uint32),
+            "top_src": src.view(np.uint32),
+            "top_dst": dst.view(np.uint32),
+            "top_ports": ports.view(np.uint32),
+            "top_cnt": cnt.astype(np.int64),
+        }

@@ -3,14 +3,20 @@
 The PyTorch counterpart of ``vpp_tpu/pipeline/graph.py``: ip4-input ->
 reflective session lookup + touch -> NAT44 reverse -> DNAT -> ACL
 classify (local + global) -> FIB -> SNAT -> session insert + NAT
-record -> the shared tail (counters, drop attribution, session sweep),
-and the two-tier established-flow dispatcher ``pipeline_step_auto``
-over it and the classify-free ``pipeline_step_fast``.
+record -> the shared tail (counters, drop attribution, session sweep,
+flow sketch), and the two-tier established-flow dispatcher
+``pipeline_step_auto`` over it and the classify-free
+``pipeline_step_fast``.
 
-Compiled out: the ML, telemetry, tenancy and overlay stages (their
-StepStats counters read 0 and the StepResult fields they fill are the
-reference's off-state values). ``make_pipeline_step`` refuses the gates
-that would turn them on.
+The ML stage (``ml_mode`` score | enforce, ``ml_kind`` mlp | forest;
+ops/mlscore.py) scores the post-NAT-reverse header on both tiers, with
+the session age read before the touch; enforce folds its drops in after
+the ACL verdict (deny > ml-drop > permit). Telemetry ``full`` folds each
+step into the flow sketch in the shared tail; the latency histogram is
+the packed boundary's (``tel_observe``). Compiled out: the tenancy and
+overlay stages (their StepStats counters read 0 and the StepResult
+fields they fill are the reference's off-state values).
+``make_pipeline_step`` refuses the gates that would turn them on.
 
 PyTorch runs eagerly, so the step is plain Python over tensors; the
 full chain never synchronises with the device (every counter stays a
@@ -42,6 +48,7 @@ import torch
 from vpp_tpu_torch.ops.acl import acl_classify_global, acl_classify_local
 from vpp_tpu_torch.ops.fib import fib_lookup_dense
 from vpp_tpu_torch.ops.ip4 import ip4_input
+from vpp_tpu_torch.ops.mlscore import ML_KINDS, ml_stage
 from vpp_tpu_torch.ops.nat44 import (
     nat44_dnat,
     nat44_dnat_match,
@@ -53,10 +60,16 @@ from vpp_tpu_torch.ops.nat44 import (
 from vpp_tpu_torch.ops.session import (
     _age,
     session_batch_summary,
+    session_hit_age,
     session_insert,
     session_lookup_reverse_idx,
     session_sweep,
     session_touch,
+)
+from vpp_tpu_torch.ops.telemetry import (
+    TEL_MODES,
+    tel_flow_update,
+    tel_latency_update,
 )
 from vpp_tpu_torch.pipeline.vector import (
     Disposition,
@@ -115,7 +128,7 @@ DROP_ACL = 2        # policy deny
 DROP_NO_ROUTE = 3   # FIB miss
 DROP_FIB = 4        # matched a drop route
 DROP_NAT = 5        # NAT fail-closed (port collision / un-NATable proto)
-DROP_ML = 6         # ML-stage enforce verdict (stage not ported yet)
+DROP_ML = 6         # ML-stage enforce verdict
 DROP_TENANT = 7     # tenant quota (stage not ported yet)
 DROP_OVERLAY = 8    # overlay fail-closed (stage not ported yet)
 
@@ -169,22 +182,52 @@ def _sum(mask: torch.Tensor) -> torch.Tensor:
     return mask.sum(dtype=torch.int32)
 
 
+class MlEval(NamedTuple):
+    """The ML stage's masks of one step (``_ml_eval``); it scores every
+    alive packet."""
+
+    flagged: torch.Tensor        # bool [P]
+    drop_wanted: torch.Tensor    # bool [P]: all False under "score"
+    scores: torch.Tensor         # int32 [P]
+
+
+def _ml_eval(tables, pkts: PacketVector, alive, established, sess_age,
+             ml_mode: str, ml_kind: str) -> Optional[MlEval]:
+    """The one ML-stage evaluation both tiers share: the post-NAT-reverse
+    header and the session hit and its pre-touch age through
+    ``ml_stage`` (one kernel launch on the card). None when the stage is
+    off; under "score" the policy's drop requests are dropped here."""
+    if ml_mode == "off":
+        return None
+    scores, flagged, drop_wanted = ml_stage(
+        tables, pkts, alive, established, sess_age, kind=ml_kind)
+    if ml_mode != "enforce":
+        drop_wanted = torch.zeros_like(alive)
+    return MlEval(flagged, drop_wanted, scores)
+
+
 def _finish_step(tables, pkts: PacketVector, now, alive, drop_ip4,
                  drop_acl, permit, fib, forwarded, disp, tx_if,
                  established, nat_reversed, dnat_applied, snat_applied,
                  dropped_nat, sess_fail, natsess_fail, sess_evict_expired,
                  sess_evict_victim, natsess_evict_expired,
                  natsess_evict_victim, sweep_stride: int = 0,
-                 fastpath: int = 0) -> StepResult:
-    """Shared tail: session sweep, ECMP member accounting, drop
-    attribution, counters and the StepResult. ``fastpath`` is the
-    tier that ran (1 = the classify-free fast tier)."""
+                 fastpath: int = 0, ml: Optional[MlEval] = None,
+                 ml_dropped=None, tel_mode: str = "off") -> StepResult:
+    """Shared tail: session sweep, ECMP member accounting, the flow
+    sketch (``tel_mode`` full), drop attribution, counters and the
+    StepResult. ``fastpath`` is the tier that ran (1 = the classify-free
+    fast tier); ``ml`` the ML stage's evaluation and ``ml_dropped`` its
+    enforced drops (already masked to permitted alive packets)."""
     session_sweep(tables, now, sweep_stride)
     # per-member ECMP accounting into the carried [G, W] plane
     n_grp, n_way = tables.fib_ecmp_c.shape
     sel = forwarded & (fib.grp >= 0)
     gw = torch.where(sel, fib.grp * n_way + fib.way, 0).long()
     tables.fib_ecmp_c.view(-1).index_add_(0, gw, sel.to(torch.int32))
+    zero = torch.zeros((), dtype=torch.int32, device=alive.device)
+    tel_sketched = (tel_flow_update(tables, pkts, alive)[1]
+                    if tel_mode == "full" else zero)
 
     n_ifaces = tables.if_type.shape[0]
     max_age = tables.sess_max_age
@@ -192,12 +235,19 @@ def _finish_step(tables, pkts: PacketVector, now, alive, drop_ip4,
     def occupancy(valid, time):
         return _sum((valid == 1) & (_age(now, time) <= max_age))
 
+    # ml-drop wins attribution over the FIB outcomes (the packet never
+    # reached forwarding) and loses to an ACL deny (ml_dropped is
+    # masked to permitted traffic)
     drop_no_route = alive & permit & ~fib.matched
     fib_dropped = alive & permit & fib.matched & (
         fib.disp == int(Disposition.DROP))
+    if ml_dropped is not None:
+        drop_no_route = drop_no_route & ~ml_dropped
+        fib_dropped = fib_dropped & ~ml_dropped
     dropped = ((pkts.valid & (drop_ip4 | drop_acl | drop_no_route))
                | fib_dropped | dropped_nat)
-    zero = torch.zeros((), dtype=torch.int32, device=alive.device)
+    if ml_dropped is not None:
+        dropped = dropped | ml_dropped
     stats = StepStats(
         rx=_sum(alive),
         tx=_sum(forwarded),
@@ -226,16 +276,20 @@ def _finish_step(tables, pkts: PacketVector, now, alive, drop_ip4,
         sess_evict_victim=_sum(sess_evict_victim),
         natsess_evict_expired=_sum(natsess_evict_expired),
         natsess_evict_victim=_sum(natsess_evict_victim),
-        ml_scored=zero, ml_flagged=zero, ml_drops=zero,
-        tel_sketched=zero, tnt_limited=zero, tnt_qfail=zero,
+        ml_scored=zero if ml is None else _sum(alive),
+        ml_flagged=zero if ml is None else _sum(ml.flagged),
+        ml_drops=zero if ml_dropped is None else _sum(ml_dropped),
+        tel_sketched=tel_sketched, tnt_limited=zero, tnt_qfail=zero,
         ovl_decap=zero, ovl_encap=zero, drop_overlay=zero,
     )
     drop_cause = (torch.where(pkts.valid & drop_ip4, DROP_IP4, 0)
                   + torch.where(drop_acl, DROP_ACL, 0)
                   + torch.where(drop_no_route, DROP_NO_ROUTE, 0)
                   + torch.where(fib_dropped, DROP_FIB, 0)
-                  + torch.where(dropped_nat, DROP_NAT, 0)
-                  ).to(torch.int32)
+                  + torch.where(dropped_nat, DROP_NAT, 0))
+    if ml_dropped is not None:
+        drop_cause = drop_cause + torch.where(ml_dropped, DROP_ML, 0)
+    drop_cause = drop_cause.to(torch.int32)
     return StepResult(
         pkts=pkts,
         disp=disp,
@@ -248,9 +302,10 @@ def _finish_step(tables, pkts: PacketVector, now, alive, drop_ip4,
         established=established,
         dnat_applied=dnat_applied,
         snat_applied=snat_applied,
-        ml_flagged=torch.zeros_like(alive),
-        ml_scores=torch.zeros(alive.shape, dtype=torch.int32,
-                              device=alive.device),
+        ml_flagged=torch.zeros_like(alive) if ml is None else ml.flagged,
+        ml_scores=(torch.zeros(alive.shape, dtype=torch.int32,
+                               device=alive.device)
+                   if ml is None else ml.scores),
     )
 
 
@@ -259,11 +314,14 @@ def pipeline_step(tables, pkts: PacketVector, now,
                   acl_local_fn=acl_classify_local,
                   sweep_stride: int = SWEEP_STRIDE_DEFAULT,
                   fib_fn=fib_lookup_dense, sess_impl: str = "gather",
-                  sess_hash: str = "fwd") -> StepResult:
+                  sess_hash: str = "fwd", ml_mode: str = "off",
+                  ml_kind: str = "mlp",
+                  tel_mode: str = "off") -> StepResult:
     """Process one packet vector through the full forwarding chain
-    (the reference's ``pipeline_step`` with its off-state gates).
-    ``now`` is the session clock in ticks: a 0-d int32 tensor on the
-    tables' device (an int still works, for direct callers)."""
+    (the reference's ``pipeline_step`` with the tenancy and overlay
+    gates off). ``now`` is the session clock in ticks: a 0-d int32
+    tensor on the tables' device (an int still works, for direct
+    callers)."""
     sym = sess_hash == "sym"
     pkts, drop_ip4, alive = _ingress(tables, pkts)
 
@@ -271,12 +329,19 @@ def pipeline_step(tables, pkts: PacketVector, now,
     established, sess_hit_idx = session_lookup_reverse_idx(
         tables, pkts, now, impl=sess_impl, sym=sym)
     established = established & alive
+    # the ML age feature: the touch below rewrites the time in place,
+    # so the age is read before it, in stream order
+    sess_age = (session_hit_age(tables, sess_hit_idx, established, now)
+                if ml_mode != "off" else None)
     session_touch(tables, sess_hit_idx, established, now)
 
     # NAT44: reverse-translate return traffic, then DNAT new flows
     pkts, nat_reversed, nat_hit_idx = nat44_reverse(tables, pkts, alive,
                                                     now)
     nat44_touch(tables, nat_hit_idx, nat_reversed, now)
+    # the ML stage scores the post-reverse header, as the fast tier does
+    ml = _ml_eval(tables, pkts, alive, established, sess_age, ml_mode,
+                  ml_kind)
     orig_dst, orig_dport = pkts.dst_ip, pkts.dport
     pkts, dnat_applied, dnat_self_snat = nat44_dnat(
         tables, pkts, alive & ~nat_reversed)
@@ -286,11 +351,15 @@ def pipeline_step(tables, pkts: PacketVector, now,
     glob_v = acl_global_fn(tables, pkts)
     permit = (local_v.permit & glob_v.permit) | established
     drop_acl = alive & ~permit
+    # the enforced ML verdict, after the ACL's: deny > ml-drop > permit
+    ml_dropped = None if ml is None else ml.drop_wanted & permit & alive
 
     # ip4-lookup on the possibly DNAT-rewritten destination
     fib = fib_fn(tables, pkts)
     forwarded = (alive & permit & fib.matched
                  & (fib.disp != int(Disposition.DROP)))
+    if ml_dropped is not None:
+        forwarded = forwarded & ~ml_dropped
     disp = torch.where(forwarded, fib.disp,
                        int(Disposition.DROP)).to(torch.int32)
     tx_if = torch.where(forwarded, fib.tx_if, -1).to(torch.int32)
@@ -327,7 +396,8 @@ def pipeline_step(tables, pkts: PacketVector, now,
         forwarded, disp, tx_if, established, nat_reversed, dnat_applied,
         snat_applied, dropped_nat, sess_fail, natsess_fail,
         sess_ev_exp, sess_ev_vic, nat_ev_exp, nat_ev_vic,
-        sweep_stride=sweep_stride)
+        sweep_stride=sweep_stride, ml=ml, ml_dropped=ml_dropped,
+        tel_mode=tel_mode)
 
 
 # --- two-tier established-flow fast path ----------------------------
@@ -343,20 +413,31 @@ def _pipeline_fast_finish(tables, pkts: PacketVector, now, alive, drop_ip4,
                           established, sess_hit_idx, nat_reversed,
                           nat_hit_idx,
                           sweep_stride: int = SWEEP_STRIDE_DEFAULT,
-                          fib_fn=fib_lookup_dense) -> StepResult:
+                          fib_fn=fib_lookup_dense, ml_mode: str = "off",
+                          ml_kind: str = "mlp",
+                          tel_mode: str = "off") -> StepResult:
     """Tail of the classify-free tier, from the post-reverse header on.
     Valid ONLY under the dispatch invariant (every alive packet is
     established, none DNAT-matches): ``permit`` collapses to
     ``established``, and SNAT, session insert and NAT record are
     statically empty (each needs a fresh flow or a DNAT hit), so they
-    are elided — that elision is the tier's purpose."""
+    are elided — that elision is the tier's purpose. The ML stage is
+    not elided: the fast tier scores (and enforces) as the full chain
+    does, with the age read before the touch at the same point."""
+    sess_age = (session_hit_age(tables, sess_hit_idx, established, now)
+                if ml_mode != "off" else None)
     session_touch(tables, sess_hit_idx, established, now)
     nat44_touch(tables, nat_hit_idx, nat_reversed, now)
     permit = established
     drop_acl = alive & ~permit
+    ml = _ml_eval(tables, pkts, alive, established, sess_age, ml_mode,
+                  ml_kind)
+    ml_dropped = None if ml is None else ml.drop_wanted & permit & alive
     fib = fib_fn(tables, pkts)
     forwarded = (alive & permit & fib.matched
                  & (fib.disp != int(Disposition.DROP)))
+    if ml_dropped is not None:
+        forwarded = forwarded & ~ml_dropped
     disp = torch.where(forwarded, fib.disp,
                        int(Disposition.DROP)).to(torch.int32)
     tx_if = torch.where(forwarded, fib.tx_if, -1).to(torch.int32)
@@ -365,13 +446,16 @@ def _pipeline_fast_finish(tables, pkts: PacketVector, now, alive, drop_ip4,
         tables, pkts, now, alive, drop_ip4, drop_acl, permit, fib,
         forwarded, disp, tx_if, established, nat_reversed, false_p,
         false_p, false_p, false_p, false_p, false_p, false_p, false_p,
-        false_p, sweep_stride=sweep_stride, fastpath=1)
+        false_p, sweep_stride=sweep_stride, fastpath=1, ml=ml,
+        ml_dropped=ml_dropped, tel_mode=tel_mode)
 
 
 def pipeline_step_fast(tables, pkts: PacketVector, now,
                        sweep_stride: int = SWEEP_STRIDE_DEFAULT,
                        fib_fn=fib_lookup_dense, sess_impl: str = "gather",
-                       sess_hash: str = "fwd") -> StepResult:
+                       sess_hash: str = "fwd", ml_mode: str = "off",
+                       ml_kind: str = "mlp",
+                       tel_mode: str = "off") -> StepResult:
     """The classify-free tier on its own: ip4-input -> session
     lookup/touch -> NAT reverse/touch -> FIB -> tx. Equal to
     ``pipeline_step`` ONLY under the dispatch invariant that
@@ -384,7 +468,8 @@ def pipeline_step_fast(tables, pkts: PacketVector, now,
                                                     now)
     return _pipeline_fast_finish(
         tables, pkts, now, alive, drop_ip4, established, sess_hit_idx,
-        nat_reversed, nat_hit_idx, sweep_stride=sweep_stride, fib_fn=fib_fn)
+        nat_reversed, nat_hit_idx, sweep_stride=sweep_stride, fib_fn=fib_fn,
+        ml_mode=ml_mode, ml_kind=ml_kind, tel_mode=tel_mode)
 
 
 class AutoPrefix(NamedTuple):
@@ -421,13 +506,15 @@ def auto_prefix(tables, pkts: PacketVector, now, sess_impl: str = "gather",
 
 def auto_fast(tables, pre: AutoPrefix, now,
               sweep_stride: int = SWEEP_STRIDE_DEFAULT,
-              fib_fn=fib_lookup_dense) -> StepResult:
+              fib_fn=fib_lookup_dense, ml_mode: str = "off",
+              ml_kind: str = "mlp", tel_mode: str = "off") -> StepResult:
     """The fast tier behind the prefix: it reuses the prefix's lookups
     (valid only where ``pre.ok`` holds)."""
     return _pipeline_fast_finish(
         tables, pre.pkts, now, pre.alive, pre.drop_ip4, pre.hits,
         pre.sess_hit_idx, pre.nat_reversed, pre.nat_hit_idx,
-        sweep_stride=sweep_stride, fib_fn=fib_fn)
+        sweep_stride=sweep_stride, fib_fn=fib_fn, ml_mode=ml_mode,
+        ml_kind=ml_kind, tel_mode=tel_mode)
 
 
 def pipeline_step_auto(tables, pkts: PacketVector, now,
@@ -435,7 +522,9 @@ def pipeline_step_auto(tables, pkts: PacketVector, now,
                        acl_local_fn=acl_classify_local,
                        sweep_stride: int = SWEEP_STRIDE_DEFAULT,
                        fib_fn=fib_lookup_dense, sess_impl: str = "gather",
-                       sess_hash: str = "fwd") -> StepResult:
+                       sess_hash: str = "fwd", ml_mode: str = "off",
+                       ml_kind: str = "mlp",
+                       tel_mode: str = "off") -> StepResult:
     """Two-tier dispatch: the fast tier when the whole batch rides
     established sessions, the full chain otherwise.
 
@@ -450,13 +539,14 @@ def pipeline_step_auto(tables, pkts: PacketVector, now,
     reference does."""
     pre = auto_prefix(tables, pkts, now, sess_impl=sess_impl,
                       sess_hash=sess_hash)
+    gates = dict(ml_mode=ml_mode, ml_kind=ml_kind, tel_mode=tel_mode)
     if bool(pre.ok):  # the step's one host sync (docstring)
         return auto_fast(tables, pre, now, sweep_stride=sweep_stride,
-                         fib_fn=fib_fn)
+                         fib_fn=fib_fn, **gates)
     return pipeline_step(tables, pkts, now, acl_global_fn=acl_global_fn,
                          acl_local_fn=acl_local_fn,
                          sweep_stride=sweep_stride, fib_fn=fib_fn,
-                         sess_impl=sess_impl, sess_hash=sess_hash)
+                         sess_impl=sess_impl, sess_hash=sess_hash, **gates)
 
 
 # --- what a step program copies in and out ----------------------------
@@ -496,12 +586,26 @@ def packed_vector(flat: torch.Tensor) -> PacketVector:
         rx_if=field(4, 8, 0xFFFFFF), flags=field(4, 0, 0xFF))
 
 
-def packed_fields(res: StepResult) -> list:
+def tel_observe(tables, res: StepResult, stamp, now_us) -> torch.Tensor:
+    """The packed boundary's wire-latency observation (the reference's
+    ``_packed_call`` with telemetry on), after the step: every valid
+    packet of a stamped batch (``stamp`` > 0) whose latency ``now_us -
+    stamp`` (int32, wrapping) is not negative goes into the histogram.
+    ``stamp`` and ``now_us`` are 0-d int32 tensors (a captured program
+    copies each run's values into them). Returns the count observed."""
+    lat = to_i32(now_us.to(torch.int64) - stamp.to(torch.int64))
+    observe = res.pkts.valid & (stamp > 0) & (lat >= 0)
+    return tel_latency_update(tables, observe, lat.expand(
+        observe.shape))[1]
+
+
+def packed_fields(res: StepResult, tel_observed=None) -> list:
     """The reference's ``_packed_call`` output (``with_aux``): the five
     [B] rows of the packed result — src_ip, dst_ip, sport<<16 | dport,
     drop_cause<<28 | disp<<24 | ttl<<16 | tx_if (0xFFFF: none), next_hop
-    — and the twelve 0-d aux rows of ``PACKED_AUX_SCHEMA`` (the
-    telemetry counters read 0: the stage is not ported)."""
+    — and the twelve 0-d aux rows of ``PACKED_AUX_SCHEMA``;
+    ``tel_observed`` is ``tel_observe``'s count (0 with telemetry off;
+    the tenancy rows read 0: the stage is not ported)."""
     p, s = res.pkts, res.stats
     row2 = (u32(p.sport) << 16) | (u32(p.dport) & 0xFFFF)
     row3 = (((u32(res.drop_cause) & 0xF) << 28)
@@ -513,8 +617,8 @@ def packed_fields(res: StepResult) -> list:
            (s.sess_evict_expired + s.sess_evict_victim
             + s.natsess_evict_expired + s.natsess_evict_victim),
            s.ml_scored, s.ml_flagged, s.ml_drops,
-           torch.zeros_like(s.rx), s.tel_sketched, s.tnt_limited,
-           s.tnt_qfail]
+           torch.zeros_like(s.rx) if tel_observed is None else tel_observed,
+           s.tel_sketched, s.tnt_limited, s.tnt_qfail]
     return rows + aux
 
 
@@ -561,8 +665,6 @@ def _fib_fn(fib_impl: str):
 
 
 _NOT_PORTED_GATES = {
-    "ml_mode": ("off", "ROADMAP Queue 1 item 4 (ML stage)"),
-    "tel_mode": ("off", "ROADMAP Queue 1 item 5 (Telemetry)"),
     "tnt_mode": ("off", "ROADMAP Queue 1 item 6 (Tenancy)"),
     "overlay": ("off", "ROADMAP Queue 1 item 7 (Overlay, service VIPs "
                 "and ECMP staging)"),
@@ -582,12 +684,18 @@ def make_pipeline_step(impl: str = "dense", skip_local: bool = False,
     the two-tier ``pipeline_step_auto``, else the full chain. Its parts
     ride along as attributes: ``step.full(tables, pkts, now)`` and, with
     ``fast``, ``step.prefix(tables, pkts, now)`` and ``step.fast(tables,
-    prefix, now)``. Gates of stages this package has not ported raise
-    NotImplementedError."""
+    prefix, now)``; ``step.tel_mode`` is the telemetry gate the packed
+    boundary reads (``tel_observe``). Gates of stages this package has
+    not ported raise NotImplementedError."""
     from vpp_tpu_torch.ops.acl import acl_local_none
 
-    gates = {"ml_mode": ml_mode, "tel_mode": tel_mode,
-             "tnt_mode": tnt_mode, "overlay": overlay}
+    if ml_mode not in ("off", "score", "enforce"):
+        raise ValueError(f"unknown ml_mode {ml_mode!r}")
+    if ml_kind not in ML_KINDS:
+        raise ValueError(f"unknown ml_kind {ml_kind!r}")
+    if tel_mode not in TEL_MODES:
+        raise ValueError(f"unknown tel_mode {tel_mode!r}")
+    gates = {"tnt_mode": tnt_mode, "overlay": overlay}
     for name, value in gates.items():
         off, item = _NOT_PORTED_GATES[name]
         if value != off:
@@ -603,25 +711,31 @@ def make_pipeline_step(impl: str = "dense", skip_local: bool = False,
     if skip_local:
         acl_local_fn = acl_local_none
     base = pipeline_step_auto if fast else pipeline_step
+    stage_gates = dict(ml_mode=ml_mode, ml_kind=ml_kind, tel_mode=tel_mode)
 
     def step(tables, pkts: PacketVector, now) -> StepResult:
         return base(tables, pkts, now, acl_global_fn=acl_global_fn,
                     acl_local_fn=acl_local_fn, sweep_stride=sweep_stride,
-                    fib_fn=fib_fn, sess_impl=sess_impl, sess_hash=sess_hash)
+                    fib_fn=fib_fn, sess_impl=sess_impl, sess_hash=sess_hash,
+                    **stage_gates)
 
     # the parts a step program captures one by one
     step.full = functools.partial(
         pipeline_step, acl_global_fn=acl_global_fn,
         acl_local_fn=acl_local_fn, sweep_stride=sweep_stride, fib_fn=fib_fn,
-        sess_impl=sess_impl, sess_hash=sess_hash)
+        sess_impl=sess_impl, sess_hash=sess_hash, **stage_gates)
     if fast:
         step.prefix = functools.partial(auto_prefix, sess_impl=sess_impl,
                                         sess_hash=sess_hash)
         step.fast = functools.partial(auto_fast, sweep_stride=sweep_stride,
-                                      fib_fn=fib_fn)
+                                      fib_fn=fib_fn, **stage_gates)
+    step.tel_mode = tel_mode
 
-    step.__name__ = "pipeline_step_{}{}{}{}{}{}".format(
+    step.__name__ = "pipeline_step_{}{}{}{}{}{}{}{}".format(
         impl, "_nolocal" if skip_local else "", "_auto" if fast else "",
+        "" if ml_mode == "off" else f"_ml{ml_mode}"
+        + ("_forest" if ml_kind == "forest" else ""),
+        "" if tel_mode == "off" else f"_tel{tel_mode}",
         "" if fib_impl == "dense" else f"_fib{fib_impl}",
         "" if sess_impl == "gather" else f"_sess{sess_impl}",
         "" if sess_hash == "fwd" else f"_h{sess_hash}")

@@ -8,11 +8,13 @@ uint32 fields are int32 tensors holding the same bits
 (pipeline/vector.py).
 
 Cut to the main path: every ``to_device`` is a full upload (the
-reference's incremental upload groups are a later slice), the ML,
-telemetry, tenancy, overlay, service-VIP and ECMP fields carry the
-reference's placeholder shapes, and config values that would turn those
-stages on raise ``NotImplementedError`` naming the ROADMAP item that
-ports them. The global table's MXU bit-planes are compiled in full at
+reference's incremental upload groups are a later slice), the tenancy,
+overlay, service-VIP and ECMP fields carry the reference's placeholder
+shapes, and config values that would turn those stages on raise
+``NotImplementedError`` naming the ROADMAP item that ports them. The ML
+planes are staged at the configured capacity (``ml_capacity``,
+``set_ml_model``) and the telemetry planes take their configured shapes
+(``tel_capacity``), as in the reference. The global table's MXU bit-planes are compiled in full at
 every ``set_global_table`` (the reference diffs rule identities and
 recompiles only the changed columns; that joins the incremental upload
 groups, ROADMAP Queue 1 item 8).
@@ -38,6 +40,7 @@ import numpy as np
 import torch
 
 from vpp_tpu_torch.ir.rule import ANY_PORT, ContivRule
+from vpp_tpu_torch.ml.model import ML_FEATURES
 from vpp_tpu_torch.ops.acl_bv import (
     bv_capacity,
     bv_enabled_for,
@@ -288,23 +291,39 @@ def natsess_slots_of(config: DataplaneConfig) -> int:
     return n if n else config.sess_slots
 
 
+def tel_capacity(config: DataplaneConfig) -> Tuple[int, int, int, int]:
+    """(lat_buckets, sketch_rows, sketch_cols, topk) of the telemetry
+    planes: placeholders for "off", and for the sketch and top-K planes
+    under "latency" (the reference's shapes)."""
+    mode = config.telemetry
+    if mode == "off":
+        return 1, 1, 1, 1
+    nb = int(config.telemetry_lat_buckets)
+    if mode == "latency":
+        return nb, 1, 1, 1
+    return (nb, int(config.telemetry_sketch_rows),
+            int(config.telemetry_sketch_cols), int(config.telemetry_topk))
+
+
 def state_shapes(config: DataplaneConfig) -> Dict[str, Tuple[int, ...]]:
     """Shapes of every state field: the [slots/ways, ways] session
-    grids, () cursors, and the placeholder telemetry / tenancy / ECMP
-    state planes of the stages this slice compiles out."""
+    grids, () cursors, the telemetry planes at ``tel_capacity``, and
+    the placeholder tenancy / ECMP state planes of the stages this
+    slice compiles out."""
     w = config.sess_ways
     sess = (config.sess_slots // w, w)
     nat = (natsess_slots_of(config) // w, w)
     g, gw = ecmp_capacity(config)
+    nb, d, cols, k = tel_capacity(config)
     out = {}
     for f in SESSION_FIELDS:
         out[f] = (() if f.endswith("_sweep_cursor")
                   else nat if f.startswith("natsess_") else sess)
-    out.update({"tel_lat_hist": (1,), "tel_sketch": (1, 1),
+    out.update({"tel_lat_hist": (nb,), "tel_sketch": (d, cols),
                 "tel_sketched": ()})
     for f in ("tel_top_key", "tel_top_src", "tel_top_dst",
               "tel_top_ports", "tel_top_cnt"):
-        out[f] = (1,)
+        out[f] = (k,)
     for f in TENANCY_STATE_FIELDS:
         out[f] = (1,)
     out["fib_ecmp_c"] = (g, gw)
@@ -334,10 +353,6 @@ def _is_pow2(n: int) -> bool:
 
 # knob -> (value that keeps the stage off, ROADMAP item that ports it)
 _NOT_PORTED = (
-    ("ml_stage", lambda v: v == "off",
-     "ROADMAP Queue 1 item 4 (ML stage)"),
-    ("telemetry", lambda v: v == "off",
-     "ROADMAP Queue 1 item 5 (Telemetry)"),
     ("tenancy", lambda v: v == "off",
      "ROADMAP Queue 1 item 6 (Tenancy)"),
     ("overlay", lambda v: v == "off",
@@ -400,6 +415,37 @@ def validate_dataplane_config(config: DataplaneConfig) -> None:
         if int(cap) < 0:
             raise ValueError(f"dataplane.fib_lpm_plen_caps[/{L}] must "
                              f"be >= 0, got {cap}")
+    if c.ml_stage not in ("off", "score", "enforce"):
+        raise ValueError(f"dataplane.ml_stage must be off | score | "
+                         f"enforce, got {c.ml_stage!r}")
+    if int(c.ml_hidden) < 1:
+        raise ValueError(
+            f"dataplane.ml_hidden must be >= 1, got {c.ml_hidden}")
+    if int(c.ml_trees) < 1:
+        raise ValueError(
+            f"dataplane.ml_trees must be >= 1, got {c.ml_trees}")
+    if not 1 <= int(c.ml_depth) <= 8:
+        raise ValueError(f"dataplane.ml_depth must be in 1..8 (leaf "
+                         f"table is 2^depth), got {c.ml_depth}")
+    if c.telemetry not in ("off", "latency", "full"):
+        raise ValueError(f"dataplane.telemetry must be off | latency | "
+                         f"full, got {c.telemetry!r}")
+    nb = int(c.telemetry_lat_buckets)
+    if not 4 <= nb <= 31:
+        raise ValueError(f"dataplane.telemetry_lat_buckets must be in "
+                         f"4..31 (log2 µs bins in int32), got {nb}")
+    d = int(c.telemetry_sketch_rows)
+    if not 1 <= d <= 8:
+        raise ValueError(
+            f"dataplane.telemetry_sketch_rows must be in 1..8, got {d}")
+    w = int(c.telemetry_sketch_cols)
+    if not _is_pow2(w):
+        raise ValueError(f"dataplane.telemetry_sketch_cols must be a "
+                         f"power of two (column masking), got {w}")
+    k = int(c.telemetry_topk)
+    if not 1 <= k <= 64:
+        raise ValueError(
+            f"dataplane.telemetry_topk must be in 1..64, got {k}")
     for knob, off, item in _NOT_PORTED:
         if not off(getattr(c, knob)):
             raise NotImplementedError(
@@ -473,15 +519,23 @@ def pack_rules(rules: Sequence[ContivRule],
     return out
 
 
-# --- placeholder planes of the stages this slice compiles out ---------
-
-_ML_FEATURES = 18   # vpp_tpu/ml/model.py ML_FEATURES
-_DEFAULT_VNI = 10   # vpp_tpu/ops/vxlan.py DEFAULT_VNI
-_ML_TNT_THRESH_INHERIT = -(1 << 31)
+# --- the ML model planes ------------------------------------------------
 
 
-def _empty_ml() -> Dict[str, np.ndarray]:
-    f, h, t, d = _ML_FEATURES, 1, 1, 1
+def ml_capacity(config: DataplaneConfig) -> Tuple[int, int, int, int]:
+    """(features, hidden, trees, depth) capacity of the staged model
+    planes; minimal placeholders with ``ml_stage`` off (the stage is
+    compiled out, so they are never read)."""
+    if config.ml_stage == "off":
+        return ML_FEATURES, 1, 1, 1
+    return (ML_FEATURES, int(config.ml_hidden), int(config.ml_trees),
+            int(config.ml_depth))
+
+
+def empty_ml(config: DataplaneConfig) -> Dict[str, np.ndarray]:
+    """The no-model staging arrays at the config's capacity; the flag
+    threshold INT32_MAX flags nothing."""
+    f, h, t, d = ml_capacity(config)
     return {
         "glb_ml_w1": np.zeros((f, h), np.int8),
         "glb_ml_b1": np.zeros(h, np.int32),
@@ -496,6 +550,81 @@ def _empty_ml() -> Dict[str, np.ndarray]:
         "glb_ml_rl_shift": np.int32(0),
         "glb_ml_version": np.int32(0),
     }
+
+
+def _fold_ml(model, config: DataplaneConfig
+             ) -> Tuple[Dict[str, np.ndarray], int]:
+    """Validate one model (an ``MlModel`` or its dict form) against the
+    config's capacity and return the padded, zero-point-folded staging
+    arrays and the staged kind. It validates completely before it
+    returns, so the builder only assigns: a refused model leaves the
+    staging untouched. The fold: the device centers features to
+    ``x - 128``, so each int32 bias absorbs ``+128 * column_sum(W)``
+    (exact in integers)."""
+    from vpp_tpu_torch.ml.model import MlModel, MlModelError
+    from vpp_tpu_torch.ops.mlscore import (
+        ML_ACTION_NAMES,
+        ML_KIND_FOREST,
+        ML_KIND_MLP,
+    )
+
+    if isinstance(model, dict):
+        model = MlModel.from_dict(model)
+    model.validate()
+    f, h, t, d = ml_capacity(config)
+    if model.n_features > f:
+        raise MlModelError(f"model has {model.n_features} features, "
+                           f"pipeline computes {f}")
+    out = empty_ml(config)
+    action_code = {name: code for code, name
+                   in ML_ACTION_NAMES.items()}[model.action]
+    if model.kind == "mlp":
+        mh = model.hidden
+        if mh > h:
+            raise MlModelError(
+                f"model hidden {mh} exceeds dataplane.ml_hidden {h}")
+        w1 = np.zeros((f, h), np.int8)
+        w1[: model.n_features, :mh] = model.w1
+        b1 = np.zeros(h, np.int32)
+        # layer 1: +128 per centered input column
+        b1[:mh] = model.b1.astype(np.int64) + 128 * model.w1.astype(
+            np.int64).sum(axis=0)
+        # padding columns: bias 0, relu 0, q1 0, centered -128 times a
+        # zero weight: they add nothing to layer 2
+        w2 = np.zeros(h, np.int8)
+        w2[:mh] = model.w2
+        b2 = int(model.b2) + 128 * int(model.w2.astype(np.int64).sum())
+        out.update(glb_ml_w1=w1, glb_ml_b1=b1,
+                   glb_ml_s1=np.int32(model.s1), glb_ml_w2=w2,
+                   glb_ml_b2=np.int32(b2))
+        kind = ML_KIND_MLP
+    else:
+        mt, md = model.trees, model.depth
+        if mt > t or md > d:
+            raise MlModelError(f"forest {mt}x{md} exceeds "
+                               f"dataplane.ml_trees/ml_depth {t}x{d}")
+        f_feat = np.zeros((t, d), np.int32)
+        f_thresh = np.full((t, d), 255, np.int32)  # pad bits never set
+        f_leaf = np.zeros((t, 1 << d), np.int32)
+        f_feat[:mt, :md] = model.f_feat
+        f_thresh[:mt, :md] = model.f_thresh
+        # pad levels test feature 0 > 255 (bit 0), so a padded tree's
+        # leaf index spans only the model's 2^md prefix
+        f_leaf[:mt, : 1 << md] = model.f_leaf
+        out.update(glb_ml_f_feat=f_feat, glb_ml_f_thresh=f_thresh,
+                   glb_ml_f_leaf=f_leaf, glb_ml_b2=np.int32(model.b2))
+        kind = ML_KIND_FOREST
+    out.update(glb_ml_thresh=np.int32(model.flag_thresh),
+               glb_ml_action=np.int32(action_code),
+               glb_ml_rl_shift=np.int32(model.rl_shift),
+               glb_ml_version=np.int32(model.version))
+    return out, kind
+
+
+# --- placeholder planes of the stages this slice compiles out ---------
+
+_DEFAULT_VNI = 10   # vpp_tpu/ops/vxlan.py DEFAULT_VNI
+_ML_TNT_THRESH_INHERIT = -(1 << 31)
 
 
 def _empty_tenancy(config: DataplaneConfig) -> Dict[str, np.ndarray]:
@@ -615,8 +744,11 @@ class TableBuilder:
         self.natb_port = z(c.nat_backends, np.int32)
         self.natb_cumw = z(c.nat_backends, np.int32)
         self.nat_snat_ip = np.uint32(0)
-        self._fixed = {**_empty_ml(),
-                       **_empty_tenancy(c), **_empty_svc(c),
+        # the staged ML model (set_ml_model); ml_kind is its
+        # ML_KIND_* (0: none), which the Dataplane re-gates on
+        self.ml = empty_ml(c)
+        self.ml_kind = 0
+        self._fixed = {**_empty_tenancy(c), **_empty_svc(c),
                        "ovl_vtep_ip": np.uint32(0)}
 
     def bv_ok(self) -> bool:
@@ -786,6 +918,30 @@ class TableBuilder:
         """Set the node's SNAT address (0 disables SNAT)."""
         self.nat_snat_ip = np.uint32(ip)
 
+    # --- per-packet ML model (ops/mlscore.py) ---
+    def set_ml_model(self, model) -> None:
+        """Stage one quantized model (an ``MlModel`` or its dict form)
+        for the next epoch. ``_fold_ml`` validates, pads and folds it
+        before anything here changes, so a refused model leaves the
+        previous one staged."""
+        staged, kind = _fold_ml(model, self.config)
+        self.ml = staged
+        self.ml_kind = kind
+
+    @property
+    def ml_kind_name(self) -> Optional[str]:
+        """The staged model's kind, ``"mlp"`` or ``"forest"`` (None: no
+        model staged)."""
+        from vpp_tpu_torch.ops.mlscore import ML_KIND_NAMES
+
+        return ML_KIND_NAMES.get(self.ml_kind)
+
+    def clear_ml_model(self) -> None:
+        """Back to the no-model state (the stage re-gates off at the
+        next swap)."""
+        self.ml = empty_ml(self.config)
+        self.ml_kind = 0
+
     # --- device upload ---
     def host_arrays(self) -> Dict[str, np.ndarray]:
         """The staged configuration as numpy arrays keyed by field name
@@ -816,6 +972,7 @@ class TableBuilder:
                   "fib_grp_n") + _NAT_FIELDS:
             out[f] = getattr(self, f)
         out["sess_max_age"] = np.int32(self.config.sess_max_age)
+        out.update(self.ml)
         out.update(self._fixed)
         return {f: out[f] for f in HOST_FIELDS}
 
