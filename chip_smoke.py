@@ -30,7 +30,12 @@ raises on failure:
    all-zero weights, a single-feature model, the flag threshold at
    INT32_MIN / INT32_MAX, wrapping biases and shifts past 31, each of
    the four actions, MLP and forest, at P = 1, 33, 256, 4,095, 4,096,
-   and a model past 48 KB of shared memory);
+   and a model past 48 KB of shared memory); and the tenant forms:
+   ``sess_probe_ways`` with each packet's key tenant slicing its bucket
+   (mixed slices, an unsliced residual, key tenants 0 and T - 1, keys
+   of differing tenants, both hashes, W = 1, 2, 4, 16, P = 1, 4,095,
+   4,096) and ``ml_score`` with a tenant id per packet (each per-tenant
+   ML mode, the inherit sentinel and threshold overrides);
 4. the main path: the slice's full-size ``Dataplane`` on the card
    (10,240 global rules, 8 pods on 128-rule local tables, 2^20 session
    slots, ~4,000 routes, a 100-backend ClusterIP; the ``pallas`` rungs,
@@ -88,6 +93,30 @@ raises on failure:
    sketched count must equal the alive packets; the histogram must
    equal the known latencies' buckets; a ``probe`` and a
    ``process_packed(commit=False)`` must move no live plane;
+4e. tenancy, the VXLAN overlay, service VIPs and ECMP groups, on each
+   path: phase 4d's configuration with ``tenancy: on`` (8 tenants, 64
+   prefix slots: four tenants over disjoint /16s of the bench sources,
+   tenant 4 rate-limited below its offered load, tenant 2 with session
+   and NAT slices, tenant 3 scoring only, tenant 1 with a threshold
+   override), ``overlay: vxlan`` (the VTEP set, 16 remote /24s behind 8
+   peer VTEPs, a quarter of each forward vector arriving as VXLAN frames
+   with their inner sidecar, tenants' VNIs and an unknown one),
+   ``svc_vips: 64`` (48 VIPs x 4 backends behind a pod route, 1/8 of
+   the forward packets) and ``fib_ecmp_groups: 8`` (the remote pods'
+   /24s through one 8-member group, 1/8 of the forward packets), on
+   the card captured and eager and on the CPU: a round at P = 256 and
+   4,096, a flood of tenant 2's that fills its slice, a
+   ``set_tenant_ml`` swap (nothing may be captured), a round at P =
+   256. Every call's result (the overlay's outer headers included), the
+   session / NAT / ECMP / tenancy / telemetry planes,
+   ``tenant_snapshot`` and ``fib_snapshot`` must be equal captured,
+   eager and on the CPU; ``sess_probe_ways`` (tenant form) and
+   ``ml_score`` (tid form) must launch on every tier the path runs and
+   ``lpm_fused_lookup`` twice a step; DROP_TENANT, DROP_OVERLAY, service
+   DNAT, encaps and more than one ECMP member must each fire; the flood
+   must leave every session and NAT row outside tenant 2's slices as it
+   was; the packed forms must raise the reference's ValueError; a
+   ``probe`` must move no live plane;
 5. timing with CUDA events: ms per ``process`` step and Mpps (valid
    packets per device second) at P = 256 and 4,096, captured and eager,
    and a ``torch.profiler`` window per size (device operations, graph
@@ -105,9 +134,13 @@ raises on failure:
    the coefficients, ``matmul_ms``, and ``torch._int_mm`` of the same
    as int8, ``int8_matmul_ms``; ``ml_score`` beside ``torch._int_mm``
    of its layer-1 product padded to [P, 24] x [24, 16],
-   ``library_ms``); and the ML stage's and telemetry's cost: ms and
-   device operations per step of phase 4d's dataplanes against phase 4
-   / 4b's on the same vectors, in turns.
+   ``library_ms``; the tenant forms of ``sess_probe_ways`` and
+   ``ml_score`` at phase 4e's inputs); the ML stage's and telemetry's
+   cost: ms and device operations per step of phase 4d's dataplanes
+   against phase 4 / 4b's on the same vectors, in turns; and the cost of
+   tenancy, the overlay, service VIPs and ECMP: phase 4e's dataplanes
+   against phase 4d's, in turns (the overlay side takes the framed
+   vector and its sidecar, the other side the inner headers).
 
 Every comparison is between integers: the tolerance is exact equality.
 The line before the last is the kernels JSON object; the last line is
@@ -151,6 +184,7 @@ from vpp_tpu_torch.ops import (  # noqa: E402
     acl_mxu,
     lpm,
     mlscore,
+    nat44,
     session,
 )
 from vpp_tpu_torch.ops.telemetry import lat_bucket_np  # noqa: E402
@@ -166,8 +200,11 @@ from vpp_tpu_torch.pipeline.graph import DROP_ACL  # noqa: E402
 from vpp_tpu_torch.pipeline.tables import (  # noqa: E402
     SESSION_FIELDS,
     TELEMETRY_FIELDS,
+    TENANCY_STATE_FIELDS,
     DataplaneConfig,
 )
+from vpp_tpu_torch.tenancy import derive  # noqa: E402
+from vpp_tpu_torch.tenancy.derive import key_tenant, tenant_ids  # noqa: E402
 from vpp_tpu_torch.pipeline.vector import (  # noqa: E402
     FLAG_VALID,
     VEC,
@@ -199,6 +236,15 @@ PROFILED_STEPS = 10   # profiled process steps per size
 VIP = "10.96.0.10"
 N_PODS = 8
 N_BACKENDS = 100
+# phase 4e (bench.py overlay_bench and tenant_isolation_bench): the node's
+# VTEP, 8 peer VTEPs, 48 service VIPs x 4 backends, and four tenants over
+# disjoint /16s of the bench traffic's sources, each with its own VNI
+VTEP = ip4("192.168.16.1")
+PEER_VTEPS = tuple(ip4(f"192.168.16.{2 + k}") for k in range(8))
+N_VIPS, N_SVC_BACKENDS = 48, 4
+SVC_BACKEND_NET = "10.200.0.0/16"
+TENANT_NETS = {t: f"172.{15 + t}.0.0/16" for t in (1, 2, 3, 4)}
+UNKNOWN_VNI = 999
 
 KERNELS = {
     "sess_probe_ways": dict(
@@ -239,12 +285,16 @@ KERNEL_SYMBOLS = {"sess_probe_ways": "sess_probe_kernel",
                   "lpm_fused_lookup": "lpm_kernel",
                   "mxu_first_match": "mxu_first_match_kernel",
                   "ml_score": "ml_score_kernel"}
+PATH_KERNELS.update({f"{p}+tnt": k + ("ml_score",)
+                     for p, k in list(PATH_KERNELS.items())
+                     if "+" not in p})
 CHAIN_K = 8           # sub-batches of phase 4c's process_packed_chain
 
 RESULT_FIELDS = ("disp", "tx_if", "node_id", "next_hop", "drop_cause",
                  "established", "dnat_applied", "snat_applied",
                  "ml_flagged", "ml_scores")
 STATE_FIELDS = tuple(SESSION_FIELDS) + ("fib_ecmp_c",)
+OVL_FIELDS = ("ovl_encap", "ovl_vni")
 
 
 def say(*parts) -> None:
@@ -266,13 +316,15 @@ def slice_config(n_rules: int = 10240, sess_slots: int = 1 << 20,
         classifier="pallas")
 
 
-def global_rules(n: int):
+def global_rules(n: int, svc: bool = False):
     """The gen-policy.py shape (bench.py ``build_rules``): /24 CIDR
     blocks x ports with every 6th rule a deny, then a permit of the
-    service backends' port and the terminal deny-all; ``n`` rules."""
+    service backends' port (with ``svc`` also of the service-VIP
+    backends', as overlay_bench permits its VIP traffic) and the
+    terminal deny-all; ``n`` rules."""
     rules = []
     i = 0
-    while len(rules) < n - 2:
+    while len(rules) < n - 2 - svc:
         block = i % 1000
         port = 8000 + (i // 1000) % 20
         net = ipaddress.ip_network(
@@ -284,6 +336,10 @@ def global_rules(n: int):
     rules.append(ContivRule(
         action=Action.PERMIT, protocol=Protocol.TCP, dest_port=80,
         dest_network=ipaddress.ip_network("10.1.1.0/24")))
+    if svc:
+        rules.append(ContivRule(
+            action=Action.PERMIT, protocol=Protocol.TCP, dest_port=80,
+            dest_network=ipaddress.ip_network(SVC_BACKEND_NET)))
     rules.append(ContivRule(action=Action.DENY))
     return rules
 
@@ -310,10 +366,14 @@ def pod_of(host: np.ndarray) -> np.ndarray:
     return host % N_PODS
 
 
-def stage(dp: Dataplane, n_rules: int, n_nodes: int):
+def stage(dp: Dataplane, n_rules: int, n_nodes: int, ecmp: bool = False,
+          svc: bool = False):
     """Stage the slice on ``dp`` and swap it in. Returns (uplink, pods).
     Routes: the pod /24, 250 pod /32s, ``n_nodes`` per-node /24s and an
-    SNAT default route; one ClusterIP VIP with 100 weighted backends."""
+    SNAT default route; one ClusterIP VIP with 100 weighted backends.
+    ``ecmp``: the per-node /24s resolve through ECMP group 0 of the 8
+    peer VTEPs (bench.py's 8-member group); ``svc``: the global table
+    also permits the service-VIP backends (``global_rules``)."""
     up = dp.add_uplink()
     dp.add_host_interface()
     pods = [dp.add_pod_interface(("default", f"pod{i}"))
@@ -324,15 +384,17 @@ def stage(dp: Dataplane, n_rules: int, n_nodes: int):
         slot = dp.alloc_table_slot(table)
         b.set_local_table(slot, local_rules(i, dp.config.max_rules))
         dp.assign_pod_table(("default", f"pod{i}"), table)
-    b.set_global_table(global_rules(n_rules))
+    b.set_global_table(global_rules(n_rules, svc))
     b.add_route("10.1.1.0/24", pods[0], Disposition.LOCAL)
     for h in range(1, 251):
         b.add_route(f"10.1.1.{h}/32", pods[int(pod_of(np.int64(h)))],
                     Disposition.LOCAL)
+    if ecmp:
+        b.set_nh_group(0, [(v, up, 2 + k) for k, v in enumerate(PEER_VTEPS)])
     for n in range(n_nodes):
         b.add_route(f"10.{2 + n // 256}.{n % 256}.0/24", up,
                     Disposition.REMOTE, next_hop=ip4("192.168.0.0") + n,
-                    node_id=n + 2)
+                    node_id=n + 2, group=0 if ecmp else None)
     b.add_route("0.0.0.0/0", up, Disposition.REMOTE,
                 next_hop=ip4("192.168.255.254"), snat=True)
     b.set_nat_mapping(
@@ -386,12 +448,17 @@ def reply_traffic(snap: dict, pods, to: str = "all") -> dict:
 
 
 def snapshot(res) -> dict:
-    """Every StepResult field and StepStats counter as numpy."""
+    """Every StepResult field and StepStats counter as numpy (with the
+    overlay on, its outer headers, encap mask and wire VNI too)."""
     out = {f"pkts.{f}": getattr(res.pkts, f).cpu().numpy()
            for f in PacketVector._fields}
     out.update({f: getattr(res, f).cpu().numpy() for f in RESULT_FIELDS})
     out.update({f"stats.{f}": getattr(res.stats, f).cpu().numpy()
                 for f in res.stats._fields})
+    if res.ovl_outer is not None:
+        out.update({f"ovl_outer.{f}": getattr(res.ovl_outer, f).cpu().numpy()
+                    for f in PacketVector._fields})
+        out.update({f: getattr(res, f).cpu().numpy() for f in OVL_FIELDS})
     return out
 
 
@@ -484,13 +551,16 @@ class Errors:
                                      f"its plain version (max |err| {err})")
 
 
-def sess_case(rng, p: int, nb: int, w: int, dev, misalign: bool = False):
+def sess_case(rng, p: int, nb: int, w: int, dev, misalign: bool = False,
+              tnt=None):
     """Header columns (addresses with the top bit set, a quarter of the
     packets with src == dst, half of those with sport > dport) and
     random [nb, w] session columns with the reply key of every third
     packet planted in its home bucket under both bucket hashes (half of
     the plants stale at now = 1000, max_age = 200). ``misalign``: the
-    columns start 4 bytes off a 16-byte boundary."""
+    columns start 4 bytes off a 16-byte boundary. ``tnt``: (kt, base,
+    mask) CPU tensors; the home buckets are then the key tenants'
+    slices."""
     u = lambda n: rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(  # noqa
         np.uint32)
     src, dst = u(p) | np.uint32(1 << 31), u(p)
@@ -508,7 +578,7 @@ def sess_case(rng, p: int, nb: int, w: int, dev, misalign: bool = False):
     tm = rng.integers(0, 1000, (nb, w)).astype(np.int32)
     for sym in (False, True):
         b = session._reverse_bucket(*hdr, session._reverse_keys(*hdr), nb,
-                                    sym).numpy()
+                                    sym, tnt).numpy()
         for i in range(int(sym), p, 6):
             ww, bb = int(rng.integers(0, w)), b[i]
             valid[bb, ww] = 1
@@ -523,6 +593,29 @@ def sess_case(rng, p: int, nb: int, w: int, dev, misalign: bool = False):
         col.copy_(torch.from_numpy(x))
         out.append(col)
     return [h.to(dev) for h in hdr] + out
+
+
+def tnt_slices(rng, p: int, nb: int, n_t: int = 8):
+    """(kt [p], base [T], mask [T]) CPU tensors of T tenants' session
+    slices, allocated as the builder allocates them: tenants 1, 2, 5
+    and 6 sliced from the top (nb/8, nb/16, one bucket, nb/32 where each
+    fits), the rest sharing the unsliced residual's largest power of
+    two. Each packet's key tenant at random, the first packet's 0 and
+    the last's T - 1."""
+    base = np.zeros(n_t, np.int32)
+    mask = np.zeros(n_t, np.int32)
+    cursor, sliced = nb, set()
+    for tid, size in zip((1, 2, 5, 6), (nb >> 3, nb >> 4, 1, nb >> 5)):
+        if size and cursor - size > 0:
+            cursor -= size
+            base[tid], mask[tid] = cursor, size - 1
+            sliced.add(tid)
+    residual = (1 << (cursor.bit_length() - 1)) - 1
+    for tid in set(range(n_t)) - sliced:
+        mask[tid] = residual
+    kt = rng.integers(0, n_t, p).astype(np.int32)
+    kt[0], kt[-1] = 0, n_t - 1
+    return tuple(torch.from_numpy(a) for a in (kt, base, mask))
 
 
 def _boundaries(rng, size: int, n: int, signed: bool) -> np.ndarray:
@@ -714,8 +807,18 @@ ML_VARIANTS = ("random", "zero", "single", "thresh-min", "thresh-max",
 I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
 
 
+# per-tenant ML modes and thresholds of ``ml_case``'s tenant form: each
+# mode (inherit, off, score, enforce) with the inherit sentinel and with
+# overrides at both ends of int32
+TNT_ML_MODES = (0, 1, 2, 3, 0, 3, 2, 1)
+TNT_ML_THRESH = (mlscore.ML_TNT_THRESH_INHERIT, mlscore.ML_TNT_THRESH_INHERIT,
+                 -50, mlscore.ML_TNT_THRESH_INHERIT, 0, 100,
+                 (1 << 31) - 1, -(1 << 31) + 1)
+
+
 def ml_case(rng, p: int, dev, kind: str = "mlp", variant: str = "random",
-            hidden: int = 16, trees: int = 4, depth: int = 3):
+            hidden: int = 16, trees: int = 4, depth: int = 3,
+            tenants: bool = False):
     """``ml_stage``'s arguments: model planes (a namespace of the
     ``glb_ml_*`` tensors), header columns with every edge the features
     see (addresses with the top bit set, ports past 16 bits, negative
@@ -726,7 +829,10 @@ def ml_case(rng, p: int, dev, kind: str = "mlp", variant: str = "random",
     INT32_MAX; ``wrap``: full-range int32 biases and leaf votes (the sums
     wrap), shifts of -1, 31, 32 and feature indices off the vector;
     ``mark`` / ``drop`` / ``ratelimit`` / ``mirror``: that action, with
-    ``rl_shift`` 1 (ratelimit also 31 and 32 by seed)."""
+    ``rl_shift`` 1 (ratelimit also 31 and 32 by seed). ``tenants``: the
+    planes also hold the per-tenant vectors of ``TNT_ML_MODES`` /
+    ``TNT_ML_THRESH``, and a sixth value is the [P] tenant ids (the
+    first 0, the last T - 1)."""
     full = (I32_MIN, I32_MAX + 1)
     w = dict(
         glb_ml_w1=rng.integers(-128, 128, (18, hidden)).astype(np.int8),
@@ -778,6 +884,9 @@ def ml_case(rng, p: int, dev, kind: str = "mlp", variant: str = "random",
         w["glb_ml_rl_shift"] = np.int32(rng.choice([1, 31, 32])
                                         if variant == "ratelimit" else 1)
         w["glb_ml_thresh"] = np.int32(rng.integers(-200, 200))
+    if tenants:
+        w["glb_ml_tnt_mode"] = np.array(TNT_ML_MODES, np.int32)
+        w["glb_ml_tnt_thresh"] = np.array(TNT_ML_THRESH, np.int32)
     planes = type("MlPlanes", (), {f: torch.from_numpy(np.array(a)).to(dev)
                                    for f, a in w.items()})
     u = lambda: rng.integers(0, 1 << 32, p, dtype=np.uint64).astype(  # noqa
@@ -793,9 +902,14 @@ def ml_case(rng, p: int, dev, kind: str = "mlp", variant: str = "random",
     est = rng.random(p) < 0.4
     age = np.where(est, rng.integers(-20, 400, p), 0).astype(np.int32)
     alive = rng.random(p) < 0.9
-    return (planes, packet_vector_from_numpy(cols, dev),
-            torch.from_numpy(alive).to(dev), torch.from_numpy(est).to(dev),
-            torch.from_numpy(age).to(dev))
+    out = (planes, packet_vector_from_numpy(cols, dev),
+           torch.from_numpy(alive).to(dev), torch.from_numpy(est).to(dev),
+           torch.from_numpy(age).to(dev))
+    if not tenants:
+        return out
+    tid = rng.integers(0, len(TNT_ML_MODES), p).astype(np.int32)
+    tid[0], tid[-1] = 0, len(TNT_ML_MODES) - 1
+    return out + (torch.from_numpy(tid).to(dev),)
 
 
 def check_ml_kernel(dev, errors: Errors, seed: int) -> None:
@@ -821,6 +935,58 @@ def check_ml_kernel(dev, errors: Errors, seed: int) -> None:
             say(f"check ml_score {what}: exact, {int(want[1].sum())} "
                 f"flagged, {int(want[2].sum())} drop requests")
     say(f"check ml_score: {len(cases)} cases exact")
+
+
+def check_tenant_kernels(dev, errors: Errors, seed: int,
+                         sess_buckets: int) -> None:
+    """The tenant forms on the card against their plain versions:
+    ``sess_probe_ways`` with the key tenants' slices (``tnt_slices``:
+    mixed slices, the unsliced residual, kt 0 and T - 1, keys of
+    differing tenants) on both hashes at W = 1, 2, 4, 16 and P = 1, 33,
+    256, 4,095 and 4,096 (the slice's 2^18 buckets at the last three),
+    the 16-byte path and the scalar one; and ``ml_score`` with a tenant
+    id per packet (every mode, the inherit sentinel, overrides) for both
+    kinds at P = 1, 33, 256, 4,095 and 4,096."""
+    rng = np.random.default_rng(seed + 29)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    n_cases = 0
+    for p, nb, w, misalign in (
+            (1, 1, 1, False), (33, 32, 2, False), (100, 64, 4, True),
+            (64, 16, 16, False), (VEC, sess_buckets, 4, False),
+            (BIG_VEC - 1, sess_buckets, 4, False),
+            (BIG_VEC, sess_buckets, 4, False)):
+        tnt = tnt_slices(rng, p, nb)
+        args = sess_case(rng, p, nb, w, dev, misalign, tnt)
+        dtnt = tuple(t.to(dev) for t in tnt)
+        for sym in (False, True):
+            now = torch.tensor(1000, dtype=torch.int32, device=dev)
+            age = torch.tensor(200, dtype=torch.int32, device=dev)
+            got = session.sess_probe_ways(*args, now, age, sym=sym,
+                                          tnt=dtnt)
+            want = session.sess_probe_reverse_plain(*args, 1000, 200,
+                                                    sym=sym, tnt=dtnt)
+            sync()
+            what = (f"tenant form P={p} NB={nb} W={w}"
+                    f"{' misaligned' * misalign} sym={int(sym)}")
+            errors.hold("sess_probe_ways", got, want, what)
+            n_cases += 1
+            say(f"check sess_probe_ways {what}: exact, "
+                f"{int(want[0].sum())} hits, "
+                f"{len(set(tnt[0].tolist()))} key tenants")
+    for p in (1, 33, VEC, BIG_VEC - 1, BIG_VEC):
+        for kind in ("mlp", "forest"):
+            for variant in ("random", "thresh-min", "drop", "ratelimit"):
+                *args, tid = ml_case(rng, p, dev, kind, variant,
+                                     tenants=True)
+                got = mlscore.ml_stage(*args, kind=kind, tid=tid)
+                want = mlscore.ml_stage_plain(*args, kind=kind, tid=tid)
+                sync()
+                errors.hold("ml_score", got, want,
+                            f"tid form P={p} {kind} {variant}")
+                n_cases += 1
+        say(f"check ml_score tid form P={p}: exact ({int(want[1].sum())} "
+            f"flagged, {int(want[2].sum())} drop requests, last case)")
+    say(f"check tenant forms: {n_cases} cases exact")
 
 
 def check_kernels(dev, errors: Errors, seed: int, n_rules: int,
@@ -925,6 +1091,7 @@ def check_kernels(dev, errors: Errors, seed: int, n_rules: int,
         say(f"check mxu_first_match P={p} R'={r} {kind}: exact, {hits} "
             f"matched, {torch.unique(want).numel()} distinct columns")
     check_ml_kernel(dev, errors, seed)
+    check_tenant_kernels(dev, errors, seed, sess_buckets)
 
 
 # --- the kernels' inputs on the main path, and their bounds -------------
@@ -968,18 +1135,25 @@ def mxu_bound(*args, tc_rate: float = TC_INT8_OPS):
                  tc_rate)
 
 
-def sess_bound(args):
+def sess_bound(args, tnt=None):
     """Header columns in, the distinct home buckets' W ways of six
     columns and max_age, found (1 B) and slot (4 B) out; ~20 integer
-    operations a packet for the key and the hash, ~12 a way."""
+    operations a packet for the key and the hash, ~12 a way. ``tnt``
+    (the tenant form): the key tenants in too, the base and mask entries
+    of the tenants present, the sliced buckets, ~4 operations more a
+    packet."""
     hdr, cols = args[:5], args[5:11]
     nb, ways = cols[0].shape
     p = hdr[0].shape[0]
     b = session._reverse_bucket(*hdr, session._reverse_keys(*hdr), nb,
-                                False)
+                                False, tnt)
     buckets = torch.unique(b).numel()
-    return bound(p * 5 * 4 + buckets * ways * 6 * 4 + 4 + p * 5,
-                 p * (20 + 12 * ways))
+    extra_bytes = extra_ops = 0
+    if tnt is not None:
+        extra_bytes = p * 4 + torch.unique(tnt[0]).numel() * 8
+        extra_ops = p * 4
+    return bound(p * 5 * 4 + buckets * ways * 6 * 4 + 4 + p * 5
+                 + extra_bytes, p * (20 + 12 * ways) + extra_ops)
 
 
 def _bisect_visits(bnd, t, n, vals, signed: bool):
@@ -1113,13 +1287,22 @@ def time_graph(fn, per_graph: int = 20, replays: int = 10) -> float:
     return a.elapsed_time(b) / (replays * per_graph)
 
 
+def _process(dp: Dataplane, vec, now: int):
+    """``dp.process`` of a PacketVector, or of a (PacketVector, sidecar
+    kwargs) pair (the overlay's inner header and VNI)."""
+    if isinstance(vec, PacketVector):
+        return dp.process(vec, now=now)
+    return dp.process(vec[0], now=now, **vec[1])
+
+
 def time_process(dp: Dataplane, vecs, steps: int, now: int, tier=None):
     """Median device ms (CUDA events around each call) and median host
-    wall ms per synchronised ``process`` step, cycling through ``vecs``;
-    with ``tier``, every timed step must ride it (1: the fast tier, 0:
-    the full chain)."""
+    wall ms per synchronised ``process`` step, cycling through ``vecs``
+    (each a PacketVector or a pair with its sidecar, ``_process``); with
+    ``tier``, every timed step must ride it (1: the fast tier, 0: the
+    full chain)."""
     for k in range(4):
-        dp.process(vecs[k % len(vecs)], now=now)
+        _process(dp, vecs[k % len(vecs)], now)
     torch.cuda.synchronize()
     dev_ms, wall_ms = [], []
     for k in range(steps):
@@ -1127,7 +1310,7 @@ def time_process(dp: Dataplane, vecs, steps: int, now: int, tier=None):
         b = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         a.record()
-        res = dp.process(vecs[k % len(vecs)], now=now + 1 + k)
+        res = _process(dp, vecs[k % len(vecs)], now + 1 + k)
         b.record()
         torch.cuda.synchronize()
         wall_ms.append((time.perf_counter() - t0) * 1e3)
@@ -1149,16 +1332,23 @@ def time_steps(dp: Dataplane, up: int, pods, n: int, steps: int,
     return (*time_process(dp, vecs, steps, now), fwd, rep)
 
 
-# the step's layers, as the functions pipeline_step calls
+# the step's layers, as the functions pipeline_step calls (with the
+# stages of phase 4e: the decap, the tenant stage and its key tenants,
+# the token bucket, the service lookup, the encap, the accounting)
 STAGES = ((graph, ("_ingress", "session_lookup_reverse_idx",
                    "session_batch_summary", "nat44_dnat_match",
                    "session_touch", "nat44_reverse", "nat44_touch",
                    "nat44_dnat", "nat44_snat", "session_insert",
-                   "nat44_record", "_finish_step", "acl_classify_local")),
+                   "nat44_record", "_finish_step", "acl_classify_local",
+                   "vxlan_decap_step", "_tenant_eval", "tenant_limit",
+                   "vxlan_encap", "tnt_account", "ml_stage",
+                   "tel_flow_update", "session_sweep")),
           (acl_bv, ("acl_classify_global_pallas",
                     "acl_classify_local_pallas")),
           (acl_mxu, ("acl_classify_global_mxu",)),
-          (lpm, ("fib_lookup_lpm_fused",)))
+          (lpm, ("fib_lookup_lpm_fused",)),
+          (derive, ("key_tenant",)),
+          (nat44, ("_svc_lookup",)))
 
 
 @contextlib.contextmanager
@@ -1198,13 +1388,13 @@ def profile_steps(dp: Dataplane, vecs, steps: int, now: int,
 
     with stage_spans() if spans else contextlib.nullcontext():
         for k in range(4):
-            dp.process(vecs[k % 2], now=now)
+            _process(dp, vecs[k % 2], now)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for k in range(steps):
-                dp.process(vecs[k % 2], now=now + 1 + k)
+                _process(dp, vecs[k % 2], now + 1 + k)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
@@ -1273,22 +1463,25 @@ ML_READS = {
 }
 
 
-def ml_bound(p: int, kind: str, planes):
+def ml_bound(p: int, kind: str, planes, tid=None):
     """Header columns (7 int32), established and alive (1 B each) and
     the age (int32) in; the model planes and scalars the kind reads, at
     their own element sizes (int8 W1 and w2); scores (int32), flagged
     and drop (1 B each) out. Operations: 2 per multiply-add (P x (18 H
     + H) for the MLP; the forest's P x T x D selects of 18 compares
     each), and ~60 a packet for the features, the hash and the
-    policy."""
+    policy. ``tid`` (the tid form): the tenant ids in too, the mode and
+    threshold of the tenants present, ~6 operations more a packet."""
     model = sum(getattr(planes, f).numel() * getattr(planes, f).element_size()
                 for f in ML_READS[kind])
+    if tid is not None:
+        model += p * 4 + torch.unique(tid).numel() * 8
     hidden = planes.glb_ml_w1.shape[1]
     trees, depth = planes.glb_ml_f_feat.shape
     nbytes = p * (7 * 4 + 1 + 4 + 1) + model + p * (4 + 1 + 1)
     per = (2 * (18 * hidden + hidden) if kind == "mlp"
            else trees * depth * (2 * 18 + 4) + trees)
-    return bound(nbytes, p * (per + 60))
+    return bound(nbytes, p * (per + 60 + (6 if tid is not None else 0)))
 
 
 def ml_kernel_times(dp: Dataplane, cols: dict, n: int, errors: Errors,
@@ -1342,6 +1535,51 @@ def ml_kernel_times(dp: Dataplane, cols: dict, n: int, errors: Errors,
             + (f", torch._int_mm [{n}, 24] x [24, 16] "
                f"{row['library_ms']:.5f} ms" if kind == "mlp" else "")
             + ", bit-exact")
+    return out
+
+
+def tnt_kernel_times(dp: Dataplane, rep: dict, n: int, errors: Errors,
+                     now: int):
+    """The tenant forms at phase 4e's inputs: ``sess_probe_ways`` on a
+    reply vector's header with its key tenants and the live slice
+    planes, and ``ml_score`` (the trained MLP, as staged) with the
+    vector's billing tenants and the live per-tenant vectors, each
+    against its plain version: kernel ms (graph replay), the eager call,
+    the plain version, the bound (``sess_bound`` / ``ml_bound`` with the
+    tenant inputs)."""
+    t = dp.tables
+    dev = dp.device
+    pk = packet_vector_from_numpy(rep, dev)
+    tnt = (key_tenant(t, pk.dst_ip, pk.src_ip), t.tnt_sess_base,
+           t.tnt_sess_mask)
+    sess = (*pk.five_tuple, *session._columns(t),
+            torch.tensor(now, dtype=torch.int32, device=dev), t.sess_max_age)
+    tid = tenant_ids(t, pk)
+    age = (torch.arange(n, device=dev, dtype=torch.int32) * 7) % 300
+    ml = (t, pk, pk.valid, pk.valid, age)
+    cases = {
+        "sess_probe_ways.tenant": (
+            lambda: session.sess_probe_ways(*sess, tnt=tnt),
+            lambda: session.sess_probe_reverse_plain(*sess, tnt=tnt),
+            sess_bound(sess, tnt)),
+        "ml_score.tid": (
+            lambda: mlscore.ml_stage(*ml, kind="mlp", tid=tid),
+            lambda: mlscore.ml_stage_plain(*ml, kind="mlp", tid=tid),
+            ml_bound(n, "mlp", t, tid)),
+    }
+    out = {}
+    for name, (kern, plain, (b_ms, b_by)) in cases.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        errors.hold(name.split(".")[0], got, want, f"{name} main-path P={n}")
+        row = dict(ms=time_graph(kern), call_ms=time_eager(kern, TIMED_STEPS),
+                   plain_ms=time_eager(plain, TIMED_STEPS), bound_ms=b_ms,
+                   bound_by=b_by, key_tenants=torch.unique(tnt[0]).numel())
+        out[(name, n)] = row
+        say(f"kernel {name} P={n}: {row['ms']:.5f} ms (graph replay), "
+            f"{row['call_ms']:.5f} ms per eager call, plain "
+            f"{row['plain_ms']:.5f} ms, bound {b_ms:.6f} ms ({b_by}), "
+            f"{row['key_tenants']} tenants, bit-exact")
     return out
 
 
@@ -1783,6 +2021,440 @@ def ml_tel_path(cfg: DataplaneConfig, path: str, n_rules: int,
     return gpu, up, pods, launches, summary
 
 
+# --- phase 4e: tenancy, the overlay, service VIPs and ECMP on the slice --
+
+
+def tnt_ovl_config(cfg: DataplaneConfig) -> DataplaneConfig:
+    """Phase 4d's configuration with tenancy on at the reference's
+    defaults (8 tenants, 64 prefix slots), the VXLAN overlay, 64 service
+    VIP rows of 8 backend ways (overlay_bench's) and 8 ECMP groups of 8
+    ways (bench.py's)."""
+    return ml_slice_config(cfg)._replace(
+        tenancy="on", overlay="vxlan", svc_vips=64, svc_backend_ways=8,
+        fib_ecmp_groups=8, fib_ecmp_ways=8)
+
+
+def svc_vip(v: int) -> int:
+    return ip4(f"10.96.{1 + v // 250}.{2 + v % 250}")
+
+
+# tenant 4's token bucket: below its offered load at P = 4,096 (about
+# 900 of its packets a vector, one vector a tick), so DROP_TENANT fires
+TNT4_RATE, TNT4_BURST = 64, 256
+# tenant 2's session and NAT slices (of 2^18 buckets each)
+TNT2_BUCKETS = 1024
+
+
+def stage_tnt_ovl(dp: Dataplane, n_rules: int, n_nodes: int, model):
+    """``stage`` with the node /24s through ECMP group 0 and the service
+    backends permitted, then the overlay (the VTEP, the underlay /24,
+    16 remote /24s behind the 8 peer VTEPs), 48 service VIPs x 4
+    backends behind a pod route, the four tenants and ``model``."""
+    up, pods = stage(dp, n_rules, n_nodes, ecmp=True, svc=True)
+    b = dp.builder
+    dp.set_vtep(VTEP)
+    b.add_route("192.168.16.0/24", up, Disposition.REMOTE)
+    for x in range(16):
+        b.add_route(f"10.250.{x}.0/24", up, Disposition.REMOTE,
+                    next_hop=PEER_VTEPS[x % 8], node_id=2 + x)
+    b.add_route(SVC_BACKEND_NET, pods[0], Disposition.LOCAL)
+    for v in range(N_VIPS):
+        b.set_service(svc_vip(v), 80, 6, [
+            (ip4(f"10.200.{v}.10") + j, 80, 1)
+            for j in range(N_SVC_BACKENDS)])
+    b.set_tenant(1, prefixes=[TENANT_NETS[1]], vni=100,
+                 ml_thresh=(1 << 31) - 1)
+    b.set_tenant(2, prefixes=[TENANT_NETS[2]], vni=200,
+                 sess_buckets=TNT2_BUCKETS, nat_buckets=TNT2_BUCKETS)
+    b.set_tenant(3, prefixes=[TENANT_NETS[3]], vni=300, ml_mode="score")
+    b.set_tenant(4, prefixes=[TENANT_NETS[4]], vni=400, rate=TNT4_RATE,
+                 burst=TNT4_BURST)
+    b.set_ml_model(model)
+    dp.swap()
+    return up, pods
+
+
+def tnt_ovl_traffic(n: int, up: int, seed: int, n_nodes: int,
+                    tenant=None):
+    """A forward vector of phase 4e: ``ml_forward_traffic`` (1/8 to the
+    ClusterIP VIP, 1/8 with the attack profile) with another 1/8 to the
+    service VIPs (dport 80) and 1/8 to the remote pods' /24s (through
+    the ECMP group; the rule blocks' ports, so the table permits them);
+    ``tenant``: every source in that tenant's /16. A quarter arrives as
+    VXLAN frames from the peer VTEPs: the outer header UDP to this
+    node's VTEP, the inner sidecar the packet, the VNI its source
+    tenant's (one in 16 an unknown VNI). Returns (outer, inner, vni)."""
+    cols = ml_forward_traffic(n, up, seed)
+    rng = np.random.default_rng(seed + 2)
+    if tenant is not None:
+        cols["src_ip"] = ((cols["src_ip"] & np.uint32(0xFFFF))
+                          | np.uint32(ip4(TENANT_NETS[tenant].split("/")[0])))
+    pick = rng.random(n)
+    to_svc = (pick >= 0.5) & (pick < 0.625)
+    to_remote = (pick >= 0.625) & (pick < 0.75)
+    vip = np.array([svc_vip(v) for v in range(N_VIPS)], np.uint32)
+    cols["dst_ip"] = np.where(to_svc, vip[rng.integers(0, N_VIPS, n)],
+                              cols["dst_ip"]).astype(np.uint32)
+    cols["dport"] = np.where(to_svc, 80, cols["dport"]).astype(np.int32)
+    node = rng.integers(0, n_nodes, n)
+    remote = ((10 << 24) | ((2 + node // 256) << 16) | ((node % 256) << 8)
+              | rng.integers(2, 250, n)).astype(np.uint32)
+    cols["dst_ip"] = np.where(to_remote, remote, cols["dst_ip"]).astype(
+        np.uint32)
+    framed = rng.random(n) < 0.25
+    outer = {k: v.copy() for k, v in cols.items()}
+    outer["src_ip"] = np.where(
+        framed, np.array(PEER_VTEPS, np.uint32)[rng.integers(0, 8, n)],
+        cols["src_ip"]).astype(np.uint32)
+    outer["dst_ip"] = np.where(framed, np.uint32(VTEP),
+                               cols["dst_ip"]).astype(np.uint32)
+    outer["proto"] = np.where(framed, 17, cols["proto"]).astype(np.int32)
+    outer["sport"] = np.where(framed, 49152 + rng.integers(0, 16384, n),
+                              cols["sport"]).astype(np.int32)
+    outer["dport"] = np.where(framed, 4789, cols["dport"]).astype(np.int32)
+    outer["pkt_len"] = np.where(framed, cols["pkt_len"] + 50,
+                                cols["pkt_len"]).astype(np.int32)
+    tenant_of = ((cols["src_ip"] >> np.uint32(16)) & np.uint32(0xFF)
+                 ).astype(np.int64) - 15
+    vni = np.where(rng.random(n) < 1 / 16, UNKNOWN_VNI, 100 * tenant_of)
+    vni = np.where(framed, vni, -1).astype(np.int32)
+    return outer, cols, vni
+
+
+def tnt_ovl_pv(dp: Dataplane, outer, inner, vni):
+    """(outer PacketVector, the sidecar kwargs) on ``dp``'s device."""
+    return (packet_vector_from_numpy(outer, dp.device),
+            dict(ovl_inner=packet_vector_from_numpy(inner, dp.device),
+                 ovl_vni=torch.from_numpy(vni).to(dp.device)))
+
+
+def apply_tnt_op(dp: Dataplane, op) -> dict:
+    """One recorded call of phase 4e on ``dp``; returns its snapshot."""
+    if op[0] == "tenant_ml":
+        dp.builder.set_tenant_ml(*op[1:])
+        dp.swap()
+        return {}
+    _, (outer, inner, vni), now = op
+    pkts, sidecar = tnt_ovl_pv(dp, outer, inner, vni)
+    return snapshot(dp.process(pkts, now=now, **sidecar))
+
+
+def plain_vec(cols: dict):
+    """A reply vector as phase 4e's op input: no VXLAN framing."""
+    n = cols["src_ip"].shape[0]
+    return cols, cols, np.full(n, -1, np.int32)
+
+
+def tnt_state_of(dp: Dataplane) -> dict:
+    return {f: getattr(dp.tables, f).cpu().numpy()
+            for f in STATE_FIELDS + tuple(TELEMETRY_FIELDS)
+            + tuple(TENANCY_STATE_FIELDS)}
+
+
+def tnt_snapshots(dp: Dataplane, now: int) -> dict:
+    """``tenant_snapshot`` and ``fib_snapshot`` as numpy, at the
+    clock ``now`` (the FIB's rung name left out: the CPU's differs)."""
+    dp._now = now
+    out = {}
+    for k, v in dp.tenant_snapshot().items():
+        if k != "tenants":
+            out[f"tenant.{k}"] = np.asarray(v)
+    fib = dp.fib_snapshot()
+    out["fib.ecmp_c"] = fib["ecmp_c"]
+    out["fib.members"] = np.array(
+        [[m["pkts"], len(m["ways"])] for g in sorted(fib["ecmp_groups"])
+         for m in fib["ecmp_groups"][g]], np.int64)
+    out["fib.routes"] = np.array([fib["routes"]])
+    return out
+
+
+def outside_slices(dp: Dataplane) -> dict:
+    """Every session and NAT row outside tenant 2's slices."""
+    t = dp.tables
+    out = {}
+    for prefix, base, nbk in (("sess_", t.tnt_sess_base, t.tnt_sess_mask),
+                              ("natsess_", t.tnt_nat_base, t.tnt_nat_mask)):
+        lo = int(base[2])
+        hi = lo + int(nbk[2]) + 1
+        for f in SESSION_FIELDS:
+            if f.startswith(prefix) and not f.endswith("_cursor"):
+                a = getattr(t, f).cpu().numpy()
+                out[f] = np.concatenate([a[:lo], a[hi:]])
+    return out
+
+
+def tnt_ovl_path(cfg: DataplaneConfig, path: str, n_rules: int,
+                 n_nodes: int, seed: int):
+    """Phase 4e on one path (module doc): three dataplanes staged alike
+    (captured and eager on the card, and the CPU), the run sequence
+    recorded on the captured one with the launch counters set to 0 just
+    before and read just after (and per call, for the per-tier gates),
+    then replayed on the others. Returns (captured dataplane, uplink,
+    pods, launches, summary, the P = 256 and 4,096 vectors)."""
+    t0 = time.perf_counter()
+    tcfg = tnt_ovl_config(cfg)
+    model = ml_models(seed)[0][1]
+    made = {}
+    for mode, graphs in (("captured", True), ("eager", False)):
+        dp = Dataplane(tcfg, graphs=graphs)
+        up, pods = stage_tnt_ovl(dp, n_rules, n_nodes, model)
+        made[mode] = dp
+    gpu = made["captured"]
+    if (gpu._tnt_mode, gpu._overlay, gpu._ml_mode) != ("on", "vxlan",
+                                                       "enforce"):
+        raise AssertionError(f"{path}+tnt: gates {gpu._tnt_mode} "
+                             f"{gpu._overlay} {gpu._ml_mode}")
+    say(f"staged {path}+tnt: 4 tenants, {N_VIPS} service VIPs x "
+        f"{N_SVC_BACKENDS}, ECMP group 0 of {len(PEER_VTEPS)} members, "
+        f"{gpu.builder.fib_route_count()} routes, VTEP {ip4_str(VTEP)}, in "
+        f"{time.perf_counter() - t0:.1f} s (two dataplanes)")
+    seed += 5  # the traffic's
+    ops, outs, deltas = [], [], []
+    now = 100
+    feeds = {}
+    for w in WRAPPERS.values():
+        w.launches = 0
+    _sync(gpu.device)
+    t1 = time.perf_counter()
+
+    def run(op):
+        before = {k: w.launches for k, w in WRAPPERS.items()}
+        ops.append(op)
+        outs.append(apply_tnt_op(gpu, op))
+        deltas.append({k: w.launches - before[k]
+                       for k, w in WRAPPERS.items()})
+        return outs[-1]
+
+    def round_(n, s):
+        nonlocal now
+        vec = tnt_ovl_traffic(n, up, seed + 7919 * s + n, n_nodes)
+        first = run(("process", vec, now))
+        now += 1
+        for to in ("forwarded", "dropped"):
+            rep = reply_traffic(first, pods, to)
+            run(("process", plain_vec(rep), now))
+            now += 1
+            if to == "forwarded":
+                feeds[n] = (vec, rep)
+
+    for n in (VEC, BIG_VEC):
+        round_(n, 0)
+    # the flood: fresh flows of tenant 2 fill its slices, and nothing
+    # outside them moves
+    rows = outside_slices(gpu)
+    occ = gpu.tenant_snapshot()["occupancy"]
+    flood = run(("process", tnt_ovl_traffic(BIG_VEC, up, seed + 11,
+                                            n_nodes, tenant=2), now))
+    now += 1
+    _sync(gpu.device)
+    assert_equal(outside_slices(gpu), rows, f"{path}+tnt flood")
+    occ2 = gpu.tenant_snapshot()["occupancy"]
+    if int(flood["stats.tnt_qfail"]) <= 0 or not np.array_equal(
+            np.delete(occ2, 2), np.delete(occ, 2)):
+        raise AssertionError(f"{path}+tnt flood: {flood['stats.tnt_qfail']}"
+                             f" slice failures, occupancy {occ} -> {occ2}")
+    # a tenant's ML override flips: table values, nothing captured
+    caps = sum(capture.capture_counts().values())
+    keys = set(gpu._programs)
+    run(("tenant_ml", 1, "inherit", None))
+    round_(VEC, 1)
+    if set(gpu._programs) != keys or sum(
+            capture.capture_counts().values()) != caps:
+        raise AssertionError(f"{path}+tnt: the set_tenant_ml swap built "
+                             f"a program")
+    _sync(gpu.device)
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    want = PATH_KERNELS[f"{path}+tnt"]
+    say(f"main path {path}+tnt: {len(ops)} calls on the card in "
+        f"{time.perf_counter() - t1:.2f} s; launches {launches}")
+    if any((launches[k] > 0) != (k in want) for k in WRAPPERS):
+        raise AssertionError(f"the {path}+tnt path launched {launches}, "
+                             f"expected exactly {want}")
+    # per call: the tenant forms on every tier, the FIB walked twice
+    # (nothing launches on the CPU, where the smoke is rehearsed)
+    tiers = set()
+    for op, out, d in zip(ops, outs, deltas):
+        if op[0] != "process":
+            continue
+        tier = int(out["stats.fastpath"])
+        tiers.add(tier)
+        if gpu.device.type == "cuda" and (
+                d["sess_probe_ways"] < 1 or d["ml_score"] != 1
+                or d["lpm_fused_lookup"] != 2):
+            raise AssertionError(f"{path}+tnt tier {tier} call launched "
+                                 f"{d}")
+    if tiers != ({0, 1} if path == "mxu" else {0}):
+        raise AssertionError(f"{path}+tnt ran tiers {tiers}")
+    steps = [o for o, op in zip(outs, ops) if op[0] == "process"]
+    fired = {f: int(sum(int(o[f"stats.{f}"]) for o in steps))
+             for f in ("tnt_limited", "drop_overlay", "ovl_decap",
+                       "ovl_encap", "dnat", "snat", "ml_flagged", "ml_drops",
+                       "tnt_qfail")}
+    causes = np.concatenate([o["drop_cause"] for o in steps])
+    fired["DROP_TENANT"] = int((causes == graph.DROP_TENANT).sum())
+    fired["DROP_OVERLAY"] = int((causes == graph.DROP_OVERLAY).sum())
+    # DNAT'd to a service backend (10.200.0.0/16)
+    fired["svc_dnat"] = int(sum(
+        (o["dnat_applied"] & (o["pkts.dst_ip"].view(np.uint32)
+                              >> np.uint32(16) == (10 << 8 | 200))).sum()
+        for o in steps))
+    ecmp = gpu.fib_snapshot()["ecmp_groups"][0]
+    fired["ecmp_members"] = sum(m["pkts"] > 0 for m in ecmp)
+    for f, v in fired.items():
+        if v <= (1 if f == "ecmp_members" else 0):
+            raise AssertionError(f"{path}+tnt: {f} = {v} ({fired})")
+    # the packed forms refuse the overlay (the reference's ValueError)
+    for call in (lambda: gpu.process_packed(packed_input_zeros(8)),
+                 lambda: gpu.process_packed_chain(packed_input_zeros(8)[None])):
+        try:
+            call()
+        except ValueError as e:
+            if "supports only the plain step form" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{path}+tnt: a packed form ran under "
+                                 f"the overlay")
+    # a probe moves no live plane
+    before = tnt_state_of(gpu)
+    vec = tnt_ovl_traffic(VEC, up, seed + 13, n_nodes)
+    gpu.probe(packet_vector_from_numpy(vec[0], gpu.device), now=now)
+    _sync(gpu.device)
+    assert_equal(tnt_state_of(gpu), before, f"{path}+tnt probe")
+    snaps = tnt_snapshots(gpu, now)
+
+    # captured against eager on the card, then the CPU replay
+    t1 = time.perf_counter()
+    for k, (op, out) in enumerate(zip(ops, outs)):
+        assert_equal(out, apply_tnt_op(made["eager"], op),
+                     f"{path}+tnt eager vs captured call {k} ({op[0]})")
+    assert_equal(tnt_state_of(made["eager"]), before,
+                 f"{path}+tnt eager vs captured final state")
+    assert_equal(tnt_snapshots(made["eager"], now), snaps,
+                 f"{path}+tnt eager vs captured snapshots")
+    t_eager = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cpu = Dataplane(tcfg, device="cpu", graphs=False)
+    stage_tnt_ovl(cpu, n_rules, n_nodes, model)
+    for k, (op, out) in enumerate(zip(ops, outs)):
+        assert_equal(apply_tnt_op(cpu, op), out,
+                     f"{path}+tnt CPU vs card call {k} ({op[0]})")
+    assert_equal(tnt_state_of(cpu), before, f"{path}+tnt final state")
+    assert_equal(tnt_snapshots(cpu, now), snaps, f"{path}+tnt snapshots")
+    summary = dict(calls=len(ops), fired=fired,
+                   launches_per_call=deltas, eager_s=t_eager,
+                   cpu_s=time.perf_counter() - t1,
+                   seconds=time.perf_counter() - t0)
+    say(f"tenancy+overlay {path}: {len(ops)} calls captured = eager = CPU "
+        f"replay, bit-exact (every StepResult field with the outer "
+        f"headers, every counter, the session/NAT/ECMP/tenancy/telemetry "
+        f"planes, tenant_snapshot and fib_snapshot); fired {fired}; the "
+        f"flood moved nothing outside tenant 2's slices; packed forms "
+        f"refused; probe moved nothing; {summary['seconds']:.1f} s")
+    return gpu, up, pods, launches, summary, feeds
+
+
+def four_stage_cost(ml_p: Dataplane, ml_m: Dataplane, tnt_p: Dataplane,
+                    tnt_m: Dataplane, up: int, pods, n_nodes: int, seed: int,
+                    now: int):
+    """The cost of tenancy, the overlay, service VIPs and ECMP: each path
+    with them on (phase 4e's dataplanes) against the same path with them
+    off (phase 4d's: the ML stage enforcing the trained MLP and telemetry
+    full on both sides), in turns (off, on, on, off, off, on), ms per
+    step and device operations per step. The overlay side takes the
+    framed forward vector with its sidecar, the other side its inner
+    headers; the pallas cells alternate it with the replies to all of
+    the overlay side's packets, the MXU full-chain cells take forward
+    vectors alone, the fast-tier cells each dataplane's replies that hit
+    a session. Returns ({cell: ...}, the clock after)."""
+    dev = tnt_p.device
+    cost = {}
+    for n in (VEC, BIG_VEC):
+        outer, inner, vni = tnt_ovl_traffic(n, up, seed + 977 + n, n_nodes)
+        on_fwd = tnt_ovl_pv(tnt_p, outer, inner, vni)
+        first = tnt_p.process(on_fwd[0], now=now, **on_fwd[1])
+        now += 1
+        rep = reply_traffic(snapshot(first), pods)
+        cells = [("pallas", None, ml_p, tnt_p)]
+        for tier, fast in (("full", 0), ("fast", 1)):
+            cells.append((f"mxu {tier}", fast, ml_m, tnt_m))
+        for name, fast, off_dp, on_dp in cells:
+            got = {}
+            for side, dp in (("off", off_dp), ("on", on_dp),
+                             ("on", on_dp), ("off", off_dp),
+                             ("off", off_dp), ("on", on_dp)):
+                fwd = (tnt_ovl_pv(dp, outer, inner, vni) if side == "on"
+                       else packet_vector_from_numpy(inner, dev))
+                if fast is None:
+                    vecs = [fwd, packet_vector_from_numpy(rep, dev)]
+                elif not fast:
+                    vecs = [fwd]
+                else:  # this dataplane's replies that hit a session
+                    res = _process(dp, fwd, now)
+                    own = reply_traffic(snapshot(res), pods, "forwarded")
+                    hit = dp.process(packet_vector_from_numpy(own, dev),
+                                     now=now + 1)
+                    own["flags"] = (own["flags"]
+                                    & hit.established.cpu().numpy()).astype(
+                                        np.int32)
+                    vecs = [packet_vector_from_numpy(own, dev)]
+                    now += 2
+                dev_ms, _ = time_process(dp, vecs, TIMED_STEPS, now + 1,
+                                         tier=fast)
+                now += TIMED_STEPS + 10
+                got.setdefault(side, []).append(dev_ms)
+                if len(got[side]) == 1:
+                    prof = profile_steps(dp, vecs * (3 - len(vecs)),
+                                         PROFILED_STEPS, now, spans=False)
+                    now += PROFILED_STEPS + 10
+                    got[f"{side}_ops"] = prof["device_ops_per_step"]
+            cell = dict(off_ms=float(np.mean(got["off"])),
+                        on_ms=float(np.mean(got["on"])),
+                        off_turns=got["off"], on_turns=got["on"],
+                        off_ops=got["off_ops"], on_ops=got["on_ops"])
+            cell["added_ms"] = cell["on_ms"] - cell["off_ms"]
+            cell["added_ops"] = cell["on_ops"] - cell["off_ops"]
+            cost[f"{name} P={n}"] = cell
+            say(f"stage cost tenancy+overlay+svc+ecmp {name} P={n}: on "
+                f"{cell['on_ms']:.4f} ms against off {cell['off_ms']:.4f} "
+                f"ms per step (+{cell['added_ms']:.4f}; turns on "
+                f"{[round(x, 4) for x in got['on']]}, off "
+                f"{[round(x, 4) for x in got['off']]}); device ops per "
+                f"step {cell['on_ops']:g} against {cell['off_ops']:g} "
+                f"(+{cell['added_ops']:g})")
+    return cost, now
+
+
+def four_stage_layers(ml_p: Dataplane, tnt_p: Dataplane, up: int, pods,
+                      n_nodes: int, seed: int, now: int):
+    """Where the four stages' time goes: the pallas path's steps with
+    them off (phase 4d's dataplane) and on (4e's) run eagerly (the
+    ``graphs`` switch flipped for the window) under ``profile_steps``
+    with every layer spanned, on a framed forward vector (the inner
+    headers on the off side) alternating with the replies to all its
+    packets. Returns ({"off|on P=n": profile}, the clock after)."""
+    dev = tnt_p.device
+    out = {}
+    for n in (VEC, BIG_VEC):
+        outer, inner, vni = tnt_ovl_traffic(n, up, seed + 1979 + n, n_nodes)
+        on_fwd = tnt_ovl_pv(tnt_p, outer, inner, vni)
+        first = tnt_p.process(on_fwd[0], now=now, **on_fwd[1])
+        rep = packet_vector_from_numpy(reply_traffic(snapshot(first), pods),
+                                       dev)
+        now += 1
+        for side, dp, fwd in (("off", ml_p, packet_vector_from_numpy(
+                inner, dev)), ("on", tnt_p, on_fwd)):
+            dp.graphs = False
+            try:
+                prof = profile_steps(dp, [fwd, rep], PROFILED_STEPS, now)
+            finally:
+                dp.graphs = True
+            now += PROFILED_STEPS + 10
+            out[f"{side} P={n}"] = prof
+            say(f"profile four stages {side} eager P={n}: "
+                f"{json.dumps(prof)}")
+    return out, now
+
+
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -1939,8 +2611,17 @@ def main(argv=None) -> int:
     ml_m, _, _, ml_m_launches, ml_sum_m = ml_tel_path(
         mcfg, "mxu", n_rules, n_nodes, args.seed)
     say(f"phase 4d: {time.perf_counter() - t4d:.1f} s")
+
+    # 4e. tenancy, the overlay, service VIPs and ECMP, on each path
+    t4e = time.perf_counter()
+    tnt_p, tnt_up, tnt_pods, tnt_launches, tnt_sum_p, tnt_feeds = \
+        tnt_ovl_path(cfg, "pallas", n_rules, n_nodes, args.seed)
+    tnt_m, _, _, tnt_m_launches, tnt_sum_m, _ = tnt_ovl_path(
+        mcfg, "mxu", n_rules, n_nodes, args.seed)
+    say(f"phase 4e: {time.perf_counter() - t4e:.1f} s")
     graphs = check_graphs({"pallas": [gpu, cap_p], "mxu": [gpu_m, cap_m],
-                           "pallas+ml": [ml_p], "mxu+ml": [ml_m]})
+                           "pallas+ml": [ml_p], "mxu+ml": [ml_m],
+                           "pallas+tnt": [tnt_p], "mxu+tnt": [tnt_m]})
     say(f"graphs: {len(graphs)} parts, each key captured once; every "
         f"kernel launched under capture is a node of its graph")
     for row in graphs:
@@ -2066,6 +2747,11 @@ def main(argv=None) -> int:
                 f"step {cell['on_ops']:g} against {cell['off_ops']:g} "
                 f"(+{cell['added_ops']:g})")
 
+    tnt_cost, now = four_stage_cost(ml_p, ml_m, tnt_p, tnt_m, tnt_up,
+                                    tnt_pods, n_nodes, args.seed, now)
+    tnt_layers, now = four_stage_layers(ml_p, tnt_p, tnt_up, tnt_pods,
+                                        n_nodes, args.seed, now)
+
     rows = []
     timed = {}
     for n in (VEC, BIG_VEC):
@@ -2127,6 +2813,8 @@ def main(argv=None) -> int:
             f"{mm8:.5f} ms (graph replay)")
         timed.update(ml_kernel_times(ml_p, feeds[n][1], n, errors,
                                      args.seed))
+        timed.update(tnt_kernel_times(tnt_p, tnt_feeds[n][1], n, errors,
+                                      now))
 
     for name, meta in KERNELS.items():
         main = timed[(name, VEC)]
@@ -2138,6 +2826,11 @@ def main(argv=None) -> int:
                    bound_by=main["bound_by"], library_ms=None,
                    shape=f"P={VEC}", call_ms=main["call_ms"],
                    at_4096=timed[(name, BIG_VEC)])
+        row["launches_tenancy_overlay"] = {
+            "pallas": tnt_launches[name], "mxu": tnt_m_launches[name]}
+        if name == "sess_probe_ways":
+            row["tenant_form"] = {f"P={n}": timed[("sess_probe_ways.tenant",
+                                                   n)] for n in (VEC, BIG_VEC)}
         if name == "bv_first_set":
             row["local"] = {f"P={n}": timed[("bv_first_set.local", n)]
                             for n in (VEC, BIG_VEC)}
@@ -2150,13 +2843,21 @@ def main(argv=None) -> int:
                        library_ms=main["library_ms"],
                        library="torch._int_mm [P, 24] x [24, 16] (layer 1)",
                        forest={f"P={n}": timed[("ml_score.forest", n)]
-                               for n in (VEC, BIG_VEC)})
+                               for n in (VEC, BIG_VEC)},
+                       tid_form={f"P={n}": timed[("ml_score.tid", n)]
+                                 for n in (VEC, BIG_VEC)})
         else:
             row["launches_mxu_path"] = m_launches[name]
         rows.append(row)
+    for summ in (tnt_sum_p, tnt_sum_m):
+        summ.pop("launches_per_call")
     say(json.dumps({"steps": steps, "mxu_steps": mxu_steps,
                     "stage_cost": stage_cost,
+                    "tenancy_overlay_cost": tnt_cost,
+                    "tenancy_overlay_layers": tnt_layers,
                     "ml_telemetry": {"pallas": ml_sum_p, "mxu": ml_sum_m},
+                    "tenancy_overlay": {"pallas": tnt_sum_p,
+                                        "mxu": tnt_sum_m},
                     "captures": graphs, "power": smi}))
     if any(n != 1 for n in capture.capture_counts().values()):
         raise AssertionError("the timing captured a key again")

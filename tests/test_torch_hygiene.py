@@ -9,12 +9,12 @@
   raise instead of running on the CPU.
 * On CPU tensors every kernel wrapper serves through its plain version:
   a CPU run of the fused-kernel rungs leaves each launch counter at 0.
-* Knobs that turn on a stage the port has not ported raise, and each
-  refusal names the ``ROADMAP.md`` Queue 1 item, number and title, that
-  ports it. The ML stage and telemetry are ported: their knobs
-  construct, and what of them is still refused (the tenant and sharded
-  forms of the ML stage, the telemetry ring rider, the ring form) names
-  its item.
+* Every stage knob is ported (the ML stage, telemetry, tenancy, the
+  overlay, service VIPs, ECMP groups): each constructs, and a bad value
+  raises the reference's ``ValueError`` naming the knob. What is still
+  refused (the sharded session, NAT and ML forms, the telemetry ring
+  rider, the ring form, each also under the newly ported knobs) names
+  its ``ROADMAP.md`` Queue 1 item, number and title.
 
 Every quantity compared is an integer: the tolerance is exact equality.
 """
@@ -33,7 +33,6 @@ from vpp_tpu_torch.ops import mlscore as tml
 from vpp_tpu_torch.ops import session as tsess
 from vpp_tpu_torch.ops import telemetry as ttel
 from vpp_tpu_torch.pipeline import dataplane as tdp
-from vpp_tpu_torch.pipeline import graph as tgraph
 from vpp_tpu_torch.pipeline import tables as ttables
 from vpp_tpu_torch.pipeline import vector as tvector
 
@@ -67,7 +66,8 @@ def test_scan_sees_the_whole_package():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "dataplane.py", "session.py", "acl_bv.py",
             "acl_mxu.py", "lpm.py", "_cuda.py", "interop.py", "mlscore.py",
-            "telemetry.py", "model.py", "train.py"} <= names
+            "telemetry.py", "model.py", "train.py", "vxlan.py", "derive.py",
+            "sched.py"} <= names
     assert (ROOT / "vpp_tpu_torch" / "ml" / "model.py") in PORT_FILES
     assert all(p.exists() for p in PORT_FILES)
 
@@ -104,25 +104,28 @@ def test_default_device_is_the_card(monkeypatch):
     assert ttables.resolve_device(None) == torch.device("cuda")
 
 
-# knobs of the stages ported since: they construct, and a value the
-# reference refuses raises its ValueError naming the knob
-_PORTED_KNOBS = ("ml_stage", "telemetry")
+# the stage knobs, each with a value the reference refuses (its
+# ValueError names the knob)
+_BAD_VALUES = {"ml_stage": "bogus", "telemetry": "bogus", "tenancy": "bogus",
+               "overlay": "bogus", "svc_vips": 4097, "fib_ecmp_groups": 4097}
 
 
 @pytest.mark.parametrize("knob,value", [
     ("ml_stage", "enforce"), ("telemetry", "latency"), ("tenancy", "on"),
     ("overlay", "vxlan"), ("svc_vips", 4), ("fib_ecmp_groups", 2)])
 def test_unported_stages_refuse(knob, value):
+    """Every stage knob is ported: it constructs, its gate reads the
+    config (the ML stage stays off until a model is staged), and a bad
+    value raises the ValueError naming the knob."""
     cfg = ttables.DataplaneConfig(**dict(_SMALL, **{knob: value}))
-    if knob in _PORTED_KNOBS:
-        dp = tdp.Dataplane(cfg, device="cpu")
-        # the ML stage stays off until a model is staged
-        assert dp._ml_mode == "off" and dp._tel_mode == cfg.telemetry
-        with pytest.raises(ValueError, match=knob):
-            tdp.Dataplane(cfg._replace(**{knob: "bogus"}), device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdp.Dataplane(cfg, device="cpu")
+    dp = tdp.Dataplane(cfg, device="cpu")
+    assert dp._ml_mode == "off" and dp._tel_mode == cfg.telemetry
+    assert (dp._tnt_mode, dp._overlay) == (cfg.tenancy, cfg.overlay)
+    assert dp.tables.svc_vip_ip.shape[0] == max(cfg.svc_vips, 1)
+    assert dp.tables.fib_grp_n.shape[0] == max(cfg.fib_ecmp_groups, 1)
+    with pytest.raises(ValueError, match=knob):
+        tdp.Dataplane(cfg._replace(**{knob: _BAD_VALUES[knob]}),
+                      device="cpu")
 
 
 def _queue1_titles():
@@ -137,21 +140,11 @@ def _queue1_titles():
 def _refusal(kind, arg):
     """The NotImplementedError message of one remaining refusal."""
     with pytest.raises(NotImplementedError) as err:
-        if kind == "config":
-            knob, value = arg
-            tdp.Dataplane(ttables.DataplaneConfig(**dict(
-                _SMALL, **{knob: value})), device="cpu")
-        elif kind == "gate":
-            tgraph.make_pipeline_step(**{arg: "on"})
-        elif kind == "ml":
+        if kind == "ml":
             pkts = tvector.make_packet_vector([], n=8)
             t = tdp.Dataplane(ttables.DataplaneConfig(**_SMALL),
                               device="cpu").tables
-            if arg == "tid":
-                tml.ml_policy(t, pkts, pkts.valid, pkts.proto,
-                              tid=pkts.rx_if)
-            else:
-                tml.ml_score(t, pkts, pkts.valid, pkts.proto, shard=True)
+            tml.ml_score(t, pkts, pkts.valid, pkts.proto, shard=True)
         elif kind == "tel":
             dp = tdp.Dataplane(ttables.DataplaneConfig(**dict(
                 _SMALL, telemetry="full")), device="cpu")
@@ -159,37 +152,58 @@ def _refusal(kind, arg):
                 ttel.pack_tel_rider(dp.tables)
             else:
                 dp._program(False, "ring", (5, 8))
+        elif kind == "ring":
+            knob, value = arg
+            dp = tdp.Dataplane(ttables.DataplaneConfig(**dict(
+                _SMALL, **{knob: value})), device="cpu")
+            dp._program(False, "ring", (5, 8))
+        elif kind == "shard":
+            # the sharded forms of the tenant-sliced session and NAT
+            # paths (tenancy on)
+            from vpp_tpu_torch.ops import nat44 as tnat
+
+            pkts = tvector.make_packet_vector([], n=8)
+            t = tdp.Dataplane(ttables.DataplaneConfig(**dict(
+                _SMALL, tenancy="on")), device="cpu").tables
+            if arg == "nat44_reverse":
+                tnat.nat44_reverse(t, pkts, pkts.valid, 1, shard=True,
+                                   tnt=True)
+            elif arg == "nat44_record":
+                tnat.nat44_record(t, pkts, *pkts[:4], pkts.proto,
+                                  pkts.valid, 1, shard=True, tnt=True)
+            elif arg == "session_insert":
+                tsess.session_insert(t, pkts, pkts.valid, 1, shard=True,
+                                     tnt=True)
+            else:
+                tsess.session_lookup_reverse_idx(t, pkts, 1, shard=True,
+                                                 tnt=True)
         elif kind == "entry":
             dp = tdp.Dataplane(ttables.DataplaneConfig(**_SMALL),
                                device="cpu")
-            pkts = tvector.make_packet_vector([], n=8)
-            if arg == "ring":
-                dp._program(False, "ring", (5, 8))
-            else:
-                dp.process(pkts, now=1, ovl_inner=pkts)
+            dp._program(False, "ring", (5, 8))
         else:
             tsess._refuse(**arg)
     return str(err.value)
 
 
 _REFUSALS = {
-    # the ML stage and telemetry are ported; what of each is still
-    # refused: the tenant and sharded ML forms, the telemetry rider and
-    # the ring form of a telemetry dataplane
-    "ml_stage": ("ml", "tid"),
+    # every stage knob is ported; what is still refused: the sharded
+    # (mesh) forms, the telemetry ring rider and the ring form, also
+    # under each knob ported since
+    "ml_stage": ("ml", "shard"),
     "telemetry": ("tel", "rider"),
-    "tenancy": ("config", ("tenancy", "on")),
-    "overlay": ("config", ("overlay", "vxlan")),
-    "svc_vips": ("config", ("svc_vips", 4)),
-    "fib_ecmp_groups": ("config", ("fib_ecmp_groups", 2)),
+    "tenancy": ("ring", ("tenancy", "on")),
+    "overlay": ("ring", ("overlay", "vxlan")),
+    "svc_vips": ("ring", ("svc_vips", 4)),
+    "fib_ecmp_groups": ("ring", ("fib_ecmp_groups", 2)),
     "gate-ml_mode": ("ml", "shard"),
     "gate-tel_mode": ("tel", "ring"),
-    "gate-tnt_mode": ("gate", "tnt_mode"),
-    "gate-overlay": ("gate", "overlay"),
+    "gate-tnt_mode": ("shard", "nat44_reverse"),
+    "gate-overlay": ("shard", "nat44_record"),
     "entry-ring": ("entry", "ring"),
-    "entry-overlay-sidecar": ("entry", "sidecar"),
+    "entry-overlay-sidecar": ("shard", "session_insert"),
     "session-shard": ("session", dict(shard=True)),
-    "session-tnt": ("session", dict(tnt=True)),
+    "session-tnt": ("shard", "session_lookup_reverse_idx"),
 }
 
 
@@ -327,18 +341,26 @@ def test_launch_arguments_match_the_c_declarations(entry, monkeypatch):
         assert found.dtype == torch.bool and slot.dtype == torch.int32
         fn(*args, 0)
         nb, ways = t.sess_valid.shape
-        # sym, then p, n_buckets, ways, vec4, and the null now and
-        # max_age pointers, each followed by its value
-        assert got[0][5] == 1
-        assert got[0][12:20] == (8, nb, ways, int(ways == 4), None, 10,
+        # sym, the null tenant slice (kt, base, mask), then p,
+        # n_buckets, ways, vec4, and the null now and max_age pointers,
+        # each followed by its value
+        assert got[0][5:9] == (1, None, None, None)
+        assert got[0][15:23] == (8, nb, ways, int(ways == 4), None, 10,
                                  None, 3000)
-        # the device scalars go by pointer (a captured step reads them)
+        # the device scalars and the tenant slice go by pointer (a
+        # captured step reads them)
         now = torch.tensor(10, dtype=torch.int32)
+        kt = torch.zeros(8, dtype=torch.int32)
+        tnt = (kt, t.tnt_sess_base, t.tnt_sess_mask)
         args, _ = tsess.sess_launch_args(*hdr, *tsess._columns(t), now,
-                                         t.sess_max_age, True)
+                                         t.sess_max_age, True, tnt)
         fn(*args, 0)
-        assert got[1][16:20] == (now.data_ptr(), 0,
+        assert got[1][6:9] == tuple(x.data_ptr() for x in tnt)
+        assert got[1][19:23] == (now.data_ptr(), 0,
                                  t.sess_max_age.data_ptr(), 0)
+        with pytest.raises(ValueError, match="tenant slice"):
+            tsess.sess_launch_args(*hdr, *tsess._columns(t), now, 3000,
+                                   False, (kt[:4], *tnt[1:]))
     else:
         for local in (False, True):
             extra = (pkts.rx_if, t.if_local_table) if local else ()
@@ -396,7 +418,8 @@ def test_ml_launch_arguments_match_the_c_declaration(kind, monkeypatch):
     assert tml.ML_ARGTYPES == _c_params("ml_score")
     monkeypatch.setattr(_cuda, "require", lambda *a, **k: None)
     cfg = ttables.DataplaneConfig(**dict(
-        _SMALL, ml_stage="enforce", ml_hidden=5, ml_trees=3, ml_depth=2))
+        _SMALL, ml_stage="enforce", ml_hidden=5, ml_trees=3, ml_depth=2,
+        tenancy="on"))
     t = tdp.Dataplane(cfg, device="cpu").tables
     pkts = tvector.make_packet_vector([], n=8)
     got = []
@@ -409,14 +432,27 @@ def test_ml_launch_arguments_match_the_c_declaration(kind, monkeypatch):
     smem = tml.ml_smem_bytes(kind, 5, 3, 2)
     assert smem == (4 * (18 * 5 + 10) if kind == "mlp"
                     else 4 * (2 * 3 * 2 + 3 * 4))
-    assert got[0][21:27] == (8, 1 if kind == "mlp" else 2, 5, 3, 2, smem)
+    assert got[0][24:30] == (8, 1 if kind == "mlp" else 2, 5, 3, 2, smem)
     planes = ("glb_ml_w1", "glb_ml_b1", "glb_ml_s1", "glb_ml_w2",
               "glb_ml_b2", "glb_ml_f_feat", "glb_ml_f_thresh",
               "glb_ml_f_leaf", "glb_ml_thresh", "glb_ml_action",
               "glb_ml_rl_shift")
     assert got[0][10:21] == tuple(getattr(t, f).data_ptr() for f in planes)
-    assert got[0][27:30] == (scores.data_ptr(), flagged.data_ptr(),
+    # no tid: three null pointers (the global policy)
+    assert got[0][21:24] == (None, None, None)
+    assert got[0][30:33] == (scores.data_ptr(), flagged.data_ptr(),
                              drop.data_ptr())
+    # the tenant form: tid and the per-tenant vectors by pointer (a
+    # set_tenant_ml swap writes them in place)
+    tid = torch.zeros(8, dtype=torch.int32)
+    args, _ = tml.ml_launch_args(t, pkts, valid, valid, pkts.proto, kind,
+                                 tid=tid)
+    fn(*args, 0)
+    assert got[1][21:24] == (tid.data_ptr(), t.glb_ml_tnt_mode.data_ptr(),
+                             t.glb_ml_tnt_thresh.data_ptr())
+    with pytest.raises(ValueError, match="tenant vector"):
+        tml.ml_launch_args(t, pkts, valid, valid, pkts.proto, kind,
+                           tid=tid[:3])
     assert (scores.dtype, flagged.dtype, drop.dtype) == (
         torch.int32, torch.bool, torch.bool)
     with pytest.raises(ValueError, match="unknown ML kind"):

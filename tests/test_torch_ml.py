@@ -213,10 +213,12 @@ def test_ml_policy_matches_reference(action, rl_shift):
 # --- a NumPy model of csrc/ml_score.cu ---------------------------------
 
 
-def kernel_model(cols, est, age, alive, planes, kind):
+def kernel_model(cols, est, age, alive, planes, kind, tnt=None):
     """csrc/ml_score.cu's arithmetic, one lane per packet, in NumPy:
     uint32 sums, the unrolled feature select, the policy's unsigned
-    shift and mask."""
+    shift and mask; with ``tnt`` = (tid, modes, threshs) the per-tenant
+    policy (the tenant's threshold unless INT32_MIN, nothing flagged
+    under mode 1, drops only under modes 0 and 3)."""
     u, i32 = np.uint32, np.int32
     src = cols["src_ip"].astype(u)
     dst = cols["dst_ip"].astype(u)
@@ -267,7 +269,15 @@ def kernel_model(cols, est, age, alive, planes, kind):
                     leaf |= (v + 128 > thr[t, lv]).astype(np.int64) << lv
                 acc = acc + wrap(leaf_votes[t][leaf])
         score = (acc + wrap(int(planes["glb_ml_b2"]))).view(i32)
-        flag = alive & (score > int(planes["glb_ml_thresh"]))
+        thresh = np.full(n, int(planes["glb_ml_thresh"]), np.int64)
+        scored = drop_ok = np.ones(n, bool)
+        if tnt is not None:
+            tid, modes, threshs = (np.asarray(a) for a in tnt)
+            t_thr = threshs[tid].astype(np.int64)
+            thresh = np.where(t_thr != -(1 << 31), t_thr, thresh)
+            scored = modes[tid] != 1
+            drop_ok = (modes[tid] == 0) | (modes[tid] == 3)
+        flag = alive & (score > thresh) & scored
         ports = wrap((sp << 16) | (dp & 0xFFFF))
         h = ((src * u(0x9E3779B1)) ^ (dst * u(0x85EBCA77))
              ^ (ports * u(0xC2B2AE3D)) ^ (wrap(pr) * u(0x27D4EB2F)))
@@ -276,7 +286,7 @@ def kernel_model(cols, est, age, alive, planes, kind):
         mask = u(0xFFFFFFFF) if rl >= 32 else u((1 << rl) - 1)
         admit = (h & mask) == 0
     action = int(planes["glb_ml_action"])
-    drop = flag & ((action == 1) | ((action == 2) & ~admit))
+    drop = flag & drop_ok & ((action == 1) | ((action == 2) & ~admit))
     return score, flag, drop
 
 

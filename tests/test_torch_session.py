@@ -274,11 +274,13 @@ def _np_pack(hi, lo):
     return (hi.view(_U) << _U(16)) | lo.view(_U)
 
 
-def _np_sess_kernel(hdr, cols, now, max_age, sym, vec4):
+def _np_sess_kernel(hdr, cols, now, max_age, sym, vec4, tnt=None):
     """A NumPy model of csrc/sess_probe.cu, statement by statement:
-    reversed key, the fwd / canon bucket, the W-way compare (one bit
-    mask and its lowest bit when ``vec4``, else the downward scan), and
-    (found, slot = b * W + first)."""
+    reversed key, the fwd / canon bucket (with ``tnt`` = (kt, base,
+    mask) the key tenant's slice, base[kt] + (mix & mask[kt]) in
+    uint32), the W-way compare (one bit mask and its lowest bit when
+    ``vec4``, else the downward scan), and (found, slot = b * W +
+    first)."""
     src, dst, proto, sport, dport = (np.asarray(c, np.int32) for c in hdr)
     s, d, pr = src.view(_U), dst.view(_U), proto.view(_U)
     ks, kd, kp = d, s, _np_pack(dport, sport)
@@ -288,7 +290,13 @@ def _np_sess_kernel(hdr, cols, now, max_age, sym, vec4):
     valid, csrc, cdst, cports, cproto, ctime = (
         np.asarray(c, np.int32) for c in cols)
     nb, ways = valid.shape
-    b = (mix & _U(nb - 1)).astype(np.int64)
+    if tnt is None:
+        b = (mix & _U(nb - 1)).astype(np.int64)
+    else:
+        kt, base, mask = (np.asarray(c, np.int32) for c in tnt)
+        with np.errstate(over="ignore"):
+            b = (base[kt].view(_U) + (mix & mask[kt].view(_U))).astype(
+                np.int64)
     age = (_U(now & 0xFFFFFFFF) - ctime[b].view(_U)).view(np.int32)
     match = ((valid[b] == 1) & (csrc[b].view(_U) == ks[:, None])
              & (cdst[b].view(_U) == kd[:, None])

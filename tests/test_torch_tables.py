@@ -220,24 +220,22 @@ def test_swap_carries_session_state_by_reference():
     ("ml_stage", "score"), ("telemetry", "latency"), ("tenancy", "on"),
     ("overlay", "vxlan"), ("svc_vips", 4), ("fib_ecmp_groups", 2)])
 def test_unported_stages_refused_with_roadmap_item(knob, value):
-    """The stages still to port refuse; the ML stage and telemetry are
-    ported: their builder stages the reference's arrays (the ML planes at
-    the configured capacity) and state shapes (the telemetry planes)."""
+    """Every stage knob is ported now: with each on, the builder stages
+    the reference's arrays (the ML planes at the configured capacity,
+    the tenant, service and ECMP planes at theirs) and state shapes (the
+    telemetry, tenancy and ECMP planes)."""
     cfg = _cfg(ttables)._replace(**{knob: value})
-    if knob in ("ml_stage", "telemetry"):
-        tb = ttables.TableBuilder(cfg, device="cpu")
-        jb = jtables.TableBuilder(_cfg(jtables)._replace(**{knob: value}))
-        ja, ta = jb.host_arrays(), tb.host_arrays()
-        for f in ja:
-            assert_same(ja[f], torch.from_numpy(np.array(
-                np.asarray(ta[f]).view(np.int32)
-                if np.asarray(ta[f]).dtype == np.uint32 else ta[f])), f)
-        jt, tt = jb.to_device(), tb.to_device()
-        for f in ttables.TELEMETRY_FIELDS:
-            assert tuple(getattr(tt, f).shape) == getattr(jt, f).shape, f
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttables.TableBuilder(cfg, device="cpu")
+    tb = ttables.TableBuilder(cfg, device="cpu")
+    jb = jtables.TableBuilder(_cfg(jtables)._replace(**{knob: value}))
+    ja, ta = jb.host_arrays(), tb.host_arrays()
+    for f in ja:
+        assert_same(ja[f], torch.from_numpy(np.array(
+            np.asarray(ta[f]).view(np.int32)
+            if np.asarray(ta[f]).dtype == np.uint32 else ta[f])), f)
+    jt, tt = jb.to_device(), tb.to_device()
+    for f in (tuple(ttables.TELEMETRY_FIELDS)
+              + tuple(ttables.TENANCY_STATE_FIELDS) + ("fib_ecmp_c",)):
+        assert tuple(getattr(tt, f).shape) == getattr(jt, f).shape, f
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -26,13 +26,23 @@
 #define VPP_ML_KIND_FOREST 2
 #define VPP_ML_ACTION_DROP 1
 #define VPP_ML_ACTION_RATELIMIT 2
+// the per-tenant ML modes (vpp_tpu/tenancy/sched.py ML_MODE_CODES) and
+// the threshold that inherits the model's (ML_TNT_THRESH_INHERIT)
+#define VPP_ML_TNT_INHERIT 0
+#define VPP_ML_TNT_OFF 1
+#define VPP_ML_TNT_ENFORCE 3
+#define VPP_ML_TNT_THRESH_INHERIT (-2147483647 - 1)
 
 extern "C" {
 
-// now, max_age: device scalars, or null to take now_v / max_age_v
+// now, max_age: device scalars, or null to take now_v / max_age_v;
+// kt ([p] key tenants) with tnt_base / tnt_mask ([T]): the bucket is
+// tnt_base[kt] + (mix & tnt_mask[kt]); kt null: mix & (n_buckets - 1)
 int sess_probe_ways(const int32_t* src_ip, const int32_t* dst_ip,
                     const int32_t* proto, const int32_t* sport,
-                    const int32_t* dport, int32_t sym, const int32_t* valid,
+                    const int32_t* dport, int32_t sym, const int32_t* kt,
+                    const int32_t* tnt_base, const int32_t* tnt_mask,
+                    const int32_t* valid,
                     const int32_t* src, const int32_t* dst,
                     const int32_t* ports, const int32_t* prot,
                     const int32_t* time, int32_t p, int32_t n_buckets,
@@ -68,8 +78,9 @@ int mxu_first_match(const int32_t* src, const int32_t* dst,
                     int32_t r, int32_t* enc, void* stream);
 
 // kind: VPP_ML_KIND_MLP or VPP_ML_KIND_FOREST; every model value and
-// policy scalar by device pointer; smem: the block's dynamic shared
-// memory in bytes (the staged model)
+// policy scalar by device pointer; tid ([p] tenant ids) with tnt_mode /
+// tnt_thresh ([T]): the per-tenant policy (tid null: the global one);
+// smem: the block's dynamic shared memory in bytes (the staged model)
 int ml_score(const int32_t* src_ip, const int32_t* dst_ip,
              const int32_t* proto, const int32_t* sport,
              const int32_t* dport, const int32_t* pkt_len,
@@ -79,7 +90,9 @@ int ml_score(const int32_t* src_ip, const int32_t* dst_ip,
              const int8_t* w2, const int32_t* b2, const int32_t* f_feat,
              const int32_t* f_thresh, const int32_t* f_leaf,
              const int32_t* thresh, const int32_t* action,
-             const int32_t* rl_shift, int32_t p, int32_t kind,
+             const int32_t* rl_shift, const int32_t* tid,
+             const int32_t* tnt_mode, const int32_t* tnt_thresh, int32_t p,
+             int32_t kind,
              int32_t hidden, int32_t trees, int32_t depth, int32_t smem,
              int32_t* scores, uint8_t* flagged, uint8_t* drop,
              void* stream);

@@ -12,7 +12,11 @@
 // selected feature + 128 against its threshold gives a bit of the leaf
 // index; the trees' leaf votes are summed, + b2); then flagged = alive &
 // score > thresh and the drop request of the action (drop: flagged;
-// ratelimit: flagged and (flow hash & (2^rl_shift - 1)) != 0).
+// ratelimit: flagged and (flow hash & (2^rl_shift - 1)) != 0). With
+// tenancy on, each packet's tenant id tid keys the per-tenant policy
+// (vpp_tpu/ops/mlscore.py ml_policy): the tenant's threshold unless it
+// is the inherit sentinel, nothing flagged under mode off, drops only
+// under inherit or enforce.
 //
 // Bound on this card: the launch. A packet moves 38 B in and 6 B out
 // (~0.05 us of HBM time at P = 4,096) and does 18 x 16 + 16 multiply-adds
@@ -73,7 +77,9 @@ __global__ void __launch_bounds__(kBlock) ml_score_kernel(
     const int32_t* __restrict__ f_thresh,
     const int32_t* __restrict__ f_leaf, const int32_t* __restrict__ thresh_p,
     const int32_t* __restrict__ action_p,
-    const int32_t* __restrict__ rl_shift_p, int32_t p, int32_t hidden,
+    const int32_t* __restrict__ rl_shift_p, const int32_t* __restrict__ tid,
+    const int32_t* __restrict__ tnt_mode,
+    const int32_t* __restrict__ tnt_thresh, int32_t p, int32_t hidden,
     int32_t trees, int32_t depth, int32_t* __restrict__ scores,
     uint8_t* __restrict__ flagged, uint8_t* __restrict__ drop) {
   extern __shared__ int32_t smem[];
@@ -161,16 +167,27 @@ __global__ void __launch_bounds__(kBlock) ml_score_kernel(
   const int32_t score =
       static_cast<int32_t>(acc + static_cast<uint32_t>(__ldg(b2_p)));
 
-  // the policy (ops/mlscore.py ml_policy)
-  const bool flag = alive[i] != 0 && score > __ldg(thresh_p);
+  // the policy (ops/mlscore.py ml_policy), per tenant with tid
+  int32_t thresh = __ldg(thresh_p);
+  bool scored = true, drop_ok = true;
+  if (tid) {
+    const int32_t t = tid[i];
+    const int32_t mode = __ldg(tnt_mode + t);
+    const int32_t t_thr = __ldg(tnt_thresh + t);
+    if (t_thr != VPP_ML_TNT_THRESH_INHERIT) thresh = t_thr;
+    scored = mode != VPP_ML_TNT_OFF;
+    drop_ok = mode == VPP_ML_TNT_INHERIT || mode == VPP_ML_TNT_ENFORCE;
+  }
+  const bool flag = alive[i] != 0 && score > thresh && scored;
   const int32_t action = __ldg(action_p);
   const uint32_t rl = static_cast<uint32_t>(__ldg(rl_shift_p));
   const uint32_t mask = rl >= 32u ? 0xFFFFFFFFu : (1u << rl) - 1u;
   const bool admit = (flow_hash(s, d, sp, dp, pr) & mask) == 0u;
   scores[i] = score;
   flagged[i] = flag;
-  drop[i] = flag && (action == VPP_ML_ACTION_DROP ||
-                     (action == VPP_ML_ACTION_RATELIMIT && !admit));
+  drop[i] = flag && drop_ok &&
+            (action == VPP_ML_ACTION_DROP ||
+             (action == VPP_ML_ACTION_RATELIMIT && !admit));
 }
 
 template <int kKind>
@@ -182,7 +199,9 @@ int launch(const int32_t* src_ip, const int32_t* dst_ip,
            const int32_t* s1, const int8_t* w2, const int32_t* b2,
            const int32_t* f_feat, const int32_t* f_thresh,
            const int32_t* f_leaf, const int32_t* thresh,
-           const int32_t* action, const int32_t* rl_shift, int32_t p,
+           const int32_t* action, const int32_t* rl_shift,
+           const int32_t* tid, const int32_t* tnt_mode,
+           const int32_t* tnt_thresh, int32_t p,
            int32_t hidden, int32_t trees, int32_t depth, int32_t smem,
            int32_t* scores, uint8_t* flagged, uint8_t* drop,
            cudaStream_t st) {
@@ -196,7 +215,8 @@ int launch(const int32_t* src_ip, const int32_t* dst_ip,
   ml_score_kernel<kKind><<<blocks, kBlock, smem, st>>>(
       src_ip, dst_ip, proto, sport, dport, pkt_len, flags, established,
       sess_age, alive, w1, b1, s1, w2, b2, f_feat, f_thresh, f_leaf, thresh,
-      action, rl_shift, p, hidden, trees, depth, scores, flagged, drop);
+      action, rl_shift, tid, tnt_mode, tnt_thresh, p, hidden, trees, depth,
+      scores, flagged, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -212,7 +232,9 @@ extern "C" int ml_score(const int32_t* src_ip, const int32_t* dst_ip,
                         const int32_t* b2, const int32_t* f_feat,
                         const int32_t* f_thresh, const int32_t* f_leaf,
                         const int32_t* thresh, const int32_t* action,
-                        const int32_t* rl_shift, int32_t p, int32_t kind,
+                        const int32_t* rl_shift, const int32_t* tid,
+                        const int32_t* tnt_mode, const int32_t* tnt_thresh,
+                        int32_t p, int32_t kind,
                         int32_t hidden, int32_t trees, int32_t depth,
                         int32_t smem, int32_t* scores, uint8_t* flagged,
                         uint8_t* drop, void* stream) {
@@ -222,12 +244,12 @@ extern "C" int ml_score(const int32_t* src_ip, const int32_t* dst_ip,
     return launch<VPP_ML_KIND_FOREST>(
         src_ip, dst_ip, proto, sport, dport, pkt_len, flags, established,
         sess_age, alive, w1, b1, s1, w2, b2, f_feat, f_thresh, f_leaf,
-        thresh, action, rl_shift, p, hidden, trees, depth, smem, scores,
-        flagged, drop, st);
+        thresh, action, rl_shift, tid, tnt_mode, tnt_thresh, p, hidden,
+        trees, depth, smem, scores, flagged, drop, st);
   }
   return launch<VPP_ML_KIND_MLP>(
       src_ip, dst_ip, proto, sport, dport, pkt_len, flags, established,
       sess_age, alive, w1, b1, s1, w2, b2, f_feat, f_thresh, f_leaf, thresh,
-      action, rl_shift, p, hidden, trees, depth, smem, scores, flagged, drop,
-      st);
+      action, rl_shift, tid, tnt_mode, tnt_thresh, p, hidden, trees, depth,
+      smem, scores, flagged, drop, st);
 }

@@ -11,7 +11,11 @@
 // bucket from the six session columns, match the key, valid == 1 and
 // now - time <= max_age, and write found (one byte, bool) and
 // slot = b * W + the lowest matching way (b * W on a miss: the gather
-// rung's any/argmax convention).
+// rung's any/argmax convention). With tenancy on, the caller passes each
+// packet's key tenant kt (the tenant of the reply key's address pair,
+// vpp_tpu/ops/session.py tenant_bucket) and the [T] slice planes: the
+// bucket is then base[kt] + (mix & mask[kt]), in uint32, on the scalar
+// and the 16-byte path alike; a null kt keeps mix & (n_buckets - 1).
 //
 // Bound on this card: latency and the launch, not bytes. A packet moves
 // 20 B of header in, 96 B of bucket rows (six columns x W = 4 ways) and
@@ -89,6 +93,8 @@ __global__ void __launch_bounds__(kBlock) sess_probe_kernel(
     const int32_t* __restrict__ src_ip, const int32_t* __restrict__ dst_ip,
     const int32_t* __restrict__ proto, const int32_t* __restrict__ sport,
     const int32_t* __restrict__ dport, int32_t sym,
+    const int32_t* __restrict__ kt, const int32_t* __restrict__ tnt_base,
+    const int32_t* __restrict__ tnt_mask,
     const int32_t* __restrict__ valid, const int32_t* __restrict__ src,
     const int32_t* __restrict__ dst, const int32_t* __restrict__ ports,
     const int32_t* __restrict__ prot, const int32_t* __restrict__ time,
@@ -115,7 +121,14 @@ __global__ void __launch_bounds__(kBlock) sess_probe_kernel(
   const bool fwd = !sym || s > d || (s == d && sp > dp);
   const uint32_t mix = fwd ? hash_mix(ks, kd, kp, pr)
                            : hash_mix(s, d, pack_ports(sp, dp), pr);
-  const uint32_t b = mix & static_cast<uint32_t>(n_buckets - 1);
+  uint32_t b;
+  if (kt) {  // the key tenant's slice
+    const int32_t t = kt[i];
+    b = static_cast<uint32_t>(__ldg(tnt_base + t)) +
+        (mix & static_cast<uint32_t>(__ldg(tnt_mask + t)));
+  } else {
+    b = mix & static_cast<uint32_t>(n_buckets - 1);
+  }
   int32_t first = -1;  // the lowest matching way
   if constexpr (kVec4) {
     const int4 v = row4(valid, b), a = row4(src, b), c = row4(dst, b),
@@ -150,6 +163,8 @@ __global__ void __launch_bounds__(kBlock) sess_probe_kernel(
 extern "C" int sess_probe_ways(const int32_t* src_ip, const int32_t* dst_ip,
                                const int32_t* proto, const int32_t* sport,
                                const int32_t* dport, int32_t sym,
+                               const int32_t* kt, const int32_t* tnt_base,
+                               const int32_t* tnt_mask,
                                const int32_t* valid, const int32_t* src,
                                const int32_t* dst, const int32_t* ports,
                                const int32_t* prot, const int32_t* time,
@@ -163,12 +178,14 @@ extern "C" int sess_probe_ways(const int32_t* src_ip, const int32_t* dst_ip,
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (vec4) {
       sess_probe_kernel<true><<<blocks, kBlock, 0, st>>>(
-          src_ip, dst_ip, proto, sport, dport, sym, valid, src, dst, ports,
+          src_ip, dst_ip, proto, sport, dport, sym, kt, tnt_base, tnt_mask,
+          valid, src, dst, ports,
           prot, time, p, n_buckets, ways, now, now_v, max_age, max_age_v,
           found, slot);
     } else {
       sess_probe_kernel<false><<<blocks, kBlock, 0, st>>>(
-          src_ip, dst_ip, proto, sport, dport, sym, valid, src, dst, ports,
+          src_ip, dst_ip, proto, sport, dport, sym, kt, tnt_base, tnt_mask,
+          valid, src, dst, ports,
           prot, time, p, n_buckets, ways, now, now_v, max_age, max_age_v,
           found, slot);
     }

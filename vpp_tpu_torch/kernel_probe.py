@@ -39,8 +39,8 @@ _LPM_STAGE = ("  if (fits) {\n    for (int k = 0; k < n_pop; ++k) {",
               "  if (false) {\n    for (int k = 0; k < n_pop; ++k) {")
 _LPM_SEARCH = ("      const int32_t at = fits ?",
                "      const int32_t at = true ? -1 : fits ?")
-_SESS_HASH = ("const uint32_t b = mix & static_cast<uint32_t>(n_buckets - 1);",
-              "const uint32_t b = s & static_cast<uint32_t>(n_buckets - 1);")
+_SESS_HASH = ("    b = mix & static_cast<uint32_t>(n_buckets - 1);",
+              "    b = s & static_cast<uint32_t>(n_buckets - 1);")
 _SESS_LOADS = ("return __ldg(reinterpret_cast<const int4*>(col) + b);",
                "return make_int4(0, 0, 0, static_cast<int>(b));")
 _BV_SEARCH = ("while (__any_sync(kFull, busy)) {",

@@ -17,7 +17,13 @@ reference's:
 * policy: ``flagged = alive & (score > thresh)``; ``drop`` requests
   every flagged packet, ``ratelimit`` the flagged flows whose
   ``tel_flow_hash`` has a nonzero ``rl_shift``-bit low part, ``mark`` /
-  ``mirror`` none.
+  ``mirror`` none. With tenancy on, a tenant id per packet (``tid``)
+  keys the per-tenant vectors ``glb_ml_tnt_mode`` / ``_thresh``: mode 0
+  inherits the global threshold, 1 flags nothing, 2 flags with the
+  tenant's threshold but never drops, 3 enforces with it; a threshold
+  of ``ML_TNT_THRESH_INHERIT`` is the model's. The compiled stage
+  (``ml_stage`` score | enforce) stays the ceiling: under score no
+  tenant drops (pipeline/graph.py ``_ml_eval``).
 
 Every int32 sum wraps as the reference's int32 arithmetic does (the
 products themselves fit: |a1| < 2^22 at the widest model).
@@ -36,9 +42,8 @@ and a captured step must see the new values.
 
 ``ml_features``, ``_centered``, ``_mlp_partial``, ``_forest_partial``,
 ``ml_score`` and ``ml_policy`` keep the reference's signatures (the
-tests hold each against its twin). Not ported: the tenant form of the
-policy (``tid``, ROADMAP Queue 1 item 6 (Tenancy)) and the sharded
-weight planes (``shard``, Queue 1 item 10 (Mesh / cluster)).
+tests hold each against its twin). Not ported: the sharded weight planes
+(``shard``, ROADMAP Queue 1 item 10 (Mesh / cluster)).
 """
 
 from __future__ import annotations
@@ -77,11 +82,15 @@ ML_KINDS = ("mlp", "forest")
 ML_KIND_NAMES = {ML_KIND_MLP: "mlp", ML_KIND_FOREST: "forest"}
 
 
-def _refuse(shard=None, tid=None) -> None:
-    if tid is not None:
-        raise NotImplementedError(
-            "the per-tenant ML policy (tid) is not ported to vpp_tpu_torch "
-            "yet: ROADMAP Queue 1 item 6 (Tenancy)")
+# glb_ml_tnt_mode values (vpp_tpu_torch/tenancy/sched.py ML_MODE_CODES)
+# and the glb_ml_tnt_thresh sentinel
+ML_TNT_INHERIT = 0
+ML_TNT_OFF = 1
+ML_TNT_ENFORCE = 3
+ML_TNT_THRESH_INHERIT = -(1 << 31)
+
+
+def _refuse(shard=None) -> None:
     if shard is not None:
         raise NotImplementedError(
             "sharded ML weight planes are not ported to vpp_tpu_torch "
@@ -181,33 +190,43 @@ def ml_policy(tables, pkts: PacketVector, alive: torch.Tensor,
     """Fold scores into (flagged, drop_wanted) masks [P]: flagged alive
     packets score above ``glb_ml_thresh``; ``drop`` requests every
     flagged packet, ``ratelimit`` the flagged flows outside the
-    1/2^rl_shift the flow-hash gate admits, mark / mirror nothing."""
-    _refuse(tid=tid)
-    flagged = alive & (scores > tables.glb_ml_thresh)
+    1/2^rl_shift the flow-hash gate admits, mark / mirror nothing.
+    ``tid`` ([P] int32 tenant ids) keys the per-tenant mode and
+    threshold (module doc)."""
+    thresh = tables.glb_ml_thresh
+    drop_ok = True
+    if tid is not None:
+        t = tid.long()
+        mode = tables.glb_ml_tnt_mode[t]
+        t_thr = tables.glb_ml_tnt_thresh[t]
+        thresh = torch.where(t_thr != ML_TNT_THRESH_INHERIT, t_thr, thresh)
+        alive = alive & (mode != ML_TNT_OFF)
+        drop_ok = (mode == ML_TNT_INHERIT) | (mode == ML_TNT_ENFORCE)
+    flagged = alive & (scores > thresh)
     shift = tables.glb_ml_rl_shift.to(torch.int64) & 0xFFFFFFFF
     mask = torch.where(shift >= 32, 0xFFFFFFFF,
                        (torch.ones_like(shift)
                         << torch.clamp(shift, max=31)) - 1)
     rl_admit = (_flow_hash(pkts) & mask) == 0
     action = tables.glb_ml_action
-    drop_wanted = flagged & ((action == ML_ACTION_DROP)
-                             | ((action == ML_ACTION_RATELIMIT)
-                                & ~rl_admit))
+    drop_wanted = flagged & drop_ok & (
+        (action == ML_ACTION_DROP)
+        | ((action == ML_ACTION_RATELIMIT) & ~rl_admit))
     return flagged, drop_wanted
 
 
 def ml_stage_plain(tables, pkts: PacketVector, alive: torch.Tensor,
                    established: torch.Tensor, sess_age: torch.Tensor,
-                   kind: str = "mlp"):
+                   kind: str = "mlp", tid=None):
     """The plain version of ``ml_stage``: (scores, flagged,
     drop_wanted)."""
     scores = ml_score_plain(tables, pkts, established, sess_age, kind)
-    flagged, drop_wanted = ml_policy(tables, pkts, alive, scores)
+    flagged, drop_wanted = ml_policy(tables, pkts, alive, scores, tid=tid)
     return scores, flagged, drop_wanted
 
 
 # the C entry's argument types (kernels.cuh), the stream last
-ML_ARGTYPES = ([ctypes.c_void_p] * 21 + [ctypes.c_int32] * 6
+ML_ARGTYPES = ([ctypes.c_void_p] * 24 + [ctypes.c_int32] * 6
                + [ctypes.c_void_p] * 4)
 
 # the dynamic shared memory a block may take (H100: 227 KB)
@@ -227,10 +246,11 @@ def ml_smem_bytes(kind: str, hidden: int, trees: int, depth: int) -> int:
 
 
 def ml_launch_args(tables, pkts: PacketVector, alive, established,
-                   sess_age, kind: str = "mlp"):
+                   sess_age, kind: str = "mlp", tid=None):
     """The checked arguments of csrc/ml_score.cu's C entry but the
     stream, and the outputs (scores, flagged, drop_wanted) they point
-    at."""
+    at. ``tid`` and the per-tenant vectors go by pointer; without
+    ``tid`` three nulls (the global policy)."""
     if kind not in ML_KINDS:
         raise ValueError(f"unknown ML kind {kind!r}")
     dev = pkts.src_ip.device
@@ -262,6 +282,17 @@ def ml_launch_args(tables, pkts: PacketVector, alive, established,
                 "glb_ml_s1", "glb_ml_b2", "glb_ml_thresh", "glb_ml_action",
                 "glb_ml_rl_shift"))):
         raise ValueError("ml_stage: model plane shapes disagree")
+    if tid is None:
+        tnt_args = (None, None, None)
+    else:
+        modes, threshs = tables.glb_ml_tnt_mode, tables.glb_ml_tnt_thresh
+        _cuda.require(tid, "ml_stage.tid", ndim=1, device=dev)
+        for f, t in (("glb_ml_tnt_mode", modes),
+                     ("glb_ml_tnt_thresh", threshs)):
+            _cuda.require(t, f"ml_stage.{f}", ndim=1, device=dev)
+        if tid.shape[0] != p or modes.shape != threshs.shape:
+            raise ValueError("ml_stage: tenant vector shapes disagree")
+        tnt_args = (_cuda.ptr(tid), _cuda.ptr(modes), _cuda.ptr(threshs))
     smem = ml_smem_bytes(kind, hidden, trees, depth)
     if smem > ML_SMEM_MAX:
         raise ValueError(f"ml_stage: the {kind} model needs {smem} bytes "
@@ -271,7 +302,7 @@ def ml_launch_args(tables, pkts: PacketVector, alive, established,
     drop = torch.empty(p, dtype=torch.bool, device=dev)
     args = (*(_cuda.ptr(x) for x in hdr), _cuda.ptr(established),
             _cuda.ptr(sess_age), _cuda.ptr(alive),
-            *(_cuda.ptr(w[f]) for f in _WEIGHTS), p,
+            *(_cuda.ptr(w[f]) for f in _WEIGHTS), *tnt_args, p,
             ML_KIND_FOREST if kind == "forest" else ML_KIND_MLP,
             hidden, trees, depth, smem, _cuda.ptr(scores),
             _cuda.ptr(flagged), _cuda.ptr(drop))
@@ -280,19 +311,20 @@ def ml_launch_args(tables, pkts: PacketVector, alive, established,
 
 def ml_stage(tables, pkts: PacketVector, alive: torch.Tensor,
              established: torch.Tensor, sess_age: torch.Tensor,
-             kind: str = "mlp"):
+             kind: str = "mlp", tid=None):
     """The ML stage of one packet vector: the kernel of csrc/ml_score.cu
     on CUDA tensors (features, model and policy in one launch), the
     plain version on CPU tensors. ``pkts`` is the post-NAT-reverse
     header, ``established`` / ``sess_age`` the session hit and its
-    pre-touch age, ``tables`` anything holding the ``glb_ml_*`` planes.
+    pre-touch age, ``tables`` anything holding the ``glb_ml_*`` planes,
+    ``tid`` None or the [P] tenant ids of the per-tenant policy.
     Returns (scores int32 [P], flagged bool [P], drop_wanted bool
     [P])."""
     if not _cuda.use_kernels(pkts.src_ip):
         return ml_stage_plain(tables, pkts, alive, established, sess_age,
-                              kind)
+                              kind, tid)
     args, out = ml_launch_args(tables, pkts, alive, established, sess_age,
-                               kind)
+                               kind, tid)
     fn = _cuda.library("ml_score").ml_score
     fn.argtypes = ML_ARGTYPES
     fn.restype = ctypes.c_int

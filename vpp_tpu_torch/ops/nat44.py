@@ -5,11 +5,12 @@ densely ([P] x [M]); the backend is a consistent weighted pick keyed on
 the flow hash; the NAT session table (the W-way set-associative map of
 ops/session.py) records each translated flow under the key its reply
 will present, so replies are un-NATed. The service-VIP planes
-(``svc_*``) are consulted as in the reference; with ``svc_vips = 0``
-(the only staging this package accepts so far) they are the one-row
-placeholder that never matches. The mesh (``shard=``) and tenancy
-(``tnt=``) forms raise. Session-table writes are in place
-(ops/session.py module doc).
+(``svc_*``, TableBuilder ``set_service``) are consulted beside the
+mappings: an exact (ip, port, proto) row picks backend way ``flow hash
+& (B - 1)``. With tenancy on (``tnt=True``) a NAT key's bucket lies in
+its tenant's slice (``tnt_nat_base`` / ``tnt_nat_mask``). The mesh form
+(``shard=``) raises. Session-table writes are in place (ops/session.py
+module doc).
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ from vpp_tpu_torch.ops.session import (
     _pack_ports,
     _refuse,
     _scatter_set,
+    _slice_bucket,
     hashmap_insert,
+    tenant_bucket,
 )
 from vpp_tpu_torch.pipeline.vector import PacketVector, u32
 
@@ -130,16 +133,30 @@ def nat44_snat(tables, pkts: PacketVector, want: torch.Tensor
     return out, applied
 
 
+def _nat_bucket(tables, key_vals, tnt: bool, kt=None) -> torch.Tensor:
+    """The NAT-session bucket of a key: its tenant's slice with ``tnt``
+    (``kt``, where given, the key's tenant), else the whole table."""
+    mix = _hash_mix(*key_vals)
+    if not tnt:
+        return _bucket(mix, tables.natsess_valid.shape[0])
+    if kt is None:
+        return tenant_bucket(tables, key_vals[0], key_vals[1], mix,
+                             tables.tnt_nat_base, tables.tnt_nat_mask)
+    return _slice_bucket(mix, kt, tables.tnt_nat_base, tables.tnt_nat_mask)
+
+
 def nat44_record(tables, pkts: PacketVector, orig_dst, orig_dport,
                  orig_src, orig_sport, kind, want, now, shard=None,
                  tnt: bool = False):
     """Record NAT sessions (in place) for translated-and-forwarded
     flows, keyed as the reply will present them. Returns (tables,
-    conflict, failed, evict_expired, evict_victim)."""
-    _refuse(shard, tnt)
+    conflict, failed, evict_expired, evict_victim). With ``tnt`` the
+    reply key lands in its tenant's NAT slice, the one the reply's
+    ``nat44_reverse`` hashes (the same unordered address pair)."""
+    _refuse(shard)
     key_vals = (pkts.dst_ip, pkts.src_ip,
                 _pack_ports(pkts.dport, pkts.sport), pkts.proto)
-    h = _bucket(_hash_mix(*key_vals), tables.natsess_valid.shape[0])
+    h = _nat_bucket(tables, key_vals, tnt)
     _, conflict, failed, ev_exp, ev_vic = hashmap_insert(
         tables.natsess_valid, tables.natsess_time,
         (tables.natsess_a, tables.natsess_b, tables.natsess_ports,
@@ -153,14 +170,16 @@ def nat44_record(tables, pkts: PacketVector, orig_dst, orig_dport,
 
 
 def nat44_reverse(tables, pkts: PacketVector, eligible, now=None,
-                  shard=None, tnt: bool = False):
+                  shard=None, tnt: bool = False, kt=None):
     """Untranslate NAT'd return traffic. Returns (pkts, applied,
-    hit_idx) with ``hit_idx`` the matched flat slot (bucket·W + way)."""
-    _refuse(shard, tnt)
+    hit_idx) with ``hit_idx`` the matched flat slot (bucket·W + way).
+    ``kt``: the tenant of the packets' address pairs, where the caller
+    has it (with ``tnt``)."""
+    _refuse(shard)
     n_buckets, ways = tables.natsess_valid.shape
     key_vals = (pkts.src_ip, pkts.dst_ip,
                 _pack_ports(pkts.sport, pkts.dport), pkts.proto)
-    b = _bucket(_hash_mix(*key_vals), n_buckets)
+    b = _nat_bucket(tables, key_vals, tnt, kt)
     bl = b.long()
     slot_ok = tables.natsess_valid[bl] == 1
     if now is not None:

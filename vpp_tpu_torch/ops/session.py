@@ -5,8 +5,10 @@ column is a ``[n_buckets, W]`` tensor, a flow hashes to ONE bucket, a
 lookup fetches the bucket's W ways, and a batch insert resolves in one
 election round (the reference's module doc explains the rep / leader /
 rank scheme; only its ``sort`` election — the ``auto`` choice — is
-ported). The mesh (``shard=``) and tenancy (``tnt=``) forms are later
-slices and raise here.
+ported). With tenancy on (``tnt=True``) a key's bucket lies in its
+tenant's slice: ``tenant_bucket``, ``base[kt] + (mix & mask[kt])`` with
+``kt`` the tenant of the key's address pair. The mesh form (``shard=``)
+is a later slice and raises here.
 
 In place. JAX arrays are immutable, so the reference returns new
 columns; here the touch, insert and sweep scatters write the session
@@ -47,12 +49,11 @@ _BIG = 0x7FFFFFFF
 _M32 = 0xFFFFFFFF
 
 
-def _refuse(shard=None, tnt=False) -> None:
-    if shard is not None or tnt:
+def _refuse(shard=None) -> None:
+    if shard is not None:
         raise NotImplementedError(
-            "sharded (mesh) and tenant-sliced session tables are not "
-            "ported to vpp_tpu_torch yet: ROADMAP Queue 1 item 6 "
-            "(Tenancy) and item 10 (Mesh / cluster)")
+            "sharded (mesh) session tables are not ported to "
+            "vpp_tpu_torch yet: ROADMAP Queue 1 item 10 (Mesh / cluster)")
 
 
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -78,6 +79,24 @@ def _hash_mix(src, dst, ports, proto) -> torch.Tensor:
 
 def _bucket(mix: torch.Tensor, n_buckets: int) -> torch.Tensor:
     return (mix & (n_buckets - 1)).to(torch.int32)
+
+
+def tenant_bucket(tables, key_a, key_b, mix: torch.Tensor, base, mask
+                  ) -> torch.Tensor:
+    """The tenant-sliced bucket of a hashed key: the tenant of the key's
+    ADDRESS PAIR (symmetric, so a forward insert and its reply's lookup
+    agree) picks the range ``[base[kt], base[kt] + mask[kt] + 1)`` and
+    the hash lands inside it (int32 [P]). With the default staging
+    (base 0, the full-table mask) it is the unsliced bucket."""
+    from vpp_tpu_torch.tenancy.derive import key_tenant
+
+    return _slice_bucket(mix, key_tenant(tables, key_a, key_b), base, mask)
+
+
+def _slice_bucket(mix: torch.Tensor, kt, base, mask) -> torch.Tensor:
+    """``base[kt] + (mix & mask[kt])`` in uint32, as int32."""
+    k = kt.long()
+    return to_i32(u32(base[k]) + (mix & u32(mask[k])))
 
 
 def _pack_ports(sport, dport) -> torch.Tensor:
@@ -150,23 +169,27 @@ def _reverse_keys(src_ip, dst_ip, proto, sport, dport):
 
 
 def _reverse_bucket(src_ip, dst_ip, proto, sport, dport, keys,
-                    n_buckets: int, sym: bool):
+                    n_buckets: int, sym: bool, tnt=None):
     if sym:
         mix = canon_mix(src_ip, dst_ip, sport, dport, proto)
     else:
         mix = _hash_mix(*keys)
+    if tnt is not None:
+        return _slice_bucket(mix, *tnt)
     return _bucket(mix, n_buckets)
 
 
 def sess_probe_reverse_plain(src_ip, dst_ip, proto, sport, dport, valid, src,
                              dst, ports, sess_proto, time, now, max_age,
-                             sym: bool = False):
+                             sym: bool = False, tnt=None):
     """The plain PyTorch version of ``sess_probe_ways``: the reversed
-    key, the bucket, ``sess_probe_ways_plain`` and the flat slot."""
+    key, the bucket (in the key tenant's slice with ``tnt`` = (kt [P],
+    base [T], mask [T])), ``sess_probe_ways_plain`` and the flat
+    slot."""
     n_buckets, ways = valid.shape
     hdr = (src_ip, dst_ip, proto, sport, dport)
     keys = _reverse_keys(*hdr)
-    b = _reverse_bucket(*hdr, keys, n_buckets, sym)
+    b = _reverse_bucket(*hdr, keys, n_buckets, sym, tnt)
     found, first = sess_probe_ways_plain(b, *keys, valid, src, dst, ports,
                                          sess_proto, time, now, max_age)
     return found, b * ways + first
@@ -174,7 +197,7 @@ def sess_probe_reverse_plain(src_ip, dst_ip, proto, sport, dport, valid, src,
 
 # the C entry's argument types (kernels.cuh), the stream last
 SESS_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int32]
-                 + [ctypes.c_void_p] * 6 + [ctypes.c_int32] * 4
+                 + [ctypes.c_void_p] * 9 + [ctypes.c_int32] * 4
                  + [ctypes.c_void_p, ctypes.c_int32] * 2
                  + [ctypes.c_void_p] * 3)
 
@@ -192,9 +215,12 @@ def _scalar_arg(v, name: str, dev):
 
 
 def sess_launch_args(src_ip, dst_ip, proto, sport, dport, valid, src, dst,
-                     ports, sess_proto, time, now, max_age, sym=False):
+                     ports, sess_proto, time, now, max_age, sym=False,
+                     tnt=None):
     """The checked arguments of csrc/sess_probe.cu's C entry but the
-    stream, and the outputs (found, slot) they point at."""
+    stream, and the outputs (found, slot) they point at. ``tnt`` (kt
+    [P], base [T], mask [T]) goes by pointer; None passes three nulls
+    (the unsliced bucket)."""
     hdr = (src_ip, dst_ip, proto, sport, dport)
     cols = (valid, src, dst, ports, sess_proto, time)
     dev = valid.device
@@ -210,32 +236,45 @@ def sess_launch_args(src_ip, dst_ip, proto, sport, dport, valid, src, dst,
             raise ValueError("sess_probe_ways: header length mismatch")
     if nb & (nb - 1):
         raise ValueError(f"sess_probe_ways: {nb} buckets, not a power of 2")
+    if tnt is None:
+        tnt_args = (None, None, None)
+    else:
+        kt, base, mask = tnt
+        _cuda.require(kt, "sess_probe_ways.kt", ndim=1, device=dev)
+        for v in (base, mask):
+            _cuda.require(v, "sess_probe_ways.tnt_plane", ndim=1, device=dev)
+        if kt.shape[0] != p or base.shape != mask.shape:
+            raise ValueError("sess_probe_ways: tenant slice shape mismatch")
+        tnt_args = tuple(_cuda.ptr(x) for x in tnt)
     now_arg = _scalar_arg(now, "sess_probe_ways.now", dev)
     age_arg = _scalar_arg(max_age, "sess_probe_ways.max_age", dev)
     vec4 = ways == 4 and all(c.data_ptr() % 16 == 0 for c in cols)
     found = torch.empty(p, dtype=torch.bool, device=dev)
     slot = torch.empty(p, dtype=torch.int32, device=dev)
-    args = (*(_cuda.ptr(x) for x in hdr), int(sym),
+    args = (*(_cuda.ptr(x) for x in hdr), int(sym), *tnt_args,
             *(_cuda.ptr(x) for x in cols), p, nb, ways, int(vec4), *now_arg,
             *age_arg, _cuda.ptr(found), _cuda.ptr(slot))
     return args, (found, slot)
 
 
 def sess_probe_ways(src_ip, dst_ip, proto, sport, dport, valid, src, dst,
-                    ports, sess_proto, time, now, max_age, sym: bool = False):
+                    ports, sess_proto, time, now, max_age, sym: bool = False,
+                    tnt=None):
     """The reflective-session lookup of a packet vector: the kernel of
     csrc/sess_probe.cu on CUDA tensors (reversed key, bucket hash —
-    ``canon_mix`` with ``sym`` — W-way probe and slot in one launch),
-    the plain version on CPU tensors. Header columns [P] int32, the six
-    [NB, W] session columns, ``now`` and ``max_age`` each an int or a
-    0-d int32 tensor (which the kernel reads on the device). Returns
-    (found [P] bool, slot [P] int32 = bucket·W + the lowest matching
-    way, bucket·W on a miss)."""
+    ``canon_mix`` with ``sym``, in the key tenant's slice with ``tnt`` —
+    W-way probe and slot in one launch), the plain version on CPU
+    tensors. Header columns [P] int32, the six [NB, W] session columns,
+    ``now`` and ``max_age`` each an int or a 0-d int32 tensor (which the
+    kernel reads on the device), ``tnt`` None or (kt [P], base [T], mask
+    [T]) int32. Returns (found [P] bool, slot [P] int32 = bucket·W + the
+    lowest matching way, bucket·W on a miss)."""
     cols = (src_ip, dst_ip, proto, sport, dport, valid, src, dst, ports,
             sess_proto, time)
     if not _cuda.use_kernels(valid):
-        return sess_probe_reverse_plain(*cols, now, max_age, sym=sym)
-    args, out = sess_launch_args(*cols, now, max_age, sym)
+        return sess_probe_reverse_plain(*cols, now, max_age, sym=sym,
+                                        tnt=tnt)
+    args, out = sess_launch_args(*cols, now, max_age, sym, tnt)
     fn = _cuda.library("sess_probe").sess_probe_ways
     fn.argtypes = SESS_ARGTYPES
     fn.restype = ctypes.c_int
@@ -261,32 +300,48 @@ def session_lookup_reverse(tables, pkts: PacketVector, now=None,
     """Is each packet the return traffic of an established session?
     Bool [P]; with ``now``, entries idle past ``sess_max_age`` are dead
     (without it the (0, _BIG) no-age convention applies)."""
-    _refuse(tnt=tnt)
     t_now, max_age = ((now, tables.sess_max_age) if now is not None
                       else (0, _BIG))
     probe = sess_probe_ways if impl == "pallas" else sess_probe_reverse_plain
     found, _ = probe(*pkts.five_tuple, *_columns(tables), t_now, max_age,
-                     sym=sym)
+                     sym=sym, tnt=_probe_slice(tables, pkts, tnt))
     return found
+
+
+def _probe_slice(tables, pkts: PacketVector, tnt: bool, kt=None):
+    """The probe's ``tnt`` argument: the reply key's tenant slice, or
+    None (unsliced). ``kt``: the key tenants where the caller has them
+    (the tenant of the packet's address pair, which the reply key
+    shares)."""
+    if not tnt:
+        return None
+    if kt is None:
+        from vpp_tpu_torch.tenancy.derive import key_tenant
+
+        kt = key_tenant(tables, pkts.dst_ip, pkts.src_ip)
+    return kt, tables.tnt_sess_base, tables.tnt_sess_mask
 
 
 def session_lookup_reverse_idx(tables, pkts: PacketVector, now,
                                shard=None, tnt: bool = False,
-                               impl: str = "gather", sym: bool = False
-                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+                               impl: str = "gather", sym: bool = False,
+                               kt=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(found [P] bool, flat matched slot [P] int32 = bucket·W + way)
     of the reversed 5-tuple. ``impl`` is the session ladder's rung:
     ``pallas`` looks up through ``sess_probe_ways``, ``gather`` through
-    its plain version."""
-    _refuse(shard, tnt)
+    its plain version. With ``tnt`` the bucket lies in the slice of the
+    key's tenant (``tenant_bucket``); ``kt``, where given, is that
+    tenant (the pipeline derives it once a step)."""
+    _refuse(shard)
     probe = sess_probe_ways if impl == "pallas" else sess_probe_reverse_plain
     return probe(*pkts.five_tuple, *_columns(tables), now,
-                 tables.sess_max_age, sym=sym)
+                 tables.sess_max_age, sym=sym,
+                 tnt=_probe_slice(tables, pkts, tnt, kt))
 
 
 def session_batch_summary(tables, pkts: PacketVector, alive, now,
                           shard=None, tnt: bool = False,
-                          impl: str = "gather", sym: bool = False
+                          impl: str = "gather", sym: bool = False, kt=None
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
     """Batched hit summary for the two-tier dispatch (pipeline/graph.py
@@ -297,7 +352,7 @@ def session_batch_summary(tables, pkts: PacketVector, alive, now,
     with none alive)."""
     found, hit_idx = session_lookup_reverse_idx(tables, pkts, now,
                                                 shard=shard, tnt=tnt,
-                                                impl=impl, sym=sym)
+                                                impl=impl, sym=sym, kt=kt)
     hits = found & alive
     return hits, hit_idx, (hits == alive).all()
 
@@ -435,8 +490,9 @@ def hashmap_insert(valid, time, keys, key_vals, extras, extra_vals, h,
 def session_insert(tables, pkts: PacketVector, want, now, shard=None,
                    tnt: bool = False, sym: bool = False) -> tuple:
     """Insert the forward 5-tuples of ``want`` packets (in place);
-    returns (tables, inserted, failed, evict_expired, evict_victim)."""
-    _refuse(shard, tnt)
+    returns (tables, inserted, failed, evict_expired, evict_victim).
+    With ``tnt`` the key's bucket lies in its tenant's slice."""
+    _refuse(shard)
     key_vals = (pkts.src_ip, pkts.dst_ip,
                 _pack_ports(pkts.sport, pkts.dport), pkts.proto)
     if sym:
@@ -444,7 +500,11 @@ def session_insert(tables, pkts: PacketVector, want, now, shard=None,
                         pkts.proto)
     else:
         mix = _hash_mix(*key_vals)
-    h = _bucket(mix, tables.sess_valid.shape[0])
+    if tnt:
+        h = tenant_bucket(tables, key_vals[0], key_vals[1], mix,
+                          tables.tnt_sess_base, tables.tnt_sess_mask)
+    else:
+        h = _bucket(mix, tables.sess_valid.shape[0])
     inserted, _, failed, ev_exp, ev_vic = hashmap_insert(
         tables.sess_valid, tables.sess_time,
         (tables.sess_src, tables.sess_dst, tables.sess_ports,

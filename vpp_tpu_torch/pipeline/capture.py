@@ -9,8 +9,10 @@ graph launch instead of ~500-1,600 eager launches from the host.
 
 A program holds
 
-* static inputs: the ``[9, P]`` header columns (``plain``), the
-  ``[5, B]`` bit-packed batch (``packed``) or ``K`` of them (``chain``),
+* static inputs: the ``[9, P]`` header columns (``plain``; with the
+  overlay on ``[19, P]``: the outer header, the inner sidecar and the
+  VNI row), the ``[5, B]`` bit-packed batch (``packed``) or ``K`` of
+  them (``chain``),
   the clock ``now`` (0-d int32) and, for a packed or chain program of a
   telemetry step, the rx stamp (0-d, or ``[K]``) and ``now_us`` the
   latency histogram reads (graph.py ``tel_observe``); each call writes
@@ -21,8 +23,9 @@ A program holds
   tables are no longer all the live ones is dropped, never replayed;
 * its parts, one graph each: ``full`` on the forced full chain; on the
   auto path ``prefix`` (ending in the dispatch flag), ``fast`` and
-  ``full``, with the flag read to the host between them, outside every
-  graph: the auto path's one host sync per step;
+  ``full`` (each of which reads the prefix's outputs), with the flag
+  read to the host between them, outside every graph: the auto path's
+  one host sync per step;
 * its static output: a final part writes every result tensor into ONE
   buffer (``Packing``, or the packed rows and aux); the call clones it
   after the replay and hands out views of the clone, so a result never
@@ -312,6 +315,23 @@ class Part:
         self.graph, self.out = graph, out
 
 
+def _decoder(form: str, overlay: bool):
+    """``decode(x) -> (pkts, sidecar kwargs)`` of a program's static
+    input: a packed batch, the ``[9, P]`` header columns, or with the
+    overlay the ``[19, P]`` outer header, inner header and VNI row."""
+    n = len(PacketVector._fields)
+    if form != "plain":
+        return lambda x: (packed_vector(x), {})
+    if not overlay:
+        return lambda x: (PacketVector(*x.unbind(0)), {})
+
+    def decode(x):
+        rows = x.unbind(0)
+        return PacketVector(*rows[:n]), dict(
+            ovl_inner=PacketVector(*rows[n:2 * n]), ovl_vni=rows[2 * n])
+    return decode
+
+
 class Program:
     """One step variant over one dataplane's live tables: static inputs
     (``x`` of ``shape``, ``now``, and the telemetry stamps), the parts,
@@ -333,8 +353,7 @@ class Program:
                                  dtype=torch.int32, device=device)
         self.now_us = torch.zeros((), dtype=torch.int32, device=device)
         self.packing: Optional[Packing] = None
-        decode = (packed_vector if form != "plain"
-                  else lambda x: PacketVector(*x.unbind(0)))
+        decode = _decoder(form, getattr(step, "overlay", "off") != "off")
         self._us = self.now_us if self.observes else None
 
         if form == "chain":
@@ -345,18 +364,24 @@ class Program:
                                        self._us)
         else:
             def full(x, now):
-                return self._encode(step.full(tables, decode(x), now))
+                pkts, sidecar = decode(x)
+                return self._encode(step.full(tables, pkts, now, **sidecar))
         self.prefix = self.fast = None
         if hasattr(step, "prefix"):
             if form == "chain":
                 raise ValueError("the auto path's chain runs the packed "
                                  "program once a sub-batch")
-            self.prefix = Part(f"{label}:prefix", sig,
-                               lambda x, now: step.prefix(
-                                   tables, decode(x), now), cuda)
+
+            def prefix(x, now):
+                pkts, sidecar = decode(x)
+                return step.prefix(tables, pkts, now, **sidecar)
+            self.prefix = Part(f"{label}:prefix", sig, prefix, cuda)
 
             def fast(pre, now):
                 return self._encode(step.fast(tables, pre, now))
+
+            def full(pre, now):
+                return self._encode(step.slow(tables, pre, now))
             self.fast = Part(f"{label}:fast", sig, fast, cuda)
             label = f"{label}:full"
         self.full = Part(label, sig, full, cuda)
@@ -397,10 +422,10 @@ class Program:
             out = self.full(args)
         else:
             pre = self.prefix(args)
-            if bool(pre.ok):  # the auto path's one host sync
-                out = self.fast((pre, self.now), (self.prefix.out, self.now))
-            else:
-                out = self.full(args)
+            # the auto path's one host sync; either tier reads the
+            # prefix's outputs
+            tier = self.fast if bool(pre.ok) else self.full
+            out = tier((pre, self.now), (self.prefix.out, self.now))
         return out.clone()
 
     def result(self, buf: torch.Tensor):

@@ -42,9 +42,17 @@ at every swap). With ``telemetry`` on, ``process_packed`` /
 latency on the device; ``telemetry_snapshot`` reads the bins and the
 top-K rows back, never the sketch.
 
+Tenancy (``tenancy: on``) and the overlay (``overlay: vxlan``) are
+config gates like telemetry. ``tenant_snapshot`` reads the per-tenant
+planes and the per-tenant live session counts (one prefix sum on the
+device); ``process`` takes the overlay's inner-header sidecar
+(``ovl_inner``, ``ovl_vni``) and returns the outer headers it built;
+``set_vtep`` / ``encap_remote`` and ``fib_snapshot`` are the
+reference's. Under the overlay the packed forms raise the reference's
+``ValueError``: the packed boundary has no lane for the sidecar.
+
 Not ported: the ring form (ROADMAP Queue 1 item 11 (IO pump and
-rings)), the overlay sidecar (Queue 1 item 7 (Overlay, service VIPs and
-ECMP staging)), spans, journal and tracer.
+rings)), spans, journal and tracer.
 """
 
 from __future__ import annotations
@@ -57,8 +65,10 @@ import numpy as np
 import torch
 
 from vpp_tpu_torch.ir.rule import PodID
+from vpp_tpu_torch.ops.lpm import lpm_plane_bytes
 from vpp_tpu_torch.ops.session import session_expire, sweep_covered
 from vpp_tpu_torch.ops.telemetry import tel_clock_us
+from vpp_tpu_torch.ops.vxlan import vxlan_encap
 from vpp_tpu_torch.pipeline import capture
 from vpp_tpu_torch.pipeline.graph import (
     StepResult,
@@ -73,19 +83,18 @@ from vpp_tpu_torch.pipeline.selection import (
 from vpp_tpu_torch.pipeline.tables import (
     SESSION_FIELDS,
     TELEMETRY_FIELDS,
+    TENANCY_STATE_FIELDS,
     DataplaneConfig,
     InterfaceType,
     TableBuilder,
     resolve_device,
 )
-from vpp_tpu_torch.pipeline.vector import PacketVector
+from vpp_tpu_torch.pipeline.vector import Disposition, PacketVector
 
 # every state field a step writes in place; ``probe`` and
-# ``process_packed(commit=False)`` run on copies of them. The tenancy
-# state (TENANCY_STATE_FIELDS) joins once a step writes it (ROADMAP
-# Queue 1 item 6 (Tenancy)).
+# ``process_packed(commit=False)`` run on copies of them
 _MUTABLE_FIELDS = (tuple(SESSION_FIELDS) + tuple(TELEMETRY_FIELDS)
-                   + ("fib_ecmp_c",))
+                   + tuple(TENANCY_STATE_FIELDS) + ("fib_ecmp_c",))
 
 # --- the bit-packed boundary (the reference's numpy surface) ------------
 
@@ -94,8 +103,7 @@ PACKED_IN_ROWS = 5
 PACKED_OUT_ROWS_N = 5
 # The aux rider's row names, IN ORDER (graph.py ``packed_fields`` builds
 # the rows): the two-tier dispatch trio, session-table pressure, the ML
-# verdicts, device telemetry and tenancy. The stages the port has not
-# ported read 0.
+# verdicts, device telemetry and tenancy.
 PACKED_AUX_SCHEMA = (
     "fastpath", "rx", "sess_hits",
     "insert_fails", "evictions",
@@ -235,6 +243,12 @@ class Dataplane:
         self._ml_mode = "off"
         self._ml_kind = "mlp"
         self._tel_mode = c.telemetry
+        # tenancy and the overlay: config gates (their planes' shapes
+        # are config-static; an unstaged tenancy-on dataplane forwards
+        # as tenancy off does)
+        self._tnt_mode = c.tenancy
+        self._overlay = c.overlay
+        self._vtep: Optional[int] = None
         self._classifier_impl = "dense"
         self._fib_impl = "dense"
         self._session_impl = "gather"
@@ -418,8 +432,9 @@ class Dataplane:
             self._skip_local if skip_local is None else skip_local, fast,
             self._sweep_stride, ml_mode=self._ml_mode,
             ml_kind=self._ml_kind, tel_mode=self._tel_mode,
-            fib_impl=self._fib_impl, sess_impl=self._session_impl,
-            sess_hash=self._sess_hash)
+            tnt_mode=self._tnt_mode, fib_impl=self._fib_impl,
+            sess_impl=self._session_impl, sess_hash=self._sess_hash,
+            overlay=self._overlay)
 
     def _program(self, fast: bool, form: str, shape) -> capture.Program:
         """The step program of the current selection for inputs of
@@ -433,12 +448,14 @@ class Dataplane:
             raise NotImplementedError(
                 f"the {form!r} step form is not ported to vpp_tpu_torch "
                 f"yet: ROADMAP Queue 1 item 11 (IO pump and rings)")
+        self._plain_only(form)
         if self._signed[0] is not self.tables:
             self._signed = (self.tables,
                             capture.table_signature(self.tables))
         shape = tuple(shape)
 
-        gates = (self._ml_mode, self._ml_kind, self._tel_mode)
+        gates = (self._ml_mode, self._ml_kind, self._tel_mode,
+                 self._tnt_mode, self._overlay)
 
         def key(skip):
             return (self._classifier_impl, skip, fast, form,
@@ -458,6 +475,15 @@ class Dataplane:
                 form, shape, self.device)
             self._programs[key(skip)] = prog
         return prog
+
+    def _plain_only(self, form: str) -> None:
+        """The reference's refusal of the packed forms under the
+        overlay: the packed boundary carries no inner-header sidecar."""
+        if self._overlay != "off" and form != "plain":
+            raise ValueError(
+                f"overlay={self._overlay!r} supports only the plain step "
+                f"form (the packed/ring boundaries carry no inner-header "
+                f"sidecar); got form {form!r}")
 
     def programs(self):
         """The step programs built so far (pipeline/capture.py)."""
@@ -517,28 +543,42 @@ class Dataplane:
         replays its program (the header is copied into its static
         columns, the result is a copy of its output); the full chain
         never synchronises with the device, the two-tier dispatcher
-        reads its dispatch flag once. The overlay's inner-header
-        sidecar (``ovl_inner``, ``ovl_vni``) is refused."""
-        if ovl_inner is not None or ovl_vni is not None:
-            raise NotImplementedError(
-                "the overlay's inner-header sidecar is not ported to "
-                "vpp_tpu_torch yet: ROADMAP Queue 1 item 7 (Overlay, "
-                "service VIPs and ECMP staging)")
+        reads its dispatch flag once. With the overlay on, ``ovl_inner``
+        / ``ovl_vni`` are the host-parsed inner-header sidecar of VXLAN
+        ingress ([P] inner PacketVector, [P] int32 VNI, -1: no VXLAN
+        framing); None gives the all-unframed sidecar, under which any
+        overlay-addressed frame fails closed."""
         self._check(pkts)
+        sidecar = self._sidecar(pkts, ovl_inner, ovl_vni)
         with self._lock:
             self._steps_since_expire += 1
             now = self._clock(now)
             if not self.graphs:
                 result = self._get_step(self._use_fastpath)(
-                    self.tables, pkts, self._now_tensor(now))
+                    self.tables, pkts, self._now_tensor(now), *sidecar)
                 self.tables = result.tables
                 return result
+            cols = tuple(pkts)
+            if sidecar[0] is not None:
+                cols += tuple(sidecar[0]) + (sidecar[1],)
             prog = self._program(self._use_fastpath, "plain",
-                                 (len(PacketVector._fields),
-                                  pkts.src_ip.shape[0]))
-            buf = prog.run(_i32(now),
-                           lambda x: torch.stack(tuple(pkts), out=x))
+                                 (len(cols), pkts.src_ip.shape[0]))
+            buf = prog.run(_i32(now), lambda x: torch.stack(cols, out=x))
             return prog.result(buf)
+
+    def _sidecar(self, pkts: PacketVector, ovl_inner, ovl_vni) -> tuple:
+        """(ovl_inner, ovl_vni) of a step: with the overlay off (None,
+        None), the sidecar unused as the reference leaves it; with it on
+        the reference's defaults, the outer header and all -1."""
+        if self._overlay == "off":
+            return None, None
+        if ovl_inner is None:
+            ovl_inner = pkts
+        self._check(ovl_inner)
+        if ovl_vni is None:
+            ovl_vni = torch.full_like(pkts.flags, -1)
+        return ovl_inner, torch.as_tensor(ovl_vni, dtype=torch.int32,
+                                          device=self.device)
 
     def probe(self, pkts: PacketVector,
               now: Optional[int] = None) -> StepResult:
@@ -549,11 +589,13 @@ class Dataplane:
         under ``_lock``: a swap writes the configuration tensors in
         place and must not land mid-step."""
         self._check(pkts)
+        sidecar = self._sidecar(pkts, None, None)
         with self._lock:
             step = self._get_step(False)
             if now is None:
                 now = max(self._now, self.clock_ticks())
-            return step(self._scratch(), pkts, self._now_tensor(now))
+            return step(self._scratch(), pkts, self._now_tensor(now),
+                        *sidecar)
 
     def _stamps(self, stamps, k: Optional[int], now_us: Optional[int]):
         """The telemetry inputs of a packed call: the rx stamp (K of
@@ -598,6 +640,7 @@ class Dataplane:
         valid packet."""
         if not torch.is_tensor(flat):
             flat = np.asarray(flat)
+        self._plain_only("packed")
         with self._lock:
             if commit:
                 self._steps_since_expire += 1
@@ -631,6 +674,7 @@ class Dataplane:
         and ``now_us`` feed the latency histogram with telemetry on."""
         if not torch.is_tensor(flats):
             flats = np.asarray(flats)
+        self._plain_only("chain")
         with self._lock:
             k, batch = len(flats), flats.shape[-1]
             # a K-chain sweeps once per sub-batch
@@ -657,6 +701,100 @@ class Dataplane:
                     self._get_step(self._use_fastpath), self.tables,
                     x.unbind(0), now, stamps, us), batch, k)
         return (outs, auxs) if with_aux else outs
+
+    # --- the VXLAN edge ---
+    def set_vtep(self, vtep_ip: int) -> None:
+        """This node's VTEP address: ``encap_remote``'s outer source, and
+        staged for the overlay's decap filter and encap (published at
+        the next ``swap``)."""
+        with self._lock:
+            self._vtep = int(vtep_ip) & 0xFFFFFFFF
+            self.builder.set_vtep_ip(vtep_ip)
+
+    def encap_remote(self, result: StepResult) -> PacketVector:
+        """The outer-header vector of a step's REMOTE-disposed packets
+        with a tunnel next hop (plain tensor code on the step's device);
+        lanes with next hop 0 (e.g. an SNAT'd default route) leave as
+        plain IP and come back invalid."""
+        if self._vtep is None:
+            raise RuntimeError("set_vtep() before encap_remote()")
+        mask = ((result.disp == int(Disposition.REMOTE))
+                & (result.next_hop != 0))
+        return vxlan_encap(result.pkts, mask, self._vtep, result.next_hop)
+
+    # --- snapshots ---
+    def fib_snapshot(self) -> dict:
+        """Host scalars of the FIB: the live route count, the routes per
+        prefix length, the ECMP group registry with each member's ways
+        and forwarded packets (from the [G, W] plane, the one device
+        read), the LPM plane bytes. The reference's ``lpm_build_ms`` and
+        ``upload`` (its incremental upload's record) are 0.0 and {}:
+        every swap here uploads in full."""
+        with self._lock:
+            t, b = self.tables, self.builder
+            live = b.fib_plen[b.fib_plen >= 0]
+            cnts = np.bincount(live, minlength=33) if len(live) else []
+            groups = {
+                g: [{"nh": int(m[0]), "tx_if": int(m[1]), "node": int(m[2]),
+                     "ways": [w for w, a in enumerate(e["assign"])
+                              if a == m],
+                     "pkts": 0} for m in e["members"]]
+                for g, e in b.nh_groups.items()}
+            snap = {
+                "impl": self._fib_impl,
+                "knob": self.fib_impl_knob,
+                "routes": int(len(live)),
+                "by_length": {int(n): int(c) for n, c in enumerate(cnts)
+                              if c},
+                "lpm_ok": b.lpm_ok(),
+                "lpm_build_ms": 0.0,
+                "ecmp_groups": groups,
+                "plane_bytes": lpm_plane_bytes(self.config),
+                "upload": {},
+            }
+            ecmp_c = t.fib_ecmp_c.cpu().numpy().astype(np.int64)
+        snap["ecmp_c"] = ecmp_c
+        for g, members in groups.items():
+            for m in members:
+                if m["ways"]:
+                    m["pkts"] = int(ecmp_c[g, m["ways"]].sum())
+        return snap
+
+    def tenant_snapshot(self) -> Optional[dict]:
+        """Host copy of the per-tenant planes: bucket levels, rx /
+        forwarded / rate-limited / slice-failure counters, rates and
+        bursts, and each tenant's live sessions in its slice
+        (tenancy/derive.py ``tenant_occupancy``, a prefix sum on the
+        device: [T] ints cross, never the columns). None with tenancy
+        off."""
+        if self._tnt_mode == "off":
+            return None
+        from vpp_tpu_torch.tenancy.derive import tenant_occupancy
+
+        with self._lock:
+            t = self.tables
+            now = max(self._now, self.clock_ticks())
+            registry = {tid: dict(e)
+                        for tid, e in self.builder.tenants.items()}
+            occ = tenant_occupancy(t.sess_valid, t.sess_time,
+                                   self._now_tensor(now), t.sess_max_age,
+                                   t.tnt_sess_base, t.tnt_sess_mask + 1)
+            planes = [x.cpu().numpy().astype(np.int64) for x in (
+                t.tnt_tokens, t.tnt_rx_c, t.tnt_tx_c, t.tnt_rl_c,
+                t.tnt_qf_c, occ, t.tnt_rate, t.tnt_burst, t.tnt_sess_mask)]
+        tokens, rx, tx, rl, qf, occ_h, rate, burst, smask = planes
+        return {
+            "tenants": registry,
+            "tokens": tokens,
+            "rx": rx,
+            "tx": tx,
+            "rl_drops": rl,
+            "quota_fails": qf,
+            "occupancy": occ_h,
+            "rate": rate,
+            "burst": burst,
+            "sess_quota_slots": (smask + 1) * int(self.config.sess_ways),
+        }
 
     # --- device telemetry (ops/telemetry.py) ---
     def telemetry_snapshot(self) -> Optional[dict]:

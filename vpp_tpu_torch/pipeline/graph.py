@@ -1,10 +1,11 @@
 """The fused packet pipeline: one step over a packet vector.
 
-The PyTorch counterpart of ``vpp_tpu/pipeline/graph.py``: ip4-input ->
-reflective session lookup + touch -> NAT44 reverse -> DNAT -> ACL
-classify (local + global) -> FIB -> SNAT -> session insert + NAT
-record -> the shared tail (counters, drop attribution, session sweep,
-flow sketch), and the two-tier established-flow dispatcher
+The PyTorch counterpart of ``vpp_tpu/pipeline/graph.py``: [overlay
+decap] -> ip4-input -> [tenant stage] -> reflective session lookup +
+touch -> NAT44 reverse -> DNAT -> ACL classify (local + global) -> FIB
+-> SNAT -> session insert + NAT record -> the shared tail ([overlay
+encap], counters, drop attribution, session sweep, flow sketch,
+per-tenant accounting), and the two-tier established-flow dispatcher
 ``pipeline_step_auto`` over it and the classify-free
 ``pipeline_step_fast``.
 
@@ -13,10 +14,16 @@ ops/mlscore.py) scores the post-NAT-reverse header on both tiers, with
 the session age read before the touch; enforce folds its drops in after
 the ACL verdict (deny > ml-drop > permit). Telemetry ``full`` folds each
 step into the flow sketch in the shared tail; the latency histogram is
-the packed boundary's (``tel_observe``). Compiled out: the tenancy and
-overlay stages (their StepStats counters read 0 and the StepResult
-fields they fill are the reference's off-state values).
-``make_pipeline_step`` refuses the gates that would turn them on.
+the packed boundary's (``tel_observe``). Tenancy (``tnt_mode`` on)
+derives each packet's tenant at ip4-input, runs the token buckets once
+a step (over-quota packets leave ``alive``, attributed DROP_TENANT),
+slices the session and NAT tables by the key's tenant, keys the ML
+policy by tenant and counts per tenant in the tail. The overlay
+(``overlay`` vxlan) decaps VTEP-addressed VXLAN frames ahead of
+ip4-input from the host-parsed inner sidecar (a frame that cannot be
+admitted fails closed, DROP_OVERLAY; a decapped packet's tenant is its
+VNI's) and encaps REMOTE packets with a tunnel next hop in the tail,
+resolving the outer header by a second walk over the same FIB planes.
 
 PyTorch runs eagerly, so the step is plain Python over tensors; the
 full chain never synchronises with the device (every counter stays a
@@ -25,7 +32,8 @@ reference passes ``jnp.int32(now)``), and it updates the session/NAT
 state and the ECMP accounting plane in place (ops/session.py module
 doc): ``StepResult.tables`` is the tables object it was given. The auto
 dispatcher reads its one predicate flag to the host per step (its
-docstring says why).
+docstring says why). The tenancy planes (buckets and counters) are
+written in place too.
 
 Capture. Nothing in a step depends on the data or the clock on the
 host: the op stream is the same for every batch of one shape and every
@@ -33,7 +41,9 @@ host: the op stream is the same for every batch of one shape and every
 pipeline/capture.py can capture it in a CUDA graph. For that the auto
 dispatcher comes in three parts a program captures one by one —
 ``auto_prefix`` (ending in the dispatch flag), ``auto_fast`` and the
-full chain — with the flag read between them; ``result_fields`` /
+full chain behind it — with the flag read between them; the prefix
+runs the overlay decap and the tenant stage, so it writes the token
+buckets, and both tiers take its ingress; ``result_fields`` /
 ``result_of`` and ``packed_vector`` / ``packed_fields`` are the
 tensors a program copies in and out.
 """
@@ -71,6 +81,11 @@ from vpp_tpu_torch.ops.telemetry import (
     tel_flow_update,
     tel_latency_update,
 )
+from vpp_tpu_torch.ops.vxlan import (
+    DEFAULT_VNI,
+    vxlan_decap_step,
+    vxlan_encap,
+)
 from vpp_tpu_torch.pipeline.vector import (
     Disposition,
     PacketVector,
@@ -78,6 +93,11 @@ from vpp_tpu_torch.pipeline.vector import (
     scatter_index,
     to_i32,
     u32,
+)
+from vpp_tpu_torch.tenancy.derive import (
+    tenant_ids,
+    tenant_limit,
+    tnt_account,
 )
 
 
@@ -129,8 +149,9 @@ DROP_NO_ROUTE = 3   # FIB miss
 DROP_FIB = 4        # matched a drop route
 DROP_NAT = 5        # NAT fail-closed (port collision / un-NATable proto)
 DROP_ML = 6         # ML-stage enforce verdict
-DROP_TENANT = 7     # tenant quota (stage not ported yet)
-DROP_OVERLAY = 8    # overlay fail-closed (stage not ported yet)
+DROP_TENANT = 7     # tenant token-bucket quota exceeded
+DROP_OVERLAY = 8    # overlay fail-closed: a VTEP-addressed frame with an
+                    # unknown VNI or no valid inner header
 
 
 class StepResult(NamedTuple):
@@ -147,6 +168,9 @@ class StepResult(NamedTuple):
     snat_applied: torch.Tensor    # bool [P]
     ml_flagged: torch.Tensor      # bool [P] (all False: stage off)
     ml_scores: torch.Tensor       # int32 [P] (all 0: stage off)
+    # the overlay's outputs, None with ``overlay`` off: the outer header
+    # (valid where encapped), the encapped mask and the wire VNI (-1
+    # where not encapped)
     ovl_outer: Optional[PacketVector] = None
     ovl_encap: Optional[torch.Tensor] = None
     ovl_vni: Optional[torch.Tensor] = None
@@ -163,6 +187,66 @@ def _ingress(tables, pkts: PacketVector):
     bad_if = tables.if_type[gather_index(pkts.rx_if, n)] == 0
     drop_ip4 = drop_ip4 | (bad_if & pkts.valid)
     return pkts, drop_ip4, pkts.valid & ~drop_ip4
+
+
+class Ingress(NamedTuple):
+    """What the stages ahead of the session lookup hand the rest of a
+    step (``_stage_in``); the tenancy and overlay fields are None with
+    those stages off."""
+
+    pkts: PacketVector                     # after decap and ip4-input
+    drop_ip4: torch.Tensor
+    alive: torch.Tensor                    # less the overlay and quota drops
+    tid: Optional[torch.Tensor] = None     # int32 [P] billing tenant
+    # int32 [P] the tenant of the header's address pair: the slice key
+    # of the session lookup and the NAT reverse, whose keys are this
+    # pair (never the VNI's tenant)
+    kt: Optional[torch.Tensor] = None
+    tnt_dropped: Optional[torch.Tensor] = None   # over the tenant's quota
+    ovl_dropped: Optional[torch.Tensor] = None   # overlay fail-closed
+    ovl_decapped: Optional[torch.Tensor] = None
+
+
+def _tenant_eval(tables, pkts: PacketVector, alive, now, tnt_mode: str,
+                 ovl_tid=None, ovl_decapped=None):
+    """The tenant stage, run exactly once a step: each packet's tenant
+    on the ingress header (a decapped packet's is its VNI's) and one
+    token-bucket round, which writes the buckets. Returns (tid,
+    dropped, kt) — ``kt`` the address-derived tenant before the VNI
+    override — all None with the stage off."""
+    if tnt_mode == "off":
+        return None, None, None
+    kt = tenant_ids(tables, pkts)
+    tid = kt if ovl_tid is None else torch.where(ovl_decapped, ovl_tid, kt)
+    return tid, tenant_limit(tables, tid, alive, now), kt
+
+
+def _stage_in(tables, pkts: PacketVector, now, tnt_mode: str = "off",
+              overlay: str = "off", ovl_inner=None, ovl_vni=None) -> Ingress:
+    """Everything ahead of the session lookup: the overlay decap (its
+    sidecar defaults to "no VXLAN framing": ``ovl_inner`` the outer
+    header, ``ovl_vni`` all -1), ip4-input, the fail-closed overlay
+    lanes leaving ``alive`` (ip4-input keeps its attribution), and the
+    tenant stage, whose over-quota packets leave ``alive`` too."""
+    ovl_bad = ovl_decapped = ovl_tid = None
+    if overlay != "off":
+        if ovl_inner is None:
+            ovl_inner = pkts
+        if ovl_vni is None:
+            ovl_vni = torch.full_like(pkts.flags, -1)
+        pkts, ovl_bad, ovl_decapped, ovl_tid = vxlan_decap_step(
+            tables, pkts, ovl_inner, ovl_vni)
+    pkts, drop_ip4, alive = _ingress(tables, pkts)
+    ovl_dropped = None
+    if ovl_bad is not None:
+        ovl_dropped = ovl_bad & ~drop_ip4
+        alive = alive & ~ovl_dropped
+    tid, tnt_dropped, kt = _tenant_eval(tables, pkts, alive, now, tnt_mode,
+                                        ovl_tid, ovl_decapped)
+    if tnt_dropped is not None:
+        alive = alive & ~tnt_dropped
+    return Ingress(pkts, drop_ip4, alive, tid, kt, tnt_dropped, ovl_dropped,
+                   ovl_decapped)
 
 
 def _count(n: int, idx: torch.Tensor, mask: torch.Tensor,
@@ -192,15 +276,17 @@ class MlEval(NamedTuple):
 
 
 def _ml_eval(tables, pkts: PacketVector, alive, established, sess_age,
-             ml_mode: str, ml_kind: str) -> Optional[MlEval]:
+             ml_mode: str, ml_kind: str, tid=None) -> Optional[MlEval]:
     """The one ML-stage evaluation both tiers share: the post-NAT-reverse
     header and the session hit and its pre-touch age through
-    ``ml_stage`` (one kernel launch on the card). None when the stage is
-    off; under "score" the policy's drop requests are dropped here."""
+    ``ml_stage`` (one kernel launch on the card), per tenant with
+    ``tid``. None when the stage is off; under "score" the policy's drop
+    requests are dropped here (the compiled mode is every tenant's
+    ceiling)."""
     if ml_mode == "off":
         return None
     scores, flagged, drop_wanted = ml_stage(
-        tables, pkts, alive, established, sess_age, kind=ml_kind)
+        tables, pkts, alive, established, sess_age, kind=ml_kind, tid=tid)
     if ml_mode != "enforce":
         drop_wanted = torch.zeros_like(alive)
     return MlEval(flagged, drop_wanted, scores)
@@ -213,27 +299,75 @@ def _finish_step(tables, pkts: PacketVector, now, alive, drop_ip4,
                  sess_evict_victim, natsess_evict_expired,
                  natsess_evict_victim, sweep_stride: int = 0,
                  fastpath: int = 0, ml: Optional[MlEval] = None,
-                 ml_dropped=None, tel_mode: str = "off") -> StepResult:
-    """Shared tail: session sweep, ECMP member accounting, the flow
-    sketch (``tel_mode`` full), drop attribution, counters and the
-    StepResult. ``fastpath`` is the tier that ran (1 = the classify-free
-    fast tier); ``ml`` the ML stage's evaluation and ``ml_dropped`` its
-    enforced drops (already masked to permitted alive packets)."""
+                 ml_dropped=None, tel_mode: str = "off", tid=None,
+                 tnt_dropped=None, tnt_qfail=None, overlay: str = "off",
+                 fib_fn=fib_lookup_dense, ovl_dropped=None,
+                 ovl_decapped=None) -> StepResult:
+    """Shared tail: the overlay encap, session sweep, ECMP member
+    accounting, the flow sketch (``tel_mode`` full), the per-tenant
+    accounting, drop attribution, counters and the StepResult.
+    ``fastpath`` is the tier that ran (1 = the classify-free fast tier);
+    ``ml`` the ML stage's evaluation and ``ml_dropped`` its enforced
+    drops (already masked to permitted alive packets); ``tid`` /
+    ``tnt_dropped`` / ``tnt_qfail`` the tenant stage's (None: off);
+    ``ovl_dropped`` / ``ovl_decapped`` the decap's.
+
+    The encap (``overlay`` vxlan): REMOTE-disposed packets with a tunnel
+    next hop get an outer header resolved by a second walk over the
+    same FIB planes (``fib_fn`` on the outer vector); an unroutable
+    endpoint is a no-route drop. The outer walk is not counted in the
+    ECMP plane: the inner walk already counted the packet's member."""
+    zero = torch.zeros((), dtype=torch.int32, device=alive.device)
+    ovl_outer = ovl_encap = ovl_vni = ovl_miss = None
+    if overlay != "off":
+        ovl_need = (forwarded & (disp == int(Disposition.REMOTE))
+                    & (fib.next_hop != 0))
+        outer = vxlan_encap(pkts, ovl_need, tables.ovl_vtep_ip,
+                            fib.next_hop)
+        ofib = fib_fn(tables, outer)
+        ofib_ok = ofib.matched & (ofib.disp != int(Disposition.DROP))
+        ovl_miss = ovl_need & ~ofib_ok
+        forwarded = forwarded & ~ovl_miss
+        disp = torch.where(ovl_miss, int(Disposition.DROP),
+                           disp).to(torch.int32)
+        ovl_encap = ovl_need & ofib_ok
+        tx_if = torch.where(ovl_encap, ofib.tx_if,
+                            torch.where(ovl_miss, -1, tx_if)).to(torch.int32)
+        ovl_outer = outer._replace(
+            flags=torch.where(ovl_encap, outer.flags, 0).to(torch.int32))
+        # the tenant's VNI on the wire (tenancy off: slot 0, the
+        # default), the default VNI where a tenant has none
+        vni = (tables.tnt_vni[tid.long()] if tid is not None
+               else tables.tnt_vni[:1].expand(alive.shape))
+        vni = torch.where(vni >= 0, vni, DEFAULT_VNI)
+        ovl_vni = torch.where(ovl_encap, vni, -1).to(torch.int32)
     session_sweep(tables, now, sweep_stride)
     # per-member ECMP accounting into the carried [G, W] plane
     n_grp, n_way = tables.fib_ecmp_c.shape
     sel = forwarded & (fib.grp >= 0)
     gw = torch.where(sel, fib.grp * n_way + fib.way, 0).long()
     tables.fib_ecmp_c.view(-1).index_add_(0, gw, sel.to(torch.int32))
-    zero = torch.zeros((), dtype=torch.int32, device=alive.device)
     tel_sketched = (tel_flow_update(tables, pkts, alive)[1]
                     if tel_mode == "full" else zero)
+    # rate-limited and fail-closed overlay lanes left ``alive`` early but
+    # were received: they count in rx and the per-interface counters
+    alive_all = alive
+    for m in (tnt_dropped, ovl_dropped):
+        if m is not None:
+            alive_all = alive_all | m
+    if tid is not None:
+        tnt_account(tables, tid, alive_all, forwarded, tnt_dropped,
+                    torch.zeros_like(alive) if tnt_qfail is None
+                    else tnt_qfail)
 
     n_ifaces = tables.if_type.shape[0]
     max_age = tables.sess_max_age
 
     def occupancy(valid, time):
         return _sum((valid == 1) & (_age(now, time) <= max_age))
+
+    def count(m):
+        return zero if m is None else _sum(m)
 
     # ml-drop wins attribution over the FIB outcomes (the packet never
     # reached forwarding) and loses to an ACL deny (ml_dropped is
@@ -244,12 +378,15 @@ def _finish_step(tables, pkts: PacketVector, now, alive, drop_ip4,
     if ml_dropped is not None:
         drop_no_route = drop_no_route & ~ml_dropped
         fib_dropped = fib_dropped & ~ml_dropped
+    if ovl_miss is not None:
+        drop_no_route = drop_no_route | ovl_miss
     dropped = ((pkts.valid & (drop_ip4 | drop_acl | drop_no_route))
                | fib_dropped | dropped_nat)
-    if ml_dropped is not None:
-        dropped = dropped | ml_dropped
+    for m in (ml_dropped, tnt_dropped, ovl_dropped):
+        if m is not None:
+            dropped = dropped | m
     stats = StepStats(
-        rx=_sum(alive),
+        rx=_sum(alive_all),
         tx=_sum(forwarded),
         drop_ip4=_sum(drop_ip4),
         drop_acl=_sum(drop_acl),
@@ -264,9 +401,9 @@ def _finish_step(tables, pkts: PacketVector, now, alive, drop_ip4,
         sess_occupancy=occupancy(tables.sess_valid, tables.sess_time),
         natsess_occupancy=occupancy(tables.natsess_valid,
                                     tables.natsess_time),
-        if_rx=_count(n_ifaces, pkts.rx_if, alive),
+        if_rx=_count(n_ifaces, pkts.rx_if, alive_all),
         if_tx=_count(n_ifaces, tx_if, forwarded),
-        if_rx_bytes=_count(n_ifaces, pkts.rx_if, alive, pkts.pkt_len),
+        if_rx_bytes=_count(n_ifaces, pkts.rx_if, alive_all, pkts.pkt_len),
         if_tx_bytes=_count(n_ifaces, tx_if, forwarded, pkts.pkt_len),
         if_drops=_count(n_ifaces, pkts.rx_if, dropped),
         sess_hits=_sum(established),
@@ -278,17 +415,25 @@ def _finish_step(tables, pkts: PacketVector, now, alive, drop_ip4,
         natsess_evict_victim=_sum(natsess_evict_victim),
         ml_scored=zero if ml is None else _sum(alive),
         ml_flagged=zero if ml is None else _sum(ml.flagged),
-        ml_drops=zero if ml_dropped is None else _sum(ml_dropped),
-        tel_sketched=tel_sketched, tnt_limited=zero, tnt_qfail=zero,
-        ovl_decap=zero, ovl_encap=zero, drop_overlay=zero,
+        ml_drops=count(ml_dropped),
+        tel_sketched=tel_sketched,
+        tnt_limited=count(tnt_dropped),
+        tnt_qfail=count(tnt_qfail),
+        ovl_decap=count(ovl_decapped),
+        ovl_encap=count(ovl_encap),
+        drop_overlay=count(ovl_dropped),
     )
+    # attribution stays exclusive: the quota and overlay drops left
+    # ``alive`` before every other cause mask was derived from it
     drop_cause = (torch.where(pkts.valid & drop_ip4, DROP_IP4, 0)
                   + torch.where(drop_acl, DROP_ACL, 0)
                   + torch.where(drop_no_route, DROP_NO_ROUTE, 0)
                   + torch.where(fib_dropped, DROP_FIB, 0)
                   + torch.where(dropped_nat, DROP_NAT, 0))
-    if ml_dropped is not None:
-        drop_cause = drop_cause + torch.where(ml_dropped, DROP_ML, 0)
+    for m, cause in ((ml_dropped, DROP_ML), (tnt_dropped, DROP_TENANT),
+                     (ovl_dropped, DROP_OVERLAY)):
+        if m is not None:
+            drop_cause = drop_cause + torch.where(m, cause, 0)
     drop_cause = drop_cause.to(torch.int32)
     return StepResult(
         pkts=pkts,
@@ -306,6 +451,9 @@ def _finish_step(tables, pkts: PacketVector, now, alive, drop_ip4,
         ml_scores=(torch.zeros(alive.shape, dtype=torch.int32,
                                device=alive.device)
                    if ml is None else ml.scores),
+        ovl_outer=ovl_outer,
+        ovl_encap=ovl_encap,
+        ovl_vni=ovl_vni,
     )
 
 
@@ -315,19 +463,27 @@ def pipeline_step(tables, pkts: PacketVector, now,
                   sweep_stride: int = SWEEP_STRIDE_DEFAULT,
                   fib_fn=fib_lookup_dense, sess_impl: str = "gather",
                   sess_hash: str = "fwd", ml_mode: str = "off",
-                  ml_kind: str = "mlp",
-                  tel_mode: str = "off") -> StepResult:
-    """Process one packet vector through the full forwarding chain
-    (the reference's ``pipeline_step`` with the tenancy and overlay
-    gates off). ``now`` is the session clock in ticks: a 0-d int32
-    tensor on the tables' device (an int still works, for direct
-    callers)."""
+                  ml_kind: str = "mlp", tel_mode: str = "off",
+                  tnt_mode: str = "off", overlay: str = "off",
+                  ovl_inner=None, ovl_vni=None,
+                  ingress: Optional[Ingress] = None) -> StepResult:
+    """Process one packet vector through the full forwarding chain.
+    ``now`` is the session clock in ticks: a 0-d int32 tensor on the
+    tables' device (an int still works, for direct callers).
+    ``ovl_inner`` / ``ovl_vni`` are the overlay's inner-header sidecar
+    (``overlay`` vxlan). ``ingress``: the stages ahead of the session
+    lookup already ran (the two-tier dispatcher's prefix): the chain
+    takes their result, so the tokens are spent once; ``pkts`` and the
+    sidecar are then unused."""
     sym = sess_hash == "sym"
-    pkts, drop_ip4, alive = _ingress(tables, pkts)
+    ing = ingress if ingress is not None else _stage_in(
+        tables, pkts, now, tnt_mode, overlay, ovl_inner, ovl_vni)
+    pkts, drop_ip4, alive, tid = ing.pkts, ing.drop_ip4, ing.alive, ing.tid
+    tnt = tid is not None
 
     # reflective session bypass, looked up on the raw (pre-NAT) header
     established, sess_hit_idx = session_lookup_reverse_idx(
-        tables, pkts, now, impl=sess_impl, sym=sym)
+        tables, pkts, now, tnt=tnt, impl=sess_impl, sym=sym, kt=ing.kt)
     established = established & alive
     # the ML age feature: the touch below rewrites the time in place,
     # so the age is read before it, in stream order
@@ -337,11 +493,11 @@ def pipeline_step(tables, pkts: PacketVector, now,
 
     # NAT44: reverse-translate return traffic, then DNAT new flows
     pkts, nat_reversed, nat_hit_idx = nat44_reverse(tables, pkts, alive,
-                                                    now)
+                                                    now, tnt=tnt, kt=ing.kt)
     nat44_touch(tables, nat_hit_idx, nat_reversed, now)
     # the ML stage scores the post-reverse header, as the fast tier does
     ml = _ml_eval(tables, pkts, alive, established, sess_age, ml_mode,
-                  ml_kind)
+                  ml_kind, tid)
     orig_dst, orig_dport = pkts.dst_ip, pkts.dport
     pkts, dnat_applied, dnat_self_snat = nat44_dnat(
         tables, pkts, alive & ~nat_reversed)
@@ -375,15 +531,16 @@ def pipeline_step(tables, pkts: PacketVector, now,
     nat_unsupported = (forwarded & fresh & ~nat_capable & fib.snat
                        & (tables.nat_snat_ip != 0))
 
-    # session install for newly permitted flows (post-NAT keys)
+    # session install for newly permitted flows (post-NAT keys; with
+    # tenancy in the slice of the key's tenant, not the billing tenant)
     want_sess = forwarded & ~established & nat_capable & ~nat_unsupported
     _, _, sess_fail, sess_ev_exp, sess_ev_vic = session_insert(
-        tables, pkts, want_sess, now, sym=sym)
+        tables, pkts, want_sess, now, tnt=tnt, sym=sym)
     nat_kind = (torch.where(dnat_applied, 1, 0)
                 + torch.where(snat_applied, 2, 0)).to(torch.int32)
     _, nat_conflict, natsess_fail, nat_ev_exp, nat_ev_vic = nat44_record(
         tables, pkts, orig_dst, orig_dport, orig_src, orig_sport,
-        nat_kind, (dnat_applied | snat_applied) & forwarded, now)
+        nat_kind, (dnat_applied | snat_applied) & forwarded, now, tnt=tnt)
     # fail closed on reply-key collisions
     dropped_nat = nat_conflict | nat_unsupported
     forwarded = forwarded & ~dropped_nat
@@ -397,7 +554,11 @@ def pipeline_step(tables, pkts: PacketVector, now,
         snat_applied, dropped_nat, sess_fail, natsess_fail,
         sess_ev_exp, sess_ev_vic, nat_ev_exp, nat_ev_vic,
         sweep_stride=sweep_stride, ml=ml, ml_dropped=ml_dropped,
-        tel_mode=tel_mode)
+        tel_mode=tel_mode, tid=tid, tnt_dropped=ing.tnt_dropped,
+        # the per-tenant congestion signal: slice insert failures
+        tnt_qfail=(sess_fail | natsess_fail) if tnt else None,
+        overlay=overlay, fib_fn=fib_fn, ovl_dropped=ing.ovl_dropped,
+        ovl_decapped=ing.ovl_decapped)
 
 
 # --- two-tier established-flow fast path ----------------------------
@@ -409,21 +570,23 @@ def pipeline_step(tables, pkts: PacketVector, now,
 # other batch takes the full chain unchanged.
 
 
-def _pipeline_fast_finish(tables, pkts: PacketVector, now, alive, drop_ip4,
+def _pipeline_fast_finish(tables, ing: Ingress, pkts: PacketVector, now,
                           established, sess_hit_idx, nat_reversed,
                           nat_hit_idx,
                           sweep_stride: int = SWEEP_STRIDE_DEFAULT,
                           fib_fn=fib_lookup_dense, ml_mode: str = "off",
-                          ml_kind: str = "mlp",
-                          tel_mode: str = "off") -> StepResult:
-    """Tail of the classify-free tier, from the post-reverse header on.
-    Valid ONLY under the dispatch invariant (every alive packet is
-    established, none DNAT-matches): ``permit`` collapses to
-    ``established``, and SNAT, session insert and NAT record are
-    statically empty (each needs a fresh flow or a DNAT hit), so they
-    are elided — that elision is the tier's purpose. The ML stage is
-    not elided: the fast tier scores (and enforces) as the full chain
-    does, with the age read before the touch at the same point."""
+                          ml_kind: str = "mlp", tel_mode: str = "off",
+                          overlay: str = "off") -> StepResult:
+    """Tail of the classify-free tier, from the post-reverse header
+    ``pkts`` on (``ing``: the step's ingress). Valid ONLY under the
+    dispatch invariant (every alive packet is established, none
+    DNAT-matches): ``permit`` collapses to ``established``, and SNAT,
+    session insert and NAT record are statically empty (each needs a
+    fresh flow or a DNAT hit), so they are elided — that elision is the
+    tier's purpose. The ML stage is not elided: the fast tier scores
+    (and enforces) as the full chain does, with the age read before the
+    touch at the same point."""
+    alive = ing.alive
     sess_age = (session_hit_age(tables, sess_hit_idx, established, now)
                 if ml_mode != "off" else None)
     session_touch(tables, sess_hit_idx, established, now)
@@ -431,7 +594,7 @@ def _pipeline_fast_finish(tables, pkts: PacketVector, now, alive, drop_ip4,
     permit = established
     drop_acl = alive & ~permit
     ml = _ml_eval(tables, pkts, alive, established, sess_age, ml_mode,
-                  ml_kind)
+                  ml_kind, ing.tid)
     ml_dropped = None if ml is None else ml.drop_wanted & permit & alive
     fib = fib_fn(tables, pkts)
     forwarded = (alive & permit & fib.matched
@@ -443,41 +606,51 @@ def _pipeline_fast_finish(tables, pkts: PacketVector, now, alive, drop_ip4,
     tx_if = torch.where(forwarded, fib.tx_if, -1).to(torch.int32)
     false_p = torch.zeros_like(alive)
     return _finish_step(
-        tables, pkts, now, alive, drop_ip4, drop_acl, permit, fib,
+        tables, pkts, now, alive, ing.drop_ip4, drop_acl, permit, fib,
         forwarded, disp, tx_if, established, nat_reversed, false_p,
         false_p, false_p, false_p, false_p, false_p, false_p, false_p,
         false_p, sweep_stride=sweep_stride, fastpath=1, ml=ml,
-        ml_dropped=ml_dropped, tel_mode=tel_mode)
+        ml_dropped=ml_dropped, tel_mode=tel_mode, tid=ing.tid,
+        # the fast tier inserts nothing: no slice insert fails
+        tnt_dropped=ing.tnt_dropped, tnt_qfail=None, overlay=overlay,
+        fib_fn=fib_fn, ovl_dropped=ing.ovl_dropped,
+        ovl_decapped=ing.ovl_decapped)
 
 
 def pipeline_step_fast(tables, pkts: PacketVector, now,
                        sweep_stride: int = SWEEP_STRIDE_DEFAULT,
                        fib_fn=fib_lookup_dense, sess_impl: str = "gather",
                        sess_hash: str = "fwd", ml_mode: str = "off",
-                       ml_kind: str = "mlp",
-                       tel_mode: str = "off") -> StepResult:
-    """The classify-free tier on its own: ip4-input -> session
-    lookup/touch -> NAT reverse/touch -> FIB -> tx. Equal to
-    ``pipeline_step`` ONLY under the dispatch invariant that
-    ``pipeline_step_auto`` checks."""
-    pkts, drop_ip4, alive = _ingress(tables, pkts)
+                       ml_kind: str = "mlp", tel_mode: str = "off",
+                       tnt_mode: str = "off", overlay: str = "off",
+                       ovl_inner=None, ovl_vni=None) -> StepResult:
+    """The classify-free tier on its own: [overlay decap] -> ip4-input
+    -> [tenant stage] -> session lookup/touch -> NAT reverse/touch ->
+    FIB -> tx [-> overlay encap]. Equal to ``pipeline_step`` ONLY under
+    the dispatch invariant that ``pipeline_step_auto`` checks."""
+    ing = _stage_in(tables, pkts, now, tnt_mode, overlay, ovl_inner,
+                    ovl_vni)
+    tnt = ing.tid is not None
     established, sess_hit_idx = session_lookup_reverse_idx(
-        tables, pkts, now, impl=sess_impl, sym=sess_hash == "sym")
-    established = established & alive
-    pkts, nat_reversed, nat_hit_idx = nat44_reverse(tables, pkts, alive,
-                                                    now)
+        tables, ing.pkts, now, tnt=tnt, impl=sess_impl,
+        sym=sess_hash == "sym", kt=ing.kt)
+    established = established & ing.alive
+    rpkts, nat_reversed, nat_hit_idx = nat44_reverse(
+        tables, ing.pkts, ing.alive, now, tnt=tnt, kt=ing.kt)
     return _pipeline_fast_finish(
-        tables, pkts, now, alive, drop_ip4, established, sess_hit_idx,
-        nat_reversed, nat_hit_idx, sweep_stride=sweep_stride, fib_fn=fib_fn,
-        ml_mode=ml_mode, ml_kind=ml_kind, tel_mode=tel_mode)
+        tables, ing, rpkts, now, established, sess_hit_idx, nat_reversed,
+        nat_hit_idx, sweep_stride=sweep_stride, fib_fn=fib_fn,
+        ml_mode=ml_mode, ml_kind=ml_kind, tel_mode=tel_mode,
+        overlay=overlay)
 
 
 class AutoPrefix(NamedTuple):
-    """What the dispatch prefix hands the fast tier, and the flag."""
+    """What the dispatch prefix hands either tier, and the flag. The
+    prefix has run the tenant stage (its buckets are spent): both tiers
+    take ``ingress`` and never run it again."""
 
+    ingress: Ingress             # the stages ahead of the session lookup
     pkts: PacketVector           # the header after NAT reverse
-    drop_ip4: torch.Tensor
-    alive: torch.Tensor
     hits: torch.Tensor           # alive and admitted by a session
     sess_hit_idx: torch.Tensor
     nat_reversed: torch.Tensor
@@ -486,35 +659,49 @@ class AutoPrefix(NamedTuple):
 
 
 def auto_prefix(tables, pkts: PacketVector, now, sess_impl: str = "gather",
-                sess_hash: str = "fwd") -> AutoPrefix:
-    """The dispatch prefix: ip4-input, the session summary, NAT reverse
-    and the DNAT probe, computed once and reading the state without
-    writing it; ``ok = all_hit & ~any(dnat_would)`` exactly as the
-    reference computes its ``lax.cond`` predicate."""
-    pkts1, drop_ip4, alive = _ingress(tables, pkts)
+                sess_hash: str = "fwd", tnt_mode: str = "off",
+                overlay: str = "off", ovl_inner=None,
+                ovl_vni=None) -> AutoPrefix:
+    """The dispatch prefix: the overlay decap, ip4-input, the tenant
+    stage (which WRITES the token buckets: the one state this prefix
+    moves), the session summary, NAT reverse and the DNAT probe;
+    ``ok = all_hit & ~any(dnat_would)`` over the post-limit alive set,
+    exactly as the reference computes its ``lax.cond`` predicate."""
+    ing = _stage_in(tables, pkts, now, tnt_mode, overlay, ovl_inner,
+                    ovl_vni)
+    tnt = ing.tid is not None
     hits, sess_hit_idx, all_hit = session_batch_summary(
-        tables, pkts1, alive, now, impl=sess_impl, sym=sess_hash == "sym")
+        tables, ing.pkts, ing.alive, now, tnt=tnt, impl=sess_impl,
+        sym=sess_hash == "sym", kt=ing.kt)
     # NAT reverse runs before the DNAT probe: the un-NAT'd header is
     # what the full chain would hand nat44_dnat
-    rpkts, nat_reversed, nat_hit_idx = nat44_reverse(tables, pkts1, alive,
-                                                     now)
-    dnat_would = nat44_dnat_match(tables, rpkts, alive & ~nat_reversed)
-    return AutoPrefix(rpkts, drop_ip4, alive, hits, sess_hit_idx,
-                      nat_reversed, nat_hit_idx,
-                      all_hit & ~dnat_would.any())
+    rpkts, nat_reversed, nat_hit_idx = nat44_reverse(
+        tables, ing.pkts, ing.alive, now, tnt=tnt, kt=ing.kt)
+    dnat_would = nat44_dnat_match(tables, rpkts, ing.alive & ~nat_reversed)
+    return AutoPrefix(ing, rpkts, hits, sess_hit_idx, nat_reversed,
+                      nat_hit_idx, all_hit & ~dnat_would.any())
 
 
 def auto_fast(tables, pre: AutoPrefix, now,
               sweep_stride: int = SWEEP_STRIDE_DEFAULT,
               fib_fn=fib_lookup_dense, ml_mode: str = "off",
-              ml_kind: str = "mlp", tel_mode: str = "off") -> StepResult:
+              ml_kind: str = "mlp", tel_mode: str = "off",
+              overlay: str = "off") -> StepResult:
     """The fast tier behind the prefix: it reuses the prefix's lookups
     (valid only where ``pre.ok`` holds)."""
     return _pipeline_fast_finish(
-        tables, pre.pkts, now, pre.alive, pre.drop_ip4, pre.hits,
-        pre.sess_hit_idx, pre.nat_reversed, pre.nat_hit_idx,
-        sweep_stride=sweep_stride, fib_fn=fib_fn, ml_mode=ml_mode,
-        ml_kind=ml_kind, tel_mode=tel_mode)
+        tables, pre.ingress, pre.pkts, now, pre.hits, pre.sess_hit_idx,
+        pre.nat_reversed, pre.nat_hit_idx, sweep_stride=sweep_stride,
+        fib_fn=fib_fn, ml_mode=ml_mode, ml_kind=ml_kind, tel_mode=tel_mode,
+        overlay=overlay)
+
+
+def auto_full(tables, pre: AutoPrefix, now, **gates) -> StepResult:
+    """The full chain behind the prefix: from the prefix's ingress on
+    (the decapped header, the masks, the tenant trio), so the tokens
+    are spent once whichever tier runs, as the reference hands its
+    full branch ``_tnt_pre``; ``gates``: ``pipeline_step``'s."""
+    return pipeline_step(tables, None, now, ingress=pre.ingress, **gates)
 
 
 def pipeline_step_auto(tables, pkts: PacketVector, now,
@@ -523,8 +710,9 @@ def pipeline_step_auto(tables, pkts: PacketVector, now,
                        sweep_stride: int = SWEEP_STRIDE_DEFAULT,
                        fib_fn=fib_lookup_dense, sess_impl: str = "gather",
                        sess_hash: str = "fwd", ml_mode: str = "off",
-                       ml_kind: str = "mlp",
-                       tel_mode: str = "off") -> StepResult:
+                       ml_kind: str = "mlp", tel_mode: str = "off",
+                       tnt_mode: str = "off", overlay: str = "off",
+                       ovl_inner=None, ovl_vni=None) -> StepResult:
     """Two-tier dispatch: the fast tier when the whole batch rides
     established sessions, the full chain otherwise.
 
@@ -534,19 +722,19 @@ def pipeline_step_auto(tables, pkts: PacketVector, now,
     ``lax.cond``; eager PyTorch cannot branch on a device value without
     reading it, and running both tiers to select with ``torch.where``
     would elide nothing, which is the tier's only purpose. So exactly
-    one tier runs: the fast tier reuses the prefix's lookups; the full
-    chain re-derives its ingress from the original vector, as the
-    reference does."""
+    one tier runs: the fast tier reuses the prefix's lookups, the full
+    chain its ingress (the overlay decap and the tenant stage ran once,
+    in the prefix)."""
     pre = auto_prefix(tables, pkts, now, sess_impl=sess_impl,
-                      sess_hash=sess_hash)
-    gates = dict(ml_mode=ml_mode, ml_kind=ml_kind, tel_mode=tel_mode)
+                      sess_hash=sess_hash, tnt_mode=tnt_mode,
+                      overlay=overlay, ovl_inner=ovl_inner, ovl_vni=ovl_vni)
+    gates = dict(sweep_stride=sweep_stride, fib_fn=fib_fn, ml_mode=ml_mode,
+                 ml_kind=ml_kind, tel_mode=tel_mode, overlay=overlay)
     if bool(pre.ok):  # the step's one host sync (docstring)
-        return auto_fast(tables, pre, now, sweep_stride=sweep_stride,
-                         fib_fn=fib_fn, **gates)
-    return pipeline_step(tables, pkts, now, acl_global_fn=acl_global_fn,
-                         acl_local_fn=acl_local_fn,
-                         sweep_stride=sweep_stride, fib_fn=fib_fn,
-                         sess_impl=sess_impl, sess_hash=sess_hash, **gates)
+        return auto_fast(tables, pre, now, **gates)
+    return auto_full(tables, pre, now, acl_global_fn=acl_global_fn,
+                     acl_local_fn=acl_local_fn, sess_impl=sess_impl,
+                     sess_hash=sess_hash, **gates)
 
 
 # --- what a step program copies in and out ----------------------------
@@ -558,17 +746,25 @@ _RESULT_FIELDS = ("disp", "tx_if", "node_id", "next_hop", "drop_cause",
 
 def result_fields(res: StepResult) -> list:
     """Every tensor of a StepResult but the tables, in a fixed order:
-    the header, the per-packet fields, then the counters."""
+    the header, the per-packet fields, the counters, then (overlay on)
+    the outer header, the encapped mask and the wire VNI."""
+    ovl = ([] if res.ovl_outer is None
+           else list(res.ovl_outer) + [res.ovl_encap, res.ovl_vni])
     return (list(res.pkts) + [getattr(res, f) for f in _RESULT_FIELDS]
-            + list(res.stats))
+            + list(res.stats) + ovl)
 
 
 def result_of(fields, tables) -> StepResult:
     """The inverse of ``result_fields`` over ``tables``."""
     n_pk, n_res = len(PacketVector._fields), len(_RESULT_FIELDS)
+    n_st = n_pk + n_res + len(StepStats._fields)
     res = dict(zip(_RESULT_FIELDS, fields[n_pk:n_pk + n_res]))
+    ovl = fields[n_st:]
+    if ovl:
+        res.update(ovl_outer=PacketVector(*ovl[:n_pk]), ovl_encap=ovl[n_pk],
+                   ovl_vni=ovl[n_pk + 1])
     return StepResult(pkts=PacketVector(*fields[:n_pk]), tables=tables,
-                      stats=StepStats(*fields[n_pk + n_res:]), **res)
+                      stats=StepStats(*fields[n_pk + n_res:n_st]), **res)
 
 
 def packed_vector(flat: torch.Tensor) -> PacketVector:
@@ -604,8 +800,8 @@ def packed_fields(res: StepResult, tel_observed=None) -> list:
     [B] rows of the packed result — src_ip, dst_ip, sport<<16 | dport,
     drop_cause<<28 | disp<<24 | ttl<<16 | tx_if (0xFFFF: none), next_hop
     — and the twelve 0-d aux rows of ``PACKED_AUX_SCHEMA``;
-    ``tel_observed`` is ``tel_observe``'s count (0 with telemetry off;
-    the tenancy rows read 0: the stage is not ported)."""
+    ``tel_observed`` is ``tel_observe``'s count (0 with telemetry
+    off)."""
     p, s = res.pkts, res.stats
     row2 = (u32(p.sport) << 16) | (u32(p.dport) & 0xFFFF)
     row3 = (((u32(res.drop_cause) & 0xF) << 28)
@@ -664,13 +860,6 @@ def _fib_fn(fib_impl: str):
     return fib_lookup_dense
 
 
-_NOT_PORTED_GATES = {
-    "tnt_mode": ("off", "ROADMAP Queue 1 item 6 (Tenancy)"),
-    "overlay": ("off", "ROADMAP Queue 1 item 7 (Overlay, service VIPs "
-                "and ECMP staging)"),
-}
-
-
 @functools.lru_cache(maxsize=None)
 def make_pipeline_step(impl: str = "dense", skip_local: bool = False,
                        fast: bool = False,
@@ -683,10 +872,13 @@ def make_pipeline_step(impl: str = "dense", skip_local: bool = False,
     epoch's gates (the reference's factory and key): ``fast`` builds
     the two-tier ``pipeline_step_auto``, else the full chain. Its parts
     ride along as attributes: ``step.full(tables, pkts, now)`` and, with
-    ``fast``, ``step.prefix(tables, pkts, now)`` and ``step.fast(tables,
-    prefix, now)``; ``step.tel_mode`` is the telemetry gate the packed
-    boundary reads (``tel_observe``). Gates of stages this package has
-    not ported raise NotImplementedError."""
+    ``fast``, ``step.prefix(tables, pkts, now)``, ``step.fast(tables,
+    prefix, now)`` and ``step.slow(tables, prefix, now)`` (the full
+    chain behind the prefix); ``step.tel_mode`` is the telemetry gate
+    the packed boundary reads (``tel_observe``), ``step.overlay`` the
+    overlay gate. With ``overlay`` vxlan the step and the full chain and
+    the prefix take the inner-header sidecar too: ``step(tables, pkts,
+    now, ovl_inner, ovl_vni)``."""
     from vpp_tpu_torch.ops.acl import acl_local_none
 
     if ml_mode not in ("off", "score", "enforce"):
@@ -695,13 +887,10 @@ def make_pipeline_step(impl: str = "dense", skip_local: bool = False,
         raise ValueError(f"unknown ml_kind {ml_kind!r}")
     if tel_mode not in TEL_MODES:
         raise ValueError(f"unknown tel_mode {tel_mode!r}")
-    gates = {"tnt_mode": tnt_mode, "overlay": overlay}
-    for name, value in gates.items():
-        off, item = _NOT_PORTED_GATES[name]
-        if value != off:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported to vpp_tpu_torch yet: "
-                f"{item}")
+    if tnt_mode not in ("off", "on"):
+        raise ValueError(f"unknown tnt_mode {tnt_mode!r}")
+    if overlay not in ("off", "vxlan"):
+        raise ValueError(f"unknown overlay {overlay!r}")
     if sess_impl not in ("gather", "pallas"):
         raise ValueError(f"unknown sess_impl {sess_impl!r}")
     if sess_hash not in ("fwd", "sym"):
@@ -711,32 +900,38 @@ def make_pipeline_step(impl: str = "dense", skip_local: bool = False,
     if skip_local:
         acl_local_fn = acl_local_none
     base = pipeline_step_auto if fast else pipeline_step
-    stage_gates = dict(ml_mode=ml_mode, ml_kind=ml_kind, tel_mode=tel_mode)
+    tier_gates = dict(sweep_stride=sweep_stride, fib_fn=fib_fn,
+                      ml_mode=ml_mode, ml_kind=ml_kind, tel_mode=tel_mode,
+                      overlay=overlay)
+    chain_gates = dict(tier_gates, acl_global_fn=acl_global_fn,
+                       acl_local_fn=acl_local_fn, sess_impl=sess_impl,
+                       sess_hash=sess_hash)
 
-    def step(tables, pkts: PacketVector, now) -> StepResult:
-        return base(tables, pkts, now, acl_global_fn=acl_global_fn,
-                    acl_local_fn=acl_local_fn, sweep_stride=sweep_stride,
-                    fib_fn=fib_fn, sess_impl=sess_impl, sess_hash=sess_hash,
-                    **stage_gates)
+    def step(tables, pkts: PacketVector, now, ovl_inner=None,
+             ovl_vni=None) -> StepResult:
+        return base(tables, pkts, now, tnt_mode=tnt_mode,
+                    ovl_inner=ovl_inner, ovl_vni=ovl_vni, **chain_gates)
 
     # the parts a step program captures one by one
-    step.full = functools.partial(
-        pipeline_step, acl_global_fn=acl_global_fn,
-        acl_local_fn=acl_local_fn, sweep_stride=sweep_stride, fib_fn=fib_fn,
-        sess_impl=sess_impl, sess_hash=sess_hash, **stage_gates)
+    step.full = functools.partial(pipeline_step, tnt_mode=tnt_mode,
+                                  **chain_gates)
     if fast:
-        step.prefix = functools.partial(auto_prefix, sess_impl=sess_impl,
-                                        sess_hash=sess_hash)
-        step.fast = functools.partial(auto_fast, sweep_stride=sweep_stride,
-                                      fib_fn=fib_fn, **stage_gates)
+        step.prefix = functools.partial(
+            auto_prefix, sess_impl=sess_impl, sess_hash=sess_hash,
+            tnt_mode=tnt_mode, overlay=overlay)
+        step.fast = functools.partial(auto_fast, **tier_gates)
+        step.slow = functools.partial(auto_full, **chain_gates)
     step.tel_mode = tel_mode
+    step.overlay = overlay
 
-    step.__name__ = "pipeline_step_{}{}{}{}{}{}{}{}".format(
+    step.__name__ = "pipeline_step_{}{}{}{}{}{}{}{}{}{}".format(
         impl, "_nolocal" if skip_local else "", "_auto" if fast else "",
         "" if ml_mode == "off" else f"_ml{ml_mode}"
         + ("_forest" if ml_kind == "forest" else ""),
         "" if tel_mode == "off" else f"_tel{tel_mode}",
+        "" if tnt_mode == "off" else "_tenancy",
         "" if fib_impl == "dense" else f"_fib{fib_impl}",
         "" if sess_impl == "gather" else f"_sess{sess_impl}",
-        "" if sess_hash == "fwd" else f"_h{sess_hash}")
+        "" if sess_hash == "fwd" else f"_h{sess_hash}",
+        "" if overlay == "off" else f"_o{overlay}")
     return step

@@ -8,16 +8,19 @@ uint32 fields are int32 tensors holding the same bits
 (pipeline/vector.py).
 
 Cut to the main path: every ``to_device`` is a full upload (the
-reference's incremental upload groups are a later slice), the tenancy,
-overlay, service-VIP and ECMP fields carry the reference's placeholder
-shapes, and config values that would turn those stages on raise
-``NotImplementedError`` naming the ROADMAP item that ports them. The ML
-planes are staged at the configured capacity (``ml_capacity``,
-``set_ml_model``) and the telemetry planes take their configured shapes
-(``tel_capacity``), as in the reference. The global table's MXU bit-planes are compiled in full at
-every ``set_global_table`` (the reference diffs rule identities and
+reference's incremental upload groups are a later slice, ROADMAP Queue
+1 item 8). The ML planes are staged at the configured capacity
+(``ml_capacity``, ``set_ml_model``), the telemetry planes take their
+configured shapes (``tel_capacity``), and the tenant, service-VIP and
+ECMP planes theirs (``tnt_capacity``, ``svc_capacity``,
+``ecmp_capacity``), as in the reference: a tenant registry
+(``set_tenant``) and a service registry (``set_service``) are compiled
+into their planes by ``_restage_tenants`` / ``_restage_svc``, with the
+reference's slice allocation and sticky weighted way fill. The global
+table's MXU bit-planes are compiled in full at every
+``set_global_table`` (the reference diffs rule identities and
 recompiles only the changed columns; that joins the incremental upload
-groups, ROADMAP Queue 1 item 8).
+groups).
 
 Derived tensors, built ONCE per swap by ``to_device``: the populated LPM
 planes stacked into the biased ``[L, Npad]`` prefix and slot matrices
@@ -63,6 +66,7 @@ from vpp_tpu_torch.ops.lpm import (
     lpm_hint_layout,
     lpm_len_caps,
 )
+from vpp_tpu_torch.ops.mlscore import ML_TNT_THRESH_INHERIT
 from vpp_tpu_torch.pipeline.vector import Disposition, as_i32
 
 log = logging.getLogger("vpp_tpu_torch.tables")
@@ -305,11 +309,25 @@ def tel_capacity(config: DataplaneConfig) -> Tuple[int, int, int, int]:
             int(config.telemetry_sketch_cols), int(config.telemetry_topk))
 
 
+def tnt_capacity(config: DataplaneConfig) -> Tuple[int, int]:
+    """(tenants T, prefix slots S) of the tenant planes: (1, 1)
+    placeholders with tenancy off (the stage is compiled out)."""
+    if config.tenancy == "off":
+        return 1, 1
+    return int(config.tenancy_tenants), int(config.tenancy_prefixes)
+
+
+def svc_capacity(config: DataplaneConfig) -> Tuple[int, int]:
+    """(VIP rows V, backend ways B) of the service planes; ``svc_vips``
+    0 keeps one row that never matches (``svc_bk_n`` 0)."""
+    v = int(config.svc_vips)
+    return (v if v > 0 else 1), int(config.svc_backend_ways)
+
+
 def state_shapes(config: DataplaneConfig) -> Dict[str, Tuple[int, ...]]:
     """Shapes of every state field: the [slots/ways, ways] session
-    grids, () cursors, the telemetry planes at ``tel_capacity``, and
-    the placeholder tenancy / ECMP state planes of the stages this
-    slice compiles out."""
+    grids, () cursors, the telemetry planes at ``tel_capacity``, the
+    [T] tenancy planes and the [G, W] ECMP accounting plane."""
     w = config.sess_ways
     sess = (config.sess_slots // w, w)
     nat = (natsess_slots_of(config) // w, w)
@@ -324,8 +342,9 @@ def state_shapes(config: DataplaneConfig) -> Dict[str, Tuple[int, ...]]:
     for f in ("tel_top_key", "tel_top_src", "tel_top_dst",
               "tel_top_ports", "tel_top_cnt"):
         out[f] = (k,)
+    n_t, _ = tnt_capacity(config)
     for f in TENANCY_STATE_FIELDS:
-        out[f] = (1,)
+        out[f] = (n_t,)
     out["fib_ecmp_c"] = (g, gw)
     return out
 
@@ -351,22 +370,9 @@ def _is_pow2(n: int) -> bool:
     return n > 0 and (n & (n - 1)) == 0
 
 
-# knob -> (value that keeps the stage off, ROADMAP item that ports it)
-_NOT_PORTED = (
-    ("tenancy", lambda v: v == "off",
-     "ROADMAP Queue 1 item 6 (Tenancy)"),
-    ("overlay", lambda v: v == "off",
-     "ROADMAP Queue 1 item 7 (Overlay, service VIPs and ECMP staging)"),
-    ("svc_vips", lambda v: int(v) == 0,
-     "ROADMAP Queue 1 item 7 (Overlay, service VIPs and ECMP staging)"),
-    ("fib_ecmp_groups", lambda v: int(v) == 0,
-     "ROADMAP Queue 1 item 7 (Overlay, service VIPs and ECMP staging)"),
-)
-
-
 def validate_dataplane_config(config: DataplaneConfig) -> None:
-    """Fail fast on a bad knob (the reference's checks, same messages),
-    and on a knob that turns on a stage this package has not ported."""
+    """Fail fast on a bad knob (the reference's checks, same
+    messages)."""
     c = config
     ways, stride = c.sess_ways, c.sess_sweep_stride
     if not _is_pow2(c.sess_slots):
@@ -415,6 +421,15 @@ def validate_dataplane_config(config: DataplaneConfig) -> None:
         if int(cap) < 0:
             raise ValueError(f"dataplane.fib_lpm_plen_caps[/{L}] must "
                              f"be >= 0, got {cap}")
+    eg = int(c.fib_ecmp_groups)
+    if not 0 <= eg <= 4096:
+        raise ValueError(
+            f"dataplane.fib_ecmp_groups must be in 0..4096, got {eg}")
+    ew = int(c.fib_ecmp_ways)
+    if eg and (not _is_pow2(ew) or ew > 256):
+        raise ValueError(
+            f"dataplane.fib_ecmp_ways must be a power of two <= 256 "
+            f"(the flow-hash member pick masks with W-1), got {ew}")
     if c.ml_stage not in ("off", "score", "enforce"):
         raise ValueError(f"dataplane.ml_stage must be off | score | "
                          f"enforce, got {c.ml_stage!r}")
@@ -446,11 +461,29 @@ def validate_dataplane_config(config: DataplaneConfig) -> None:
     if not 1 <= k <= 64:
         raise ValueError(
             f"dataplane.telemetry_topk must be in 1..64, got {k}")
-    for knob, off, item in _NOT_PORTED:
-        if not off(getattr(c, knob)):
-            raise NotImplementedError(
-                f"dataplane.{knob}={getattr(c, knob)!r} is not ported to "
-                f"vpp_tpu_torch yet: {item}")
+    if c.tenancy not in ("off", "on"):
+        raise ValueError(
+            f"dataplane.tenancy must be off | on, got {c.tenancy!r}")
+    t = int(c.tenancy_tenants)
+    if not 1 <= t <= 64:
+        raise ValueError(
+            f"dataplane.tenancy_tenants must be in 1..64, got {t}")
+    s = int(c.tenancy_prefixes)
+    if not 1 <= s <= 1024:
+        raise ValueError(
+            f"dataplane.tenancy_prefixes must be in 1..1024, got {s}")
+    if c.overlay not in ("off", "vxlan"):
+        raise ValueError(
+            f"dataplane.overlay must be off | vxlan, got {c.overlay!r}")
+    v = int(c.svc_vips)
+    if not 0 <= v <= 4096:
+        raise ValueError(
+            f"dataplane.svc_vips must be in 0..4096, got {v}")
+    b = int(c.svc_backend_ways)
+    if not _is_pow2(b) or b > 256:
+        raise ValueError(
+            f"dataplane.svc_backend_ways must be a power of two <= 256 "
+            f"(the flow-hash backend pick masks with B-1), got {b}")
 
 
 # --- rule packing (vpp_tpu/pipeline/tables.py pack_rules) --------------
@@ -621,48 +654,31 @@ def _fold_ml(model, config: DataplaneConfig
     return out, kind
 
 
-# --- placeholder planes of the stages this slice compiles out ---------
+# --- the tenant and service planes ----------------------------------------
 
-_DEFAULT_VNI = 10   # vpp_tpu/ops/vxlan.py DEFAULT_VNI
-_ML_TNT_THRESH_INHERIT = -(1 << 31)
-
-
-def _empty_tenancy(config: DataplaneConfig) -> Dict[str, np.ndarray]:
-    """The tenancy-off tenant planes: one default tenant, unsliced —
-    its session/NAT masks cover the largest power of two of each
-    table, its VNI the default."""
-    w = config.sess_ways
-
-    def full_mask(nb):
-        return (1 << (nb.bit_length() - 1)) - 1
-
-    return {
-        "tnt_pfx_net": np.zeros(1, np.uint32),
-        "tnt_pfx_mask": np.zeros(1, np.uint32),
-        "tnt_pfx_id": np.full(1, -1, np.int32),
-        "tnt_rate": np.zeros(1, np.int32),
-        "tnt_burst": np.zeros(1, np.int32),
-        "tnt_sess_base": np.zeros(1, np.int32),
-        "tnt_sess_mask": np.full(
-            1, full_mask(config.sess_slots // w), np.int32),
-        "tnt_nat_base": np.zeros(1, np.int32),
-        "tnt_nat_mask": np.full(
-            1, full_mask(natsess_slots_of(config) // w), np.int32),
-        "glb_ml_tnt_mode": np.zeros(1, np.int32),
-        "glb_ml_tnt_thresh": np.full(1, _ML_TNT_THRESH_INHERIT, np.int32),
-        "tnt_vni": np.full(1, _DEFAULT_VNI, np.int32),
-    }
-
-
-def _empty_svc(config: DataplaneConfig) -> Dict[str, np.ndarray]:
-    b = config.svc_backend_ways
-    z = np.zeros
-    return {
-        "svc_vip_ip": z(1, np.uint32), "svc_vip_port": z(1, np.int32),
-        "svc_vip_proto": z(1, np.int32), "svc_vip_snat": z(1, np.int32),
-        "svc_bk_n": z(1, np.int32), "svc_bk_ip": z((1, b), np.uint32),
-        "svc_bk_port": z((1, b), np.int32),
-    }
+def _assign_ways(prev_assign, members, target, key=lambda m: m):
+    """The sticky way fill of ECMP groups and service backends: pass 1
+    keeps each surviving member (matched by ``key``) on the ways it
+    owned, up to its target share; pass 2 gives every freed or new way
+    to the member furthest under its share (ties by member order).
+    Returns the member index of each way."""
+    ways = len(prev_assign)
+    n = len(members)
+    by_key = {key(m): i for i, m in enumerate(members)}
+    counts = [0] * n
+    assign_i = [None] * ways
+    for w in range(ways):
+        pm = prev_assign[w]
+        i = by_key.get(key(pm)) if pm is not None else None
+        if i is not None and counts[i] < target[i]:
+            assign_i[w] = i
+            counts[i] += 1
+    for w in range(ways):
+        if assign_i[w] is None:
+            i = min(range(n), key=lambda j: (counts[j] - target[j], j))
+            assign_i[w] = i
+            counts[i] += 1
+    return assign_i
 
 
 class TableBuilder:
@@ -748,8 +764,21 @@ class TableBuilder:
         # ML_KIND_* (0: none), which the Dataplane re-gates on
         self.ml = empty_ml(c)
         self.ml_kind = 0
-        self._fixed = {**_empty_tenancy(c), **_empty_svc(c),
-                       "ovl_vtep_ip": np.uint32(0)}
+        # the tenant registry (set_tenant), compiled into the tnt_*
+        # planes by _restage_tenants
+        self.tenants: Dict[int, dict] = {}
+        self.tnt: Dict[str, np.ndarray] = {}
+        self._restage_tenants()
+        # ECMP groups: {gid: {"members": [(nh, tx_if, node)], "assign":
+        # [member per way]}} (set_nh_group)
+        self.nh_groups: Dict[int, dict] = {}
+        # the node's VTEP address (set_vtep_ip)
+        self.ovl_vtep_ip = np.uint32(0)
+        # the service registry (set_service), keyed (ip, port, proto),
+        # compiled into the svc_* planes by _restage_svc
+        self.services: Dict[Tuple[int, int, int], dict] = {}
+        self.svc: Dict[str, np.ndarray] = {}
+        self._restage_svc()
 
     def bv_ok(self) -> bool:
         """Whether the BV classifier can serve this staged config."""
@@ -807,9 +836,22 @@ class TableBuilder:
 
     def add_route(self, prefix: str, tx_if: int, disposition: Disposition,
                   next_hop: int = 0, node_id: int = -1,
-                  slot: Optional[int] = None, snat: bool = False) -> int:
-        """Install one route in ``slot`` (default: the first free one)."""
+                  slot: Optional[int] = None, snat: bool = False,
+                  group: Optional[int] = None) -> int:
+        """Install one route in ``slot`` (default: the first free one).
+        ``group`` names an ECMP group (``set_nh_group``) the route
+        resolves through instead of its own next hop, interface and
+        node, which are staged as given all the same."""
         net = ipaddress.ip_network(prefix)
+        if group is not None:
+            gcap = self.fib_grp_nh.shape[0]
+            if int(self.config.fib_ecmp_groups) <= 0:
+                raise ValueError(
+                    "route names an ECMP group but "
+                    "dataplane.fib_ecmp_groups is 0")
+            if not 0 <= int(group) < gcap:
+                raise ValueError(
+                    f"ECMP group {group} out of range 0..{gcap - 1}")
         if slot is None:
             free = np.nonzero(self.fib_plen < 0)[0]
             if len(free) == 0:
@@ -825,7 +867,7 @@ class TableBuilder:
         self.fib_next_hop[slot] = next_hop
         self.fib_node_id[slot] = node_id
         self.fib_snat[slot] = int(snat)
-        self.fib_grp[slot] = -1
+        self.fib_grp[slot] = -1 if group is None else int(group)
         self._mark_fib_lengths(old_plen, net.prefixlen)
         return slot
 
@@ -839,6 +881,57 @@ class TableBuilder:
             return False
         self.fib_plen[hit[0]] = -1
         self._mark_fib_lengths(net.prefixlen)
+        return True
+
+    # --- ECMP next-hop groups (ops/fib.py resolve_fib_slot) ---
+    def set_nh_group(self, gid: int, members) -> None:
+        """Stage one ECMP group of ``(next_hop_ip, tx_if, node_id)``
+        members. The way fill is sticky (``_assign_ways``): surviving
+        members keep the ways they own up to their rebalanced share."""
+        if int(self.config.fib_ecmp_groups) <= 0:
+            raise ValueError(
+                "dataplane.fib_ecmp_groups is 0 — ECMP group tables "
+                "carry placeholder shapes (raise the knob)")
+        gcap, ways = self.fib_grp_nh.shape
+        if not 0 <= int(gid) < gcap:
+            raise ValueError(f"ECMP group {gid} out of range "
+                             f"0..{gcap - 1}")
+        gid = int(gid)
+        mset = []
+        for m in members:
+            t = (int(m[0]), int(m[1]), int(m[2]))
+            if t not in mset:
+                mset.append(t)
+        if not mset:
+            raise ValueError(
+                "ECMP group needs at least one member "
+                "(del_nh_group removes a group)")
+        if len(mset) > ways:
+            raise ValueError(
+                f"{len(mset)} distinct members exceed fib_ecmp_ways "
+                f"{ways}")
+        prev = self.nh_groups.get(gid)
+        n = len(mset)
+        target = [ways // n + (1 if i < ways % n else 0) for i in range(n)]
+        assign = [mset[i] for i in _assign_ways(
+            list(prev["assign"]) if prev else [None] * ways, mset, target)]
+        self.nh_groups[gid] = {"members": mset, "assign": assign}
+        self.fib_grp_nh[gid] = np.array([m[0] for m in assign], np.uint32)
+        self.fib_grp_tx_if[gid] = np.array([m[1] for m in assign], np.int32)
+        self.fib_grp_node[gid] = np.array([m[2] for m in assign], np.int32)
+        self.fib_grp_n[gid] = n
+
+    def del_nh_group(self, gid: int) -> bool:
+        """Remove one ECMP group; routes still naming it fail closed
+        (a no-route miss) until repointed."""
+        if int(gid) not in self.nh_groups:
+            return False
+        gid = int(gid)
+        del self.nh_groups[gid]
+        self.fib_grp_nh[gid] = 0
+        self.fib_grp_tx_if[gid] = -1
+        self.fib_grp_node[gid] = -1
+        self.fib_grp_n[gid] = 0
         return True
 
     def _restage_lpm(self) -> None:
@@ -918,6 +1011,104 @@ class TableBuilder:
         """Set the node's SNAT address (0 disables SNAT)."""
         self.nat_snat_ip = np.uint32(ip)
 
+    # --- VXLAN overlay and service VIPs ---
+    def set_vtep_ip(self, ip: int) -> None:
+        """The node's VTEP address: the decap admission filter and the
+        encap outer source (0: unset, any VTEP-addressed frame)."""
+        self.ovl_vtep_ip = np.uint32(ip)
+
+    def _restage_svc(self) -> None:
+        """Compile the service registry into the svc_* planes: VIP rows
+        sorted by (ip, port, proto), padding rows all zero with
+        ``svc_bk_n`` 0 (they never match)."""
+        n_v, n_b = svc_capacity(self.config)
+        z = np.zeros
+        out = {"svc_vip_ip": z(n_v, np.uint32), "svc_vip_port": z(n_v, np.int32),
+               "svc_vip_proto": z(n_v, np.int32),
+               "svc_vip_snat": z(n_v, np.int32), "svc_bk_n": z(n_v, np.int32),
+               "svc_bk_ip": z((n_v, n_b), np.uint32),
+               "svc_bk_port": z((n_v, n_b), np.int32)}
+        for r, key in enumerate(sorted(self.services)):
+            e = self.services[key]
+            out["svc_vip_ip"][r], out["svc_vip_port"][r], \
+                out["svc_vip_proto"][r] = key
+            out["svc_vip_snat"][r] = int(e["self_snat"])
+            out["svc_bk_n"][r] = len(e["members"])
+            out["svc_bk_ip"][r] = np.array([m[0] for m in e["assign"]],
+                                           np.uint32)
+            out["svc_bk_port"][r] = np.array([m[1] for m in e["assign"]],
+                                             np.int32)
+        self.svc = out
+
+    def set_service(self, vip_ip: int, port: int, proto: int,
+                    backends: Sequence[Tuple[int, int, int]],
+                    self_snat: bool = False) -> None:
+        """Stage (or replace) one service VIP's ``(ip, port, weight)``
+        backends. The ways are targeted by weight (largest remainder,
+        ties by member order) and filled sticky per service
+        (``_assign_ways`` keyed by endpoint, so a weight change alone
+        moves nothing it need not). Validated completely before anything
+        is staged."""
+        c = self.config
+        if int(c.svc_vips) <= 0:
+            raise ValueError(
+                "dataplane.svc_vips is 0 — the svc planes carry "
+                "placeholder shapes (raise the knob)")
+        n_v, n_b = svc_capacity(c)
+        if not 1 <= int(port) <= 65535:
+            raise ValueError(
+                f"service port must be in 1..65535 (exact match), "
+                f"got {port}")
+        key = (int(vip_ip) & 0xFFFFFFFF, int(port), int(proto))
+        mset, seen = [], set()
+        for m in backends:
+            bip, bport, w = int(m[0]), int(m[1]), int(m[2])
+            if w <= 0:
+                raise ValueError(f"backend weight must be > 0, got {w}")
+            if (bip, bport) not in seen:
+                seen.add((bip, bport))
+                mset.append((bip, bport, w))
+        if not mset:
+            raise ValueError(
+                "service needs at least one backend "
+                "(del_service removes a VIP)")
+        if len(mset) > n_b:
+            raise ValueError(
+                f"{len(mset)} distinct backends exceed "
+                f"svc_backend_ways {n_b}")
+        if key not in self.services and len(self.services) >= n_v:
+            raise ValueError(
+                f"service table full ({n_v} VIP rows — raise "
+                f"dataplane.svc_vips)")
+        total_w = sum(m[2] for m in mset)
+        raw = [n_b * m[2] / total_w for m in mset]
+        target = [int(r) for r in raw]
+        order = sorted(range(len(mset)),
+                       key=lambda i: (-(raw[i] - target[i]), i))
+        for i in order[:n_b - sum(target)]:
+            target[i] += 1
+        prev = self.services.get(key)
+        assign = [mset[i] for i in _assign_ways(
+            list(prev["assign"]) if prev else [None] * n_b, mset, target,
+            key=lambda m: (m[0], m[1]))]
+        self.services[key] = {"members": mset, "assign": assign,
+                              "self_snat": bool(self_snat)}
+        self._restage_svc()
+
+    def del_service(self, vip_ip: int, port: int, proto: int) -> bool:
+        """Remove one service VIP: new flows to it stop matching, flows
+        already translated keep their NAT sessions until they age out."""
+        key = (int(vip_ip) & 0xFFFFFFFF, int(port), int(proto))
+        if key not in self.services:
+            return False
+        del self.services[key]
+        self._restage_svc()
+        return True
+
+    def clear_services(self) -> None:
+        self.services = {}
+        self._restage_svc()
+
     # --- per-packet ML model (ops/mlscore.py) ---
     def set_ml_model(self, model) -> None:
         """Stage one quantized model (an ``MlModel`` or its dict form)
@@ -941,6 +1132,128 @@ class TableBuilder:
         next swap)."""
         self.ml = empty_ml(self.config)
         self.ml_kind = 0
+
+    # --- tenancy (vpp_tpu_torch/tenancy/) ---
+    def _restage_tenants(self) -> None:
+        """Compile the tenant registry into the tnt_* planes. Session
+        and NAT bucket slices are allocated in ascending tenant-id order
+        from the TOP of the table downward; unsliced tenants (the
+        default tenant 0 among them) share the residual bottom range,
+        masked to its largest power of two, so unsliced traffic never
+        hashes into a slice. With nothing sliced the residual is the
+        whole table (the unsliced hash). The same registry always
+        compiles the same arrays."""
+        from vpp_tpu_torch.ops.vxlan import DEFAULT_VNI
+        from vpp_tpu_torch.tenancy.sched import ML_MODE_CODES
+
+        c = self.config
+        n_t, n_s = tnt_capacity(c)
+        nbs = {"sess": c.sess_slots // c.sess_ways,
+               "nat": natsess_slots_of(c) // c.sess_ways}
+        net = np.zeros(n_s, np.uint32)
+        mask = np.zeros(n_s, np.uint32)
+        pid = np.full(n_s, -1, np.int32)
+        rate = np.zeros(n_t, np.int32)
+        burst = np.zeros(n_t, np.int32)
+        base = {k: np.zeros(n_t, np.int32) for k in nbs}
+        bmask = {k: np.zeros(n_t, np.int32) for k in nbs}
+        mlm = np.zeros(n_t, np.int32)
+        mlt = np.full(n_t, ML_TNT_THRESH_INHERIT, np.int32)
+        # tenant t's VNI (-1: none); with tenancy off tenant 0 admits
+        # the default VNI, so the single-tenant overlay works unstaged
+        vni = np.full(n_t, -1, np.int32)
+        if c.tenancy == "off":
+            vni[0] = DEFAULT_VNI
+        slot = 0
+        cursor = dict(nbs)
+        sliced = {k: set() for k in nbs}
+        for tid in sorted(self.tenants):
+            e = self.tenants[tid]
+            for p in e["prefixes"]:
+                if slot >= n_s:
+                    raise ValueError(
+                        f"tenant prefix map full ({n_s} slots — raise "
+                        f"dataplane.tenancy_prefixes)")
+                pnet = ipaddress.ip_network(p, strict=False)
+                m = _mask_of(pnet.prefixlen)
+                net[slot] = int(pnet.network_address) & m
+                mask[slot] = m
+                pid[slot] = tid
+                slot += 1
+            rate[tid] = e["rate"]
+            burst[tid] = e["burst"]
+            for kind in nbs:
+                nbk = e[f"{kind}_buckets"]
+                if nbk:
+                    cursor[kind] -= nbk
+                    base[kind][tid] = cursor[kind]
+                    bmask[kind][tid] = nbk - 1
+                    sliced[kind].add(tid)
+            mlm[tid] = ML_MODE_CODES[e.get("ml_mode", "inherit")]
+            if e.get("ml_thresh") is not None:
+                mlt[tid] = int(e["ml_thresh"])
+            if e.get("vni") is not None:
+                vni[tid] = int(e["vni"])
+        # unsliced tenants: base 0, the largest power of two inside the
+        # residual [0, cursor) (validate_tenancy_config keeps it > 0
+        # whenever one exists)
+        for kind in nbs:
+            free = cursor[kind]
+            um = (1 << (free.bit_length() - 1)) - 1 if free > 0 else 0
+            for tid in range(n_t):
+                if tid not in sliced[kind]:
+                    bmask[kind][tid] = um
+        self.tnt = {
+            "tnt_pfx_net": net, "tnt_pfx_mask": mask, "tnt_pfx_id": pid,
+            "tnt_rate": rate, "tnt_burst": burst,
+            "tnt_sess_base": base["sess"], "tnt_sess_mask": bmask["sess"],
+            "tnt_nat_base": base["nat"], "tnt_nat_mask": bmask["nat"],
+            "glb_ml_tnt_mode": mlm, "glb_ml_tnt_thresh": mlt,
+            "tnt_vni": vni,
+        }
+
+    def _set_tenants(self, merged: Dict[int, dict]) -> None:
+        """Validate a whole registry, then stage it (a refused one leaves
+        the staging as it was)."""
+        from vpp_tpu_torch.tenancy.sched import validate_tenancy_config
+
+        entries = validate_tenancy_config(self.config,
+                                          list(merged.values()))
+        self.tenants = {e["id"]: e for e in entries}
+        self._restage_tenants()
+
+    def set_tenant(self, tid: int, **kw) -> None:
+        """Register (or replace) one tenant: ``prefixes``, ``vni``, the
+        token bucket (``rate`` tokens a tick, ``burst``), the session /
+        NAT slices (``sess_buckets`` / ``nat_buckets``, powers of two; 0
+        unsliced), ``weight`` and the ML override (``ml_mode`` /
+        ``ml_thresh``). The registry is validated as a whole before
+        anything is staged."""
+        if self.config.tenancy == "off":
+            raise ValueError(
+                "dataplane.tenancy is off — set_tenant requires "
+                "tenancy: on (the tnt_* planes carry placeholder "
+                "shapes otherwise)")
+        merged = {t: dict(e) for t, e in self.tenants.items()}
+        merged[int(tid)] = {"id": int(tid), **kw}
+        self._set_tenants(merged)
+
+    def clear_tenants(self) -> None:
+        """Back to the single default tenant (everything tenant 0,
+        unsliced, unlimited)."""
+        self.tenants = {}
+        self._restage_tenants()
+
+    def set_tenant_ml(self, tid: int, ml_mode: str = "inherit",
+                      ml_thresh: Optional[int] = None) -> None:
+        """Change one tenant's ML mode and threshold and nothing else:
+        table values only, so a swap replays the captured programs."""
+        if int(tid) not in self.tenants:
+            raise ValueError(
+                f"tenant {tid} not registered (set_tenant first)")
+        merged = {t: dict(x) for t, x in self.tenants.items()}
+        merged[int(tid)].update(ml_mode=ml_mode, ml_thresh=ml_thresh)
+        self._set_tenants(merged)
 
     # --- device upload ---
     def host_arrays(self) -> Dict[str, np.ndarray]:
@@ -973,7 +1286,9 @@ class TableBuilder:
             out[f] = getattr(self, f)
         out["sess_max_age"] = np.int32(self.config.sess_max_age)
         out.update(self.ml)
-        out.update(self._fixed)
+        out.update(self.tnt)
+        out.update(self.svc)
+        out["ovl_vtep_ip"] = self.ovl_vtep_ip
         return {f: out[f] for f in HOST_FIELDS}
 
     def to_device(self, sessions=None, into=None) -> DataplaneTables:
