@@ -117,6 +117,26 @@ raises on failure:
    must leave every session and NAT row outside tenant 2's slices as it
    was; the packed forms must raise the reference's ValueError; a
    ``probe`` must move no live plane;
+4f. incremental uploads and session snapshots, on the MXU path: phase
+   4e's configuration (every upload group populated) on the card and on
+   a CPU twin, nine churns in turn, each a swap and a round at P = 256:
+   (a) one global rule's ``dest_port`` at index 5,000, (b) the same rule
+   objects again, (c) a pod add (interface, local table, /32), (d) a /24
+   flap, (e) a backend roll on one VIP, (f) a tenant's rate, (g) the
+   seeded forest, (h) a rule inserted at index 0, (i) 1,000 /32s through
+   ``add_routes_np``. After each: every result and state plane equal the
+   twin's, no table tensor replaced, no program captured but for (g)'s
+   new ML variant, only the churn's upload groups moved bytes, and
+   (a)-(e) and (i) took the reference's block path ((h) the whole
+   upload). Then the live tables must equal a fresh card dataplane's
+   staged to the final state and its full upload; a full and an
+   incremental snapshot of the 2^20-slot tables (128 chunks; the second
+   re-ships exactly the chunks a P = 1 step touched) with chunk CRCs
+   equal to the twin's; a restore into a fresh card dataplane after its
+   warm-up round, capturing nothing, whose replies to the last forwarded
+   packets ride the fast tier, every one a session hit, equal to the
+   uninterrupted dataplane's; and a 4,096-bucket drain / adopt / release
+   between the two, the moved rows equal with ages rebased;
 5. timing with CUDA events: ms per ``process`` step and Mpps (valid
    packets per device second) at P = 256 and 4,096, captured and eager,
    and a ``torch.profiler`` window per size (device operations, graph
@@ -140,7 +160,10 @@ raises on failure:
    against phase 4 / 4b's on the same vectors, in turns; and the cost of
    tenancy, the overlay, service VIPs and ECMP: phase 4e's dataplanes
    against phase 4d's, in turns (the overlay side takes the framed
-   vector and its sidecar, the other side the inner headers).
+   vector and its sidecar, the other side the inner headers); and phase
+   4f's swap of each churn (host ms, the span between CUDA events
+   around it, host-to-device bytes by upload group, the fields shipped
+   whole), snapshot, restore and migration times.
 
 Every comparison is between integers: the tolerance is exact equality.
 The line before the last is the kernels JSON object; the last line is
@@ -151,10 +174,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import ipaddress
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -196,12 +221,21 @@ from vpp_tpu_torch.pipeline.dataplane import (  # noqa: E402
     unpack_packet_result,
 )
 from vpp_tpu_torch.pipeline import capture, graph  # noqa: E402
+from vpp_tpu_torch.pipeline import snapshot as snapshot_mod  # noqa: E402
 from vpp_tpu_torch.pipeline.graph import DROP_ACL  # noqa: E402
 from vpp_tpu_torch.pipeline.tables import (  # noqa: E402
+    DERIVED_FIELDS,
+    HOST_FIELDS,
     SESSION_FIELDS,
+    TABLE_FIELDS,
     TELEMETRY_FIELDS,
     TENANCY_STATE_FIELDS,
     DataplaneConfig,
+    tensor_of,
+)
+from vpp_tpu_torch.pipeline.tables import derive as derive_tables  # noqa: E402
+from vpp_tpu_torch.pipeline.transfer import (  # noqa: E402
+    device_transfer_totals,
 )
 from vpp_tpu_torch.tenancy import derive  # noqa: E402
 from vpp_tpu_torch.tenancy.derive import key_tenant, tenant_ids  # noqa: E402
@@ -2455,6 +2489,448 @@ def four_stage_layers(ml_p: Dataplane, tnt_p: Dataplane, up: int, pods,
     return out, now
 
 
+# --- phase 4f: incremental uploads and session snapshots on the slice ----
+
+# phase 4f's step clock: far past any tick count of the run, so that a
+# snapshot's clock (the larger of the two) is the step clock
+UPS_NOW = 50_000
+SNAP_CHUNK = 4096       # chunk_buckets of the slice's snapshots
+MIGRATE_BUCKETS = 4096  # the migrated range (from bucket 8,192)
+# the churns in order, each with the upload groups it dirties and the
+# block path it must take (the reference's choice at this staging)
+CHURNS = (
+    ("a", "one global rule's dest_port at index 5,000", {"glb", "glb_bv"},
+     {"_glb_incremental": True}),
+    ("b", "the same rule objects committed again", {"glb"},
+     {"_glb_incremental": True}),
+    ("c", "a pod add: interface, local table, /32 route",
+     {"if", "acl", "fib"}, {"_fib_incremental": 9 * 256 * 4}),
+    ("d", "a route flap: del_route + add_route of one /24", {"fib"},
+     {"_fib_incremental": 9 * 256 * 4}),
+    ("e", "a backend roll on one service VIP", {"svc"},
+     {"_svc_incremental": (5 * 8 + 2 * 8 * 8) * 4}),
+    ("f", "set_tenant: tenant 4's rate", {"tenant"}, {}),
+    ("g", "set_ml_model: the seeded forest", {"ml"}, {}),
+    ("h", "a rule inserted at index 0 (every row shifts)",
+     {"glb", "glb_bv"}, {"_glb_incremental": False}),
+    ("i", "add_routes_np of 1,000 /32s over slots 2,000-2,999", {"fib"},
+     {"_fib_incremental": 9 * 1024 * 4}),
+)
+
+
+def churn_sizes(config: DataplaneConfig) -> dict:
+    """The indices and counts of the churns, scaled to the slice's
+    tables (the numbers of ``CHURNS`` at the full slice): the rule of
+    (a), the slots of (i), the snapshot chunk and the migrated range."""
+    nb = config.sess_slots // config.sess_ways
+    n = 1000 * config.fib_slots // 4096
+    w = 256
+    while w < n:
+        w *= 4
+    return dict(rule=min(5000, config.max_global_rules // 2),
+                routes=n, base_slot=2000 * config.fib_slots // 4096,
+                route_blob=9 * w * 4, chunk=min(SNAP_CHUNK, nb // 64),
+                mig_start=nb // 32,
+                mig_buckets=min(MIGRATE_BUCKETS, nb // 16))
+# the churn whose swap changes the step variant (a forest replaces the
+# MLP): the only one whose round may capture
+NEW_VARIANT = {"g": "the ML kind moves from mlp to forest"}
+
+
+def apply_churn(dp: Dataplane, name: str, up: int, seed: int) -> None:
+    """Stage churn ``name`` (``CHURNS``) on ``dp``'s builder; the rule
+    churns keep every unchanged rule the same object, as a renderer
+    does."""
+    b = dp.builder
+    size = churn_sizes(dp.config)
+    if name in ("a", "b", "h"):
+        rules = list(b._glb_rules_ref)
+        if name == "a":
+            k = size["rule"]
+            rules[k] = dataclasses.replace(rules[k], dest_port=9999)
+        elif name == "h":
+            rules = [ContivRule(
+                action=Action.PERMIT, protocol=Protocol.TCP, dest_port=7777,
+                src_network=ipaddress.ip_network("172.31.250.0/24"))] \
+                + rules[:-4] + rules[-3:]
+        b.set_global_table(rules)
+    elif name == "c":
+        pod = ("default", "pod-new")
+        idx = dp.add_pod_interface(pod)
+        dp.alloc_table_slot("pod-new-policy")
+        b.set_local_table(dp.table_slots["pod-new-policy"],
+                          local_rules(N_PODS, dp.config.max_rules))
+        dp.assign_pod_table(pod, "pod-new-policy")
+        b.add_route("10.1.1.251/32", idx, Disposition.LOCAL)
+    elif name == "d":
+        if not b.del_route("10.2.5.0/24"):
+            raise AssertionError("churn d: no route to flap")
+        # back through another next hop (the row changes)
+        b.add_route("10.2.5.0/24", up, Disposition.REMOTE,
+                    next_hop=ip4("192.168.15.5"), node_id=7, group=0)
+    elif name == "e":
+        b.set_service(svc_vip(7), 80, 6, [
+            (ip4("10.200.7.10") + j, 80, 1) for j in (1, 2, 3, 5)])
+    elif name == "f":
+        b.set_tenant(4, prefixes=[TENANT_NETS[4]], vni=400,
+                     rate=2 * TNT4_RATE, burst=TNT4_BURST)
+    elif name == "g":
+        b.set_ml_model(ml_models(seed)[1][1])
+    elif name == "i":
+        n = size["routes"]
+        nets = (ip4("10.3.0.0") + 4 * np.arange(n)).astype(np.uint32)
+        b.add_routes_np(nets, np.full(n, 32, np.int32), tx_if=up,
+                        disp=int(Disposition.REMOTE),
+                        next_hop=PEER_VTEPS[0], node_id=2,
+                        base_slot=size["base_slot"])
+
+
+def new_flow(outer, inner, vni, out):
+    """A P = 1 vector of a new flow: the first unframed packet of a
+    forward vector that was forwarded from tenant 1 (whose ML threshold
+    never flags) with a source port no flow of the run uses."""
+    src = inner["src_ip"]
+    ok = ((out["disp"] != int(Disposition.DROP)) & (vni == -1)
+          & ((src >> np.uint32(16)) == np.uint32(172 << 8 | 16)))
+    i = int(np.nonzero(ok)[0][0])
+    cols = {k: v[i:i + 1].copy() for k, v in inner.items()}
+    cols["sport"][:] = 1023 if cols["sport"][0] != 1023 else 1022
+    return cols, cols, np.full(1, -1, np.int32)
+
+
+def spy_block_paths(dp: Dataplane) -> dict:
+    """Record what the builder's three block-path methods return (as
+    tests/test_dataplane.py spies ``_glb_incremental``)."""
+    took = {}
+    b = dp.builder
+    for name in ("_glb_incremental", "_fib_incremental",
+                 "_svc_incremental"):
+        orig = getattr(type(b), name)
+
+        def spy(builder, host_np, _orig=orig, _name=name):
+            out = _orig(builder, host_np)
+            took[_name] = out
+            return out
+        setattr(b, name, spy.__get__(b))
+    return took
+
+
+def timed_swap(dp: Dataplane):
+    """(host wall ms, device ms between CUDA events around it) of one
+    swap, the card synchronised before and after; the event span holds
+    the copies and writes and the host's diff and staging between them
+    (``vpp_tpu_torch.swap_pairs`` also gives the device's busy ms of
+    churns (a) and (c) from ``torch.profiler``)."""
+    _sync(dp.device)
+    t0 = time.perf_counter()
+    if dp.device.type != "cuda":
+        dp.swap()
+        return (time.perf_counter() - t0) * 1e3, 0.0
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
+    a.record()
+    dp.swap()
+    z.record()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, a.elapsed_time(z)
+
+
+def session_arrays(dp: Dataplane) -> dict:
+    """Every session field of the live tables on the host."""
+    return {f: getattr(dp.tables, f).cpu().numpy().copy()
+            for f in SESSION_FIELDS}
+
+
+def chunk_crcs(directory: str) -> dict:
+    """{table: [(file, start, crc, digest)]} of a snapshot's manifest."""
+    m = json.loads((Path(directory) / snapshot_mod.MANIFEST).read_text())
+    return {t: [(e["file"], e["start"], e["crc"], e["digest"])
+                for e in v["chunks"]] for t, v in m["tables"].items()}
+
+
+def full_build(dp: Dataplane) -> dict:
+    """Every staged and derived field of ``dp``'s builder uploaded and
+    derived from scratch on its device."""
+    host = {f: tensor_of(a, dp.device)
+            for f, a in dp.builder.host_arrays().items()}
+    return {**host, **derive_tables(host)}
+
+
+def upload_snapshot_path(cfg: DataplaneConfig, n_rules: int, n_nodes: int,
+                         seed: int):
+    """Phase 4f (module doc) on the MXU path. Returns (the launches of
+    the churn rounds, the summary with every timing)."""
+    t0 = time.perf_counter()
+    tcfg = tnt_ovl_config(cfg)
+    size = churn_sizes(tcfg)
+    model = ml_models(seed)[0][1]
+    gpu = Dataplane(tcfg)
+    twin = Dataplane(tcfg, device="cpu", graphs=False)
+    up, pods = stage_tnt_ovl(gpu, n_rules, n_nodes, model)
+    stage_tnt_ovl(twin, n_rules, n_nodes, model)
+    took = spy_block_paths(gpu)
+    say(f"staged mxu+tnt for phase 4f: card and CPU twin in "
+        f"{time.perf_counter() - t0:.1f} s")
+    now = UPS_NOW
+    last_fwd = {}
+
+    def round_(s):
+        """The three vectors of ``drive`` at P = 256 on the card, then
+        on the twin: every result equal."""
+        nonlocal now
+        vec = tnt_ovl_traffic(VEC, up, seed + 7919 * s, n_nodes)
+        first = apply_tnt_op(gpu, ("process", vec, now))
+        assert_equal(first, apply_tnt_op(twin, ("process", vec, now)),
+                     f"4f round {s}: forward vector, card vs CPU")
+        last_fwd.update(vec=vec, out=first)
+        now += 1
+        for to in ("forwarded", "dropped"):
+            rep = plain_vec(reply_traffic(first, pods, to))
+            out = apply_tnt_op(gpu, ("process", rep, now))
+            assert_equal(out, apply_tnt_op(twin, ("process", rep, now)),
+                         f"4f round {s}: {to} replies, card vs CPU")
+            if to == "forwarded":
+                last_fwd["rep"] = rep
+                if int(out["stats.fastpath"]) != 1:
+                    raise AssertionError(f"4f round {s}: forwarded "
+                                         f"replies left the fast tier")
+            now += 1
+
+    round_(0)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    _sync(gpu.device)
+    churns = {}
+    for k, (name, what, dirty, path) in enumerate(CHURNS, start=1):
+        held = {f: getattr(gpu.tables, f) for f in TABLE_FIELDS}
+        caps = sum(capture.capture_counts().values())
+        keys = set(gpu._programs)
+        h2d = device_transfer_totals("h2d")
+        took.clear()
+        for dp in (gpu, twin):
+            apply_churn(dp, name, up, seed)
+        host_ms, dev_ms = timed_swap(gpu)
+        rec = {g: dict(r) for g, r in gpu.builder.last_upload.items()}
+        moved = {g: n - h2d.get(g, 0)
+                 for g, n in device_transfer_totals("h2d").items()
+                 if n - h2d.get(g, 0)}
+        twin.swap()
+        replaced = [f for f in TABLE_FIELDS
+                    if getattr(gpu.tables, f) is not held[f]]
+        if replaced:
+            raise AssertionError(f"churn {name}: tensors replaced "
+                                 f"{replaced}")
+        clean = {g for g, r in rec.items() if r["bytes"] == 0}
+        if set(moved) - dirty or not set(rec) - dirty <= clean:
+            raise AssertionError(f"churn {name}: bytes moved {moved}, "
+                                 f"dirty groups {sorted(dirty)}")
+        if name == "i":
+            path = {"_fib_incremental": size["route_blob"]}
+        for m, want in path.items():
+            if took.get(m, "not run") != want:
+                raise AssertionError(f"churn {name}: {m} gave "
+                                     f"{took.get(m, 'not run')!r}, the "
+                                     f"reference's path is {want!r}")
+        round_(k)
+        _sync(gpu.device)
+        captured = sum(capture.capture_counts().values()) - caps
+        if (captured > 0 or set(gpu._programs) != keys) \
+                and name not in NEW_VARIANT:
+            raise AssertionError(f"churn {name}: the swap or its round "
+                                 f"captured {captured} parts")
+        assert_equal(tnt_state_of(twin), tnt_state_of(gpu),
+                     f"churn {name}: state planes, card vs CPU")
+        churns[name] = dict(
+            what=what, swap_host_ms=host_ms, swap_device_ms=dev_ms,
+            h2d_bytes=moved, block_paths={m: took[m] for m in took},
+            fields={g: r["fields"] for g, r in rec.items() if r["fields"]},
+            blob_bytes={g: r["blob_bytes"] for g, r in rec.items()
+                        if "blob_bytes" in r},
+            captured=captured, new_variant=NEW_VARIANT.get(name))
+        say(f"churn ({name}) {what}: swap {host_ms:.3f} ms host, "
+            f"{dev_ms:.3f} ms between CUDA events around it; H2D bytes "
+            f"{moved}; "
+            f"block paths {churns[name]['block_paths']}; captured "
+            f"{captured}{' (' + NEW_VARIANT[name] + ')' if captured else ''}"
+            f"; every tensor kept; round bit-exact with the CPU twin")
+    _sync(gpu.device)
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    want = PATH_KERNELS["mxu+tnt"]
+    if any((launches[k] > 0) != (k in want) for k in WRAPPERS):
+        raise AssertionError(f"phase 4f launched {launches}, expected "
+                             f"exactly {want}")
+    say(f"main path mxu+tnt churn: launches {launches}")
+
+    # the live tables against a fresh card dataplane staged to the same
+    # final state, and against its full upload
+    rest = Dataplane(tcfg)
+    r_up, r_pods = stage_tnt_ovl(rest, n_rules, n_nodes, model)
+    for name, *_ in CHURNS:
+        apply_churn(rest, name, r_up, seed)
+    rest.swap()
+    full = full_build(rest)
+    for f in HOST_FIELDS + DERIVED_FIELDS:
+        for what, other in (("fresh dataplane", getattr(rest.tables, f)),
+                            ("full upload", full[f])):
+            if not torch.equal(getattr(gpu.tables, f), other):
+                raise AssertionError(f"4f: {f} differs from the {what}")
+    say(f"4f: every staged and derived tensor equals a fresh card "
+        f"dataplane's and its full upload ({len(HOST_FIELDS)} + "
+        f"{len(DERIVED_FIELDS)} fields)")
+
+    # the snapshot: full, then one P = 1 step with a new flow, then the
+    # incremental one; the CPU twin alike
+    dirs = {k: tempfile.mkdtemp(prefix=f"vpp_tpu_torch_snap_{k}_")
+            for k in ("card", "cpu")}
+    chunk = size["chunk"]
+    snaps = {side: snapshot_mod.SessionSnapshotter(
+        dp, dirs[side], chunk_buckets=chunk)
+        for side, dp in (("card", gpu), ("cpu", twin))}
+    snap_t = {}
+    crcs = []
+    one = new_flow(*last_fwd["vec"], last_fwd["out"])
+    touched = None
+    for gen, label in ((1, "full"), (2, "incremental")):
+        if gen == 2:
+            before = session_arrays(gpu)
+            for dp in (gpu, twin):
+                apply_tnt_op(dp, ("process", one, now))
+            now += 1
+            after = session_arrays(gpu)
+            touched = {(t, int(c)) for t, fields in
+                       snapshot_mod.TABLE_COLS.items() for f in fields
+                       for c in np.unique(np.nonzero(
+                           before[f] != after[f])[0] // chunk)}
+            if not any(t == "sess" for t, _ in touched):
+                raise AssertionError("4f: the P = 1 step installed no "
+                                     "session")
+        for dp in (gpu, twin):
+            dp._now = now
+        for side in ("card", "cpu"):
+            s = snaps[side]
+            before = s.stats_snapshot()
+            _sync(gpu.device)
+            t1 = time.perf_counter()
+            if s.snapshot() != gen:
+                raise AssertionError(f"4f: {side} snapshot {gen} failed: "
+                                     f"{s.stats_snapshot()['last_error']}")
+            ms = (time.perf_counter() - t1) * 1e3
+            after = s.stats_snapshot()
+            if side == "card":
+                snap_t[label] = dict(
+                    ms=ms, lock_hold_ms=after["lock_hold_ms"],
+                    chunks_written=after["chunks_written"]
+                    - before["chunks_written"],
+                    chunks_skipped=after["chunks_skipped"]
+                    - before["chunks_skipped"],
+                    bytes_written=after["bytes_written"]
+                    - before["bytes_written"])
+        crcs.append((chunk_crcs(dirs["card"]), chunk_crcs(dirs["cpu"])))
+        if crcs[-1][0] != crcs[-1][1]:
+            raise AssertionError(f"4f snapshot {gen}: card and CPU chunk "
+                                 f"CRCs differ")
+        say(f"snapshot {label}: {snap_t[label]['ms']:.2f} ms, "
+            f"{snap_t[label]['chunks_written']} chunks "
+            f"({snap_t[label]['bytes_written']} bytes) written, "
+            f"{snap_t[label]['chunks_skipped']} skipped, lock held "
+            f"{snap_t[label]['lock_hold_ms']:.3f} ms (host); card chunk "
+            f"CRCs equal the CPU twin's")
+    n_chunks = sum(len(v) for v in crcs[0][0].values())
+    if snap_t["full"]["chunks_written"] != n_chunks or n_chunks != 2 * (
+            tcfg.sess_slots // tcfg.sess_ways // chunk):
+        raise AssertionError(f"4f: the full snapshot wrote "
+                             f"{snap_t['full']['chunks_written']} of "
+                             f"{n_chunks} chunks")
+    if snap_t["incremental"]["chunks_written"] != len(touched):
+        raise AssertionError(f"4f: one step touched the chunks "
+                             f"{sorted(touched)}, the snapshot re-shipped "
+                             f"{snap_t['incremental']['chunks_written']}")
+
+    # the restore: a fresh card dataplane (``rest``, staged alike) after
+    # one warm-up round, then the replies to the last forwarded packets
+    snap_now = json.loads((Path(dirs["card"]) / snapshot_mod.MANIFEST)
+                          .read_text())["now"]
+    warm = tnt_ovl_traffic(VEC, r_up, seed + 5, n_nodes)
+    first = apply_tnt_op(rest, ("process", warm, 10))
+    for j, to in enumerate(("forwarded", "dropped")):
+        apply_tnt_op(rest, ("process",
+                            plain_vec(reply_traffic(first, r_pods, to)),
+                            11 + j))
+    _sync(rest.device)
+    caps = sum(capture.capture_counts().values())
+    keys = set(rest._programs)
+    t1 = time.perf_counter()
+    if not snapshot_mod.SessionSnapshotter(
+            rest, dirs["card"], chunk_buckets=chunk).restore_into():
+        raise AssertionError("4f: the restore refused")
+    _sync(rest.device)
+    restore_ms = (time.perf_counter() - t1) * 1e3
+    for b in range(2):
+        ref = apply_tnt_op(gpu, ("process", last_fwd["rep"],
+                                 snap_now + 1 + b))
+        got = apply_tnt_op(rest, ("process", last_fwd["rep"], 1 + b))
+        rx = int(got["stats.rx"])
+        if int(got["stats.fastpath"]) != 1 or int(
+                got["stats.sess_hits"]) != rx or rx == 0:
+            raise AssertionError(f"4f restore batch {b}: fast tier "
+                                 f"{got['stats.fastpath']}, hits "
+                                 f"{got['stats.sess_hits']} of {rx}")
+        assert_equal({f: ref[f] for f in ref if f.startswith("pkts.")
+                      or f in ("disp", "tx_if", "next_hop", "drop_cause")},
+                     {f: got[f] for f in ref if f.startswith("pkts.")
+                      or f in ("disp", "tx_if", "next_hop", "drop_cause")},
+                     f"4f restore batch {b}: restored vs uninterrupted")
+    _sync(rest.device)
+    if sum(capture.capture_counts().values()) != caps \
+            or set(rest._programs) != keys:
+        raise AssertionError("4f: the restore or its replies captured")
+    say(f"restore: {restore_ms:.2f} ms (read, verify, write into the "
+        f"live tensors); nothing captured; the replies to the forwarded "
+        f"packets ride the fast tier, every one a session hit, bit-exact "
+        f"with the uninterrupted dataplane")
+
+    # the migration: a 4,096-bucket range from the card dataplane to the
+    # restored one
+    _sync(gpu.device)
+    t1 = time.perf_counter()
+    start, n_mig = size["mig_start"], size["mig_buckets"]
+    cols, now_src = snapshot_mod.drain_bucket_range(gpu, start, n_mig)
+    drain_ms = (time.perf_counter() - t1) * 1e3
+    rest._now = now_dst = UPS_NOW // 2
+    t1 = time.perf_counter()
+    adopted = snapshot_mod.adopt_bucket_range(rest, cols, start, now_src)
+    adopt_ms = (time.perf_counter() - t1) * 1e3
+    t1 = time.perf_counter()
+    released = snapshot_mod.release_bucket_range(gpu, start, n_mig)
+    release_ms = (time.perf_counter() - t1) * 1e3
+    moved_rows = session_arrays(rest)
+    src_rows = session_arrays(gpu)
+    sl = slice(start, start + n_mig)
+    for f in snapshot_mod.TABLE_COLS["sess"]:
+        want = cols[f].view(np.int32)
+        if f.endswith("_time"):
+            want = (want.astype(np.int64) - now_src + now_dst).astype(
+                np.int32)
+        if not np.array_equal(moved_rows[f][sl], want):
+            raise AssertionError(f"4f migration: {f} rows differ")
+    if adopted <= 0 or released != adopted or src_rows["sess_valid"][
+            sl].any():
+        raise AssertionError(f"4f migration: adopted {adopted}, released "
+                             f"{released}")
+    say(f"migration of {n_mig} buckets ({adopted} sessions): "
+        f"drain {drain_ms:.2f} ms, adopt {adopt_ms:.2f} ms, release "
+        f"{release_ms:.2f} ms; the moved rows equal, ages rebased")
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    summary = dict(churns=churns, snapshot=snap_t, restore_ms=restore_ms,
+                   migration=dict(buckets=n_mig, sessions=adopted,
+                                  drain_ms=drain_ms, adopt_ms=adopt_ms,
+                                  release_ms=release_ms),
+                   seconds=time.perf_counter() - t0)
+    say(f"phase 4f: {summary['seconds']:.1f} s")
+    return launches, summary
+
+
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -2619,6 +3095,11 @@ def main(argv=None) -> int:
     tnt_m, _, _, tnt_m_launches, tnt_sum_m, _ = tnt_ovl_path(
         mcfg, "mxu", n_rules, n_nodes, args.seed)
     say(f"phase 4e: {time.perf_counter() - t4e:.1f} s")
+
+    # 4f. incremental uploads into the live tensors, snapshots, restore
+    # and migration, on the MXU path with every upload group populated
+    ups_launches, ups_sum = upload_snapshot_path(mcfg, n_rules, n_nodes,
+                                                 args.seed)
     graphs = check_graphs({"pallas": [gpu, cap_p], "mxu": [gpu_m, cap_m],
                            "pallas+ml": [ml_p], "mxu+ml": [ml_m],
                            "pallas+tnt": [tnt_p], "mxu+tnt": [tnt_m]})
@@ -2828,6 +3309,7 @@ def main(argv=None) -> int:
                    at_4096=timed[(name, BIG_VEC)])
         row["launches_tenancy_overlay"] = {
             "pallas": tnt_launches[name], "mxu": tnt_m_launches[name]}
+        row["launches_upload_snapshot"] = ups_launches[name]
         if name == "sess_probe_ways":
             row["tenant_form"] = {f"P={n}": timed[("sess_probe_ways.tenant",
                                                    n)] for n in (VEC, BIG_VEC)}
@@ -2851,6 +3333,21 @@ def main(argv=None) -> int:
         rows.append(row)
     for summ in (tnt_sum_p, tnt_sum_m):
         summ.pop("launches_per_call")
+    # the swap, snapshot, restore and migration times of phase 4f
+    for name, c in ups_sum["churns"].items():
+        say(f"upload ({name}) {c['what']}: swap {c['swap_host_ms']:.4f} ms "
+            f"host, {c['swap_device_ms']:.4f} ms between CUDA events; H2D "
+            f"bytes "
+            f"{c['h2d_bytes']}; fields shipped whole {c['fields']}; "
+            f"blobs {c['blob_bytes']}")
+    for label, t in ups_sum["snapshot"].items():
+        say(f"snapshot {label}: {t['ms']:.3f} ms, "
+            f"{t['bytes_written']} bytes written, lock hold "
+            f"{t['lock_hold_ms']:.4f} ms")
+    mig = ups_sum["migration"]
+    say(f"restore {ups_sum['restore_ms']:.3f} ms; migration of "
+        f"{mig['buckets']} buckets: drain {mig['drain_ms']:.3f} ms, adopt "
+        f"{mig['adopt_ms']:.3f} ms, release {mig['release_ms']:.3f} ms")
     say(json.dumps({"steps": steps, "mxu_steps": mxu_steps,
                     "stage_cost": stage_cost,
                     "tenancy_overlay_cost": tnt_cost,
@@ -2858,6 +3355,7 @@ def main(argv=None) -> int:
                     "ml_telemetry": {"pallas": ml_sum_p, "mxu": ml_sum_m},
                     "tenancy_overlay": {"pallas": tnt_sum_p,
                                         "mxu": tnt_sum_m},
+                    "upload_snapshot": ups_sum,
                     "captures": graphs, "power": smi}))
     if any(n != 1 for n in capture.capture_counts().values()):
         raise AssertionError("the timing captured a key again")

@@ -67,7 +67,7 @@ def test_scan_sees_the_whole_package():
     assert {"chip_smoke.py", "dataplane.py", "session.py", "acl_bv.py",
             "acl_mxu.py", "lpm.py", "_cuda.py", "interop.py", "mlscore.py",
             "telemetry.py", "model.py", "train.py", "vxlan.py", "derive.py",
-            "sched.py"} <= names
+            "sched.py", "snapshot.py", "faults.py", "transfer.py"} <= names
     assert (ROOT / "vpp_tpu_torch" / "ml" / "model.py") in PORT_FILES
     assert all(p.exists() for p in PORT_FILES)
 
@@ -84,6 +84,19 @@ def test_scan_matches_the_jax_package_but_not_the_port():
     assert _forbidden("jax.numpy") and _forbidden("jax")
     assert not _forbidden("vpp_tpu_torch")
     assert not _forbidden("vpp_tpu_torch.ops.session")
+
+
+def test_every_field_uploads_in_exactly_one_group():
+    """Every staged field belongs to exactly one upload group, and every
+    derived field follows one of them (it is rebuilt when that group
+    ships, and only then)."""
+    groups = ttables._UPLOAD_GROUPS
+    seen = [f for fields in groups.values() for f in fields]
+    assert sorted(seen) == sorted(ttables.HOST_FIELDS)
+    assert len(seen) == len(set(seen))
+    assert set(ttables.DERIVED_GROUPS) == set(ttables.DERIVED_FIELDS)
+    assert set(ttables.DERIVED_GROUPS.values()) <= set(groups)
+    assert not set(ttables.STATE_FIELDS) & set(seen)
 
 
 def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch):
@@ -402,6 +415,27 @@ def test_step_pairs_alternates_sides_and_counts_wins(monkeypatch, capsys):
     cell = out["summary"]["cell"]
     assert (cell["this_won"], cell["other_won"]) == (2, 1)
     assert cell["this_ms"] == 3.5 and cell["other_ms"] == 4.0
+
+
+def test_swap_pairs_alternates_sides(monkeypatch, capsys):
+    """``swap_pairs`` alternates which checkout runs first and hands each
+    a run snippet that compiles; its summary is ``step_pairs``'."""
+    import json
+
+    from vpp_tpu_torch import swap_pairs
+
+    compile(swap_pairs._RUN.replace("REPS", "3"), "<run>", "exec")
+    calls = []
+
+    def run(root, reps):
+        calls.append("this" if root == swap_pairs.Path.cwd() else "other")
+        return {"mxu (a) host": 1.0 if calls[-1] == "this" else 2.0}
+
+    monkeypatch.setattr(swap_pairs, "run", run)
+    assert swap_pairs.main(["/nonexistent", "--pairs", "2"]) == 0
+    assert calls == ["other", "this", "this", "other"]
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["summary"]["mxu (a) host"]["this_won"] == 2
 
 
 @pytest.mark.parametrize("kind", ["mlp", "forest"])

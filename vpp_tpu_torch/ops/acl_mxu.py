@@ -183,13 +183,15 @@ def compile_bitplanes_update(packed: dict, max_rules: int,
 _K_PLANE = _DPORT0 + 16
 
 
-def _swizzle_rows(rows: torch.Tensor) -> torch.Tensor:
-    """Permute the eight 16-byte chunks of each 128-byte row ``r`` by
-    ``c -> c ^ (r % 8)`` (the 128-byte swizzle); its own inverse."""
+def _swizzle_rows(rows: torch.Tensor, r0: int = 0) -> torch.Tensor:
+    """Permute the eight 16-byte chunks of each 128-byte row by
+    ``c -> c ^ (r % 8)``, ``r`` the row's index in the whole operand
+    (``r0`` that of ``rows[0]``: a block of rows swizzles by its absolute
+    rows); its own inverse."""
     r = rows.shape[0]
     dev = rows.device
     chunk = (torch.arange(8, device=dev)[None, :]
-             ^ (torch.arange(r, device=dev)[:, None] % 8))
+             ^ ((torch.arange(r, device=dev)[:, None] + r0) % 8))
     idx = (chunk[:, :, None] * 16
            + torch.arange(16, device=dev)).reshape(r, PLANES)
     return torch.gather(rows, 1, idx)
@@ -204,6 +206,18 @@ def mxu_operand(host: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     rows = host["glb_mxu_coeff"].t().to(torch.int8, copy=True)
     rows[:, _K_PLANE] = host["glb_mxu_k"].to(torch.int8)
     return {"glb_mxu_op": _swizzle_rows(rows)}
+
+
+def mxu_operand_block(coeff: torch.Tensor, k: torch.Tensor,
+                      lo: int) -> torch.Tensor:
+    """Rows ``[lo, lo + w)`` of ``mxu_operand``'s operand from the
+    coefficient columns ``coeff`` [PLANES, w] and ``k`` [w] of those
+    rules: the block path of an incremental commit rebuilds only these
+    rows of ``glb_mxu_op``. ``lo`` need not be a multiple of 8: each row
+    swizzles by its absolute index."""
+    rows = coeff.t().to(torch.int8, copy=True)
+    rows[:, _K_PLANE] = k.to(torch.int8)
+    return _swizzle_rows(rows, lo)
 
 
 def mxu_operand_rows(op: torch.Tensor):

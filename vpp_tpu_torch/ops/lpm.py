@@ -178,6 +178,31 @@ def build_lpm_stack(fields: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             "fib_lpm_stk_pfx": pfx, "fib_lpm_stk_slot": slot}
 
 
+def update_lpm_stack(stack: Dict[str, torch.Tensor],
+                     fields: Dict[str, torch.Tensor], lengths,
+                     counts: bool) -> None:
+    """Rewrite in place the rows of ``build_lpm_stack``'s ``stack`` that
+    the planes of ``lengths`` feed (their shapes are the config's, so
+    the stack keeps its shape), and with ``counts`` the live counts from
+    ``fields["fib_lpm_cnt"]``: the incremental form of a FIB upload,
+    which re-ships only the planes of the lengths a churn touched."""
+    # the row order of build_lpm_stack, from the shapes alone (no read
+    # of the device's lens)
+    lens = [L for L in range(LPM_LENGTHS - 1, -1, -1)
+            if fields[lpm_field(L)].shape[1] > 0]
+    for L in lengths:
+        plane = fields[lpm_field(L)]
+        w = plane.shape[1]
+        if w == 0:
+            continue
+        r = lens.index(L)
+        stack["fib_lpm_stk_pfx"][r, :w] = bias(plane[0])
+        stack["fib_lpm_stk_slot"][r, :w] = plane[1]
+    if counts:
+        stack["fib_lpm_stk_cnt"].copy_(
+            fields["fib_lpm_cnt"][stack["fib_lpm_lens"].long()])
+
+
 # --- kernel 3: the fused all-lengths search ------------------------------
 
 

@@ -51,6 +51,13 @@ device); ``process`` takes the overlay's inner-header sidecar
 reference's. Under the overlay the packed forms raise the reference's
 ``ValueError``: the packed boundary has no lane for the sidecar.
 
+``swap`` ships only the dirty upload groups, into the tensors the
+captured programs hold (pipeline/tables.py); ``adopt_sessions`` writes
+restored or migrated session columns into the live ones the same way
+(pipeline/snapshot.py), so neither recaptures anything. The bytes
+they move are counted in pipeline/transfer.py (the reference keeps that
+accounting in its dataplane module).
+
 Not ported: the ring form (ROADMAP Queue 1 item 11 (IO pump and
 rings)), spans, journal and tracer.
 """
@@ -81,6 +88,7 @@ from vpp_tpu_torch.pipeline.selection import (
     select_session_impl,
 )
 from vpp_tpu_torch.pipeline.tables import (
+    FIB_STATE_FIELDS,
     SESSION_FIELDS,
     TELEMETRY_FIELDS,
     TENANCY_STATE_FIELDS,
@@ -88,7 +96,9 @@ from vpp_tpu_torch.pipeline.tables import (
     InterfaceType,
     TableBuilder,
     resolve_device,
+    restored_sessions,
 )
+from vpp_tpu_torch.pipeline.transfer import count_device_transfer
 from vpp_tpu_torch.pipeline.vector import Disposition, PacketVector
 
 # every state field a step writes in place; ``probe`` and
@@ -346,6 +356,30 @@ class Dataplane:
             self._refresh_selection()
             self._programs = {k: p for k, p in self._programs.items()
                               if p.holds(self.tables)}
+            self.epoch += 1
+            return self.epoch
+
+    def adopt_sessions(self, sessions) -> int:
+        """Publish restored session state into the live tables (the
+        snapshot restore and range-migration path, pipeline/snapshot.py).
+        ``sessions`` is a ``{field: host array}`` mapping of
+        SESSION_FIELDS, checked as ``to_device(sessions=...)`` checks it;
+        each column is written into the live tensor, and the telemetry,
+        tenancy-state and ECMP-accounting planes are zeroed in place (the
+        reference cold-starts them on this path), so the captured
+        programs are kept. The epoch bumps. Call after the base-config
+        swap and before traffic: nothing staged is published."""
+        arrays = restored_sessions(self.config, sessions)
+        count_device_transfer("adopt", arrays, "h2d")
+        with self._lock:
+            t = self.tables
+            for f, a in arrays.items():
+                src = torch.from_numpy(a.view(np.int32) if a.dtype
+                                       == np.uint32 else a)
+                getattr(t, f).copy_(src)
+            for f in (tuple(TELEMETRY_FIELDS) + tuple(TENANCY_STATE_FIELDS)
+                      + tuple(FIB_STATE_FIELDS)):
+                getattr(t, f).zero_()
             self.epoch += 1
             return self.epoch
 
@@ -727,9 +761,9 @@ class Dataplane:
         """Host scalars of the FIB: the live route count, the routes per
         prefix length, the ECMP group registry with each member's ways
         and forwarded packets (from the [G, W] plane, the one device
-        read), the LPM plane bytes. The reference's ``lpm_build_ms`` and
-        ``upload`` (its incremental upload's record) are 0.0 and {}:
-        every swap here uploads in full."""
+        read), the LPM plane bytes, the host ms of the last plane
+        restage and the last FIB upload's record (fields re-shipped
+        whole, blob bytes, bytes, host ms)."""
         with self._lock:
             t, b = self.tables, self.builder
             live = b.fib_plen[b.fib_plen >= 0]
@@ -747,12 +781,13 @@ class Dataplane:
                 "by_length": {int(n): int(c) for n, c in enumerate(cnts)
                               if c},
                 "lpm_ok": b.lpm_ok(),
-                "lpm_build_ms": 0.0,
+                "lpm_build_ms": float(b.lpm_build_ms),
                 "ecmp_groups": groups,
                 "plane_bytes": lpm_plane_bytes(self.config),
-                "upload": {},
+                "upload": dict(b.fib_upload),
             }
             ecmp_c = t.fib_ecmp_c.cpu().numpy().astype(np.int64)
+        count_device_transfer("fib.snapshot", ecmp_c)
         snap["ecmp_c"] = ecmp_c
         for g, members in groups.items():
             for m in members:

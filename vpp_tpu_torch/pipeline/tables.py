@@ -7,36 +7,52 @@ field by field), loaded into torch tensors on the builder's device.
 uint32 fields are int32 tensors holding the same bits
 (pipeline/vector.py).
 
-Cut to the main path: every ``to_device`` is a full upload (the
-reference's incremental upload groups are a later slice, ROADMAP Queue
-1 item 8). The ML planes are staged at the configured capacity
-(``ml_capacity``, ``set_ml_model``), the telemetry planes take their
-configured shapes (``tel_capacity``), and the tenant, service-VIP and
-ECMP planes theirs (``tnt_capacity``, ``svc_capacity``,
-``ecmp_capacity``), as in the reference: a tenant registry
-(``set_tenant``) and a service registry (``set_service``) are compiled
-into their planes by ``_restage_tenants`` / ``_restage_svc``, with the
-reference's slice allocation and sticky weighted way fill. The global
-table's MXU bit-planes are compiled in full at every
-``set_global_table`` (the reference diffs rule identities and
-recompiles only the changed columns; that joins the incremental upload
-groups).
+The upload is incremental, as the reference's (``_UPLOAD_GROUPS``):
+every builder mutator marks the upload group it touches, and
+``to_device`` ships only the dirty groups, field by field within the
+``glb_bv`` and ``fib`` groups. Where a commit's changes to the global
+rule rows, the per-slot FIB rows or the service VIP rows confine to a
+block (``_block_of``), that block travels as ONE int32 blob through one
+pinned host buffer and one non-blocking host-to-device copy on the
+current stream, and slice copies write it into the tensors the live
+tables hold (``_glb_incremental``, ``_fib_incremental``,
+``_svc_incremental``); the diff base moves only after the device writes
+succeeded. With ``into`` (the live tables, ``Dataplane.swap``) every
+write lands in the tensors the captured step programs hold, so a swap
+captures nothing; without it a dirty field gets a new tensor. The
+global table compiles incrementally too: an identity diff of the rule
+objects (``pack_rules_incremental``) recompiles only the changed
+bit-plane columns and BV dimension planes. Every upload's bytes are
+charged to its group (pipeline/transfer.py). ``state_snapshot`` /
+``state_restore`` roll the staging back and reset the diff bases.
 
-Derived tensors, built ONCE per swap by ``to_device``: the populated LPM
-planes stacked into the biased ``[L, Npad]`` prefix and slot matrices
-the fused LPM kernel walks (``fib_lpm_stk_*`` — the reference rebuilds
-them inside every traced step, vpp_tpu/ops/lpm.py
-``_fib_lookup_lpm_pallas``), and the MXU coefficients and ``k`` as the
-rule-major int8 ``[R', 128]`` operand ``mxu_first_match`` reads, laid
-out as its shared-memory tiles (``glb_mxu_op``, ops/acl_mxu.py
-``mxu_operand`` — the reference casts float32 to bf16 inside every
-call, vpp_tpu/ops/acl_mxu.py ``mxu_first_match``).
+The ML planes are staged at the configured capacity (``ml_capacity``,
+``set_ml_model``), the telemetry planes take their configured shapes
+(``tel_capacity``), and the tenant, service-VIP and ECMP planes theirs
+(``tnt_capacity``, ``svc_capacity``, ``ecmp_capacity``), as in the
+reference: a tenant registry (``set_tenant``) and a service registry
+(``set_service``) are compiled into their planes by
+``_restage_tenants`` / ``_restage_svc``, with the reference's slice
+allocation and sticky weighted way fill.
+
+Derived tensors (``DERIVED_FIELDS``), each following one upload group
+(``DERIVED_GROUPS``): the populated LPM planes stacked into the biased
+``[L, Npad]`` prefix and slot matrices the fused LPM kernel walks
+(``fib_lpm_stk_*`` — the reference rebuilds them inside every traced
+step, vpp_tpu/ops/lpm.py ``_fib_lookup_lpm_pallas``; here the rows of
+the lengths a FIB upload re-ships are rewritten), and the MXU
+coefficients and ``k`` as the rule-major int8 ``[R', 128]`` operand
+``mxu_first_match`` reads, laid out as its shared-memory tiles
+(``glb_mxu_op``, ops/acl_mxu.py ``mxu_operand`` — the reference casts
+float32 to bf16 inside every call, vpp_tpu/ops/acl_mxu.py
+``mxu_first_match``; a block commit rebuilds only the block's rows).
 """
 
 from __future__ import annotations
 
 import ipaddress
 import logging
+import time
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,9 +67,12 @@ from vpp_tpu_torch.ops.acl_bv import (
     empty_bv,
 )
 from vpp_tpu_torch.ops.acl_mxu import (
+    PLANES,
     compile_bitplanes_full,
+    compile_bitplanes_update,
     empty_bitplanes,
     mxu_operand,
+    mxu_operand_block,
 )
 from vpp_tpu_torch.ops.lpm import (
     LPM_FIELDS,
@@ -65,8 +84,10 @@ from vpp_tpu_torch.ops.lpm import (
     lpm_field,
     lpm_hint_layout,
     lpm_len_caps,
+    update_lpm_stack,
 )
 from vpp_tpu_torch.ops.mlscore import ML_TNT_THRESH_INHERIT
+from vpp_tpu_torch.pipeline.transfer import count_device_transfer
 from vpp_tpu_torch.pipeline.vector import Disposition, as_i32
 
 log = logging.getLogger("vpp_tpu_torch.tables")
@@ -234,6 +255,14 @@ DERIVED_FIELDS: Tuple[str, ...] = (
 TABLE_FIELDS: Tuple[str, ...] = (HOST_FIELDS + tuple(STATE_FIELDS)
                                  + DERIVED_FIELDS)
 
+# the upload group each derived field follows: it is rebuilt (wholly,
+# or the rows of a block commit) only when that group ships
+DERIVED_GROUPS: Dict[str, str] = {
+    "fib_lpm_lens": "fib", "fib_lpm_stk_cnt": "fib",
+    "fib_lpm_stk_pfx": "fib", "fib_lpm_stk_slot": "fib",
+    "glb_mxu_op": "glb",
+}
+
 
 def derive(host: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Every DERIVED_FIELDS tensor, from the staged tensors ``host``."""
@@ -361,6 +390,25 @@ def zero_state_device(config: DataplaneConfig,
     shapes = state_shapes(config)
     return {f: torch.zeros(shapes[f], dtype=torch.int32, device=device)
             for f in STATE_FIELDS}
+
+
+def restored_sessions(config: DataplaneConfig,
+                      sessions) -> Dict[str, np.ndarray]:
+    """A ``{field: host array}`` mapping of SESSION_FIELDS (a restored
+    snapshot, a migrated range) checked against the config's geometry as
+    the reference's ``to_device(sessions=...)`` checks it, each array
+    in its staging dtype."""
+    missing = set(SESSION_FIELDS) - set(sessions)
+    if missing:
+        raise ValueError(
+            f"restored session state missing fields: {sorted(missing)}")
+    shapes = state_shapes(config)
+    for f in SESSION_FIELDS:
+        if tuple(np.shape(sessions[f])) != shapes[f]:
+            raise ValueError(
+                f"restored session field {f!r} shape "
+                f"{tuple(np.shape(sessions[f]))} != configured {shapes[f]}")
+    return {f: np.asarray(sessions[f], dt) for f, dt in SESSION_FIELDS.items()}
 
 
 # --- config validation -------------------------------------------------
@@ -544,12 +592,55 @@ def pack_rules(rules: Sequence[ContivRule],
     if n > max_rules:
         raise ValueError(f"{n} rules exceed table capacity {max_rules}")
     out = _empty_packed(max_rules)
-    if not n:
-        return out
-    rows = np.array([_rule_row(r) for r in rules], np.int64)
+    if n:
+        _fill_packed(out, np.array([_rule_row(r) for r in rules], np.int64),
+                     n)
+    return out
+
+
+def _fill_packed(out: Dict[str, np.ndarray], rows: np.ndarray,
+                 n: int) -> None:
+    # out's insertion order IS the row-tuple order
     for j, arr in enumerate(out.values()):
         arr[:n] = rows[:, j].astype(arr.dtype)
-    return out
+
+
+def pack_rules_incremental(
+    rules: Sequence[ContivRule], max_rules: int,
+    prev_rules: Optional[list], prev_rows: Optional[np.ndarray],
+) -> Tuple[Dict[str, np.ndarray], np.ndarray, Optional[np.ndarray]]:
+    """``pack_rules`` with an identity diff against the previous commit:
+    unchanged entries of a commit's full rule list are the SAME rule
+    objects, so ``new[i] is old[i]`` keeps row i and every other row is
+    recomputed (a rule that moved fails the check at its new index).
+    Returns ``(packed, rows, changed)``: ``rows`` caches the next call;
+    ``changed`` the sorted indices of rows that differ from the previous
+    commit, rows now past the end included (their bit-plane columns
+    revert to padding), or None without a previous state (full
+    compile)."""
+    n = len(rules)
+    if n > max_rules:
+        raise ValueError(f"{n} rules exceed table capacity {max_rules}")
+    rows = np.empty((n, 10), np.int64)
+    if prev_rules is None or prev_rows is None:
+        changed = None
+        for i, r in enumerate(rules):
+            rows[i] = _rule_row(r)
+    else:
+        m = len(prev_rules)
+        changed_idx = []
+        for i, r in enumerate(rules):
+            if i < m and r is prev_rules[i]:
+                rows[i] = prev_rows[i]
+            else:
+                rows[i] = _rule_row(r)
+                changed_idx.append(i)
+        changed_idx.extend(range(n, m))
+        changed = np.asarray(changed_idx, np.int64)
+    packed = _empty_packed(max_rules)
+    if n:
+        _fill_packed(packed, rows, n)
+    return packed, rows, changed
 
 
 # --- the ML model planes ------------------------------------------------
@@ -681,6 +772,87 @@ def _assign_ways(prev_assign, members, target, key=lambda m: m):
     return assign_i
 
 
+# --- upload groups (the reference's, vpp_tpu/pipeline/tables.py) -------
+
+# Global-table fields in ROW space [R] (diffed and block-written
+# together; the bit-plane fields live in COLUMN space [R'])
+_GLB_ROW_FIELDS: Tuple[str, ...] = (
+    "glb_src_net", "glb_src_mask", "glb_dst_net", "glb_dst_mask",
+    "glb_proto", "glb_sport_lo", "glb_sport_hi", "glb_dport_lo",
+    "glb_dport_hi", "glb_action",
+)
+
+
+def _block_of(changed: np.ndarray, total: int) -> Optional[Tuple[int, int]]:
+    """(lo, width) of the smallest padded block covering every changed
+    index, widths on a x4 ladder from 256; None when nothing changed.
+    ``lo`` is not aligned."""
+    idx = np.nonzero(changed)[0]
+    if len(idx) == 0:
+        return None
+    lo, hi = int(idx[0]), int(idx[-1]) + 1
+    w = 256
+    while w < hi - lo:
+        w *= 4
+    if w >= total:
+        return 0, total
+    return min(lo, total - w), w
+
+
+# Which table fields each builder mutation invalidates: to_device ships
+# only dirty groups; a clean group's tensors are neither copied nor
+# derived.
+_UPLOAD_GROUPS: Dict[str, Tuple[str, ...]] = {
+    "acl": _ACL_FIELDS,
+    "glb": ("glb_src_net", "glb_src_mask", "glb_dst_net", "glb_dst_mask",
+            "glb_proto", "glb_sport_lo", "glb_sport_hi", "glb_dport_lo",
+            "glb_dport_hi", "glb_action", "glb_nrules", "glb_mxu_coeff",
+            "glb_mxu_k", "glb_mxu_act"),
+    # per dimension plane: only the planes compile_bv rebuilt re-ship
+    "glb_bv": ("glb_bv_bnd_src", "glb_bv_bnd_dst", "glb_bv_bnd_sport",
+               "glb_bv_bnd_dport", "glb_bv_nbnd", "glb_bv_src",
+               "glb_bv_dst", "glb_bv_sport", "glb_bv_dport",
+               "glb_bv_proto"),
+    "ml": _ML_FIELDS,
+    "if": _IF_FIELDS,
+    # per field: the per-slot rows through the block blob, the planes
+    # of the touched lengths, the counts, hints and ECMP tables as
+    # _fib_dirty names them
+    "fib": _FIB_FIELDS,
+    "nat": _NAT_FIELDS,
+    "config": ("sess_max_age", "ovl_vtep_ip"),
+    "tenant": _TNT_FIELDS,
+    "svc": _SVC_FIELDS,
+}
+
+# Per-slot FIB row arrays: diffed together and block-written as one
+# blob [9 x w]
+_FIB_SLOT_FIELDS: Tuple[str, ...] = _FIB_FIELDS[:9]
+
+# Service planes in VIP-row space: one blob [5 x w | 2 x w x B]
+_SVC_1D_FIELDS: Tuple[str, ...] = (
+    "svc_vip_ip", "svc_vip_port", "svc_vip_proto", "svc_vip_snat",
+    "svc_bk_n",
+)
+_SVC_2D_FIELDS: Tuple[str, ...] = ("svc_bk_ip", "svc_bk_port")
+
+# BV dimension -> its global-table fields (the nbnd count vector rides
+# along whenever any dimension was rebuilt)
+_GLB_BV_DIM_FIELDS: Dict[str, Tuple[str, ...]] = {
+    "src": ("glb_bv_bnd_src", "glb_bv_src"),
+    "dst": ("glb_bv_bnd_dst", "glb_bv_dst"),
+    "sport": ("glb_bv_bnd_sport", "glb_bv_sport"),
+    "dport": ("glb_bv_bnd_dport", "glb_bv_dport"),
+    "proto": ("glb_bv_proto",),
+}
+
+
+def _torch_dtype(arr: np.ndarray) -> torch.dtype:
+    """The tensor dtype ``tensor_of`` gives ``arr``."""
+    return {np.dtype(np.int8): torch.int8,
+            np.dtype(np.float32): torch.float32}.get(arr.dtype, torch.int32)
+
+
 class TableBuilder:
     """Mutable host-side (numpy) staging area for the device tables;
     ``to_device()`` produces the next epoch's DataplaneTables on the
@@ -700,7 +872,10 @@ class TableBuilder:
         self.glb_nrules = 0
         self.bv_enabled = bv_enabled_for(c)
         self.glb_bv = empty_bv(c.max_global_rules, self.bv_enabled)
-        self._bv_cols = None
+        self._bv_cols = None        # per-dimension column cache
+        self._bv_dirty = set(_UPLOAD_GROUPS["glb_bv"])
+        self.bv_rebuilt: Tuple[str, ...] = ()  # the last commit's planes
+        self.bv_build_ms = 0.0
         # opt-out of the bit-plane compile, the reference's default on
         self.mxu_enabled = True
         self.glb_mxu = empty_bitplanes(c.max_global_rules)
@@ -744,6 +919,7 @@ class TableBuilder:
         self.lpm_cnt = z(LPM_LENGTHS, np.int32)
         self.lpm_counts = z(LPM_LENGTHS, np.int64)
         self._lpm_dirty_lens = set(range(LPM_LENGTHS))
+        self.lpm_build_ms = 0.0   # host cost of the last plane restage
         gcap, ways = ecmp_capacity(c)
         self.fib_grp_nh = z((gcap, ways), np.uint32)
         self.fib_grp_tx_if = np.full((gcap, ways), -1, np.int32)
@@ -779,6 +955,40 @@ class TableBuilder:
         self.services: Dict[Tuple[int, int, int], dict] = {}
         self.svc: Dict[str, np.ndarray] = {}
         self._restage_svc()
+        # --- the incremental upload (module doc) ---
+        # groups touched since the last to_device; every group is dirty
+        # until the first one
+        self._dirty = set(_UPLOAD_GROUPS)
+        # the fields of the "fib" group to re-ship (per field)
+        self._fib_dirty = set(_UPLOAD_GROUPS["fib"])
+        # field -> the tensor the last to_device produced for it (the
+        # live tables' tensors after a swap): clean groups reuse them,
+        # dirty ones are written into them in place with ``into``
+        self._dev_cache: Dict[str, torch.Tensor] = {}
+        # the diff bases of the block paths: host arrays as of the last
+        # successful device upload (None: the next commit ships full)
+        self._glb_prev: Optional[Dict[str, np.ndarray]] = None
+        self._fib_prev: Optional[Dict[str, np.ndarray]] = None
+        self._svc_prev: Optional[Dict[str, np.ndarray]] = None
+        # the identity-diff caches of set_global_table (None: the next
+        # commit compiles in full)
+        self._glb_rules_ref: Optional[list] = None
+        self._glb_rows: Optional[np.ndarray] = None
+        self._glb_bad: Optional[np.ndarray] = None
+        # the last "fib" and "svc" uploads (the reference's records:
+        # fields re-shipped whole, blob bytes, bytes, host ms), and per
+        # group the last to_device's path ("clean", "block" or "full"),
+        # fields shipped whole and bytes
+        self.fib_upload: Dict[str, object] = {}
+        self.svc_upload: Dict[str, object] = {}
+        self.last_upload: Dict[str, dict] = {}
+        # this to_device's writes go in place (``into``); the fields it
+        # gave new tensors
+        self._in_place = False
+        self._fresh: set = set()
+
+    def _mark(self, group: str) -> None:
+        self._dirty.add(group)
 
     def bv_ok(self) -> bool:
         """Whether the BV classifier can serve this staged config."""
@@ -800,22 +1010,56 @@ class TableBuilder:
             self.acl_bv["nbnd"][slot] = bv.nbnd
             self.acl_bv["proto"][slot] = bv.bm_proto
             self.acl_bv_ok[slot] = bv.ok
+        self._mark("acl")
 
     def clear_local_table(self, slot: int) -> None:
         self.set_local_table(slot, [])
 
     def set_global_table(self, rules: Sequence[ContivRule]) -> None:
+        """Stage the ordered global rule list. Incremental as the
+        reference's: rows whose rule object is unchanged are kept
+        (``pack_rules_incremental``), only the changed bit-plane columns
+        recompile (``compile_bitplanes_update``) and only the BV
+        dimension planes whose intervals moved rebuild (``compile_bv``,
+        which marks just those planes to re-ship). The identity caches
+        are kept only after a successful compile: an exception clears
+        them, so a retried commit compiles in full."""
         cap = self.config.max_global_rules
-        packed = pack_rules(rules, cap)
-        self.glb_mxu = (compile_bitplanes_full(packed, cap)[0]
-                        if self.mxu_enabled else empty_bitplanes(cap))
-        if self.bv_enabled:
-            # per-dimension incremental: planes whose intervals did not
-            # move since the last commit are carried over
-            self.glb_bv, self._bv_cols, _ = compile_bv(
-                packed, cap, prev=self.glb_bv, prev_cols=self._bv_cols)
+        packed, rows, changed = pack_rules_incremental(
+            rules, cap, self._glb_rules_ref, self._glb_rows)
         self.glb = packed
         self.glb_nrules = len(rules)
+        try:
+            if not self.mxu_enabled:
+                self.glb_mxu = empty_bitplanes(cap)
+                bad = None  # a full compile if re-enabled
+            elif changed is None or self._glb_bad is None:
+                self.glb_mxu, bad = compile_bitplanes_full(self.glb, cap)
+            else:
+                self.glb_mxu, bad = compile_bitplanes_update(
+                    self.glb, cap, self.glb_mxu, self._glb_bad, changed)
+            if self.bv_enabled:
+                self.glb_bv, self._bv_cols, rebuilt = compile_bv(
+                    self.glb, cap, prev=self.glb_bv,
+                    prev_cols=self._bv_cols)
+                self.bv_rebuilt = rebuilt
+                self.bv_build_ms = self.glb_bv.build_ms
+                if rebuilt:
+                    self._bv_dirty.add("glb_bv_nbnd")
+                    for dim in rebuilt:
+                        self._bv_dirty.update(_GLB_BV_DIM_FIELDS[dim])
+                    self._mark("glb_bv")
+        except Exception:
+            self._glb_rules_ref = None
+            self._glb_rows = None
+            self._glb_bad = None
+            self._bv_cols = None
+            self._bv_dirty = set(_UPLOAD_GROUPS["glb_bv"])
+            raise
+        self._glb_rules_ref = list(rules)
+        self._glb_rows = rows
+        self._glb_bad = bad
+        self._mark("glb")
 
     # --- interfaces ---
     def set_interface(self, if_index: int, if_type: int,
@@ -824,15 +1068,22 @@ class TableBuilder:
         self.if_type[if_index] = int(if_type)
         self.if_local_table[if_index] = local_table
         self.if_apply_global[if_index] = int(apply_global)
+        self._mark("if")
 
     def set_if_local_table(self, if_index: int, slot: int) -> None:
         self.if_local_table[if_index] = slot
+        self._mark("if")
 
     # --- FIB ---
-    def _mark_fib_lengths(self, *plens: int) -> None:
+    def _mark_fib_slots(self, *plens: int) -> None:
+        """One route mutation: the per-slot rows changed (they ship by
+        block or whole) and the planes of the named prefix lengths need
+        restaging."""
+        self._fib_dirty.update(_FIB_SLOT_FIELDS)
         if self.lpm_enabled:
             self._lpm_dirty_lens.update(
                 int(p) for p in plens if 0 <= p <= 32)
+        self._mark("fib")
 
     def add_route(self, prefix: str, tx_if: int, disposition: Disposition,
                   next_hop: int = 0, node_id: int = -1,
@@ -868,8 +1119,56 @@ class TableBuilder:
         self.fib_node_id[slot] = node_id
         self.fib_snat[slot] = int(snat)
         self.fib_grp[slot] = -1 if group is None else int(group)
-        self._mark_fib_lengths(old_plen, net.prefixlen)
+        self._mark_fib_slots(old_plen, net.prefixlen)
         return slot
+
+    def add_routes_np(self, nets: np.ndarray, plens: np.ndarray,
+                      tx_if: np.ndarray, disp: np.ndarray,
+                      next_hop=0, node_id=-1, snat=0, group=-1,
+                      base_slot: int = 0) -> int:
+        """Bulk route loader: vectorised writes of N routes into slots
+        ``[base_slot, base_slot + N)`` (scalars broadcast; ``nets`` are
+        masked here), with ``add_route``'s ECMP-group checks. Returns the
+        count staged."""
+        n = len(nets)
+        if base_slot + n > self.config.fib_slots:
+            raise ValueError(
+                f"{n} routes at base {base_slot} exceed fib_slots "
+                f"{self.config.fib_slots}")
+        grp = np.asarray(group, np.int32)
+        if (grp >= 0).any():
+            # an out-of-range id would be clipped onto a real group on
+            # the device and forward through its members
+            gcap = self.fib_grp_nh.shape[0]
+            if int(self.config.fib_ecmp_groups) <= 0:
+                raise ValueError(
+                    "routes name ECMP groups but "
+                    "dataplane.fib_ecmp_groups is 0")
+            if int(grp.max()) >= gcap or int(grp.min()) < -1:
+                raise ValueError(
+                    f"ECMP group ids must be -1 (none) or in "
+                    f"0..{gcap - 1}")
+        plens = np.asarray(plens, np.int32)
+        sl = slice(base_slot, base_slot + n)
+        masks = np.array([_mask_of(int(p)) for p in range(33)],
+                         np.uint32)[plens]
+        # a copy: the lengths these slots held before the write (their
+        # planes must restage too; the reference reads them through a
+        # view after the write, ROADMAP.md)
+        old = self.fib_plen[sl].copy()
+        self.fib_prefix[sl] = np.asarray(nets, np.uint32) & masks
+        self.fib_mask[sl] = masks
+        self.fib_plen[sl] = plens
+        self.fib_tx_if[sl] = np.asarray(tx_if, np.int32)
+        self.fib_disp[sl] = np.asarray(disp, np.int32)
+        self.fib_next_hop[sl] = np.asarray(next_hop, np.uint32)
+        self.fib_node_id[sl] = np.asarray(node_id, np.int32)
+        self.fib_snat[sl] = np.asarray(snat, np.int32)
+        self.fib_grp[sl] = np.asarray(group, np.int32)
+        touched = set(np.unique(plens).tolist())
+        touched |= set(np.unique(old[old >= 0]).tolist())
+        self._mark_fib_slots(*touched)
+        return n
 
     def del_route(self, prefix: str) -> bool:
         net = ipaddress.ip_network(prefix)
@@ -880,7 +1179,7 @@ class TableBuilder:
         if len(hit) == 0:
             return False
         self.fib_plen[hit[0]] = -1
-        self._mark_fib_lengths(net.prefixlen)
+        self._mark_fib_slots(net.prefixlen)
         return True
 
     # --- ECMP next-hop groups (ops/fib.py resolve_fib_slot) ---
@@ -920,6 +1219,12 @@ class TableBuilder:
         self.fib_grp_tx_if[gid] = np.array([m[1] for m in assign], np.int32)
         self.fib_grp_node[gid] = np.array([m[2] for m in assign], np.int32)
         self.fib_grp_n[gid] = n
+        self._mark_groups()
+
+    def _mark_groups(self) -> None:
+        self._fib_dirty.update(("fib_grp_nh", "fib_grp_tx_if",
+                                "fib_grp_node", "fib_grp_n"))
+        self._mark("fib")
 
     def del_nh_group(self, gid: int) -> bool:
         """Remove one ECMP group; routes still naming it fail closed
@@ -932,6 +1237,7 @@ class TableBuilder:
         self.fib_grp_tx_if[gid] = -1
         self.fib_grp_node[gid] = -1
         self.fib_grp_n[gid] = 0
+        self._mark_groups()
         return True
 
     def _restage_lpm(self) -> None:
@@ -942,6 +1248,7 @@ class TableBuilder:
         if not self._lpm_dirty_lens or not self.lpm_enabled:
             self._lpm_dirty_lens.clear()
             return
+        t0 = time.perf_counter()
         for length in sorted(self._lpm_dirty_lens):
             cap = self.lpm_caps[length]
             slots = np.nonzero(self.fib_plen == length)[0]
@@ -961,13 +1268,17 @@ class TableBuilder:
             plane[1, :nc] = slots[:nc]
             self.lpm_planes[lpm_field(length)] = plane
             self.lpm_cnt[length] = nc
+            self._fib_dirty.add(lpm_field(length))
             b, off, _steps = self._lpm_layout[length]
             if off >= 0:
                 bounds = (np.arange((1 << b) + 1, dtype=np.uint64)
                           << (32 - b))
                 self.lpm_hint[off:off + (1 << b) + 1] = np.searchsorted(
                     pfx[:nc], bounds).astype(np.int32)
+                self._fib_dirty.add("fib_lpm_hint")
+        self._fib_dirty.add("fib_lpm_cnt")
         self._lpm_dirty_lens.clear()
+        self.lpm_build_ms = (time.perf_counter() - t0) * 1e3
 
     def lpm_ok(self) -> bool:
         """Whether the LPM planes can serve this staged FIB (allocated,
@@ -1003,19 +1314,23 @@ class TableBuilder:
         self.nat_bcnt[slot] = len(backends)
         self.nat_total_w[slot] = cum
         self.nat_self_snat[slot] = int(self_snat)
+        self._mark("nat")
 
     def clear_nat(self) -> None:
         self.nat_bcnt[:] = 0
+        self._mark("nat")
 
     def set_snat_ip(self, ip: int) -> None:
         """Set the node's SNAT address (0 disables SNAT)."""
         self.nat_snat_ip = np.uint32(ip)
+        self._mark("nat")
 
     # --- VXLAN overlay and service VIPs ---
     def set_vtep_ip(self, ip: int) -> None:
         """The node's VTEP address: the decap admission filter and the
         encap outer source (0: unset, any VTEP-addressed frame)."""
         self.ovl_vtep_ip = np.uint32(ip)
+        self._mark("config")
 
     def _restage_svc(self) -> None:
         """Compile the service registry into the svc_* planes: VIP rows
@@ -1094,6 +1409,7 @@ class TableBuilder:
         self.services[key] = {"members": mset, "assign": assign,
                               "self_snat": bool(self_snat)}
         self._restage_svc()
+        self._mark("svc")
 
     def del_service(self, vip_ip: int, port: int, proto: int) -> bool:
         """Remove one service VIP: new flows to it stop matching, flows
@@ -1103,11 +1419,13 @@ class TableBuilder:
             return False
         del self.services[key]
         self._restage_svc()
+        self._mark("svc")
         return True
 
     def clear_services(self) -> None:
         self.services = {}
         self._restage_svc()
+        self._mark("svc")
 
     # --- per-packet ML model (ops/mlscore.py) ---
     def set_ml_model(self, model) -> None:
@@ -1118,6 +1436,7 @@ class TableBuilder:
         staged, kind = _fold_ml(model, self.config)
         self.ml = staged
         self.ml_kind = kind
+        self._mark("ml")
 
     @property
     def ml_kind_name(self) -> Optional[str]:
@@ -1132,6 +1451,7 @@ class TableBuilder:
         next swap)."""
         self.ml = empty_ml(self.config)
         self.ml_kind = 0
+        self._mark("ml")
 
     # --- tenancy (vpp_tpu_torch/tenancy/) ---
     def _restage_tenants(self) -> None:
@@ -1237,12 +1557,14 @@ class TableBuilder:
         merged = {t: dict(e) for t, e in self.tenants.items()}
         merged[int(tid)] = {"id": int(tid), **kw}
         self._set_tenants(merged)
+        self._mark("tenant")
 
     def clear_tenants(self) -> None:
         """Back to the single default tenant (everything tenant 0,
         unsliced, unlimited)."""
         self.tenants = {}
         self._restage_tenants()
+        self._mark("tenant")
 
     def set_tenant_ml(self, tid: int, ml_mode: str = "inherit",
                       ml_thresh: Optional[int] = None) -> None:
@@ -1254,6 +1576,103 @@ class TableBuilder:
         merged = {t: dict(x) for t, x in self.tenants.items()}
         merged[int(tid)].update(ml_mode=ml_mode, ml_thresh=ml_thresh)
         self._set_tenants(merged)
+        self._mark("tenant")
+
+    # --- transactional rollback ---
+    # staging-state array attributes (everything a mutator can touch,
+    # besides the dict-of-arrays acl / glb and the scalars handled in
+    # state_snapshot / state_restore)
+    _STATE_ARRAYS = (
+        "acl_nrules", "if_type", "if_local_table", "if_apply_global",
+        "fib_prefix", "fib_mask", "fib_plen", "fib_tx_if", "fib_disp",
+        "fib_next_hop", "fib_node_id", "fib_snat", "fib_grp",
+        "fib_grp_nh", "fib_grp_tx_if", "fib_grp_node", "fib_grp_n",
+        "lpm_cnt", "lpm_counts", "lpm_hint",
+        "nat_ext_ip", "nat_ext_port", "nat_proto", "nat_boff", "nat_bcnt",
+        "nat_total_w", "nat_self_snat", "natb_ip", "natb_port",
+        "natb_cumw",
+    )
+
+    def state_snapshot(self) -> dict:
+        """Copy of the whole staged (host) configuration, no device
+        state; ``state_restore`` rolls back to it. The lazy LPM staging
+        is settled first, so the planes agree with the per-slot rows."""
+        self._restage_lpm()
+        return {
+            "arrays": {k: getattr(self, k).copy()
+                       for k in self._STATE_ARRAYS},
+            "acl": {k: v.copy() for k, v in self.acl.items()},
+            "acl_bv": {k: v.copy() for k, v in self.acl_bv.items()},
+            "acl_bv_ok": self.acl_bv_ok.copy(),
+            "glb": {k: v.copy() for k, v in self.glb.items()},
+            "glb_nrules": self.glb_nrules,
+            # replaced wholesale by their mutators, never in place
+            "glb_mxu": self.glb_mxu,
+            "glb_bv": self.glb_bv,
+            "ml": self.ml,
+            "ml_kind": self.ml_kind,
+            "tnt": self.tnt,
+            "tenants": {t: dict(e) for t, e in self.tenants.items()},
+            "lpm_planes": {k: v.copy()
+                           for k, v in self.lpm_planes.items()},
+            "nh_groups": {g: {"members": list(e["members"]),
+                              "assign": list(e["assign"])}
+                          for g, e in self.nh_groups.items()},
+            "nat_snat_ip": self.nat_snat_ip,
+            "ovl_vtep_ip": self.ovl_vtep_ip,
+            "svc": self.svc,
+            "services": {k: {"members": list(e["members"]),
+                             "assign": list(e["assign"]),
+                             "self_snat": e["self_snat"]}
+                         for k, e in self.services.items()},
+            "dirty": set(self._dirty),
+        }
+
+    def state_restore(self, snap: dict) -> None:
+        """Restore a ``state_snapshot``, writing the staging arrays in
+        place. The device may hold the rolled-back commit, so the diff
+        bases and the identity caches reset (the next upload of the
+        fib, svc and glb groups is whole, every BV plane re-ships), and
+        the dirty set is the union of both: a redundant re-upload is
+        harmless, a stale tensor is not."""
+        for k, v in snap["arrays"].items():
+            getattr(self, k)[...] = v
+        for k, v in snap["acl"].items():
+            self.acl[k][...] = v
+        for k, v in snap["acl_bv"].items():
+            self.acl_bv[k][...] = v
+        self.acl_bv_ok[...] = snap["acl_bv_ok"]
+        for k, v in snap["glb"].items():
+            self.glb[k][...] = v
+        self.glb_nrules = snap["glb_nrules"]
+        self.glb_mxu = snap["glb_mxu"]
+        self.glb_bv = snap["glb_bv"]
+        self.ml = snap["ml"]
+        self.ml_kind = snap["ml_kind"]
+        self.tnt = snap["tnt"]
+        self.tenants = {t: dict(e) for t, e in snap["tenants"].items()}
+        for k, v in snap["lpm_planes"].items():
+            self.lpm_planes[k][...] = v
+        self.nh_groups = {g: {"members": list(e["members"]),
+                              "assign": list(e["assign"])}
+                          for g, e in snap["nh_groups"].items()}
+        self._lpm_dirty_lens = set()
+        self._fib_dirty = set(_UPLOAD_GROUPS["fib"])
+        self._fib_prev = None
+        self._glb_rules_ref = None
+        self._glb_rows = None
+        self._glb_bad = None
+        self._bv_cols = None
+        self._bv_dirty = set(_UPLOAD_GROUPS["glb_bv"])
+        self.nat_snat_ip = snap["nat_snat_ip"]
+        self.ovl_vtep_ip = snap["ovl_vtep_ip"]
+        self.svc = snap["svc"]
+        self.services = {k: {"members": list(e["members"]),
+                             "assign": list(e["assign"]),
+                             "self_snat": e["self_snat"]}
+                         for k, e in snap["services"].items()}
+        self._svc_prev = None
+        self._dirty |= set(snap["dirty"])
 
     # --- device upload ---
     def host_arrays(self) -> Dict[str, np.ndarray]:
@@ -1292,43 +1711,372 @@ class TableBuilder:
         return {f: out[f] for f in HOST_FIELDS}
 
     def to_device(self, sessions=None, into=None) -> DataplaneTables:
-        """The next epoch's tables on the builder's device (a full
-        upload of the staged arrays). ``sessions`` — the previous
-        epoch's DataplaneTables — hands its live state tensors over by
-        reference; a ``{field: numpy}`` mapping of SESSION_FIELDS (a
-        restored snapshot) is uploaded; None starts empty.
+        """The next epoch's tables on the builder's device. Only the
+        fields of groups mutated since the last call ship (module doc);
+        a clean group's tensors are those the last call produced.
 
-        ``into`` — the live DataplaneTables — refreshes its tensors IN
-        PLACE: every staged or derived field whose shape and dtype are
-        unchanged is written into the tensor ``into`` holds (``copy_``),
-        so a captured step (pipeline/capture.py), which holds their
-        addresses, stays valid; a field whose shape or dtype changed
-        gets a new tensor (and the tables' signature, a new program)."""
-        state = zero_state_device(self.config, self.device)
-        if isinstance(sessions, dict):
-            shapes = state_shapes(self.config)
-            for f in SESSION_FIELDS:
-                arr = np.asarray(sessions[f])
-                if tuple(arr.shape) != shapes[f]:
-                    raise ValueError(
-                        f"restored session field {f!r} shape "
-                        f"{tuple(arr.shape)} != configured {shapes[f]}")
-                state[f] = tensor_of(arr, self.device)
-        elif sessions is not None:
+        ``sessions`` — the previous epoch's DataplaneTables — hands its
+        live state tensors over by reference; a ``{field: numpy}``
+        mapping of SESSION_FIELDS (a restored snapshot) is checked
+        (``restored_sessions``) and uploaded, the telemetry, tenancy and
+        ECMP state starting cold as in the reference; None starts empty.
+
+        ``into`` — the live tables, which this builder produced last —
+        asks for every write in place: a dirty field is written into the
+        tensor the live tables hold (whole, or by block), so the
+        captured step programs (pipeline/capture.py) stay valid. Without
+        it a dirty field gets a new tensor and the tables returned
+        earlier keep their values."""
+        if sessions is not None and not isinstance(sessions, dict):
             state = {f: getattr(sessions, f) for f in STATE_FIELDS}
-        host = {f: tensor_of(a, self.device)
-                for f, a in self.host_arrays().items()}
-        derived = derive(host)
-        if into is not None:
-            host, derived = (
-                {f: _refresh(getattr(into, f), t) for f, t in d.items()}
-                for d in (host, derived))
+        else:
+            state = zero_state_device(self.config, self.device)
+        if isinstance(sessions, dict):
+            for f, a in restored_sessions(self.config, sessions).items():
+                state[f] = tensor_of(a, self.device)
+        host_np = self.host_arrays()
+        self._in_place = into is not None
+        self._fresh = set()
+        self.last_upload = {}
+        glb_full = False
+        for group, fields in _UPLOAD_GROUPS.items():
+            dirty = group in self._dirty
+            rec = self.last_upload[group] = {"fields": [], "bytes": 0}
+            if group == "fib":
+                self._upload_fib(host_np, fields, dirty)
+            elif group == "svc":
+                self._upload_svc(host_np, fields, dirty)
+            elif group == "glb_bv":
+                for name in fields:
+                    if (dirty and name in self._bv_dirty) \
+                            or name not in self._dev_cache:
+                        self._ship(group, name, host_np[name])
+                self._bv_dirty.clear()
+            else:
+                if group == "glb" and dirty:
+                    if self._glb_incremental(host_np):
+                        dirty = False
+                    else:
+                        glb_full = True
+                for name in fields:
+                    if dirty or name not in self._dev_cache:
+                        self._ship(group, name, host_np[name])
+                if group == "glb" and (
+                        glb_full or "glb_mxu_op" not in self._dev_cache):
+                    self._derive("glb_mxu_op", mxu_operand(
+                        self._dev_cache)["glb_mxu_op"])
+            rec["path"] = ("clean" if not rec["bytes"] else "block"
+                           if "blob_bytes" in rec else "full")
+        if glb_full:
+            # the diff base moves only after every device write succeeded
+            self._set_glb_prev(host_np)
+        self._dirty.clear()
+        host = {f: self._dev_cache[f] for f in HOST_FIELDS}
+        derived = {f: self._dev_cache[f] for f in DERIVED_FIELDS}
         return DataplaneTables(**host, **state, **derived)
 
+    # --- the writes ---
+    def _held(self, name: str) -> Optional[torch.Tensor]:
+        """The tensor a write of ``name`` goes into: the cached one in
+        place (``into``), a private copy of it otherwise (made once a
+        call), None before the first upload."""
+        held = self._dev_cache.get(name)
+        if held is None or self._in_place or name in self._fresh:
+            return held
+        held = self._dev_cache[name] = held.clone()
+        self._fresh.add(name)
+        return held
 
-def _refresh(held: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
-    """``held`` with ``new``'s contents where the two agree in shape and
-    dtype (written in place), else ``new``."""
-    if held.shape != new.shape or held.dtype != new.dtype:
-        return new
-    return held.copy_(new)
+    def _ship(self, group: str, name: str, arr) -> None:
+        """One field uploaded whole (its bytes charged to ``group``). In
+        place on the card it goes through a pinned host buffer and a
+        non-blocking copy on the current stream."""
+        a = np.asarray(arr)
+        a = a if a.dtype in (np.int8, np.float32) else as_i32(a)
+        held = self._dev_cache.get(name)
+        if (self._in_place and held is not None
+                and tuple(held.shape) == a.shape
+                and held.dtype == _torch_dtype(a)):
+            if self.device.type == "cuda":
+                pinned = torch.empty(a.shape, dtype=held.dtype,
+                                     pin_memory=True)
+                pinned.numpy()[...] = a
+                held.copy_(pinned, non_blocking=True)
+            else:
+                held.copy_(torch.from_numpy(np.array(a, order="C")))
+        else:
+            self._dev_cache[name] = torch.from_numpy(
+                np.array(a, order="C")).to(self.device)
+            self._fresh.add(name)
+        self._charge(group, a.nbytes, name)
+
+    def _charge(self, group: str, nbytes: int,
+                name: Optional[str] = None) -> None:
+        rec = self.last_upload[group]
+        rec["bytes"] += int(nbytes)
+        if name is not None:
+            rec["fields"].append(name)
+        else:
+            rec["blob_bytes"] = rec.get("blob_bytes", 0) + int(nbytes)
+        count_device_transfer(group, int(nbytes), "h2d")
+
+    def _derive(self, name: str, new: torch.Tensor) -> None:
+        """A derived tensor rebuilt whole, written into the held one."""
+        held = self._dev_cache.get(name)
+        if (self._in_place and held is not None
+                and held.shape == new.shape and held.dtype == new.dtype):
+            held.copy_(new)
+        else:
+            self._dev_cache[name] = new
+            self._fresh.add(name)
+
+    def _blob(self, group: str, blob: np.ndarray) -> torch.Tensor:
+        """The block blob on the device: one pinned host buffer and one
+        non-blocking copy on the current stream (the stream the steps
+        run on; the pinned allocator keeps the buffer until the copy is
+        done)."""
+        src = torch.from_numpy(blob)
+        if self.device.type == "cuda":
+            pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            pinned.copy_(src)
+            out = pinned.to(self.device, non_blocking=True)
+        else:
+            out = src.clone()
+        self._charge(group, blob.nbytes)
+        return out
+
+    def _write_rows(self, fields, blob_t: torch.Tensor, lo: int, w: int,
+                    base: int = 0) -> int:
+        """Block-write ``[lo, lo + w)`` of each 1-d field from its slice
+        of the device blob (int32 bits, viewed as the field's dtype).
+        Returns the blob offset after them."""
+        for name in fields:
+            held = self._held(name)
+            held[lo:lo + w].copy_(blob_t[base:base + w].view(held.dtype))
+            base += w
+        return base
+
+    # --- the global table (row blocks and bit-plane column blocks) ---
+    def _set_glb_prev(self, host_np: Dict[str, np.ndarray]) -> None:
+        """The glb diff base: the row arrays COPIED (state_restore writes
+        them in place), the bit-plane arrays by reference (replaced
+        wholesale, never written)."""
+        prev = {f: host_np[f].copy() for f in _GLB_ROW_FIELDS}
+        for f in ("glb_mxu_coeff", "glb_mxu_k", "glb_mxu_act",
+                  "glb_nrules"):
+            prev[f] = host_np[f]
+        self._glb_prev = prev
+
+    def _glb_incremental(self, host_np: Dict[str, np.ndarray]) -> bool:
+        """The glb group by block: diff against the last upload and, when
+        the changed rows and the changed bit-plane columns each fit a
+        block, ship them as one blob ``[10 x w_r rows | w_c k | w_c act |
+        PLANES x w_c coeff]`` and write it into the held tensors, with
+        the rows ``[lo_c, lo_c + w_c)`` of ``glb_mxu_op`` rebuilt.
+        Returns False for the full upload (no diff base, or a change
+        spanning the table). The diff base moves only after the
+        writes."""
+        prev = self._glb_prev
+        if prev is None or any(f not in self._dev_cache
+                               for f in _UPLOAD_GROUPS["glb"]
+                               + ("glb_mxu_op",)):
+            return False
+        n_rows = host_np["glb_action"].shape[0]
+        n_cols = host_np["glb_mxu_k"].shape[0]
+        changed_r = np.zeros(n_rows, bool)
+        for f in _GLB_ROW_FIELDS:
+            changed_r |= prev[f] != host_np[f]
+        changed_c = ((prev["glb_mxu_k"] != host_np["glb_mxu_k"])
+                     | (prev["glb_mxu_act"] != host_np["glb_mxu_act"])
+                     | np.any(prev["glb_mxu_coeff"]
+                              != host_np["glb_mxu_coeff"], axis=0))
+        blk_r = _block_of(changed_r, n_rows)
+        blk_c = _block_of(changed_c, n_cols)
+        if blk_r is None and blk_c is None:
+            # content-identical commit: only the rule count may differ
+            if int(prev["glb_nrules"]) != int(host_np["glb_nrules"]):
+                self._ship("glb", "glb_nrules", host_np["glb_nrules"])
+            self._set_glb_prev(host_np)
+            return True
+        lo_r, w_r = blk_r or (0, min(256, n_rows))
+        lo_c, w_c = blk_c or (0, min(256, n_cols))
+        if w_r >= n_rows or w_c >= n_cols:
+            return False  # the change spans the table: ship it whole
+        blob = np.empty(10 * w_r + 2 * w_c + PLANES * w_c, np.int32)
+        for i, f in enumerate(_GLB_ROW_FIELDS):
+            blob[i * w_r:(i + 1) * w_r] = \
+                host_np[f][lo_r:lo_r + w_r].view(np.int32)
+        base = 10 * w_r
+        blob[base:base + w_c] = \
+            host_np["glb_mxu_k"][lo_c:lo_c + w_c].view(np.int32)
+        blob[base + w_c:base + 2 * w_c] = \
+            host_np["glb_mxu_act"][lo_c:lo_c + w_c]
+        blob[base + 2 * w_c:] = np.ascontiguousarray(
+            host_np["glb_mxu_coeff"][:, lo_c:lo_c + w_c]
+        ).reshape(-1).view(np.int32)
+        blob_t = self._blob("glb", blob)
+        self._write_rows(_GLB_ROW_FIELDS, blob_t, lo_r, w_r)
+        self._write_rows(("glb_mxu_k", "glb_mxu_act"), blob_t, lo_c, w_c,
+                         base)
+        coeff = blob_t[base + 2 * w_c:].view(torch.float32).reshape(
+            PLANES, w_c)
+        self._held("glb_mxu_coeff")[:, lo_c:lo_c + w_c].copy_(coeff)
+        self._held("glb_mxu_op")[lo_c:lo_c + w_c].copy_(mxu_operand_block(
+            coeff, blob_t[base:base + w_c].view(torch.float32), lo_c))
+        self._ship("glb", "glb_nrules", host_np["glb_nrules"])
+        self._set_glb_prev(host_np)
+        return True
+
+    # --- the FIB (per-length planes and the per-slot row block) ---
+    def _upload_fib(self, host_np: Dict[str, np.ndarray],
+                    fields: Tuple[str, ...], dirty: bool) -> None:
+        """The "fib" group: the per-slot rows by block when the changes
+        confine to one (``_fib_incremental``), every other field whole
+        when ``_fib_dirty`` names it; the LPM stack's rows of the
+        re-shipped planes (and its counts) rebuilt on the device. Records
+        ``fib_upload``."""
+        t0 = time.perf_counter()
+        shipped = []
+        blob_bytes = None
+        if dirty:
+            blob_bytes = self._fib_incremental(host_np)
+        for name in fields:
+            if name in _FIB_SLOT_FIELDS and blob_bytes is not None:
+                continue
+            if (dirty and name in self._fib_dirty) \
+                    or name not in self._dev_cache:
+                self._ship("fib", name, host_np[name])
+                shipped.append(name)
+        if "fib_lpm_stk_pfx" not in self._dev_cache:
+            for f, t in build_lpm_stack(self._dev_cache).items():
+                self._derive(f, t)
+        else:
+            lengths = [L for L in range(len(LPM_FIELDS))
+                       if lpm_field(L) in shipped]
+            if lengths or "fib_lpm_cnt" in shipped:
+                update_lpm_stack(
+                    {f: self._held(f) for f in DERIVED_FIELDS
+                     if DERIVED_GROUPS[f] == "fib"},
+                    self._dev_cache, lengths, "fib_lpm_cnt" in shipped)
+        if dirty and blob_bytes is None:
+            self._set_fib_prev(host_np)
+        if dirty:
+            self.fib_upload = {
+                "fields": tuple(shipped),
+                "blob_bytes": int(blob_bytes or 0),
+                "bytes": int(sum(host_np[f].nbytes for f in shipped)
+                             + (blob_bytes or 0)),
+                "ms": (time.perf_counter() - t0) * 1e3,
+            }
+            self._fib_dirty.clear()
+
+    def _set_fib_prev(self, host_np: Dict[str, np.ndarray]) -> None:
+        """The per-slot diff base (COPIES: state_restore writes the
+        staging in place)."""
+        self._fib_prev = {f: host_np[f].copy() for f in _FIB_SLOT_FIELDS}
+
+    def _fib_incremental(self, host_np: Dict[str, np.ndarray]):
+        """The per-slot FIB rows by block: when the changes against the
+        last upload confine to a block, one blob ``[9 x w]`` written into
+        the held tensors. Returns its bytes (0: nothing changed), or
+        None for the whole upload. The diff base moves only after the
+        writes."""
+        prev = self._fib_prev
+        if prev is None or any(f not in self._dev_cache
+                               for f in _FIB_SLOT_FIELDS):
+            return None
+        n = host_np["fib_plen"].shape[0]
+        changed = np.zeros(n, bool)
+        for f in _FIB_SLOT_FIELDS:
+            changed |= prev[f] != host_np[f]
+        blk = _block_of(changed, n)
+        if blk is None:
+            return 0
+        lo, w = blk
+        if w >= n:
+            return None
+        blob = np.empty(len(_FIB_SLOT_FIELDS) * w, np.int32)
+        for i, f in enumerate(_FIB_SLOT_FIELDS):
+            blob[i * w:(i + 1) * w] = host_np[f][lo:lo + w].view(np.int32)
+        self._write_rows(_FIB_SLOT_FIELDS, self._blob("fib", blob), lo, w)
+        self._set_fib_prev(host_np)
+        return blob.nbytes
+
+    # --- the service planes (VIP-row blocks) ---
+    def _upload_svc(self, host_np: Dict[str, np.ndarray],
+                    fields: Tuple[str, ...], dirty: bool) -> None:
+        """The "svc" group: the changed VIP rows by block
+        (``_svc_incremental``), else every field whole. Records
+        ``svc_upload``."""
+        t0 = time.perf_counter()
+        shipped = []
+        blob_bytes = None
+        if dirty:
+            blob_bytes = self._svc_incremental(host_np)
+        for name in fields:
+            if blob_bytes is not None:
+                continue
+            if dirty or name not in self._dev_cache:
+                self._ship("svc", name, host_np[name])
+                shipped.append(name)
+        if dirty and blob_bytes is None:
+            self._set_svc_prev(host_np)
+        if dirty:
+            self.svc_upload = {
+                "fields": tuple(shipped),
+                "blob_bytes": int(blob_bytes or 0),
+                "bytes": int(sum(host_np[f].nbytes for f in shipped)
+                             + (blob_bytes or 0)),
+                "ms": (time.perf_counter() - t0) * 1e3,
+            }
+
+    def _set_svc_prev(self, host_np: Dict[str, np.ndarray]) -> None:
+        """The svc diff base (references: _restage_svc replaces the
+        staging arrays wholesale)."""
+        self._svc_prev = {f: host_np[f]
+                          for f in _SVC_1D_FIELDS + _SVC_2D_FIELDS}
+
+    def _svc_incremental(self, host_np: Dict[str, np.ndarray]):
+        """The service planes by VIP-row block (widths 8, 32, ...): one
+        blob ``[5 x w | 2 x w x B]`` written into the held tensors.
+        Returns its bytes (0: nothing changed), or None for the whole
+        upload."""
+        prev = self._svc_prev
+        all_fields = _SVC_1D_FIELDS + _SVC_2D_FIELDS
+        if prev is None or any(f not in self._dev_cache
+                               for f in all_fields):
+            return None
+        n_v, n_b = host_np["svc_bk_ip"].shape
+        changed = np.zeros(n_v, bool)
+        for f in _SVC_1D_FIELDS:
+            changed |= prev[f] != host_np[f]
+        for f in _SVC_2D_FIELDS:
+            changed |= np.any(prev[f] != host_np[f], axis=1)
+        idx = np.nonzero(changed)[0]
+        if len(idx) == 0:
+            return 0
+        lo, hi = int(idx[0]), int(idx[-1]) + 1
+        w = 8
+        while w < hi - lo:
+            w *= 4
+        if w >= n_v:
+            return None
+        lo = min(lo, n_v - w)
+        n1 = len(_SVC_1D_FIELDS)
+        blob = np.empty(n1 * w + len(_SVC_2D_FIELDS) * w * n_b, np.int32)
+        for i, f in enumerate(_SVC_1D_FIELDS):
+            blob[i * w:(i + 1) * w] = host_np[f][lo:lo + w].view(np.int32)
+        base = n1 * w
+        for i, f in enumerate(_SVC_2D_FIELDS):
+            blob[base + i * w * n_b:base + (i + 1) * w * n_b] = \
+                np.ascontiguousarray(
+                    host_np[f][lo:lo + w]).reshape(-1).view(np.int32)
+        blob_t = self._blob("svc", blob)
+        base = self._write_rows(_SVC_1D_FIELDS, blob_t, lo, w)
+        for f in _SVC_2D_FIELDS:
+            self._held(f)[lo:lo + w].copy_(
+                blob_t[base:base + w * n_b].reshape(w, n_b))
+            base += w * n_b
+        self._set_svc_prev(host_np)
+        return blob.nbytes
+

@@ -88,6 +88,14 @@ def main(argv=None) -> int:
             runs[side].append(ms)
             print(json.dumps({"pair": k, "side": side, "ms": ms}),
                   flush=True)
+    print(json.dumps({"pairs": args.pairs, "summary": summarise(runs)}))
+    return 0
+
+
+def summarise(runs: dict) -> dict:
+    """Per cell of ``runs`` ({side: [{cell: ms}]}): each side's median
+    and quartiles, and for a cell both sides ran, the pairs each won
+    (ties count for neither)."""
     summary = {}
     for cell in dict.fromkeys([*runs["this"][0], *runs["other"][0]]):
         ms = {side: np.array([r[cell] for r in runs[side]])
@@ -101,8 +109,7 @@ def main(argv=None) -> int:
             summary[cell].update(
                 this_won=int((ms["this"] < ms["other"]).sum()),
                 other_won=int((ms["other"] < ms["this"]).sum()))
-    print(json.dumps({"pairs": args.pairs, "summary": summary}))
-    return 0
+    return summary
 
 
 if __name__ == "__main__":
