@@ -137,6 +137,43 @@ raises on failure:
    packets ride the fast tier, every one a session hit, equal to the
    uninterrupted dataplane's; and a 4,096-bucket drain / adopt / release
    between the two, the moved rows equal with ages rebased;
+4g. the IO pump and the device rings (``vpp_tpu_torch/io``,
+   pipeline/persistent.py), frames pushed into an in-process
+   ``IORingPair`` as VEC-packet ring frames: (i) phase 4e's
+   configuration with the overlay off on the MXU auto path through
+   ``DataplanePump(mode="persistent")`` (8-slot windows, two staging
+   windows, 16 frames in flight) and four dispatch-mode pumps (max
+   batch 2,048, chain_k 8; fetch workers 8, 1, 1, 8 in turns), each
+   driving the main path (a forward vector of 256 and of 4,096 packets,
+   each followed by its two reply vectors built from the tx ring), a
+   swap that changes no shape between the persistent pump's two rounds
+   (the ring restarts with no capture) and, persistent, a
+   ``sync_sessions`` that must land the ring's session columns in the
+   dataplane; (ii) phase 4's pallas full chain through persistent pumps
+   of 8 and 16 frames in flight; the dataplane's clock and the
+   telemetry clock pinned, so a CPU twin replays every step the pumps
+   sent (recorded with the frames each carried) at the same clocks and
+   every tx frame must carry its verdict, every frame once and in
+   order; every loss attributed (none expected), each path's kernels
+   launched through the pumps, the ring never degraded, never fell back,
+   never made a host callback; (iii) ``PersistentPump`` driven directly
+   with an explicit clock and stamp per frame against the CPU twin's
+   ``process_packed``: every tx row, aux row, the telemetry rider and
+   the final state bit-exact (the two start equal: the pumps' grafts
+   and the twin's replay agree on every plane). Then, after each
+   path's twin checks, a steady window per mode: a new pump on the same
+   dataplane, capturing nothing, drains 2,048 frames of fresh forward
+   flows pushed as fast as the rx ring takes them (seconds of backlog),
+   every frame once and in order, then 256 more under the profiler.
+   Printed per cell: for the rounds Mpps, batch latency, windows and
+   fill, H2D and D2H bytes per window, the stager's host ms per window
+   and host reads per window (counted where the flag is read); for the
+   steady window Mpps, frame latency p50 / p99 over every frame
+   (dispatch to tx, and ring to ring), windows, fill and host reads,
+   from the device clock of that unprofiled run the share of its span
+   the stream sat empty and the share outside the step graphs, from
+   the one profiled trace the device's busy ms over the trace's span;
+   fetch workers 1 against 8 on the steady windows;
 5. timing with CUDA events: ms per ``process`` step and Mpps (valid
    packets per device second) at P = 256 and 4,096, captured and eager,
    and a ``torch.profiler`` window per size (device operations, graph
@@ -203,6 +240,11 @@ from vpp_tpu_torch.ml.model import (  # noqa: E402
     score_oracle,
 )
 from vpp_tpu_torch.ml.train import train_and_pack  # noqa: E402
+from vpp_tpu_torch.interop import tables_to_numpy  # noqa: E402
+from vpp_tpu_torch.io import DataplanePump, IORingPair  # noqa: E402
+from vpp_tpu_torch.io.pump import PUMP_DROP_KEYS  # noqa: E402
+from vpp_tpu_torch.native.pktio import PacketCodec  # noqa: E402
+from vpp_tpu_torch.native.ring import RING_COLUMNS  # noqa: E402
 from vpp_tpu_torch.ops import (  # noqa: E402
     _cuda,
     acl_bv,
@@ -222,6 +264,9 @@ from vpp_tpu_torch.pipeline.dataplane import (  # noqa: E402
 )
 from vpp_tpu_torch.pipeline import capture, graph  # noqa: E402
 from vpp_tpu_torch.pipeline import snapshot as snapshot_mod  # noqa: E402
+from vpp_tpu_torch.pipeline import dataplane as dataplane_mod  # noqa: E402
+from vpp_tpu_torch.pipeline import persistent as persistent_mod  # noqa: E402
+from vpp_tpu_torch.ops import telemetry as telemetry_mod  # noqa: E402
 from vpp_tpu_torch.pipeline.graph import DROP_ACL  # noqa: E402
 from vpp_tpu_torch.pipeline.tables import (  # noqa: E402
     DERIVED_FIELDS,
@@ -2931,6 +2976,775 @@ def upload_snapshot_path(cfg: DataplaneConfig, n_rules: int, n_nodes: int,
     return launches, summary
 
 
+# --- phase 4g: the IO pump and the device rings on the slice -------------
+
+RING_SLOTS = 8        # slots per ring window (io.io_ring_slots)
+PUMP_SNAP = 640       # payload bytes a frame slot keeps (pkt_len 512 + 14)
+PUMP_DEADLINE = 120.0  # seconds a pump stage may take to drain
+STEADY_FRAMES = 2048  # VEC-packet frames in a steady window (seconds)
+STEADY_TRACE = 256    # frames in the profiled steady window (one trace)
+PUMP_NOW = 200_000    # the pinned clock of phase 4g (far past 4f's)
+PUMP_TEL_US = 1 << 20  # the pinned telemetry clock of phase 4g (µs)
+
+
+def pump_config(cfg: DataplaneConfig) -> DataplaneConfig:
+    """(i): phase 4e's configuration with the overlay off (the packed
+    boundary carries no overlay sidecar)."""
+    return tnt_ovl_config(cfg)._replace(overlay="off")
+
+
+def ring_frames(cols: dict):
+    """A vector's columns as ring frames of at most VEC packets: each a
+    dict of every ring column ([VEC], the IO-only ones zero) and its
+    packet count."""
+    n = cols["src_ip"].shape[0]
+    frames = []
+    for o in range(0, n, VEC):
+        k = min(VEC, n - o)
+        f = {c: np.zeros(VEC, dt) for c, dt in RING_COLUMNS}
+        for c, dt in RING_COLUMNS[:len(PacketVector._fields)]:
+            f[c][:k] = np.ascontiguousarray(cols[c][o:o + k]).view(dt)
+        frames.append((f, k))
+    return frames
+
+
+class PumpRecorder:
+    """What the pumps of one card dataplane sent to the card, in order:
+    every step's packed batch (or chain), clock and rx stamps, with the
+    packet count of each frame it carries; and the swaps between them.
+    The CPU twin replays it (``twin_check``). Steps come from one
+    dispatch thread at a time, so the frames packed since the last step
+    are that step's."""
+
+    def __init__(self, dp: Dataplane):
+        self.dp, self.calls, self._frames = dp, [], []
+        orig, orig_chain = dp.process_packed, dp.process_packed_chain
+
+        def packed(flat, now=None, commit=True, with_aux=False,
+                   stamp_us=0, now_us=None):
+            if commit:
+                self._step([np.array(flat)], now, [stamp_us])
+            return orig(flat, now=now, commit=commit, with_aux=with_aux,
+                        stamp_us=stamp_us, now_us=now_us)
+
+        def chain(flats, now=None, with_aux=False, stamps_us=None,
+                  now_us=None):
+            flats = np.array(flats)
+            self._step(list(flats), now, list(
+                np.zeros(len(flats), np.int64) if stamps_us is None
+                else stamps_us))
+            return orig_chain(flats, now=now, with_aux=with_aux,
+                              stamps_us=stamps_us, now_us=now_us)
+
+        dp.process_packed, dp.process_packed_chain = packed, chain
+
+    def _step(self, flats, now, stamps) -> None:
+        if now is None:  # the dataplane's clock, as _clock reads it
+            now = max(self.dp._now, self.dp.clock_ticks())
+        frames, self._frames = self._frames, []
+        self.calls.append(("step", flats, int(now),
+                           [int(x) for x in stamps], frames))
+
+    def detach(self) -> None:
+        """Stop recording the dataplane's steps (the twin has replayed
+        them)."""
+        del self.dp.process_packed, self.dp.process_packed_chain
+
+    def attach(self, pump: DataplanePump) -> None:
+        orig = pump._pack_group
+
+        def pack(frames, flat, non_ip):
+            self._frames.append([f.n for f in frames])
+            return orig(frames, flat, non_ip)
+
+        pump._pack_group = pack
+
+    @contextlib.contextmanager
+    def ring(self):
+        """Record the ring's submits (one slot each) while in scope."""
+        cls = persistent_mod.PersistentPump
+        orig = cls.submit
+        rec = self
+
+        def submit(pp, flat, now, stamp_us=0, priority=False):
+            if pp.dp is rec.dp:
+                rec._step([np.array(flat)], now, [stamp_us])
+            return orig(pp, flat, now, stamp_us, priority)
+
+        cls.submit = submit
+        try:
+            yield
+        finally:
+            cls.submit = orig
+
+    def swap(self, change) -> None:
+        """``change(dp)`` stages a configuration change; swap it in on
+        the card and record it for the twin."""
+        change(self.dp)
+        self.dp.swap()
+        self.calls.append(("swap", change))
+
+
+def twin_check(twin: Dataplane, calls, tx_frames, what: str) -> int:
+    """Replay ``calls`` on the CPU twin through ``process_packed`` /
+    ``process_packed_chain`` at their clocks; every frame the card's
+    pump wrote to the tx ring (in order) must carry the twin's verdict:
+    headers, TTL, disposition, egress interface and next hop. Returns
+    the frames compared."""
+    k = 0
+    for call in calls:
+        if call[0] == "swap":
+            call[1](twin)
+            twin.swap()
+            continue
+        _, flats, now, stamps, groups = call
+        if len(flats) == 1:
+            outs = [twin.process_packed(flats[0], now=now,
+                                        stamp_us=stamps[0]).numpy()]
+        else:
+            outs = list(twin.process_packed_chain(
+                np.stack(flats), now=now, stamps_us=stamps).numpy())
+        for out, sizes in zip(outs, groups):
+            dec = unpack_packet_result(np.array(out))
+            off = 0
+            for n in sizes:
+                cols, got_n = tx_frames[k]
+                if got_n != n:
+                    raise AssertionError(f"{what}: tx frame {k} has {got_n} "
+                                         f"packets, the twin's {n}")
+                for c, d in (("src_ip", "src_ip"), ("dst_ip", "dst_ip"),
+                             ("sport", "sport"), ("dport", "dport"),
+                             ("ttl", "ttl"), ("disp", "disp"),
+                             ("rx_if", "tx_if"), ("next_hop", "next_hop")):
+                    a = cols[c][:n].view(np.uint32)
+                    b = np.asarray(dec[d][off:off + n]).astype(
+                        np.int64).astype(np.uint32)
+                    if not np.array_equal(a, b):
+                        raise AssertionError(
+                            f"{what}: tx frame {k} {c} differs from the "
+                            f"twin's ({int(np.sum(a != b))} packets)")
+                off += n
+                k += 1
+    if k != len(tx_frames):
+        raise AssertionError(f"{what}: {len(tx_frames)} tx frames, the twin "
+                             f"stepped {k}")
+    return k
+
+
+def exchange(rings: IORingPair, frames, out, waits=None) -> float:
+    """Push ``frames`` into the rx ring, drain as many from the tx ring
+    (appended to ``out``; with ``out`` None only checked: each tx frame
+    must carry its rx frame's packet count and source ports, so every
+    frame left once and in order); returns the wall seconds. The tx ring
+    is drained as it fills, so nothing stalls. ``waits`` gets each
+    frame's seconds from its push to its drain (ring to ring)."""
+    t0 = time.perf_counter()
+    pushed: list = []
+    got = 0
+    deadline = t0 + PUMP_DEADLINE
+    while got < len(frames):
+        while (len(pushed) < len(frames)
+               and rings.rx.push(frames[len(pushed)][0],
+                                 frames[len(pushed)][1])):
+            pushed.append(time.perf_counter())
+        f = rings.tx.peek()
+        if f is None:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"pump: {got} of {len(frames)} frames "
+                                     f"left the tx ring in "
+                                     f"{PUMP_DEADLINE:.0f} s")
+            time.sleep(0.0002)
+            continue
+        if waits is not None:
+            waits.append(time.perf_counter() - pushed[got])
+        if out is not None:
+            out.append(({c: f.cols[c].copy() for c, _ in RING_COLUMNS},
+                        f.n))
+        else:
+            cols, n = frames[got]
+            if f.n != n or not np.array_equal(f.cols["sport"][:n],
+                                              cols["sport"][:n]):
+                raise AssertionError(f"pump: tx frame {got} is not rx "
+                                     f"frame {got}")
+        rings.tx.release()
+        got += 1
+    return time.perf_counter() - t0
+
+
+def tx_snap(frames) -> dict:
+    """The fields of the tx frames ``reply_traffic`` reads."""
+    cat = {c: np.concatenate([f[c][:n] for f, n in frames])
+           for c in ("src_ip", "dst_ip", "sport", "dport", "disp")}
+    return {"pkts.src_ip": cat["src_ip"].view(np.int32),
+            "pkts.dst_ip": cat["dst_ip"].view(np.int32),
+            "pkts.sport": cat["sport"], "pkts.dport": cat["dport"],
+            "disp": cat["disp"]}
+
+
+def pump_rounds(pump, rings, up, pods, traffic, seed: int, sizes,
+                tx: list, clock: list) -> dict:
+    """The main path through a running pump: per size a forward vector
+    as VEC-packet frames, then the replies to the packets it forwarded
+    and to those it dropped; the clock moves one tick a vector. Returns
+    the valid packets, the packets and frames offered (every lane of a
+    frame counts, as the pump counts them) and the wall seconds of the
+    exchanges."""
+    out = dict(valid=0, offered=0, frames=0, seconds=0.0)
+
+    def send(cols, into):
+        frames = ring_frames(cols)
+        out["seconds"] += exchange(rings, frames, into)
+        out["valid"] += int(np.count_nonzero(cols["flags"]))
+        out["offered"] += sum(k for _, k in frames)
+        out["frames"] += len(frames)
+        clock[0] += 1
+
+    for n in sizes:
+        fwd = traffic(n, up, seed + n)
+        first = []
+        send(fwd, first)
+        tx += first
+        for to in ("forwarded", "dropped"):
+            send(reply_traffic(tx_snap(first), pods, to), tx)
+    return out
+
+
+def ring_health(pump, what: str) -> None:
+    """No hidden fallback: the ring never died, never degraded, never
+    left persistent mode, and made no host callback."""
+    s = pump.stats
+    if (pump.degraded_ring or pump._ring_faults or pump.mode != "persistent"
+            or s["io_callbacks"] or s["batch_errors"]):
+        raise AssertionError(
+            f"{what}: the ring degraded or fell back (degraded "
+            f"{pump.degraded_ring}, faults {pump._ring_faults}, mode "
+            f"{pump.mode}, io_callbacks {s['io_callbacks']}, batch errors "
+            f"{s['batch_errors']})")
+
+
+def conserved(pump, offered: int, frames: int, what: str) -> None:
+    """Every offered packet left the tx ring, each frame once, or is
+    attributed to a loss cause (none expected here: the tx ring is
+    drained as it fills). ``drops_tenant_quota`` counts verdicts, not
+    losses: those packets leave in their frames with DROP_TENANT."""
+    s = pump.stats
+    lost = {k: s[k] for k in PUMP_DROP_KEYS
+            if s[k] and k != "drops_tenant_quota"}
+    if (s["pkts"] + sum(lost.values()) != offered or lost
+            or s["frames"] != frames):
+        raise AssertionError(f"{what}: {s['pkts']} packets and "
+                             f"{s['frames']} frames out, losses {lost}, of "
+                             f"{offered} packets and {frames} frames "
+                             f"offered")
+
+
+def steady_pool(up: int, traffic, seed: int):
+    """The frames of a path's steady windows: STEADY_FRAMES +
+    STEADY_TRACE ring frames of VEC packets cut from forward vectors of
+    BIG_VEC packets (fresh flows, a seed a vector), and their valid
+    packets."""
+    frames, valid = [], []
+    need = STEADY_FRAMES + STEADY_TRACE
+    v = 0
+    while len(frames) < need:
+        cols = traffic(BIG_VEC, up, seed + v)
+        frames += ring_frames(cols)
+        valid += [int(np.count_nonzero(cols["flags"][o:o + VEC]))
+                  for o in range(0, BIG_VEC, VEC)]
+        v += 1
+    return frames[:need], valid[:need]
+
+
+def percentiles_us(seconds) -> dict:
+    a = np.asarray(seconds) * 1e6
+    return dict(p50=float(np.percentile(a, 50)),
+                p99=float(np.percentile(a, 99)), n=int(a.size))
+
+
+class SteadyProbe:
+    """Instruments one steady window of a pump: the dispatch-to-tx
+    latency of each batch the pump writes, once for each frame it
+    carries (``_write``: the pump's own ``latency_us`` measure, but
+    every frame of the window); and on the card CUDA events around
+    every device submission — each ring window (``PersistentPump.
+    _dispatch``) or dispatch step (``process_packed`` /
+    ``process_packed_chain``) — and around every replay of a step
+    graph (``capture.Part``), so that the device clock of this one
+    unprofiled run shows how long the stream sat with nothing queued
+    between two submissions (idle for certain) and how much of the span
+    lay outside the step graphs (copies, flag round trips and waits:
+    idle at most)."""
+
+    def __init__(self, dp: Dataplane, pump: DataplanePump):
+        self.dp, self.pump = dp, pump
+        self.lat: list = []
+        self.events: list = []
+        self.graphs: list = []
+        self._cuda = dp.device.type == "cuda"
+
+    def _timed(self, fn, into: list):
+        if not self._cuda:
+            return fn
+
+        def call(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            try:
+                return fn(*a, **k)
+            finally:
+                e1 = torch.cuda.Event(enable_timing=True)
+                e1.record()
+                into.append((e0, e1))
+        return call
+
+    def __enter__(self):
+        pump, dp = self.pump, self.dp
+        orig = pump._write
+
+        def write(batch, groups, non_ip, t0, fast=False, pri=False):
+            orig(batch, groups, non_ip, t0, fast, pri)
+            self.lat += [time.perf_counter() - t0] * sum(map(len, groups))
+
+        pump._write = write
+        cls = persistent_mod.PersistentPump
+        self._saved = cls._dispatch, capture.Part.__call__
+        cls._dispatch = self._timed(cls._dispatch, self.events)
+        capture.Part.__call__ = self._timed(capture.Part.__call__,
+                                            self.graphs)
+        dp.process_packed = self._timed(dp.process_packed, self.events)
+        dp.process_packed_chain = self._timed(dp.process_packed_chain,
+                                              self.events)
+        return self
+
+    def __exit__(self, *exc):
+        persistent_mod.PersistentPump._dispatch, capture.Part.__call__ = \
+            self._saved
+        del self.dp.process_packed, self.dp.process_packed_chain
+        del self.pump._write
+        return False
+
+    def gaps(self):
+        """(span ms from the first submission's start to the last one's
+        end, ms the stream sat empty between submissions, ms of step
+        graphs), device clock; None on the CPU."""
+        if not self.events:
+            return None
+        torch.cuda.synchronize()
+        ev = self.events
+        span = ev[0][0].elapsed_time(ev[-1][1])
+        empty = sum(max(0.0, a[1].elapsed_time(b[0]))
+                    for a, b in zip(ev, ev[1:]))
+        graphs = sum(a.elapsed_time(b) for a, b in self.graphs)
+        return span, empty, graphs
+
+
+def trace_window(dp: Dataplane, pump, rings, frames) -> dict | None:
+    """``frames`` through the running pump under ``torch.profiler``
+    (device activity only): from that one trace, the device's busy ms
+    (the union of its kernels and copies), the span from its first
+    device activity to its last, and the host syncs; on the CPU the
+    frames go through unprofiled and the result is None."""
+    if dp.device.type != "cuda":
+        exchange(rings, frames, None)
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    w0 = pump.stats["ring_windows"]
+    b0 = pump.stats["batches"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        secs = exchange(rings, frames, None)
+    evs = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in evs if e.device_type() == cuda)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    span = max(b for _, b in spans) - spans[0][0]
+    syncs = sum(1 for e in evs if e.name() == "cudaStreamSynchronize")
+    pump._ring_stats_sync()
+    return dict(frames=len(frames), seconds=secs, device_ops=len(spans),
+                busy_ms=busy / 1e6, span_ms=span / 1e6,
+                idle_share=1.0 - busy / span, syncs=syncs,
+                windows=pump.stats["ring_windows"] - w0,
+                batches=pump.stats["batches"] - b0)
+
+
+def pump_kw(mode: str, workers) -> dict:
+    return (dict(mode="persistent", ring_slots=RING_SLOTS, ring_windows=2)
+            if mode == "persistent"
+            else dict(max_batch=2048, chain_k=8, fetch_workers=workers))
+
+
+def pump_name(path: str, turn: int, mode: str, workers, depth: int) -> str:
+    return f"{path} {mode} depth={depth}" + (
+        f" workers={workers} #{turn}" if workers else "")
+
+
+def pump_path(cfg: DataplaneConfig, path: str, n_rules: int, n_nodes: int,
+              seed: int, modes, traffic, stage_fn, kernels, swap_change,
+              rounds: int) -> dict:
+    """Phase 4g on one path (module doc): a card dataplane and its CPU
+    twin staged alike; on the card, for each mode, a pump over an
+    in-process IORingPair drives ``rounds`` of the main path (a swap
+    that changes no shape between two rounds of the persistent mode,
+    which must restart the ring with no capture; persistent, then a
+    ``sync_sessions``); then the twin replays what the pumps sent and
+    every tx frame must carry its verdict. The dataplane's clock is
+    pinned and moved by the harness, so the twin steps at the same
+    clocks. The steady windows come later (``steady_path``)."""
+    t0 = time.perf_counter()
+    gpu = Dataplane(cfg)
+    twin = Dataplane(cfg, device="cpu", graphs=False)
+    up, pods = stage_fn(gpu)
+    stage_fn(twin)
+    clock = [PUMP_NOW]
+    gpu.clock_ticks = lambda: clock[0]
+    say(f"staged {path} for phase 4g: card and CPU twin in "
+        f"{time.perf_counter() - t0:.1f} s; fast path "
+        f"{'on' if gpu._use_fastpath else 'off'}")
+    rec = PumpRecorder(gpu)
+    summary = {}
+    tx: list = []
+    warmed = set()
+    for turn, (mode, workers, depth) in enumerate(modes):
+        name = pump_name(path, turn, mode, workers, depth)
+        rings = IORingPair(n_slots=64, snap=PUMP_SNAP)
+        pump = DataplanePump(gpu, rings, max_inflight=depth,
+                             **pump_kw(mode, workers))
+        rec.attach(pump)
+        h2d0 = device_transfer_totals("h2d").get("ring.window", 0)
+        d2h0 = device_transfer_totals().get("ring.window", 0)
+        with contextlib.ExitStack() as scope:
+            if mode == "persistent":
+                scope.enter_context(rec.ring())
+            # the first pump of a mode captures its programs; a later
+            # one (the ring restarted on its held clone) captures nothing
+            t1 = time.perf_counter()
+            if mode not in warmed:
+                pump.warm()
+                warmed.add(mode)
+            else:
+                scope.enter_context(capture.capture_budget(0))
+            warm_s = time.perf_counter() - t1
+            pump.start()
+            _sync(gpu.device)
+            for w in WRAPPERS.values():
+                w.launches = 0
+            runs = []
+            try:
+                for r in range(rounds):
+                    if r and mode == "persistent":
+                        rec.swap(swap_change)
+                        with capture.capture_budget(0):
+                            got = pump_rounds(pump, rings, up, pods,
+                                              traffic, seed + 7919 * r,
+                                              (VEC, BIG_VEC), tx, clock)
+                    else:
+                        got = pump_rounds(pump, rings, up, pods, traffic,
+                                          seed + 7919 * r, (VEC, BIG_VEC),
+                                          tx, clock)
+                    runs.append(got)
+                if mode == "persistent":
+                    if not pump.sync_sessions():
+                        raise AssertionError(f"{name}: sync_sessions "
+                                             f"declined")
+                    ring = pump._ppump._prog.tables
+                    same = [f for f in SESSION_FIELDS if torch.equal(
+                        getattr(gpu.tables, f), getattr(ring, f))]
+                    if (len(same) != len(SESSION_FIELDS)
+                            or int(gpu.tables.sess_valid.sum()) == 0):
+                        raise AssertionError(
+                            f"{name}: sync_sessions landed "
+                            f"{len(same)} of {len(SESSION_FIELDS)} "
+                            f"session columns")
+                _sync(gpu.device)
+                launches = {k: w.launches for k, w in WRAPPERS.items()}
+                lat = pump.latency_us()
+                if mode == "persistent":
+                    ring_health(pump, name)
+            finally:
+                stopped = pump.stop(join_timeout=PUMP_DEADLINE)
+                rings.close()
+        if not stopped:
+            raise AssertionError(f"{name}: the pump's threads did not join")
+        if mode == "persistent":
+            ring_health(pump, name)
+        s = dict(pump.stats)
+        frames_out = s["frames"]
+        conserved(pump, sum(g["offered"] for g in runs),
+                  sum(g["frames"] for g in runs), name)
+        missing = [k for k in kernels if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"{name}: {missing} never launched "
+                                 f"({launches})")
+        valid = sum(g["valid"] for g in runs)
+        secs = sum(g["seconds"] for g in runs)
+        row = dict(mpps=valid / secs / 1e6, valid=valid, seconds=secs,
+                   frames=frames_out, batches=s["batches"],
+                   latency_us=lat, launches=launches, warm_s=warm_s)
+        if mode == "persistent":
+            windows = s["ring_windows"]
+            h2d = device_transfer_totals("h2d").get("ring.window", 0) - h2d0
+            d2h = device_transfer_totals().get("ring.window", 0) - d2h0
+            row.update(
+                windows=windows, fill=s["ring_frames"] / windows,
+                h2d_per_window=h2d / windows, d2h_per_window=d2h / windows,
+                stager_ms_per_window=1e3 * s["t_stage"] / windows,
+                host_reads_per_window=s["host_reads"] / windows)
+        summary[name] = row
+        say(f"pump {name} rounds: {row['mpps']:.4f} Mpps ({valid} valid "
+            f"packets in {secs:.3f} s of exchanges), {frames_out} frames "
+            f"in {s['batches']} batches, batch latency p50 "
+            f"{lat['p50']:.0f} us p99 {lat['p99']:.0f} us (n={lat['n']}); "
+            f"launches {launches}")
+        if mode == "persistent":
+            say(f"pump {name} windows: {row['windows']} windows, fill "
+                f"{row['fill']:.2f} of {RING_SLOTS}; H2D "
+                f"{row['h2d_per_window']:.0f} B and D2H "
+                f"{row['d2h_per_window']:.0f} B per window; stager "
+                f"{row['stager_ms_per_window']:.3f} ms host per window; "
+                f"host reads per window {row['host_reads_per_window']:.2f}"
+                f" (counted at the read)")
+    # the twin: every frame's verdict, then the state
+    t0 = time.perf_counter()
+    n = twin_check(twin, rec.calls, tx, f"{path} pumps")
+    rec.detach()
+    say(f"twin {path}: {n} tx frames carry the CPU twin's verdicts "
+        f"({len(rec.calls)} recorded steps and swaps replayed in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    return dict(gpu=gpu, twin=twin, up=up, pods=pods, clock=clock,
+                summary=summary)
+
+
+def steady_path(res: dict, path: str, modes, traffic, kernels,
+                seed: int) -> None:
+    """The steady windows of one path (module doc), after its twin
+    checks: for each mode a new pump on the same card dataplane, which
+    captures nothing (its programs were built by the rounds' pumps),
+    drains STEADY_FRAMES frames pushed as fast as the rx ring takes them
+    (a backlog of seconds), instrumented by ``SteadyProbe``, then
+    STEADY_TRACE more under the profiler (``trace_window``). Every frame
+    leaves once and in order, nothing is lost, the path's kernels launch,
+    and the ring neither degrades nor falls back. Adds a ``steady`` entry
+    to each mode's row of ``res["summary"]``."""
+    gpu, clock = res["gpu"], res["clock"]
+    t0 = time.perf_counter()
+    frames, valid = steady_pool(res["up"], traffic, seed)
+    window, traced = frames[:STEADY_FRAMES], frames[STEADY_FRAMES:]
+    say(f"steady {path}: {len(frames)} frames of {VEC} packets built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for turn, (mode, workers, depth) in enumerate(modes):
+        name = pump_name(path, turn, mode, workers, depth)
+        rings = IORingPair(n_slots=64, snap=PUMP_SNAP)
+        pump = DataplanePump(gpu, rings, max_inflight=depth,
+                             **pump_kw(mode, workers))
+        clock[0] += 1
+        waits: list = []
+        with capture.capture_budget(0):
+            pump.start()
+            try:
+                _sync(gpu.device)
+                for w in WRAPPERS.values():
+                    w.launches = 0
+                with SteadyProbe(gpu, pump) as probe:
+                    secs = exchange(rings, window, None, waits)
+                gaps = probe.gaps()
+                pump._ring_stats_sync()
+                s = dict(pump.stats)
+                launches = {k: w.launches for k, w in WRAPPERS.items()}
+                trace = trace_window(gpu, pump, rings, traced)
+                if mode == "persistent":
+                    ring_health(pump, name)
+            finally:
+                stopped = pump.stop(join_timeout=PUMP_DEADLINE)
+                rings.close()
+        if not stopped:
+            raise AssertionError(f"{name}: the pump's threads did not join")
+        if mode == "persistent":
+            ring_health(pump, name)
+        conserved(pump, sum(k for _, k in frames), len(frames),
+                  f"{name} steady")
+        missing = [k for k in kernels if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"{name} steady: {missing} never launched "
+                                 f"({launches})")
+        n_valid = sum(valid[:STEADY_FRAMES])
+        st = dict(frames=len(window), valid=n_valid, seconds=secs,
+                  mpps=n_valid / secs / 1e6, batches=s["batches"],
+                  latency_us=percentiles_us(probe.lat),
+                  ring_to_ring_us=percentiles_us(waits),
+                  launches=launches, trace=trace)
+        if gaps is not None:
+            st.update(span_ms=gaps[0], empty_ms=gaps[1],
+                      empty_share=gaps[1] / gaps[0], graph_ms=gaps[2],
+                      outside_share=1.0 - gaps[2] / gaps[0])
+        if mode == "persistent":
+            st.update(windows=s["ring_windows"],
+                      fill=s["ring_frames"] / s["ring_windows"],
+                      host_reads_per_window=s["host_reads"]
+                      / s["ring_windows"])
+        res["summary"][name]["steady"] = st
+        lat, r2r = st["latency_us"], st["ring_to_ring_us"]
+        say(f"pump {name} steady: {st['mpps']:.4f} Mpps, {len(window)} "
+            f"frames ({n_valid} valid packets) in {secs:.3f} s, "
+            f"{s['batches']} batches"
+            + (f", {st['windows']} windows, fill {st['fill']:.2f} of "
+               f"{RING_SLOTS}, host reads per window "
+               f"{st['host_reads_per_window']:.2f}"
+               if mode == "persistent" else "")
+            + f"; frame latency (dispatch to tx) p50 {lat['p50']:.0f} us "
+            f"p99 {lat['p99']:.0f} us over n={lat['n']} frames, ring to "
+            f"ring p50 {r2r['p50']:.0f} us p99 {r2r['p99']:.0f} us; "
+            f"launches {launches}")
+        if gaps is not None:
+            say(f"pump {name} steady, device clock: {gaps[0]:.1f} ms from "
+                f"the first submission to the last; the stream empty "
+                f"{gaps[1]:.1f} ms between submissions: "
+                f"{st['empty_share']:.4f} of the span (idle for "
+                f"certain); step graphs {gaps[2]:.1f} ms: "
+                f"{st['outside_share']:.4f} of the span outside them "
+                f"(idle at most)")
+        if trace is not None:
+            per = trace["windows"] if mode == "persistent" else \
+                trace["batches"]
+            say(f"pump {name} trace: {trace['frames']} frames in "
+                f"{1e3 * trace['seconds']:.1f} ms under the profiler; "
+                f"device busy {trace['busy_ms']:.1f} ms of its "
+                f"{trace['span_ms']:.1f} ms span: idle share "
+                f"{trace['idle_share']:.4f} (one trace; {trace['device_ops']}"
+                f" device ops, {trace['syncs']} host syncs in {per} "
+                f"{'windows' if mode == 'persistent' else 'batches'})")
+
+
+@contextlib.contextmanager
+def pinned_tel_clock(us: int):
+    """The telemetry clock (``tel_clock_us``: the pump's rx stamps, the
+    ring's and ``process_packed``'s dispatch clock) pinned at ``us``, so
+    that the CPU twin observes the same latencies."""
+    saved = telemetry_mod.tel_clock_us, dataplane_mod.tel_clock_us
+    telemetry_mod.tel_clock_us = dataplane_mod.tel_clock_us = lambda: us
+    try:
+        yield
+    finally:
+        telemetry_mod.tel_clock_us, dataplane_mod.tel_clock_us = saved
+
+
+def ring_direct(res: dict, traffic, seed: int) -> dict:
+    """(iii): ``PersistentPump`` driven directly on the card dataplane
+    of (i), an explicit clock and rx stamp per frame, against its CPU
+    twin taking the same frames through ``process_packed`` at the same
+    clocks: every tx row, aux row, the telemetry rider and the final
+    state bit-exact. The two start equal (the pumps' grafts and the
+    twin's replay must agree on every plane)."""
+    gpu, twin, up, pods = res["gpu"], res["twin"], res["up"], res["pods"]
+    assert_equal(tables_to_numpy(gpu.tables), tables_to_numpy(twin.tables),
+                 "4g (iii): the card after the pumps vs the twin")
+    clock = res["clock"]
+    pp = persistent_mod.PersistentPump(gpu, batch=VEC,
+                                       ring_slots=RING_SLOTS).start()
+    frames = 0
+    try:
+        for r in range(2):
+            fwd = traffic(BIG_VEC, up, seed + 7919 * r)
+            for step in range(3):
+                cols = fwd if step == 0 else reply_traffic(
+                    first, pods, ("forwarded", "dropped")[step - 1])
+                flats = [packed_batch({c: v[o:o + VEC] for c, v in
+                                       cols.items()})
+                         for o in range(0, BIG_VEC, VEC)]
+                clock[0] += 1
+                stamps = [PUMP_TEL_US - 97 * (k + 1) - 3 * r
+                          for k in range(len(flats))]
+                for flat, st in zip(flats, stamps):
+                    pp.submit(flat, now=clock[0], stamp_us=st)
+                got = [pp.result_ex(timeout=PUMP_DEADLINE) for _ in flats]
+                for k, (flat, st, (out, aux)) in enumerate(zip(
+                        flats, stamps, got)):
+                    t_out, t_aux = twin.process_packed(
+                        flat, now=clock[0], with_aux=True, stamp_us=st,
+                        now_us=PUMP_TEL_US)
+                    if not (np.array_equal(out, t_out.numpy())
+                            and np.array_equal(aux, t_aux.numpy())):
+                        raise AssertionError(f"4g (iii): frame {k} of "
+                                             f"round {r} step {step} "
+                                             f"differs from the twin")
+                frames += len(flats)
+                if step == 0:
+                    first = packed_snap(np.concatenate(
+                        [o for o, _ in got], axis=1))
+    finally:
+        final = pp.stop()
+    rider = pp.tel_raw()
+    want = telemetry_mod.pack_tel_rider(twin.tables).numpy()
+    if rider is None or not np.array_equal(rider, want):
+        raise AssertionError("4g (iii): the telemetry rider differs from "
+                             "the twin's")
+    assert_equal(tables_to_numpy(final), tables_to_numpy(twin.tables),
+                 "4g (iii): the ring's final state vs the twin")
+    st = pp.stats_snapshot()
+    say(f"ring direct (iii): {frames} frames at explicit clocks in "
+        f"{st['ring_windows']} windows, every tx row, aux row, the "
+        f"{rider.size}-word rider and the final state equal the CPU "
+        f"twin's; io_callbacks {st['io_callbacks']}")
+    return dict(frames=frames, windows=st["ring_windows"],
+                rider_words=int(rider.size))
+
+
+def io_pump_phase(cfg: DataplaneConfig, mcfg: DataplaneConfig,
+                  n_rules: int, n_nodes: int, seed: int):
+    """Phase 4g (module doc): (i) the MXU auto path with tenancy, ML,
+    telemetry, VIPs and ECMP through the persistent pump and the
+    dispatch pump (fetch workers 8 and 1 in turns), (ii) the pallas
+    full chain through the persistent pump, (iii) ``PersistentPump``
+    directly against the CPU twin; then each mode's steady window.
+    Returns (summary, launches per cell)."""
+    model = ml_models(seed)[0][1]
+    # the native frame ring and codec are built (g++, first use) before
+    # any pump is timed: the codec is loaded by its constructor
+    t0 = time.perf_counter()
+    PacketCodec()
+    IORingPair(n_slots=2, snap=64).close()
+    say(f"native: frame ring and codec built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    kernels_i = PATH_KERNELS["mxu+tnt"]
+    kernels_ii = PATH_KERNELS["pallas"]
+    modes_i = [("persistent", None, 2 * RING_SLOTS), ("dispatch", 8, 8),
+               ("dispatch", 1, 8), ("dispatch", 1, 8), ("dispatch", 8, 8)]
+    modes_ii = [("persistent", None, 8), ("persistent", None, 2 * RING_SLOTS)]
+    with pinned_tel_clock(PUMP_TEL_US):
+        res_i = pump_path(
+            pump_config(mcfg), "mxu+tnt", n_rules, n_nodes, seed + 41,
+            modes_i, ml_forward_traffic,
+            lambda dp: stage_tnt_ovl(dp, n_rules, n_nodes, model),
+            kernels_i, lambda dp: dp.builder.set_tenant(
+                4, prefixes=[TENANT_NETS[4]], vni=400,
+                rate=TNT4_RATE // 2, burst=TNT4_BURST), rounds=2)
+        direct = ring_direct(res_i, ml_forward_traffic, seed + 43)
+        steady_path(res_i, "mxu+tnt", modes_i, ml_forward_traffic,
+                    kernels_i, seed + 53)
+        res_ii = pump_path(
+            cfg, "pallas", n_rules, n_nodes, seed + 47, modes_ii,
+            forward_traffic, lambda dp: stage(dp, n_rules, n_nodes),
+            kernels_ii, None, rounds=1)
+        steady_path(res_ii, "pallas", modes_ii, forward_traffic,
+                    kernels_ii, seed + 59)
+    summary = dict(res_i["summary"], **res_ii["summary"])
+    summary["ring direct"] = direct
+    disp = {k: v["steady"]["mpps"] for k, v in summary.items()
+            if "dispatch" in k}
+    say(f"fetch workers (mxu+tnt dispatch steady windows, in turns 8, 1, "
+        f"1, 8; Mpps): {json.dumps(disp)}")
+    launches = {k: v["launches"] for k, v in summary.items()
+                if "launches" in v}
+    return summary, launches
+
+
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -3100,6 +3914,14 @@ def main(argv=None) -> int:
     # and migration, on the MXU path with every upload group populated
     ups_launches, ups_sum = upload_snapshot_path(mcfg, n_rules, n_nodes,
                                                  args.seed)
+
+    # 4g. the IO pump and the device rings: both pump modes on the MXU
+    # path with every stage on, the persistent ring on the pallas full
+    # chain, PersistentPump against its CPU twin
+    t4g = time.perf_counter()
+    pump_sum, pump_launches = io_pump_phase(cfg, mcfg, n_rules, n_nodes,
+                                            args.seed)
+    say(f"phase 4g: {time.perf_counter() - t4g:.1f} s")
     graphs = check_graphs({"pallas": [gpu, cap_p], "mxu": [gpu_m, cap_m],
                            "pallas+ml": [ml_p], "mxu+ml": [ml_m],
                            "pallas+tnt": [tnt_p], "mxu+tnt": [tnt_m]})
@@ -3310,6 +4132,8 @@ def main(argv=None) -> int:
         row["launches_tenancy_overlay"] = {
             "pallas": tnt_launches[name], "mxu": tnt_m_launches[name]}
         row["launches_upload_snapshot"] = ups_launches[name]
+        row["launches_pump"] = {cell: n[name]
+                                for cell, n in pump_launches.items()}
         if name == "sess_probe_ways":
             row["tenant_form"] = {f"P={n}": timed[("sess_probe_ways.tenant",
                                                    n)] for n in (VEC, BIG_VEC)}
@@ -3356,6 +4180,7 @@ def main(argv=None) -> int:
                     "tenancy_overlay": {"pallas": tnt_sum_p,
                                         "mxu": tnt_sum_m},
                     "upload_snapshot": ups_sum,
+                    "io_pump": pump_sum,
                     "captures": graphs, "power": smi}))
     if any(n != 1 for n in capture.capture_counts().values()):
         raise AssertionError("the timing captured a key again")

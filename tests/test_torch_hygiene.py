@@ -1,9 +1,10 @@
 """Package hygiene of vpp_tpu_torch: what it imports and where it runs.
 
-* An AST scan of every module of ``vpp_tpu_torch`` and of
-  ``chip_smoke.py`` finds no import of ``jax`` nor of the JAX package
-  ``vpp_tpu`` (the module itself or any ``vpp_tpu.`` submodule; the
-  port's own ``vpp_tpu_torch`` is of course allowed).
+* An AST scan of every module of ``vpp_tpu_torch`` (the IO pump's
+  ``io/``, ``native/`` and ``net/`` included) and of ``chip_smoke.py``
+  finds no import of ``jax`` nor of the JAX package ``vpp_tpu`` (the
+  module itself or any ``vpp_tpu.`` submodule; the port's own
+  ``vpp_tpu_torch`` is of course allowed).
 * The entry points run on the card unless the caller asks for the CPU:
   with no CUDA device, ``Dataplane(cfg)`` and ``TableBuilder(cfg)``
   raise instead of running on the CPU.
@@ -12,9 +13,10 @@
 * Every stage knob is ported (the ML stage, telemetry, tenancy, the
   overlay, service VIPs, ECMP groups): each constructs, and a bad value
   raises the reference's ``ValueError`` naming the knob. What is still
-  refused (the sharded session, NAT and ML forms, the telemetry ring
-  rider, the ring form, each also under the newly ported knobs) names
-  its ``ROADMAP.md`` Queue 1 item, number and title.
+  refused (the sharded session, NAT and ML forms, also under the newly
+  ported knobs) names its ``ROADMAP.md`` Queue 1 item, number and
+  title. The ring form and its telemetry rider run under every knob:
+  tests/test_torch_persistent.py holds them against the reference.
 
 Every quantity compared is an integer: the tolerance is exact equality.
 """
@@ -31,7 +33,6 @@ from vpp_tpu_torch.ops import acl_mxu as tmxu
 from vpp_tpu_torch.ops import lpm as tlpm
 from vpp_tpu_torch.ops import mlscore as tml
 from vpp_tpu_torch.ops import session as tsess
-from vpp_tpu_torch.ops import telemetry as ttel
 from vpp_tpu_torch.pipeline import dataplane as tdp
 from vpp_tpu_torch.pipeline import tables as ttables
 from vpp_tpu_torch.pipeline import vector as tvector
@@ -67,7 +68,11 @@ def test_scan_sees_the_whole_package():
     assert {"chip_smoke.py", "dataplane.py", "session.py", "acl_bv.py",
             "acl_mxu.py", "lpm.py", "_cuda.py", "interop.py", "mlscore.py",
             "telemetry.py", "model.py", "train.py", "vxlan.py", "derive.py",
-            "sched.py", "snapshot.py", "faults.py", "transfer.py"} <= names
+            "sched.py", "snapshot.py", "faults.py", "transfer.py",
+            "pump.py", "rings.py", "governor.py", "icmp.py",
+            "persistent.py", "backoff.py", "ring.py", "pktio.py"} <= names
+    for sub in ("io", "native", "net"):
+        assert (ROOT / "vpp_tpu_torch" / sub / "__init__.py") in PORT_FILES
     assert (ROOT / "vpp_tpu_torch" / "ml" / "model.py") in PORT_FILES
     assert all(p.exists() for p in PORT_FILES)
 
@@ -158,18 +163,6 @@ def _refusal(kind, arg):
             t = tdp.Dataplane(ttables.DataplaneConfig(**_SMALL),
                               device="cpu").tables
             tml.ml_score(t, pkts, pkts.valid, pkts.proto, shard=True)
-        elif kind == "tel":
-            dp = tdp.Dataplane(ttables.DataplaneConfig(**dict(
-                _SMALL, telemetry="full")), device="cpu")
-            if arg == "rider":
-                ttel.pack_tel_rider(dp.tables)
-            else:
-                dp._program(False, "ring", (5, 8))
-        elif kind == "ring":
-            knob, value = arg
-            dp = tdp.Dataplane(ttables.DataplaneConfig(**dict(
-                _SMALL, **{knob: value})), device="cpu")
-            dp._program(False, "ring", (5, 8))
         elif kind == "shard":
             # the sharded forms of the tenant-sliced session and NAT
             # paths (tenancy on)
@@ -190,30 +183,18 @@ def _refusal(kind, arg):
             else:
                 tsess.session_lookup_reverse_idx(t, pkts, 1, shard=True,
                                                  tnt=True)
-        elif kind == "entry":
-            dp = tdp.Dataplane(ttables.DataplaneConfig(**_SMALL),
-                               device="cpu")
-            dp._program(False, "ring", (5, 8))
         else:
             tsess._refuse(**arg)
     return str(err.value)
 
 
 _REFUSALS = {
-    # every stage knob is ported; what is still refused: the sharded
-    # (mesh) forms, the telemetry ring rider and the ring form, also
-    # under each knob ported since
+    # every stage knob and step form is ported; what is still refused:
+    # the sharded (mesh) forms, also under each knob ported since
     "ml_stage": ("ml", "shard"),
-    "telemetry": ("tel", "rider"),
-    "tenancy": ("ring", ("tenancy", "on")),
-    "overlay": ("ring", ("overlay", "vxlan")),
-    "svc_vips": ("ring", ("svc_vips", 4)),
-    "fib_ecmp_groups": ("ring", ("fib_ecmp_groups", 2)),
     "gate-ml_mode": ("ml", "shard"),
-    "gate-tel_mode": ("tel", "ring"),
     "gate-tnt_mode": ("shard", "nat44_reverse"),
     "gate-overlay": ("shard", "nat44_record"),
-    "entry-ring": ("entry", "ring"),
     "entry-overlay-sidecar": ("shard", "session_insert"),
     "session-shard": ("session", dict(shard=True)),
     "session-tnt": ("shard", "session_lookup_reverse_idx"),
@@ -230,6 +211,16 @@ def test_refusals_name_their_roadmap_item(case):
     titles = _queue1_titles()
     for n, title in cited:
         assert titles.get(int(n)) == title, (msg, titles)
+
+
+def test_no_citation_of_a_done_roadmap_item():
+    """Every ``Queue 1 item N`` the package cites is still open in
+    ROADMAP.md: a ported item leaves no refusal (or stale pointer)
+    behind."""
+    titles = _queue1_titles()
+    for path in PORT_FILES:
+        for n in re.findall(r"Queue 1 item (\d+)", path.read_text()):
+            assert int(n) in titles, (str(path.relative_to(ROOT)), n)
 
 
 def test_default_config_constructs():

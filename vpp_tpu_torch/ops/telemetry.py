@@ -26,14 +26,15 @@ uint32 (pipeline/vector.py): the hashes widen to int64, multiply through
 ``_mul32`` (no int64 overflow) and shift the non-negative value, so
 every ``>>`` is logical as in the reference's uint32 arithmetic.
 
-Not ported: the ring rider (``pack_tel_rider``), which rides the device
-rings of ROADMAP Queue 1 item 11 (IO pump and rings).
+The ring rider (``pack_tel_rider`` / ``unpack_tel_rider``) packs the
+collect-facing planes into the ring window's one result copy
+(pipeline/capture.py ``RingProgram``), as the reference's does.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -188,11 +189,55 @@ def tel_flow_update(tables, pkts, alive: torch.Tensor):
     return tables, n
 
 
-def pack_tel_rider(tables):
-    """The ring windows' telemetry rider: refused, as the ring is."""
-    raise NotImplementedError(
-        "the telemetry ring rider is not ported to vpp_tpu_torch yet: "
-        "ROADMAP Queue 1 item 11 (IO pump and rings)")
+def tel_rider_width(nb: int, k: int) -> int:
+    """int32 words of the packed telemetry rider: the histogram bins,
+    the sketched-packet scalar, and the 5 top-K candidate planes."""
+    return nb + 1 + 5 * k
+
+
+def _rider_planes(tables):
+    return (tables.tel_lat_hist, tables.tel_sketched.reshape(1),
+            tables.tel_top_key, tables.tel_top_src, tables.tel_top_dst,
+            tables.tel_top_ports, tables.tel_top_cnt)
+
+
+def pack_tel_rider(tables, out: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """The host-facing telemetry planes as ONE int32 vector that rides
+    the ring window's result copy (the reference's ``pack_tel_rider``):
+    the bins, the sketched count and the top-K candidates, never the
+    ``[d, w]`` sketch. The uint32 planes are int32 tensors holding the
+    same bits already (pipeline/vector.py), so the words are theirs.
+    ``out``: a ``[tel_rider_width]`` int32 tensor to write into."""
+    planes = _rider_planes(tables)
+    if out is None:
+        return torch.cat(planes)
+    return torch.cat(planes, out=out)
+
+
+def unpack_tel_rider(raw: np.ndarray, nb: int, k: int
+                     ) -> Dict[str, np.ndarray]:
+    """Host inverse of ``pack_tel_rider`` (geometry from the config:
+    tables.tel_capacity)."""
+    raw = np.asarray(raw, np.int32)
+    if raw.shape[0] != tel_rider_width(nb, k):
+        raise ValueError(f"telemetry rider of {raw.shape[0]} words, "
+                         f"expected {tel_rider_width(nb, k)}")
+    off = nb + 1
+    u = np.uint32
+
+    def plane(i):
+        return raw[off + i * k: off + (i + 1) * k]
+
+    return {
+        "bins": raw[:nb].copy(),
+        "sketched": int(raw[nb]),
+        "top_key": plane(0).view(u),
+        "top_src": plane(1).view(u),
+        "top_dst": plane(2).view(u),
+        "top_ports": plane(3).view(u),
+        "top_cnt": plane(4).copy(),
+    }
 
 
 # --- host-side derivations (collect time; no device work) -------------

@@ -9,7 +9,7 @@ outer IPv4/UDP header (RFC 7348 source-port entropy from the inner
 (pipeline/graph.py): an overlay-addressed frame whose VNI names a tenant
 is re-admitted as its inner header in place, any other addressed frame
 fails closed. The byte codec (``encode_frame`` / ``decode_frame``)
-belongs to the IO edge and comes with it (ROADMAP Queue 1 item 11).
+belongs to the IO daemon and comes with it (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations

@@ -50,6 +50,15 @@ On the CPU the same program runs — copy in, the parts eagerly, copy
 out — without graphs, so the tests exercise its buffers; its first call
 counts as its capture.
 
+``Program.prime`` builds every part (both tiers on the auto path) on an
+all-invalid batch and writes the state it stepped back, so a caller can
+capture everything before other threads touch the card (the IO pump's
+``warm``); captures run in ``thread_local`` mode all the same, so
+another thread's event waits and copies cannot break a capture a later
+swap forces. ``RingProgram`` is the ring form (the reference's window
+program, ``_ring_call``): a host loop over a window's slots through one
+packed program, one capture per step variant whatever the fill.
+
 ``capture_counts`` / ``capture_totals`` / ``capture_budget`` mirror
 ``jit_compile_counts`` / ``jit_compile_totals`` / ``jit_compile_budget``;
 the key adds the dataplane (graphs hold its tensors) to the reference's
@@ -296,7 +305,12 @@ class Part:
         reserved = torch.cuda.memory_reserved()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph):
+            # thread_local: the IO pump's other threads (fetch workers,
+            # the ring fetcher) may wait on events or copy results while
+            # one thread captures; in the default "global" mode those
+            # calls would fail or invalidate the capture
+            with torch.cuda.graph(graph,
+                                  capture_error_mode="thread_local"):
                 out = self.fn(*args)
         finally:
             counted = [w.launches - n for w, n in zip(WRAPPERS, before)]
@@ -353,6 +367,8 @@ class Program:
                                  dtype=torch.int32, device=device)
         self.now_us = torch.zeros((), dtype=torch.int32, device=device)
         self.packing: Optional[Packing] = None
+        # dispatch flags read to the host (``replay`` on the auto path)
+        self.host_reads = 0
         decode = _decoder(form, getattr(step, "overlay", "off") != "off")
         self._us = self.now_us if self.observes else None
 
@@ -417,16 +433,47 @@ class Program:
             else:
                 self.stamp.fill_(stamp)
             self.now_us.fill_(now_us)
+        return self.replay().clone()
+
+    def replay(self) -> torch.Tensor:
+        """Run the parts on the static inputs as they stand; returns the
+        final part's output itself (graph memory once captured: the
+        next replay overwrites it)."""
         args = (self.x, self.now)
         if self.prefix is None:
-            out = self.full(args)
+            return self.full(args)
+        pre = self.prefix(args)
+        # the auto path's one host sync; either tier reads the
+        # prefix's outputs
+        tier = self.fast if bool(pre.ok) else self.full
+        self.host_reads += 1
+        return tier((pre, self.now), (self.prefix.out, self.now))
+
+    def prime(self, mutable: Sequence[str]) -> int:
+        """Build every part without stepping the tables: on an
+        all-invalid batch, run each part once (eagerly, its warm-up) and
+        capture it — on the auto path both tiers, whatever the flag
+        says — then write the ``mutable`` fields back as they were.
+        Returns the parts built. So a caller can capture everything
+        before other threads touch the card (the IO pump's ``warm``)."""
+        todo = [p for p in self.parts() if not p.built]
+        if not todo:
+            return 0
+        saved = {f: getattr(self.tables, f).clone() for f in mutable}
+        for t in (self.x, self.now, self.stamp, self.now_us):
+            t.zero_()
+        args = (self.x, self.now)
+        if self.prefix is None:
+            self.full(args)
         else:
             pre = self.prefix(args)
-            # the auto path's one host sync; either tier reads the
-            # prefix's outputs
-            tier = self.fast if bool(pre.ok) else self.full
-            out = tier((pre, self.now), (self.prefix.out, self.now))
-        return out.clone()
+            static = (self.prefix.out, self.now)
+            for tier in (self.fast, self.full):
+                if not tier.built:
+                    tier((pre, self.now), static)
+        for f, v in saved.items():
+            getattr(self.tables, f).copy_(v)
+        return len(todo)
 
     def result(self, buf: torch.Tensor):
         """The StepResult of a ``plain`` program's output."""
@@ -436,3 +483,86 @@ class Program:
         """(out, aux) of a ``packed`` or ``chain`` program's output."""
         k = self.shape[0] if self.form == "chain" else None
         return packed_views(buf, self.shape[-1], k)
+
+
+class RingProgram:
+    """The ring form: the counterpart of the reference's window program
+    (``vpp_tpu/pipeline/dataplane.py`` ``_ring_call``), one window of up
+    to ``slots`` packed frames over one set of tables.
+
+    Device buffers: ``rx`` is one int32 window in the layout of the
+    host's staging window (io/rings.py ``DeviceDescRing``): ``rx_ring
+    [S, 5, B]``, ``rx_now [S]``, ``rx_stamp [S]``, so a window arrives
+    in ONE copy; ``out`` holds S records of ``[5 * B + 12]`` words (a
+    slot's packed rows, then its aux rows) and, with telemetry on, the
+    ``pack_tel_rider`` words, so it leaves in ONE copy; ``cursor`` is
+    the device frame cursor (0-d int32). ``run(n)`` steps exactly ``n``
+    slots, as the reference's ``while_loop`` on ``head < rx_tail``
+    does: each slot's frame, clock and stamp are copied into the packed
+    program's static inputs on the device, its parts replayed (on the
+    auto path with the dispatch flag read to the host between them),
+    and its output copied into the slot's record; records ``n..S-1``
+    stay zero, as the reference's ``zeros_like`` starts; then the
+    cursor advances by ``n`` and the rider is packed. One capture per
+    step variant serves every fill."""
+
+    def __init__(self, packed: Program, slots: int, tel_width: int = 0):
+        from vpp_tpu_torch.pipeline.dataplane import PACKED_AUX_ROWS
+
+        self.prog, self.tables = packed, packed.tables
+        self.slots, self.batch = int(slots), packed.shape[-1]
+        self.shape = (self.slots,) + packed.shape
+        dev = packed.x.device
+        s, per = self.slots, 5 * self.batch
+        self.rx = torch.zeros(s * (per + 2), dtype=torch.int32, device=dev)
+        self.rx_ring = self.rx[:s * per].view(s, 5, self.batch)
+        self.rx_now = self.rx[s * per:s * per + s]
+        self.rx_stamp = self.rx[s * per + s:]
+        self.record = per + PACKED_AUX_ROWS
+        self.out = torch.zeros(s * self.record + tel_width,
+                               dtype=torch.int32, device=dev)
+        self._records = self.out[:s * self.record].view(s, self.record)
+        self.tel = self.out[s * self.record:] if tel_width else None
+        self.cursor = torch.zeros((), dtype=torch.int32, device=dev)
+        self.live = False  # checked out by a running ring (dataplane.py)
+
+    def parts(self):
+        return self.prog.parts()
+
+    def holds(self, tables) -> bool:
+        return self.prog.holds(tables)
+
+    def prime(self, mutable: Sequence[str]) -> int:
+        return self.prog.prime(mutable)
+
+    def run(self, n: int, now_us: int = 0) -> torch.Tensor:
+        """Step slots ``0..n-1`` of ``rx`` (class doc); ``now_us`` is
+        the window's dispatch clock (telemetry). Returns ``out``."""
+        if not 0 <= n <= self.slots:
+            raise ValueError(f"ring window fill {n} outside 0..{self.slots}")
+        p = self.prog
+        if n < self.slots:
+            self._records[n:].zero_()
+        if p.observes:
+            p.now_us.fill_(now_us)
+        for i in range(n):
+            p.x.copy_(self.rx_ring[i])
+            p.now.copy_(self.rx_now[i])
+            if p.observes:
+                p.stamp.copy_(self.rx_stamp[i])
+            self._records[i].copy_(p.replay())
+        self.cursor.add_(n)
+        if self.tel is not None:
+            from vpp_tpu_torch.ops.telemetry import pack_tel_rider
+
+            pack_tel_rider(self.tables, out=self.tel)
+        return self.out
+
+    def views(self, out):
+        """``(tx_ring [S, 5, B], aux_ring [S, 12], rider or None)`` of an
+        ``out`` buffer (the device tensor, or its host copy as numpy)."""
+        s, per = self.slots, 5 * self.batch
+        recs = out[:s * self.record].reshape(s, self.record)
+        tx = recs[:, :per].reshape(s, 5, self.batch)
+        tel = out[s * self.record:] if self.tel is not None else None
+        return tx, recs[:, per:], tel

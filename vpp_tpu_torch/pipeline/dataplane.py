@@ -58,8 +58,14 @@ restored or migrated session columns into the live ones the same way
 they move are counted in pipeline/transfer.py (the reference keeps that
 accounting in its dataplane module).
 
-Not ported: the ring form (ROADMAP Queue 1 item 11 (IO pump and
-rings)), spans, journal and tracer.
+The ring form (the reference's ``_ring_call`` window program) is a
+``capture.RingProgram`` over the packed program of the selection, and
+only ever over a PRIVATE clone of the tables: ``ring_checkout`` hands
+the IO pump's persistent ring the current selection's one, kept with its
+captured programs across ring restarts (pipeline/persistent.py);
+``graft`` writes the ring's state back into the live tensors in place. ``prime`` captures a form's parts
+without stepping (the pump's ``warm``). Not ported: spans, journal and
+tracer.
 """
 
 from __future__ import annotations
@@ -74,7 +80,7 @@ import torch
 from vpp_tpu_torch.ir.rule import PodID
 from vpp_tpu_torch.ops.lpm import lpm_plane_bytes
 from vpp_tpu_torch.ops.session import session_expire, sweep_covered
-from vpp_tpu_torch.ops.telemetry import tel_clock_us
+from vpp_tpu_torch.ops.telemetry import tel_clock_us, tel_rider_width
 from vpp_tpu_torch.ops.vxlan import vxlan_encap
 from vpp_tpu_torch.pipeline import capture
 from vpp_tpu_torch.pipeline.graph import (
@@ -97,6 +103,7 @@ from vpp_tpu_torch.pipeline.tables import (
     TableBuilder,
     resolve_device,
     restored_sessions,
+    tel_capacity,
 )
 from vpp_tpu_torch.pipeline.transfer import count_device_transfer
 from vpp_tpu_torch.pipeline.vector import Disposition, PacketVector
@@ -226,6 +233,9 @@ class Dataplane:
         # the step program cache (module doc): key -> capture.Program
         self.graphs = bool(graphs)
         self._programs: Dict[tuple, capture.Program] = {}
+        # the ring program over a private table clone, with its key:
+        # only the current selection's is kept (ring_checkout)
+        self._ring: Optional[tuple] = None
         self._owner = capture.new_owner()
         self._signed = (None, ())  # (tables, their table_signature)
         self._upload = _PinnedUpload()
@@ -470,45 +480,131 @@ class Dataplane:
             sess_impl=self._session_impl, sess_hash=self._sess_hash,
             overlay=self._overlay)
 
-    def _program(self, fast: bool, form: str, shape) -> capture.Program:
-        """The step program of the current selection for inputs of
-        ``shape`` (``form``: plain, packed or chain), built on first use.
-        As the reference's ``_get_step`` does, a policy-free epoch keeps
-        the program with the local classify where that one exists
-        rather than capture the skip variant too: its results are the
-        same. The reference's ring form is refused. Call under
-        ``_lock``."""
-        if form not in ("plain", "packed", "chain"):
-            raise NotImplementedError(
-                f"the {form!r} step form is not ported to vpp_tpu_torch "
-                f"yet: ROADMAP Queue 1 item 11 (IO pump and rings)")
-        self._plain_only(form)
+    def _key(self, fast: bool, skip: bool, form: str, shape) -> tuple:
+        """The cache key of a program of the current selection: the step
+        variant (classifier, local-skip, tier, form and every gate), the
+        input shape and the table signature. Call under ``_lock``."""
         if self._signed[0] is not self.tables:
             self._signed = (self.tables,
                             capture.table_signature(self.tables))
+        return (self._classifier_impl, skip, fast, form, self._sweep_stride,
+                self._fib_impl, self._session_impl, self._sess_hash,
+                self._ml_mode, self._ml_kind, self._tel_mode,
+                self._tnt_mode, self._overlay, tuple(shape),
+                self._signed[1])
+
+    def _program(self, fast: bool, form: str, shape):
+        """The step program of the current selection for inputs of
+        ``shape`` (``form``: plain, packed or chain; the ring form is
+        checked out with ``ring_checkout``), built on first use. As the
+        reference's ``_get_step`` does, a policy-free epoch keeps the
+        program with the local classify where that one exists rather
+        than capture the skip variant too: its results are the same.
+        Call under ``_lock``."""
+        self._plain_only(form)
+        if form not in ("plain", "packed", "chain"):
+            raise ValueError(f"unknown step form {form!r}" + (
+                " (a ring window program is checked out with "
+                "ring_checkout)" if form == "ring" else ""))
         shape = tuple(shape)
-
-        gates = (self._ml_mode, self._ml_kind, self._tel_mode,
-                 self._tnt_mode, self._overlay)
-
-        def key(skip):
-            return (self._classifier_impl, skip, fast, form,
-                    self._sweep_stride, self._fib_impl, self._session_impl,
-                    self._sess_hash) + gates + (shape, self._signed[1])
-
         skip = self._skip_local
-        if skip and key(True) not in self._programs \
-                and key(False) in self._programs:
+        if skip and self._key(fast, True, form, shape) not in self._programs \
+                and self._key(fast, False, form, shape) in self._programs:
             skip = False
-        prog = self._programs.get(key(skip))
+        key = self._key(fast, skip, form, shape)
+        prog = self._programs.get(key)
         if prog is None or not prog.holds(self.tables):
-            step = self._get_step(fast, skip)
-            prog = capture.Program(
-                capture.step_label(step, form, self._sweep_stride),
-                (self._owner, shape, self._signed[1]), self.tables, step,
-                form, shape, self.device)
-            self._programs[key(skip)] = prog
+            prog = self._new_program(self.tables, fast, skip, form, shape)
+            self._programs[key] = prog
         return prog
+
+    def _new_program(self, tables, fast: bool, skip: bool, form: str,
+                     shape, private: bool = False):
+        """A program of the current selection over ``tables`` (``private``:
+        a ring's clone, a capture key of its own)."""
+        step = self._get_step(fast, skip)
+        sig = (self._owner, shape, capture.table_signature(tables)) + (
+            ("private",) if private else ())
+        if form != "ring":
+            return capture.Program(
+                capture.step_label(step, form, self._sweep_stride), sig,
+                tables, step, form, shape, self.device)
+        slots, batch = shape[0], shape[-1]
+        packed = capture.Program(
+            capture.step_label(step, f"ring{slots}", self._sweep_stride),
+            sig, tables, step, "packed", (PACKED_IN_ROWS, batch),
+            self.device)
+        width = 0
+        if self._tel_mode != "off":
+            nb, _d, _w, k = tel_capacity(self.config)
+            width = tel_rider_width(nb, k)
+        return capture.RingProgram(packed, slots, width)
+
+    def ring_checkout(self, slots: int, batch: int) -> capture.RingProgram:
+        """The ring program of the current selection over a PRIVATE
+        clone of the tables, for one live ring at a time (the reference
+        copies the tables once at a ring's start, so ``self.tables``
+        stays at launch state until the ring's state is grafted back).
+        Captured graphs bind tensor addresses, so the clone is kept with
+        its programs under the key of ``_program``'s (the selection, the
+        geometry, the table signature): a restart that changes no shape
+        writes the epoch's tables into the held clone (``copy_``, under
+        ``_lock``) and captures nothing. Only the current key's ring is
+        kept: a checkout under another key drops the held clone and its
+        graphs. Under the overlay it raises the reference's
+        ``ValueError``. Return it with ``ring_checkin``."""
+        with self._lock:
+            self._plain_only("ring")
+            fast = self._use_fastpath
+            shape = (int(slots), PACKED_IN_ROWS, int(batch))
+            key = self._key(fast, self._skip_local, "ring", shape)
+            if self._ring is not None and self._ring[0] == key:
+                ring = self._ring[1]
+                if ring.live:
+                    raise RuntimeError("a ring of this selection is "
+                                       "already live on this dataplane")
+                for mine, live in zip(ring.tables, self.tables):
+                    mine.copy_(live)
+                ring.cursor.zero_()
+            else:
+                self._ring = None  # the old clone goes before the new one
+                clone = self.tables._replace(**{
+                    f: getattr(self.tables, f).clone()
+                    for f in self.tables._fields})
+                ring = self._new_program(clone, fast, self._skip_local,
+                                         "ring", shape, private=True)
+                self._ring = (key, ring)
+            ring.live = True
+            return ring
+
+    @staticmethod
+    def ring_checkin(ring: capture.RingProgram) -> None:
+        """Hand a ring program back (its tables stay valid until the
+        next ``ring_checkout`` of its key)."""
+        ring.live = False
+
+    def graft(self, tables, fields) -> None:
+        """Write ``fields`` of ``tables`` (a ring's private state, or a
+        ``{field: tensor}`` mapping) into the live tensors in place,
+        under ``_lock``: the captured programs keep holding them, and
+        the epoch does not move (a bump would restart the pump's ring)."""
+        get = tables.get if isinstance(tables, dict) else (
+            lambda f: getattr(tables, f))
+        with self._lock:
+            for f in fields:
+                getattr(self.tables, f).copy_(get(f))
+
+    def prime(self, form: str, shape) -> int:
+        """Capture every part of the current selection's ``form`` program
+        for ``shape`` (both tiers on the auto path) without stepping the
+        live tables (``capture.Program.prime``); returns the parts
+        built."""
+        with self._lock:
+            fast = self._use_fastpath and form != "chain"
+            if form == "chain" and self._use_fastpath:
+                # the auto path's chain runs the packed program per batch
+                form, shape = "packed", tuple(shape)[1:]
+            return self._program(fast, form, shape).prime(_MUTABLE_FIELDS)
 
     def _plain_only(self, form: str) -> None:
         """The reference's refusal of the packed forms under the

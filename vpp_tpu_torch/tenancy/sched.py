@@ -1,16 +1,21 @@
-"""Host side of tenancy: the ``tenants:`` list, normalised and checked.
+"""Host side of tenancy: the ``tenants:`` list, and the pump's lanes.
 
-The port's copy of the configuration half of ``vpp_tpu/tenancy/sched.py``
-(the same bounds, defaults and messages). ``TenantClassifier`` and
-``TenantScheduler`` belong to the IO pump and come with it (ROADMAP
-Queue 1 item 11). This module imports no torch at load, so the CLI and
-light processes can use it.
+The port's copy of ``vpp_tpu/tenancy/sched.py``: the configuration
+helpers (the same bounds, defaults and messages), and the IO pump's
+``TenantClassifier`` (frame -> tenant, mirroring the device derivation
+on frame column blocks) and ``TenantScheduler`` (weighted-fair dequeue
+over per-tenant FIFO queues of ring-order ids, virtual-time WFQ, and
+shedding from the tenant with the most backlog per unit weight). This
+module imports no torch, so the CLI and light processes can use it.
 """
 
 from __future__ import annotations
 
+import collections
 import ipaddress
-from typing import Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
 
 # bounds shared with the token bucket's int32 refill (tenancy/derive.py):
 # rate * dt stays within 2^30 with dt clamped at 2^14
@@ -160,3 +165,169 @@ def validate_tenancy_config(dataplane_cfg, entries: Iterable[dict]
                 f"default tenant counts) still needs residual range — "
                 f"leave headroom or slice every tenant incl. id 0")
     return entries
+
+
+class TenantClassifier:
+    """Frame → tenant id for the pump's weighted-fair lanes.
+
+    Mirrors the device derivation (tenancy/derive.py) on a frame's
+    column block: per packet, the max tenant whose prefix matches src
+    OR dst (tenant prefixes are validated DISJOINT across tenants at
+    config load, so the device's first-match and this max derive
+    identically); a frame classifies as the max over its packets
+    (frames are the pump's scheduling unit). The VNI
+    map serves encapsulated ingress where the daemon knows the VNI
+    before any header parse.
+    """
+
+    def __init__(self, entries: Iterable[dict]):
+        entries = tenant_entries_from_config(entries)
+        nets: List[Tuple[int, int, int]] = []
+        self.weights: Dict[int, int] = {}
+        self.names: Dict[int, str] = {}
+        self._vni: Dict[int, int] = {}
+        for e in entries:
+            tid = e["id"]
+            self.weights[tid] = e["weight"]
+            self.names[tid] = e["name"]
+            if e["vni"] is not None:
+                self._vni[e["vni"]] = tid
+            for p in e["prefixes"]:
+                net = ipaddress.ip_network(p, strict=False)
+                nets.append((int(net.network_address), int(net.netmask),
+                             tid))
+        self._net = np.asarray([n for n, _m, _t in nets], np.uint32)
+        self._mask = np.asarray([m for _n, m, _t in nets], np.uint32)
+        self._tid = np.asarray([t for _n, _m, t in nets], np.int64)
+
+    def weight(self, tid: int) -> int:
+        return self.weights.get(tid, 1)
+
+    def tenant_of_vni(self, vni: int) -> int:
+        """Tenant of a VXLAN VNI (0 = unmapped → the default tenant)."""
+        return self._vni.get(int(vni), 0)
+
+    def packet_tenants(self, src_ip: np.ndarray,
+                       dst_ip: np.ndarray) -> np.ndarray:
+        """Per-packet tenant ids (int64 [n]) — max matching tenant of
+        src or dst, 0 unmatched."""
+        src = np.asarray(src_ip, np.uint32)
+        dst = np.asarray(dst_ip, np.uint32)
+        out = np.zeros(src.shape, np.int64)
+        for net, mask, tid in zip(self._net, self._mask, self._tid):
+            m = ((src & mask) == net) | ((dst & mask) == net)
+            np.maximum(out, np.where(m, tid, 0), out=out)
+        return out
+
+    def frame_tenant(self, frame) -> int:
+        """Tenant of one rx frame (max over its valid packets)."""
+        n = frame.n
+        if not n or self._net.size == 0:
+            return 0
+        c = frame.cols
+        return int(self.packet_tenants(
+            c["src_ip"][:n], c["dst_ip"][:n]).max())
+
+
+class TenantScheduler:
+    """Virtual-time weighted-fair queues over taken ring-order ids.
+
+    Externally synchronized (the pump's ``_held_lock``). ``push``
+    enqueues a classified frame; ``pick``/``pop`` implement WFQ
+    service (least virtual time first, vtime advancing by
+    ``packets / weight``); ``shed_pick`` names the brownout victim —
+    the tenant with the largest backlog per unit weight."""
+
+    def __init__(self, weights: Optional[Dict[int, int]] = None):
+        self._w = dict(weights or {})
+        self._q: Dict[int, "collections.deque"] = {}
+        self._vtime: Dict[int, float] = {}
+        self._backlog_pkts: Dict[int, int] = {}
+        self.total_frames = 0
+        self.total_pkts = 0
+
+    def weight(self, tid: int) -> int:
+        return max(1, int(self._w.get(tid, 1)))
+
+    def push(self, tid: int, rid: int, n_pkts: int) -> None:
+        q = self._q.get(tid)
+        if q is None:
+            q = self._q[tid] = collections.deque()
+        if not q:
+            # idle→active rebase: a tenant cannot bank idle time into
+            # a burst that starves currently-active tenants
+            active = [self._vtime[t] for t, tq in self._q.items()
+                      if tq and t != tid]
+            floor = min(active) if active else 0.0
+            self._vtime[tid] = max(self._vtime.get(tid, 0.0), floor)
+        q.append((rid, int(n_pkts)))
+        self._backlog_pkts[tid] = self._backlog_pkts.get(tid, 0) + int(n_pkts)
+        self.total_frames += 1
+        self.total_pkts += int(n_pkts)
+
+    def active(self) -> List[int]:
+        return [t for t, q in self._q.items() if q]
+
+    def pick(self) -> Optional[int]:
+        """The WFQ service decision: non-empty tenant with least
+        virtual time (ties broken by tenant id for determinism)."""
+        best = None
+        for t in self.active():
+            key = (self._vtime.get(t, 0.0), t)
+            if best is None or key < best[0]:
+                best = (key, t)
+        return None if best is None else best[1]
+
+    def shed_pick(self) -> Optional[int]:
+        """The brownout victim: most backlog packets per unit weight —
+        per-tenant-weighted shedding, not FIFO."""
+        best = None
+        for t in self.active():
+            key = (self._backlog_pkts.get(t, 0) / self.weight(t), t)
+            if best is None or key > best[0]:
+                best = (key, t)
+        return None if best is None else best[1]
+
+    def pop(self, tid: int, max_pkts: int) -> List[Tuple[int, int]]:
+        """Dequeue up to ``max_pkts`` packets of ``tid`` (at least one
+        frame), advancing its virtual time. Returns [(rid, n), ...]."""
+        q = self._q.get(tid)
+        out: List[Tuple[int, int]] = []
+        pkts = 0
+        while q and (not out or pkts + q[0][1] <= max_pkts):
+            rid, n = q.popleft()
+            out.append((rid, n))
+            pkts += n
+        if pkts:
+            self._vtime[tid] = self._vtime.get(tid, 0.0) \
+                + pkts / self.weight(tid)
+            self._backlog_pkts[tid] = max(
+                0, self._backlog_pkts.get(tid, 0) - pkts)
+            self.total_frames -= len(out)
+            self.total_pkts -= pkts
+        return out
+
+    def requeue_front(self, tid: int, frames: List[Tuple[int, int]]) -> None:
+        """Return un-dispatched frames to the HEAD of their queue (the
+        ring-fault fallback path) and roll their service back."""
+        q = self._q.setdefault(tid, collections.deque())
+        pkts = sum(n for _rid, n in frames)
+        q.extendleft(reversed(frames))
+        self._vtime[tid] = max(
+            0.0, self._vtime.get(tid, 0.0) - pkts / self.weight(tid))
+        self._backlog_pkts[tid] = self._backlog_pkts.get(tid, 0) + pkts
+        self.total_frames += len(frames)
+        self.total_pkts += pkts
+
+    def backlog_pkts(self, tid: int) -> int:
+        return self._backlog_pkts.get(tid, 0)
+
+    def snapshot(self) -> Dict[int, dict]:
+        """Per-tenant queue state (frames/packets queued, vtime) —
+        CLI/collector reads; caller holds the pump's lock."""
+        return {
+            t: {"frames": len(q), "pkts": self._backlog_pkts.get(t, 0),
+                "vtime": self._vtime.get(t, 0.0),
+                "weight": self.weight(t)}
+            for t, q in self._q.items() if q
+        }

@@ -18,6 +18,15 @@ point                 seam
 ``snapshot.manifest`` pipeline/snapshot.py — manifest publish (torn/crash)
 ``fleet.migrate``     pipeline/snapshot.py ``drain_bucket_range``, per
                       drained chunk
+``ring.dispatch``     pipeline/persistent.py — a window's dispatch (kills
+                      the ring's stager: the pump's fault ladder)
+``ring.fetch``        pipeline/persistent.py — a window's result copy
+``pump.fetch``        io/pump.py — a dispatched batch's result fetch
+                      (``drops_error``)
+``pump.tx_push``      io/pump.py — a tx-ring push (``drops_tx_stall``)
+``pump.priority_starve`` io/pump.py — a priority frame demoted to bulk
+``pump.tenant_starve`` io/pump.py — a frame demoted to the default tenant
+``governor.tick``     io/governor.py — a governor control tick
 ====================  ====================================================
 """
 
