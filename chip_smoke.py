@@ -174,6 +174,37 @@ raises on failure:
    the stream sat empty and the share outside the step graphs, from
    the one profiled trace the device's busy ms over the trace's span;
    fetch workers 1 against 8 on the steady windows;
+4h. Kubernetes state down to the card: the slice (128 NAT mappings: 64
+   cluster IPs and 16 node ports need 80) staged from Kubernetes objects
+   through the ported control plane — 58 pods in 6 namespaces (their
+   interfaces and /32s as the CNI stages them, 3,744 remote node /24s),
+   48 NetworkPolicies (pod selectors across namespaces by label, and
+   ipBlocks with excepts that grow the renderer's global table past
+   4,096 rules), 64 services of 2-8 local and remote endpoints (every
+   4th a NodePort, every 8th ``externalTrafficPolicy: Local``) — on a
+   ``pallas`` card dataplane (its own control plane, journal on from the
+   start), an ``mxu`` card dataplane (fast path on) and a CPU twin; then
+   eight churn rounds of two events each (policy add, policy port
+   change, policy delete, pod add, pod delete, namespace label change,
+   endpoints update, service delete) and a full resync of both
+   pipelines. After the start and each round, an uplink vector (cluster
+   IPs, node ports, pods) and a pod-to-pod vector of 4,096 packets
+   through ``process_packed`` and the replies of each through
+   ``process``: every packed and aux row, reply StepResult and StepStats
+   (but the auto path's ``fastpath``) and the session / NAT state of
+   both card dataplanes equal the twin's, and every pod-to-pod verdict
+   and every verdict of an uplink packet addressed straight to a pod
+   (its source against the ipBlocks) the ingress NetworkPolicy
+   oracle's. ``sess_probe_ways``,
+   ``bv_first_set``, ``lpm_fused_lookup`` and ``mxu_first_match`` must
+   launch; ``kernel_snapshot`` must resolve every ladder to its kernel
+   rung (the classifier to ``mxu`` on the second). The journal then
+   replays onto a fresh card dataplane: every table tensor equal to the
+   live one's and, both on empty session tables, a round of verdicts.
+   Printed: the rules and slots staged, each churn kind's commit time
+   (the ``epoch-swap`` spans and the enclosing ``render`` span, median
+   and max over its events), the journal's entries, ops and bytes, and
+   ``time_classifier`` ns/packet at P = 256 and 4,096 on both;
 5. timing with CUDA events: ms per ``process`` step and Mpps (valid
    packets per device second) at P = 256 and 4,096, captured and eager,
    and a ``torch.profiler`` window per size (device operations, graph
@@ -282,7 +313,22 @@ from vpp_tpu_torch.pipeline.tables import derive as derive_tables  # noqa: E402
 from vpp_tpu_torch.pipeline.transfer import (  # noqa: E402
     device_transfer_totals,
 )
+from vpp_tpu_torch.ir.rule import PodID  # noqa: E402
+from vpp_tpu_torch.ksr import model as km  # noqa: E402
+from vpp_tpu_torch.pipeline.tables import zero_sessions  # noqa: E402
+from vpp_tpu_torch.pipeline.txn import TxnJournal  # noqa: E402
+from vpp_tpu_torch.policy import (  # noqa: E402
+    PolicyCache,
+    PolicyConfigurator,
+    PolicyProcessor,
+)
+from vpp_tpu_torch.renderer.tpu import TpuRenderer  # noqa: E402
+from vpp_tpu_torch.service import (  # noqa: E402
+    ServiceConfigurator,
+    ServiceProcessor,
+)
 from vpp_tpu_torch.tenancy import derive  # noqa: E402
+from vpp_tpu_torch.trace import spans  # noqa: E402
 from vpp_tpu_torch.tenancy.derive import key_tenant, tenant_ids  # noqa: E402
 from vpp_tpu_torch.pipeline.vector import (  # noqa: E402
     FLAG_VALID,
@@ -3745,6 +3791,704 @@ def io_pump_phase(cfg: DataplaneConfig, mcfg: DataplaneConfig,
     return summary, launches
 
 
+# --- phase 4h: Kubernetes state down to the card --------------------------
+
+K8S_NODE = "node-a"
+K8S_NODE_IP = "192.168.16.1"  # the node's address, also its SNAT address
+K8S_NAMESPACES = 6
+K8S_POLICY_NAMESPACES = 4     # namespaces ns0..ns3 carry the policies
+K8S_PODS = 58
+K8S_APPS = ("web", "api", "db", "cache", "queue")
+# the destination ports of the pod-to-pod vectors (every policy port and
+# two that no policy names)
+K8S_PORTS = (80, 443, 8080, 5432, 6379, 9090, 9187, 8081, 5672, 22)
+K8S_SERVICES = 64
+K8S_NAT_MAPPINGS = 128        # 64 cluster IPs + 16 node ports need 80
+K8S_EVENTS = 2                # events of each churn kind
+K8S_ROUNDS = ("policy add", "policy update", "policy delete", "pod add",
+              "pod delete", "namespace labels", "endpoints update",
+              "service delete")
+K8S_ADDED = (58, 59)          # the pods a pod-add round creates
+K8S_DELETED = (5, 17)         # and the pods a pod-delete round removes
+K8S_SPORT0 = 20000            # pod-to-pod source ports: 4,096 per round
+K8S_REMOTE_NODES = 3744       # remote nodes' /24s behind the uplink
+K8S_EXCEPTS = 28              # excepts of each web pod's widest ipBlock
+
+
+def k8s_ns_labels(k: int, flipped=()) -> dict:
+    """Namespace ``ns<k>``: env prod for ns0..ns2 (flipped ones swap)."""
+    prod = (k < 3) != (k in flipped)
+    return {"env": "prod" if prod else "dev", "team": f"t{k}"}
+
+
+def k8s_pod(i: int):
+    """Pod i: (PodID, labels, IP). Namespace ns<i % 6>, app by i % 5, the
+    web and api pods on the front tier."""
+    app = K8S_APPS[i % len(K8S_APPS)]
+    labels = {"app": app, "tier": "front" if app in ("web", "api")
+              else "back"}
+    return (PodID(f"ns{i % K8S_NAMESPACES}", f"pod{i}"), labels,
+            f"10.1.1.{2 + i}")
+
+
+def _peer_pods(ns_env=None, **labels):
+    """A pod-selector peer; with ``ns_env`` it selects in the namespaces
+    of that env, else (``ns_env`` "") in every namespace."""
+    return km.PolicyPeer(
+        pods=km.LabelSelector(match_labels=dict(labels)),
+        namespaces=(None if ns_env is None else km.LabelSelector(
+            match_labels={"env": ns_env} if ns_env else {})))
+
+
+def _peer_block(cidr: str, excepts) -> km.PolicyPeer:
+    return km.PolicyPeer(ip_block=km.IPBlock(cidr=cidr,
+                                             except_cidrs=list(excepts)))
+
+
+def _policy(ns: str, name: str, app: str, peers, ports) -> km.Policy:
+    return km.Policy(
+        name=name, namespace=ns,
+        pods=km.LabelSelector(match_labels={"app": app}),
+        policy_type=km.POLICY_INGRESS,
+        ingress_rules=[km.PolicyRule(
+            ports=[km.PolicyPort(protocol="TCP", port=p) for p in ports],
+            peers=list(peers))])
+
+
+def k8s_policies() -> list:
+    """The node's NetworkPolicies, 12 in each of ns0..ns3: ingress to the
+    web, api, db and cache pods from pod selectors (every namespace, or
+    the prod ones) and from ipBlocks with excepts (the uplink's sources,
+    which grow the global table)."""
+    out = []
+    for k in range(K8S_POLICY_NAMESPACES):
+        ns = f"ns{k}"
+        ext = [f"172.{16 + (3 * k + j) % 16}.{(37 * j + 11 * k) % 256}.0/24"
+               for j in range(K8S_EXCEPTS)]
+        cdn = [f"100.{64 + (5 * k + 7 * j) % 64}.{16 * j}.0/20"
+               for j in range(6)]
+        out += [
+            _policy(ns, "web-ext", "web",
+                    [_peer_block("172.16.0.0/12", ext)], (80, 443)),
+            _policy(ns, "web-cdn", "web",
+                    [_peer_block("100.64.0.0/10", cdn)], (443,)),
+            _policy(ns, "web-front", "web",
+                    [_peer_pods("prod", tier="front")], (80,)),
+            _policy(ns, "web-health", "web",
+                    [_peer_block("198.18.0.0/15", [f"198.18.{k}.0/24",
+                                                   f"198.19.{k + 10}.0/24"])],
+                    (8081,)),
+            _policy(ns, "api-web", "api", [_peer_pods("prod", app="web")],
+                    (8080,)),
+            _policy(ns, "api-ext", "api",
+                    [_peer_block("10.128.0.0/9",
+                                 [f"10.{130 + 9 * j + k}.0.0/16"
+                                  for j in range(6)])], (8080,)),
+            _policy(ns, "api-monitor", "api", [_peer_pods("", app="queue")],
+                    (9090,)),
+            _policy(ns, "db-api", "db", [_peer_pods("prod", app="api")],
+                    (5432,)),
+            _policy(ns, "db-backup", "db",
+                    [_peer_block("192.168.0.0/16",
+                                 ["192.168.16.0/24",
+                                  f"192.168.{100 + k}.0/24",
+                                  f"192.168.{200 + k}.0/26"])], (5432,)),
+            _policy(ns, "db-monitor", "db", [_peer_pods("", app="queue")],
+                    (9187,)),
+            _policy(ns, "cache-api", "cache", [_peer_pods("", app="api")],
+                    (6379,)),
+            _policy(ns, "cache-web", "cache",
+                    [_peer_pods("prod", app="web")], (6379,)),
+        ]
+    return out
+
+
+def k8s_service(s: int) -> km.Service:
+    """Service s: a ClusterIP in ns<s % 6>; every 4th also a NodePort,
+    every 8th with ``externalTrafficPolicy: Local``."""
+    return km.Service(
+        name=f"svc{s}", namespace=f"ns{s % K8S_NAMESPACES}",
+        cluster_ip=f"10.96.{s // 200}.{10 + s % 200}",
+        service_type="NodePort" if s % 4 == 3 else "ClusterIP",
+        external_traffic_policy="Local" if s % 8 == 7 else "Cluster",
+        ports=[km.ServicePort(name="http", protocol="TCP", port=80,
+                              target_port="http",
+                              node_port=30000 + s if s % 4 == 3 else 0)])
+
+
+def k8s_endpoints(s: int, gen: int = 0) -> km.Endpoints:
+    """Service s's 2-8 endpoints on port 8080: even ones local pods, odd
+    ones on remote nodes (``gen`` moves them: an endpoints update)."""
+    addrs = []
+    for j in range(2 + s % 7):
+        if j % 2 == 0:
+            _pid, _l, ip = k8s_pod((7 * s + 5 * j + 3 * gen) % K8S_PODS)
+            addrs.append(km.EndpointAddress(ip=ip, node_name=K8S_NODE))
+        else:
+            addrs.append(km.EndpointAddress(
+                ip=f"10.2.{(s + j + gen) % 200}.{10 + j}", node_name="node-b"))
+    return km.Endpoints(
+        name=f"svc{s}", namespace=f"ns{s % K8S_NAMESPACES}",
+        subsets=[km.EndpointSubset(
+            addresses=addrs,
+            ports=[km.EndpointPort(name="http", port=8080,
+                                   protocol="TCP")])])
+
+
+def k8s_allowed(policies, pods, labels, src, dst, port, ns_labels=None,
+                src_ip=None):
+    """The ingress NetworkPolicy oracle of
+    tests/test_policy_differential.py ``k8s_allowed`` (copied: the smoke
+    imports no test), with the namespace semantics this cluster needs: a
+    policy applies to the pods of its namespace; a pod-selector peer
+    selects in the policy's namespace, or with a namespace selector in
+    the namespaces it matches; an ipBlock peer matches the source
+    address inside its CIDR and outside its excepts. ``src`` None: the
+    source is no pod (the uplink's), so only ipBlock peers can match."""
+    ns_labels = ns_labels or {}
+
+    def peer_ok(peer, pol):
+        if peer.ip_block is not None and peer.ip_block.cidr:
+            addr = ipaddress.ip_address(src_ip)
+            if addr in ipaddress.ip_network(peer.ip_block.cidr) and not any(
+                    addr in ipaddress.ip_network(e)
+                    for e in peer.ip_block.except_cidrs):
+                return True
+        if src is None:
+            return False  # a source outside the pods: only ipBlocks
+        if peer.namespaces is not None:
+            if not peer.namespaces.matches(ns_labels.get(src.namespace, {})):
+                return False
+            return peer.pods is None or peer.pods.matches(labels[src])
+        return (peer.pods is not None and src.namespace == pol.namespace
+                and peer.pods.matches(labels[src]))
+
+    applying = [
+        p for p in policies
+        if p.namespace == dst.namespace and p.pods.matches(labels[dst])
+        and p.applies_ingress()
+    ]
+    if not applying:
+        return True  # not isolated
+    for pol in applying:
+        for rule in pol.ingress_rules:
+            port_ok = (not rule.ports) or any(
+                pp.port == port for pp in rule.ports
+            )
+            ok = (not rule.peers) or any(peer_ok(peer, pol)
+                                         for peer in rule.peers)
+            if port_ok and ok:
+                return True
+    return False
+
+
+class K8sWorld:
+    """The cluster's Kubernetes state as the KSR would reflect it, and
+    the node agents' control planes that consume it: every event goes to
+    each plane (``planes``) in turn, the first plane's inside a root
+    span, as the KSR reflector would open one."""
+
+    def __init__(self, planes):
+        self.planes = planes
+        self.flipped = set()
+        self.pods = {}
+        for i in range(K8S_PODS):
+            pid, labels, ip = k8s_pod(i)
+            self.pods[pid] = (labels, ip)
+        self.policies = {(p.namespace, p.name): p for p in k8s_policies()}
+        self.services = {s: k8s_service(s) for s in range(K8S_SERVICES)}
+        self.eps = {s: k8s_endpoints(s) for s in range(K8S_SERVICES)}
+        # (kind, root span, the spans of its trace) of the first plane's
+        # events
+        self.events = []
+
+    def namespaces(self):
+        return [km.Namespace(name=f"ns{k}",
+                             labels=k8s_ns_labels(k, self.flipped))
+                for k in range(K8S_NAMESPACES)]
+
+    def pod_objects(self):
+        return [km.Pod(name=pid.name, namespace=pid.namespace, labels=lab,
+                       ip_address=ip, host_ip_address=K8S_NODE_IP)
+                for pid, (lab, ip) in self.pods.items()]
+
+    def event(self, kind: str, fn) -> None:
+        """``fn(plane)`` on every plane; the first plane's in a root
+        span."""
+        with spans.RECORDER.span("ksr", kind) as root:
+            fn(self.planes[0])
+        self.events.append((kind, root, [
+            s for s in spans.RECORDER.entries()
+            if s.trace_id == root.trace_id]))
+        for plane in self.planes[1:]:
+            fn(plane)
+
+    def start(self) -> None:
+        """The agents' start: the bootstrap (interfaces, routes), then the
+        KSR resync of pods, policies and namespaces (one policy-resync
+        commit) and of services and endpoints."""
+        for plane in self.planes:
+            plane.bootstrap(self.pods)
+            plane.cache.resync(self.pod_objects(),
+                               list(self.policies.values()),
+                               self.namespaces())
+            for sp in plane.services:
+                sp.resync(list(self.services.values()),
+                          list(self.eps.values()))
+
+    def churn(self, kind: str, r: int) -> None:
+        """``K8S_EVENTS`` events of one churn kind (``r``: the round)."""
+        for e in range(K8S_EVENTS):
+            if kind == "policy add":
+                k = 4 + e % 2
+                pol = _policy(f"ns{k}", f"queue-web-{e}", "queue",
+                              [_peer_pods("prod", app="web")], (5672,))
+                self.policies[(pol.namespace, pol.name)] = pol
+                self.event(kind, lambda p, pol=pol: p.cache.update_policy(pol))
+            elif kind == "policy update":
+                old = self.policies[(f"ns{e}", "api-web")]
+                pol = _policy(old.namespace, old.name, "api",
+                              old.ingress_rules[0].peers, (8443,))
+                self.policies[(pol.namespace, pol.name)] = pol
+                self.event(kind, lambda p, pol=pol: p.cache.update_policy(pol))
+            elif kind == "policy delete":
+                key = (f"ns{e}", "db-monitor")
+                del self.policies[key]
+                self.event(kind, lambda p, key=key: p.cache.delete_policy(
+                    *key))
+            elif kind == "pod add":
+                pid, labels, ip = k8s_pod(K8S_ADDED[e])
+                self.pods[pid] = (labels, ip)
+                pod = km.Pod(name=pid.name, namespace=pid.namespace,
+                             labels=labels, ip_address=ip,
+                             host_ip_address=K8S_NODE_IP)
+                self.event(kind, lambda p, pid=pid, ip=ip, pod=pod: (
+                    p.cni_add(pid, ip), p.cache.update_pod(pod)))
+            elif kind == "pod delete":
+                pid, _labels, ip = k8s_pod(K8S_DELETED[e])
+                del self.pods[pid]
+                self.event(kind, lambda p, pid=pid, ip=ip: (
+                    p.cache.delete_pod(pid), p.cni_del(pid, ip)))
+            elif kind == "namespace labels":
+                k = (1, 4)[e]
+                self.flipped ^= {k}
+                ns = km.Namespace(name=f"ns{k}",
+                                  labels=k8s_ns_labels(k, self.flipped))
+                self.event(kind, lambda p, ns=ns: p.cache.update_namespace(
+                    ns))
+            elif kind == "endpoints update":
+                s = 3 + 8 * e
+                self.eps[s] = k8s_endpoints(s, gen=r)
+                self.event(kind, lambda p, eps=self.eps[s]: [
+                    sp.update_endpoints(eps) for sp in p.services])
+            elif kind == "service delete":
+                s = 60 + e
+                svc = self.services.pop(s)
+                self.eps.pop(s)
+                self.event(kind, lambda p, svc=svc: [
+                    sp.delete_service(svc.namespace, svc.name)
+                    for sp in p.services])
+            else:
+                raise ValueError(kind)
+
+    def resync(self) -> None:
+        """A full resync of both pipelines on every plane."""
+        def run(plane):
+            plane.policy.resync()
+            for sp in plane.services:
+                sp.resync(list(self.services.values()),
+                          list(self.eps.values()))
+        self.event("resync", run)
+
+    def allowed(self, src, dst, port: int) -> bool:
+        labels = {pid: lab for pid, (lab, _ip) in self.pods.items()}
+        ns = {f"ns{k}": k8s_ns_labels(k, self.flipped)
+              for k in range(K8S_NAMESPACES)}
+        return k8s_allowed(list(self.policies.values()), None, labels, src,
+                           dst, port, ns, self.pods[src][1])
+
+    def allowed_from(self, src_ip: str, dst, port: int) -> bool:
+        """The oracle for a source outside the cluster's pods."""
+        labels = {pid: lab for pid, (lab, _ip) in self.pods.items()}
+        return k8s_allowed(list(self.policies.values()), None, labels, None,
+                           dst, port, None, src_ip)
+
+
+class ControlPlane:
+    """One node agent's control plane over ``dps``: the policy pipeline
+    (cache → processor → configurator → a ``TpuRenderer`` per
+    dataplane) and a service pipeline per dataplane (processor →
+    configurator); ``cni_add`` / ``cni_del`` stage a pod's interface and
+    /32 as the CNI server will."""
+
+    def __init__(self, dps):
+        self.dps = dps
+        self.cache = PolicyCache()
+        conf = PolicyConfigurator(self.cache)
+        for dp in dps:
+            conf.register_renderer(TpuRenderer(dp))
+        self.policy = PolicyProcessor(self.cache, conf)
+        self.services = [ServiceProcessor(ServiceConfigurator(
+            dp, node_ips=[K8S_NODE_IP]), node_name=K8S_NODE) for dp in dps]
+
+    def bootstrap(self, pods) -> None:
+        """Each dataplane's node configuration: the uplink, the host
+        interface, the pods' interfaces and /32s, the remote nodes'
+        /24s, an SNAT default route and the SNAT address."""
+        for dp in self.dps:
+            up = dp.add_uplink()
+            dp.add_host_interface()
+            b = dp.builder
+            for pid, (_labels, ip) in pods.items():
+                b.add_route(f"{ip}/32", dp.add_pod_interface(pid),
+                            Disposition.LOCAL)
+            for n in range(K8S_REMOTE_NODES):
+                b.add_route(f"10.{2 + n // 256}.{n % 256}.0/24", up,
+                            Disposition.REMOTE,
+                            next_hop=ip4("192.168.0.0") + n, node_id=n + 2)
+            b.add_route("0.0.0.0/0", up, Disposition.REMOTE,
+                        next_hop=ip4("192.168.255.254"), snat=True)
+            b.set_snat_ip(ip4(K8S_NODE_IP))
+            b.txn_label = "bootstrap"
+            dp.swap()
+
+    def cni_add(self, pid, ip: str) -> None:
+        for dp in self.dps:
+            dp.builder.add_route(f"{ip}/32", dp.add_pod_interface(pid),
+                                 Disposition.LOCAL)
+            dp.builder.txn_label = "cni-add"
+            dp.swap()
+
+    def cni_del(self, pid, ip: str) -> None:
+        for dp in self.dps:
+            dp.del_pod_interface(pid)
+            dp.builder.del_route(f"{ip}/32")
+            dp.builder.txn_label = "cni-del"
+            dp.swap()
+
+
+
+def k8s_uplink_traffic(rng, n: int, up: int, world: K8sWorld):
+    """Uplink ingress: a quarter to service cluster IPs (port 80), a
+    quarter to the node's node ports, half straight to pod addresses on
+    the policy ports; sources from the policies' ipBlocks (their excepts
+    included) and from outside them. Returns the columns and each
+    packet's destination pod (None for a cluster IP or a node port)."""
+    nets = np.array([ip4(a) for a in (
+        "172.16.0.0", "172.20.0.0", "100.64.0.0", "100.100.0.0",
+        "198.18.0.0", "10.128.0.0", "10.130.0.0", "192.168.0.0",
+        "192.168.100.0", "203.0.113.0")], np.uint32)
+    src = nets[rng.integers(0, len(nets), n)] + rng.integers(
+        1, 1 << 12, n).astype(np.uint32)
+    kind = rng.integers(0, 4, n)
+    svcs = sorted(world.services)
+    svc = np.array(svcs)[rng.integers(0, len(svcs), n)]
+    vip = np.array([ip4(world.services[s].cluster_ip) for s in svc],
+                   np.uint32)
+    pids = list(world.pods)
+    pod_ips = np.array([ip4(ip) for _l, ip in world.pods.values()],
+                       np.uint32)
+    to_pod = rng.integers(0, len(pod_ips), n)
+    dst = np.where(kind == 0, vip, np.where(
+        kind == 1, np.uint32(ip4(K8S_NODE_IP)), pod_ips[to_pod]))
+    pod_port = np.array((80, 443, 8080, 5432, 8081, 22))[
+        rng.integers(0, 6, n)]
+    dport = np.where(kind == 0, 80, np.where(
+        kind == 1, 30000 + (svc | 3), pod_port)).astype(np.int32)
+    full = lambda v: np.full(n, v, np.int32)  # noqa: E731
+    cols = dict(src_ip=src.astype(np.uint32), dst_ip=dst.astype(np.uint32),
+                proto=full(6), sport=rng.integers(1024, 65535, n).astype(
+                    np.int32), dport=dport, ttl=full(64), pkt_len=full(512),
+                rx_if=full(up), flags=full(FLAG_VALID))
+    return cols, [pids[j] if k == 2 else None for k, j in zip(kind, to_pod)]
+
+
+def k8s_pod_traffic(rng, n: int, dp: Dataplane, world: K8sWorld, r: int):
+    """Pod to pod: random pairs of live pods (never a pod to itself) on
+    the policy ports, each from its own interface, source ports fresh
+    every round (no session from an earlier round applies). Returns the
+    columns and each packet's (src, dst) pods."""
+    pids = sorted(world.pods)
+    a = rng.integers(0, len(pids), n)
+    b = (a + rng.integers(1, len(pids), n)) % len(pids)
+    ip = np.array([ip4(world.pods[p][1]) for p in pids], np.uint32)
+    ifs = np.array([dp.pod_if[p] for p in pids], np.int32)
+    full = lambda v: np.full(n, v, np.int32)  # noqa: E731
+    cols = dict(src_ip=ip[a], dst_ip=ip[b], proto=full(6),
+                sport=(K8S_SPORT0 + r * n + np.arange(n)).astype(np.int32),
+                dport=np.array(K8S_PORTS, np.int32)[
+                    rng.integers(0, len(K8S_PORTS), n)],
+                ttl=full(64), pkt_len=full(512), rx_if=ifs[a],
+                flags=full(FLAG_VALID))
+    return cols, [(pids[i], pids[j]) for i, j in zip(a, b)]
+
+
+def k8s_replies(fwd: dict, out: np.ndarray) -> dict:
+    """The replies of a packed forward vector's packets that left on an
+    interface (LOCAL or REMOTE): endpoints swapped after NAT, received
+    on the interface the forward packet left by; the others invalid."""
+    dec = unpack_packet_result(np.array(out))
+    n = dec["src_ip"].shape[0]
+    keep = np.isin(dec["disp"], (int(Disposition.LOCAL),
+                                 int(Disposition.REMOTE)))
+    full = lambda v: np.full(n, v, np.int32)  # noqa: E731
+    return dict(src_ip=dec["dst_ip"].copy(), dst_ip=dec["src_ip"].copy(),
+                proto=full(6), sport=dec["dport"].copy(),
+                dport=dec["sport"].copy(), ttl=full(64), pkt_len=full(512),
+                rx_if=np.where(keep, dec["tx_if"], 0).astype(np.int32),
+                flags=np.where(keep, FLAG_VALID, 0).astype(np.int32))
+
+
+def k8s_round(dps: dict, world: K8sWorld, r: int, seed: int,
+              now: int) -> dict:
+    """One round of checks after a churn: an uplink vector and a pod-to-
+    pod vector through ``process_packed``, then the replies of each
+    through ``process``, on every dataplane (``dps``: {name: dp}, the
+    CPU twin under "cpu"). Every card dataplane's packed rows, aux rows,
+    reply StepResults and StepStats (but the auto path's ``fastpath``
+    flag) and final session / NAT state must equal the twin's, and the
+    pod-to-pod verdicts and those of the uplink's packets addressed
+    straight to a pod the oracle's. Returns counts for the log."""
+    rng = np.random.default_rng(seed + 7919 * r)
+    n = BIG_VEC
+    cpu = dps["cpu"]
+    up_cols, up_pods = k8s_uplink_traffic(rng, n, cpu.uplink_if, world)
+    pp_cols, pairs = k8s_pod_traffic(rng, n, cpu, world, r)
+    got = {}
+    for name, dp in dps.items():
+        res = []
+        for k, cols in enumerate((up_cols, pp_cols)):
+            out, aux = dp.process_packed(packed_batch(cols), now=now + k,
+                                         with_aux=True)
+            res.append((out.cpu().numpy().copy(), aux.cpu().numpy().copy()))
+        got[name] = res
+    reps = [k8s_replies(cols, got["cpu"][k][0])
+            for k, cols in enumerate((up_cols, pp_cols))]
+    for name, dp in dps.items():
+        for k, rep in enumerate(reps):
+            res = dp.process(packet_vector_from_numpy(rep, dp.device),
+                             now=now + 2 + k)
+            got[name].append(snapshot(res))
+    twin = got["cpu"]
+    for name in dps:
+        if name == "cpu":
+            continue
+        auto = dps[name]._use_fastpath
+        for k in range(2):
+            (o, a), (co, ca) = got[name][k], twin[k]
+            if not np.array_equal(o, co):
+                raise AssertionError(f"k8s round {r} {name}: packed rows "
+                                     f"of vector {k} differ from the twin")
+            if not np.array_equal(a[1:] if auto else a, ca[1:] if auto
+                                  else ca):
+                raise AssertionError(f"k8s round {r} {name}: aux rows of "
+                                     f"vector {k} differ from the twin")
+        for k in (2, 3):
+            mine = got[name][k]
+            if auto:
+                mine = {f: v for f, v in mine.items()
+                        if f != "stats.fastpath"}
+            assert_equal(mine, twin[k], f"k8s round {r} {name} reply {k}")
+        assert_equal(state_of(dps[name]), state_of(cpu),
+                     f"k8s round {r} {name} state")
+    # the pod-to-pod verdicts against the NetworkPolicy oracle
+    dec = unpack_packet_result(twin[1][0].copy())
+    cause = dec["drop_cause"]
+    allowed = dec["disp"] == int(Disposition.LOCAL)
+    memo = {}
+    denied = 0
+    for k, (src, dst) in enumerate(pairs):
+        key = (src, dst, int(pp_cols["dport"][k]))
+        if key not in memo:
+            memo[key] = world.allowed(*key)
+        if memo[key] != bool(allowed[k]) or (
+                not memo[key] and cause[k] != DROP_ACL):
+            raise AssertionError(
+                f"k8s round {r}: {src} -> {dst}:{key[2]} oracle "
+                f"{'allow' if memo[key] else 'deny'}, dataplane disp "
+                f"{int(dec['disp'][k])} cause {int(cause[k])}")
+        denied += not memo[key]
+    # the uplink's packets to pod addresses against the same oracle, by
+    # their source addresses: the ipBlocks folded into the global table
+    up_dec = unpack_packet_result(twin[0][0].copy())
+    up_denied = up_held = 0
+    for k, dst in enumerate(up_pods):
+        if dst is None:
+            continue
+        src_ip = str(ipaddress.ip_address(int(up_cols["src_ip"][k])))
+        want = world.allowed_from(src_ip, dst, int(up_cols["dport"][k]))
+        disp, why = int(up_dec["disp"][k]), int(up_dec["drop_cause"][k])
+        if want != (disp == int(Disposition.LOCAL)) or (
+                not want and why != DROP_ACL):
+            raise AssertionError(
+                f"k8s round {r}: uplink {src_ip} -> {dst}:"
+                f"{int(up_cols['dport'][k])} oracle "
+                f"{'allow' if want else 'deny'}, dataplane disp {disp} "
+                f"cause {why}")
+        up_held += 1
+        up_denied += not want
+    return dict(pod_denied=denied, pod_allowed=n - denied,
+                uplink_to_pods=up_held, uplink_to_pods_denied=up_denied,
+                uplink_forwarded=int(np.isin(up_dec["disp"], (
+                    int(Disposition.LOCAL), int(Disposition.REMOTE))).sum()),
+                uplink_acl_drops=int((up_dec["drop_cause"]
+                                      == DROP_ACL).sum()),
+                reply_sess_hits=int(twin[2]["stats.sess_hits"])
+                + int(twin[3]["stats.sess_hits"]),
+                reply_nat_reversed=int(twin[2]["stats.nat_reversed"]))
+
+
+def k8s_commit_times(events) -> dict:
+    """Per churn kind, over its events: the ``epoch-swap`` spans (the
+    first plane's dataplane) and the enclosing ``render`` spans of the
+    policy or service pipeline, summed per event, median and max (ms)."""
+    by_kind = {}
+    for kind, root, mine in events:
+        row = by_kind.setdefault(kind, {"swap": [], "render": [],
+                                        "event": [], "swaps": []})
+        row["swap"].append(sum(s.duration for s in mine
+                               if s.stage == "swap") * 1e3)
+        row["render"].append(sum(s.duration for s in mine
+                                 if s.stage == "render") * 1e3)
+        row["event"].append(root.duration * 1e3)
+        row["swaps"].append(sum(s.stage == "swap" for s in mine))
+    out = {}
+    for kind, row in by_kind.items():
+        out[kind] = {f"{k}_ms": {"median": float(np.median(v)),
+                                 "max": float(np.max(v))}
+                     for k, v in row.items() if k != "swaps"}
+        out[kind]["swaps_per_event"] = row["swaps"]
+    return out
+
+
+def k8s_staged(dp: Dataplane) -> dict:
+    """What the renderer staged on ``dp``: global rules, local tables in
+    use and their rule counts, NAT mappings and backends."""
+    b = dp.builder
+    slots = sorted(dp.table_slots.values())
+    return dict(global_rules=int(b.glb_nrules),
+                local_tables=len(slots),
+                local_rules=[int(b.acl_nrules[s]) for s in slots],
+                nat_mappings=int((b.nat_bcnt > 0).sum()),
+                nat_backends=int(b.nat_bcnt.sum()),
+                routes=b.fib_route_count(), pods=len(dp.pod_if))
+
+
+def k8s_phase(cfg: DataplaneConfig, mcfg: DataplaneConfig, seed: int):
+    """Phase 4h (module doc). Returns (summary, launches)."""
+    t_phase = time.perf_counter()
+    kcfg = cfg._replace(nat_mappings=K8S_NAT_MAPPINGS)
+    kmcfg = mcfg._replace(nat_mappings=K8S_NAT_MAPPINGS)
+    tmp = tempfile.TemporaryDirectory(prefix="vpp_tpu_torch_k8s_")
+    journal = str(Path(tmp.name) / "txn-journal.jsonl")
+    gpu = Dataplane(kcfg)
+    gpu.enable_journal(journal)
+    mxu = Dataplane(kmcfg)
+    cpu = Dataplane(kcfg, device="cpu")
+    dps = {"pallas": gpu, "mxu": mxu, "cpu": cpu}
+    world = K8sWorld([ControlPlane([gpu]), ControlPlane([mxu, cpu])])
+    for w in WRAPPERS.values():
+        w.launches = 0
+    _sync(gpu.device)
+    t0 = time.perf_counter()
+    world.start()
+    staged = k8s_staged(gpu)
+    say(f"k8s staged: {len(world.pods)} pods in {K8S_NAMESPACES} "
+        f"namespaces, {len(world.policies)} policies, "
+        f"{len(world.services)} services in "
+        f"{time.perf_counter() - t0:.1f} s: {json.dumps(staged)}")
+    if staged["global_rules"] < 4096:
+        say(f"k8s: the renderer's folding reached {staged['global_rules']} "
+            f"global rules, below 4,096")
+    for name, dp in dps.items():
+        if k8s_staged(dp) != staged:
+            raise AssertionError(f"k8s: {name} staged {k8s_staged(dp)}")
+    snaps = {name: dp.kernel_snapshot() for name, dp in dps.items()
+             if name != "cpu"}
+    for name, want in (("pallas", ("pallas", "pallas", "pallas")),
+                       ("mxu", ("mxu", "pallas", "pallas"))):
+        s = snaps[name]
+        got = (s["classifier"]["impl"], s["fib"]["impl"],
+               s["session"]["impl"])
+        say(f"kernel_snapshot {name}: {json.dumps(s)}")
+        if got != want:
+            raise AssertionError(f"k8s {name}: rungs {got}, not {want}")
+    now = 60_000
+    rounds = [("start", k8s_round(dps, world, 0, seed, now))]
+    for r, kind in enumerate(K8S_ROUNDS, 1):
+        now += 10
+        world.churn(kind, r)
+        rounds.append((kind, k8s_round(dps, world, r, seed, now)))
+    now += 10
+    world.resync()
+    rounds.append(("resync", k8s_round(dps, world, len(K8S_ROUNDS) + 1,
+                                       seed, now)))
+    _sync(gpu.device)
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    churn_s = time.perf_counter() - t0
+    for kind, row in rounds:
+        say(f"k8s round {kind}: {json.dumps(row)}")
+    say(f"k8s path: {len(rounds)} rounds of 4 vectors x {BIG_VEC} on the "
+        f"pallas and mxu card dataplanes and the CPU twin in {churn_s:.1f} "
+        f"s; launches {launches}")
+    need = set(PATH_KERNELS["pallas"]) | set(PATH_KERNELS["mxu"])
+    if any(launches[k] <= 0 for k in need):
+        raise AssertionError(f"k8s path launched {launches}")
+    staged_end = k8s_staged(gpu)
+    say(f"k8s staged after churn and resync: {json.dumps(staged_end)}")
+    commits = k8s_commit_times(world.events)
+    for kind, row in commits.items():
+        say(f"k8s commit {kind}: {json.dumps(row)}")
+    # the journal: replayed onto a fresh card dataplane, every table
+    # tensor equal to the live one's, then one round of verdicts equal
+    entries = TxnJournal(journal).load_entries()
+    n_ops = sum(len(e["ops"]) for e in entries)
+    jbytes = Path(journal).stat().st_size
+    fresh = Dataplane(kcfg)
+    t0 = time.perf_counter()
+    replayed = TxnJournal(journal).replay(fresh.builder)
+    fresh.swap()
+    replay_s = time.perf_counter() - t0
+    for f in HOST_FIELDS + DERIVED_FIELDS:
+        if not torch.equal(getattr(fresh.tables, f),
+                           getattr(gpu.tables, f)):
+            raise AssertionError(f"k8s journal replay: {f} differs")
+    empty = zero_sessions(kcfg)
+    for dp in (gpu, fresh):
+        dp.adopt_sessions(empty)
+    flows = []
+    for dp in (gpu, fresh):
+        rng = np.random.default_rng(seed + 99)
+        up_cols, _ = k8s_uplink_traffic(rng, BIG_VEC, gpu.uplink_if,
+                                        world)
+        pp_cols, _ = k8s_pod_traffic(rng, BIG_VEC, gpu, world,
+                                     len(K8S_ROUNDS) + 2)
+        flows.append([dp.process_packed(packed_batch(c), now=now + 20 + k,
+                                        with_aux=True)
+                      for k, c in enumerate((up_cols, pp_cols))])
+    for (o, a), (fo, fa) in zip(*flows):
+        if not (torch.equal(o, fo) and torch.equal(a, fa)):
+            raise AssertionError("k8s journal replay: verdicts differ")
+    say(f"k8s journal: {len(entries)} entries, {n_ops} ops, {jbytes} "
+        f"bytes; replayed ({replayed} txns) onto a fresh card dataplane "
+        f"in {replay_s:.2f} s: every table tensor and a round of "
+        f"verdicts equal the live one's")
+    classify = {}
+    for name, dp in (("pallas", gpu), ("mxu", mxu)):
+        for n in (VEC, BIG_VEC):
+            classify[f"{name} P={n}"] = dp.time_classifier(batch=n, iters=20)
+    say(f"k8s time_classifier ns/packet: {json.dumps(classify)}")
+    tmp.cleanup()
+    summary = dict(staged=staged, staged_end=staged_end, commits=commits,
+                   rounds=dict(rounds), launches=launches,
+                   journal=dict(entries=len(entries), ops=n_ops,
+                                bytes=jbytes, replay_s=replay_s),
+                   classify_ns_pkt=classify, kernel_snapshot=snaps,
+                   seconds=time.perf_counter() - t_phase)
+    say(f"phase 4h: {summary['seconds']:.1f} s")
+    return summary, launches
+
+
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -3922,6 +4666,10 @@ def main(argv=None) -> int:
     pump_sum, pump_launches = io_pump_phase(cfg, mcfg, n_rules, n_nodes,
                                             args.seed)
     say(f"phase 4g: {time.perf_counter() - t4g:.1f} s")
+
+    # 4h. Kubernetes state down to the card: the policy and service
+    # pipelines, the device renderer, the journal, on both classifiers
+    k8s_sum, k8s_launches = k8s_phase(cfg, mcfg, args.seed)
     graphs = check_graphs({"pallas": [gpu, cap_p], "mxu": [gpu_m, cap_m],
                            "pallas+ml": [ml_p], "mxu+ml": [ml_m],
                            "pallas+tnt": [tnt_p], "mxu+tnt": [tnt_m]})
@@ -4134,6 +4882,7 @@ def main(argv=None) -> int:
         row["launches_upload_snapshot"] = ups_launches[name]
         row["launches_pump"] = {cell: n[name]
                                 for cell, n in pump_launches.items()}
+        row["launches_control_plane"] = k8s_launches[name]
         if name == "sess_probe_ways":
             row["tenant_form"] = {f"P={n}": timed[("sess_probe_ways.tenant",
                                                    n)] for n in (VEC, BIG_VEC)}
@@ -4181,6 +4930,7 @@ def main(argv=None) -> int:
                                         "mxu": tnt_sum_m},
                     "upload_snapshot": ups_sum,
                     "io_pump": pump_sum,
+                    "control_plane": k8s_sum,
                     "captures": graphs, "power": smi}))
     if any(n != 1 for n in capture.capture_counts().values()):
         raise AssertionError("the timing captured a key again")

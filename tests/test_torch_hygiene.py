@@ -1,7 +1,9 @@
 """Package hygiene of vpp_tpu_torch: what it imports and where it runs.
 
 * An AST scan of every module of ``vpp_tpu_torch`` (the IO pump's
-  ``io/``, ``native/`` and ``net/`` included) and of ``chip_smoke.py``
+  ``io/``, ``native/`` and ``net/``, and the control plane's ``ksr/``,
+  ``policy/``, ``renderer/``, ``service/`` and ``trace/`` included) and
+  of ``chip_smoke.py``
   finds no import of ``jax`` nor of the JAX package ``vpp_tpu`` (the
   module itself or any ``vpp_tpu.`` submodule; the port's own
   ``vpp_tpu_torch`` is of course allowed).
@@ -70,8 +72,12 @@ def test_scan_sees_the_whole_package():
             "telemetry.py", "model.py", "train.py", "vxlan.py", "derive.py",
             "sched.py", "snapshot.py", "faults.py", "transfer.py",
             "pump.py", "rings.py", "governor.py", "icmp.py",
-            "persistent.py", "backoff.py", "ring.py", "pktio.py"} <= names
-    for sub in ("io", "native", "net"):
+            "persistent.py", "backoff.py", "ring.py", "pktio.py",
+            "table.py", "spans.py", "tracer.py", "cache.py", "config.py",
+            "processor.py", "configurator.py", "api.py", "tpu.py",
+            "txn.py"} <= names
+    for sub in ("io", "native", "net", "ksr", "policy", "renderer",
+                "service", "trace"):
         assert (ROOT / "vpp_tpu_torch" / sub / "__init__.py") in PORT_FILES
     assert (ROOT / "vpp_tpu_torch" / "ml" / "model.py") in PORT_FILES
     assert all(p.exists() for p in PORT_FILES)

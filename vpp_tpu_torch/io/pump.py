@@ -74,9 +74,13 @@ epoch bump. Trades:
 both tiers on the auto path, the chain shapes, or the ring's window
 program) before ``start()`` launches a thread, and the captures run in
 ``thread_local`` mode (pipeline/capture.py), so a capture a later swap
-forces cannot trip over the other threads' event waits. The span
-tracer hook of the reference's dispatch loop belongs to the agent's
-slice and is not here.
+forces cannot trip over the other threads' event waits.
+
+While the dataplane's packet tracer (``dp.tracer``, trace/tracer.py) is
+armed, the dispatch ladder runs unchained and through the unpacked
+``process`` step, so the tracer sees one whole ``StepResult`` per
+dispatch; the fetch then copies its columns back and the writer pushes
+them as columns (slower, and only while debugging).
 """
 
 from __future__ import annotations
@@ -96,9 +100,14 @@ from vpp_tpu_torch.pipeline.dataplane import (
     _MUTABLE_FIELDS,
     PACKED_IN_ROWS,
     pack_packet_columns,
+    unpack_packet_input,
 )
 from vpp_tpu_torch.pipeline.tables import SESSION_FIELDS
 from vpp_tpu_torch.pipeline.transfer import count_device_transfer
+from vpp_tpu_torch.pipeline.vector import (
+    Disposition,
+    packet_vector_from_numpy,
+)
 from vpp_tpu_torch.testing import faults
 
 log = logging.getLogger("pump")
@@ -153,6 +162,22 @@ def _fetch_packed(out, aux):
         aux_h.copy_(aux, non_blocking=True)
     side.synchronize()
     return out_h.numpy(), aux_h.numpy()
+
+
+def _fetch_columns(result) -> dict:
+    """Host copies of an unpacked step's columns (the tracing path), as
+    the ring's tx columns: the rewritten header, the disposition, the
+    egress interface, the next hop and the drop cause."""
+    pk = result.pkts
+    cols = {f: getattr(pk, f) for f in ("src_ip", "dst_ip", "proto",
+                                        "sport", "dport", "ttl",
+                                        "pkt_len")}
+    cols.update(disp=result.disp, tx_if=result.tx_if,
+                next_hop=result.next_hop, drop_cause=result.drop_cause)
+    out = {k: v.cpu().numpy().copy() for k, v in cols.items()}
+    for k in ("src_ip", "dst_ip", "next_hop"):
+        out[k] = out[k].view(np.uint32)
+    return out
 
 
 def _done_event(dp):
@@ -1071,9 +1096,12 @@ class DataplanePump:
         hold_cap = max(2, rx.ring.n_slots - 4)
         while not self._stop.is_set():
             self._governor_tick()
+            tracer = self.dp.tracer
+            slow = tracer is not None and getattr(tracer, "_armed", 0) > 0
             # the chainer only engages past one full bucket of backlog
-            # (depth alone can't absorb it)
-            chain_cap = self.chain_k or 1
+            # (depth alone can't absorb it); tracing runs unchained so
+            # the tracer sees one full StepResult per dispatch
+            chain_cap = 1 if (slow or not self.chain_k) else self.chain_k
             max_pkts = None
             gov = self.governor
             g_infl = self.max_inflight
@@ -1092,7 +1120,7 @@ class DataplanePump:
             self._scan_express(rx, hold_cap)
             eg = self._take_express(rx)
             if eg is not None:
-                self._dispatch_or_fail([eg], pri=True)
+                self._dispatch_or_fail([eg], slow, pri=True)
                 continue
             if self._inflight.full():
                 # don't take a bulk group whose hand-off would BLOCK
@@ -1116,7 +1144,7 @@ class DataplanePump:
                 if taken is None:
                     time.sleep(self.poll_s)
                     continue
-                self._dispatch_or_fail(taken[1])
+                self._dispatch_or_fail(taken[1], slow)
                 continue
             groups = self._take_groups(rx, hold_cap, chain_cap,
                                        max_pkts)
@@ -1140,15 +1168,16 @@ class DataplanePump:
                     self._untake([f for g in groups for f in g])
                     time.sleep(self.poll_s)
                     continue
-            self._dispatch_or_fail(groups)
+            self._dispatch_or_fail(groups, slow)
 
-    def _dispatch_or_fail(self, groups: list, pri: bool = False) -> None:
+    def _dispatch_or_fail(self, groups: list, slow: bool = False,
+                          pri: bool = False) -> None:
         """Dispatch with the failed-batch contract: on any dispatch
         error the frames go to the writer as a batchless item so rx
         slots still complete (and release in ring order), with the
         loss attributed to drops_error."""
         try:
-            self._dispatch(groups, pri=pri)
+            self._dispatch(groups, slow, pri=pri)
         except Exception:
             log.exception("pump dispatch failed (%d frames)",
                           sum(len(g) for g in groups))
@@ -1169,7 +1198,8 @@ class DataplanePump:
         pack_batch(self._pack_bases, self._pack_ns, len(frames), flat,
                    non_ip)
 
-    def _dispatch(self, groups: list, pri: bool = False) -> None:
+    def _dispatch(self, groups: list, slow: bool = False,
+                  pri: bool = False) -> None:
         K = len(groups)
         tp0 = time.perf_counter()
         # rx-enqueue stamp for the device wire-latency histogram
@@ -1203,7 +1233,12 @@ class DataplanePump:
         non_ip = non_ip.view(bool)
         self.stats["t_pack"] += time.perf_counter() - tp0
         t0 = time.perf_counter()
-        if K == 1:
+        if slow:
+            # tracing: the unpacked step, so the tracer captures a full
+            # StepResult (several transfers: fine while debugging)
+            out, aux = self.dp.process(packet_vector_from_numpy(
+                unpack_packet_input(flat), self.dp.device)), None
+        elif K == 1:
             # issued without waiting; (out, aux) with the fast-path
             # summary riding the same program (measured on both tiers)
             out, aux = self.dp.process_packed(flat, with_aux=True,
@@ -1221,7 +1256,7 @@ class DataplanePump:
         self.stats["t_dispatch"] += time.perf_counter() - t0
         # unlocked: the dispatch thread is _seq's only writer, so its
         # own read needs no lock; increments publish under _done_cv
-        item = (self._seq, payload, groups, non_ip, t0, pri)
+        item = (self._seq, payload, groups, non_ip, t0, slow, pri)
         # count the batch in flight BEFORE the hand-off: a fetch worker
         # can complete it (and the writer decrement it) the instant the
         # put lands, so inc-after-put would transiently read -1
@@ -1763,7 +1798,7 @@ class DataplanePump:
         the in-order writer (the fetch-worker body; the writer's
         shutdown rescue path reuses it for batches stranded behind the
         stop sentinel)."""
-        seq, payload, groups, non_ip, t0, pri = item
+        seq, payload, groups, non_ip, t0, slow, pri = item
         delay = self._fetch_delay
         if delay is not None:
             time.sleep(delay(seq) if callable(delay) else delay)
@@ -1785,10 +1820,16 @@ class DataplanePump:
             if done is not None:
                 done.synchronize()
             tf0 = time.perf_counter()
-            # one fetch for both: the aux summary rides with the rows
-            out_h, aux_h = _fetch_packed(out, aux)
-            count_device_transfer("pump.fetch.packed", (out_h, aux_h))
-            batch = out_h
+            if slow:
+                # the tracing path: the unpacked step's columns
+                batch, aux_h = _fetch_columns(out), None
+                count_device_transfer("pump.fetch.columns",
+                                      tuple(batch.values()))
+            else:
+                # one fetch for both: the aux summary rides with the rows
+                out_h, aux_h = _fetch_packed(out, aux)
+                count_device_transfer("pump.fetch.packed", (out_h, aux_h))
+                batch = out_h
             tf1 = time.perf_counter()
             # concurrent fetchers: accumulate under a lock or the +=
             # load/add/store interleaves and undercounts
@@ -1988,7 +2029,58 @@ class DataplanePump:
                 self.latency_hist.observe(lat)
             if fast and self.fastpath_hist is not None:
                 self.fastpath_hist.observe(lat)
+        elif batch is not None:
+            self._write_columns(batch, groups[0], non_ip, t0, pri)
         self._release_done(groups)
+
+    def _write_columns(self, batch: dict, frames: list, non_ip, t0: float,
+                       pri: bool) -> None:
+        """The tracing path's write: the unpacked step's columns of one
+        coalesce group (the tracer never chains), frame by frame into tx
+        slots, non-IP punted to the host interface."""
+        if non_ip is not None and non_ip.any():
+            host_if = self.dp.host_if if self.dp.host_if is not None else -1
+            batch["disp"][non_ip] = int(Disposition.HOST)
+            batch["tx_if"][non_ip] = host_if
+        # the drop cause feeds the ICMP errors, not a ring column
+        drop_cause = batch.pop("drop_cause")
+        batch["rx_if"] = batch.pop("tx_if")  # tx direction: egress if
+        epoch = self.dp.epoch
+        off = 0
+        for f in frames:
+            n = f.n
+            out_cols = {}
+            for name, arr in batch.items():
+                col = np.zeros(VEC, arr.dtype)
+                col[:n] = arr[off:off + n]
+                out_cols[name] = col
+            out_cols["flags"] = f.cols["flags"]  # valid + non-ip4
+            out_cols["meta"] = f.cols["meta"]
+            with self._tx_lock:
+                ok = self.rings.tx.push(out_cols, n, payload=f.payload,
+                                        epoch=epoch)
+            if ok:
+                self.stats["frames"] += 1
+                self.stats["pkts"] += n
+                # ICMP only for frames that made it out, as on the
+                # packed path
+                if self.icmp is not None:
+                    cause = np.zeros(VEC, np.int32)
+                    cause[:n] = drop_cause[off:off + n]
+                    if cause[:n].any():
+                        self._emit_icmp_frame(f, cause)
+            else:
+                self.stats["tx_ring_full"] += 1
+                self.stats["drops_tx_stall"] += n
+            off += n
+        lat = time.perf_counter() - t0
+        with self._lat_lock:
+            self.batch_lat.append(lat)
+            if pri:
+                self.pri_lat.append(lat)
+                self._pri_total += 1
+        if self.latency_hist is not None:
+            self.latency_hist.observe(lat)
 
     def _emit_icmp_frame(self, f, cause: np.ndarray) -> None:
         """Generate ICMP time-exceeded / net-unreachable frames for one

@@ -63,9 +63,18 @@ The ring form (the reference's ``_ring_call`` window program) is a
 only ever over a PRIVATE clone of the tables: ``ring_checkout`` hands
 the IO pump's persistent ring the current selection's one, kept with its
 captured programs across ring restarts (pipeline/persistent.py);
-``graft`` writes the ring's state back into the live tensors in place. ``prime`` captures a form's parts
-without stepping (the pump's ``warm``). Not ported: spans, journal and
-tracer.
+``graft`` writes the ring's state back into the live tensors in place.
+``prime`` captures a form's parts without stepping (the pump's ``warm``).
+
+The observability surface the agent, the collector and the CLI read is
+the reference's: ``enable_journal`` records every epoch's builder ops
+into a ``TxnJournal`` (pipeline/txn.py) inside ``swap``; ``swap`` runs in
+an ``epoch-swap`` span (trace/spans.py) and observes
+``txn_commit_hist``, ``propagation_hist`` and ``fib_churn_hist`` when a
+collector has set them; ``tracer`` (trace/tracer.py) is offered every
+``process`` result; ``on_if_freed`` observers hear of every freed pod
+interface; ``kernel_snapshot`` says which rung each ladder chose and why;
+``time_classifier`` times the selected global classifier alone.
 """
 
 from __future__ import annotations
@@ -107,6 +116,7 @@ from vpp_tpu_torch.pipeline.tables import (
 )
 from vpp_tpu_torch.pipeline.transfer import count_device_transfer
 from vpp_tpu_torch.pipeline.vector import Disposition, PacketVector
+from vpp_tpu_torch.trace import spans
 
 # every state field a step writes in place; ``probe`` and
 # ``process_packed(commit=False)`` run on copies of them
@@ -273,7 +283,15 @@ class Dataplane:
         self._fib_impl = "dense"
         self._session_impl = "gather"
         self._skip_local = True
+        # the route-churn histogram (the collector's
+        # vpp_tpu_fib_churn_commit_seconds): every swap that re-shipped
+        # FIB state observes the FIB upload's cost
+        self.fib_churn_hist = None
         self._refresh_selection()
+        # time_classifier's accumulators (the collector's
+        # stage="classify" row and `show acl`)
+        self.classify_seconds = 0.0
+        self.classify_ns_pkt: Optional[float] = None
         self._t0 = _time.monotonic()
         self._now = 0
         self._steps_since_expire = 0
@@ -286,6 +304,19 @@ class Dataplane:
         # ACL table slot registry (renderer table id -> slot)
         self.table_slots: Dict[str, int] = {}
         self._free_slots = list(range(c.max_tables - 1, -1, -1))
+        # the packet tracer (trace/tracer.py), offered every processed
+        # frame (it captures only while armed)
+        self.tracer = None
+        # the config transaction journal (enable_journal)
+        self.journal = None
+        # callbacks of a freed pod interface slot (the collector zeroes
+        # its accumulators so a pod reusing the slot starts clean)
+        self.on_if_freed = []
+        # the collector's histograms: every swap's publish duration, and
+        # the config propagation (event wall clock to swap complete)
+        # of a swap under an active span trace
+        self.txn_commit_hist = None
+        self.propagation_hist = None
 
     # --- interfaces ---
     def add_uplink(self) -> int:
@@ -324,7 +355,10 @@ class Dataplane:
             self.builder.set_interface(idx, InterfaceType.NONE,
                                        local_table=-1)
             self._free_ifs.append(idx)
-            return True
+            observers = list(self.on_if_freed)
+        for cb in observers:
+            cb(idx)
+        return True
 
     # --- ACL table slots ---
     def alloc_table_slot(self, table_id: str) -> int:
@@ -354,20 +388,59 @@ class Dataplane:
             self.builder.set_if_local_table(idx, slot)
 
     # --- epochs ---
+    def enable_journal(self, path: Optional[str]) -> None:
+        """Turn on the config transaction trace: builder mutations are
+        recorded and journaled per epoch swap (JSONL at ``path``; None:
+        an in-memory count only). Replaying the journal onto a fresh
+        builder reproduces the table history this dataplane enforced."""
+        from vpp_tpu_torch.pipeline.txn import TxnJournal
+
+        with self._lock:
+            self.journal = TxnJournal(path)
+            self.builder.start_recording()
+
     def swap(self) -> int:
         """Publish the staged configuration as a new table epoch; the
         live session state carries over by reference, and every staged
         tensor whose shape and dtype are unchanged is written into the
         live one in place, so the captured programs stay valid; those
-        that no longer hold the live tables are dropped."""
-        with self._lock:
-            self.tables = self.builder.to_device(sessions=self.tables,
-                                                 into=self.tables)
-            self._refresh_selection()
-            self._programs = {k: p for k, p in self._programs.items()
-                              if p.holds(self.tables)}
-            self.epoch += 1
-            return self.epoch
+        that no longer hold the live tables are dropped. With a journal
+        the ops staged since the last swap are recorded under the lock,
+        in epoch order. The swap runs in an ``epoch-swap`` span and
+        feeds the collector's histograms when they are set."""
+        span = spans.RECORDER.begin("swap", "epoch-swap")
+        try:
+            with self._lock:
+                self.tables = self.builder.to_device(sessions=self.tables,
+                                                     into=self.tables)
+                self._refresh_selection()
+                self._programs = {k: p for k, p in self._programs.items()
+                                  if p.holds(self.tables)}
+                if (self.fib_churn_hist is not None
+                        and self.builder.fib_last_shipped):
+                    self.fib_churn_hist.observe(float(
+                        self.builder.fib_upload.get("ms", 0.0)) / 1e3)
+                self.epoch += 1
+                span.attrs["epoch"] = self.epoch
+                span.name = f"epoch {self.epoch}"
+                if self.journal is not None:
+                    txn = self.builder.drain_recording()
+                    if txn is not None:
+                        self.journal.record(txn, self.epoch)
+                epoch = self.epoch
+        finally:
+            # the enclosing trace's root (a KSR event, a CNI add) holds
+            # the config event's time; a swap that is the root itself
+            # has no propagation to measure
+            root = spans.current_root()
+            spans.RECORDER.end(span)
+        if self.txn_commit_hist is not None and span.done:
+            self.txn_commit_hist.observe(span.duration)
+        if (self.propagation_hist is not None and root is not None
+                and root is not span):
+            self.propagation_hist.observe(_time.time() - root.t_wall,
+                                          source=root.stage)
+        return epoch
 
     def adopt_sessions(self, sessions) -> int:
         """Publish restored session state into the live tables (the
@@ -467,6 +540,93 @@ class Dataplane:
             self.fib_lpm_min_routes, pallas_ok=p_ok)
         self._session_impl = select_session_impl(self.session_impl_knob,
                                                  p_ok)
+
+    def kernel_snapshot(self) -> dict:
+        """Which rung each hot op's ladder selected, the operator's knob
+        and why (the eligibility bit that decided), read under the lock:
+        the reference's keys and values, with the CUDA device and
+        ``_kernels_serve()`` where the reference names the TPU backend
+        and the Pallas import."""
+        with self._lock:
+            b = self.builder
+            p_ok = self._kernels_serve()
+
+            def why(impl, knob, eligible, reason_ineligible):
+                if impl == "pallas":
+                    return "cuda device + structure eligible"
+                if knob == impl:
+                    return "explicit knob"
+                if not p_ok:
+                    return "no cuda device (the kernel rung needs one)"
+                if not eligible:
+                    return reason_ineligible
+                return "ladder heuristic"
+
+            return {
+                "backend": (torch.cuda.get_device_name(self.device)
+                            if self.device.type == "cuda" else "cpu"),
+                "pallas_available": p_ok,
+                "classifier": {
+                    "impl": self._classifier_impl,
+                    "knob": self.classifier,
+                    "why": why(self._classifier_impl, self.classifier,
+                               b.bv_ok(), "bv structure ineligible"),
+                },
+                "fib": {
+                    "impl": self._fib_impl,
+                    "knob": self.fib_impl_knob,
+                    "why": why(self._fib_impl, self.fib_impl_knob,
+                               b.lpm_ok(), "lpm planes ineligible"),
+                },
+                "session": {
+                    "impl": self._session_impl,
+                    "knob": self.session_impl_knob,
+                    # always eligible: no memory-budget gate here
+                    # (pipeline/selection.py)
+                    "why": why(self._session_impl, self.session_impl_knob,
+                               True, ""),
+                },
+            }
+
+    def time_classifier(self, batch: int = 256, iters: int = 10) -> float:
+        """Time the selected global classifier alone over a synthetic
+        batch from the uplink and return ns/packet (CUDA events on the
+        card: the ``pallas`` rung launches ``bv_first_set``, ``mxu``
+        ``mxu_first_match``; the wall clock on the CPU). Accumulates the
+        seconds into ``classify_seconds`` and records
+        ``classify_ns_pkt``. A diagnostic, not hot-path work."""
+        from vpp_tpu_torch.pipeline.graph import _classifier_fns
+        from vpp_tpu_torch.pipeline.vector import make_packet_vector
+
+        with self._lock:
+            tables = self.tables
+            impl = self._classifier_impl
+        fn = _classifier_fns(impl)[0]
+        uplink = self.uplink_if if self.uplink_if is not None else 0
+        pkts = make_packet_vector(
+            [{"src": "172.16.0.9", "dst": "10.1.1.2", "proto": 6,
+              "sport": 40000 + i, "dport": 8000 + (i % 20),
+              "rx_if": uplink} for i in range(min(batch, 64))],
+            n=batch, device=self.device)
+        cuda = self.device.type == "cuda"
+        fn(tables, pkts)  # the first call builds the kernels (warm)
+        if cuda:
+            start, stop = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+            start.record()
+        else:
+            t0 = _time.perf_counter()
+        for _ in range(iters):
+            fn(tables, pkts)
+        if cuda:
+            stop.record()
+            stop.synchronize()
+            dt = start.elapsed_time(stop) / 1e3
+        else:
+            dt = _time.perf_counter() - t0
+        self.classify_seconds += dt
+        self.classify_ns_pkt = dt / iters / batch * 1e9
+        return self.classify_ns_pkt
 
     def _get_step(self, fast: bool, skip_local: Optional[bool] = None):
         """The step variant of the current selection (``fast``: the
@@ -687,14 +847,19 @@ class Dataplane:
                 result = self._get_step(self._use_fastpath)(
                     self.tables, pkts, self._now_tensor(now), *sidecar)
                 self.tables = result.tables
-                return result
-            cols = tuple(pkts)
-            if sidecar[0] is not None:
-                cols += tuple(sidecar[0]) + (sidecar[1],)
-            prog = self._program(self._use_fastpath, "plain",
-                                 (len(cols), pkts.src_ip.shape[0]))
-            buf = prog.run(_i32(now), lambda x: torch.stack(cols, out=x))
-            return prog.result(buf)
+            else:
+                cols = tuple(pkts)
+                if sidecar[0] is not None:
+                    cols += tuple(sidecar[0]) + (sidecar[1],)
+                prog = self._program(self._use_fastpath, "plain",
+                                     (len(cols), pkts.src_ip.shape[0]))
+                buf = prog.run(_i32(now),
+                               lambda x: torch.stack(cols, out=x))
+                result = prog.result(buf)
+            tracer = self.tracer
+        if tracer is not None:
+            tracer.record(result)
+        return result
 
     def _sidecar(self, pkts: PacketVector, ovl_inner, ovl_vni) -> tuple:
         """(ovl_inner, ovl_vni) of a step: with the overlay off (None,

@@ -153,6 +153,19 @@ DROP_TENANT = 7     # tenant token-bucket quota exceeded
 DROP_OVERLAY = 8    # overlay fail-closed: a VTEP-addressed frame with an
                     # unknown VNI or no valid inner header
 
+# the packet tracer's and the collector's names of the codes
+DROP_CAUSE_NAMES = {
+    DROP_NONE: "none",
+    DROP_IP4: "ip4-input",
+    DROP_ACL: "acl-deny",
+    DROP_NO_ROUTE: "no-route",
+    DROP_FIB: "fib-drop",
+    DROP_NAT: "nat-drop",
+    DROP_ML: "ml-drop",
+    DROP_TENANT: "tenant-quota",
+    DROP_OVERLAY: "overlay-drop",
+}
+
 
 class StepResult(NamedTuple):
     pkts: PacketVector            # header fields after rewrites

@@ -879,6 +879,12 @@ class TableBuilder:
         # opt-out of the bit-plane compile, the reference's default on
         self.mxu_enabled = True
         self.glb_mxu = empty_bitplanes(c.max_global_rules)
+        # the config transaction trace (pipeline/txn.py): with recording
+        # started every mutator appends its declarative op here, and the
+        # owning Dataplane journals the batch at its swap; ``txn_label``
+        # names the next journaled txn
+        self._rec = None
+        self.txn_label = ""
         local_bv = empty_bv(c.max_rules, self.bv_enabled)
         lib, lw, lpr = bv_capacity(c.max_rules, self.bv_enabled)
         self.acl_bv = {
@@ -980,6 +986,9 @@ class TableBuilder:
         # group the last to_device's path ("clean", "block" or "full"),
         # fields shipped whole and bytes
         self.fib_upload: Dict[str, object] = {}
+        # whether the last to_device re-shipped FIB state (the swap's
+        # route-churn histogram observes only those)
+        self.fib_last_shipped = False
         self.svc_upload: Dict[str, object] = {}
         self.last_upload: Dict[str, dict] = {}
         # this to_device's writes go in place (``into``); the fields it
@@ -989,6 +998,29 @@ class TableBuilder:
 
     def _mark(self, group: str) -> None:
         self._dirty.add(group)
+
+    # --- op recording (the config transaction trace) ---
+    def start_recording(self) -> None:
+        from vpp_tpu_torch.pipeline.txn import ConfigTxn
+
+        if self._rec is None:
+            self._rec = ConfigTxn()
+
+    def drain_recording(self):
+        """The ops recorded since the last drain as one ConfigTxn (None
+        when recording is off or nothing was staged); consumes the
+        pending ``txn_label``. ``Dataplane.swap`` calls it under the
+        commit lock."""
+        from vpp_tpu_torch.pipeline.txn import ConfigTxn
+
+        if self._rec is None or not self._rec.ops:
+            self.txn_label = ""
+            return None
+        txn = self._rec
+        txn.label = self.txn_label
+        self.txn_label = ""
+        self._rec = ConfigTxn()
+        return txn
 
     def bv_ok(self) -> bool:
         """Whether the BV classifier can serve this staged config."""
@@ -1010,6 +1042,8 @@ class TableBuilder:
             self.acl_bv["nbnd"][slot] = bv.nbnd
             self.acl_bv["proto"][slot] = bv.bm_proto
             self.acl_bv_ok[slot] = bv.ok
+        if self._rec is not None:
+            self._rec.set_local_table(slot, rules)
         self._mark("acl")
 
     def clear_local_table(self, slot: int) -> None:
@@ -1029,6 +1063,8 @@ class TableBuilder:
             rules, cap, self._glb_rules_ref, self._glb_rows)
         self.glb = packed
         self.glb_nrules = len(rules)
+        if self._rec is not None:
+            self._rec.set_global_table(rules)
         try:
             if not self.mxu_enabled:
                 self.glb_mxu = empty_bitplanes(cap)
@@ -1068,10 +1104,15 @@ class TableBuilder:
         self.if_type[if_index] = int(if_type)
         self.if_local_table[if_index] = local_table
         self.if_apply_global[if_index] = int(apply_global)
+        if self._rec is not None:
+            self._rec.set_interface(if_index, int(if_type), local_table,
+                                    bool(apply_global))
         self._mark("if")
 
     def set_if_local_table(self, if_index: int, slot: int) -> None:
         self.if_local_table[if_index] = slot
+        if self._rec is not None:
+            self._rec.set_if_local_table(if_index, slot)
         self._mark("if")
 
     # --- FIB ---
@@ -1119,6 +1160,10 @@ class TableBuilder:
         self.fib_node_id[slot] = node_id
         self.fib_snat[slot] = int(snat)
         self.fib_grp[slot] = -1 if group is None else int(group)
+        if self._rec is not None:
+            self._rec.add_route(prefix, tx_if, int(disposition),
+                                int(next_hop), int(node_id), bool(snat),
+                                slot=slot, group=group)
         self._mark_fib_slots(old_plen, net.prefixlen)
         return slot
 
@@ -1179,6 +1224,8 @@ class TableBuilder:
         if len(hit) == 0:
             return False
         self.fib_plen[hit[0]] = -1
+        if self._rec is not None:
+            self._rec.del_route(prefix)
         self._mark_fib_slots(net.prefixlen)
         return True
 
@@ -1219,6 +1266,8 @@ class TableBuilder:
         self.fib_grp_tx_if[gid] = np.array([m[1] for m in assign], np.int32)
         self.fib_grp_node[gid] = np.array([m[2] for m in assign], np.int32)
         self.fib_grp_n[gid] = n
+        if self._rec is not None:
+            self._rec.set_nh_group(gid, [list(m) for m in mset])
         self._mark_groups()
 
     def _mark_groups(self) -> None:
@@ -1237,6 +1286,8 @@ class TableBuilder:
         self.fib_grp_tx_if[gid] = -1
         self.fib_grp_node[gid] = -1
         self.fib_grp_n[gid] = 0
+        if self._rec is not None:
+            self._rec.del_nh_group(gid)
         self._mark_groups()
         return True
 
@@ -1314,15 +1365,24 @@ class TableBuilder:
         self.nat_bcnt[slot] = len(backends)
         self.nat_total_w[slot] = cum
         self.nat_self_snat[slot] = int(self_snat)
+        if self._rec is not None:
+            self._rec.set_nat_mapping(
+                slot, int(ext_ip), int(ext_port), int(proto),
+                [(int(a), int(b), int(w)) for a, b, w in backends],
+                int(boff), bool(self_snat))
         self._mark("nat")
 
     def clear_nat(self) -> None:
         self.nat_bcnt[:] = 0
+        if self._rec is not None:
+            self._rec.clear_nat()
         self._mark("nat")
 
     def set_snat_ip(self, ip: int) -> None:
         """Set the node's SNAT address (0 disables SNAT)."""
         self.nat_snat_ip = np.uint32(ip)
+        if self._rec is not None:
+            self._rec.set_snat_ip(int(ip))
         self._mark("nat")
 
     # --- VXLAN overlay and service VIPs ---
@@ -1330,6 +1390,8 @@ class TableBuilder:
         """The node's VTEP address: the decap admission filter and the
         encap outer source (0: unset, any VTEP-addressed frame)."""
         self.ovl_vtep_ip = np.uint32(ip)
+        if self._rec is not None:
+            self._rec.set_vtep_ip(int(ip))
         self._mark("config")
 
     def _restage_svc(self) -> None:
@@ -1409,6 +1471,10 @@ class TableBuilder:
         self.services[key] = {"members": mset, "assign": assign,
                               "self_snat": bool(self_snat)}
         self._restage_svc()
+        if self._rec is not None:
+            self._rec.set_service(key[0], key[1], key[2],
+                                  [list(m) for m in mset],
+                                  bool(self_snat))
         self._mark("svc")
 
     def del_service(self, vip_ip: int, port: int, proto: int) -> bool:
@@ -1419,12 +1485,16 @@ class TableBuilder:
             return False
         del self.services[key]
         self._restage_svc()
+        if self._rec is not None:
+            self._rec.del_service(key[0], key[1], key[2])
         self._mark("svc")
         return True
 
     def clear_services(self) -> None:
         self.services = {}
         self._restage_svc()
+        if self._rec is not None:
+            self._rec.clear_services()
         self._mark("svc")
 
     # --- per-packet ML model (ops/mlscore.py) ---
@@ -1436,6 +1506,8 @@ class TableBuilder:
         staged, kind = _fold_ml(model, self.config)
         self.ml = staged
         self.ml_kind = kind
+        if self._rec is not None:
+            self._rec.set_ml_model(model)
         self._mark("ml")
 
     @property
@@ -1451,6 +1523,8 @@ class TableBuilder:
         next swap)."""
         self.ml = empty_ml(self.config)
         self.ml_kind = 0
+        if self._rec is not None:
+            self._rec.clear_ml_model()
         self._mark("ml")
 
     # --- tenancy (vpp_tpu_torch/tenancy/) ---
@@ -1557,6 +1631,8 @@ class TableBuilder:
         merged = {t: dict(e) for t, e in self.tenants.items()}
         merged[int(tid)] = {"id": int(tid), **kw}
         self._set_tenants(merged)
+        if self._rec is not None:
+            self._rec.set_tenant(int(tid), **kw)
         self._mark("tenant")
 
     def clear_tenants(self) -> None:
@@ -1564,6 +1640,8 @@ class TableBuilder:
         unsliced, unlimited)."""
         self.tenants = {}
         self._restage_tenants()
+        if self._rec is not None:
+            self._rec.clear_tenants()
         self._mark("tenant")
 
     def set_tenant_ml(self, tid: int, ml_mode: str = "inherit",
@@ -1576,6 +1654,8 @@ class TableBuilder:
         merged = {t: dict(x) for t, x in self.tenants.items()}
         merged[int(tid)].update(ml_mode=ml_mode, ml_thresh=ml_thresh)
         self._set_tenants(merged)
+        if self._rec is not None:
+            self._rec.set_tenant_ml(int(tid), ml_mode, ml_thresh)
         self._mark("tenant")
 
     # --- transactional rollback ---
@@ -1626,6 +1706,8 @@ class TableBuilder:
                              "self_snat": e["self_snat"]}
                          for k, e in self.services.items()},
             "dirty": set(self._dirty),
+            "rec_ops": (list(self._rec.ops) if self._rec is not None
+                        else None),
         }
 
     def state_restore(self, snap: dict) -> None:
@@ -1673,6 +1755,8 @@ class TableBuilder:
                          for k, e in snap["services"].items()}
         self._svc_prev = None
         self._dirty |= set(snap["dirty"])
+        if self._rec is not None and snap.get("rec_ops") is not None:
+            self._rec.ops[:] = snap["rec_ops"]
 
     # --- device upload ---
     def host_arrays(self) -> Dict[str, np.ndarray]:
@@ -1738,6 +1822,7 @@ class TableBuilder:
         self._in_place = into is not None
         self._fresh = set()
         self.last_upload = {}
+        self.fib_last_shipped = False
         glb_full = False
         for group, fields in _UPLOAD_GROUPS.items():
             dirty = group in self._dirty
@@ -1961,6 +2046,7 @@ class TableBuilder:
         if dirty and blob_bytes is None:
             self._set_fib_prev(host_np)
         if dirty:
+            self.fib_last_shipped = True
             self.fib_upload = {
                 "fields": tuple(shipped),
                 "blob_bytes": int(blob_bytes or 0),

@@ -27,6 +27,10 @@ point                 seam
 ``pump.priority_starve`` io/pump.py — a priority frame demoted to bulk
 ``pump.tenant_starve`` io/pump.py — a frame demoted to the default tenant
 ``governor.tick``     io/governor.py — a governor control tick
+``service.churn``     service/configurator.py — after every staged
+                      svc-plane mutation of a backend replacement; a
+                      failure mid-churn rolls the builder back, so a
+                      half-applied backend set never reaches a swap
 ====================  ====================================================
 """
 
