@@ -205,6 +205,44 @@ raises on failure:
    (the ``epoch-swap`` spans and the enclosing ``render`` span, median
    and max over its events), the journal's entries, ops and bytes, and
    ``time_classifier`` ns/packet at P = 256 and 4,096 on both;
+4i. the node agent on the card: a ``ContivAgent`` built from
+   ``AgentConfig.from_dict`` at the slice's widths with the reference
+   agent's default ladders (``auto``, fast path on; 128 NAT mappings,
+   128 interfaces), serving HTTP (the CNI socket, the Prometheus and
+   health pages, the maintenance thread), and a CPU twin agent that
+   resolves the same rungs. Both clocks are pinned to one cell the
+   phase moves, so the maintenance thread's expiry cuts at a known
+   tick and expires nothing between rounds. Each agent's KSR reflects
+   phase 4h's 6 namespaces; 110 pods (kubelet's default
+   ``--max-pods``) are added through CNI (the card's through
+   ``cni.shim.run`` over its socket: kubelet's exec of the shim), with
+   equal addresses and interfaces on both; then their objects, the 64
+   services with endpoints, 15 peer nodes published in the store and,
+   last, phase 4h's first 16 NetworkPolicies (every CNI add re-renders
+   every policy). After the start and after each churn (a pod add, a
+   pod delete, a policy add, an endpoints update, a peer leaving by
+   lease expiry) a 4,096-packet vector (half pod to pod, a quarter pod
+   to a cluster IP, a quarter from the uplink) and the replies of its
+   forwarded packets through each agent's ``dataplane.process``: every
+   result, the state planes and the staged tables equal the twin's,
+   every pod-to-pod verdict and every uplink packet's to a pod the
+   NetworkPolicy oracle's, and the kernels of the resolved rungs launch.
+   After a maintenance tick on each, the card's ``/stats`` page (GET
+   over 127.0.0.1) equals the twin's exposition line for line but for
+   ``AGENT_UNCOMPARED`` and the wall-clock histograms' buckets and sums;
+   sessions are active and ``/readiness`` is ready. Then the card agent
+   closes (the parting snapshot, the store file) and a new card agent
+   boots on the same store file and snapshot directory with the rings
+   and a dispatch pump: its CNI resync gives back the same 110 pods,
+   addresses and interfaces, its session planes equal those at close
+   (ages rebased), the replies to a last vector's forwarded packets all
+   hit their sessions, and a vector of frames through its rings leaves
+   once, in order, with the oracle's pod-to-pod verdicts and counted on
+   ``vpp_tpu_pump_frames``. Printed: ``agent boot``, ``agent cni`` (the
+   adds' p50 / p99 from ``vpp_tpu_cni_request_seconds`` and the shim's
+   own), ``agent round <churn>`` (the commit and its epoch swaps),
+   ``agent metrics`` (the scrape) and ``agent restart`` (close to
+   serving warm: the snapshot write, the restore, the CNI resync);
 5. timing with CUDA events: ms per ``process`` step and Mpps (valid
    packets per device second) at P = 256 and 4,096, captured and eager,
    and a ``torch.profiler`` window per size (device operations, graph
@@ -314,6 +352,11 @@ from vpp_tpu_torch.pipeline.transfer import (  # noqa: E402
     device_transfer_totals,
 )
 from vpp_tpu_torch.ir.rule import PodID  # noqa: E402
+from vpp_tpu_torch.agent.node_id import NodeIDAllocator  # noqa: E402
+from vpp_tpu_torch.cmd import AgentConfig, ContivAgent  # noqa: E402
+from vpp_tpu_torch.cmd.ksr_main import KsrAgent  # noqa: E402
+from vpp_tpu_torch.cni import shim as cni_shim  # noqa: E402
+from vpp_tpu_torch.cni.model import CNIRequest  # noqa: E402
 from vpp_tpu_torch.ksr import model as km  # noqa: E402
 from vpp_tpu_torch.pipeline.tables import zero_sessions  # noqa: E402
 from vpp_tpu_torch.pipeline.txn import TxnJournal  # noqa: E402
@@ -4168,12 +4211,14 @@ class ControlPlane:
 
 
 
-def k8s_uplink_traffic(rng, n: int, up: int, world: K8sWorld):
+def k8s_uplink_traffic(rng, n: int, up: int, world: K8sWorld,
+                       node_ip: str = K8S_NODE_IP):
     """Uplink ingress: a quarter to service cluster IPs (port 80), a
-    quarter to the node's node ports, half straight to pod addresses on
-    the policy ports; sources from the policies' ipBlocks (their excepts
-    included) and from outside them. Returns the columns and each
-    packet's destination pod (None for a cluster IP or a node port)."""
+    quarter to the node's node ports (on ``node_ip``), half straight to
+    pod addresses on the policy ports; sources from the policies'
+    ipBlocks (their excepts included) and from outside them. Returns the
+    columns and each packet's destination pod (None for a cluster IP or
+    a node port)."""
     nets = np.array([ip4(a) for a in (
         "172.16.0.0", "172.20.0.0", "100.64.0.0", "100.100.0.0",
         "198.18.0.0", "10.128.0.0", "10.130.0.0", "192.168.0.0",
@@ -4190,7 +4235,7 @@ def k8s_uplink_traffic(rng, n: int, up: int, world: K8sWorld):
                        np.uint32)
     to_pod = rng.integers(0, len(pod_ips), n)
     dst = np.where(kind == 0, vip, np.where(
-        kind == 1, np.uint32(ip4(K8S_NODE_IP)), pod_ips[to_pod]))
+        kind == 1, np.uint32(ip4(node_ip)), pod_ips[to_pod]))
     pod_port = np.array((80, 443, 8080, 5432, 8081, 22))[
         rng.integers(0, 6, n)]
     dport = np.where(kind == 0, 80, np.where(
@@ -4489,6 +4534,654 @@ def k8s_phase(cfg: DataplaneConfig, mcfg: DataplaneConfig, seed: int):
     return summary, launches
 
 
+# --- phase 4i: the node agent on the card ------------------------------
+
+AGENT_PODS = 110              # kubelet's default --max-pods
+AGENT_POLICIES = 16           # the first 16 of phase 4h's policies
+AGENT_PEERS = 15              # peer nodes published in the store
+AGENT_ADDED = 110             # the pod a pod-add round creates
+AGENT_DELETED = 17            # and the pod a pod-delete round removes
+AGENT_MOVED = 3               # the service an endpoints update moves
+AGENT_NOW = 400_000           # the pinned step clock (past phase 4g's)
+AGENT_TTL_S = 36_000.0        # liveness lease of the node and its peers
+AGENT_LEAVING_TTL_S = 600.0   # the lease of the peer that leaves
+# the vpptcp session-rule table: the agent's engine holds 4,096 rules (the
+# reference's fixed default, no knob), which 110 pods under 16 policies
+# exceed; both nodes raise it alike before their first policy
+AGENT_SESSION_RULES = 1 << 16
+AGENT_ROUNDS = ("boot", "pod add", "pod delete", "policy add",
+                "endpoints update", "peer leave")
+# the exposition families the card-against-twin comparison leaves out
+AGENT_UNCOMPARED = {
+    "vpp_tpu_build_info": "its device label (the twin's is the CPU)",
+    "vpp_tpu_jit_compiles_total": "process-wide capture counts",
+    "vpp_tpu_device_transfer_bytes_total": "process-wide byte counters",
+    "vpp_tpu_snapshot_age_seconds": "wall clock",
+    "vpp_tpu_snapshot_chunk_seconds": "wall clock",
+}
+# wall-clock histograms: their _bucket and _sum lines are timings, their
+# _count lines (observations) are compared
+AGENT_WALL_HISTOGRAMS = (
+    "vpp_tpu_config_propagation_seconds", "vpp_tpu_txn_commit_seconds",
+    "vpp_tpu_cni_request_seconds", "vpp_tpu_fib_churn_commit_seconds")
+# the kernel each ladder's fused rung launches
+RUNG_KERNELS = {("classifier", "pallas"): "bv_first_set",
+                ("classifier", "mxu"): "mxu_first_match",
+                ("fib", "pallas"): "lpm_fused_lookup",
+                ("session", "pallas"): "sess_probe_ways"}
+
+
+def agent_config(cfg: DataplaneConfig, root: Path, card: bool,
+                 io: bool = False) -> AgentConfig:
+    """A phase 4i node's configuration: phase 4h's widths with the
+    reference agent's default ladders (``auto``, fast path on), room for
+    110 pods, the CNI socket, the persisted store (the card's), the
+    session snapshots, and (``io``) the packet rings and a dispatch
+    pump. The card agent serves HTTP (the CNI socket, the Prometheus
+    and health pages, the maintenance thread), the CPU twin does not."""
+    dp = cfg._replace(classifier="auto", fastpath=True, fib_impl="auto",
+                      session_impl="auto", nat_mappings=K8S_NAT_MAPPINGS,
+                      max_ifaces=128)
+    return AgentConfig.from_dict({
+        "node_name": K8S_NODE, "serve_http": card, "stats_port": 0,
+        "health_port": 0, "http_host": "127.0.0.1",
+        "cni_socket": str(root / "cni.sock"),
+        "persist_path": str(root / "store.json") if card else None,
+        "snapshot_path": str(root / "snaps"),
+        "snapshot_chunk_buckets": SNAP_CHUNK, "snapshot_interval_s": 3600.0,
+        "node_liveness_ttl_s": AGENT_TTL_S,
+        "dataplane": dp._asdict(),
+        "io": {"enabled": io, "pump_mode": "dispatch", "snap": PUMP_SNAP},
+    })
+
+
+class AgentNode:
+    """A phase 4i node: the agent, its step clock pinned to ``clock``,
+    and a KSR with mock Kubernetes sources on the agent's store. The
+    CPU twin (``device="cpu"``) resolves the card's rungs and takes
+    their plain versions."""
+
+    def __init__(self, config: AgentConfig, clock: list, device=None):
+        before = sum(capture.capture_counts().values())
+        t0 = time.perf_counter()
+        self.agent = ContivAgent(config, device=device)
+        self.agent.session_engine.capacity = AGENT_SESSION_RULES
+        dp = self.agent.dataplane
+        dp.clock_ticks = lambda: clock[0]
+        if device is not None:
+            dp._kernels_serve = lambda: True
+        self.agent.start()
+        _sync(dp.device)
+        self.boot_ms = (time.perf_counter() - t0) * 1e3
+        self.boot_captures = sum(capture.capture_counts().values()) - before
+        self.ksr = KsrAgent(store=self.agent.store, serve_http=False)
+        self.ksr.start()
+        self.card = config.serve_http
+
+    def reflect(self, kind: str, key: str, obj) -> None:
+        self.ksr.sources[getattr(km, kind).TYPE].add(key, obj)
+
+    def unreflect(self, kind: str, key: str) -> None:
+        self.ksr.sources[getattr(km, kind).TYPE].delete(key)
+
+    def cni(self, command: str, i: int) -> str:
+        """A CNI ADD or DEL of pod ``i``: kubelet's exec of the shim over
+        the agent's socket on the card node, the CNI server's entry on
+        the twin. Returns the pod's address (ADD)."""
+        pid = k8s_pod(i)[0]
+        req = CNIRequest(container_id=f"c-pod{i}",
+                         netns=f"/var/run/netns/pod{i}", if_name="eth0",
+                         extra_args={"K8S_POD_NAMESPACE": pid.namespace,
+                                     "K8S_POD_NAME": pid.name})
+        if not self.card:
+            srv = self.agent.cni_server
+            reply = srv.add(req) if command == "ADD" else srv.delete(req)
+            if reply.result != 0:
+                raise AssertionError(f"twin CNI {command} pod{i}: {reply}")
+            return (reply.interfaces[0].ip_addresses[0].address.split("/")[0]
+                    if command == "ADD" else "")
+        env = {"CNI_COMMAND": command, "CNI_CONTAINERID": req.container_id,
+               "CNI_NETNS": req.netns, "CNI_IFNAME": req.if_name,
+               "CNI_ARGS": f"IgnoreUnknown=1;K8S_POD_NAMESPACE="
+                           f"{pid.namespace};K8S_POD_NAME={pid.name}"}
+        conf = {"cniVersion": cni_shim.CNI_VERSION, "name": "vpp-tpu",
+                "type": "vpp-tpu-torch-cni",
+                "grpcServer": self.agent.config.cni_socket}
+        out, code = cni_shim.run(env, json.dumps(conf).encode())
+        if code != 0:
+            raise AssertionError(f"CNI {command} pod{i}: {out}")
+        return json.loads(out)["ips"][0]["address"].split("/")[0] \
+            if command == "ADD" else ""
+
+    def publish_peers(self) -> None:
+        """The peer nodes in the store: ids, addresses and liveness
+        leases (the last peer's lease is the short one)."""
+        for k in range(AGENT_PEERS):
+            alloc = NodeIDAllocator(
+                self.agent.store, f"peer-{k}",
+                liveness_ttl_s=(AGENT_LEAVING_TTL_S if k == AGENT_PEERS - 1
+                                else AGENT_TTL_S))
+            peer = alloc.get_or_allocate()
+            ip = str(self.agent.ipam.node_ip_address(peer))
+            alloc.publish_ips(ip)
+            alloc.publish_liveness(ip)
+
+    def close(self) -> None:
+        self.ksr.close()
+        self.agent.close()
+
+
+def agent_vip_traffic(rng, n: int, dp: Dataplane, world: K8sWorld,
+                      r: int) -> dict:
+    """Pod to service: live pods to the cluster IPs on port 80, source
+    ports fresh every round."""
+    pids = sorted(world.pods)
+    a = rng.integers(0, len(pids), n)
+    svcs = sorted(world.services)
+    vip = np.array([ip4(world.services[s].cluster_ip) for s in svcs],
+                   np.uint32)[rng.integers(0, len(svcs), n)]
+    full = lambda v: np.full(n, v, np.int32)  # noqa: E731
+    return dict(
+        src_ip=np.array([ip4(world.pods[p][1]) for p in pids],
+                        np.uint32)[a],
+        dst_ip=vip, proto=full(6),
+        sport=(40000 + r * n + np.arange(n)).astype(np.int32),
+        dport=full(80), ttl=full(64), pkt_len=full(512),
+        rx_if=np.array([dp.pod_if[p] for p in pids], np.int32)[a],
+        flags=full(FLAG_VALID))
+
+
+def agent_replies(snap: dict) -> dict:
+    """The replies of a processed vector's forwarded packets (LOCAL or
+    REMOTE): endpoints swapped after NAT, received on the interface the
+    forward packet left by; the other lanes invalid."""
+    keep = np.isin(snap["disp"], (int(Disposition.LOCAL),
+                                  int(Disposition.REMOTE)))
+    n = keep.shape[0]
+    full = lambda v: np.full(n, v, np.int32)  # noqa: E731
+    return dict(src_ip=snap["pkts.dst_ip"].copy(),
+                dst_ip=snap["pkts.src_ip"].copy(), proto=full(6),
+                sport=snap["pkts.dport"].copy(),
+                dport=snap["pkts.sport"].copy(), ttl=full(64),
+                pkt_len=full(512),
+                rx_if=np.where(keep, snap["tx_if"], 0).astype(np.int32),
+                flags=np.where(keep, FLAG_VALID, 0).astype(np.int32))
+
+
+def agent_rungs(dp: Dataplane) -> dict:
+    """The rung each of the dataplane's ladders resolved."""
+    snap = dp.kernel_snapshot()
+    return {op: snap[op]["impl"] for op in ("classifier", "fib", "session")}
+
+
+def agent_traffic(rng, agent: ContivAgent, world: K8sWorld, r: int):
+    """A round's 4,096-packet vector: half pod to pod, a quarter pod to
+    service, a quarter from the uplink. Returns the columns, the pod
+    pairs of the first half and the destination pods of the uplink's
+    quarter."""
+    n = BIG_VEC
+    dp = agent.dataplane
+    pp, pairs = k8s_pod_traffic(rng, n // 2, dp, world, r)
+    vip = agent_vip_traffic(rng, n // 4, dp, world, r)
+    up, up_pods = k8s_uplink_traffic(
+        rng, n // 4, agent.uplink_if, world,
+        str(agent.ipam.node_ip_address()))
+    return ({f: np.concatenate([pp[f], vip[f], up[f]]) for f in pp},
+            pairs, up_pods)
+
+
+def agent_check(nodes, world: K8sWorld, r: int, seed: int, now: int,
+                kernels) -> dict:
+    """One round on both nodes (module doc, phase 4i): the vector and
+    its replies through each agent's ``dataplane.process``; results,
+    state planes and staged tables equal the twin's; the pod-to-pod and
+    uplink-to-pod verdicts the NetworkPolicy oracle's; the kernels of
+    the resolved rungs launched. Returns counts for the log."""
+    card, twin = nodes
+    rng = np.random.default_rng(seed + 104729 * r)
+    cols, pairs, up_pods = agent_traffic(rng, card.agent, world, r)
+    before = {k: WRAPPERS[k].launches for k in kernels}
+    snaps = {}
+    for node in nodes:
+        dp = node.agent.dataplane
+        res = dp.process(packet_vector_from_numpy(cols, dp.device), now=now)
+        node.agent.stats.update(res.stats)
+        snaps[node] = [snapshot(res)]
+    rep = agent_replies(snaps[twin][0])
+    for node in nodes:
+        dp = node.agent.dataplane
+        res = dp.process(packet_vector_from_numpy(rep, dp.device),
+                         now=now + 1)
+        node.agent.stats.update(res.stats)
+        snaps[node].append(snapshot(res))
+    _sync(card.agent.dataplane.device)
+    for k, (mine, want) in enumerate(zip(snaps[card], snaps[twin])):
+        assert_equal({f: v for f, v in mine.items() if f != "stats.fastpath"},
+                     want, f"agent round {r} step {k}")
+    assert_equal(state_of(card.agent.dataplane), state_of(twin.agent.dataplane),
+                 f"agent round {r} state")
+    staged = (card.agent.dataplane.builder.host_arrays(),
+              twin.agent.dataplane.builder.host_arrays())
+    for f in staged[1]:
+        if not np.array_equal(np.asarray(staged[0][f]),
+                              np.asarray(staged[1][f])):
+            raise AssertionError(f"agent round {r}: staged {f} differs")
+    launched = {k: WRAPPERS[k].launches - before[k] for k in kernels}
+    if any(v <= 0 for v in launched.values()):
+        raise AssertionError(f"agent round {r}: launches {launched}")
+    # the verdicts against the NetworkPolicy oracle
+    fwd = snaps[twin][0]
+    allowed = fwd["disp"] == int(Disposition.LOCAL)
+    memo = {}
+    denied = 0
+    for k, (src, dst) in enumerate(pairs):
+        key = (src, dst, int(cols["dport"][k]))
+        if key not in memo:
+            memo[key] = world.allowed(*key)
+        if memo[key] != bool(allowed[k]) or (
+                not memo[key] and fwd["drop_cause"][k] != DROP_ACL):
+            raise AssertionError(
+                f"agent round {r}: {src} -> {dst}:{key[2]} oracle "
+                f"{'allow' if memo[key] else 'deny'}, disp "
+                f"{int(fwd['disp'][k])} cause {int(fwd['drop_cause'][k])}")
+        denied += not memo[key]
+    base = 3 * BIG_VEC // 4
+    up_denied = up_held = 0
+    for j, dst in enumerate(up_pods):
+        if dst is None:
+            continue
+        k = base + j
+        src_ip = str(ipaddress.ip_address(int(cols["src_ip"][k])))
+        want = world.allowed_from(src_ip, dst, int(cols["dport"][k]))
+        if want != bool(allowed[k]) or (
+                not want and fwd["drop_cause"][k] != DROP_ACL):
+            raise AssertionError(
+                f"agent round {r}: uplink {src_ip} -> {dst}:"
+                f"{int(cols['dport'][k])} oracle "
+                f"{'allow' if want else 'deny'}, disp {int(fwd['disp'][k])}")
+        up_held += 1
+        up_denied += not want
+    return dict(pod_denied=denied, pod_allowed=len(pairs) - denied,
+                uplink_to_pods=up_held, uplink_to_pods_denied=up_denied,
+                dnat=int(fwd["stats.dnat"]),
+                reply_sess_hits=int(snaps[twin][1]["stats.sess_hits"]),
+                replies=int(np.count_nonzero(rep["flags"])),
+                launches=launched)
+
+
+def compared_exposition(text: str) -> list:
+    """The exposition lines phase 4i holds equal between the nodes."""
+    out = []
+    for line in text.splitlines():
+        name = (line.split(" ")[2] if line.startswith("# ")
+                else line.split("{")[0].split(" ")[0])
+        if name in AGENT_UNCOMPARED:
+            continue
+        if not line.startswith("#") and any(
+                name.startswith(h + "_") and not name.endswith("_count")
+                for h in AGENT_WALL_HISTOGRAMS):
+            continue
+        out.append(line)
+    return out
+
+
+def http_get(port: int, path: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as resp:
+        return resp.read().decode()
+
+
+def sample(text: str, name: str, **labels) -> float:
+    """The value of one exposition sample (labels given in full)."""
+    want = name + ("{" + ",".join(f'{k}="{v}"' for k, v in
+                                  sorted(labels.items())) + "}"
+                   if labels else "")
+    for line in text.splitlines():
+        if line.rsplit(" ", 1)[0] == want:
+            return float(line.rsplit(" ", 1)[1])
+    raise AssertionError(f"no sample {want}")
+
+
+def hist_quantile(text: str, name: str, q: float, **labels) -> float:
+    """``histogram_quantile`` of one exposed histogram series (seconds;
+    linear inside the bucket, as Prometheus interpolates)."""
+    lbl = ",".join(f'{k}="{v}"' for k, v in sorted(labels.items()))
+    rows = []
+    for line in text.splitlines():
+        m = re.match(rf'{name}_bucket\{{{lbl},le="([^"]+)"\}} (\S+)$', line)
+        if m:
+            rows.append((float(m.group(1)), float(m.group(2))))
+    total = rows[-1][1]
+    lo, below = 0.0, 0.0
+    for bound, cum in rows:
+        if cum >= q * total:
+            if bound == float("inf"):
+                return lo
+            return lo + (bound - lo) * (q * total - below) / max(
+                cum - below, 1.0)
+        lo, below = bound, cum
+    return lo
+
+
+def agent_commit(node: AgentNode, fn) -> dict:
+    """``fn(node)`` (one churn event), timed: its wall ms and the
+    epoch-swap spans it recorded."""
+    t0 = time.perf_counter()
+    fn(node)
+    _sync(node.agent.dataplane.device)
+    t1 = time.perf_counter()
+    swaps = [s for s in spans.RECORDER.entries()
+             if s.stage == "swap" and s.t0 >= t0 and s.t0 + s.duration <= t1]
+    return dict(commit_ms=(t1 - t0) * 1e3, swaps=len(swaps),
+                swap_ms=sum(s.duration for s in swaps) * 1e3)
+
+
+def agent_phase(cfg: DataplaneConfig, seed: int):
+    """Phase 4i (module doc). Returns (summary, launches)."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="vpp_tpu_torch_agent_")
+    root = Path(tmp.name)
+    (root / "card").mkdir()
+    (root / "twin").mkdir()
+    clock = [AGENT_NOW]
+    for w in WRAPPERS.values():
+        w.launches = 0
+    card = AgentNode(agent_config(cfg, root / "card", True), clock)
+    twin = AgentNode(agent_config(cfg, root / "twin", False), clock,
+                     device="cpu")
+    nodes = (card, twin)
+    say(f"agent boot: card {card.boot_ms:.1f} ms to serving, "
+        f"{card.boot_captures} captures; CPU twin {twin.boot_ms:.1f} ms")
+    world = K8sWorld([])
+    world.pods = {}
+    world.policies = dict(list(world.policies.items())[:AGENT_POLICIES])
+    for node in nodes:
+        for ns in world.namespaces():
+            node.reflect("Namespace", ns.name, ns)
+    # 110 pods through CNI (the card's through the shim), then their
+    # objects, the services, the peers and, last, the policies: every
+    # CNI add re-renders every policy
+    shim_ms = []
+    for i in range(AGENT_PODS):
+        t0 = time.perf_counter()
+        ip = card.cni("ADD", i)
+        shim_ms.append((time.perf_counter() - t0) * 1e3)
+        if twin.cni("ADD", i) != ip:
+            raise AssertionError(f"agent cni pod{i}: addresses differ")
+        pid, labels, _ = k8s_pod(i)
+        world.pods[pid] = (labels, ip)
+    if card.agent.dataplane.pod_if != twin.agent.dataplane.pod_if:
+        raise AssertionError("agent cni: interfaces differ from the twin's")
+    for node in nodes:
+        for pod in world.pod_objects():
+            node.reflect("Pod", f"{pod.namespace}/{pod.name}", pod)
+        for s in sorted(world.services):
+            svc = world.services[s]
+            node.reflect("Service", f"{svc.namespace}/{svc.name}", svc)
+            node.reflect("Endpoints", f"{svc.namespace}/{svc.name}",
+                         world.eps[s])
+        node.publish_peers()
+    t0 = time.perf_counter()
+    for pol in world.policies.values():
+        for node in nodes:
+            node.reflect("Policy", f"{pol.namespace}/{pol.name}", pol)
+    policy_s = time.perf_counter() - t0
+    rungs = {node: agent_rungs(node.agent.dataplane) for node in nodes}
+    kernels = tuple(sorted(RUNG_KERNELS[r] for r in rungs[card].items()
+                           if r in RUNG_KERNELS))
+    say(f"agent staged: {len(world.pods)} pods, {len(world.policies)} "
+        f"policies (both nodes in {policy_s:.1f} s), "
+        f"{len(world.services)} services, {AGENT_PEERS} peers; "
+        f"{json.dumps(k8s_staged(card.agent.dataplane))}; rungs "
+        f"{json.dumps(rungs[card])} -> kernels {list(kernels)}")
+    if rungs[twin] != rungs[card]:
+        raise AssertionError(f"agent: the twin resolved {rungs[twin]}")
+    rules = [n.agent.session_engine.num_rules for n in nodes]
+    for node in nodes:
+        if not node.agent.statuscheck.liveness()["ready"]:
+            raise AssertionError(f"agent: not ready after staging: "
+                                 f"{node.agent.statuscheck.plugin_status()}")
+    if rules[0] != rules[1]:
+        raise AssertionError(f"agent: session rules {rules}")
+    say(f"agent session rules: {rules[0]} (vpptcp renderer; the engine's "
+        f"default capacity is 4,096)")
+    text = http_get(card.agent.stats_http.port, "/stats")
+    cni = dict(p50_ms=hist_quantile(text, "vpp_tpu_cni_request_seconds",
+                                    0.5, op="add") * 1e3,
+               p99_ms=hist_quantile(text, "vpp_tpu_cni_request_seconds",
+                                    0.99, op="add") * 1e3,
+               count=sample(text, "vpp_tpu_cni_request_seconds_count",
+                            op="add"),
+               shim_p50_ms=float(np.percentile(shim_ms, 50)),
+               shim_p99_ms=float(np.percentile(shim_ms, 99)))
+    say(f"agent cni: {AGENT_PODS} adds through the shim: "
+        f"vpp_tpu_cni_request_seconds p50 {cni['p50_ms']:.3f} ms, p99 "
+        f"{cni['p99_ms']:.3f} ms (bucket-interpolated); shim exec-to-reply "
+        f"p50 {cni['shim_p50_ms']:.3f} ms, p99 {cni['shim_p99_ms']:.3f} ms")
+
+    def churn(kind: str, r: int):
+        if kind == "pod add":
+            pid, labels, _ = k8s_pod(AGENT_ADDED)
+            ips = {}
+
+            def fn(node):
+                ips[node] = ip = node.cni("ADD", AGENT_ADDED)
+                node.reflect("Pod", f"{pid.namespace}/{pid.name}", km.Pod(
+                    name=pid.name, namespace=pid.namespace, labels=labels,
+                    ip_address=ip))
+            row = agent_commit(card, fn)
+            fn(twin)
+            if ips[card] != ips[twin]:
+                raise AssertionError("agent pod add: addresses differ")
+            world.pods[pid] = (labels, ips[card])
+            return row
+        if kind == "pod delete":
+            pid = k8s_pod(AGENT_DELETED)[0]
+            del world.pods[pid]
+
+            def fn(node):
+                node.unreflect("Pod", f"{pid.namespace}/{pid.name}")
+                node.cni("DEL", AGENT_DELETED)
+        elif kind == "policy add":
+            pol = k8s_policies()[AGENT_POLICIES]
+            world.policies[(pol.namespace, pol.name)] = pol
+
+            def fn(node):
+                node.reflect("Policy", f"{pol.namespace}/{pol.name}", pol)
+        elif kind == "endpoints update":
+            eps = k8s_endpoints(AGENT_MOVED, gen=r)
+            world.eps[AGENT_MOVED] = eps
+
+            def fn(node):
+                node.reflect("Endpoints", f"{eps.namespace}/{eps.name}",
+                             eps)
+        elif kind == "peer leave":
+            def fn(node):
+                gone = node.agent.store.sweep_leases(
+                    now=time.monotonic() + AGENT_LEAVING_TTL_S + 1)
+                if gone != 1:
+                    raise AssertionError(f"peer leave: {gone} keys expired")
+        else:
+            raise ValueError(kind)
+        row = agent_commit(card, fn)
+        fn(twin)
+        return row
+
+    rounds = {}
+    now = AGENT_NOW
+    for r, kind in enumerate(AGENT_ROUNDS):
+        commit = churn(kind, r) if kind != "boot" else {}
+        now += 10
+        clock[0] = now
+        rounds[kind] = dict(commit, **agent_check(nodes, world, r, seed,
+                                                  now, kernels))
+        say(f"agent round {kind}: {json.dumps(rounds[kind])}")
+    if not any(v["reply_sess_hits"] for v in rounds.values()):
+        raise AssertionError("agent: no reply hit a session")
+    # the surface: a maintenance tick on each, the card's pages over HTTP
+    for node in nodes:
+        node.agent.maintenance_tick()
+    t0 = time.perf_counter()
+    text = http_get(card.agent.stats_http.port, "/stats")
+    scrape_ms = (time.perf_counter() - t0) * 1e3
+    ready = json.loads(http_get(card.agent.health_http.port, "/readiness"))
+    mine = compared_exposition(text)
+    want = compared_exposition(twin.agent.stats.registry.render("/stats"))
+    if mine != want:
+        diff = sorted(set(mine) ^ set(want))[:6]
+        raise AssertionError(f"agent exposition differs from the twin's: "
+                             f"{diff}")
+    active = sample(text, "vpp_tpu_node_sessions_active")
+    if active <= 0 or not ready.get("ready"):
+        raise AssertionError(f"agent surface: sessions {active}, "
+                             f"readiness {ready}")
+    families = text.count("# TYPE ")
+    metrics = dict(scrape_ms=scrape_ms, bytes=len(text.encode()),
+                   families=families, sessions_active=active,
+                   compared_lines=len(mine))
+    say(f"agent metrics: GET /stats {scrape_ms:.2f} ms, {metrics['bytes']} "
+        f"bytes, {families} families, {len(mine)} lines equal to the "
+        f"twin's (left out: {sorted(AGENT_UNCOMPARED)} and the _bucket / "
+        f"_sum lines of {list(AGENT_WALL_HISTOGRAMS)}); sessions active "
+        f"{active:g}; readiness {json.dumps(ready)}")
+    # restart to warm: close with a parting snapshot, boot on the same
+    # store file and snapshot directory with the rings and a pump
+    dp = card.agent.dataplane
+    closing_pods = dict(dp.pod_if)
+    closing_index = sorted((c.container_id, c.ip, c.if_index) for c in
+                           card.agent.container_index.load_persisted())
+    last_rep = agent_replies(snapshot(dp.process(
+        packet_vector_from_numpy(agent_traffic(
+            np.random.default_rng(seed), card.agent, world, 99)[0],
+            dp.device),
+        now=now + 5)))
+    times = {}
+
+    def timed(obj, name: str, key: str) -> None:
+        fn = getattr(obj, name)
+
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                _sync(dev)
+                times[key] = (time.perf_counter() - t) * 1e3
+        setattr(obj, name, wrapper)
+
+    dev = dp.device
+    timed(card.agent.snapshotter, "final_snapshot", "snapshot_write_ms")
+    closing = state_of(dp)
+    t0 = time.perf_counter()
+    card.close()
+    times["close_ms"] = (time.perf_counter() - t0) * 1e3
+    manifest = json.loads((root / "card" / "snaps" /
+                           snapshot_mod.MANIFEST).read_text())
+    clock2 = [5]
+    cfg_io = agent_config(cfg, root / "card", True, io=True)
+    t1 = time.perf_counter()
+    agent = ContivAgent(cfg_io)
+    agent.session_engine.capacity = AGENT_SESSION_RULES
+    agent.dataplane.clock_ticks = lambda: clock2[0]
+    timed(agent.snapshotter, "restore_into", "restore_ms")
+    timed(agent.cni_server, "resync", "resync_ms")
+    agent.start()
+    _sync(dev)
+    times["boot_ms"] = (time.perf_counter() - t1) * 1e3
+    times["close_to_warm_ms"] = (time.perf_counter() - t0) * 1e3
+    try:
+        # the session columns (the sweep cursors moved: the pump's
+        # warm-up steps each dispatch rung once)
+        got = state_of(agent.dataplane)
+        for f, v in closing.items():
+            if f.endswith("_sweep_cursor"):
+                continue
+            want_v = (v - np.int32(manifest["now"]) if f.endswith("_time")
+                      else v)
+            if not np.array_equal(got[f], want_v):
+                raise AssertionError(f"agent restart: {f} differs from "
+                                     f"the planes at close")
+        # the same pods on the same addresses, each on the interface its
+        # persisted record names; the resync re-adds the pods in index
+        # order, so a slot freed before the restart renumbers the pods
+        # after it (the reference's resync does the same)
+        live = agent.dataplane.pod_if
+        persisted = agent.container_index.load_persisted()
+        index = sorted((c.container_id, c.ip) for c in persisted)
+        if set(live) != set(closing_pods) or index != [
+                (cid, ip) for cid, ip, _ in closing_index] or any(
+                live[(c.pod_namespace, c.pod_name)] != c.if_index
+                for c in persisted):
+            raise AssertionError("agent restart: the CNI resync gave back "
+                                 "other pods, addresses or interfaces")
+        renumbered = sum(live[p] != closing_pods[p] for p in live)
+        new_if = {closing_pods[p]: live[p] for p in live}
+        last_rep["rx_if"] = np.array([new_if.get(int(i), int(i))
+                                      for i in last_rep["rx_if"]], np.int32)
+        res = agent.dataplane.process(
+            packet_vector_from_numpy(last_rep, agent.dataplane.device),
+            now=clock2[0])
+        hits, valid = int(res.stats.sess_hits), int(np.count_nonzero(
+            last_rep["flags"]))
+        if hits != valid:
+            raise AssertionError(f"agent restart: {hits} of {valid} replies "
+                                 f"hit a session")
+        # one round of frames through the rings and the pump
+        before = {k: WRAPPERS[k].launches for k in kernels}
+        rng = np.random.default_rng(seed + 7)
+        fwd, pairs, _ = agent_traffic(rng, agent, world, 100)
+        frames = ring_frames(fwd)
+        tx = []
+        wall = exchange(agent.io_rings, frames, tx)
+        ring_launched = {k: WRAPPERS[k].launches - before[k]
+                         for k in kernels}
+        verdicts = np.concatenate([f["disp"][:k] for f, k in tx])
+        if len(tx) != len(frames) or verdicts.shape[0] != BIG_VEC:
+            raise AssertionError("agent rings: frames lost")
+        for k, (src, dst) in enumerate(pairs):
+            if world.allowed(src, dst, int(fwd["dport"][k])) != (
+                    verdicts[k] == int(Disposition.LOCAL)):
+                raise AssertionError(f"agent rings: {src} -> {dst} "
+                                     f"verdict {int(verdicts[k])} is not "
+                                     f"the oracle's")
+        agent.maintenance_tick()
+        text = http_get(agent.stats_http.port, "/stats")
+        pumped = sample(text, "vpp_tpu_pump_frames")
+        if pumped < len(frames) or sample(text, "vpp_tpu_pump_packets") \
+                < BIG_VEC or any(v <= 0 for v in ring_launched.values()):
+            raise AssertionError(f"agent rings: pump frames {pumped}, "
+                                 f"launches {ring_launched}")
+        restart = dict(times, sess_hits=hits, replies=valid,
+                       pods=len(live), renumbered=renumbered,
+                       frames=len(frames), ring_wall_ms=wall * 1e3,
+                       pump_frames=pumped, ring_launches=ring_launched,
+                       snapshot_now=int(manifest["now"]),
+                       generation=int(manifest["generation"]))
+        say(f"agent restart: close to serving warm {times['close_to_warm_ms']:.1f} ms "
+            f"(snapshot write {times['snapshot_write_ms']:.1f} ms in close "
+            f"{times['close_ms']:.1f} ms; boot {times['boot_ms']:.1f} ms: "
+            f"restore {times['restore_ms']:.1f} ms, CNI resync "
+            f"{times['resync_ms']:.1f} ms); {len(live)} pods on their "
+            f"addresses ({renumbered} renumbered); {hits} of {valid} "
+            f"replies hit "
+            f"their restored sessions; {len(frames)} frames through the rings "
+            f"in {wall * 1e3:.1f} ms, vpp_tpu_pump_frames {pumped:g}")
+    finally:
+        agent.close()
+        twin.close()
+    _sync(dev)
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    tmp.cleanup()
+    summary = dict(boot_ms=card.boot_ms, boot_captures=card.boot_captures,
+                   cni=cni, rounds=rounds, metrics=metrics, restart=restart,
+                   kernels=list(kernels), launches=launches,
+                   seconds=time.perf_counter() - t_phase)
+    say(f"phase 4i: {summary['seconds']:.1f} s; launches {launches}")
+    return summary, launches
+
+
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -4670,6 +5363,10 @@ def main(argv=None) -> int:
     # 4h. Kubernetes state down to the card: the policy and service
     # pipelines, the device renderer, the journal, on both classifiers
     k8s_sum, k8s_launches = k8s_phase(cfg, mcfg, args.seed)
+
+    # 4i. the node agent on the card: CNI, KSR, the exposition, a warm
+    # restart through the rings, against a CPU twin agent
+    agent_sum, agent_launches = agent_phase(cfg, args.seed)
     graphs = check_graphs({"pallas": [gpu, cap_p], "mxu": [gpu_m, cap_m],
                            "pallas+ml": [ml_p], "mxu+ml": [ml_m],
                            "pallas+tnt": [tnt_p], "mxu+tnt": [tnt_m]})
@@ -4883,6 +5580,7 @@ def main(argv=None) -> int:
         row["launches_pump"] = {cell: n[name]
                                 for cell, n in pump_launches.items()}
         row["launches_control_plane"] = k8s_launches[name]
+        row["launches_agent"] = agent_launches[name]
         if name == "sess_probe_ways":
             row["tenant_form"] = {f"P={n}": timed[("sess_probe_ways.tenant",
                                                    n)] for n in (VEC, BIG_VEC)}
@@ -4931,6 +5629,7 @@ def main(argv=None) -> int:
                     "upload_snapshot": ups_sum,
                     "io_pump": pump_sum,
                     "control_plane": k8s_sum,
+                    "agent": agent_sum,
                     "captures": graphs, "power": smi}))
     if any(n != 1 for n in capture.capture_counts().values()):
         raise AssertionError("the timing captured a key again")

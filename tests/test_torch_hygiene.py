@@ -1,15 +1,18 @@
 """Package hygiene of vpp_tpu_torch: what it imports and where it runs.
 
 * An AST scan of every module of ``vpp_tpu_torch`` (the IO pump's
-  ``io/``, ``native/`` and ``net/``, and the control plane's ``ksr/``,
-  ``policy/``, ``renderer/``, ``service/`` and ``trace/`` included) and
-  of ``chip_smoke.py``
+  ``io/``, ``native/`` and ``net/``, the control plane's ``ksr/``,
+  ``policy/``, ``renderer/``, ``service/`` and ``trace/``, and the node
+  agent's ``cmd/``, ``cni/``, ``kvstore/``, ``stats/``, ``health/``,
+  ``hoststack/``, ``agent/`` and ``ipam/`` included) and of
+  ``chip_smoke.py``
   finds no import of ``jax`` nor of the JAX package ``vpp_tpu`` (the
   module itself or any ``vpp_tpu.`` submodule; the port's own
   ``vpp_tpu_torch`` is of course allowed).
 * The entry points run on the card unless the caller asks for the CPU:
-  with no CUDA device, ``Dataplane(cfg)`` and ``TableBuilder(cfg)``
-  raise instead of running on the CPU.
+  with no CUDA device, ``Dataplane(cfg)``, ``TableBuilder(cfg)``,
+  ``SessionRuleEngine()``, ``ContivAgent()`` and the agent's command
+  line raise instead of running on the CPU.
 * On CPU tensors every kernel wrapper serves through its plain version:
   a CPU run of the fused-kernel rungs leaves each launch counter at 0.
 * Every stage knob is ported (the ML stage, telemetry, tenancy, the
@@ -19,6 +22,11 @@
   ported knobs) names its ``ROADMAP.md`` Queue 1 item, number and
   title. The ring form and its telemetry rider run under every knob:
   tests/test_torch_persistent.py holds them against the reference.
+* Every agent value that reaches a module not ported yet (a remote
+  store, the CLI socket, the IO daemon's control socket and host
+  interconnect, the VCL socket, an ML model artifact, the mesh) raises
+  ``NotImplementedError`` naming its ROADMAP item before the agent
+  starts a thread, writes to its store or touches a device.
 
 Every quantity compared is an integer: the tolerance is exact equality.
 """
@@ -75,9 +83,14 @@ def test_scan_sees_the_whole_package():
             "persistent.py", "backoff.py", "ring.py", "pktio.py",
             "table.py", "spans.py", "tracer.py", "cache.py", "config.py",
             "processor.py", "configurator.py", "api.py", "tpu.py",
-            "txn.py"} <= names
+            "txn.py", "agent.py", "config.py", "ksr_main.py", "store.py",
+            "proxy.py", "node_id.py", "ipam.py", "containeridx.py",
+            "transport.py", "shim.py", "server.py", "statuscheck.py",
+            "stn.py", "prometheus.py", "collector.py", "session_rules.py",
+            "vpptcp.py", "reflector.py"} <= names
     for sub in ("io", "native", "net", "ksr", "policy", "renderer",
-                "service", "trace"):
+                "service", "trace", "cmd", "cni", "kvstore", "stats",
+                "health", "hoststack", "agent", "ipam"):
         assert (ROOT / "vpp_tpu_torch" / sub / "__init__.py") in PORT_FILES
     assert (ROOT / "vpp_tpu_torch" / "ml" / "model.py") in PORT_FILES
     assert all(p.exists() for p in PORT_FILES)
@@ -119,8 +132,21 @@ def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch):
         ttables.TableBuilder(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         ttables.resolve_device(None)
+    from vpp_tpu_torch.cmd import agent as tagent
+    from vpp_tpu_torch.hoststack import SessionRuleEngine
+    from vpp_tpu_torch.kvstore import KVStore
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SessionRuleEngine()
+    store = KVStore()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tagent.ContivAgent(store=store)
+    assert store.revision == 0, "the agent wrote to its store first"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tagent.main([])
     # asking for the CPU is allowed
     assert tdp.Dataplane(cfg, device="cpu").device.type == "cpu"
+    assert SessionRuleEngine(device="cpu").device.type == "cpu"
 
 
 def test_default_device_is_the_card(monkeypatch):
@@ -164,7 +190,9 @@ def _queue1_titles():
 def _refusal(kind, arg):
     """The NotImplementedError message of one remaining refusal."""
     with pytest.raises(NotImplementedError) as err:
-        if kind == "ml":
+        if kind == "agent":
+            _agent_refusal(arg)
+        elif kind == "ml":
             pkts = tvector.make_packet_vector([], n=8)
             t = tdp.Dataplane(ttables.DataplaneConfig(**_SMALL),
                               device="cpu").tables
@@ -194,7 +222,55 @@ def _refusal(kind, arg):
     return str(err.value)
 
 
+# the agent's refused values: (AgentConfig keyword arguments, other
+# ContivAgent arguments)
+_AGENT_REFUSED = {
+    "store_url": ({"store_url": "tcp://127.0.0.1:12379"}, {}),
+    "cli_socket": ({"cli_socket": "/run/vpp-tpu/cli.sock"}, {}),
+    "io.control_socket": ({"io": {"control_socket": "/run/io.sock"}}, {}),
+    "io.host_interconnect": ({"io": {"host_interconnect": True}}, {}),
+    "vcl_socket": ({"vcl_socket": "/run/vcl.sock"}, {}),
+    "ml_model_path": ({"ml_model_path": "/models/m.json",
+                       "dataplane": {"ml_stage": "score"}}, {}),
+    "mesh.enabled": ({"mesh": {"enabled": True}}, {}),
+    "dataplane": ({}, {"dataplane": "mesh node handle"}),
+    "mesh_node_resolver": ({}, {"mesh_node_resolver": lambda n: n}),
+}
+
+
+def _agent_refusal(arg):
+    """One refused agent value, or another refused seam of the slice."""
+    from vpp_tpu_torch.cmd import AgentConfig, ContivAgent
+    from vpp_tpu_torch.cmd import ksr_main
+    from vpp_tpu_torch.kvstore import KVStore, connect_store
+
+    if arg == "ksr --kubeconfig":
+        ksr_main.main(["--kubeconfig", "/etc/kubeconfig"])
+    elif arg == "connect_store":
+        connect_store("tcp://127.0.0.1:12379")
+    elif arg == "cni wirer":
+        from vpp_tpu_torch.cni import RemoteCNIServer
+
+        RemoteCNIServer(None, None, wirer=object())
+    elif arg in ("set_cluster", "set_fleet", "set_vcl"):
+        from vpp_tpu_torch.stats import StatsCollector
+
+        coll = StatsCollector(tdp.Dataplane(ttables.DataplaneConfig(
+            **_SMALL), device="cpu"))
+        getattr(coll, arg)(object())
+    else:
+        cfg, kw = _AGENT_REFUSED[arg]
+        ContivAgent(AgentConfig.from_dict(dict(
+            {"serve_http": False}, **cfg)), store=KVStore(),
+            device="cpu", **kw)
+
+
 _REFUSALS = {
+    # the node agent's slice (ROADMAP Queue 1 items 12 and 10)
+    **{f"agent-{k}": ("agent", k) for k in _AGENT_REFUSED},
+    **{f"agent-{k}": ("agent", k) for k in (
+        "ksr --kubeconfig", "connect_store", "cni wirer", "set_cluster",
+        "set_fleet", "set_vcl")},
     # every stage knob and step form is ported; what is still refused:
     # the sharded (mesh) forms, also under each knob ported since
     "ml_stage": ("ml", "shard"),
@@ -217,6 +293,28 @@ def test_refusals_name_their_roadmap_item(case):
     titles = _queue1_titles()
     for n, title in cited:
         assert titles.get(int(n)) == title, (msg, titles)
+
+
+@pytest.mark.parametrize("value", sorted(_AGENT_REFUSED))
+def test_unported_agent_values_refuse(value, monkeypatch):
+    """Each refused agent value raises ``NotImplementedError`` naming the
+    module it waits for before the agent starts: no thread, no store
+    write, no device (it refuses the same on a machine without a card,
+    where resolving the device would raise instead)."""
+    import threading
+
+    from vpp_tpu_torch.cmd import AgentConfig, ContivAgent
+    from vpp_tpu_torch.kvstore import KVStore
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, kw = _AGENT_REFUSED[value]
+    store = KVStore()
+    threads = threading.active_count()
+    with pytest.raises(NotImplementedError, match=value.split(".")[-1]):
+        ContivAgent(AgentConfig.from_dict(dict({"serve_http": True}, **cfg)),
+                    store=store, **kw)
+    assert store.revision == 0 and store.dump()["data"] == {}
+    assert threading.active_count() == threads
 
 
 def test_no_citation_of_a_done_roadmap_item():
@@ -494,3 +592,28 @@ def test_ml_launch_arguments_match_the_c_declaration(kind, monkeypatch):
                       glb_ml_w2=torch.zeros(3000, dtype=torch.int8))
     with pytest.raises(ValueError, match="shared memory"):
         tml.ml_launch_args(wide, pkts, valid, valid, pkts.proto, "mlp")
+
+
+def test_packaging_names_the_port():
+    """pyproject.toml ships the port's kernel and native sources and
+    names its node processes; each console script resolves to a
+    callable entry point."""
+    import fnmatch
+    import importlib
+    import tomllib
+
+    cfg = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    globs = cfg["tool"]["setuptools"]["package-data"]["vpp_tpu_torch"]
+    pkg = ROOT / "vpp_tpu_torch"
+    sources = [p.relative_to(pkg).as_posix() for p in
+               sorted(pkg.glob("csrc/*.cu*")) + sorted(pkg.glob("native/*.cpp"))]
+    assert {"native/frame_ring.cpp", "native/pkt_io.cpp"} <= set(sources)
+    for src in sources:
+        assert any(fnmatch.fnmatch(src, g) for g in globs), src
+    scripts = {k: v for k, v in cfg["project"]["scripts"].items()
+               if v.startswith("vpp_tpu_torch.")}
+    assert set(scripts) == {"vpp-tpu-torch-agent", "vpp-tpu-torch-ksr",
+                            "vpp-tpu-torch-cni"}
+    for target in scripts.values():
+        mod, fn = target.split(":")
+        assert callable(getattr(importlib.import_module(mod), fn))

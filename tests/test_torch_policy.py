@@ -7,9 +7,9 @@ packet verdicts that follow are compared lane for lane:
 * the scenarios of ``tests/test_policy_e2e.py``, run as written through
   both packages (``run_case`` rebinds a reference test's module-level
   names to one package), with every ``process`` result logged and the
-  two logs held equal; the parallel-commit case, whose reference form
-  needs the vpptcp renderer of the agent's slice, runs two device
-  renderers in parallel on the port;
+  two logs held equal; the parallel-commit case runs in its reference
+  form (the device renderer beside the vpptcp renderer, both
+  committing from worker threads) and with two device renderers;
 * the random differential of ``tests/test_policy_differential.py``
   (seeds 1, 7, 23) against its ``k8s_allowed`` oracle and against the
   reference;
@@ -203,11 +203,18 @@ def test_policy_e2e_scenarios(case):
 
 
 def test_parallel_renderer_commits():
+    """The reference's parallel-commit case as written, on the port: the
+    device renderer and the vpptcp renderer commit from worker threads;
+    the device tables deny port 9999 and the session rules exist."""
+    from test_torch_agent import port_case
+
+    port_case(je2e, "test_parallel_renderer_commits")
+
+
+def test_parallel_commits_two_device_renderers():
     """``parallel_commits``: two device renderers (two dataplanes) commit
     from worker threads and land the same tables as the serial path;
-    the verdict is the reference's (DROP: port 9999 is not admitted;
-    its form of this case pairs the device renderer with the vpptcp
-    one)."""
+    the verdict is the reference's (DROP: port 9999 is not admitted)."""
     web1, db = trule.PodID("default", "web1"), trule.PodID("default", "db")
     ips = {web1: "10.1.1.2", db: "10.1.1.4"}
     labels = {web1: {"app": "web"}, db: {"app": "db"}}

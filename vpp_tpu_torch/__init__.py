@@ -13,3 +13,5 @@ CUDA kernels for Hopper (``csrc/``).
 The package imports torch and numpy only — never jax, never vpp_tpu.
 Entry points run on the card unless the caller asks for the CPU.
 """
+
+__version__ = "0.1.0"

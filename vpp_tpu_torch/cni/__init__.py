@@ -1,0 +1,23 @@
+"""CNI subsystem: the pod-wiring path of the framework.
+
+Reference analogs: the contiv plugin's remoteCNIserver
+(plugins/contiv/remote_cni_server.go), the containeridx persisted index
+(plugins/contiv/containeridx), and the contiv-cni shim executable
+(cmd/contiv-cni/contiv_cni.go). kubelet invokes the shim per pod
+sandbox; the shim forwards Add/Delete to the node agent's CNI server,
+which allocates an IP (IPAM), wires a dataplane interface + route, and
+persists the container config for restart resync.
+"""
+
+from vpp_tpu_torch.cni.containeridx import ContainerConfig, ContainerIndex
+from vpp_tpu_torch.cni.model import CNIReply, CNIRequest, ResultCode
+from vpp_tpu_torch.cni.server import RemoteCNIServer
+
+__all__ = [
+    "CNIReply",
+    "CNIRequest",
+    "ContainerConfig",
+    "ContainerIndex",
+    "RemoteCNIServer",
+    "ResultCode",
+]

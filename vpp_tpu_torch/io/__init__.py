@@ -7,7 +7,7 @@ The port's counterpart of ``vpp_tpu/io``: the shared-memory frame rings
 ladder and the persistent ring, pipeline/persistent.py), the latency
 governor and priority lane (``LatencyGovernor``, ``PriorityFilter``) and
 host ICMP error generation (io/icmp.py). The IO daemon and its
-transports belong to the agent's slice.
+transports are not ported yet (ROADMAP Queue 1 item 12).
 """
 
 from vpp_tpu_torch.io.governor import LatencyGovernor, PriorityFilter

@@ -1,10 +1,26 @@
-"""The Kubernetes object model the control plane consumes.
+"""KSR — K8s State Reflector: mirrors cluster state into the kvstore.
 
-A copy of the reference's ``vpp_tpu/ksr/model.py`` (pods, namespaces,
-network policies, services, endpoints, nodes). The reflector and the
-Kubernetes client belong to the agent and are not here.
+The port's copy of ``vpp_tpu/ksr``: the Kubernetes object model the
+control plane consumes (``model.py``: pods, namespaces, network
+policies, services, endpoints, nodes) and the generic reflector engine
+(``reflector.py``: list-watch sources into the store's
+``k8s/<type>/...`` keyspace, with mark-and-sweep resync). The
+Kubernetes API client (``k8s_client.py``) is not ported yet (ROADMAP
+Queue 1 item 12).
 """
 
 from vpp_tpu_torch.ksr import model
+from vpp_tpu_torch.ksr.reflector import (
+    MockK8sListWatch,
+    Reflector,
+    ReflectorRegistry,
+    make_standard_reflectors,
+)
 
-__all__ = ["model"]
+__all__ = [
+    "model",
+    "MockK8sListWatch",
+    "Reflector",
+    "ReflectorRegistry",
+    "make_standard_reflectors",
+]
