@@ -243,6 +243,37 @@ raises on failure:
    own), ``agent round <churn>`` (the commit and its epoch swaps),
    ``agent metrics`` (the scrape) and ``agent restart`` (close to
    serving warm: the snapshot write, the restore, the CNI resync);
+4j. the agent's remote surfaces: phase 4i's two nodes (110 pods, 16
+   policies, 64 services, 15 peers, the agent's default ladders), each
+   keeping its state in a store pair of its own — a primary
+   ``KVServer`` and a standby following it, each under an
+   ``HaCoordinator`` fenced by a ``QuorumWitness``, on localhost; the
+   agent's ``store_url`` names both (the card's through relays whose
+   links can be cut) — with ``ml_stage: enforce`` and an MLP artifact
+   written by ``vpp-tpu-torch-ml-train`` in its own process, the card's
+   debug CLI on a socket. KSR reads a fake API server (stdlib HTTP,
+   bearer token from a kubeconfig) through ``make_k8s_sources``: the
+   world by list, the policies and then the churns as watch events (a
+   pod add, a policy add, an endpoints update hidden by a dropped
+   stream that must re-list and diff). After every step the card's
+   results, state planes and staged tables equal the twin's and the
+   verdicts the NetworkPolicy oracle's (phase 4i's round). A corrupt
+   artifact is refused (v1 keeps serving, ``vpp_tpu_degraded{component=
+   "ml"}`` 1), a v2 loads with no capture. ``vpp-tpu-torch-ctl`` runs
+   ``show interface / sessions / kernels / ml / store / resilience``,
+   ``trace add 8`` and ``show trace`` and two ``test connectivity``
+   probes (a denied and an allowed pod pair, each the oracle's
+   verdict) on the card's socket: each text equals the twin's CLI but
+   for ``REMOTE_CLI_DIFFERS``. Then the card's links are cut (``show
+   resilience`` reads the kvstore degraded, packets keep flowing on the
+   last epoch), both primaries die, their standbys promote through the
+   witnesses, the card's link to its standby heals and a policy added
+   after commits on both nodes. Last, ``profile_stages`` (``show run``)
+   on phase 4's dataplane at P = 256 and 4,096. Printed: ``remote
+   boot``, ``remote staged`` (list and watch ms), ``remote round
+   <kind>``, ``remote ml``, ``remote cli`` (round trip ms per command),
+   ``remote failover`` (primary down -> standby writable -> the card's
+   first commit), ``remote commits`` and the ``show run`` tables;
 5. timing with CUDA events: ms per ``process`` step and Mpps (valid
    packets per device second) at P = 256 and 4,096, captured and eager,
    and a ``torch.profiler`` window per size (device operations, graph
@@ -4614,9 +4645,14 @@ class AgentNode:
         _sync(dp.device)
         self.boot_ms = (time.perf_counter() - t0) * 1e3
         self.boot_captures = sum(capture.capture_counts().values()) - before
-        self.ksr = KsrAgent(store=self.agent.store, serve_http=False)
-        self.ksr.start()
         self.card = config.serve_http
+        self.ksr = self.start_ksr()
+
+    def start_ksr(self):
+        """KSR with mock Kubernetes sources on the agent's store."""
+        ksr = KsrAgent(store=self.agent.store, serve_http=False)
+        ksr.start()
+        return ksr
 
     def reflect(self, kind: str, key: str, obj) -> None:
         self.ksr.sources[getattr(km, kind).TYPE].add(key, obj)
@@ -5182,6 +5218,859 @@ def agent_phase(cfg: DataplaneConfig, seed: int):
     return summary, launches
 
 
+# --- phase 4j: the agent's remote surfaces on the card -----------------
+
+REMOTE_TTL_S = 2.0            # the witness lease of a store pair's primary
+REMOTE_PROMOTE_S = 0.5        # a standby's claims start after this
+REMOTE_WAIT_S = 120.0         # the longest a convergence may take
+REMOTE_TOKEN = "smoke-token"  # the kubeconfig's bearer token
+REMOTE_ADDED = 110            # the pod the pod-add round creates
+REMOTE_MOVED = 5              # the service the dropped stream moves
+REMOTE_RUNS = 20              # show run calls per row
+# the kernels phase 4j must launch: the agents' ML stage, beside their
+# rungs' (RUNG_KERNELS); and, with show run on phase 4's dataplane, these
+REMOTE_ML_KERNELS = ("ml_score",)
+REMOTE_KERNELS = ("sess_probe_ways", "bv_first_set", "lpm_fused_lookup",
+                  "ml_score")
+# the CLI commands phase 4j runs on both nodes, in order; `trace add 8`
+# arms the tracer the next round's first step fills
+REMOTE_CLI = ("show interface", "show sessions", "show kernels", "show ml",
+              "show store", "show resilience", "trace add 8")
+# (command, line prefix) -> why the card's line may differ from the twin's
+REMOTE_CLI_DIFFERS = {
+    ("show kernels", "kernel implementation ladders"):
+        "names the device: the card, the twin's cpu",
+    ("show store", "connected:"): "each node's own store endpoint and "
+                                  "ping time",
+    ("show store", "  endpoint"): "each node's own store endpoints",
+    ("show store", "revision:"): "the card agent's maintenance thread "
+                                 "writes on its own timer (liveness)",
+}
+
+
+class Relay:
+    """A TCP forwarder standing in for the link between a node and one
+    store server: ``cut`` resets every stream and stops listening, so a
+    connect is refused (a partition, both ends alive); ``heal`` listens
+    on the same port again."""
+
+    def __init__(self, target_port: int):
+        import threading
+
+        self.target_port = target_port
+        self._socks = set()
+        self._lock = threading.Lock()
+        self.port = 0
+        self._listen()
+
+    def _listen(self) -> None:
+        import socket
+        import threading
+
+        ls = socket.socket()
+        ls.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        ls.bind(("127.0.0.1", self.port))
+        ls.listen(16)
+        self.port = ls.getsockname()[1]
+        self._ls = ls
+        threading.Thread(target=self._accept_loop, args=(ls,),
+                         daemon=True).start()
+
+    def _accept_loop(self, ls) -> None:
+        import socket
+        import threading
+
+        while True:
+            try:
+                a, _ = ls.accept()
+            except OSError:
+                return
+            try:
+                b = socket.create_connection(
+                    ("127.0.0.1", self.target_port), timeout=5)
+                b.settimeout(None)  # an idle link is not a dead one
+            except OSError:
+                a.close()
+                continue
+            with self._lock:
+                self._socks.update((a, b))
+            for src, dst in ((a, b), (b, a)):
+                threading.Thread(target=self._pump, args=(src, dst),
+                                 daemon=True).start()
+
+    @staticmethod
+    def _pump(src, dst) -> None:
+        try:
+            while True:
+                data = src.recv(65536)
+                if not data:
+                    break
+                dst.sendall(data)
+        except OSError:
+            pass
+        finally:
+            for s in (src, dst):
+                try:
+                    s.close()
+                except OSError:
+                    pass
+
+    def cut(self) -> None:
+        import socket
+
+        try:  # wakes the blocked accept: a bare close would not
+            self._ls.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self._ls.close()
+        with self._lock:
+            socks, self._socks = self._socks, set()
+        for s in socks:
+            try:
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                             b"\x01\x00\x00\x00\x00\x00\x00\x00")
+                s.close()  # RST: both ends learn at once
+            except OSError:
+                pass
+
+    def heal(self) -> None:
+        self._listen()
+
+    def close(self) -> None:
+        self.cut()
+
+
+class StorePair:
+    """One node's cluster store: a primary ``KVServer`` and a standby
+    following it (``Replicator``), each under an ``HaCoordinator`` fenced
+    by a ``QuorumWitness``, all on localhost. ``url`` names both
+    endpoints (through ``Relay`` links when ``relayed``: the node's side
+    of the network can be cut)."""
+
+    def __init__(self, root: Path, relayed: bool):
+        from vpp_tpu_torch.kvstore.replica import HaCoordinator
+        from vpp_tpu_torch.kvstore.server import KVServer
+        from vpp_tpu_torch.kvstore.witness import QuorumWitness
+
+        root.mkdir(parents=True, exist_ok=True)
+        self.witness = QuorumWitness(
+            persist_path=str(root / "witness.json")).start()
+        self.servers, self.ha = [], []
+        for role in ("primary", "standby"):
+            srv = KVServer(host="127.0.0.1", port=0,
+                           persist_path=str(root / f"{role}.json")).start()
+            follow = (f"127.0.0.1:{self.servers[0].port}"
+                      if role == "standby" else None)
+            self.ha.append(HaCoordinator(
+                srv, self.witness.address, f"127.0.0.1:{srv.port}",
+                fence_ttl=REMOTE_TTL_S, promote_after=REMOTE_PROMOTE_S,
+                follow=follow).start())
+            self.servers.append(srv)
+        ports = [s.port for s in self.servers]
+        self.relays = [Relay(p) for p in ports] if relayed else []
+        self.direct_url = "tcp://" + ",".join(f"127.0.0.1:{p}" for p in ports)
+        self.url = ("tcp://" + ",".join(f"127.0.0.1:{r.port}"
+                                        for r in self.relays)
+                    if relayed else self.direct_url)
+
+    def kill_primary(self) -> None:
+        self.ha[0].stop()
+        self.servers[0].close()
+
+    def writable(self) -> bool:
+        repl = self.ha[1].replicator
+        return (repl is not None and repl.promoted.is_set()
+                and not self.servers[1].read_only)
+
+    def close(self) -> None:
+        for r in self.relays:
+            r.close()
+        for ha, srv in zip(self.ha, self.servers):
+            ha.stop()
+            srv.close()
+        self.witness.close()
+
+
+class FakeApiServer:
+    """A Kubernetes API server for KSR's list-watch sources (stdlib
+    ``ThreadingHTTPServer``): a list GET answers from ``objects`` at
+    resource version ``rv``; a watch GET streams chunked JSON lines from
+    its path's queue (None ends the stream, as a server's watch timeout
+    does). Every request must carry the kubeconfig's bearer token."""
+
+    def __init__(self):
+        import queue
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import parse_qs, urlparse
+
+        self.objects, self.queues, self.lists = {}, {}, {}
+        self.rv = 100
+        self.denied = 0
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_GET(self):
+                if self.headers.get("Authorization") != \
+                        f"Bearer {REMOTE_TOKEN}":
+                    outer.denied += 1
+                    self.send_response(401)
+                    self.send_header("Content-Length", "0")
+                    self.end_headers()
+                    return
+                url = urlparse(self.path)
+                if parse_qs(url.query).get("watch") == ["true"]:
+                    self._watch(url.path)
+                    return
+                outer.lists[url.path] = outer.lists.get(url.path, 0) + 1
+                body = json.dumps({
+                    "kind": "List",
+                    "metadata": {"resourceVersion": str(outer.rv)},
+                    "items": list(outer.objects.get(url.path, {})
+                                  .values())}).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _watch(self, path):
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Transfer-Encoding", "chunked")
+                self.end_headers()
+                q = outer.queues.setdefault(path, queue.Queue())
+                while True:
+                    ev = q.get()
+                    if ev is None:
+                        self.wfile.write(b"0\r\n\r\n")
+                        return
+                    data = json.dumps(ev).encode() + b"\n"
+                    try:
+                        self.wfile.write(f"{len(data):x}\r\n".encode()
+                                         + data + b"\r\n")
+                        self.wfile.flush()
+                    except OSError:
+                        return
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def _queue(self, path):
+        import queue
+
+        return self.queues.setdefault(path, queue.Queue())
+
+    def put(self, path: str, key: str, obj: dict, event=None) -> None:
+        """Store ``obj`` (a new resource version); ``event`` ADDED or
+        MODIFIED also streams it to the watchers."""
+        self.rv += 1
+        obj["metadata"]["resourceVersion"] = str(self.rv)
+        self.objects.setdefault(path, {})[key] = obj
+        if event:
+            self._queue(path).put({"type": event, "object": obj})
+
+    def delete(self, path: str, key: str) -> None:
+        self.rv += 1
+        obj = self.objects[path].pop(key)
+        obj["metadata"]["resourceVersion"] = str(self.rv)
+        self._queue(path).put({"type": "DELETED", "object": obj})
+
+    def drop_stream(self, path: str) -> None:
+        """410 Gone: the watch's continuity is lost; the client must
+        re-list and diff."""
+        q = self._queue(path)
+        q.put({"type": "ERROR", "object": {
+            "kind": "Status", "code": 410,
+            "message": "too old resource version"}})
+        q.put(None)
+
+    def close(self) -> None:
+        for q in self.queues.values():
+            q.put(None)
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def raw_selector(sel) -> dict:
+    out = {"matchLabels": dict(sel.match_labels)}
+    if sel.match_expressions:
+        out["matchExpressions"] = [
+            {"key": e.key, "operator": e.operator, "values": list(e.values)}
+            for e in sel.match_expressions]
+    return out
+
+
+def raw_object(obj) -> dict:
+    """The Kubernetes API JSON of a ``ksr.model`` object, as an API server
+    serves it (``ksr/k8s_client.py`` converts it back)."""
+    meta = {"name": obj.name}
+    if getattr(obj, "namespace", ""):
+        meta["namespace"] = obj.namespace
+    if getattr(obj, "labels", None):
+        meta["labels"] = dict(obj.labels)
+    if isinstance(obj, km.Namespace):
+        return {"metadata": meta}
+    if isinstance(obj, km.Pod):
+        return {"metadata": meta, "spec": {"containers": []},
+                "status": {"podIP": obj.ip_address,
+                           "hostIP": obj.host_ip_address}}
+    if isinstance(obj, km.Policy):
+        def peer(p):
+            out = {}
+            if p.pods is not None:
+                out["podSelector"] = raw_selector(p.pods)
+            if p.namespaces is not None:
+                out["namespaceSelector"] = raw_selector(p.namespaces)
+            if p.ip_block is not None:
+                out["ipBlock"] = {"cidr": p.ip_block.cidr,
+                                  "except": list(p.ip_block.except_cidrs)}
+            return out
+
+        types = {km.POLICY_INGRESS: ["Ingress"], km.POLICY_EGRESS: ["Egress"],
+                 km.POLICY_BOTH: ["Ingress", "Egress"]}
+        spec = {"podSelector": raw_selector(obj.pods),
+                "ingress": [{"from": [peer(p) for p in r.peers],
+                             "ports": [{"protocol": p.protocol,
+                                        "port": p.port if p.port is not None
+                                        else p.port_name} for p in r.ports]}
+                            for r in obj.ingress_rules]}
+        if obj.policy_type in types:
+            spec["policyTypes"] = types[obj.policy_type]
+        return {"metadata": meta, "spec": spec}
+    if isinstance(obj, km.Service):
+        return {"metadata": meta, "spec": {
+            "clusterIP": obj.cluster_ip, "type": obj.service_type,
+            "externalTrafficPolicy": obj.external_traffic_policy,
+            "selector": dict(obj.selector),
+            "externalIPs": list(obj.external_ips),
+            "ports": [{"name": p.name, "protocol": p.protocol,
+                       "port": p.port, "targetPort": p.target_port,
+                       "nodePort": p.node_port} for p in obj.ports]}}
+    if isinstance(obj, km.Endpoints):
+        return {"metadata": meta, "subsets": [{
+            "addresses": [{"ip": a.ip, "nodeName": a.node_name}
+                          for a in s.addresses],
+            "notReadyAddresses": [{"ip": a.ip, "nodeName": a.node_name}
+                                  for a in s.not_ready_addresses],
+            "ports": [{"name": p.name, "port": p.port,
+                       "protocol": p.protocol} for p in s.ports]}
+            for s in obj.subsets]}
+    raise TypeError(type(obj))
+
+
+def api_put(fake: FakeApiServer, obj, event=None) -> None:
+    """``obj`` onto the fake API server at its resource's path, checked
+    to convert back to itself through the port's client."""
+    from vpp_tpu_torch.ksr import k8s_client
+
+    res = k8s_client.RESOURCES[obj.TYPE]
+    raw = raw_object(obj)
+    if res.convert(raw).to_dict() != obj.to_dict():
+        raise AssertionError(f"{obj.key()}: the API JSON does not convert "
+                             f"back to the object")
+    fake.put(res.path, obj.key(), raw, event)
+
+
+class RemoteNode(AgentNode):
+    """A phase 4j node: a phase 4i node whose agent keeps its state in a
+    ``StorePair`` (``store_url``), serves its debug CLI on a socket (the
+    card's), loads its ML model from an artifact, and whose KSR reflects
+    a ``FakeApiServer`` through ``make_k8s_sources(kubeconfig=...)``
+    from a process-separate store client."""
+
+    def __init__(self, config: AgentConfig, clock: list, pair: StorePair,
+                 kubeconfig: str, fake: FakeApiServer, device=None):
+        self.pair, self.fake, self.kubeconfig = pair, fake, kubeconfig
+        super().__init__(config, clock, device)
+        self._seen = []
+        self._n = 0
+        self.agent.store.watch("smoke/", lambda ev: self._seen.append(
+            ev.value))
+
+    def start_ksr(self):
+        """None at boot: ``list_world`` starts KSR once the API server
+        holds the world."""
+        return None
+
+    def list_world(self) -> None:
+        """KSR over the fake API server (``make_k8s_sources`` from the
+        kubeconfig) and a store client of its own."""
+        from vpp_tpu_torch.ksr.k8s_client import make_k8s_sources
+
+        sources = make_k8s_sources(kubeconfig=self.kubeconfig)
+        for lw in sources.values():
+            lw.RECONNECT_BACKOFF = (0.05, 0.2)
+        self.ksr = KsrAgent(store_url=self.pair.direct_url, sources=sources,
+                            serve_http=False)
+        self.ksr.start()
+
+    def settle(self, what: str, pred=None) -> float:
+        """Wait for ``pred()`` (over the store, as KSR wrote it), then for
+        the agent to have handled every store event before a barrier
+        write: its client dispatches events in revision order, so once
+        the agent's own watch hears the barrier, every earlier event has
+        run its handler. Returns the wait in ms."""
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + REMOTE_WAIT_S
+        while pred is not None and not pred():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{what}: the store never converged")
+            time.sleep(0.005)
+        first = self._n + 1
+        while not any(v >= first for v in self._seen):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{what}: the agent never caught up")
+            self._n += 1
+            self.ksr.store.put("smoke/barrier", self._n)
+            step = time.monotonic() + 1.0
+            while time.monotonic() < step and not any(
+                    v >= first for v in self._seen):
+                time.sleep(0.002)
+        return (time.perf_counter() - t0) * 1e3
+
+    def keys(self, prefix: str) -> int:
+        return len(self.ksr.store.list_keys(prefix))
+
+    def close(self) -> None:
+        if self.ksr is not None:
+            for lw in self.ksr.sources.values():
+                lw.stop()
+            self.ksr.close()
+            self.ksr.store.close()
+        self.agent.close()
+        self.agent.store.close()
+
+
+def remote_config(cfg: DataplaneConfig, root: Path, card: bool, url: str,
+                  model: Path) -> AgentConfig:
+    """A phase 4j node's configuration: phase 4i's with the store at
+    ``url``, the card's CLI socket, the ML stage enforcing the artifact
+    at ``model`` (the trainer's default action, mark: flags, no drops),
+    no session snapshots and no local store file."""
+    c = agent_config(cfg, root, card)
+    dp = c.dataplane._replace(ml_stage="enforce", ml_hidden=16)
+    return dataclasses.replace(
+        c, store_url=url, persist_path=None, snapshot_path="",
+        cli_socket=str(root / "cli.sock") if card else "",
+        ml_model_path=str(model), dataplane=dp)
+
+
+def publish_artifact(path: Path, tmp: Path) -> None:
+    """Move ``tmp`` onto ``path`` in one rename, its mtime past the old
+    file's: a loader's poll sees the old file or the new one, and one
+    change."""
+    import os
+
+    if path.exists():
+        old = path.stat().st_mtime
+        os.utime(tmp, (old + 1, old + 1))
+    tmp.replace(path)
+
+
+def train_artifact(path: Path, seed: int, version: int) -> float:
+    """``vpp-tpu-torch-ml-train --kind mlp --hidden 16`` in its own
+    process, then published onto ``path``. Returns its wall ms."""
+    tmp = path.with_suffix(".new")
+    t0 = time.perf_counter()
+    subprocess.run(
+        [sys.executable, "-m", "vpp_tpu_torch.ml.train", "--out", str(tmp),
+         "--kind", "mlp", "--hidden", "16", "--seed", str(seed),
+         "--version", str(version)],
+        check=True, capture_output=True, text=True, timeout=300,
+        cwd=str(Path(__file__).resolve().parent))
+    publish_artifact(path, tmp)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def ml_tick(nodes, outcome: str, count: int) -> float:
+    """Tick both agents (their loaders poll the artifact) and wait until
+    each counted ``count`` of ``outcome`` (the card's maintenance thread
+    may poll first). Returns the card's ms."""
+    out = {}
+    for node in nodes:
+        t0 = time.perf_counter()
+        node.agent.maintenance_tick()
+        deadline = time.monotonic() + REMOTE_WAIT_S
+        src = node.agent.ml_source
+        while src.stats_snapshot()["outcomes"][outcome] < count:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"ml {outcome}: {src.stats_snapshot()}")
+            time.sleep(0.005)
+        _sync(node.agent.dataplane.device)
+        out[node] = (time.perf_counter() - t0) * 1e3
+    return out[nodes[0]]
+
+
+def cli_pairs(world: K8sWorld):
+    """One denied and one allowed (src, dst, port) pod pair of the
+    NetworkPolicy oracle (TCP; the sources' and destinations' first
+    pairs in pod order)."""
+    pids = sorted(world.pods)
+    found = {}
+    for dst in pids:
+        for src in pids:
+            if src == dst:
+                continue
+            for port in K8S_PORTS:
+                ok = world.allowed(src, dst, port)
+                found.setdefault(ok, (src, dst, port))
+            if len(found) == 2:
+                return found[False], found[True]
+    raise AssertionError("no denied and allowed pod pair")
+
+
+def remote_cli(card: RemoteNode, twin: RemoteNode, world: K8sWorld,
+               lines) -> dict:
+    """``lines`` through ``vpp-tpu-torch-ctl`` on the card's CLI socket
+    and through the twin's CLI in process (the handles its agent gives
+    its own): each text equal but for ``REMOTE_CLI_DIFFERS``. Returns
+    {line: (card text, round-trip ms)}."""
+    from vpp_tpu_torch.cli import DebugCLI
+    from vpp_tpu_torch.cmd import ctl
+
+    a = twin.agent
+    tcli = DebugCLI(a.dataplane, stats=a.stats, pump=a.io_pump,
+                    session_engine=a.session_engine, store=a.store,
+                    snapshotter=a.snapshotter, ml_source=a.ml_source)
+
+    def kept(cmd, text):
+        return [ln for ln in text.splitlines()
+                if not any(c == cmd and ln.startswith(p)
+                           for c, p in REMOTE_CLI_DIFFERS)]
+
+    out = {}
+    for line in lines:
+        t0 = time.perf_counter()
+        got = ctl.run_line(card.agent.config.cli_socket, line, 60.0)
+        ms = (time.perf_counter() - t0) * 1e3
+        want = tcli.run(line)
+        cmd = " ".join(line.split()[:2])
+        if kept(cmd, got) != kept(cmd, want):
+            raise AssertionError(f"cli {line!r}: the card's text differs "
+                                 f"from the twin's:\n{got}\n---\n{want}")
+        out[line] = (got, ms)
+    return out
+
+
+def remote_phase(cfg: DataplaneConfig, gpu: Dataplane, up: int, seed: int):
+    """Phase 4j (module doc). Returns (summary, launches)."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="vpp_tpu_torch_remote_")
+    root = Path(tmp.name)
+    clock = [AGENT_NOW]
+    for w in WRAPPERS.values():
+        w.launches = 0
+    model = root / "model.json"
+    train_ms = {"v1": train_artifact(model, seed, 1)}
+    nodes, pairs, fakes = [], [], []
+    try:
+        for name, card in (("card", True), ("twin", False)):
+            pair = StorePair(root / name / "store", relayed=card)
+            fake = FakeApiServer()
+            kc = root / name / "kubeconfig"
+            kc.write_text(json.dumps({
+                "current-context": "smoke",
+                "contexts": [{"name": "smoke", "context": {
+                    "cluster": "smoke", "user": "ksr"}}],
+                "clusters": [{"name": "smoke",
+                              "cluster": {"server": fake.url}}],
+                "users": [{"name": "ksr", "user": {"token": REMOTE_TOKEN}}],
+            }))
+            pairs.append(pair)
+            fakes.append(fake)
+            nodes.append(RemoteNode(
+                remote_config(cfg, root / name, card, pair.url, model),
+                clock, pair, str(kc), fake,
+                device=None if card else "cpu"))
+        card, twin = nodes
+        for node in nodes:
+            src = node.agent.ml_source.stats_snapshot()
+            if src["outcomes"]["loaded"] != 1 or src["loaded_version"] != 1:
+                raise AssertionError(f"ml boot load: {src}")
+        say(f"remote boot: card {card.boot_ms:.1f} ms to serving on "
+            f"{card.pair.url} (ML v1 loaded; trainer "
+            f"{train_ms['v1']:.0f} ms), {card.boot_captures} captures; "
+            f"CPU twin {twin.boot_ms:.1f} ms")
+        world = K8sWorld([])
+        world.pods = {}
+        world.policies = dict(list(world.policies.items())[:AGENT_POLICIES])
+        for i in range(AGENT_PODS):
+            ip = card.cni("ADD", i)
+            if twin.cni("ADD", i) != ip:
+                raise AssertionError(f"remote cni pod{i}: addresses differ")
+            pid, labels, _ = k8s_pod(i)
+            world.pods[pid] = (labels, ip)
+        # the API servers' world (without the policies), then KSR: one
+        # list per resource
+        objs = (world.namespaces() + world.pod_objects()
+                + [world.services[s] for s in sorted(world.services)]
+                + [world.eps[s] for s in sorted(world.services)])
+        timing = {}
+        for node in nodes:
+            for obj in objs:
+                api_put(node.fake, obj)
+            t0 = time.perf_counter()
+            node.list_world()
+            node.settle("list", lambda n=node: n.keys("ksr/") == len(objs))
+            timing[node] = (time.perf_counter() - t0) * 1e3
+            node.publish_peers()
+            node.settle("peers")
+        list_ms = timing[card]
+        # the policies stream as watch events
+        for node in nodes:
+            t0 = time.perf_counter()
+            for pol in world.policies.values():
+                api_put(node.fake, pol, "ADDED")
+            node.settle("policies", lambda n=node: n.keys(
+                "ksr/k8s/policy/") == len(world.policies))
+            timing[node] = (time.perf_counter() - t0) * 1e3
+        rungs = {node: agent_rungs(node.agent.dataplane) for node in nodes}
+        if rungs[twin] != rungs[card]:
+            raise AssertionError(f"remote: the twin resolved {rungs[twin]}")
+        kernels = tuple(sorted({RUNG_KERNELS[r] for r in rungs[card].items()
+                                if r in RUNG_KERNELS}
+                               | set(REMOTE_ML_KERNELS)))
+        say(f"remote staged: KSR list of {len(objs)} objects from the fake "
+            f"API server {list_ms:.1f} ms to the card agent's commit; "
+            f"{len(world.policies)} policies as watch events "
+            f"{timing[card]:.1f} ms (twin {timing[twin]:.1f} ms); "
+            f"{json.dumps(k8s_staged(card.agent.dataplane))}; rungs "
+            f"{json.dumps(rungs[card])} -> kernels {list(kernels)}")
+
+        rounds = {}
+        now = AGENT_NOW
+
+        def round_(kind: str, extra=None) -> None:
+            nonlocal now
+            now += 10
+            clock[0] = now
+            r = len(rounds)
+            rounds[kind] = dict(extra or {}, **agent_check(
+                nodes, world, r, seed + 31, now, kernels))
+            say(f"remote round {kind}: {json.dumps(rounds[kind])}")
+
+        def watched(kind: str, fn, pred) -> dict:
+            """``fn(node)`` on each node's API server; the card's time
+            from the first event to the agent's commit."""
+            out = {}
+            for node in nodes:
+                t0 = time.perf_counter()
+                fn(node)
+                node.settle(kind, lambda n=node: pred(n))
+                out[node] = (time.perf_counter() - t0) * 1e3
+            return dict(watch_ms=out[card], twin_watch_ms=out[twin])
+
+        round_("boot")
+        # a pod added through CNI and its object's ADDED event
+        pid, labels, _ = k8s_pod(REMOTE_ADDED)
+        ips = {node: node.cni("ADD", REMOTE_ADDED) for node in nodes}
+        if ips[card] != ips[twin]:
+            raise AssertionError("remote pod add: addresses differ")
+        world.pods[pid] = (labels, ips[card])
+        pod = km.Pod(name=pid.name, namespace=pid.namespace, labels=labels,
+                     ip_address=ips[card], host_ip_address=K8S_NODE_IP)
+        round_("pod add", watched(
+            "pod add", lambda n: api_put(n.fake, pod, "ADDED"),
+            lambda n: n.ksr.store.get("ksr/" + pod.key()) is not None))
+        # a policy's ADDED event
+        pol = k8s_policies()[AGENT_POLICIES]
+        world.policies[(pol.namespace, pol.name)] = pol
+        round_("policy add", watched(
+            "policy add", lambda n: api_put(n.fake, pol, "ADDED"),
+            lambda n: n.ksr.store.get("ksr/" + pol.key()) is not None))
+        # an endpoints update the dropped stream hides: 410 Gone, then
+        # the re-list must diff it in
+        eps = k8s_endpoints(REMOTE_MOVED, gen=7)
+        world.eps[REMOTE_MOVED] = eps
+        path = "/api/v1/endpoints"
+        lists = {node: node.fake.lists.get(path, 0) for node in nodes}
+
+        def drop(node):
+            api_put(node.fake, eps)
+            node.fake.drop_stream(path)
+        row = watched("endpoints re-list", drop, lambda n: n.ksr.store.get(
+            "ksr/" + eps.key()) == eps.to_dict())
+        for node in nodes:
+            if node.fake.lists.get(path, 0) != lists[node] + 1:
+                raise AssertionError("remote: the dropped stream did not "
+                                     "re-list")
+        round_("endpoints re-list", row)
+        # the ML model: a corrupt artifact is refused (v1 keeps serving),
+        # then a good v2 loads without a capture
+        bad = model.with_suffix(".bad")
+        bad.write_text("{ not a model")
+        publish_artifact(model, bad)
+        refused_ms = ml_tick(nodes, "corrupt", 1)
+        for node in nodes:
+            src = node.agent.ml_source.stats_snapshot()
+            node.agent.stats.publish()
+            text = node.agent.stats.registry.render("/stats")
+            if not src["degraded"] or int(
+                    node.agent.dataplane.tables.glb_ml_version) != 1 or \
+                    sample(text, "vpp_tpu_degraded", component="ml") != 1:
+                raise AssertionError(f"ml refusal: {src}")
+        round_("ml refused", dict(refused_ms=refused_ms, serving_version=1))
+        captures = dict(capture.capture_counts())
+        train_ms["v2"] = train_artifact(model, seed + 1, 2)
+        load_ms = ml_tick(nodes, "loaded", 2)
+        for node in nodes:
+            if int(node.agent.dataplane.tables.glb_ml_version) != 2 or \
+                    node.agent.ml_source.degraded:
+                raise AssertionError("ml v2 did not load")
+        round_("ml v2", dict(load_ms=load_ms, trainer_ms=train_ms["v2"]))
+        if dict(capture.capture_counts()) != captures:
+            raise AssertionError("ml v2: a program was captured")
+        ml = dict(train_ms=train_ms, refused_ms=refused_ms,
+                  load_ms=load_ms, outcomes=card.agent.ml_source
+                  .stats_snapshot()["outcomes"])
+        say(f"remote ml: trainer v1 {train_ms['v1']:.0f} ms, v2 "
+            f"{train_ms['v2']:.0f} ms (own process); corrupt artifact "
+            f"refused in {refused_ms:.2f} ms (v1 kept serving, "
+            f"vpp_tpu_degraded{{component=\"ml\"}} 1); v2 loaded in "
+            f"{load_ms:.2f} ms with no capture; outcomes "
+            f"{json.dumps(ml['outcomes'])}")
+
+        # the CLI over the card's socket against the twin's
+        cli = remote_cli(card, twin, world, REMOTE_CLI)
+        round_("traced")
+        cli.update(remote_cli(card, twin, world, ("show trace",)))
+        if "Packet (frame" not in cli["show trace"][0]:
+            raise AssertionError("cli: trace add 8 traced nothing")
+        for (src, dst, port), want in zip(cli_pairs(world),
+                                          ("DROPPED", "FORWARDED")):
+            line = (f"test connectivity {world.pods[src][1]} "
+                    f"{world.pods[dst][1]} tcp {port}")
+            got = remote_cli(card, twin, world, (line,))
+            verdict = got[line][0].splitlines()[-1]
+            if not verdict.startswith(f"verdict: {want}"):
+                raise AssertionError(f"cli {line}: {verdict}, the oracle "
+                                     f"says {want}")
+            cli.update(got)
+        cli_ms = {line: ms for line, (_, ms) in cli.items()}
+        say(f"remote cli: {len(cli)} commands through vpp-tpu-torch-ctl, "
+            f"each equal to the twin's (but {sorted(REMOTE_CLI_DIFFERS)}); "
+            f"round trip ms {json.dumps(cli_ms)}")
+
+        # the card's node loses its store links: it serves its last
+        # epoch, degraded; then both primaries die and their standbys
+        # promote through the witnesses; the link heals onto the new
+        # primary and a policy commits on both nodes
+        for relay in card.pair.relays:
+            relay.cut()
+        t0 = time.monotonic()
+        while not card.agent.store.degraded:
+            if time.monotonic() - t0 > REMOTE_WAIT_S:
+                raise AssertionError("the cut store link never degraded")
+            time.sleep(0.005)
+        from vpp_tpu_torch.cmd import ctl
+
+        ctl_page = ctl.run_line(card.agent.config.cli_socket,
+                                "show resilience", 60.0)
+        page = ctl_page.splitlines()[0]
+        if "kvstore (serving last-adopted epoch" not in page:
+            raise AssertionError(f"show resilience while cut: {ctl_page}")
+        card.agent.stats.publish()
+        text = card.agent.stats.registry.render("/stats")
+        if sample(text, "vpp_tpu_degraded", component="kvstore") != 1:
+            raise AssertionError("the cut store link is not degraded{kvstore}")
+        round_("store cut", dict(resilience=page))
+        t_kill = time.perf_counter()
+        for pair in pairs:
+            pair.kill_primary()
+        writable = {}
+        while len(writable) < len(pairs):
+            for i, pair in enumerate(pairs):
+                if i not in writable and pair.writable():
+                    writable[i] = (time.perf_counter() - t_kill) * 1e3
+            if time.perf_counter() - t_kill > REMOTE_WAIT_S:
+                raise AssertionError("no standby promoted")
+            time.sleep(0.002)
+        # the link to the standby heals; the dead primary's stays down
+        # (a relay would accept on behalf of a server that is gone)
+        t_heal = time.perf_counter()
+        card.pair.relays[1].heal()
+        card.settle("reconnect")
+        reconnect_ms = (time.perf_counter() - t_heal) * 1e3
+        pol = k8s_policies()[AGENT_POLICIES + 1]
+        world.policies[(pol.namespace, pol.name)] = pol
+        epochs = {node: node.agent.dataplane.epoch for node in nodes}
+        row = watched(
+            "failover policy add", lambda n: api_put(n.fake, pol, "ADDED"),
+            lambda n: n.ksr.store.get("ksr/" + pol.key()) is not None)
+        for node in nodes:
+            if node.agent.dataplane.epoch == epochs[node]:
+                raise AssertionError("failover: the policy did not commit")
+            if node.pair.servers[1].store.fencing_epoch != 1:
+                raise AssertionError(
+                    f"failover: fencing epoch "
+                    f"{node.pair.servers[1].store.fencing_epoch}")
+        # the card's timeline: the cut held until both standbys were
+        # writable, its reconnect, then the event to its commit
+        commit_ms = ((t_heal - t_kill) * 1e3 + reconnect_ms
+                     + row["watch_ms"])
+        failover = dict(writable_ms=writable[0], twin_writable_ms=writable[1],
+                        held_cut_ms=(t_heal - t_kill) * 1e3,
+                        reconnect_ms=reconnect_ms,
+                        policy_watch_ms=row["watch_ms"],
+                        first_commit_ms=commit_ms)
+        round_("failover policy add", row)
+        say(f"remote failover: primary down -> standby writable "
+            f"{writable[0]:.1f} ms (witness ttl {REMOTE_TTL_S} s; twin's "
+            f"pair {writable[1]:.1f} ms); link healed -> card reconnected "
+            f"{reconnect_ms:.1f} ms; policy event -> card commit "
+            f"{row['watch_ms']:.1f} ms; primary down -> first commit on "
+            f"the card {commit_ms:.1f} ms")
+        # the commits over the remote store beside phase 4i's in-process
+        commits = {k: v["watch_ms"] for k, v in rounds.items()
+                   if "watch_ms" in v}
+        say(f"remote commits (event to the card agent's commit, through "
+            f"the fake API server, KSR, the store pair and the agent's "
+            f"watch): {json.dumps(commits)}")
+    finally:
+        for node in nodes:
+            node.close()
+        for pair in pairs:
+            pair.close()
+        for fake in fakes:
+            fake.close()
+    # show run: per-stage device time of phase 4's dataplane
+    from vpp_tpu_torch.trace import format_show_run, profile_stages
+
+    show_run = {}
+    for n in sorted({VEC, BIG_VEC}):
+        vec = packet_vector_from_numpy(forward_traffic(n, up, seed + 17),
+                                       gpu.device)
+        rows = profile_stages(gpu, vec, now=clock[0], iters=REMOTE_RUNS)
+        if [t.node for t in rows][-3:] != ["FUSED pipeline-step",
+                                           "acl-classify-global-bv",
+                                           "acl-classify-local-bv"]:
+            raise AssertionError(f"show run rows {[t.node for t in rows]}")
+        show_run[f"P={n}"] = {t.node: t.seconds_per_call * 1e6
+                              for t in rows}
+        say(f"show run P={n} (phase 4 dataplane: pallas rungs, LPM FIB; "
+            f"CUDA events, us per call):")
+        for line in format_show_run(rows).splitlines():
+            say(f"  {line}")
+    _sync(gpu.device)
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    tmp.cleanup()
+    for k in REMOTE_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"phase 4j: {k} never launched")
+    summary = dict(rounds=rounds, ml=ml, failover=failover, cli_ms=cli_ms,
+                   list_ms=list_ms, show_run_us=show_run,
+                   launches=launches, seconds=time.perf_counter() - t_phase)
+    say(f"phase 4j: {summary['seconds']:.1f} s; launches {launches}")
+    return summary, launches
+
+
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -5367,6 +6256,11 @@ def main(argv=None) -> int:
     # 4i. the node agent on the card: CNI, KSR, the exposition, a warm
     # restart through the rings, against a CPU twin agent
     agent_sum, agent_launches = agent_phase(cfg, args.seed)
+
+    # 4j. the agent's remote surfaces: a fenced store pair with a
+    # failover, KSR from a fake API server, the ML loader, the CLI over
+    # its socket; show run on phase 4's dataplane
+    remote_sum, remote_launches = remote_phase(cfg, gpu, up, args.seed)
     graphs = check_graphs({"pallas": [gpu, cap_p], "mxu": [gpu_m, cap_m],
                            "pallas+ml": [ml_p], "mxu+ml": [ml_m],
                            "pallas+tnt": [tnt_p], "mxu+tnt": [tnt_m]})
@@ -5581,6 +6475,7 @@ def main(argv=None) -> int:
                                 for cell, n in pump_launches.items()}
         row["launches_control_plane"] = k8s_launches[name]
         row["launches_agent"] = agent_launches[name]
+        row["launches_remote"] = remote_launches[name]
         if name == "sess_probe_ways":
             row["tenant_form"] = {f"P={n}": timed[("sess_probe_ways.tenant",
                                                    n)] for n in (VEC, BIG_VEC)}
@@ -5630,6 +6525,7 @@ def main(argv=None) -> int:
                     "io_pump": pump_sum,
                     "control_plane": k8s_sum,
                     "agent": agent_sum,
+                    "remote": remote_sum,
                     "captures": graphs, "power": smi}))
     if any(n != 1 for n in capture.capture_counts().values()):
         raise AssertionError("the timing captured a key again")

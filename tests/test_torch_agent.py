@@ -266,11 +266,9 @@ def run_reference_case(module, name: str, tmp_path, refused: dict,
 
 
 # the cases of the reference's agent tests that need a module the port
-# refuses: the message must name it and its ROADMAP item
-AGENT_REFUSED = {
-    "test_cli_socket_serves_debug_commands":
-        r"cli\.py\) is not ported yet \(ROADMAP Queue 1 item 12 \(Agent\)\)",
-}
+# refuses: the message must name it and its ROADMAP item (none since
+# the debug CLI is ported)
+AGENT_REFUSED: dict = {}
 
 AGENT_CASES = case_names(jagent_tests)
 

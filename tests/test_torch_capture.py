@@ -288,3 +288,43 @@ def test_programs_equal_eager_steps(fastpath):
             assert pg.expire_sessions(max_age=1) == \
                 pe.expire_sessions(max_age=1)
         now += 10
+
+
+def test_capture_holds_the_cyclic_collector_off(monkeypatch):
+    """A capture runs with the cyclic garbage collector off and turns it
+    back on after, even when the captured function raises: a dropped
+    program is a reference cycle whose graph's reset, were the collector
+    to free it mid-capture, invalidates the capture (the card reports
+    "operation not permitted when stream is capturing (function
+    reset)"). The CUDA calls are stood in for on the CPU."""
+    import contextlib
+    import gc
+
+    seen = []
+
+    class FakeGraph:
+        def __init__(self, keep_graph=False):
+            pass
+
+    @contextlib.contextmanager
+    def fake_graph(graph, capture_error_mode):
+        seen.append(("enter", gc.isenabled()))
+        yield
+
+    for name, value in (("CUDAGraph", FakeGraph), ("graph", fake_graph),
+                        ("synchronize", lambda: None),
+                        ("empty_cache", lambda: None),
+                        ("memory_reserved", lambda: 0)):
+        monkeypatch.setattr(torch.cuda, name, value)
+    assert gc.isenabled()
+    part = capture.Part("t", (), lambda: seen.append(("fn", gc.isenabled())),
+                        cuda=True)
+    part._capture(())
+    assert seen == [("enter", False), ("fn", False)] and gc.isenabled()
+
+    def boom():
+        raise RuntimeError("capture failed")
+
+    with pytest.raises(RuntimeError, match="capture failed"):
+        capture.Part("t", (), boom, cuda=True)._capture(())
+    assert gc.isenabled()

@@ -2,10 +2,12 @@
 
 * An AST scan of every module of ``vpp_tpu_torch`` (the IO pump's
   ``io/``, ``native/`` and ``net/``, the control plane's ``ksr/``,
-  ``policy/``, ``renderer/``, ``service/`` and ``trace/``, and the node
+  ``policy/``, ``renderer/``, ``service/`` and ``trace/``, the node
   agent's ``cmd/``, ``cni/``, ``kvstore/``, ``stats/``, ``health/``,
-  ``hoststack/``, ``agent/`` and ``ipam/`` included) and of
-  ``chip_smoke.py``
+  ``hoststack/``, ``agent/`` and ``ipam/``, and its remote surfaces:
+  the KV server, client, witness and replicas, the Kubernetes API
+  client, the debug CLI and ``ctl``, the ML loader and ``show run``
+  included) and of ``chip_smoke.py``
   finds no import of ``jax`` nor of the JAX package ``vpp_tpu`` (the
   module itself or any ``vpp_tpu.`` submodule; the port's own
   ``vpp_tpu_torch`` is of course allowed).
@@ -22,11 +24,11 @@
   ported knobs) names its ``ROADMAP.md`` Queue 1 item, number and
   title. The ring form and its telemetry rider run under every knob:
   tests/test_torch_persistent.py holds them against the reference.
-* Every agent value that reaches a module not ported yet (a remote
-  store, the CLI socket, the IO daemon's control socket and host
-  interconnect, the VCL socket, an ML model artifact, the mesh) raises
-  ``NotImplementedError`` naming its ROADMAP item before the agent
-  starts a thread, writes to its store or touches a device.
+* Every agent value that reaches a module not ported yet (the IO
+  daemon's control socket and host interconnect, the VCL socket, the
+  mesh) raises ``NotImplementedError`` naming its ROADMAP item before
+  the agent starts a thread, writes to its store or touches a device;
+  the CLI's ``show partitions`` names the mesh's item in its text.
 
 Every quantity compared is an integer: the tolerance is exact equality.
 """
@@ -87,7 +89,10 @@ def test_scan_sees_the_whole_package():
             "proxy.py", "node_id.py", "ipam.py", "containeridx.py",
             "transport.py", "shim.py", "server.py", "statuscheck.py",
             "stn.py", "prometheus.py", "collector.py", "session_rules.py",
-            "vpptcp.py", "reflector.py"} <= names
+            "vpptcp.py", "reflector.py", "cli.py", "ctl.py",
+            "client.py", "witness.py", "replica.py", "kvserver.py",
+            "kvwitness.py", "k8s_client.py", "loader.py",
+            "cycles.py"} <= names
     for sub in ("io", "native", "net", "ksr", "policy", "renderer",
                 "service", "trace", "cmd", "cni", "kvstore", "stats",
                 "health", "hoststack", "agent", "ipam"):
@@ -188,7 +193,13 @@ def _queue1_titles():
 
 
 def _refusal(kind, arg):
-    """The NotImplementedError message of one remaining refusal."""
+    """The NotImplementedError message of one remaining refusal (for
+    ``cli``, the text of the command)."""
+    if kind == "cli":
+        from vpp_tpu_torch.cli import DebugCLI
+
+        return DebugCLI(tdp.Dataplane(ttables.DataplaneConfig(**_SMALL),
+                                      device="cpu")).run(arg)
     with pytest.raises(NotImplementedError) as err:
         if kind == "agent":
             _agent_refusal(arg)
@@ -225,13 +236,9 @@ def _refusal(kind, arg):
 # the agent's refused values: (AgentConfig keyword arguments, other
 # ContivAgent arguments)
 _AGENT_REFUSED = {
-    "store_url": ({"store_url": "tcp://127.0.0.1:12379"}, {}),
-    "cli_socket": ({"cli_socket": "/run/vpp-tpu/cli.sock"}, {}),
     "io.control_socket": ({"io": {"control_socket": "/run/io.sock"}}, {}),
     "io.host_interconnect": ({"io": {"host_interconnect": True}}, {}),
     "vcl_socket": ({"vcl_socket": "/run/vcl.sock"}, {}),
-    "ml_model_path": ({"ml_model_path": "/models/m.json",
-                       "dataplane": {"ml_stage": "score"}}, {}),
     "mesh.enabled": ({"mesh": {"enabled": True}}, {}),
     "dataplane": ({}, {"dataplane": "mesh node handle"}),
     "mesh_node_resolver": ({}, {"mesh_node_resolver": lambda n: n}),
@@ -241,14 +248,9 @@ _AGENT_REFUSED = {
 def _agent_refusal(arg):
     """One refused agent value, or another refused seam of the slice."""
     from vpp_tpu_torch.cmd import AgentConfig, ContivAgent
-    from vpp_tpu_torch.cmd import ksr_main
-    from vpp_tpu_torch.kvstore import KVStore, connect_store
+    from vpp_tpu_torch.kvstore import KVStore
 
-    if arg == "ksr --kubeconfig":
-        ksr_main.main(["--kubeconfig", "/etc/kubeconfig"])
-    elif arg == "connect_store":
-        connect_store("tcp://127.0.0.1:12379")
-    elif arg == "cni wirer":
+    if arg == "cni wirer":
         from vpp_tpu_torch.cni import RemoteCNIServer
 
         RemoteCNIServer(None, None, wirer=object())
@@ -269,8 +271,10 @@ _REFUSALS = {
     # the node agent's slice (ROADMAP Queue 1 items 12 and 10)
     **{f"agent-{k}": ("agent", k) for k in _AGENT_REFUSED},
     **{f"agent-{k}": ("agent", k) for k in (
-        "ksr --kubeconfig", "connect_store", "cni wirer", "set_cluster",
-        "set_fleet", "set_vcl")},
+        "cni wirer", "set_cluster", "set_fleet", "set_vcl")},
+    # the debug CLI's page of the mesh's partition layer (a text, not
+    # an exception)
+    "cli-show_partitions": ("cli", "show partitions"),
     # every stage knob and step form is ported; what is still refused:
     # the sharded (mesh) forms, also under each knob ported since
     "ml_stage": ("ml", "shard"),
@@ -613,7 +617,9 @@ def test_packaging_names_the_port():
     scripts = {k: v for k, v in cfg["project"]["scripts"].items()
                if v.startswith("vpp_tpu_torch.")}
     assert set(scripts) == {"vpp-tpu-torch-agent", "vpp-tpu-torch-ksr",
-                            "vpp-tpu-torch-cni"}
+                            "vpp-tpu-torch-cni", "vpp-tpu-torch-kvstore",
+                            "vpp-tpu-torch-kvwitness", "vpp-tpu-torch-ctl",
+                            "vpp-tpu-torch-ml-train"}
     for target in scripts.values():
         mod, fn = target.split(":")
         assert callable(getattr(importlib.import_module(mod), fn))

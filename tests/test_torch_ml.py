@@ -600,3 +600,63 @@ def test_model_swaps_pick_their_program():
     assert tcap.capture_counts() == before
     assert int(res.stats.ml_flagged) == 4
     assert int(res.stats.ml_drops) < 4
+
+
+# --- the loader, its fault seam and the trainer's command line ---------
+
+import test_chaos as jchaos_tests  # noqa: E402
+import test_ml_stage as jml_tests  # noqa: E402
+from test_torch_kvserver import run_port_case  # noqa: E402
+
+# the reference's cases of the artifact, the loader (its refusal ledger,
+# `show ml`, the agent's ml_model_path) and the chaos schedule over the
+# ``ml.load`` seam, each run on the port
+LOADER_CASES = [
+    (jml_tests, "TestArtifact.test_bad_magic_version_and_corrupt_json"),
+    (jml_tests, "TestArtifact.test_shape_validation"),
+    (jml_tests, "TestLoader.test_refusal_keeps_previous_model_serving"),
+    (jml_tests, "TestShowMl.test_show_ml_page"),
+    (jml_tests, "TestShowMl.test_show_ml_without_model"),
+    (jml_tests, "TestAgentWiring.test_yaml_config_to_scoring_epoch"),
+    (jchaos_tests, "TestMlModelRefusals."
+                   "test_refusal_schedule_keeps_previous_generation_serving"),
+]
+
+
+@pytest.mark.parametrize("module,case", LOADER_CASES,
+                         ids=[c.split(".")[1] for _, c in LOADER_CASES])
+def test_reference_loader_cases(module, case, request):
+    from vpp_tpu_torch.testing import faults as tfaults
+
+    try:
+        run_port_case(module, case, request)
+    finally:
+        tfaults.uninstall()  # the plan is process-global
+
+
+@pytest.mark.parametrize("writer", ["ref", "port"])
+def test_trainer_main_round_trips_across_packages(writer, tmp_path,
+                                                  capsys):
+    """``vpp-tpu-torch-ml-train`` and the reference's trainer write the
+    same artifact for the same arguments; either package loads it and
+    stages it to the same packed planes."""
+    argv = ["--kind", "mlp", "--hidden", "16", "--samples", "512",
+            "--seed", "5", "--action", "drop", "--version", "3"]
+    paths = {}
+    for pkg, main in (("ref", jtrain.main), ("port", ttrain.main)):
+        paths[pkg] = tmp_path / f"{pkg}.json"
+        assert main(["--out", str(paths[pkg])] + argv) == 0
+    out = capsys.readouterr().out
+    assert out.count("wrote mlp model v3") == 2
+    assert paths["ref"].read_text() == paths["port"].read_text()
+    path = str(paths[writer])
+    jm, tm = jmodel.load_model(path), tmodel.load_model(path)
+    assert jm.to_dict() == tm.to_dict()
+    kw = dict(_CFG, ml_stage="enforce", ml_hidden=16)
+    jb = jtables.TableBuilder(jtables.DataplaneConfig(**kw))
+    tb = ttables.TableBuilder(ttables.DataplaneConfig(**kw), device="cpu")
+    jb.set_ml_model(jm)
+    tb.set_ml_model(tm)
+    assert jb.ml_kind == tb.ml_kind == 1
+    for f, a in jb.ml.items():
+        np.testing.assert_array_equal(np.asarray(tb.ml[f]), np.asarray(a))

@@ -17,6 +17,11 @@
 * The IO pump runs unchained, through the unpacked step, while a tracer
   is armed, and delivers the same tx frames and traces as the
   reference's.
+* ``show run`` (trace/cycles.py): the reference's
+  ``test_profile_stages_show_run`` runs on the port, whose rows name the
+  reference's nodes in its order; handed a dataplane of the kernel
+  rungs, the profile keeps the same rows and moves no live plane.
+  Timings are not compared.
 
 The port runs on the CPU. Every quantity compared is an integer or a
 string: the tolerance is exact equality.
@@ -305,3 +310,74 @@ def test_pump_runs_unchained_while_a_tracer_is_armed():
     assert sorted(strip) == sorted(
         (e.slot, e.src, e.dst, e.sport, e.dport, e.path)
         for e in ref_tr.entries())
+
+
+# --- show run ----------------------------------------------------------
+
+def _show_run_nodes(port: bool) -> list:
+    """The node names of every profile the reference's `show run` case
+    takes, run through one package."""
+    from vpp_tpu.trace import cycles as jcycles
+    from vpp_tpu_torch.trace import cycles as tcycles
+
+    mod = tcycles if port else jcycles
+    seen = []
+
+    def profile_stages(*a, **kw):
+        out = mod.profile_stages(*a, **kw)
+        seen.append([t.node for t in out])
+        return out
+
+    subs = dict(trace_names(port, []), profile_stages=profile_stages,
+                format_show_run=mod.format_show_run)
+    run_case(jtrace_test, "test_profile_stages_show_run", subs)
+    return seen
+
+
+def test_profile_stages_show_run():
+    """The reference's case holds on the port, with the reference's
+    node names in its order (BV rows included: its epoch carries BV
+    planes)."""
+    port, ref = _show_run_nodes(True), _show_run_nodes(False)
+    assert port == ref and len(ref) == 1
+    assert ref[0][-2:] == ["acl-classify-global-bv",
+                           "acl-classify-local-bv"]
+
+
+def test_profile_of_the_kernel_rungs_moves_no_live_plane():
+    """Handed a dataplane of the kernel rungs (their plain versions on
+    the CPU), the profile runs the same rows over a private copy: the
+    session planes, cursors and the epoch are unchanged after it."""
+    from vpp_tpu_torch.trace import format_show_run, profile_stages
+
+    class KernelRungs(tdp.Dataplane):
+        def _kernels_serve(self):
+            return True
+
+    dp = KernelRungs(ttables.DataplaneConfig(
+        sess_slots=256, classifier="pallas", fib_impl="pallas",
+        session_impl="pallas"), device="cpu")
+    up = dp.add_uplink()
+    a = dp.add_pod_interface(("default", "a"))
+    dp.builder.add_route("10.1.1.2/32", a, tvector.Disposition.LOCAL)
+    dp.builder.add_route("0.0.0.0/0", up, tvector.Disposition.REMOTE)
+    dp.builder.set_global_table([trule.ContivRule(
+        action=trule.Action.PERMIT)])
+    dp.swap()
+    assert (dp.classifier_impl, dp.fib_impl, dp.session_impl) == (
+        "pallas", "pallas", "pallas")
+    pkts = tvector.make_packet_vector(
+        [dict(src="10.1.1.2", dst=f"192.0.2.{i}", sport=4000 + i,
+              dport=80, rx_if=a) for i in range(16)], n=64)
+    dp.process(pkts, now=5)
+    before = {f: getattr(dp.tables, f).clone()
+              for f in tdp._MUTABLE_FIELDS}
+    epoch = dp.epoch
+    rows = profile_stages(dp, pkts, now=9, iters=2)
+    assert [t.node for t in rows] == _show_run_nodes(False)[0]
+    assert all(t.calls == 2 and t.vectors == 64 and
+               t.seconds_per_call >= 0 for t in rows)
+    assert "FUSED pipeline-step" in format_show_run(rows)
+    assert dp.epoch == epoch
+    for f, v in before.items():
+        assert bool((getattr(dp.tables, f) == v).all()), f

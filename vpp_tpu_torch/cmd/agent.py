@@ -14,13 +14,20 @@ fans them out to the policy cache and service processor.
 The port's copy of ``vpp_tpu/cmd/agent.py`` over the port's own
 modules. The dataplane and the session-rule engine run on the card
 (``device=None``; ``resolve_device`` raises without one) unless the
-caller passes ``device="cpu"``. Configuration that reaches a module
-not ported yet raises ``NotImplementedError`` naming its ROADMAP item
-in ``__init__``, before any thread, socket, store write or device
-allocation (``refusal``): a remote store, the debug CLI socket, the IO
-daemon's control socket and host interconnect, the VCL admission
-socket, an ML model artifact, and the mesh (its config, an injected
-dataplane handle, a mesh node resolver).
+caller passes ``device="cpu"``. A ``tcp://`` ``store_url`` (one
+endpoint, or a primary and its standbys) connects a ``RemoteKVStore``;
+``cli_socket`` serves the debug CLI (``cli.py``) to
+``vpp-tpu-torch-ctl``; ``ml_model_path`` publishes an artifact through
+``MlModelSource``. With a remote store, watch events reach the agent on
+the client's dispatcher thread, the CLI serves on its transport's
+threads and the maintenance thread steps: each touches the dataplane
+through its device (never a thread's current device) and under its
+``_lock``. Configuration that reaches a module not ported yet raises
+``NotImplementedError`` naming its ROADMAP item in ``__init__``, before
+any thread, socket, store write or device allocation (``refusal``): the
+IO daemon's control socket and host interconnect, the VCL admission
+socket, and the mesh (its config, an injected dataplane handle, a mesh
+node resolver).
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ from vpp_tpu_torch.ipam.ipam import IPAM
 from vpp_tpu_torch.ir.rule import PodID
 from vpp_tpu_torch.ksr import model as m
 from vpp_tpu_torch.kvstore.proxy import KVProxy
-from vpp_tpu_torch.kvstore.store import Broker, KVEvent, KVStore, Op, connect_store
+from vpp_tpu_torch.kvstore.store import Broker, KVEvent, KVStore, Op
 from vpp_tpu_torch.pipeline.dataplane import Dataplane
 from vpp_tpu_torch.pipeline.tables import resolve_device
 from vpp_tpu_torch.pipeline.vector import Disposition
@@ -74,11 +81,6 @@ def refusal(config: AgentConfig, dataplane=None,
     the port does not have yet, or None. Each names its ROADMAP item."""
     c = config
     checks = (
-        (c.store_url, f"store_url {c.store_url!r}: the remote store "
-         f"(kvstore/client.py, server.py, replica.py) is not ported yet "
-         f"({AGENT_ITEM})"),
-        (c.cli_socket, f"cli_socket {c.cli_socket!r}: the debug CLI "
-         f"(cli.py) is not ported yet ({AGENT_ITEM})"),
         (c.io.control_socket, "io.control_socket: pod wiring and the IO "
          "daemon's control channel (cni/wiring.py, net/linux.py, "
          f"io/control.py) are not ported yet ({AGENT_ITEM})"),
@@ -88,9 +90,6 @@ def refusal(config: AgentConfig, dataplane=None,
         (c.vcl_socket, f"vcl_socket {c.vcl_socket!r}: the VCL admission "
          f"server (hoststack/admission.py) is not ported yet "
          f"({AGENT_ITEM})"),
-        (c.ml_model_path and getattr(c.dataplane, "ml_stage", "off")
-         != "off", "ml_model_path: the ML model loader (ml/loader.py) "
-         f"is not ported yet ({AGENT_ITEM})"),
         (c.mesh.enabled, "mesh.enabled: the mesh runtime is not ported "
          f"yet ({MESH_ITEM})"),
         (dataplane is not None, "dataplane: an injected (mesh node) "
@@ -114,8 +113,10 @@ class ContivAgent:
                  store: Optional[KVStore] = None,
                  dataplane=None, device=None, mesh_node_resolver=None):
         """``store`` injection lets tests (and multi-agent simulations)
-        share one in-memory store; production passes None and gets a
-        store persisted at ``persist_path``.
+        share one in-memory store; production passes None and gets the
+        configured backend — a RemoteKVStore against the cluster's
+        KVServer when ``store_url`` is set (the deployed-etcd analog),
+        else a persisted local store.
 
         ``device`` places the dataplane and the session-rule engine:
         None is the card (raises without one), ``"cpu"`` runs the plain
@@ -132,6 +133,8 @@ class ContivAgent:
 
         # --- data store + proxy (cn-infra kvdbsync analog) ---
         if store is None:
+            from vpp_tpu_torch.kvstore.client import connect_store
+
             store = connect_store(c.store_url, persist_path=c.persist_path)
         self.store = store
         self.proxy = KVProxy(self.store)
@@ -221,6 +224,7 @@ class ContivAgent:
             on_pod_change=self._on_local_pod_change,
         )
         self.cni_transport: Optional[CNITransportServer] = None
+        self.cli_transport: Optional[CNITransportServer] = None
 
         # --- crash-consistent session snapshot/restore (ISSUE 8) ---
         self.snapshotter = None
@@ -233,6 +237,16 @@ class ContivAgent:
                 pace_s=c.snapshot_pace_s,
             )
 
+        # --- per-packet ML model source (ml/loader.py) ---
+        # only with the stage configured on
+        self.ml_source = None
+        if (c.ml_model_path
+                and getattr(c.dataplane, "ml_stage", "off") != "off"):
+            from vpp_tpu_torch.ml.loader import MlModelSource
+
+            self.ml_source = MlModelSource(self.dataplane,
+                                           c.ml_model_path)
+
         # --- observability ---
         self.stats = StatsCollector(self.dataplane, self.container_index)
         # degraded-mode surface: kvstore reachability/staleness +
@@ -240,6 +254,8 @@ class ContivAgent:
         self.stats.set_store(self.store)
         if self.snapshotter is not None:
             self.stats.set_snapshotter(self.snapshotter)
+        if self.ml_source is not None:
+            self.stats.set_ml(self.ml_source)
         # control-plane latency histograms: propagation SLO + txn commit
         # observed at the epoch swap, CNI add/del at the CNI server
         self.cp_metrics = register_control_plane_metrics(self.stats.registry)
@@ -310,6 +326,11 @@ class ContivAgent:
                              c.snapshot_path)
             except Exception:
                 log.exception("session restore failed (cold start)")
+        # initial ML model publish: before traffic, so the first
+        # packets already score; a refusal is a counted outcome and the
+        # stage stays off until a good load lands
+        if self.ml_source is not None:
+            self.ml_source.poll()
         # packet-IO front-end: shared-memory rings + the dataplane pump
         # (the vpp-tpu-io daemon attaches to the same shm and owns the
         # NIC/TAP endpoints — VERDICT r1 Missing #1). Created before the
@@ -442,6 +463,8 @@ class ContivAgent:
                 self.statuscheck, port=c.health_port, host=c.http_host
             )
             self.health_http.start()
+            if c.cli_socket:
+                self._serve_cli(c.cli_socket)
         self._report_core(PluginState.OK)
         self._report_policy(PluginState.OK)
         self._report_service(PluginState.OK)
@@ -451,6 +474,59 @@ class ContivAgent:
                 name="agent-maintenance",
             )
             self._maint_thread.start()
+
+    def _serve_cli(self, path: str) -> None:
+        """The vppctl transport: one-shot debug commands against the
+        RUNNING agent (``vpp-tpu-torch-ctl "show interface"`` ...), each
+        answered on the transport's thread; every read of a live plane
+        and every probe runs under the dataplane's ``_lock``."""
+        from vpp_tpu_torch.cli import DebugCLI
+        from vpp_tpu_torch.cni.transport import cni_call
+
+        # `vpp-tpu-torch-ctl trace add N` lazily attaches the packet
+        # tracer to the dataplane; disarmed it is an early return per
+        # step
+        cli = DebugCLI(
+            self.dataplane, stats=self.stats, pump=self.io_pump,
+            session_engine=self.session_engine, store=self.store,
+            snapshotter=self.snapshotter, ml_source=self.ml_source,
+        )
+
+        def _cli_dispatch(method: str, params: dict) -> dict:
+            if method != "run":
+                return {"result": 1, "error": f"unknown method {method!r}"}
+            try:
+                return {"result": 0,
+                        "output": cli.run(str(params.get("line", "")))}
+            except Exception as e:  # noqa: BLE001 — debug path
+                return {"result": 1, "error": f"{type(e).__name__}: {e}"}
+
+        # the transport unlinks an existing socket on bind, so a path
+        # collision would silently STEAL another live agent's CLI
+        # socket — probe first and refuse instead
+        live = False
+        try:
+            cni_call(path, "run", {"line": "help"}, timeout=1.0)
+            live = True
+        except TimeoutError:
+            # connected but no answer within the window: a LIVE but busy
+            # agent (e.g. mid-capture holding the dataplane lock) —
+            # refuse takeover; only connection-refused/absent is stale
+            live = True
+        except (OSError, RuntimeError, ValueError):
+            pass  # nothing answering: stale or absent socket
+        if live:
+            log.warning("cli socket %s already served by a live agent; "
+                        "not taking it over", path)
+            return
+        try:
+            self.cli_transport = CNITransportServer(path, _cli_dispatch)
+            self.cli_transport.start()
+        except OSError as e:
+            # a debug convenience must never take the node's data plane
+            # down with it
+            log.warning("cli socket %s unavailable: %s", path, e)
+            self.cli_transport = None
 
     def _write_io_plan(self) -> None:
         """Publish the IO-daemon launch plan (ring geometry, interface
@@ -582,6 +658,14 @@ class ContivAgent:
         except Exception:
             log.exception("session snapshot failed")
         try:
+            # ML model hot reload: mtime-gated, so the tick is one
+            # stat() in steady state; a refused artifact keeps the
+            # previous model serving (counted, degraded{component=ml})
+            if self.ml_source is not None:
+                self.ml_source.poll()
+        except Exception:
+            log.exception("ml model poll failed")
+        try:
             self.stats.publish()
         except Exception:
             log.exception("stats publish failed")
@@ -612,7 +696,8 @@ class ContivAgent:
         self._closed.set()
         for cancel in self._watch_cancels:
             cancel()
-        for srv in (self.cni_transport, self.stats_http, self.health_http):
+        for srv in (self.cni_transport, self.cli_transport,
+                    self.stats_http, self.health_http):
             if srv is not None:
                 srv.close()
         self.proxy.close()

@@ -8,8 +8,9 @@ every field has a sane default so an empty file boots a dev node.
 The port's copy of ``vpp_tpu/cmd/config.py``: the same keys, defaults
 and load-time validation, over the port's own ``DataplaneConfig`` and
 validators. One default differs: ``cli_socket`` is "" (the reference's
-is ``/run/vpp-tpu/cli.sock``), because the debug CLI (``cli.py``) is
-not ported and ``ContivAgent`` refuses a CLI socket.
+is ``/run/vpp-tpu/cli.sock``): an agent binds its CLI socket only where
+the deployment names one, so an agent booted with the defaults writes
+nothing outside its own paths.
 """
 
 from __future__ import annotations
@@ -167,7 +168,7 @@ class AgentConfig:
     persist_path: Optional[str] = None       # in-process store snapshot file
     # CNI
     cni_socket: str = "/run/vpp-tpu/cni.sock"
-    # debug CLI socket (the vppctl transport; "" disables; not ported)
+    # debug CLI socket (the vppctl transport; "" disables)
     cli_socket: str = ""
     # VCL admission socket for the LD_PRELOAD session shim
     # (libvclshim.so answers its connect()/accept() checks here against

@@ -6,9 +6,9 @@ and a health endpoint. The K8s API side is a K8sListWatch per type; in
 a real cluster that's a kubernetes-client watch, in tests/dev it's the
 MockK8sListWatch.
 
-The port's copy of ``vpp_tpu/cmd/ksr_main.py``. The Kubernetes API
-client (``--kubeconfig``) and the remote store (``store_url``) are not
-ported and raise.
+The port's copy of ``vpp_tpu/cmd/ksr_main.py``: ``--kubeconfig`` reads
+a live API server through ``ksr/k8s_client.py`` (standard library HTTP),
+``--store-url`` shares a ``tcp://`` KV server (``kvstore/client.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from vpp_tpu_torch.ksr.reflector import (
     ReflectorRegistry,
     make_standard_reflectors,
 )
-from vpp_tpu_torch.kvstore.store import Broker, KVStore, connect_store
+from vpp_tpu_torch.kvstore.store import Broker, KVStore
 from vpp_tpu_torch.stats.collector import register_ksr_gauges
 from vpp_tpu_torch.stats.prometheus import MetricsRegistry, StatsHTTPServer
 
@@ -43,6 +43,8 @@ class KsrAgent:
         serve_http: bool = True,
     ):
         if store is None:
+            from vpp_tpu_torch.kvstore.client import connect_store
+
             store = connect_store(store_url, persist_path=persist_path)
         self.store = store
         self.broker = Broker(self.store, "ksr/")
@@ -107,12 +109,14 @@ def main(argv=None) -> int:
     )
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    sources = None
     if args.kubeconfig:
-        raise NotImplementedError(
-            "--kubeconfig: the Kubernetes API client (ksr/k8s_client.py) "
-            "is not ported yet (ROADMAP Queue 1 item 12 (Agent))")
+        from vpp_tpu_torch.ksr.k8s_client import make_k8s_sources
+
+        sources = make_k8s_sources(kubeconfig=args.kubeconfig)
     agent = KsrAgent(
-        persist_path=args.persist, store_url=args.store_url)
+        persist_path=args.persist, store_url=args.store_url, sources=sources
+    )
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: stop.set())

@@ -378,17 +378,3 @@ class Broker:
 
         return self.store.watch(full, strip)
 
-
-def connect_store(url: Optional[str], persist_path: Optional[str] = None):
-    """Build the configured store backend: the in-process half of the
-    reference's ``vpp_tpu/kvstore/client.py`` ``connect_store``.
-
-    ``None`` / ``""`` gives a ``KVStore`` persisted at ``persist_path``.
-    The remote store (``tcp://host:port``: its client, server and
-    replicas) is not ported and raises."""
-    if not url:
-        return KVStore(persist_path=persist_path)
-    raise NotImplementedError(
-        f"store_url {url!r}: the remote store (kvstore/client.py, "
-        "server.py, replica.py) is not ported yet (ROADMAP Queue 1 "
-        "item 12 (Agent))")

@@ -6,9 +6,15 @@ model is ~300 weights; sophistication belongs to the operator's real
 pipeline, this is the in-tree reference packer) or fits an oblivious
 decision forest, quantizes to the int8 fixed-point contract of
 ops/mlscore.py, validates the quantized artifact against the
-fixed-point oracle, and returns the versioned artifact
-(``TableBuilder.set_ml_model`` stages it; ``ml.model.save_model``
-writes it as JSON).
+fixed-point oracle, and writes the versioned JSON artifact the agent
+loads (``ml_model_path``; ``ml/loader.py``). Either package's trainer
+writes the same artifact for the same arguments, and each package loads
+the other's.
+
+CLI:
+
+    vpp-tpu-torch-ml-train --out /etc/vpp-tpu/ddos.json \
+        --kind mlp --hidden 16 --samples 8192 --action drop
 
 The synthetic dataset labels a "DDoS-ish" slice of traffic (tiny
 packets, low ports, no established session) — enough to make the
@@ -18,6 +24,7 @@ via train_mlp()/quantize_mlp() for anything serious.
 
 from __future__ import annotations
 
+import argparse
 from typing import Tuple
 
 import numpy as np
@@ -26,6 +33,7 @@ from vpp_tpu_torch.ml.model import (
     MlModel,
     flagged_oracle,
     packet_features,
+    save_model,
     score_oracle,
 )
 
@@ -206,3 +214,35 @@ def train_and_pack(kind: str = "mlp", hidden: int = 16, trees: int = 4,
                    "false_positive_rate": fpr,
                    "flagged_pct": float(flagged.mean() * 100.0)}
 
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="vpp-tpu-torch-ml-train",
+        description="train + quantize + pack a vpp-tpu ML-stage model")
+    ap.add_argument("--out", required=True, help="artifact path (JSON)")
+    ap.add_argument("--kind", choices=("mlp", "forest"), default="mlp")
+    ap.add_argument("--hidden", type=int, default=16)
+    ap.add_argument("--trees", type=int, default=4)
+    ap.add_argument("--depth", type=int, default=3)
+    ap.add_argument("--samples", type=int, default=8192)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--action", choices=("mark", "drop", "ratelimit",
+                                         "mirror"), default="mark")
+    ap.add_argument("--rl-shift", type=int, default=0)
+    ap.add_argument("--version", type=int, default=1)
+    args = ap.parse_args(argv)
+    model, report = train_and_pack(
+        kind=args.kind, hidden=args.hidden, trees=args.trees,
+        depth=args.depth, samples=args.samples, seed=args.seed,
+        action=args.action, rl_shift=args.rl_shift,
+        version=args.version)
+    save_model(model, args.out)
+    print(f"wrote {args.kind} model v{args.version} -> {args.out}")
+    for k, v in report.items():
+        print(f"  {k}: {v:.4f}" if isinstance(v, float) else f"  {k}: {v}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

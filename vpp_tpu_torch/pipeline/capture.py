@@ -68,6 +68,7 @@ and a budget also raises when its scope captures one key twice.
 
 from __future__ import annotations
 
+import gc
 import itertools
 import math
 import os
@@ -304,6 +305,12 @@ class Part:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
         t0 = time.perf_counter()
+        # a dropped program is a reference cycle (its parts' functions
+        # close over it): were the cyclic collector to free one mid-
+        # capture, its graph's reset would invalidate this capture. The
+        # collector stays off (in every thread) until the capture ends.
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # thread_local: the IO pump's other threads (fetch workers,
             # the ring fetcher) may wait on events or copy results while
@@ -313,6 +320,8 @@ class Part:
                                   capture_error_mode="thread_local"):
                 out = self.fn(*args)
         finally:
+            if collecting:
+                gc.enable()
             counted = [w.launches - n for w, n in zip(WRAPPERS, before)]
             for w, n in zip(WRAPPERS, before):
                 w.launches = n

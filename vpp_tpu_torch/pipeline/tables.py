@@ -50,6 +50,7 @@ float32 to bf16 inside every call, vpp_tpu/ops/acl_mxu.py
 
 from __future__ import annotations
 
+import enum
 import ipaddress
 import logging
 import time
@@ -106,7 +107,7 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-class InterfaceType:
+class InterfaceType(enum.IntEnum):
     NONE = 0
     POD = 1      # pod-facing interface
     UPLINK = 2   # node uplink toward other nodes / cluster edge

@@ -1,8 +1,11 @@
-"""Tracing: the packet tracer and the control-plane span recorder.
+"""Tracing: the packet tracer, per-stage timing and the control-plane
+span recorder.
 
 ``trace.tracer`` is the packet tracer (VPP's ``trace add`` / ``show
-trace``) over the port's ``StepResult``; ``trace.spans`` the span
-recorder over the config path, a copy of the reference's. Re-exports
+trace``) over the port's ``StepResult``; ``trace.cycles`` the per-stage
+timing (``show run``: ``profile_stages``, ``format_show_run``);
+``trace.spans`` the span recorder over the config path, a copy of the
+reference's. Re-exports
 resolve lazily (PEP 562), so a process that needs only ``trace.spans``
 does not import torch.
 """
@@ -10,6 +13,9 @@ does not import torch.
 _LAZY = {
     "PacketTracer": ("vpp_tpu_torch.trace.tracer", "PacketTracer"),
     "TraceEntry": ("vpp_tpu_torch.trace.tracer", "TraceEntry"),
+    "StageTiming": ("vpp_tpu_torch.trace.cycles", "StageTiming"),
+    "profile_stages": ("vpp_tpu_torch.trace.cycles", "profile_stages"),
+    "format_show_run": ("vpp_tpu_torch.trace.cycles", "format_show_run"),
     "Span": ("vpp_tpu_torch.trace.spans", "Span"),
     "SpanTracer": ("vpp_tpu_torch.trace.spans", "SpanTracer"),
 }
