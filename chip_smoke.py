@@ -274,6 +274,49 @@ raises on failure:
    <kind>``, ``remote ml``, ``remote cli`` (round trip ms per command),
    ``remote failover`` (primary down -> standby writable -> the card's
    first commit), ``remote commits`` and the ``show run`` tables;
+4k. the node's wire: (i) a card ``ContivAgent`` at phase 4i's widths
+   (110 pods, 16 policies, 64 services, 15 peers; the default ladders
+   with the FIB pinned to the LPM kernel rung) with its packet rings in
+   shared memory, an IO plan file and the daemon's control socket, and a
+   CPU twin agent with in-process rings. The IO daemon runs as its own
+   process (``python -m vpp_tpu_torch.cmd.io_daemon``), started from the
+   agent's plan by ``InitSupervisor`` with ``--if IDX:fd:N`` specs and the
+   fds of a socketpair each for the uplink and 16 of the pods (the pods
+   added through the CNI server without a netns: no kernel wiring); its
+   process must map neither torch nor the CUDA driver. The twin's
+   daemon is the port's ``IODaemon`` in process over socketpairs of its
+   own; the wired pods' MACs are pinned on both (as the pod wirer pins
+   them). Three rounds of Ethernet frames, from one ingress socket at a
+   time in chunks of 128, each waited for until the daemon's counters
+   account for every frame: phase 4i's 4,096-packet mix (half pod to
+   pod between the wired pods, a quarter to the cluster IPs, a quarter
+   from the uplink, a quarter of those VXLAN frames from the peers'
+   VTEPs and pods), the replies of every frame that left, and (after a
+   NetworkPolicy that leaves ns4's cache pods TCP 22 only, and after
+   the daemon is killed with SIGKILL and respawned from its plan by the
+   supervisor, the twin's daemon restarted alike) a fresh forward mix.
+   The frames each socket received must equal the twin's as a multiset,
+   byte for byte but for the Ethernet source MAC (each daemon process
+   draws its transports' MACs: one per socket); every pod-to-pod frame
+   must reach its destination's socket exactly when the NetworkPolicy
+   oracle allows it, the deny must cut frames the old policies allowed;
+   the daemon's rx count must equal the frames sent and its tx count the
+   frames received; ``vpp_tpu_pump_drops_total{reason="rx_full"}`` on
+   the card's ``/stats`` must read the pump's and the daemon's count;
+   ``sess_probe_ways``, ``bv_first_set`` and ``lpm_fused_lookup`` must
+   launch. Printed: the daemon's boot from the plan, each round's
+   counts by socket, the daemon's rx / tx / drop / encap / decap counts,
+   Mpps through the daemon process over the chunks, frame latency p50 /
+   p99 socket to socket, and the respawn time (SIGKILL to the first
+   frame through the new daemon). (ii) Where ``ip netns add`` succeeds
+   (the line says ``wire kernel: ran`` or ``wire kernel: not permitted
+   (<why>)``): the init supervisor boots an agent process (the store on
+   a ``KVServer``, the host interconnect on) and its IO daemon process;
+   8 pods added through the CNI shim get veths in named netns; UDP and
+   a TCP handshake between two pods, the host pings a pod, a
+   NetworkPolicy cuts one port and keeps another, a CNI DEL removes the
+   veth, and ``LinuxNetlink`` steals and reverts a veth's addressing;
+   printed: the CNI adds' p50 / p99 with wiring;
 5. timing with CUDA events: ms per ``process`` step and Mpps (valid
    packets per device second) at P = 256 and 4,096, captured and eager,
    and a ``torch.profiler`` window per size (device operations, graph
@@ -6071,6 +6114,931 @@ def remote_phase(cfg: DataplaneConfig, gpu: Dataplane, up: int, seed: int):
     return summary, launches
 
 
+# --- phase 4k: the node's wire -----------------------------------------
+
+WIRE_PODS = tuple(range(0, AGENT_PODS, 7))  # the 16 pods with a socket
+WIRE_CHUNK = 128       # frames sent from one socket before the wait
+WIRE_DEADLINE = 60.0   # the longest a chunk may take to be accounted
+WIRE_IP_LEN = 512      # every frame's IPv4 total length (pkt_len)
+WIRE_KERNELS = ("sess_probe_ways", "bv_first_set", "lpm_fused_lookup")
+WIRE_DENY = ("ns4", "wire-deny", "cache", 22)  # ns, name, app, its port
+WIRE_NOW = 600_000     # the pinned step clock (past phase 4i's)
+WIRE_VXLAN = 50        # outer Ethernet + IPv4 + UDP + VXLAN bytes
+
+
+def wire_config(cfg: DataplaneConfig, root: Path, card: bool) -> AgentConfig:
+    """Phase 4k's node: phase 4i's with the FIB pinned to the LPM kernel
+    rung and the packet rings on; the card's rings in shared memory, its
+    IO plan file and the daemon's control socket (the twin's rings are
+    in process, its daemon an in-process ``IODaemon``)."""
+    c = agent_config(cfg, root, card, io=True)
+    c.dataplane = c.dataplane._replace(fib_impl="pallas")
+    if card:
+        c.io = dataclasses.replace(
+            c.io, shm_name=f"vpp_tpu_torch_wire_{root.name}",
+            plan_path=str(root / "io-plan.json"),
+            control_socket=str(root / "io-ctl.sock"))
+    return c
+
+
+def wire_pair():
+    """One interface's socketpair: (the daemon's end, the wire's end)."""
+    import socket
+
+    a, b = socket.socketpair(socket.AF_UNIX, socket.SOCK_DGRAM)
+    for s in (a, b):
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, 4 << 20)
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4 << 20)
+    b.setblocking(True)
+    return a, b
+
+
+def pod_mac(ip: int) -> bytes:
+    return b"\x02\x00" + int(ip).to_bytes(4, "big")
+
+
+def wire_frame(src: int, dst: int, sport: int, dport: int, fid: int,
+               dmac: bytes = b"\x02\xfe\x00\x00\x00\x01") -> bytes:
+    """Ethernet + IPv4 (total length ``WIRE_IP_LEN``, a valid header
+    checksum) + TCP whose sequence number is the frame's id."""
+    import struct
+
+    hdr = struct.pack("!BBHHHBBH4s4s", 0x45, 0, WIRE_IP_LEN, fid & 0xFFFF,
+                      0x4000, 64, 6, 0, int(src).to_bytes(4, "big"),
+                      int(dst).to_bytes(4, "big"))
+    s = sum(struct.unpack("!10H", hdr))
+    while s >> 16:
+        s = (s & 0xFFFF) + (s >> 16)
+    hdr = hdr[:10] + struct.pack("!H", ~s & 0xFFFF) + hdr[12:]
+    tcp = struct.pack("!HHIIBBHHH", sport, dport, fid, 0, 5 << 4, 0x10,
+                      8192, 0, 0)
+    return (dmac + pod_mac(src) + b"\x08\x00" + hdr + tcp
+            + bytes(WIRE_IP_LEN - 40))
+
+
+def frame_key(raw: bytes):
+    """(src, dst, sport, dport, id) of a frame's (inner) IPv4 / TCP
+    header, and whether it came VXLAN-encapsulated."""
+    off = 0
+    if raw[23] == 17 and int.from_bytes(raw[36:38], "big") == 4789:
+        off = WIRE_VXLAN
+    ip = raw[off + 14:off + 34]
+    l4 = raw[off + 34:off + 42]
+    return (int.from_bytes(ip[12:16], "big"), int.from_bytes(ip[16:20], "big"),
+            int.from_bytes(l4[0:2], "big"), int.from_bytes(l4[2:4], "big"),
+            int.from_bytes(l4[4:8], "big"), bool(off))
+
+
+class WireEnd:
+    """One node's wire: a socketpair per interface (the daemon's end and
+    the end the phase plays), a thread receiving from every wire end,
+    the daemon's counters (``stats``: a callable) and the agent's pump
+    (its ICMP errors and its drop counters)."""
+
+    def __init__(self, names, stats, pump):
+        import threading
+
+        self.pairs = {w: wire_pair() for w in names}
+        self.names = {b.fileno(): w for w, (_a, b) in self.pairs.items()}
+        self.stats = stats
+        self.pump = pump
+        self.got = {w: [] for w in names}
+        self.sent_at = {}
+        self.chunk_s = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._recv, daemon=True,
+                                        name="wire-recv")
+        self._thread.start()
+
+    def _recv(self) -> None:
+        import select
+
+        socks = [b for _a, b in self.pairs.values()]
+        while not self._stop.is_set():
+            ready, _, _ = select.select(socks, [], [], 0.05)
+            for s in ready:
+                s.setblocking(False)
+                try:
+                    while True:
+                        raw = s.recv(65535)
+                        self.got[self.names[s.fileno()]].append(
+                            (time.perf_counter(), raw))
+                except BlockingIOError:
+                    pass
+                s.setblocking(True)
+
+    def received(self) -> int:
+        return sum(len(v) for v in self.got.values())
+
+    def counters(self) -> dict:
+        """``taken``: frames the daemon took off its sockets (pushed to
+        the rx ring, or dropped on a full one: ``rx_full``); ``out``:
+        packets the tx side accounted for (sent, dropped, punted,
+        truncated) and those the pump lost; ``icmp``: the pump's ICMP
+        errors, which enter the tx ring too."""
+        s = self.stats()
+        ps = self.pump.stats
+        lost = sum(ps.get(k, 0) for k in PUMP_DROP_KEYS
+                   if k != "drops_tenant_quota")  # a verdict, not a loss
+        return dict(taken=s["rx_pkts"] + s["drops_rx_full"],
+                    rx=s["rx_pkts"], rx_full=s["drops_rx_full"],
+                    out=s["tx_pkts"] + s["tx_drops"] + s["tx_punts"]
+                    + s["trunc_drops"] + lost, lost=lost, tx=s["tx_pkts"],
+                    icmp=ps.get("icmp_errors", 0))
+
+    @staticmethod
+    def accounted(base: dict, c: dict, n: int) -> bool:
+        return (c["taken"] - base["taken"] == n
+                and c["out"] - base["out"]
+                == c["rx"] - base["rx"] + c["icmp"] - base["icmp"])
+
+    def push(self, wire: str, frames) -> None:
+        """Send ``frames`` from ``wire``; wait until the daemon received
+        every one and its tx counters account for each (and for every
+        ICMP error the pump made meanwhile)."""
+        base = self.counters()
+        t0 = time.perf_counter()
+        sock = self.pairs[wire][1]
+        for fid, raw in frames:
+            self.sent_at[fid] = time.perf_counter()
+            sock.send(raw)
+        deadline = t0 + WIRE_DEADLINE
+        while True:
+            c = self.counters()
+            if self.accounted(base, c, len(frames)):
+                if c["rx_full"] != base["rx_full"] or c["lost"] != base[
+                        "lost"]:
+                    raise AssertionError(f"wire {wire}: frames lost in a "
+                                         f"chunk: {base} -> {c}")
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"wire {wire}: {len(frames)} frames "
+                                     f"sent, counters {base} -> {c}")
+            # each poll of the card's daemon is a control-socket round
+            # trip served beside its rx and tx threads: not too often
+            time.sleep(0.002)
+        self.chunk_s.append((len(frames), time.perf_counter() - t0))
+
+    def blast(self, sends) -> dict:
+        """Every frame of ``sends`` at once, the sockets in turn one
+        frame each, then the wait until the daemon accounted for all:
+        the delivered rate and latency of a backlog."""
+        base = self.counters()
+        n0 = self.received()
+        queues = {w: list(v) for w, v in sends.items()}
+        total = sum(len(v) for v in queues.values())
+        t0 = time.perf_counter()
+        while queues:
+            for w in list(queues):
+                fid, raw = queues[w].pop(0)
+                self.sent_at[fid] = time.perf_counter()
+                self.pairs[w][1].send(raw)
+                if not queues[w]:
+                    del queues[w]
+        deadline = time.perf_counter() + WIRE_DEADLINE
+        while True:
+            c = self.counters()
+            if self.accounted(base, c, total):
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"wire blast: {total} frames sent, "
+                                     f"counters {base} -> {c}")
+            time.sleep(0.002)
+        self.settle(n0 + c["tx"] - base["tx"])
+        times = [t for got in self.got.values() for t, raw in got
+                 if self.sent_at.get(frame_key(raw)[4], 1e30) >= t0]
+        lat = [t - self.sent_at[frame_key(raw)[4]] for got in
+               self.got.values() for t, raw in got
+               if self.sent_at.get(frame_key(raw)[4], 1e30) >= t0]
+        span = max(times) - t0
+        lat_us = np.asarray(lat) * 1e6
+        return dict(sent=total, delivered=len(times),
+                    not_delivered=total - len(times),
+                    rx_full=c["rx_full"] - base["rx_full"],
+                    pump_lost=c["lost"] - base["lost"],
+                    span_s=span, mpps=len(times) / span / 1e6,
+                    latency_us=dict(p50=float(np.percentile(lat_us, 50)),
+                                    p99=float(np.percentile(lat_us, 99))))
+
+    def settle(self, want_tx: int) -> None:
+        """Wait until the wire ends hold every frame the daemon sent."""
+        deadline = time.perf_counter() + WIRE_DEADLINE
+        while self.received() < want_tx:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"wire: {self.received()} of "
+                                     f"{want_tx} frames reached the wire")
+            time.sleep(0.001)
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        for a, b in self.pairs.values():
+            a.close()
+            b.close()
+
+
+def wire_compare(ends, marks, what: str) -> dict:
+    """The frames each wire end received since ``marks``: equal on both
+    nodes as a multiset per socket, byte for byte but for the Ethernet
+    source MAC (each daemon's transport MAC, which a daemon process
+    draws at random: it must be one value per socket)."""
+    out = {}
+    per = {}
+    for side, end in ends.items():
+        rows = {}
+        for w, got in end.got.items():
+            frames = [raw for _t, raw in got[marks[side][w]:]]
+            macs = {raw[6:12] for raw in frames}
+            if len(macs) > 1:
+                raise AssertionError(f"{what}: {side} socket {w} sent from "
+                                     f"{len(macs)} MACs")
+            rows[w] = sorted(raw[:6] + raw[12:] for raw in frames)
+        per[side] = rows
+    for w in per["card"]:
+        if per["card"][w] != per["twin"][w]:
+            raise AssertionError(
+                f"{what}: socket {w} received {len(per['card'][w])} frames "
+                f"on the card, {len(per['twin'][w])} from the twin, or "
+                f"other bytes")
+        if per["card"][w]:
+            out[w] = len(per["card"][w])
+    return out
+
+
+def wire_traffic(rng, node: AgentNode, world: K8sWorld, wired, r: int,
+                 fid0: int, vtep: int):
+    """A round's 4,096 frames by ingress socket: half pod to pod between
+    the wired pods, a quarter from them to the cluster IPs, a quarter
+    from the uplink (phase 4i's uplink mix; a quarter of those are VXLAN
+    frames from the peer nodes' VTEPs, from their pods: the replies
+    leave encapsulated). Returns ({wire: [(id, bytes)]}, the pod-to-pod
+    frames as (id, src pod, dst pod, port), the next frame id)."""
+    agent = node.agent
+    pids = [k8s_pod(i)[0] for i in wired]
+    name = {p: f"pod{i}" for p, i in zip(pids, wired)}
+    ip = {p: ip4(world.pods[p][1]) for p in pids}
+    n = BIG_VEC
+    a = rng.integers(0, len(pids), n // 2)
+    b = (a + rng.integers(1, len(pids), n // 2)) % len(pids)
+    ports = np.array(K8S_PORTS)[rng.integers(0, len(K8S_PORTS), n // 2)]
+    svcs = sorted(world.services)
+    vips = [ip4(world.services[svcs[j]].cluster_ip)
+            for j in rng.integers(0, len(svcs), n // 4)]
+    c = rng.integers(0, len(pids), n // 4)
+    up, _ = k8s_uplink_traffic(rng, n // 4, agent.uplink_if, world,
+                               str(agent.ipam.node_ip_address()))
+    # the peers hold node ids 2..16 (the card is 1): their VTEPs and a
+    # pod of each
+    peers = [(ip4(str(agent.ipam.vxlan_ip_address(k + 2))),
+              ip4(str(agent.ipam.other_node_pod_network(k + 2)[10 + k])))
+             for k in range(AGENT_PEERS)]
+    codec = PacketCodec()
+    sends = {}
+    pairs = []
+    fid = fid0
+    sport0 = 20000 + r * n
+    for k in range(n // 2):
+        sp, dp_ = pids[a[k]], pids[b[k]]
+        sends.setdefault(name[sp], []).append(
+            (fid, wire_frame(ip[sp], ip[dp_], sport0 + k, int(ports[k]),
+                             fid)))
+        pairs.append((fid, sp, dp_, int(ports[k])))
+        fid += 1
+    for k in range(n // 4):
+        sp = pids[c[k]]
+        sends.setdefault(name[sp], []).append(
+            (fid, wire_frame(ip[sp], vips[k], sport0 + n // 2 + k, 80, fid)))
+        fid += 1
+    for k in range(n // 4):
+        peer, peer_pod = peers[k % len(peers)]
+        src = peer_pod if k % 4 == 3 else int(up["src_ip"][k])
+        raw = wire_frame(src, int(up["dst_ip"][k]), int(up["sport"][k]),
+                         int(up["dport"][k]), fid)
+        if k % 4 == 3:
+            arr = np.frombuffer(raw, np.uint8)
+            raw = codec.encap(np.ascontiguousarray(arr), len(raw), peer,
+                              vtep, 49152 + k, 10, pod_mac(peer),
+                              b"\x02\xfe\x00\x00\x00\x01")
+        sends.setdefault("uplink", []).append((fid, raw))
+        fid += 1
+    return sends, pairs, fid
+
+
+def wire_replies(end: WireEnd, marks, vtep: int, fid0: int):
+    """The replies of the frames each wire end received since ``marks``
+    (the twin's, equal to the card's), each from the socket its forward
+    frame left by: endpoints swapped; a VXLAN frame's reply comes back
+    encapsulated from the VTEP it was sent to. ICMP errors get none."""
+    codec = PacketCodec()
+    sends = {}
+    fid = fid0
+    for w, got in end.got.items():
+        for _t, raw in got[marks[w]:]:
+            if raw[WIRE_VXLAN + 23 if frame_key(raw)[5] else 23] != 6:
+                continue  # an ICMP error the pump made: no reply
+            src, dst, sport, dport, _id, encap = frame_key(raw)
+            rep = wire_frame(dst, src, dport, sport, fid)
+            if encap:
+                peer = int.from_bytes(raw[30:34], "big")
+                arr = np.frombuffer(rep, np.uint8)
+                rep = codec.encap(np.ascontiguousarray(arr), len(rep), peer,
+                                  vtep, 49152 + (fid & 0x3FFF), 10,
+                                  pod_mac(peer), b"\x02\xfe\x00\x00\x00\x01")
+            sends.setdefault(w, []).append((fid, rep))
+            fid += 1
+    return sends, fid
+
+
+def wire_phase(cfg: DataplaneConfig, seed: int, device=None):
+    """Phase 4k (i) (module doc). ``device`` "cpu" rehearses the phase
+    with both nodes on the CPU. Returns (summary, launches)."""
+    import os
+    import signal
+
+    from vpp_tpu_torch.cmd.init_main import InitSupervisor
+    from vpp_tpu_torch.io.control import IOControlClient
+    from vpp_tpu_torch.io.daemon import IODaemon
+    from vpp_tpu_torch.io.transport import SocketPairTransport
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="vpp_tpu_torch_wire_")
+    root = Path(tmp.name)
+    (root / "card").mkdir()
+    (root / "twin").mkdir()
+    clock = [WIRE_NOW]
+    card_cfg = wire_config(cfg, root / "card", True)
+    card = AgentNode(card_cfg, clock, device=device)
+    twin = AgentNode(wire_config(cfg, root / "twin", False), clock,
+                     device="cpu")
+    nodes = (card, twin)
+    dev = card.agent.dataplane.device
+    procs = []
+    ends = {}
+    twin_daemon = None
+    try:
+        world = K8sWorld([])
+        world.pods = {}
+        world.policies = dict(list(world.policies.items())[:AGENT_POLICIES])
+        for node in nodes:
+            for ns in world.namespaces():
+                node.reflect("Namespace", ns.name, ns)
+        # the pods through the CNI server, config only (no netns: the
+        # wired pods' interfaces are the daemon's socketpairs)
+        for i in range(AGENT_PODS):
+            pid, labels, _ = k8s_pod(i)
+            req = CNIRequest(container_id=f"c-pod{i}", netns="",
+                             if_name="eth0",
+                             extra_args={"K8S_POD_NAMESPACE": pid.namespace,
+                                         "K8S_POD_NAME": pid.name})
+            ips = []
+            for node in nodes:
+                reply = node.agent.cni_server.add(req)
+                if reply.result != 0:
+                    raise AssertionError(f"wire cni pod{i}: {reply}")
+                ips.append(reply.interfaces[0].ip_addresses[0]
+                           .address.split("/")[0])
+            if ips[0] != ips[1]:
+                raise AssertionError(f"wire cni pod{i}: addresses differ")
+            world.pods[pid] = (labels, ips[0])
+        if card.agent.dataplane.pod_if != twin.agent.dataplane.pod_if:
+            raise AssertionError("wire cni: interfaces differ")
+        for node in nodes:
+            for pod in world.pod_objects():
+                node.reflect("Pod", f"{pod.namespace}/{pod.name}", pod)
+            for s in sorted(world.services):
+                svc = world.services[s]
+                node.reflect("Service", f"{svc.namespace}/{svc.name}", svc)
+                node.reflect("Endpoints", f"{svc.namespace}/{svc.name}",
+                             world.eps[s])
+            node.publish_peers()
+            for pol in world.policies.values():
+                node.reflect("Policy", f"{pol.namespace}/{pol.name}", pol)
+        rungs = {n: agent_rungs(n.agent.dataplane) for n in nodes}
+        if rungs[card] != rungs[twin] or rungs[card]["fib"] != "pallas":
+            raise AssertionError(f"wire rungs {rungs[card]} {rungs[twin]}")
+        plan = json.loads(Path(card_cfg.io.plan_path).read_text())
+        vtep, vni = int(plan["vtep"]), int(plan["vni"])
+        # the wires: the uplink and the 16 wired pods, on each node
+        names = ["uplink"] + [f"pod{i}" for i in WIRE_PODS]
+        dp = card.agent.dataplane
+        if_of = {"uplink": card.agent.uplink_if}
+        for i in WIRE_PODS:
+            if_of[f"pod{i}"] = dp.pod_if[k8s_pod(i)[0]]
+        ctl = IOControlClient(card_cfg.io.control_socket, timeout=5.0)
+
+        def ctl_stats():
+            while True:
+                try:
+                    return ctl.stats()
+                except OSError:  # the daemon binds its socket at start
+                    time.sleep(0.005)
+
+        ends["card"] = WireEnd(names, ctl_stats, card.agent.io_pump)
+        specs = [f"--if={if_of[w]}:fd:{ends['card'].pairs[w][0].fileno()}"
+                 for w in names]
+        fds = [ends["card"].pairs[w][0].fileno() for w in names]
+
+        def spawn(argv):
+            p = subprocess.Popen(argv + specs, pass_fds=fds,
+                                 cwd=str(Path(__file__).resolve().parent))
+            procs.append(p)
+            return p
+
+        sup = InitSupervisor(card_cfg, None, spawn=spawn, plan_timeout_s=30)
+        t0 = time.perf_counter()
+        if not sup._spawn_io():
+            raise AssertionError("wire: no IO plan from the card agent")
+        ctl_stats()
+        daemon_boot_ms = (time.perf_counter() - t0) * 1e3
+        pid = sup.procs["io"].pid
+        maps = Path(f"/proc/{pid}/maps").read_text()
+        if "libcuda" in maps or "libtorch" in maps:
+            raise AssertionError("wire: the daemon process mapped "
+                                 "torch or the CUDA driver")
+        ta = twin.agent
+        tw = ends["twin"] = WireEnd(
+            names, lambda: dict(twin_daemon.stats), ta.io_pump)
+        tw_transports = {if_of[w]: SocketPairTransport(tw.pairs[w][0], w)
+                         for w in names}
+
+        def twin_io():
+            """The twin's daemon, in process, and the wired pods' static
+            MACs on both (as VethPodWirer pins them at a wire and
+            re-pins them at a re-attach: a new daemon's neighbour
+            table starts empty)."""
+            d = IODaemon(ta.io_rings, tw_transports, uplink_if=ta.uplink_if,
+                         host_if=ta.host_if, vtep_ip=vtep, vni=vni).start()
+            for i in WIRE_PODS:
+                pip = ip4(world.pods[k8s_pod(i)[0]][1])
+                ctl.set_mac(pip, pod_mac(pip))
+                d.set_static_mac(pip, pod_mac(pip))
+            return d
+
+        twin_daemon = twin_io()
+        say(f"wire boot: daemon process {pid} serving in "
+            f"{daemon_boot_ms:.1f} ms from the plan ({' '.join(sup.io_argv(plan)[1:])} "
+            f"+ {len(specs)} --if fd specs); no torch, no CUDA driver mapped")
+
+        for w in WRAPPERS.values():
+            w.launches = 0
+        rounds = {}
+        fid = 1
+        lat = []
+
+        def run_round(kind: str, sends, pairs=None, old=None):
+            marks = {s: {w: len(e.got[w]) for w in names}
+                     for s, e in ends.items()}
+            base = {s: e.counters() for s, e in ends.items()}
+            for w in sorted(sends):
+                frames = sends[w]
+                for o in range(0, len(frames), WIRE_CHUNK):
+                    for side in ("card", "twin"):
+                        ends[side].push(w, frames[o:o + WIRE_CHUNK])
+            for side, e in ends.items():
+                c = e.counters()
+                e.settle(sum(marks[side].values()) + c["tx"]
+                         - base[side]["tx"])
+            counts = wire_compare(ends, marks, f"wire {kind}")
+            sent = sum(len(v) for v in sends.values())
+            c0, c1 = base["card"], ends["card"].counters()
+            got = sum(counts.values())
+            if got != c1["tx"] - c0["tx"] or c1["rx"] - c0["rx"] != sent:
+                raise AssertionError(f"wire {kind}: {sent} sent, {got} "
+                                     f"received, counters {c0} -> {c1}")
+            # the pod-to-pod verdicts against the NetworkPolicy oracle
+            seen = {}
+            for w, got_w in ends["card"].got.items():
+                for t, raw in got_w[marks["card"][w]:]:
+                    k = frame_key(raw)
+                    seen[k[4]] = w
+                    if k[4] in ends["card"].sent_at:
+                        lat.append(t - ends["card"].sent_at[k[4]])
+            denied = cut = 0
+            for f, sp, dp_, port in pairs or ():
+                want = world.allowed(sp, dp_, port)
+                where = seen.get(f)
+                if want != (where == f"pod{int(dp_.name[3:])}"):
+                    raise AssertionError(
+                        f"wire {kind}: {sp} -> {dp_}:{port} oracle "
+                        f"{'allow' if want else 'deny'}, left on {where}")
+                denied += not want
+                if old is not None and not want and old(sp, dp_, port):
+                    cut += 1
+            row = dict(sent=sent, received=got, by_socket=counts,
+                       pod_to_pod=len(pairs or ()),
+                       pod_denied=denied, icmp=c1["icmp"] - c0["icmp"])
+            if old is not None:
+                row["cut_by_the_deny"] = cut
+            return row, marks
+
+        rng = np.random.default_rng(seed + 14)
+        sends, pairs, fid = wire_traffic(rng, twin, world, WIRE_PODS, 0,
+                                         fid, vtep)
+        s0 = ctl_stats()
+        rounds["forward"], marks = run_round("forward", sends, pairs)
+        replies, fid = wire_replies(ends["twin"], marks["twin"], vtep, fid)
+        rounds["replies"], _ = run_round("replies", replies)
+        # a deny: ns4's cache pods take TCP 22 only
+        ns, pname, app, port = WIRE_DENY
+        old_pols = list(world.policies.values())
+        pol = _policy(ns, pname, app, [_peer_pods(ns_env="")], [port])
+        world.policies[(ns, pname)] = pol
+        for node in nodes:
+            node.reflect("Policy", f"{ns}/{pname}", pol)
+        s1 = ctl_stats()
+        # the daemon dies (SIGKILL) and comes back from its plan, as the
+        # supervisor's respawn does: it must attach to the same rings
+        killed = sup.procs["io"]
+        t_kill = time.perf_counter()
+        os.kill(killed.pid, signal.SIGKILL)
+        if killed.wait(timeout=30) != -signal.SIGKILL:
+            raise AssertionError("wire: the daemon outlived SIGKILL")
+        sup._respawn_one_io("io")
+        if sup.procs["io"] is killed:
+            raise AssertionError("wire: the supervisor did not respawn")
+        ctl_stats()
+        # the twin's daemon restarts at the same point: both neighbour
+        # tables start again from the pinned pods
+        if not twin_daemon.stop():
+            raise AssertionError("wire: the twin's daemon did not stop")
+        twin_daemon = twin_io()
+        labels = {p: lab for p, (lab, _ip) in world.pods.items()}
+        nsl = {f"ns{k}": k8s_ns_labels(k) for k in range(K8S_NAMESPACES)}
+
+        def old(sp, dp_, prt):
+            return k8s_allowed(old_pols, None, labels, sp, dp_, prt, nsl,
+                               world.pods[sp][1])
+
+        sends, pairs, fid = wire_traffic(rng, twin, world, WIRE_PODS, 2,
+                                         fid, vtep)
+        first = min(min(f for f, _ in v) for v in sends.values())
+        rounds["forward after deny"], marks = run_round(
+            "forward after deny", sends, pairs, old)
+        firsts = [t for got in ends["card"].got.values()
+                  for t, raw in got[0:] if frame_key(raw)[4] >= first]
+        respawn_ms = (min(firsts) - t_kill) * 1e3
+        if rounds["forward after deny"]["cut_by_the_deny"] <= 0:
+            raise AssertionError("wire: the deny cut no frame")
+        # a backlog on the card alone (the twin has done its part): fresh
+        # pod-to-pod flows the oracle allows, every socket at once
+        pids = [k8s_pod(i)[0] for i in WIRE_PODS]
+        blast = {}
+        for k in range(BIG_VEC):
+            a, b = rng.choice(len(pids), 2, replace=False)
+            port = int(rng.choice(K8S_PORTS))
+            if not world.allowed(pids[a], pids[b], port):
+                continue
+            blast.setdefault(f"pod{WIRE_PODS[a]}", []).append((fid, wire_frame(
+                ip4(world.pods[pids[a]][1]), ip4(world.pods[pids[b]][1]),
+                60000 - k % 5000, port, fid)))
+            fid += 1
+        steady = ends["card"].blast(blast)
+        _sync(dev)
+        launched = {k: WRAPPERS[k].launches for k in WIRE_KERNELS}
+        if device is None and any(v <= 0 for v in launched.values()):
+            raise AssertionError(f"wire: launches {launched}")
+        s2 = ctl_stats()
+        daemon = {k: (s1[k] - s0[k]) + s2[k] for k in (
+            "rx_pkts", "tx_pkts", "tx_drops", "tx_punts", "trunc_drops",
+            "vxlan_encap", "vxlan_decap", "drops_rx_full", "rx_ring_waits")}
+        # the rx_full drop cause on the card's /stats reads the daemon's
+        card.agent.stats._daemon_retry_at = 0.0
+        card.agent.maintenance_tick()
+        text = http_get(card.agent.stats_http.port, "/stats")
+        rx_full = sample(text, "vpp_tpu_pump_drops_total", reason="rx_full")
+        want_rx_full = (card.agent.io_pump.stats["drops_rx_full"]
+                        + s2["drops_rx_full"])
+        if rx_full != want_rx_full:
+            raise AssertionError(f"wire: rx_full {rx_full} on /stats, "
+                                 f"{want_rx_full} counted")
+        pump_drops = {k: card.agent.io_pump.stats.get(k, 0)
+                      for k in PUMP_DROP_KEYS}
+        frames = sum(n for n, _ in ends["card"].chunk_s)
+        busy = sum(s for _, s in ends["card"].chunk_s)
+        lat_us = np.asarray(lat) * 1e6
+        summary = dict(
+            rounds=rounds, daemon=daemon, pump_drops=pump_drops,
+            backlog=steady,
+            rx_full=rx_full, daemon_boot_ms=daemon_boot_ms,
+            respawn_ms=respawn_ms, frames=frames, chunk_s=busy,
+            mpps=frames / busy / 1e6,
+            latency_us=dict(p50=float(np.percentile(lat_us, 50)),
+                            p99=float(np.percentile(lat_us, 99)),
+                            n=int(lat_us.size)),
+            launches=launched)
+        for kind, row in rounds.items():
+            say(f"wire round {kind}: {json.dumps(row)}")
+        say(f"wire daemon: {json.dumps(daemon)}; pump drops "
+            f"{json.dumps(pump_drops)}; /stats rx_full {rx_full:g}")
+        say(f"wire: {frames} frames in chunks of {WIRE_CHUNK} from one "
+            f"socket at a time, each waited for until the daemon "
+            f"accounted for it: {summary['mpps']:.4f} Mpps through the "
+            f"daemon process ({busy:.3f} s in chunks); frame latency "
+            f"socket to socket p50 {summary['latency_us']['p50']:.1f} us, "
+            f"p99 {summary['latency_us']['p99']:.1f} us over "
+            f"{lat_us.size} frames; respawn (SIGKILL to the first frame "
+            f"through the new daemon) {respawn_ms:.1f} ms")
+        say(f"wire backlog: {steady['sent']} frames of allowed pod-to-pod "
+            f"flows from the 16 pod sockets at once: {steady['delivered']} "
+            f"delivered in {steady['span_s'] * 1e3:.1f} ms, "
+            f"{steady['mpps']:.4f} Mpps wire to wire; latency p50 "
+            f"{steady['latency_us']['p50']:.1f} us, p99 "
+            f"{steady['latency_us']['p99']:.1f} us; "
+            f"{steady['not_delivered']} not delivered (rx_full "
+            f"{steady['rx_full']}, lost in the pump {steady['pump_lost']})")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+                p.wait(timeout=30)
+        if twin_daemon is not None:
+            twin_daemon.stop()
+        for e in ends.values():
+            e.close()
+        card.close()
+        twin.close()
+    _sync(dev)
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    tmp.cleanup()
+    summary["seconds"] = time.perf_counter() - t_phase
+    say(f"phase 4k (i): {summary['seconds']:.1f} s; launches {launches}")
+    return summary, launches
+
+
+WIRE_KERNEL_PODS = 8           # pods the kernel-interface part adds
+WIRE_KERNEL_NS = "vpptk-pod"   # their netns: vpptk-pod0 .. vpptk-pod7
+# the part's own subnets: the host interconnect routes them in the host
+WIRE_KERNEL_IPAM = {"pod_subnet_cidr": "10.71.0.0/16",
+                    "vpp_host_subnet_cidr": "172.29.0.0/16",
+                    "service_cidr": "10.112.0.0/12"}
+
+
+def ip_probe() -> str | None:
+    """None where ``ip netns add`` succeeds, else why it failed."""
+    import os
+
+    name = f"vpptk-probe{os.getpid()}"
+    try:
+        r = subprocess.run(["ip", "netns", "add", name], capture_output=True,
+                           text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return str(e)
+    if r.returncode != 0:
+        return r.stderr.strip() or f"rc {r.returncode}"
+    subprocess.run(["ip", "netns", "del", name], capture_output=True,
+                   timeout=30)
+    return None
+
+
+def in_netns(ns, code: str, timeout: float = 60.0, wait: bool = True):
+    """Python ``code`` in netns ``ns`` (the host's with ``ns`` None)."""
+    argv = [sys.executable, "-c", code]
+    if ns is not None:
+        argv = ["ip", "netns", "exec", ns] + argv
+    if not wait:
+        return subprocess.Popen(argv, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+    return subprocess.run(argv, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def udp_delivered(ns_from, ns_to, dst: str, port: int, tries: int = 20):
+    """UDP datagrams from ``ns_from`` to ``dst``:``port`` in ``ns_to``
+    until one arrives or ``tries`` were sent: True if one arrived."""
+    recv = in_netns(ns_to, (
+        "import socket\n"
+        "s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)\n"
+        f"s.bind(('0.0.0.0', {port}))\n"
+        "print('bound', flush=True)\n"
+        f"s.settimeout({0.1 * tries + 2})\n"
+        "try:\n"
+        "    print(s.recvfrom(4096)[0].decode(), flush=True)\n"
+        "except OSError:\n"
+        "    print('none', flush=True)\n"), wait=False)
+    if recv.stdout.readline().strip() != "bound":
+        raise AssertionError(f"wire kernel: receiver {recv.stderr.read()}")
+    in_netns(ns_from, (
+        "import socket, time\n"
+        "s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)\n"
+        f"for _ in range({tries}):\n"
+        f"    s.sendto(b'wire', ('{dst}', {port}))\n"
+        "    time.sleep(0.1)\n"))
+    out, _ = recv.communicate(timeout=60)
+    return "wire" in out
+
+
+def tcp_exchange(ns_from, ns_to, dst: str, port: int) -> bool:
+    srv = in_netns(ns_to, (
+        "import socket\n"
+        "ls = socket.socket(socket.AF_INET, socket.SOCK_STREAM)\n"
+        "ls.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)\n"
+        f"ls.bind(('0.0.0.0', {port}))\n"
+        "ls.listen(4)\n"
+        "print('bound', flush=True)\n"
+        "ls.settimeout(30)\n"
+        "c, _ = ls.accept()\n"
+        "c.sendall(b'pong:' + c.recv(64))\n"), wait=False)
+    try:
+        if srv.stdout.readline().strip() != "bound":
+            raise AssertionError(f"wire kernel: server {srv.stderr.read()}")
+        cli = in_netns(ns_from, (
+            "import socket\n"
+            "s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)\n"
+            "s.settimeout(20)\n"
+            f"s.connect(('{dst}', {port}))\n"
+            "s.sendall(b'wire')\n"
+            "print(s.recv(64).decode(), flush=True)\n"))
+        return "pong:wire" in cli.stdout
+    finally:
+        srv.kill()
+        srv.wait(timeout=30)
+
+
+def ping(ns, dst: str, count: int) -> int:
+    """ICMP echo requests on a raw socket from ``ns``: replies counted."""
+    res = in_netns(ns, (
+        "import os, socket, struct, time\n"
+        "def csum(b):\n"
+        "    s = sum(struct.unpack('>%dH' % (len(b) // 2), b))\n"
+        "    s = (s & 0xFFFF) + (s >> 16)\n"
+        "    return ~((s & 0xFFFF) + (s >> 16)) & 0xFFFF\n"
+        "ident = os.getpid() & 0xFFFF\n"
+        "s = socket.socket(socket.AF_INET, socket.SOCK_RAW,\n"
+        "                  socket.IPPROTO_ICMP)\n"
+        "s.settimeout(2)\n"
+        "got = 0\n"
+        f"for seq in range({count}):\n"
+        "    pay = b'vpp-tpu-torch-wire'\n"
+        "    hdr = struct.pack('>BBHHH', 8, 0, 0, ident, seq)\n"
+        "    s.sendto(struct.pack('>BBHHH', 8, 0, csum(hdr + pay), ident,\n"
+        f"                         seq) + pay, ('{dst}', 0))\n"
+        "    end = time.monotonic() + 2\n"
+        "    while time.monotonic() < end:\n"
+        "        try:\n"
+        "            d, peer = s.recvfrom(4096)\n"
+        "        except OSError:\n"
+        "            break\n"
+        "        h = (d[0] & 0xF) * 4\n"
+        "        t, _, _, i, q = struct.unpack('>BBHHH', d[h:h + 8])\n"
+        f"        if t == 0 and i == ident and q == seq and peer[0] == '{dst}':\n"
+        "            got += 1\n"
+        "            break\n"
+        "print(got, flush=True)\n"))
+    return int(res.stdout.strip() or 0)
+
+
+def wire_kernel_phase(cfg: DataplaneConfig, seed: int, spawn=None) -> dict:
+    """Phase 4k (ii) (module doc): where ``ip netns add`` succeeds, the
+    node on kernel interfaces, booted by the init supervisor (the agent
+    and the IO daemon as processes; ``spawn`` starts them, Popen by
+    default); elsewhere the line says why it did not run."""
+    import os
+
+    from vpp_tpu_torch.cmd.init_main import InitSupervisor
+    from vpp_tpu_torch.cni.wiring import host_ifname
+    from vpp_tpu_torch.health.stn import STNDaemon, Watchdog
+    from vpp_tpu_torch.health.stn_netlink import LinuxNetlink
+    from vpp_tpu_torch.kvstore.server import KVServer
+
+    why = ip_probe()
+    if why is not None:
+        say(f"wire kernel: not permitted ({why})")
+        return {"ran": False, "reason": why}
+    say("wire kernel: ran")
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="vpp_tpu_torch_wirek_")
+    root = Path(tmp.name)
+    nss = [f"{WIRE_KERNEL_NS}{k}" for k in range(WIRE_KERNEL_PODS)]
+    ip_ = lambda *a: subprocess.run(  # noqa: E731
+        ["ip", *a], capture_output=True, text=True, timeout=30)
+    for ns in nss:
+        ip_("netns", "del", ns)
+        if ip_("netns", "add", ns).returncode:
+            raise AssertionError(f"wire kernel: netns {ns}")
+    kv = KVServer(host="127.0.0.1", port=0).start()
+    dp = cfg._replace(classifier="auto", fastpath=True, fib_impl="pallas",
+                      session_impl="auto", nat_mappings=K8S_NAT_MAPPINGS,
+                      max_ifaces=128)
+    conf = {"node_name": K8S_NODE, "serve_http": True, "stats_port": 0,
+            "health_port": 0, "http_host": "127.0.0.1",
+            "store_url": f"tcp://127.0.0.1:{kv.port}",
+            "cni_socket": str(root / "cni.sock"),
+            "ipam": WIRE_KERNEL_IPAM, "dataplane": dp._asdict(),
+            "io": {"enabled": True, "pump_mode": "dispatch",
+                   "snap": PUMP_SNAP, "shm_name": f"vpptk_{os.getpid()}",
+                   "plan_path": str(root / "io-plan.json"),
+                   "control_socket": str(root / "io-ctl.sock"),
+                   "host_interconnect": True}}
+    path = root / "agent.yaml"
+    path.write_text(json.dumps(conf))
+    from vpp_tpu_torch.cmd.config import load_config
+
+    sup = InitSupervisor(load_config(str(path)), str(path), spawn=spawn,
+                         plan_timeout_s=300.0)
+    ksr = None
+    out = {"ran": True}
+    pods = {}
+    try:
+        t0 = time.perf_counter()
+        sup.start()
+        ksr = KsrAgent(store_url=f"tcp://127.0.0.1:{kv.port}",
+                       serve_http=False)
+        ksr.start()
+        for ns in K8sWorld([]).namespaces():
+            ksr.sources[km.Namespace.TYPE].add(ns.name, ns)
+        conf_cni = {"cniVersion": cni_shim.CNI_VERSION, "name": "vpp-tpu",
+                    "type": "vpp-tpu-torch-cni",
+                    "grpcServer": conf["cni_socket"]}
+
+        def cni(command: str, k: int):
+            env = {"CNI_COMMAND": command, "CNI_CONTAINERID": f"wirek{k:04d}",
+                   "CNI_NETNS": f"/var/run/netns/{nss[k]}",
+                   "CNI_IFNAME": "eth0",
+                   "CNI_ARGS": f"IgnoreUnknown=1;K8S_POD_NAMESPACE=ns4;"
+                               f"K8S_POD_NAME=wk{k}"}
+            return cni_shim.run(env, json.dumps(conf_cni).encode())
+
+        add_ms = []
+        deadline = time.monotonic() + 300.0
+        for k in range(WIRE_KERNEL_PODS):
+            while True:
+                t1 = time.perf_counter()
+                reply, code = cni("ADD", k)
+                if code == 0:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"wire kernel: CNI ADD {k}: {reply}")
+                time.sleep(0.5)
+            add_ms.append((time.perf_counter() - t1) * 1e3)
+            pods[k] = json.loads(reply)["ips"][0]["address"].split("/")[0]
+            if k == 0:
+                out["boot_to_first_pod_s"] = time.perf_counter() - t0
+            labels = {"app": "cache" if k == 1 else "web", "tier": "back"}
+            ksr.sources[km.Pod.TYPE].add(f"ns4/wk{k}", km.Pod(
+                name=f"wk{k}", namespace="ns4", labels=labels,
+                ip_address=pods[k], host_ip_address=K8S_NODE_IP))
+        a, b = nss[0], nss[1]
+        if not udp_delivered(a, b, pods[1], 5354):
+            raise AssertionError("wire kernel: UDP pod to pod lost")
+        if not tcp_exchange(a, b, pods[1], 8080):
+            raise AssertionError("wire kernel: TCP handshake failed")
+        ping(None, pods[1], 2)  # the host's first ARP on the interconnect
+        host_ping = ping(None, pods[1], 5)
+        if host_ping != 5:
+            raise AssertionError(f"wire kernel: host ping {host_ping}/5")
+        # a deny: wk1 (app cache) takes TCP 8080 only; UDP 5355 is cut
+        ksr.sources[km.Policy.TYPE].add("ns4/wire-deny", _policy(
+            "ns4", "wire-deny", "cache", [_peer_pods(ns_env="")], [8080]))
+        deadline = time.monotonic() + 60.0
+        while udp_delivered(a, b, pods[1], 5355, tries=5):
+            if time.monotonic() > deadline:
+                raise AssertionError("wire kernel: the deny never cut")
+        if not tcp_exchange(a, b, pods[1], 8080):
+            raise AssertionError("wire kernel: the deny cut its allowed port")
+        # CNI DEL removes the veth
+        if cni("DEL", 0)[1] != 0 or ip_("link", "show",
+                                        host_ifname("wirek0000")).returncode == 0:
+            raise AssertionError("wire kernel: CNI DEL left the veth")
+        # STN: steal and revert a veth's addressing through LinuxNetlink
+        ip_("link", "del", "vpptkstn0")
+        ip_("link", "add", "vpptkstn0", "type", "veth", "peer", "name",
+            "vpptkstn1")
+        ip_("addr", "add", "10.87.0.2/24", "dev", "vpptkstn0")
+        stn = STNDaemon(LinuxNetlink(), persist_path=str(root / "stn.json"))
+        info = stn.steal("vpptkstn0")
+        gone = "10.87.0.2" not in ip_("-o", "addr", "show", "dev",
+                                      "vpptkstn0").stdout
+        dog = Watchdog(stn, probe=lambda: False, grace_failures=1)
+        dog.tick()
+        back = "10.87.0.2/24" in ip_("-o", "addr", "show", "dev",
+                                     "vpptkstn0").stdout
+        ip_("link", "del", "vpptkstn0")
+        if not (gone and back and "10.87.0.2/24" in info.ip_addresses):
+            raise AssertionError("wire kernel: STN steal / revert")
+        p = np.asarray(add_ms[1:] or add_ms)
+        out.update(pods=len(pods), cni_add_ms=dict(
+            p50=float(np.percentile(p, 50)), p99=float(np.percentile(p, 99))),
+            host_ping=host_ping, seconds=time.perf_counter() - t_phase)
+        say(f"wire kernel: {len(pods)} pods wired through the CNI shim, "
+            f"add p50 {out['cni_add_ms']['p50']:.2f} ms, p99 "
+            f"{out['cni_add_ms']['p99']:.2f} ms (phase 4i's config-only "
+            f"adds beside); UDP and a TCP handshake pod to pod, the host "
+            f"pinged a pod ({host_ping}/5), a deny cut UDP 5355 and kept "
+            f"TCP 8080, CNI DEL removed the veth, STN steal and revert")
+    finally:
+        if ksr is not None:
+            ksr.close()
+            ksr.store.close()
+        sup.stop()
+        kv.close()
+        for ns in nss:
+            ip_("netns", "del", ns)
+        for k in range(WIRE_KERNEL_PODS):
+            ip_("link", "del", host_ifname(f"wirek{k:04d}"))
+        tmp.cleanup()
+    return out
+
+
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -6261,6 +7229,13 @@ def main(argv=None) -> int:
     # failover, KSR from a fake API server, the ML loader, the CLI over
     # its socket; show run on phase 4's dataplane
     remote_sum, remote_launches = remote_phase(cfg, gpu, up, args.seed)
+
+    # 4k. the node's wire: the IO daemon as its own process on the card
+    # agent's shared-memory rings, frames from sockets through the card
+    # and back out, against a CPU twin; then kernel interfaces where ip(8)
+    # may create them
+    wire_sum, wire_launches = wire_phase(cfg, args.seed)
+    wire_sum["kernel"] = wire_kernel_phase(cfg, args.seed)
     graphs = check_graphs({"pallas": [gpu, cap_p], "mxu": [gpu_m, cap_m],
                            "pallas+ml": [ml_p], "mxu+ml": [ml_m],
                            "pallas+tnt": [tnt_p], "mxu+tnt": [tnt_m]})
@@ -6476,6 +7451,7 @@ def main(argv=None) -> int:
         row["launches_control_plane"] = k8s_launches[name]
         row["launches_agent"] = agent_launches[name]
         row["launches_remote"] = remote_launches[name]
+        row["launches_wire"] = wire_launches[name]
         if name == "sess_probe_ways":
             row["tenant_form"] = {f"P={n}": timed[("sess_probe_ways.tenant",
                                                    n)] for n in (VEC, BIG_VEC)}
@@ -6526,6 +7502,7 @@ def main(argv=None) -> int:
                     "control_plane": k8s_sum,
                     "agent": agent_sum,
                     "remote": remote_sum,
+                    "wire": wire_sum,
                     "captures": graphs, "power": smi}))
     if any(n != 1 for n in capture.capture_counts().values()):
         raise AssertionError("the timing captured a key again")

@@ -130,6 +130,10 @@ def port_alias(ref_name: str):
         for ref, port in _port_modules().items():
             alias = types.ModuleType(ref)
             alias.__dict__.update(vars(port))
+            # a package's lazy exports (vpp_tpu_torch/_lazy.py), resolved
+            # so the CPU overrides below find them
+            alias.__dict__.update({n: getattr(port, n)
+                                   for n in getattr(port, "__all__", ())})
             alias.__name__ = ref
             if hasattr(port, "__path__"):
                 # a submodule the port lacks loads from the reference

@@ -4,10 +4,8 @@ vpp_tpu's.
 * The reference's own cases (``tests/test_cli.py``) run as written on
   the port through ``test_torch_kvserver.run_port_case`` (the port's
   Dataplane on the CPU). ``test_show_io_with_pump_and_daemon`` and
-  ``test_show_neighbors_lists_static_and_learned`` run the port's pump
-  and CLI against the reference's own IO daemon and control socket:
-  the CLI reads them through duck-typed handles, and the port's IO
-  daemon waits for ROADMAP Queue 1 item 12's sub-item 4.
+  ``test_show_neighbors_lists_static_and_learned`` run the port's pump,
+  IO daemon, control socket and CLI.
 * A differential: one seeded world staged alike in both packages (pods,
   routes, an ECMP group, local and global tables, a NAT mapping, a
   service VIP, an MLP model, telemetry, session rules, a store) and the

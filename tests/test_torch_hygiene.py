@@ -10,7 +10,9 @@
   included) and of ``chip_smoke.py``
   finds no import of ``jax`` nor of the JAX package ``vpp_tpu`` (the
   module itself or any ``vpp_tpu.`` submodule; the port's own
-  ``vpp_tpu_torch`` is of course allowed).
+  ``vpp_tpu_torch`` is of course allowed), and no string constant that
+  names a ``vpp_tpu.`` module: the init supervisor spawns its children
+  by module name, where an import scan cannot see a reference module.
 * The entry points run on the card unless the caller asks for the CPU:
   with no CUDA device, ``Dataplane(cfg)``, ``TableBuilder(cfg)``,
   ``SessionRuleEngine()``, ``ContivAgent()`` and the agent's command
@@ -24,10 +26,10 @@
   ported knobs) names its ``ROADMAP.md`` Queue 1 item, number and
   title. The ring form and its telemetry rider run under every knob:
   tests/test_torch_persistent.py holds them against the reference.
-* Every agent value that reaches a module not ported yet (the IO
-  daemon's control socket and host interconnect, the VCL socket, the
-  mesh) raises ``NotImplementedError`` naming its ROADMAP item before
-  the agent starts a thread, writes to its store or touches a device;
+* Every agent value that reaches a module not ported yet (the VCL
+  socket, the mesh) raises ``NotImplementedError`` naming its ROADMAP
+  item before the agent starts a thread, writes to its store or touches
+  a device; so does the init supervisor for a mesh configuration, and
   the CLI's ``show partitions`` names the mesh's item in its text.
 
 Every quantity compared is an integer: the tolerance is exact equality.
@@ -92,7 +94,9 @@ def test_scan_sees_the_whole_package():
             "vpptcp.py", "reflector.py", "cli.py", "ctl.py",
             "client.py", "witness.py", "replica.py", "kvserver.py",
             "kvwitness.py", "k8s_client.py", "loader.py",
-            "cycles.py"} <= names
+            "cycles.py", "linux.py", "daemon.py", "control.py",
+            "io_daemon.py", "wiring.py", "stn_netlink.py", "init_main.py",
+            "_lazy.py"} <= names
     for sub in ("io", "native", "net", "ksr", "policy", "renderer",
                 "service", "trace", "cmd", "cni", "kvstore", "stats",
                 "health", "hoststack", "agent", "ipam"):
@@ -113,6 +117,40 @@ def test_scan_matches_the_jax_package_but_not_the_port():
     assert _forbidden("jax.numpy") and _forbidden("jax")
     assert not _forbidden("vpp_tpu_torch")
     assert not _forbidden("vpp_tpu_torch.ops.session")
+
+
+# a reference module's dotted name: vpp_tpu.<x>, not vpp_tpu_torch.<x>
+_REF_MODULE = re.compile(r"(?<![\w.])vpp_tpu\.(?:[A-Za-z_]|\Z)")
+
+
+def named_reference_modules(path: Path):
+    """Every string constant of the file (docstrings, f-string parts and
+    argv lists included) that names a ``vpp_tpu.`` module."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and _REF_MODULE.search(node.value)):
+            yield node.lineno, node.value
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_names_no_reference_module_in_a_string(path):
+    """``InitSupervisor`` spawns ``python -m <module>``: a string that
+    kept ``vpp_tpu.cmd.io_daemon`` would quietly run the reference's
+    daemon, which no import scan sees."""
+    bad = list(named_reference_modules(path))
+    assert bad == [], f"{path.relative_to(ROOT)} names {bad}"
+
+
+def test_string_scan_matches_reference_modules_only(tmp_path):
+    src = tmp_path / "probe.py"
+    src.write_text(
+        'ARGV = ["-m", "vpp_tpu.cmd.io_daemon"]\n'
+        'OK = ["-m", "vpp_tpu_torch.cmd.io_daemon", "vpp_tpu/io/daemon.py",'
+        ' "vpp_tpu_pump_drops_total", "x.vpp_tpu.y"]\n'
+        'def f(m):\n    return f"vpp_tpu.{m}"\n')
+    assert [ln for ln, _ in named_reference_modules(src)] == [1, 4]
 
 
 def test_every_field_uploads_in_exactly_one_group():
@@ -236,8 +274,6 @@ def _refusal(kind, arg):
 # the agent's refused values: (AgentConfig keyword arguments, other
 # ContivAgent arguments)
 _AGENT_REFUSED = {
-    "io.control_socket": ({"io": {"control_socket": "/run/io.sock"}}, {}),
-    "io.host_interconnect": ({"io": {"host_interconnect": True}}, {}),
     "vcl_socket": ({"vcl_socket": "/run/vcl.sock"}, {}),
     "mesh.enabled": ({"mesh": {"enabled": True}}, {}),
     "dataplane": ({}, {"dataplane": "mesh node handle"}),
@@ -250,10 +286,12 @@ def _agent_refusal(arg):
     from vpp_tpu_torch.cmd import AgentConfig, ContivAgent
     from vpp_tpu_torch.kvstore import KVStore
 
-    if arg == "cni wirer":
-        from vpp_tpu_torch.cni import RemoteCNIServer
+    if arg == "init mesh":
+        from vpp_tpu_torch.cmd import AgentConfig
+        from vpp_tpu_torch.cmd.init_main import InitSupervisor
 
-        RemoteCNIServer(None, None, wirer=object())
+        InitSupervisor(AgentConfig.from_dict({"mesh": {"nodes": 2}}), None,
+                       spawn=None)
     elif arg in ("set_cluster", "set_fleet", "set_vcl"):
         from vpp_tpu_torch.stats import StatsCollector
 
@@ -271,7 +309,7 @@ _REFUSALS = {
     # the node agent's slice (ROADMAP Queue 1 items 12 and 10)
     **{f"agent-{k}": ("agent", k) for k in _AGENT_REFUSED},
     **{f"agent-{k}": ("agent", k) for k in (
-        "cni wirer", "set_cluster", "set_fleet", "set_vcl")},
+        "init mesh", "set_cluster", "set_fleet", "set_vcl")},
     # the debug CLI's page of the mesh's partition layer (a text, not
     # an exception)
     "cli-show_partitions": ("cli", "show partitions"),
@@ -619,7 +657,8 @@ def test_packaging_names_the_port():
     assert set(scripts) == {"vpp-tpu-torch-agent", "vpp-tpu-torch-ksr",
                             "vpp-tpu-torch-cni", "vpp-tpu-torch-kvstore",
                             "vpp-tpu-torch-kvwitness", "vpp-tpu-torch-ctl",
-                            "vpp-tpu-torch-ml-train"}
+                            "vpp-tpu-torch-ml-train", "vpp-tpu-torch-io",
+                            "vpp-tpu-torch-init"}
     for target in scripts.values():
         mod, fn = target.split(":")
         assert callable(getattr(importlib.import_module(mod), fn))

@@ -300,3 +300,65 @@ def test_to_packet_vector_lifts_the_pipeline_columns():
         assert t.dtype == torch.int32 and t.shape == (VEC,)
         np.testing.assert_array_equal(t.numpy().view(np.uint32),
                                       cols[c].view(np.uint32))
+
+
+# --- the shared-memory attach: an IO daemon's exit leaves the rings ------
+
+_ATTACH_CHILD = """
+import os, signal, sys
+import numpy as np
+sys.path.insert(0, {root!r})
+from vpp_tpu_torch.io.rings import IORingPair
+from vpp_tpu_torch.native.pktio import PacketCodec
+rings = IORingPair(n_slots=4, snap=256, shm_name={name!r}, create=False)
+scratch = np.zeros((256, 256), np.uint8)
+cols, n = PacketCodec(snap=256).parse([bytes.fromhex({frame!r})], {rx_if},
+                                      scratch)
+assert rings.rx.push(cols, n, payload=scratch)
+if {kill}:
+    os.kill(os.getpid(), signal.SIGKILL)
+rings.close()
+"""
+
+
+def test_attached_daemon_exit_leaves_the_rings(tmp_path):
+    """Two processes in turn attach to the creator's rings, push one
+    frame and exit, the first by SIGKILL (an IO daemon that dies and is
+    respawned from its plan): the second still attaches, and the creator
+    reads both frames. An attaching ``IORingPair`` that left its segment
+    to its own resource tracker would have the segment unlinked at the
+    first child's exit, and the second child's attach would fail."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent.parent)
+    name = f"vpp_tpu_torch_attach_{os.getpid()}"
+    rings = trings.IORingPair(n_slots=4, snap=256, shm_name=name,
+                              create=True)
+    try:
+        for k, kill in enumerate((True, False)):
+            frame = make_frame(CLIENT_IP, SERVER_IP, proto=17,
+                               sport=7000 + k, dport=80)
+            code = _ATTACH_CHILD.format(root=root, name=name,
+                                        frame=frame.hex(), rx_if=3 + k,
+                                        kill=kill)
+            proc = subprocess.run([sys.executable, "-c", code],
+                                  capture_output=True, text=True,
+                                  timeout=30)
+            want = -9 if kill else 0
+            assert proc.returncode == want, proc.stderr
+            assert os.path.exists(f"/dev/shm/{name}")
+        got = []
+        for _ in range(2):
+            f = rings.rx.peek()
+            assert f is not None
+            got.append((int(f.n), int(f.cols["rx_if"][0]),
+                        int(f.cols["sport"][0])))
+            rings.rx.release()
+        del f  # its views pin the segment's buffer
+        assert got == [(1, 3, 7000), (1, 4, 7001)]
+    finally:
+        rings.close(unlink=True)
+    assert not os.path.exists(f"/dev/shm/{name}")

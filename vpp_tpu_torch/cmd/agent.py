@@ -22,12 +22,15 @@ endpoint, or a primary and its standbys) connects a ``RemoteKVStore``;
 the client's dispatcher thread, the CLI serves on its transport's
 threads and the maintenance thread steps: each touches the dataplane
 through its device (never a thread's current device) and under its
-``_lock``. Configuration that reaches a module not ported yet raises
+``_lock``. ``io.control_socket`` drives the node's IO daemon
+(``io/control.py``, its own process started by ``vpp-tpu-torch-init``):
+CNI Adds wire veth pairs (``cni/wiring.py``), ``io.host_interconnect``
+wires the host stack's veth, and the collector reads the daemon's
+counters. Configuration that reaches a module not ported yet raises
 ``NotImplementedError`` naming its ROADMAP item in ``__init__``, before
 any thread, socket, store write or device allocation (``refusal``): the
-IO daemon's control socket and host interconnect, the VCL admission
-socket, and the mesh (its config, an injected dataplane handle, a mesh
-node resolver).
+VCL admission socket and the mesh (its config, an injected dataplane
+handle, a mesh node resolver).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from vpp_tpu_torch.ir.rule import PodID
 from vpp_tpu_torch.ksr import model as m
 from vpp_tpu_torch.kvstore.proxy import KVProxy
 from vpp_tpu_torch.kvstore.store import Broker, KVEvent, KVStore, Op
+from vpp_tpu_torch.net.linux import IpCmdError
 from vpp_tpu_torch.pipeline.dataplane import Dataplane
 from vpp_tpu_torch.pipeline.tables import resolve_device
 from vpp_tpu_torch.pipeline.vector import Disposition
@@ -81,12 +85,6 @@ def refusal(config: AgentConfig, dataplane=None,
     the port does not have yet, or None. Each names its ROADMAP item."""
     c = config
     checks = (
-        (c.io.control_socket, "io.control_socket: pod wiring and the IO "
-         "daemon's control channel (cni/wiring.py, net/linux.py, "
-         f"io/control.py) are not ported yet ({AGENT_ITEM})"),
-        (c.io.host_interconnect, "io.host_interconnect: the host "
-         "interconnect (cni/wiring.py, net/linux.py, io/control.py) is "
-         f"not ported yet ({AGENT_ITEM})"),
         (c.vcl_socket, f"vcl_socket {c.vcl_socket!r}: the VCL admission "
          f"server (hoststack/admission.py) is not ported yet "
          f"({AGENT_ITEM})"),
@@ -186,6 +184,17 @@ class ContivAgent:
         self.dataplane.builder.add_route(
             str(self.ipam.vpp_host_subnet), -1, Disposition.DROP
         )
+        if c.io.host_interconnect and c.io.control_socket:
+            # this node's own host-interconnect /24 punts to the host
+            # stack (longest prefix wins over the supernet drop above)
+            # — the routesToHost analog (host.go:92-110). Gated on the
+            # interconnect actually being wired: without a host
+            # transport these flows must stay attributed FIB drops, not
+            # phantom punts that die in tx dispatch
+            self.dataplane.builder.add_route(
+                str(self.ipam.vpp_host_network), self.host_if,
+                Disposition.HOST
+            )
         self.dataplane.builder.set_snat_ip(
             ip4(str(self.ipam.node_ip_address()))
         )
@@ -218,10 +227,33 @@ class ContivAgent:
         )
 
         # --- CNI ---
+        # pod wiring: with an IO-daemon control socket configured, CNI
+        # Adds create real veth pairs and attach them to the daemon at
+        # runtime (reference pod.go:262-452)
+        wirer = None
+        self.io_ctl = None
+        if c.io.control_socket:
+            from vpp_tpu_torch.cni.wiring import VethPodWirer
+            from vpp_tpu_torch.io.control import IOControlClient
+
+            self.io_ctl = IOControlClient(c.io.control_socket)
+            wirer = VethPodWirer(
+                self.io_ctl, gateway_ip=str(self.ipam.pod_gateway_ip())
+            )
+        # VPP↔host interconnect (host.go:105-200): wired in start()
+        # once the IO daemon serves the control socket
+        self.host_interconnect = None
+        if c.io.host_interconnect and self.io_ctl is not None:
+            from vpp_tpu_torch.cni.wiring import HostInterconnectWirer
+
+            self.host_interconnect = HostInterconnectWirer(
+                self.io_ctl, self.ipam
+            )
         self.container_index = ContainerIndex(broker)
         self.cni_server = RemoteCNIServer(
             self.dataplane, self.ipam, self.container_index,
             on_pod_change=self._on_local_pod_change,
+            wirer=wirer,
         )
         self.cni_transport: Optional[CNITransportServer] = None
         self.cli_transport: Optional[CNITransportServer] = None
@@ -332,8 +364,8 @@ class ContivAgent:
         if self.ml_source is not None:
             self.ml_source.poll()
         # packet-IO front-end: shared-memory rings + the dataplane pump
-        # (the vpp-tpu-io daemon attaches to the same shm and owns the
-        # NIC/TAP endpoints — VERDICT r1 Missing #1). Created before the
+        # (the vpp-tpu-torch-io daemon attaches to the same shm and
+        # owns the NIC/TAP endpoints). Created before the
         # CNI resync: resync re-attaches pod veths through the daemon's
         # control socket and those packets land in these rings.
         if c.io.enabled:
@@ -412,6 +444,45 @@ class ContivAgent:
         if self.io_pump is not None:
             # export pump counters over Prometheus
             self.stats.set_pump(self.io_pump)
+        if self.io_ctl is not None:
+            # the rx_full drop cause is counted in the IO daemon (a
+            # separate process): feed its stats over the control
+            # socket so vpp_tpu_pump_drops_total{reason="rx_full"}
+            # reports real overflow, not a structural 0. A dedicated
+            # SHORT-timeout client: the scrape path must not inherit
+            # the control client's 10 s budget when the daemon wedges
+            # (the collector additionally caches + backs off).
+            from vpp_tpu_torch.io.control import IOControlClient as _IoCtl
+
+            self.stats.set_io_daemon(
+                _IoCtl(c.io.control_socket, timeout=0.5).stats)
+        if self.host_interconnect is not None:
+            # vpp-tpu-torch-init only STARTS the IO daemon after it sees
+            # the plan file written above, so on a cold boot the control
+            # socket appears a moment later — wait for it instead of
+            # losing the race (CNI pod wiring never hits this because
+            # Adds arrive only once the daemon is up)
+            deadline = time.monotonic() + 60.0
+            while True:
+                try:
+                    self.host_interconnect.wire(self.host_if)
+                    break
+                except IpCmdError:
+                    # ip(8)/daemon command failures are permanent
+                    # (missing CAP_NET_ADMIN, EEXIST, ...) — retrying
+                    # them only re-runs wire()'s create+rollback for a
+                    # minute; surface immediately
+                    raise
+                except OSError:
+                    # the boot race this wait exists for: control
+                    # socket not yet bound (FileNotFoundError /
+                    # ConnectionRefusedError)
+                    if time.monotonic() >= deadline:
+                        raise
+                    time.sleep(0.5)
+            log.info("host interconnect wired (%s <-> %s)",
+                     self.host_interconnect.host_end,
+                     self.host_interconnect.vsw_end)
         # resync persisted pods before serving (restart path)
         n = self.cni_server.resync()
         if n:
@@ -488,6 +559,7 @@ class ContivAgent:
         # step
         cli = DebugCLI(
             self.dataplane, stats=self.stats, pump=self.io_pump,
+            io_ctl=self.io_ctl,
             session_engine=self.session_engine, store=self.store,
             snapshotter=self.snapshotter, ml_source=self.ml_source,
         )
@@ -712,6 +784,11 @@ class ContivAgent:
                 # buffers under it would be a use-after-free into shared
                 # memory. Leak the mapping (process exit reclaims it).
                 log.error("pump did not stop; leaving rings mapped")
+        if self.host_interconnect is not None:
+            try:
+                self.host_interconnect.unwire(self.host_if)
+            except Exception:  # noqa: BLE001 — teardown is best-effort
+                log.warning("host interconnect unwire failed")
         if self.stn is not None:
             self.stn.revert_all()
         if self.snapshotter is not None:

@@ -9,9 +9,7 @@ which allocates an IP (IPAM), wires a dataplane interface + route, and
 persists the container config for restart resync.
 """
 
-from vpp_tpu_torch.cni.containeridx import ContainerConfig, ContainerIndex
-from vpp_tpu_torch.cni.model import CNIReply, CNIRequest, ResultCode
-from vpp_tpu_torch.cni.server import RemoteCNIServer
+from vpp_tpu_torch._lazy import lazy_exports
 
 __all__ = [
     "CNIReply",
@@ -21,3 +19,12 @@ __all__ = [
     "RemoteCNIServer",
     "ResultCode",
 ]
+# imported at first use (_lazy.py): the IO daemon's process imports no torch
+__getattr__ = lazy_exports(__name__, {
+    "ContainerConfig": "vpp_tpu_torch.cni.containeridx",
+    "ContainerIndex": "vpp_tpu_torch.cni.containeridx",
+    "CNIReply": "vpp_tpu_torch.cni.model",
+    "CNIRequest": "vpp_tpu_torch.cni.model",
+    "ResultCode": "vpp_tpu_torch.cni.model",
+    "RemoteCNIServer": "vpp_tpu_torch.cni.server",
+})

@@ -13,9 +13,8 @@ Restart resync: `resync()` reloads the persisted container index and
 re-wires every interface/route — the reference's resync-from-ETCD path.
 
 The port's copy of ``vpp_tpu/cni/server.py`` over the port's
-``Dataplane``. The kernel wiring (a ``wirer``: veth pairs attached to
-the IO daemon, ``cni/wiring.py`` and ``net/linux.py``) is not ported:
-``wirer`` must be None, so the server runs in config-only mode.
+``Dataplane``; with a ``wirer`` (``cni/wiring.py``) each Add also
+creates the pod's kernel veth path and attaches it to the IO daemon.
 """
 
 from __future__ import annotations
@@ -61,14 +60,10 @@ class RemoteCNIServer:
         # the policy/service plugins' cue to re-render (the reference's
         # async ETCD-watch path, SURVEY.md §3.2).
         self.on_pod_change = on_pod_change
-        # the VethPodWirer (cni/wiring.py) creates the kernel veth path
-        # and attaches it to the IO daemon; not ported, so the server
-        # runs config-only
-        if wirer is not None:
-            raise NotImplementedError(
-                "RemoteCNIServer(wirer=...): pod wiring (cni/wiring.py, "
-                "net/linux.py, io/control.py) is not ported yet (ROADMAP "
-                "Queue 1 item 12 (Agent))")
+        # Optional VethPodWirer (cni/wiring.py): creates the kernel veth
+        # path and attaches it to the IO daemon. None = config-only mode
+        # (unit tests, cluster simulations without CAP_NET_ADMIN).
+        self.wirer = wirer
         # Optional Prometheus Histogram (vpp_tpu_cni_request_seconds,
         # labelled op="add"|"del"): Add/Delete handling duration —
         # kubelet's sandbox-setup latency budget is this number
@@ -84,6 +79,7 @@ class RemoteCNIServer:
         """Re-wire all persisted containers after an agent restart."""
         with self._lock, self.dp.commit_lock:
             n = 0
+            rewire = []
             for cfg in self.index.load_persisted():
                 pod = (cfg.pod_namespace, cfg.pod_name)
                 if_idx = self.dp.add_pod_interface(pod)
@@ -97,10 +93,43 @@ class RemoteCNIServer:
                     # labels) track the live interface.
                     cfg = dataclasses.replace(cfg, if_index=if_idx)
                     self.index.register(cfg)
+                rewire.append(cfg)
                 n += 1
             if n:
                 self.dp.builder.txn_label = f"cni-resync {n} pods"
                 self.dp.swap()
+            if self.wirer is not None:
+                # re-attach surviving veth pairs to the (possibly also
+                # restarted) IO daemon; attach is idempotent. A pod
+                # whose veth vanished (node reboot) gets re-created —
+                # kubelet will eventually re-Add anyway, but traffic
+                # for still-running containers must not wait for it.
+                from vpp_tpu_torch.cni.wiring import host_ifname
+
+                from vpp_tpu_torch.net import linux
+
+                for cfg in rewire:
+                    try:
+                        host_if = host_ifname(cfg.container_id)
+                        if linux.link_exists(host_if):
+                            self.wirer.re_attach(
+                                container_id=cfg.container_id,
+                                netns=cfg.netns,
+                                if_name=cfg.if_name,
+                                if_index=cfg.if_index,
+                                pod_ip=cfg.ip,
+                            )
+                        elif cfg.netns:
+                            self.wirer.wire(
+                                container_id=cfg.container_id,
+                                netns=cfg.netns,
+                                if_name=cfg.if_name,
+                                if_index=cfg.if_index,
+                                pod_ip=cfg.ip,
+                            )
+                    except Exception:  # noqa: BLE001 — per-pod isolation
+                        log.exception("resync re-wire failed for %s",
+                                      cfg.container_id)
             return n
 
     # --- CNI protocol ---
@@ -153,6 +182,13 @@ class RemoteCNIServer:
                             (stale.pod_namespace, stale.pod_name)
                         )
                         self.ipam.release_pod_ip(pod_id)
+                        if self.wirer is not None:
+                            self.wirer.unwire(
+                                container_id=stale.container_id,
+                                netns=stale.netns,
+                                if_index=stale.if_index,
+                                pod_ip=stale.ip,
+                            )
                     ip = self.ipam.next_pod_ip(pod_id)
                     if_idx = self.dp.add_pod_interface(pod)
                     self.dp.builder.add_route(
@@ -160,6 +196,17 @@ class RemoteCNIServer:
                     )
                     self.dp.builder.txn_label = f"cni-add {pod_id}"
                     self.dp.swap()
+                # kernel path: veth pair + netns config + daemon attach
+                # (the reference's configurePodInterface step,
+                # remote_cni_server.go:1039; rolls itself back on error)
+                if self.wirer is not None and req.netns:
+                    self.wirer.wire(
+                        container_id=req.container_id,
+                        netns=req.netns,
+                        if_name=req.if_name,
+                        if_index=if_idx,
+                        pod_ip=str(ip),
+                    )
                 cfg = ContainerConfig(
                     container_id=req.container_id,
                     pod_name=req.pod_name,
@@ -183,6 +230,13 @@ class RemoteCNIServer:
                         # half-configured: release the (persisted)
                         # allocation or every retry leaks another pod IP
                         self.ipam.release_pod_ip(pod_id)
+                # IO daemon not (yet) reachable on its control socket —
+                # a boot-order transient (vpp-tpu-init starts it after
+                # the agent): tell kubelet to retry, not that the pod
+                # can never be wired
+                if isinstance(e, (FileNotFoundError, ConnectionError)):
+                    return CNIReply(result=ResultCode.TRY_AGAIN,
+                                    error=str(e))
                 return CNIReply(result=ResultCode.ERROR, error=str(e))
         self._notify()
         return self._reply_for(cfg)
@@ -214,6 +268,11 @@ class RemoteCNIServer:
                     f"cni-del {cfg.pod_namespace}/{cfg.pod_name}"
                 )
                 self.dp.swap()
+            if self.wirer is not None:
+                self.wirer.unwire(
+                    container_id=cfg.container_id, netns=cfg.netns,
+                    if_index=cfg.if_index, pod_ip=cfg.ip,
+                )
         self._notify()
         return CNIReply(result=ResultCode.OK)
 

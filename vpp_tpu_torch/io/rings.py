@@ -353,6 +353,15 @@ class IORingPair:
                     )
             else:
                 self._shm = shared_memory.SharedMemory(name=shm_name)
+                # Python < 3.13 registers an ATTACHED segment with this
+                # process's resource tracker too, which unlinks it when
+                # the process exits (a SIGKILL included): the first IO
+                # daemon to die would take the agent's ring name with it
+                # and every respawn would fail to attach. The creator
+                # owns the segment; an attacher leaves it alone.
+                from multiprocessing import resource_tracker
+
+                resource_tracker.unregister(self._shm._name, "shared_memory")
             mv = self._shm.buf
             o = 0
             bufs = []
