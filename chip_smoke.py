@@ -317,6 +317,35 @@ raises on failure:
    NetworkPolicy cuts one port and keeps another, a CNI DEL removes the
    veth, and ``LinuxNetlink`` steals and reverts a veth's addressing;
    printed: the CNI adds' p50 / p99 with wiring;
+4l. the VCL host stack and the gateway fleet, at bench.py's widths:
+   (i) a card ``ContivAgent`` with ``vcl_socket`` set (its admission
+   server over the agent's session-rule engine, raised to 2,048 rules
+   and packed with the 996-rule gen-policy filler and the proxy chain's
+   rules, hoststack/scenarios.py), and the LD_PRELOAD shim built from
+   ``native/vcl_preload.c``: a child process under the fail-closed shim
+   must connect to the proxy's port and be refused the backend's; 4,096
+   batched connect decisions must equal a CPU twin engine's, decision
+   for decision, and 1,024 of them asked one at a time over the
+   admission socket the engine's; printed: admission decisions per
+   second batched and over the socket, RPS over 50 admitted connections
+   and CPS in 32-wide admission waves (bench.py ``hoststack_bench``),
+   and a 256 MB loopback transfer bare and under the shim (``vcl_iperf
+   _bench``), every port the kernel's; (ii) ``FleetSteering`` over
+   bench.py ``fleet_bench``'s instances (2^18 session slots x 4 ways,
+   ``sess_hash: sym``, 64 ranges; the classifier, FIB and session on
+   their fused-kernel rungs): rungs of 1, 2 and 4 instances take the
+   same 64 frames of 1,024 packets; each instance's packed outputs, aux
+   rows and session state must equal a CPU twin fleet's fed the same
+   partitions; printed: Mpps through a ``FleetPump`` (the best of three
+   interleaved passes) and steering ns a packet per rung, with a line
+   saying that every instance shares the one card. Then two instances
+   take a third under ``FleetPump`` load (fence, drain, adopt, commit,
+   release for each moved range): conservation must be exact (offered
+   = delivered + attributed drops, nothing pending) and the migrated
+   flows' fast-path hit rate must reach 0.9 within 10 windows; printed:
+   ranges and sessions moved, migration ms, the hit rate before and
+   after, windows to recovery, submit p99. ``sess_probe_ways``,
+   ``bv_first_set`` and ``lpm_fused_lookup`` must launch in (ii);
 5. timing with CUDA events: ms per ``process`` step and Mpps (valid
    packets per device second) at P = 256 and 4,096, captured and eager,
    and a ``torch.profiler`` window per size (device operations, graph
@@ -7039,6 +7068,666 @@ def wire_kernel_phase(cfg: DataplaneConfig, seed: int, spawn=None) -> dict:
     return out
 
 
+# --- phase 4l: the VCL host stack and the gateway fleet --------------------
+
+VCL_FILLER = 996          # bench.py hoststack_bench's gen-policy filler
+VCL_CAPACITY = 2048       # the bench's engine capacity
+VCL_CHECKS = 4096         # batched connect decisions held against the twin
+VCL_CONNS = 50            # the wrk harness's connections (RPS.sh, CPS.sh)
+VCL_CPS_WAVE = 32         # connects admitted per engine batch (CPS)
+VCL_WINDOW_S = 2.5        # each of the RPS and CPS windows
+VCL_BULK_MB = 256         # bench.py vcl_iperf_bench's transfer
+VCL_NS = {"client": 1, "proxy": 2, "backend": 3}
+VCL_DEADLINE = 120.0      # the longest a child process may take
+FLEET_SLOTS = 1 << 18     # bench.py fleet_bench: session slots an instance
+FLEET_RANGES = 64         # hash ranges
+FLEET_FRAMES = 64         # frames of the scale-out offered load
+FLEET_FRAME = 1024        # packets a frame
+FLEET_RUNGS = (1, 2, 4)   # instances per scale-out rung
+FLEET_TURNS = 3           # interleaved timed passes per rung
+FLEET_FLOWS = 8192        # flows of the live rebalance
+FLEET_WIDTH = 256         # the rebalance pump's frame width
+FLEET_NOW = 800_000       # the pinned step clock (past phase 4k's)
+FLEET_KERNELS = ("sess_probe_ways", "bv_first_set", "lpm_fused_lookup")
+
+VCL_CONNECT_CODE = """
+import socket, sys
+s = socket.socket()
+s.settimeout(30)
+try:
+    s.connect(("127.0.0.1", int(sys.argv[1])))
+    print("CONNECTED")
+except ConnectionRefusedError:
+    print("REFUSED")
+"""
+VCL_SINK_CODE = """
+import socket
+ls = socket.socket()
+ls.bind(("127.0.0.1", 0))
+ls.listen(1)
+print(ls.getsockname()[1], flush=True)
+c, _ = ls.accept()
+buf = memoryview(bytearray(1 << 20))
+n = 0
+while True:
+    r = c.recv_into(buf)
+    if not r:
+        break
+    n += r
+print(n, flush=True)
+"""
+VCL_SOURCE_CODE = """
+import socket, sys, time
+total = int(sys.argv[2])
+c = socket.create_connection(("127.0.0.1", int(sys.argv[1])), timeout=30)
+chunk = b"x" * (1 << 20)
+t0 = time.perf_counter()
+sent = 0
+while sent < total:
+    c.sendall(chunk)
+    sent += len(chunk)
+c.close()
+print(time.perf_counter() - t0)
+"""
+
+
+def vcl_admit(port: int, ns: int):
+    """A LOCAL admit of ``ns``'s connects to loopback ``port`` and a
+    GLOBAL admit of accepts on it: over phase 4l's deny-alls, both
+    verdicts are load-bearing."""
+    from vpp_tpu_torch.hoststack.session_rules import (
+        RuleAction, RuleScope, SessionRule)
+
+    loop = ip4("127.0.0.1")
+    return [SessionRule(scope=int(RuleScope.LOCAL), appns_index=ns,
+                        transport_proto=6, lcl_net=0, lcl_plen=0,
+                        rmt_net=loop, rmt_plen=32, lcl_port=0,
+                        rmt_port=port, action=int(RuleAction.ALLOW)),
+            SessionRule(scope=int(RuleScope.GLOBAL), appns_index=-1,
+                        transport_proto=6, lcl_net=loop, lcl_plen=32,
+                        rmt_net=0, rmt_plen=0, lcl_port=port, rmt_port=0,
+                        action=int(RuleAction.ALLOW))]
+
+
+def vcl_connects(rng, n: int):
+    """``n`` connect checks that land on the filler's nets and ports in
+    its namespaces, and on the proxy chain's (allowed and denied)."""
+    loop = ip4("127.0.0.1")
+    i = rng.integers(0, VCL_FILLER, n)
+    net = (10 << 24) | (((i // 250) % 64) << 16) | ((i % 250) << 8)
+    rmt = np.where(rng.random(n) < 0.8, net + rng.integers(0, 256, n),
+                   loop)
+    ns = np.where(rng.random(n) < 0.75, 5 + i % 3,
+                  rng.integers(0, 4, n))
+    port = np.where(rng.random(n) < 0.85, 8000 + rng.integers(0, 40, n),
+                    rng.integers(1, 65536, n))
+    lport = rng.integers(1024, 65536, n)
+    return [(int(a), 6, int(loop), int(b), int(c), int(d))
+            for a, b, c, d in zip(ns, lport, rmt, port)]
+
+
+def vcl_child(code: str, env, *argv) -> str:
+    out = subprocess.run([sys.executable, "-c", code, *map(str, argv)],
+                         env=env, capture_output=True, text=True,
+                         timeout=VCL_DEADLINE)
+    if out.returncode != 0:
+        raise AssertionError(f"vcl child: {out.stderr[-500:]}")
+    return out.stdout.strip()
+
+
+def vcl_bulk(env_sink, env_source, admit=None) -> float:
+    """Gbps of one VCL_BULK_MB loopback transfer between two children
+    (bench.py vcl_iperf_bench's, every port the kernel's); ``admit``
+    takes the sink's port before the source connects."""
+    total = VCL_BULK_MB << 20
+    sink = subprocess.Popen([sys.executable, "-c", VCL_SINK_CODE],
+                            env=env_sink, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        port = int(sink.stdout.readline())
+        if admit is not None:
+            admit(port)
+        dt = float(vcl_child(VCL_SOURCE_CODE, env_source, port, total))
+        got = int(sink.stdout.readline())
+        if got != total:
+            raise AssertionError(f"vcl bulk: {got} of {total} bytes")
+        return total * 8 / dt / 1e9
+    finally:
+        sink.kill()
+        sink.wait(timeout=30)
+
+
+def vcl_rps_cps(engine) -> dict:
+    """bench.py hoststack_bench's RPS (50 persistent connections) and
+    CPS (32-wide admission waves of connect, request, close) through
+    ``HostStackApp`` over ``engine``, the server's accepts admitted in
+    waves too."""
+    import threading
+
+    from vpp_tpu_torch.hoststack.vcl import HostStackApp
+
+    server = HostStackApp(engine, appns_index=VCL_NS["backend"])
+    srv = server.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(256)
+    port = srv.getsockname()[1]
+    engine.apply(add=vcl_admit(port, VCL_NS["client"]))
+    client = HostStackApp(engine, appns_index=VCL_NS["client"])
+    stop = threading.Event()
+
+    def serve_conn(conn):
+        try:
+            while conn.recv(64):
+                conn.sendall(b"HTTP/1.1 200 OK\r\n\r\nok")
+        except OSError:
+            pass
+        finally:
+            conn.close()
+
+    def acceptor():
+        while not stop.is_set():
+            try:
+                wave = srv.accept_batch(max_n=64, first_timeout=0.01)
+            except OSError:
+                return
+            for fconn, _peer in wave:
+                threading.Thread(target=serve_conn, args=(fconn.sock,),
+                                 daemon=True).start()
+
+    acc = threading.Thread(target=acceptor, daemon=True)
+    acc.start()
+    out = {}
+    try:
+        conns = [c for c in client.connect_batch(
+            [("127.0.0.1", port)] * VCL_CONNS) if c is not None]
+        if len(conns) != VCL_CONNS:
+            raise AssertionError(f"vcl rps: {len(conns)} of {VCL_CONNS} "
+                                 f"connections admitted")
+        for c in conns:
+            c.settimeout(30)
+        reqs = 0
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < VCL_WINDOW_S:
+            c = conns[reqs % VCL_CONNS]
+            c.send(b"GET / HTTP/1.1\r\n\r\n")
+            if not c.recv(64):
+                raise AssertionError("vcl rps: the server closed")
+            reqs += 1
+        out["rps"] = reqs / (time.perf_counter() - t0)
+        for c in conns:
+            c.close()
+        done = 0
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < VCL_WINDOW_S:
+            wave = [c for c in client.connect_batch(
+                [("127.0.0.1", port)] * VCL_CPS_WAVE) if c is not None]
+            if len(wave) != VCL_CPS_WAVE:
+                raise AssertionError("vcl cps: a connect was denied")
+            for c in wave:
+                c.settimeout(30)
+                c.send(b"GET / HTTP/1.1\r\nConnection: close\r\n\r\n")
+            for c in wave:
+                if not c.recv(64):
+                    raise AssertionError("vcl cps: no reply")
+                c.close()
+                done += 1
+        out["cps"] = done / (time.perf_counter() - t0)
+    finally:
+        stop.set()
+        srv.close()
+        acc.join(timeout=10)
+    return out
+
+
+def hoststack_phase(seed: int, device=None) -> dict:
+    """Phase 4l (i) (module doc). ``device`` "cpu" rehearses it on the
+    CPU. Returns the summary."""
+    import socket
+
+    from vpp_tpu_torch.hoststack.admission import OP_CONNECT, _REQ
+    from vpp_tpu_torch.hoststack.preload import shim_path, vcl_env
+    from vpp_tpu_torch.hoststack.scenarios import (
+        gen_policy_filler, proxy_chain_rules)
+    from vpp_tpu_torch.hoststack.session_rules import SessionRuleEngine
+    from vpp_tpu_torch.kvstore import KVStore
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="vpp_tpu_torch_vcl_")
+    sock = str(Path(tmp.name) / "vcl.sock")
+    t0 = time.perf_counter()
+    shim = shim_path()
+    build_s = time.perf_counter() - t0
+    agent = ContivAgent(AgentConfig.from_dict({
+        "node_name": "vcl-node", "serve_http": False, "vcl_socket": sock}),
+        store=KVStore(), device=device)
+    summary = {"shim": shim, "shim_build_s": build_s}
+    try:
+        agent.start()
+        engine = agent.session_engine
+        if agent.vcl_admission is None or \
+                agent.vcl_admission.engine is not engine:
+            raise AssertionError("vcl: the agent serves no admission "
+                                 "socket over its engine")
+        engine.capacity = VCL_CAPACITY
+        twin = SessionRuleEngine(capacity=VCL_CAPACITY, device="cpu")
+        loop = ip4("127.0.0.1")
+        # the proxy chain's two hops: the client may reach only the
+        # proxy's port, the proxy only the backend's; both are listeners
+        # the kernel numbers
+        listeners = []
+        for _ in range(2):
+            ls = socket.socket()
+            ls.bind(("127.0.0.1", 0))
+            ls.listen(8)
+            listeners.append(ls)
+        pport, bport = (ls.getsockname()[1] for ls in listeners)
+        rules = gen_policy_filler(VCL_FILLER) + proxy_chain_rules(
+            loop, VCL_NS["client"], VCL_NS["proxy"], pport, bport)
+        for e in (engine, twin):
+            e.apply(add=rules)
+        summary["rules"] = engine.num_rules
+        # the shim in real children: an allowed connect and a denied one
+        env = vcl_env(sock, appns_index=VCL_NS["client"], fail_closed=True)
+        got = (vcl_child(VCL_CONNECT_CODE, env, pport),
+               vcl_child(VCL_CONNECT_CODE, env, bport))
+        if got != ("CONNECTED", "REFUSED"):
+            raise AssertionError(f"vcl shim: client to proxy, client to "
+                                 f"backend gave {got}")
+        for ls in listeners:
+            ls.close()
+        say(f"vcl shim: a child under LD_PRELOAD={Path(shim).name} in "
+            f"namespace {VCL_NS['client']} connects to the proxy's port "
+            f"and is refused the backend's (fail-closed)")
+        # the differential: batched decisions against the CPU twin's
+        conns = vcl_connects(np.random.default_rng(seed + 41), VCL_CHECKS)
+        card = engine.check_connect(conns)
+        want = twin.check_connect(conns)
+        if not np.array_equal(card, want):
+            bad = int(np.count_nonzero(card != want))
+            raise AssertionError(f"vcl: {bad} of {VCL_CHECKS} connect "
+                                 f"decisions differ from the CPU twin's")
+        denied = int(np.count_nonzero(~card))
+        if not 0 < denied < VCL_CHECKS:
+            raise AssertionError(f"vcl: {denied} of {VCL_CHECKS} denied")
+        summary["differential"] = {"checks": VCL_CHECKS, "denied": denied}
+        say(f"vcl twin: {VCL_CHECKS} batched connect decisions on "
+            f"{engine.device} equal the CPU twin engine's ({denied} "
+            f"denied, {engine.num_rules} rules)")
+        # admission rates: the engine's batch, and the socket's round trip
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            engine.check_connect(conns)
+            times.append(time.perf_counter() - t0)
+        batch_s = float(np.median(times))
+        summary["admission_batch_ksps"] = VCL_CHECKS / batch_s / 1e3
+        s = socket.socket(socket.AF_UNIX)
+        s.settimeout(30)
+        s.connect(sock)
+        reqs = [_REQ.pack(OP_CONNECT, 6, 0, c[0], c[2], c[4], c[3], c[5])
+                for c in conns[:1024]]
+        t0 = time.perf_counter()
+        answers = b""
+        for r in reqs:
+            s.sendall(r)
+            answers += s.recv(1)
+        rt_s = time.perf_counter() - t0
+        s.close()
+        if answers != bytes(int(x) for x in want[:1024]):
+            raise AssertionError("vcl: the admission socket's verdicts "
+                                 "differ from the engine's")
+        summary["admission_socket_ksps"] = len(reqs) / rt_s / 1e3
+        say(f"vcl admission: {summary['admission_batch_ksps']:.1f} k "
+            f"decisions/s in batches of {VCL_CHECKS} "
+            f"({batch_s * 1e3:.3f} ms a batch), "
+            f"{summary['admission_socket_ksps']:.2f} k/s one at a time "
+            f"over the admission socket (1,024 round trips)")
+        summary.update(vcl_rps_cps(engine))
+        say(f"vcl rps/cps: {summary['rps']:.1f} requests/s over "
+            f"{VCL_CONNS} admitted connections, {summary['cps']:.1f} "
+            f"connections/s in {VCL_CPS_WAVE}-wide admission waves")
+        # bulk TCP, bare and under the shim (a sink in the backend's
+        # namespace, a source in the client's, each port admitted)
+        bare = vcl_bulk(None, None)
+        sink_env = vcl_env(sock, appns_index=VCL_NS["backend"],
+                           fail_closed=True)
+        src_env = vcl_env(sock, appns_index=VCL_NS["client"],
+                          fail_closed=True)
+        shimmed = vcl_bulk(sink_env, src_env, lambda port: engine.apply(
+            add=vcl_admit(port, VCL_NS["client"])))
+        summary["bulk_gbps"] = {"bare": bare, "shim": shimmed}
+        adm = dict(agent.vcl_admission.stats)
+        summary["admission_stats"] = adm
+        agent.stats.publish()
+        g = agent.stats.vcl_gauges
+        if g["vpp_tpu_vcl_connect_checks"].get() != adm["connect_checks"] \
+                or adm["connect_denies"] < 1 or adm["accept_checks"] < 1:
+            raise AssertionError(f"vcl counters {adm}")
+        say(f"vcl bulk: {VCL_BULK_MB} MB over loopback {bare:.2f} Gbps "
+            f"bare, {shimmed:.2f} Gbps under the shim; admission "
+            f"counters {adm}")
+    finally:
+        agent.close()
+        tmp.cleanup()
+    summary["seconds"] = time.perf_counter() - t_phase
+    say(f"phase 4l (i): {summary['seconds']:.1f} s")
+    return summary
+
+
+def fleet_config(slots: int = FLEET_SLOTS) -> DataplaneConfig:
+    """bench.py fleet_bench's ``mk_dp`` instance (sym session hash, no
+    sweep), its ladders on the fused-kernel rungs."""
+    return DataplaneConfig(
+        max_tables=2, max_rules=16, max_global_rules=16, max_ifaces=8,
+        fib_slots=16, sess_slots=slots, sess_ways=4, nat_mappings=2,
+        nat_backends=2, sess_sweep_stride=0, sess_hash="sym",
+        classifier="pallas", fib_impl="pallas", session_impl="pallas")
+
+
+def fleet_instance(cfg: DataplaneConfig, clock: list, device=None):
+    dp = Dataplane(cfg, device=device)
+    dp.clock_ticks = lambda: clock[0]
+    dp.add_uplink()
+    dp.add_pod_interface(("default", "web"))
+    dp.builder.add_route("10.1.1.0/24", 2, Disposition.LOCAL)
+    dp.builder.set_global_table([
+        ContivRule(action=Action.PERMIT, protocol=Protocol.TCP),
+        ContivRule(action=Action.DENY)])
+    dp.swap()
+    return dp
+
+
+def fleet_frames(n_frames: int, width: int, reply: bool = False):
+    """bench.py fleet_bench's ``mk_frames``: packed ``[5, width]``
+    frames of distinct TCP flows to the pod (``reply``: the pod's
+    answers, the same canonical buckets under the sym hash)."""
+    pod_ip = ip4("10.1.1.2")
+    out = []
+    for f in range(n_frames):
+        flow = f * width + np.arange(width)
+        src = (np.uint32((10 << 24) | (9 << 16))
+               + (flow % 65536).astype(np.uint32))
+        sport = (1024 + flow % 40000).astype(np.int32)
+        n = width
+        cols = {
+            "src_ip": np.full(n, pod_ip, np.uint32) if reply else src,
+            "dst_ip": src if reply else np.full(n, pod_ip, np.uint32),
+            "proto": np.full(n, 6, np.int32),
+            "sport": np.full(n, 80, np.int32) if reply else sport,
+            "dport": sport if reply else np.full(n, 80, np.int32),
+            "ttl": np.full(n, 64, np.int32),
+            "pkt_len": np.full(n, 64, np.int32),
+            "rx_if": np.full(n, 2 if reply else 1, np.int32),
+            "flags": np.ones(n, np.int32),
+        }
+        flat = np.zeros((5, n), np.int32)
+        pack_packet_columns(flat.view(np.uint32), cols, n)
+        out.append(flat)
+    return out
+
+
+def fleet_shares(steering, frames, width: int) -> dict:
+    """{instance: its packets of ``frames`` in steering order, re-framed
+    at ``width``, the tail padded with invalid slots}."""
+    parts = [steering.partition(f)[0] for f in frames]
+    out = {}
+    for name in steering._names:
+        share = [f[:, g[name]] for f, g in zip(frames, parts) if name in g]
+        cols = np.concatenate(share, axis=1) if share else \
+            np.zeros((5, 0), np.int32)
+        n = cols.shape[1]
+        pad = (-n) % width
+        cols = np.concatenate([cols, np.zeros((5, pad), np.int32)], axis=1)
+        out[name] = (n, [np.ascontiguousarray(cols[:, i:i + width])
+                         for i in range(0, cols.shape[1], width)])
+    return out
+
+
+def fleet_state(dp) -> dict:
+    with dp._lock:
+        return {f: getattr(dp.tables, f).cpu().numpy().copy()
+                for f in SESSION_FIELDS}
+
+
+def fleet_scaleout(seed: int, device=None, twin_device="cpu",
+                   slots: int = FLEET_SLOTS, n_frames: int = FLEET_FRAMES,
+                   width: int = FLEET_FRAME) -> dict:
+    """Phase 4l (ii) rungs: each rung's card fleet against a CPU twin
+    fleet on the same partitions, then timed through a FleetPump."""
+    from vpp_tpu_torch.fleet import FleetSteering
+    from vpp_tpu_torch.io.fleet import FleetPump
+
+    clock = [FLEET_NOW]
+    frames = fleet_frames(n_frames, width)
+    offered = n_frames * width
+    out = {"offered": offered, "rungs": {}}
+    fleets = {}
+    try:
+        for n_inst in FLEET_RUNGS:
+            names = [f"gw{i}" for i in range(n_inst)]
+            card = {n: fleet_instance(fleet_config(slots), clock, device)
+                    for n in names}
+            twin = {n: fleet_instance(fleet_config(slots), clock,
+                                      twin_device) for n in names}
+            st = FleetSteering(card, n_ranges=FLEET_RANGES)
+            st_twin = FleetSteering(twin, n_ranges=FLEET_RANGES)
+            if st.owners() != st_twin.owners():
+                raise AssertionError("fleet: the twin's ranges differ")
+            shares = fleet_shares(st, frames, width)
+            if {n: s[0] for n, s in shares.items()} != \
+                    {n: s[0] for n, s in fleet_shares(
+                        st_twin, frames, width).items()}:
+                raise AssertionError("fleet: the twin steers otherwise")
+            if sum(s[0] for s in shares.values()) != offered:
+                raise AssertionError("fleet: steering lost packets")
+            for name in names:
+                for k, flat in enumerate(shares[name][1]):
+                    got = card[name].process_packed(
+                        flat, now=FLEET_NOW, with_aux=True)
+                    want = twin[name].process_packed(
+                        flat, now=FLEET_NOW, with_aux=True)
+                    for a, b, what in zip(got, want, ("out", "aux")):
+                        if not np.array_equal(a.cpu().numpy(),
+                                              b.cpu().numpy()):
+                            raise AssertionError(
+                                f"fleet rung {n_inst} {name} frame {k}: "
+                                f"{what} differs from the CPU twin's")
+                c, t = fleet_state(card[name]), fleet_state(twin[name])
+                for f in c:
+                    if not np.array_equal(c[f], t[f]):
+                        raise AssertionError(
+                            f"fleet rung {n_inst} {name}: {f} differs "
+                            f"from the CPU twin's")
+                card[name].prime("packed", (5, width))
+            say(f"fleet rung {n_inst}: every instance's packed outputs, "
+                f"aux rows and session state equal its CPU twin's "
+                f"(shares {[shares[n][0] for n in names]})")
+            del twin, st_twin
+            fleets[n_inst] = (card, st)
+        steer_best = {n: float("inf") for n in FLEET_RUNGS}
+        pump_best = {n: float("inf") for n in FLEET_RUNGS}
+        for _ in range(FLEET_TURNS):
+            for n_inst in FLEET_RUNGS:
+                card, st = fleets[n_inst]
+                t0 = time.perf_counter()
+                for f in frames:
+                    st.partition(f)
+                steer_best[n_inst] = min(steer_best[n_inst],
+                                         time.perf_counter() - t0)
+                pump = FleetPump(st, frame_width=width,
+                                 queue_slots=2 * n_frames)
+                pump.start()
+                t0 = time.perf_counter()
+                for f in frames:
+                    pump.submit(f)
+                pump.stop()
+                _sync(next(iter(card.values())).device)
+                pump_best[n_inst] = min(pump_best[n_inst],
+                                        time.perf_counter() - t0)
+                cons = pump.conservation()
+                if cons["delivered"] != offered or cons["pending"]:
+                    raise AssertionError(f"fleet rung {n_inst}: {cons}")
+        for n_inst in FLEET_RUNGS:
+            row = {"mpps": offered / pump_best[n_inst] / 1e6,
+                   "pump_s": pump_best[n_inst],
+                   "steer_ns_pkt": steer_best[n_inst] / offered * 1e9}
+            out["rungs"][n_inst] = row
+            say(f"fleet rung {n_inst}: {row['mpps']:.4f} Mpps through the "
+                f"FleetPump ({offered} packets in frames of {width}, best "
+                f"of {FLEET_TURNS} passes, {pump_best[n_inst] * 1e3:.2f} "
+                f"ms), steering {row['steer_ns_pkt']:.1f} ns a packet")
+    finally:
+        for _card, st in fleets.values():
+            st.close()
+    return out
+
+
+def fleet_rebalance(seed: int, device=None, slots: int = FLEET_SLOTS,
+                    n_flows: int = FLEET_FLOWS,
+                    width: int = FLEET_WIDTH) -> dict:
+    """Phase 4l (ii) live rebalance: two instances take a third under
+    FleetPump load (bench.py fleet_bench's)."""
+    import threading
+
+    from vpp_tpu_torch.fleet import FleetMembership, FleetSteering
+    from vpp_tpu_torch.fleet.hashring import assign_ranges
+    from vpp_tpu_torch.io.fleet import FleetPump
+    from vpp_tpu_torch.kvstore import KVStore
+
+    clock = [FLEET_NOW]
+    fwd = fleet_frames(n_flows // width, width)
+    rev = fleet_frames(n_flows // width, width, reply=True)
+    names = ["gw0", "gw1", "gw2"]
+    dps = {n: fleet_instance(fleet_config(slots), clock, device)
+           for n in names}
+    for dp in dps.values():
+        dp.prime("packed", (5, width))
+    st = FleetSteering(dps, membership=FleetMembership(
+        KVStore(), name="smoke"), n_ranges=FLEET_RANGES)
+    pump = FleetPump(st, frame_width=width, queue_slots=256)
+    seen = {"hits": 0, "deliv": 0}
+
+    def drain():
+        pump.flush()
+        t0 = time.perf_counter()
+        while pump.pending():
+            if time.perf_counter() - t0 > PUMP_DEADLINE:
+                raise AssertionError("fleet: the pump did not drain")
+            time.sleep(0.001)
+
+    def window(frames):
+        lats = []
+        for f in frames:
+            t0 = time.perf_counter()
+            pump.submit(f)
+            lats.append(time.perf_counter() - t0)
+        drain()
+        snap = pump.stats_snapshot()
+        hits = sum(a.get("sess_hits", 0) for a in snap["aux"].values())
+        deliv = sum(snap["delivered"].values())
+        dh, dd = hits - seen["hits"], deliv - seen["deliv"]
+        seen["hits"], seen["deliv"] = hits, deliv
+        return lats, (dh / dd if dd else 0.0)
+
+    out = {}
+    try:
+        st.rebalance(target=assign_ranges(["gw0", "gw1"], FLEET_RANGES))
+        pump.start()
+        for f in fwd:
+            pump.submit(f)
+        drain()
+        snap0 = pump.stats_snapshot()
+        seen["hits"] = sum(a.get("sess_hits", 0)
+                           for a in snap0["aux"].values())
+        seen["deliv"] = sum(snap0["delivered"].values())
+        base_lats, out["hit_rate_base"] = window(rev)
+        ss0 = st.stats_snapshot()
+        moved = []
+        t_move = [0.0]
+
+        def mover():
+            t0 = time.perf_counter()
+            moved.append(st.rebalance())
+            t_move[0] = time.perf_counter() - t0
+
+        th = threading.Thread(target=mover, daemon=True)
+        th.start()
+        move_lats, move_windows = [], 0
+        while th.is_alive():
+            lats, _ = window(rev)
+            move_lats.extend(lats)
+            move_windows += 1
+        th.join()
+        out["migration_ms"] = t_move[0] * 1e3
+        out["move_windows"] = move_windows
+        recovery, hit = -1, 0.0
+        for w in range(1, 11):
+            _, hit = window(rev)
+            if hit >= 0.9:
+                recovery = w
+                break
+        out["hit_rate_final"] = hit
+        out["recovery_windows"] = recovery
+        pump.stop()
+        cons = pump.conservation()
+        attributed = (cons["delivered"] + cons["fenced_drops"]
+                      + cons["no_owner_drops"] + cons["queue_drops"]
+                      + cons["pending"])
+        out["conservation"] = cons
+        if cons["offered"] != attributed or cons["pending"]:
+            raise AssertionError(f"fleet rebalance: conservation {cons}")
+        ss = st.stats_snapshot()
+        out["ranges_moved"] = ss["migrated_ranges"] - ss0["migrated_ranges"]
+        out["sessions_moved"] = (ss["migrated_sessions"]
+                                 - ss0["migrated_sessions"])
+        if not moved or moved[0] != out["ranges_moved"] or \
+                not out["ranges_moved"] or recovery < 0:
+            raise AssertionError(f"fleet rebalance: {out}")
+        out["p99_ms_base"] = float(np.percentile(
+            np.array(base_lats) * 1e3, 99))
+        if move_lats:
+            out["p99_ms_move"] = float(np.percentile(
+                np.array(move_lats) * 1e3, 99))
+        say(f"fleet rebalance 2 -> 3: {out['ranges_moved']} ranges, "
+            f"{out['sessions_moved']} sessions migrated in "
+            f"{out['migration_ms']:.1f} ms under load ({move_windows} "
+            f"windows meanwhile); fast-path hit rate of the migrated "
+            f"flows {out['hit_rate_base']:.4f} before, "
+            f"{out['hit_rate_final']:.4f} after, recovered in "
+            f"{recovery} window(s); conservation exact: offered "
+            f"{cons['offered']} = delivered {cons['delivered']} + fenced "
+            f"{cons['fenced_drops']} + no owner {cons['no_owner_drops']} "
+            f"+ queue {cons['queue_drops']}; submit p99 "
+            f"{out['p99_ms_base']:.3f} ms before, "
+            f"{out.get('p99_ms_move', float('nan')):.3f} ms during")
+    finally:
+        try:
+            pump.stop()
+        finally:
+            st.close()
+    return out
+
+
+def fleet_phase(seed: int, device=None, twin_device="cpu", **sizes):
+    """Phase 4l (ii) (module doc). Returns (summary, launches)."""
+    t_phase = time.perf_counter()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    scale = fleet_scaleout(seed, device, twin_device, **{
+        k: v for k, v in sizes.items() if k in ("slots", "n_frames",
+                                                 "width")})
+    rebal = fleet_rebalance(seed, device, **{
+        k: v for k, v in sizes.items() if k in ("slots", "n_flows")})
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    say("fleet: every instance shares the one card in one process, so "
+        "a rung's rate is instances sharing one H100, not the "
+        "reference's one-host-per-instance scale-out ratio")
+    summary = {"scaleout": scale, "rebalance": rebal,
+               "seconds": time.perf_counter() - t_phase}
+    say(f"phase 4l (ii): {summary['seconds']:.1f} s; launches {launches}")
+    return summary, launches
+
+
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -7236,6 +7925,16 @@ def main(argv=None) -> int:
     # may create them
     wire_sum, wire_launches = wire_phase(cfg, args.seed)
     wire_sum["kernel"] = wire_kernel_phase(cfg, args.seed)
+
+    # 4l. the VCL host stack on a card agent (the LD_PRELOAD shim in real
+    # children, the admission engine against a CPU twin, RPS, CPS, bulk
+    # TCP); the gateway fleet (scale-out rungs against a CPU twin fleet,
+    # a live rebalance under FleetPump load)
+    vcl_sum = hoststack_phase(args.seed)
+    fleet_sum, fleet_launches = fleet_phase(args.seed)
+    for k in FLEET_KERNELS:
+        if not fleet_launches[k]:
+            raise AssertionError(f"the fleet path never launched {k}")
     graphs = check_graphs({"pallas": [gpu, cap_p], "mxu": [gpu_m, cap_m],
                            "pallas+ml": [ml_p], "mxu+ml": [ml_m],
                            "pallas+tnt": [tnt_p], "mxu+tnt": [tnt_m]})
@@ -7452,6 +8151,7 @@ def main(argv=None) -> int:
         row["launches_agent"] = agent_launches[name]
         row["launches_remote"] = remote_launches[name]
         row["launches_wire"] = wire_launches[name]
+        row["launches_fleet"] = fleet_launches[name]
         if name == "sess_probe_ways":
             row["tenant_form"] = {f"P={n}": timed[("sess_probe_ways.tenant",
                                                    n)] for n in (VEC, BIG_VEC)}
@@ -7503,6 +8203,8 @@ def main(argv=None) -> int:
                     "agent": agent_sum,
                     "remote": remote_sum,
                     "wire": wire_sum,
+                    "hoststack": vcl_sum,
+                    "fleet": fleet_sum,
                     "captures": graphs, "power": smi}))
     if any(n != 1 for n in capture.capture_counts().values()):
         raise AssertionError("the timing captured a key again")

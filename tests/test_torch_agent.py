@@ -204,8 +204,10 @@ def port_globals(module, wrap=None) -> dict:
     g.update({k: v for k, v in subs.items() if v is not g[k]})
 
     def rebind(f):
-        return types.FunctionType(f.__code__, g, f.__name__, f.__defaults__,
-                                  f.__closure__)
+        out = types.FunctionType(f.__code__, g, f.__name__, f.__defaults__,
+                                 f.__closure__)
+        out.__kwdefaults__ = f.__kwdefaults__
+        return out
 
     for k, v in vars(module).items():
         if g[k] is not v:

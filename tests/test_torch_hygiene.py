@@ -26,11 +26,13 @@
   ported knobs) names its ``ROADMAP.md`` Queue 1 item, number and
   title. The ring form and its telemetry rider run under every knob:
   tests/test_torch_persistent.py holds them against the reference.
-* Every agent value that reaches a module not ported yet (the VCL
-  socket, the mesh) raises ``NotImplementedError`` naming its ROADMAP
-  item before the agent starts a thread, writes to its store or touches
-  a device; so does the init supervisor for a mesh configuration, and
-  the CLI's ``show partitions`` names the mesh's item in its text.
+* Every agent value that reaches a module not ported yet (the mesh)
+  raises ``NotImplementedError`` naming its ROADMAP item before the
+  agent starts a thread, writes to its store or touches a device; so
+  does the init supervisor for a mesh configuration, and the CLI's
+  ``show partitions`` names the mesh's item in its text. The values
+  and setters this slice lifted (the VCL socket, ``set_vcl``,
+  ``set_fleet``) boot or attach the real thing on the CPU.
 
 Every quantity compared is an integer: the tolerance is exact equality.
 """
@@ -96,12 +98,20 @@ def test_scan_sees_the_whole_package():
             "kvwitness.py", "k8s_client.py", "loader.py",
             "cycles.py", "linux.py", "daemon.py", "control.py",
             "io_daemon.py", "wiring.py", "stn_netlink.py", "init_main.py",
-            "_lazy.py"} <= names
+            "_lazy.py", "vcl.py", "admission.py", "preload.py",
+            "scenarios.py", "ldpreload_inject.py", "hashring.py",
+            "membership.py", "steering.py", "fleet.py"} <= names
     for sub in ("io", "native", "net", "ksr", "policy", "renderer",
                 "service", "trace", "cmd", "cni", "kvstore", "stats",
-                "health", "hoststack", "agent", "ipam"):
+                "health", "hoststack", "agent", "ipam", "fleet"):
         assert (ROOT / "vpp_tpu_torch" / sub / "__init__.py") in PORT_FILES
     assert (ROOT / "vpp_tpu_torch" / "ml" / "model.py") in PORT_FILES
+    for rel in ("hoststack/vcl.py", "hoststack/admission.py",
+                "hoststack/preload.py", "hoststack/scenarios.py",
+                "cmd/ldpreload_inject.py", "fleet/hashring.py",
+                "fleet/membership.py", "fleet/steering.py", "io/fleet.py"):
+        assert (ROOT / "vpp_tpu_torch" / rel) in PORT_FILES, rel
+    assert (ROOT / "vpp_tpu_torch" / "native" / "vcl_preload.c").exists()
     assert all(p.exists() for p in PORT_FILES)
 
 
@@ -274,7 +284,6 @@ def _refusal(kind, arg):
 # the agent's refused values: (AgentConfig keyword arguments, other
 # ContivAgent arguments)
 _AGENT_REFUSED = {
-    "vcl_socket": ({"vcl_socket": "/run/vcl.sock"}, {}),
     "mesh.enabled": ({"mesh": {"enabled": True}}, {}),
     "dataplane": ({}, {"dataplane": "mesh node handle"}),
     "mesh_node_resolver": ({}, {"mesh_node_resolver": lambda n: n}),
@@ -292,7 +301,7 @@ def _agent_refusal(arg):
 
         InitSupervisor(AgentConfig.from_dict({"mesh": {"nodes": 2}}), None,
                        spawn=None)
-    elif arg in ("set_cluster", "set_fleet", "set_vcl"):
+    elif arg == "set_cluster":
         from vpp_tpu_torch.stats import StatsCollector
 
         coll = StatsCollector(tdp.Dataplane(ttables.DataplaneConfig(
@@ -308,8 +317,7 @@ def _agent_refusal(arg):
 _REFUSALS = {
     # the node agent's slice (ROADMAP Queue 1 items 12 and 10)
     **{f"agent-{k}": ("agent", k) for k in _AGENT_REFUSED},
-    **{f"agent-{k}": ("agent", k) for k in (
-        "init mesh", "set_cluster", "set_fleet", "set_vcl")},
+    **{f"agent-{k}": ("agent", k) for k in ("init mesh", "set_cluster")},
     # the debug CLI's page of the mesh's partition layer (a text, not
     # an exception)
     "cli-show_partitions": ("cli", "show partitions"),
@@ -357,6 +365,108 @@ def test_unported_agent_values_refuse(value, monkeypatch):
                     store=store, **kw)
     assert store.revision == 0 and store.dump()["data"] == {}
     assert threading.active_count() == threads
+
+
+def _collector():
+    from vpp_tpu_torch.stats import StatsCollector
+
+    return StatsCollector(tdp.Dataplane(ttables.DataplaneConfig(**_SMALL),
+                                        device="cpu"))
+
+
+def _lifted_vcl_socket(tmp_path):
+    """``vcl_socket`` boots the admission server over the agent's
+    engine, exported by the collector, and ``close`` stops it."""
+    import socket
+
+    from vpp_tpu_torch.cmd import AgentConfig, ContivAgent
+    from vpp_tpu_torch.hoststack.admission import _REQ, OP_CONNECT
+    from vpp_tpu_torch.kvstore import KVStore
+
+    path = tmp_path / "vcl.sock"
+    agent = ContivAgent(AgentConfig.from_dict({
+        "serve_http": False, "vcl_socket": str(path)}), store=KVStore(),
+        device="cpu")
+    try:
+        agent.start()
+        assert agent.vcl_admission.engine is agent.session_engine
+        with socket.socket(socket.AF_UNIX) as c:
+            c.settimeout(30)
+            c.connect(str(path))
+            c.sendall(_REQ.pack(OP_CONNECT, 6, 0, 0, 0, 0, 0, 80))
+            assert c.recv(1) == b"\x01"  # no rules: allow
+            agent.stats.publish()
+            assert agent.stats.vcl_gauges[
+                "vpp_tpu_vcl_connect_checks"].get() == 1
+    finally:
+        agent.close()
+    assert not path.exists()
+
+
+def _lifted_vcl_value(tmp_path, monkeypatch):
+    """The value that was refused: it no longer raises before the
+    device is resolved, so without a card the agent raises the
+    device's error, not ``NotImplementedError``."""
+    from vpp_tpu_torch.cmd import AgentConfig, ContivAgent
+    from vpp_tpu_torch.kvstore import KVStore
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(Exception) as err:
+        ContivAgent(AgentConfig.from_dict({
+            "serve_http": False, "vcl_socket": str(tmp_path / "v.sock")}),
+            store=KVStore())
+    assert not isinstance(err.value, NotImplementedError)
+    assert not (tmp_path / "v.sock").exists()
+
+
+def _lifted_set_vcl(tmp_path):
+    from vpp_tpu_torch.hoststack.admission import VclAdmissionServer
+    from vpp_tpu_torch.hoststack.session_rules import SessionRuleEngine
+
+    coll = _collector()
+    srv = VclAdmissionServer(SessionRuleEngine(device="cpu"),
+                             str(tmp_path / "vcl.sock"))
+    srv.stats.update(connect_checks=5, connect_denies=2, accept_checks=3)
+    coll.set_vcl(srv)
+    coll.publish()
+    g = coll.vcl_gauges
+    assert [g[f"vpp_tpu_vcl_{k}"].get() for k in (
+        "connect_checks", "connect_denies", "accept_checks",
+        "accept_denies", "clients")] == [5, 2, 3, 0, 0]
+
+
+def _lifted_set_fleet(tmp_path):
+    from vpp_tpu_torch.fleet import FleetSteering
+    from vpp_tpu_torch.stats.collector import STATS_PATH
+
+    cfg = ttables.DataplaneConfig(**dict(_SMALL, sess_hash="sym"))
+    fleet = FleetSteering({n: tdp.Dataplane(cfg, device="cpu")
+                           for n in ("gw0", "gw1")}, n_ranges=4)
+    coll = _collector()
+    coll.set_fleet(fleet)
+    coll.publish()
+    text = coll.registry.render(STATS_PATH)
+    assert "vpp_tpu_fleet_instances 2" in text
+    assert "vpp_tpu_fleet_ranges 4" in text
+    assert 'vpp_tpu_fleet_drops_total{cause="no_owner"} 0' in text
+
+
+_LIFTED = {
+    "agent-vcl_socket": _lifted_vcl_socket,
+    "agent-set_vcl": _lifted_set_vcl,
+    "agent-set_fleet": _lifted_set_fleet,
+}
+
+
+@pytest.mark.parametrize("case", sorted(_LIFTED))
+def test_lifted_refusals_attach_the_real_thing(case, tmp_path):
+    """Each refusal this slice retired boots or attaches the real
+    module on the CPU."""
+    _LIFTED[case](tmp_path)
+
+
+def test_lifted_agent_value_no_longer_refuses(tmp_path, monkeypatch):
+    _lifted_vcl_value(tmp_path, monkeypatch)
 
 
 def test_no_citation_of_a_done_roadmap_item():
@@ -648,8 +758,10 @@ def test_packaging_names_the_port():
     globs = cfg["tool"]["setuptools"]["package-data"]["vpp_tpu_torch"]
     pkg = ROOT / "vpp_tpu_torch"
     sources = [p.relative_to(pkg).as_posix() for p in
-               sorted(pkg.glob("csrc/*.cu*")) + sorted(pkg.glob("native/*.cpp"))]
-    assert {"native/frame_ring.cpp", "native/pkt_io.cpp"} <= set(sources)
+               sorted(pkg.glob("csrc/*.cu*")) + sorted(pkg.glob("native/*.cpp"))
+               + sorted(pkg.glob("native/*.c"))]
+    assert {"native/frame_ring.cpp", "native/pkt_io.cpp",
+            "native/vcl_preload.c"} <= set(sources)
     for src in sources:
         assert any(fnmatch.fnmatch(src, g) for g in globs), src
     scripts = {k: v for k, v in cfg["project"]["scripts"].items()
@@ -658,7 +770,8 @@ def test_packaging_names_the_port():
                             "vpp-tpu-torch-cni", "vpp-tpu-torch-kvstore",
                             "vpp-tpu-torch-kvwitness", "vpp-tpu-torch-ctl",
                             "vpp-tpu-torch-ml-train", "vpp-tpu-torch-io",
-                            "vpp-tpu-torch-init"}
+                            "vpp-tpu-torch-init",
+                            "vpp-tpu-torch-ldpreload-inject"}
     for target in scripts.values():
         mod, fn = target.split(":")
         assert callable(getattr(importlib.import_module(mod), fn))

@@ -53,8 +53,10 @@ def _port_code(code: types.CodeType) -> types.CodeType:
 
 
 def _port_strings(f: types.FunctionType) -> types.FunctionType:
-    return types.FunctionType(_port_code(f.__code__), f.__globals__,
-                              f.__name__, f.__defaults__, f.__closure__)
+    out = types.FunctionType(_port_code(f.__code__), f.__globals__,
+                             f.__name__, f.__defaults__, f.__closure__)
+    out.__kwdefaults__ = f.__kwdefaults__
+    return out
 
 
 # a reference fixture name -> the port's fixture that stands in for it

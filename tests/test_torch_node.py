@@ -9,10 +9,11 @@ its functions make are bound to the port, the dataplane to the CPU):
 * ``tests/test_kvstore_ipam.py``: the KV store (watch, CAS, leases,
   the persisted file), its proxy and brokers, IPAM and node ids;
 * ``tests/test_health.py``: the status checks, their HTTP probes and
-  the STN daemon with its watchdog. Its real-kernel case needs
-  ``health/stn_netlink.py`` and ``net/linux.py``, which the port does
-  not have yet (ROADMAP Queue 1 item 12), and is not run here; the
-  reference skips it too without CAP_NET_ADMIN.
+  the STN daemon with its watchdog. Its real-kernel case (over the
+  port's ``health/stn_netlink.py`` and ``net/linux.py``) runs in
+  ``tests/test_torch_wiring.py``, beside the other cases that need
+  network namespaces; the reference skips it too without
+  CAP_NET_ADMIN.
 
 Every quantity compared is an integer, a string or a text line: the
 tolerance is exact equality.
@@ -27,17 +28,17 @@ from test_torch_agent import case_names, run_reference_case
 
 CNI_CASES = case_names(jcni_tests)
 KV_CASES = case_names(jkv_tests)
-# the real-kernel STN case needs health/stn_netlink.py + net/linux.py
-HEALTH_NOT_PORTED = ("test_stn_real_kernel_steal_crash_autorevert",)
+# the real-kernel STN case runs in test_torch_wiring.py
+HEALTH_RUN_ELSEWHERE = ("test_stn_real_kernel_steal_crash_autorevert",)
 HEALTH_CASES = [c for c in case_names(jhealth_tests)
-                if c not in HEALTH_NOT_PORTED]
+                if c not in HEALTH_RUN_ELSEWHERE]
 
 
 def test_case_lists():
     """Every case of the three reference files runs here, but the one
     real-kernel STN case."""
     assert (len(CNI_CASES), len(KV_CASES), len(HEALTH_CASES)) == (12, 13, 9)
-    assert set(HEALTH_NOT_PORTED) <= set(case_names(jhealth_tests))
+    assert set(HEALTH_RUN_ELSEWHERE) <= set(case_names(jhealth_tests))
 
 
 @pytest.mark.parametrize("case", CNI_CASES)

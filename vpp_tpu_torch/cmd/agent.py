@@ -29,8 +29,9 @@ wires the host stack's veth, and the collector reads the daemon's
 counters. Configuration that reaches a module not ported yet raises
 ``NotImplementedError`` naming its ROADMAP item in ``__init__``, before
 any thread, socket, store write or device allocation (``refusal``): the
-VCL admission socket and the mesh (its config, an injected dataplane
-handle, a mesh node resolver).
+mesh (its config, an injected dataplane handle, a mesh node resolver).
+``vcl_socket`` serves the VCL admission socket
+(``hoststack/admission.py``) over the agent's session-rule engine.
 """
 
 from __future__ import annotations
@@ -75,7 +76,6 @@ log = logging.getLogger("vpp_tpu_torch.agent")
 KSR_PREFIX = "ksr/"
 
 
-AGENT_ITEM = "ROADMAP Queue 1 item 12 (Agent)"
 MESH_ITEM = "ROADMAP Queue 1 item 10 (Mesh / cluster)"
 
 
@@ -85,9 +85,6 @@ def refusal(config: AgentConfig, dataplane=None,
     the port does not have yet, or None. Each names its ROADMAP item."""
     c = config
     checks = (
-        (c.vcl_socket, f"vcl_socket {c.vcl_socket!r}: the VCL admission "
-         f"server (hoststack/admission.py) is not ported yet "
-         f"({AGENT_ITEM})"),
         (c.mesh.enabled, "mesh.enabled: the mesh runtime is not ported "
          f"yet ({MESH_ITEM})"),
         (dataplane is not None, "dataplane: an injected (mesh node) "
@@ -257,6 +254,7 @@ class ContivAgent:
         )
         self.cni_transport: Optional[CNITransportServer] = None
         self.cli_transport: Optional[CNITransportServer] = None
+        self.vcl_admission = None  # VclAdmissionServer when vcl_socket set
 
         # --- crash-consistent session snapshot/restore (ISSUE 8) ---
         self.snapshotter = None
@@ -514,6 +512,18 @@ class ContivAgent:
         except Exception:
             log.exception("liveness publish failed (continuing)")
         self.cni_server.set_ready()
+        if c.vcl_socket:
+            # the ldpreload endpoint: unmodified apps launched with
+            # vcl_env() get session-rule admission on every
+            # connect()/accept() against this node's session rules
+            # (reference: VCL ldpreload, tests/ld_preload*). A policy
+            # endpoint, not observability — independent of serve_http.
+            from vpp_tpu_torch.hoststack.admission import VclAdmissionServer
+
+            self.vcl_admission = VclAdmissionServer(
+                self.session_engine, c.vcl_socket
+            ).start()
+            self.stats.set_vcl(self.vcl_admission)
         if c.serve_http:
             self.cni_transport = CNITransportServer(
                 c.cni_socket, self.cni_server.dispatch
@@ -772,6 +782,8 @@ class ContivAgent:
                     self.stats_http, self.health_http):
             if srv is not None:
                 srv.close()
+        if self.vcl_admission is not None:
+            self.vcl_admission.stop()
         self.proxy.close()
         pump_stopped = True
         if self.io_pump is not None:

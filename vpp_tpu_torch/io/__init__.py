@@ -17,7 +17,8 @@ descriptor rings' host half (``DeviceDescRing``), the ``DataplanePump``
 in both modes (the dispatch ladder and the persistent ring,
 pipeline/persistent.py), the latency governor and priority lane
 (``LatencyGovernor``, ``PriorityFilter``) and host ICMP error
-generation (io/icmp.py) serve the agent's side.
+generation (io/icmp.py) serve the agent's side; the ``FleetPump``
+(io/fleet.py) fronts a gateway fleet's instances.
 """
 
 from vpp_tpu_torch._lazy import lazy_exports

@@ -26,10 +26,11 @@ the reference's name. Where the reference reads JAX:
   torch version, the dataplane's device type) in place of ``jax`` and
   ``backend``.
 
-The mesh, fleet and VCL sources (``set_cluster``, ``set_fleet``,
-``set_vcl``) and the partition manifest behind
-``vpp_tpu_partition_info`` are not ported: the setters raise, and those
-families stay registered with no samples.
+The fleet and VCL sources (``set_fleet``, ``set_vcl``) export the
+reference's ``vpp_tpu_fleet_*`` and ``vpp_tpu_vcl_*`` families from
+their host counters. The mesh source (``set_cluster``) and the
+partition manifest behind ``vpp_tpu_partition_info`` are not ported:
+the setter raises, and that family stays registered with no samples.
 """
 
 from __future__ import annotations
@@ -987,6 +988,7 @@ class StatsCollector:
         self._io_daemon_stats = None
         self._daemon_drops_cache = 0
         self._daemon_retry_at = 0.0
+        self.vcl = None  # set_vcl(): admission counters -> gauges
         self.vcl_gauges = {
             name: self.registry.register(STATS_PATH, Gauge(name, help_))
             for name, help_ in VCL_GAUGES
@@ -998,6 +1000,9 @@ class StatsCollector:
                 STATS_PATH, Gauge(name, help_, kind=kind))
             for name, help_, kind in FLEET_GAUGE_FAMILIES
         }
+        self._fleet = None
+        self._fleet_pump = None
+        self._fleet_pub_insts: set = set()
         self._known_labels: Dict[int, Dict[str, str]] = {}
         self._publish_lock = threading.Lock()
         # zero accumulators when an interface slot is freed, so a later
@@ -1048,12 +1053,8 @@ class StatsCollector:
 
     def set_vcl(self, server) -> None:
         """Attach the VclAdmissionServer so publish() exports its
-        admission counters. Not ported: the admission server waits for
-        ROADMAP Queue 1 item 12 (the ``vpp_tpu_vcl_*`` families stay
-        registered with no samples)."""
-        raise NotImplementedError(
-            "StatsCollector.set_vcl: hoststack/admission.py is not ported "
-            "yet (ROADMAP Queue 1 item 12 (Agent))")
+        admission counters."""
+        self.vcl = server
 
     def set_cluster(self, cluster) -> None:
         """Attach the ClusterDataplane (vpp_tpu/parallel/cluster.py)
@@ -1066,16 +1067,14 @@ class StatsCollector:
             "(Mesh / cluster))")
 
     def set_fleet(self, steering, pump=None) -> None:
-        """Attach the fleet steering tier (vpp_tpu/fleet/steering.py)
+        """Attach the fleet steering tier (vpp_tpu_torch/fleet/steering.py)
         and optionally its FleetPump so publish() exports the
         steering/migration surface: instance and range counts, fenced
         ranges, the epoch high-water, migration counters, per-instance
         steered packets and queue depth, and the attributed drop-cause
-        family the conservation identity rests on. Not ported: the
-        steering tier waits for ROADMAP Queue 1 item 12."""
-        raise NotImplementedError(
-            "StatsCollector.set_fleet: fleet/steering.py is not ported "
-            "yet (ROADMAP Queue 1 item 12 (Agent))")
+        family the conservation identity rests on."""
+        self._fleet = steering
+        self._fleet_pump = pump
 
     def reset_interface(self, if_idx: int) -> None:
         with self._lock:
@@ -1507,6 +1506,54 @@ class StatsCollector:
             hits = int(ps.get("fastpath_hits", 0))
             self.pump_gauges["vpp_tpu_pump_fastpath_hit_pct"].set(
                 100.0 * hits / alive if alive else 0.0)
+        vcl = self.vcl
+        if vcl is not None:
+            vs = dict(vcl.stats)
+            for key in ("connect_checks", "connect_denies",
+                        "accept_checks", "accept_denies", "clients"):
+                self.vcl_gauges[f"vpp_tpu_vcl_{key}"].set(
+                    int(vs.get(key, 0)))
+        # gateway fleet (ISSUE 18): steering/migration surface from
+        # the attached tier's host counters — no device traffic
+        fleet = self._fleet
+        if fleet is not None:
+            self._publish_fleet(fleet.stats_snapshot())
+
+    def _publish_fleet(self, fs) -> None:
+        g = self.fleet_gauges
+        for name, key in (
+                ("instances", "instances"), ("ranges", "ranges"),
+                ("fenced_ranges", "fenced_ranges"),
+                ("epoch_max", "epoch_max"),
+                ("rebalances_total", "rebalances"),
+                ("migrated_ranges_total", "migrated_ranges"),
+                ("migrated_sessions_total", "migrated_sessions"),
+                ("nat_coldstarts_total", "nat_coldstarts")):
+            g[f"vpp_tpu_fleet_{name}"].set(float(fs[key]))
+        fpump = self._fleet_pump
+        psnap = fpump.stats_snapshot() if fpump is not None else None
+        queue_drops = (sum(psnap["queue_drops"].values())
+                       if psnap is not None else 0)
+        pub = set()
+        for inst, n in fs["steered"].items():
+            pub.add(inst)
+            g["vpp_tpu_fleet_steered_total"].set(float(n), instance=inst)
+            depth = 0
+            if psnap is not None:
+                depth = (psnap["submitted"].get(inst, 0)
+                         - psnap["delivered"].get(inst, 0)
+                         + psnap["buffered"].get(inst, 0))
+            g["vpp_tpu_fleet_queue_depth"].set(float(depth), instance=inst)
+        # a departed instance's series must disappear, not freeze at its
+        # last count (the tenant/ECMP rule)
+        for inst in self._fleet_pub_insts - pub:
+            g["vpp_tpu_fleet_steered_total"].remove(instance=inst)
+            g["vpp_tpu_fleet_queue_depth"].remove(instance=inst)
+        self._fleet_pub_insts = pub
+        for cause, n in (("fenced", fs["fenced_drops"]),
+                         ("no_owner", fs["no_owner_drops"]),
+                         ("queue", queue_drops)):
+            g["vpp_tpu_fleet_drops_total"].set(float(n), cause=cause)
 
 
 def register_control_plane_metrics(

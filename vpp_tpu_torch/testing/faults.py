@@ -17,7 +17,9 @@ point                 seam
 ``snapshot.chunk``    pipeline/snapshot.py — chunk file write (torn chunk)
 ``snapshot.manifest`` pipeline/snapshot.py — manifest publish (torn/crash)
 ``fleet.migrate``     pipeline/snapshot.py ``drain_bucket_range``, per
-                      drained chunk
+                      drained chunk, and fleet/steering.py once a range
+                      move before its commit
+``fleet.steer``       fleet/steering.py — per ``partition`` call
 ``ring.dispatch``     pipeline/persistent.py — a window's dispatch (kills
                       the ring's stager: the pump's fault ladder)
 ``ring.fetch``        pipeline/persistent.py — a window's result copy
