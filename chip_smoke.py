@@ -346,6 +346,37 @@ raises on failure:
    ranges and sessions moved, migration ms, the hit rate before and
    after, windows to recovery, submit p99. ``sess_probe_ways``,
    ``bv_first_set`` and ``lpm_fused_lookup`` must launch in (ii);
+4m. the single-host mesh (parallel/): (i) a ``ClusterDataplane`` of 4
+   nodes x 2 rule shards on the card, each node the slice (10,240
+   global rules, 2^20 x 4 session slots and NAT the same, 3,996 routes
+   in 4,096 FIB slots, 8 pods on 128-rule local tables) staged with its
+   own pod /24, fabric routes to its peers and edge routes, on the
+   ``auto`` rungs (the word-sharded BV classifier at 10,240 rules) and
+   on ``classifier: mxu``, the fast path on: two rounds of each node's
+   256-packet forward vector (a quarter to pods on the other nodes)
+   and the replies to what it delivered and what it dropped, then on
+   the auto rung a round whose cross-node quarter all goes to one peer
+   under a fabric budget of 32 (it overflows, and the overflow is
+   counted). Every ClusterStepResult field (the delivered rows,
+   ``fabric_sent`` / ``fabric_overflow`` and the stats included) and the
+   session / NAT / ECMP planes must equal a CPU twin cluster's;
+   ``mxu_first_match`` must launch (once per rule shard, on the shard's
+   operand) on the mxu rung, and checks bit-exact against its plain
+   version on shard operands of 5,120 and 2,560 columns; printed: ms and
+   Mpps per cluster step captured and eager at 256 and 4,096 packets a
+   node (forward vectors on the full chain, replies on the fast tier),
+   graph launches per captured step, a swap's ms per churn (one node's
+   global table, one node's route) and the kernel's shard-operand times
+   beside its bound and the bf16 ``matmul`` / ``torch._int_mm`` at that
+   shape. (ii) a ``MeshRuntime`` of 2 x 2 with ``io.enabled`` on the
+   card and its CPU twin: agents over one store, pods through the CNI, a
+   ClusterIP whose backend is on the other node, a NetworkPolicy that
+   cuts a cross-node flow; 64 frames of 256 packets written into node
+   0's rings leave node 1's through the ``ClusterPump``; ``show mesh``
+   and ``show partitions``; a cluster snapshot that restores on the same
+   geometry and is refused on another. The steps, the session planes
+   and the frames out of node 1 must equal the twin's; printed: the
+   pump's Mpps and fabric-step p50 / p99;
 5. timing with CUDA events: ms per ``process`` step and Mpps (valid
    packets per device second) at P = 256 and 4,096, captured and eager,
    and a ``torch.profiler`` window per size (device operations, graph
@@ -412,7 +443,13 @@ from vpp_tpu_torch.ml.model import (  # noqa: E402
     score_oracle,
 )
 from vpp_tpu_torch.ml.train import train_and_pack  # noqa: E402
-from vpp_tpu_torch.interop import tables_to_numpy  # noqa: E402
+from vpp_tpu_torch.cli import DebugCLI  # noqa: E402
+from vpp_tpu_torch.interop import (  # noqa: E402
+    cluster_result_to_numpy,
+    cluster_tables_to_numpy,
+    tables_to_numpy,
+)
+from vpp_tpu_torch.parallel import ClusterDataplane, cluster_mesh  # noqa: E402
 from vpp_tpu_torch.io import DataplanePump, IORingPair  # noqa: E402
 from vpp_tpu_torch.io.pump import PUMP_DROP_KEYS  # noqa: E402
 from vpp_tpu_torch.native.pktio import PacketCodec  # noqa: E402
@@ -587,12 +624,12 @@ def slice_config(n_rules: int = 10240, sess_slots: int = 1 << 20,
         classifier="pallas")
 
 
-def global_rules(n: int, svc: bool = False):
+def global_rules(n: int, svc: bool = False, pod_net: str = "10.1.1.0/24"):
     """The gen-policy.py shape (bench.py ``build_rules``): /24 CIDR
     blocks x ports with every 6th rule a deny, then a permit of the
-    service backends' port (with ``svc`` also of the service-VIP
-    backends', as overlay_bench permits its VIP traffic) and the
-    terminal deny-all; ``n`` rules."""
+    service backends' port on ``pod_net`` (with ``svc`` also of the
+    service-VIP backends', as overlay_bench permits its VIP traffic) and
+    the terminal deny-all; ``n`` rules."""
     rules = []
     i = 0
     while len(rules) < n - 2 - svc:
@@ -606,7 +643,7 @@ def global_rules(n: int, svc: bool = False):
         i += 1
     rules.append(ContivRule(
         action=Action.PERMIT, protocol=Protocol.TCP, dest_port=80,
-        dest_network=ipaddress.ip_network("10.1.1.0/24")))
+        dest_network=ipaddress.ip_network(pod_net)))
     if svc:
         rules.append(ContivRule(
             action=Action.PERMIT, protocol=Protocol.TCP, dest_port=80,
@@ -1394,15 +1431,20 @@ def bound(nbytes: float, ops: float, tc_ops: float = 0.0,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# the operand planes that carry work: the 104 header bit-planes and the k
+# plane; the other 23 of a row's 128 are zero padding (acl_mxu.py)
+MXU_LIVE_PLANES = acl_mxu._K_PLANE + 1
+
+
 def mxu_bound(*args, tc_rate: float = TC_INT8_OPS):
     """Five header columns and the int8 operand (k folded in) in, the
-    encodes out; 2 * P * 128 * R' tensor-core operations (int8 by
-    default, ``TC_BF16_FLOPS`` for the bf16 figure) and ~2 ALU
-    operations per (packet, rule) in the epilogue (compare with 0,
-    select)."""
+    encodes out; 2 * P * 105 * R' tensor-core operations (the live
+    planes, ``MXU_LIVE_PLANES``; int8 by default, ``TC_BF16_FLOPS`` for
+    the bf16 figure) and ~2 ALU operations per (packet, rule) in the
+    epilogue (compare with 0, select)."""
     p, r = args[0].shape[0], args[5].shape[0]
     nbytes = p * 5 * 4 + r * acl_mxu.PLANES + p * 4
-    return bound(nbytes, 2.0 * p * r, 2.0 * p * acl_mxu.PLANES * r,
+    return bound(nbytes, 2.0 * p * r, 2.0 * p * MXU_LIVE_PLANES * r,
                  tc_rate)
 
 
@@ -7728,6 +7770,648 @@ def fleet_phase(seed: int, device=None, twin_device="cpu", **sizes):
     return summary, launches
 
 
+# --- phase 4m: the single-host mesh ----------------------------------------
+
+MESH_NODES, MESH_SHARDS = 4, 2    # the cluster: 4 nodes x 2 rule shards
+MESH_BUDGET = 32                  # the fabric budget that overflows
+MESH_ROUNDS = 2                   # (forward, 2 replies) rounds a rung
+MESH_TIMED = 10                   # timed cluster steps a cell
+MESH_NOW = 900_000                # the pinned step clock (past 4l's)
+MESH_AGENT = (2, 2)               # the mesh agent's runtime
+MESH_AGENT_FRAMES = 64            # frames through the ClusterPump
+MESH_AGENT_NOW = 950_000
+
+
+def mesh_pod_net(k: int) -> str:
+    """Node ``k``'s pod /24 (the slice's 10.1.1.0/24 is node 0's)."""
+    return f"10.1.{1 + k}.0/24"
+
+
+def mesh_stage(dp: Dataplane, k: int, n_nodes: int, n_rules: int):
+    """Stage node ``k`` of a mesh as ``stage`` stages the slice, with its
+    own pod /24 (the 250 pod /32s and the ClusterIP's backends in it, the
+    global table's port-80 permit on it), fabric routes to its peers'
+    pod /24s (``node_id`` = the peer's mesh row, no next hop), edge
+    routes (VXLAN next hops) filling the slice's 3,996 routes, and the
+    SNAT default route. The cluster swap publishes it. Returns (uplink,
+    pods)."""
+    up = dp.add_uplink()
+    dp.add_host_interface()
+    pods = [dp.add_pod_interface(("default", f"pod{i}"))
+            for i in range(N_PODS)]
+    b = dp.builder
+    for i in range(N_PODS):
+        table = f"pod{i}-policy"
+        slot = dp.alloc_table_slot(table)
+        b.set_local_table(slot, local_rules(i, dp.config.max_rules))
+        dp.assign_pod_table(("default", f"pod{i}"), table)
+    b.set_global_table(global_rules(n_rules, pod_net=mesh_pod_net(k)))
+    net = ip4(mesh_pod_net(k).split("/")[0])
+    b.add_route(mesh_pod_net(k), pods[0], Disposition.LOCAL)
+    for h in range(1, 251):
+        b.add_route(f"{ip4_str(net + h)}/32", pods[int(pod_of(np.int64(h)))],
+                    Disposition.LOCAL)
+    for j in range(n_nodes):
+        if j != k:
+            b.add_route(mesh_pod_net(j), up, Disposition.REMOTE, node_id=j)
+    # the slice's 3,996 routes (fewer when a rehearsal's FIB is small)
+    for n in range(min(3745, dp.config.fib_slots - 260) - n_nodes):
+        b.add_route(f"10.{2 + n // 256}.{n % 256}.0/24", up,
+                    Disposition.REMOTE, next_hop=ip4("192.168.0.0") + n)
+    b.add_route("0.0.0.0/0", up, Disposition.REMOTE,
+                next_hop=ip4("192.168.255.254"), snat=True)
+    b.set_nat_mapping(
+        0, ip4(VIP), 80, 6,
+        [(net + 2 + i, 80, 1 + i % 2) for i in range(N_BACKENDS)], boff=0)
+    b.set_snat_ip(ip4("192.168.16.1") + k)
+    return up, pods
+
+
+def mesh_cluster(cfg: DataplaneConfig, device, n_rules: int,
+                 n_nodes: int = MESH_NODES, shards: int = MESH_SHARDS):
+    """A ClusterDataplane of ``n_nodes`` x ``shards`` on ``device``, every
+    node staged by ``mesh_stage``, published by one swap."""
+    clus = ClusterDataplane(
+        cluster_mesh(n_nodes, shards, [device] * (n_nodes * shards)), cfg)
+    staged = [mesh_stage(clus.node(k), k, n_nodes, n_rules)
+              for k in range(n_nodes)]
+    clus.swap()
+    if len({(u, tuple(p)) for u, p in staged}) != 1:
+        raise AssertionError("the mesh nodes staged different interfaces")
+    return clus, staged[0][0], staged[0][1]
+
+
+def mesh_forward(n: int, up: int, seed: int, n_nodes: int,
+                 spread: bool = True):
+    """Each node's forward vector: ``forward_traffic`` toward its own
+    pods, a quarter of it re-addressed to the pods of other nodes
+    (``spread``: any other node; else all of it to the next one)."""
+    out = []
+    for k in range(n_nodes):
+        cols = forward_traffic(n, up, seed + 104729 * k)
+        rng = np.random.default_rng(seed + 7 * k)
+        host = cols["dst_ip"].astype(np.int64) & 0xFF
+        peer = ((k + (rng.integers(1, n_nodes, n) if spread else 1))
+                % n_nodes)
+        node = np.where(rng.random(n) < (0.25 if spread else 1.0), peer, k)
+        net = np.array([ip4(mesh_pod_net(j).split("/")[0])
+                        for j in range(n_nodes)], np.int64)
+        vip = cols["dst_ip"] == np.uint32(ip4(VIP))
+        cols["dst_ip"] = np.where(vip, cols["dst_ip"],
+                                  (net[node] + host).astype(np.uint32))
+        out.append(cols)
+    return out
+
+
+def mesh_vector(cols_list, dev) -> PacketVector:
+    """The node-stacked [N, P] vector of per-node column dicts."""
+    pvs = [packet_vector_from_numpy(c, dev) for c in cols_list]
+    return PacketVector(*(torch.stack(f) for f in zip(*pvs)))
+
+
+def mesh_snapshot(res) -> dict:
+    """Every ClusterStepResult field as numpy (interop's names)."""
+    return cluster_result_to_numpy(res)
+
+
+def mesh_replies(snap: dict, pods, to: str, n: int) -> list:
+    """Each node's replies, as ``reply_traffic`` builds them, to the
+    packets it delivered to its pods (pass 1's LOCAL rows and the
+    fabric's pass-2 rows) or, ``to`` dropped, to those it dropped;
+    ``n`` slots a node."""
+    out = []
+    for k in range(snap["local.disp"].shape[0]):
+        rows = {}
+        for side in ("local", "delivered"):
+            disp = snap[f"{side}.disp"][k]
+            valid = (snap[f"{side}.pkts.flags"][k] & FLAG_VALID) != 0
+            if to == "forwarded":
+                sel = valid & (disp == int(Disposition.LOCAL))
+            else:
+                sel = valid & (disp == int(Disposition.DROP))
+            if side == "delivered" and to == "dropped":
+                sel &= snap["delivered.drop_cause"][k] != 0
+            for f in ("pkts.src_ip", "pkts.dst_ip", "pkts.sport",
+                      "pkts.dport"):
+                rows.setdefault(f, []).append(snap[f"{side}.{f}"][k][sel])
+        sel_snap = {f: np.concatenate(v)[:n] for f, v in rows.items()}
+        m = sel_snap["pkts.src_ip"].shape[0]
+        pad = {f: np.concatenate([v, np.zeros(n - m, v.dtype)])
+               for f, v in sel_snap.items()}
+        pad["disp"] = np.where(np.arange(n) < m, int(Disposition.LOCAL),
+                               int(Disposition.DROP)).astype(np.int32)
+        out.append(reply_traffic(pad, pods, "forwarded"))
+    return out
+
+
+def mesh_state(clus) -> dict:
+    return cluster_tables_to_numpy(
+        clus.tables, tuple(SESSION_FIELDS) + ("fib_ecmp_c",))
+
+
+def mesh_drive(clus, up: int, pods, seed: int, n: int, budget: int,
+               rounds: int, spread: bool = True, now0: int = MESH_NOW):
+    """``rounds`` x (forward, the replies to the forwarded packets, to
+    the dropped ones) through ``clus.step``. Returns the inputs and the
+    result snapshots."""
+    inputs, snaps = [], []
+    now = now0
+    dev = clus.device
+
+    def step(cols):
+        nonlocal now
+        res = clus.step(mesh_vector(cols, dev), now=now, budget=budget)
+        inputs.append((cols, now))
+        snaps.append(mesh_snapshot(res))
+        now += 1
+        return snaps[-1]
+
+    for r in range(rounds):
+        first = step(mesh_forward(n, up, seed + 7919 * r, clus.n_nodes,
+                                  spread))
+        for to in ("forwarded", "dropped"):
+            step(mesh_replies(first, pods, to, n))
+    return inputs, snaps
+
+
+def mesh_twin(cfg, n_rules, inputs, budget: int):
+    """The CPU twin of a card cluster: the same staging and inputs."""
+    twin, _, _ = mesh_cluster(cfg, torch.device("cpu"), n_rules)
+    snaps = [mesh_snapshot(twin.step(mesh_vector(cols, twin.device),
+                                     now=now, budget=budget))
+             for cols, now in inputs]
+    return twin, snaps
+
+
+def mesh_time(clus, vec, steps: int, now: int, budget: int = 0) -> float:
+    """Median ms of one ``clus.step`` (CUDA events around each call; the
+    auto path's host reads included)."""
+    for _ in range(2):
+        clus.step(vec, now=now, budget=budget)
+    torch.cuda.synchronize()
+    ms = []
+    for i in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        clus.step(vec, now=now + i, budget=budget)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    return float(np.median(ms))
+
+
+def mesh_graph_launches(clus, vec, now: int) -> int:
+    """CUDA-graph replays one captured cluster step makes."""
+    before = sum(p.replays for prog in clus.programs() for p in prog.parts)
+    clus.step(vec, now=now)
+    return sum(p.replays for prog in clus.programs()
+               for p in prog.parts) - before
+
+
+def mesh_eager_vs_captured(cfg: DataplaneConfig, n_rules: int, seed: int,
+                           dev) -> dict:
+    """Two fresh clusters on the forced full chain (fast path off), one
+    replaying its captured step, one stepping eagerly, take one round:
+    every result and the final planes equal; the captured step is one
+    graph launch."""
+    snaps, states = {}, {}
+    launches = None
+    for mode in ("captured", "eager"):
+        clus, up, pods = mesh_cluster(cfg._replace(fastpath=False), dev,
+                                      n_rules)
+        clus.graphs = mode == "captured"
+        inputs, snaps[mode] = mesh_drive(clus, up, pods, seed, VEC, 0, 1)
+        states[mode] = mesh_state(clus)
+        if mode == "captured" and dev.type == "cuda":
+            launches = mesh_graph_launches(
+                clus, mesh_vector(inputs[0][0], dev), MESH_NOW + 50)
+        del clus
+    for k, (a, b) in enumerate(zip(snaps["captured"], snaps["eager"])):
+        assert_equal(a, b, f"mesh eager vs captured step {k}")
+    assert_equal(states["captured"], states["eager"],
+                 "mesh eager vs captured state")
+    if launches not in (None, 1):
+        raise AssertionError(f"a captured full-chain cluster step made "
+                             f"{launches} graph launches, not 1")
+    say(f"mesh eager vs captured (fast path off): "
+        f"{len(snaps['eager'])} steps, every result field and the final "
+        f"planes equal; {launches} graph launch per captured step")
+    return {"steps": len(snaps["eager"]), "graph_launches": launches}
+
+
+def mesh_mxu_shards(dev, errors: Errors, seed: int) -> dict:
+    """``mxu_first_match`` on a rule shard's operand (R'/S columns of the
+    slice's 10,240: 5,120 at S = 2, 2,560 at S = 4) against its plain
+    version, at P = 256 and 4,096; its graph time, the bound and the
+    bf16 ``matmul`` / ``torch._int_mm`` yardsticks at that shape."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for cols in (5120, 2560):
+        for p in (VEC, BIG_VEC):
+            for kind in ("random", "multi"):
+                a = mxu_case(rng, p, cols, dev, kind)
+                got = acl_mxu.mxu_first_match(*a)
+                want = acl_mxu.mxu_first_match_plain(*a)
+                torch.cuda.synchronize()
+                errors.hold("mxu_first_match", (got,), (want,),
+                            f"shard operand R'={cols} P={p} {kind}")
+            b_ms, b_by = mxu_bound(*a)
+            bits = acl_mxu.header_bit_planes(*a[:5])
+            coeff_t = acl_mxu.mxu_operand_rows(a[5])[0]
+            row = dict(
+                ms=time_graph(lambda a=a: acl_mxu.mxu_first_match(*a)),
+                plain_ms=time_eager(
+                    lambda a=a: acl_mxu.mxu_first_match_plain(*a), 10),
+                bound_ms=b_ms, bound_by=b_by,
+                bound_bf16_ms=mxu_bound(*a, tc_rate=TC_BF16_FLOPS)[0],
+                matmul_ms=time_graph(
+                    lambda x=bits, w=coeff_t.to(torch.bfloat16):
+                    torch.matmul(x, w.t())),
+                int8_matmul_ms=time_graph(
+                    lambda x=bits.to(torch.int8), w=coeff_t:
+                    torch._int_mm(x, w.t())))
+            out[f"R'={cols} P={p}"] = row
+            say(f"kernel mxu_first_match shard operand R'={cols} P={p}: "
+                f"{row['ms']:.5f} ms (graph replay), plain "
+                f"{row['plain_ms']:.5f} ms, bound {b_ms:.6f} ms ({b_by}); "
+                f"matmul bf16 {row['matmul_ms']:.5f} ms, _int_mm int8 "
+                f"{row['int8_matmul_ms']:.5f} ms; bit-exact")
+    return out
+
+
+def mesh_cluster_phase(cfg: DataplaneConfig, n_rules: int, seed: int,
+                       errors: Errors, device="cuda"):
+    """Phase 4m (i) (module doc). Returns (summary, launches)."""
+    dev = torch.device(device)
+    mcfg = cfg._replace(classifier="auto", fastpath=True, fib_impl="auto",
+                        session_impl="auto")
+    summary = {"shards": mesh_mxu_shards(dev, errors, seed),
+               "eager_vs_captured": mesh_eager_vs_captured(
+                   mcfg, n_rules, seed + 3, dev)}
+    launches = {k: 0 for k in WRAPPERS}
+    rungs = {}
+    for rung, knob in (("auto", "auto"), ("mxu", "mxu")):
+        t0 = time.perf_counter()
+        clus, up, pods = mesh_cluster(mcfg._replace(classifier=knob), dev,
+                                      n_rules)
+        stage_s = time.perf_counter() - t0
+        want = {"auto": "bv", "mxu": "mxu"}[rung]
+        if (clus.classifier_impl, clus.fastpath_selected) != (want, True):
+            raise AssertionError(f"mesh rung {rung}: classifier "
+                                 f"{clus.classifier_impl}, fast path "
+                                 f"{clus.fastpath_selected}")
+        for w in WRAPPERS.values():
+            w.launches = 0
+        inputs, snaps = mesh_drive(clus, up, pods, seed, VEC, 0,
+                                   MESH_ROUNDS)
+        got = {k: w.launches for k, w in WRAPPERS.items()}
+        if rung == "mxu" and dev.type == "cuda" \
+                and not got["mxu_first_match"]:
+            raise AssertionError("the mesh's mxu rung never launched "
+                                 "mxu_first_match")
+        for k, v in got.items():
+            launches[k] += v
+        state = mesh_state(clus)
+        twin, tsnaps = mesh_twin(mcfg._replace(classifier=knob), n_rules,
+                                 inputs, 0)
+        for k, (a, b) in enumerate(zip(snaps, tsnaps)):
+            assert_equal(a, b, f"mesh {rung} step {k} against the CPU twin")
+        assert_equal(state, mesh_state(twin),
+                     f"mesh {rung} state against the CPU twin")
+        del twin
+        sent = [int(s["fabric_sent"].sum()) for s in snaps]
+        fast = [int(s["fastpath_pass1"].sum()) for s in snaps]
+        if not all(sent[::3]) or fast[1::3] != [MESH_NODES] * MESH_ROUNDS:
+            raise AssertionError(f"mesh {rung}: fabric sent {sent}, pass-1 "
+                                 f"fast tiers {fast}")
+        totals = {f: int(sum(int(s[f"stats.{f}"].sum()) for s in snaps))
+                  for f in ("rx", "tx", "drop_acl", "sess_hits", "dnat",
+                            "nat_reversed", "snat")}
+        for f in ("tx", "drop_acl", "sess_hits", "dnat", "snat"):
+            if not totals[f]:
+                raise AssertionError(f"mesh {rung}: {f} never fired")
+        say(f"mesh {rung} (classifier {clus.classifier_impl}): staged in "
+            f"{stage_s:.1f} s; {len(snaps)} steps of {MESH_NODES} x {VEC} "
+            f"equal the CPU twin (every ClusterStepResult field, the "
+            f"delivered rows, the stats and the session planes); fabric "
+            f"sent {sent}; pass-1 fast tiers {fast}; totals {totals}; "
+            f"launches {got}")
+        cell = dict(stage_s=stage_s, sent=sent, fast=fast, totals=totals,
+                    launches=got)
+        if rung == "auto":
+            # the fabric budget that overflows: every node's cross-node
+            # quarter toward one peer
+            for w in WRAPPERS.values():
+                w.launches = 0
+            b_in, b_snaps = mesh_drive(clus, up, pods, seed + 1,
+                                       VEC, MESH_BUDGET, 1, spread=False,
+                                       now0=MESH_NOW + 100)
+            twin, _, _ = mesh_cluster(mcfg, torch.device("cpu"), n_rules)
+            for cols, now in inputs:
+                twin.step(mesh_vector(cols, twin.device), now=now)
+            for k, ((cols, now), a) in enumerate(zip(b_in, b_snaps)):
+                b = mesh_snapshot(twin.step(mesh_vector(cols, twin.device),
+                                            now=now, budget=MESH_BUDGET))
+                assert_equal(a, b, f"mesh budget {MESH_BUDGET} step {k}")
+            assert_equal(mesh_state(clus), mesh_state(twin),
+                         f"mesh budget {MESH_BUDGET} state")
+            del twin
+            over = int(b_snaps[0]["fabric_overflow"].sum())
+            sent_b = int(b_snaps[0]["fabric_sent"].sum())
+            if not over or sent_b != MESH_NODES * MESH_BUDGET:
+                raise AssertionError(f"budget {MESH_BUDGET}: sent {sent_b},"
+                                     f" overflow {over}")
+            cell["budget"] = dict(budget=MESH_BUDGET, sent=sent_b,
+                                  overflow=over)
+            say(f"mesh budget {MESH_BUDGET}: sent {sent_b}, overflow "
+                f"{over} (counted), every field equal to the CPU twin")
+        # timing, captured against eager, at both sizes
+        now = MESH_NOW + 1000
+        times = {}
+        for n in (VEC, BIG_VEC):
+            fwd = mesh_forward(n, up, seed + 31 * n, MESH_NODES)
+            first = mesh_snapshot(clus.step(mesh_vector(fwd, dev), now=now))
+            rep = mesh_replies(first, pods, "forwarded", n)
+            now += 1
+            for tier, cols in (("full", fwd), ("fast", rep)):
+                vec = mesh_vector(cols, dev)
+                valid = int(sum(np.count_nonzero(c["flags"]) for c in cols))
+                for mode in ("captured", "eager"):
+                    clus.graphs = mode == "captured"
+                    ms = mesh_time(clus, vec, MESH_TIMED, now)
+                    now += MESH_TIMED + 5
+                    key = f"{tier} {mode} P={n}"
+                    times[key] = dict(ms=ms, valid=valid,
+                                      mpps=valid / (ms * 1e3))
+                    say(f"mesh {rung} step {key} ({valid} valid over "
+                        f"{MESH_NODES} nodes): {ms:.4f} ms, "
+                        f"{valid / (ms * 1e3):.4f} Mpps")
+                clus.graphs = True
+                g = mesh_graph_launches(clus, vec, now)
+                now += 1
+                times[f"{tier} graph launches P={n}"] = g
+                say(f"mesh {rung} {tier} P={n}: {g} graph launches per "
+                    f"cluster step")
+        cell["times"] = times
+        # a swap per churn: one node's global table, one node's route
+        churn = {}
+        for name, fn in (
+                ("global table", lambda b: b.set_global_table(
+                    global_rules(n_rules, pod_net=mesh_pod_net(1))[::-1]
+                    [1:] + [global_rules(n_rules)[-1]])),
+                ("route", lambda b: b.add_route(
+                    "10.250.0.0/24", up, Disposition.REMOTE,
+                    next_hop=ip4("192.168.1.1")))):
+            with clus.node(1).commit_lock:
+                fn(clus.node(1).builder)
+                _sync(dev)
+                t0 = time.perf_counter()
+                clus.swap()
+                host = (time.perf_counter() - t0) * 1e3
+                _sync(dev)
+                wall = (time.perf_counter() - t0) * 1e3
+            churn[name] = dict(host_ms=host, synced_ms=wall,
+                               **clus.upload_stats)
+            say(f"mesh {rung} swap ({name}): {host:.3f} ms host, "
+                f"{wall:.3f} ms synchronised; upload {clus.upload_stats}")
+        cell["swap"] = churn
+        rungs[rung] = cell
+        del clus
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    summary["rungs"] = rungs
+    return summary, launches
+
+
+def mesh_agent_config(root: Path, io: bool) -> AgentConfig:
+    return AgentConfig.from_dict({
+        "node_name": "mesh", "serve_http": False,
+        "dataplane": dict(max_tables=8, max_rules=32,
+                          max_global_rules=1024, max_ifaces=32,
+                          fib_slots=256, sess_slots=1 << 16, nat_mappings=16,
+                          nat_backends=64),
+        "io": {"enabled": io, "n_slots": 64, "snap": PUMP_SNAP}})
+
+
+def mesh_agent_runtime(root: Path, device):
+    """A MeshRuntime of MESH_AGENT on ``device``, its own store, pods
+    through the CNI on both nodes, the policy and service objects
+    through KSR. Returns (runtime, ksr, pod ips)."""
+    from vpp_tpu_torch.kvstore import KVStore
+    from vpp_tpu_torch.parallel.runtime import MeshRuntime
+
+    store = KVStore()
+    ksr = KsrAgent(store=store, serve_http=False)
+    ksr.start()
+    n, s = MESH_AGENT
+    rt = MeshRuntime(n, mesh_agent_config(root, True), rule_shards=s,
+                     store=store, devices=[device] * (n * s))
+    rt.cluster.clock_ticks = lambda: MESH_AGENT_NOW
+    rt.start()
+    ips = {}
+    for k, a in enumerate(rt.agents):
+        for i in range(2):
+            name = f"m{k}-{i}"
+            reply = a.cni_server.add(CNIRequest(
+                container_id=f"c{k}{i}" * 4,
+                extra_args={"K8S_POD_NAME": name,
+                            "K8S_POD_NAMESPACE": "default"}))
+            if reply.result != 0:
+                raise AssertionError(f"CNI add {name}: {reply.error}")
+            ips[name] = reply.interfaces[0].ip_addresses[0].address \
+                .split("/")[0]
+            ksr.sources[km.Pod.TYPE].add(f"default/{name}", km.Pod(
+                name=name, namespace="default",
+                labels={"app": f"a{k}{i}"}, ip_address=ips[name]))
+    ksr.sources[km.Namespace.TYPE].add("default", km.Namespace(
+        name="default", labels={}))
+    return rt, ksr, ips
+
+
+def mesh_agent_traffic(rt, ips, n: int, sport0: int):
+    """node 0's pod m0-0 toward m1-0 on node 1 (port 5432) and toward
+    the ClusterIP (port 80), ``n`` packets a node."""
+    a0 = rt.agents[0]
+    if0 = a0.dataplane.pod_if[("default", "m0-0")]
+    frames = [[] for _ in range(rt.n_nodes)]
+    for i in range(n):
+        dst, dport = ((ips["m1-0"], 5432) if i % 2 else ("10.96.0.50", 80))
+        frames[0].append(dict(src=ips["m0-0"], dst=dst, proto=6,
+                              sport=sport0 + i, dport=dport, rx_if=if0))
+    return frames
+
+
+def mesh_agent_phase(seed: int, root: Path, device="cuda"):
+    """Phase 4m (ii) (module doc). Returns (summary, launches)."""
+    from vpp_tpu_torch.pipeline.snapshot import SessionSnapshotter
+
+    t_phase = time.perf_counter()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    out = {}
+    runs = {}
+    for side, dev in (("card", device), ("twin", "cpu")):
+        rt, ksr, ips = mesh_agent_runtime(root / side, dev)
+        try:
+            steps = []
+            # through the fabric, then a NetworkPolicy cuts m0 -> m1
+            res = rt.step(rt.make_frames(mesh_agent_traffic(rt, ips, 8,
+                                                            41000), n=16),
+                          now=MESH_AGENT_NOW)
+            steps.append(cluster_result_to_numpy(res))
+            ksr.sources[km.Service.TYPE].add("default/web", km.Service(
+                name="web", namespace="default", cluster_ip="10.96.0.50",
+                ports=[km.ServicePort(name="http", protocol="TCP", port=80,
+                                      target_port="http")]))
+            ksr.sources[km.Endpoints.TYPE].add("default/web", km.Endpoints(
+                name="web", namespace="default",
+                subsets=[km.EndpointSubset(
+                    addresses=[km.EndpointAddress(
+                        ip=ips["m1-1"], node_name=rt.agents[1]
+                        .config.node_name)],
+                    ports=[km.EndpointPort(name="http", port=8080,
+                                           protocol="TCP")])]))
+            res = rt.step(rt.make_frames(mesh_agent_traffic(rt, ips, 8,
+                                                            42000), n=16),
+                          now=MESH_AGENT_NOW + 1)
+            steps.append(cluster_result_to_numpy(res))
+            ksr.sources[km.Policy.TYPE].add("default/cut", km.Policy(
+                name="cut", namespace="default",
+                pods=km.LabelSelector(match_labels={"app": "a10"}),
+                policy_type=km.POLICY_INGRESS, ingress_rules=[]))
+            res = rt.step(rt.make_frames(mesh_agent_traffic(rt, ips, 8,
+                                                            43000), n=16),
+                          now=MESH_AGENT_NOW + 2)
+            steps.append(cluster_result_to_numpy(res))
+            state = mesh_state(rt.cluster)
+            s = steps
+            if not (int(s[0]["fabric_sent"].sum())
+                    and int(s[1]["stats.dnat"][0]) == 4
+                    and int(s[2]["stats.drop_acl"].sum()) == 4):
+                raise AssertionError(f"mesh agent {side}: fabric, service "
+                                     f"or policy cut did not happen")
+            # frames into node 0's rings, out of node 1's
+            pump = rt.cluster_pump
+            codec = PacketCodec(snap=PUMP_SNAP)
+            if0 = rt.agents[0].dataplane.pod_if[("default", "m0-0")]
+            scratch = np.zeros((VEC, PUMP_SNAP), np.uint8)
+            lens = np.zeros(VEC, np.uint32)
+            sent = 0
+            t0 = time.perf_counter()
+            for j in range(MESH_AGENT_FRAMES):
+                for i in range(VEC):
+                    f = wire_frame(ip4(ips["m0-0"]), ip4(ips["m1-1"]),
+                                   30000 + (j * VEC + i) % 30000, 5433,
+                                   j * VEC + i)
+                    scratch[i, :len(f)] = np.frombuffer(f, np.uint8)
+                    lens[i] = len(f)
+                cols, k = codec.parse_inplace(scratch, lens, VEC, if0)
+                while not rt.ring_pairs[0].rx.push(cols, k,
+                                                   payload=scratch):
+                    time.sleep(0.0005)
+                sent += k
+            got, keys = 0, []
+            deadline = time.monotonic() + PUMP_DEADLINE
+            while got < sent and time.monotonic() < deadline:
+                fr = rt.ring_pairs[1].tx.peek()
+                if fr is None:
+                    time.sleep(0.001)
+                    continue
+                live = np.nonzero(fr.cols["disp"][:fr.n]
+                                  == int(Disposition.LOCAL))[0]
+                got += len(live)
+                keys += [frame_key(bytes(fr.payload[i]))[:5] for i in live]
+                rt.ring_pairs[1].tx.release()
+            secs = time.perf_counter() - t0
+            if got != sent:
+                raise AssertionError(f"mesh agent {side}: {got} of {sent} "
+                                     f"frames left node 1's ring")
+            lat = pump.latency_us()
+            pages = {cmd: DebugCLI(rt.agents[0].dataplane,
+                                   mesh_runtime=rt).run(cmd)
+                     for cmd in ("show mesh", "show partitions")}
+            # a snapshot, its restore on the same geometry and its
+            # refusal on another
+            snap = SessionSnapshotter(rt.cluster, str(root / side / "snap"),
+                                      chunk_buckets=1 << 12)
+            if snap.snapshot() != 1:
+                raise AssertionError("the mesh snapshot failed")
+            same = ClusterDataplane(rt.mesh, rt.cluster.config)
+            for k in range(rt.n_nodes):
+                same.node(k).add_uplink()
+            same.swap()
+            if not SessionSnapshotter(same, str(root / side / "snap"))\
+                    .restore_into():
+                raise AssertionError("same-geometry restore refused")
+            for f in SESSION_FIELDS:
+                if f.endswith("_time"):
+                    continue
+                if not torch.equal(getattr(same.tables, f).cpu(),
+                                   getattr(rt.cluster.tables, f).cpu()):
+                    raise AssertionError(f"restored {f} differs")
+            other = ClusterDataplane(cluster_mesh(
+                MESH_AGENT[0], 1, [dev] * MESH_AGENT[0]),
+                rt.cluster.config)
+            for k in range(other.n_nodes):
+                other.node(k).add_uplink()
+            other.swap()
+            _, outcome = SessionSnapshotter(
+                other, str(root / side / "snap")).restore()
+            if outcome != "geometry":
+                raise AssertionError(f"another geometry restored: "
+                                     f"{outcome}")
+            runs[side] = dict(steps=steps, keys=sorted(keys), state=state)
+            out[side] = dict(frames=MESH_AGENT_FRAMES, pkts=sent,
+                             seconds=secs, mpps=sent / secs / 1e6,
+                             step_p50_us=lat["p50"], step_p99_us=lat["p99"],
+                             pump_steps=pump.stats["steps"],
+                             fabric_pkts=pump.stats["fabric_pkts"],
+                             pages={k: v.splitlines()[0]
+                                    for k, v in pages.items()})
+            say(f"mesh agent {side}: {sent} packets in "
+                f"{MESH_AGENT_FRAMES} frames through the ClusterPump in "
+                f"{secs:.3f} s ({sent / secs / 1e6:.5f} Mpps), "
+                f"{pump.stats['steps']} fabric steps, step p50 / p99 "
+                f"{lat['p50']:.1f} / {lat['p99']:.1f} us; "
+                f"{pages['show partitions'].splitlines()[0]!r}; snapshot "
+                f"restored, another geometry refused")
+        finally:
+            rt.close()
+            ksr.close()
+    for k, (a, b) in enumerate(zip(runs["card"]["steps"],
+                                   runs["twin"]["steps"])):
+        assert_equal(a, b, f"mesh agent step {k} against the CPU twin")
+    if runs["card"]["keys"] != runs["twin"]["keys"]:
+        raise AssertionError("the frames out of node 1 differ from the "
+                             "CPU twin's")
+    assert_equal(runs["card"]["state"], runs["twin"]["state"],
+                 "mesh agent state against the CPU twin")
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"phase 4m (ii): {out['seconds']:.1f} s; every step, the session "
+        f"planes after them and the frames out of node 1 equal the CPU "
+        f"twin's; launches {launches}")
+    return out, launches
+
+
+def mesh_phase(cfg: DataplaneConfig, n_rules: int, seed: int,
+               errors: Errors):
+    """Phase 4m: the cluster on the card, then the mesh agent."""
+    t0 = time.perf_counter()
+    dump, capture.debug_dump_dir = capture.debug_dump_dir, None
+    try:
+        clus_sum, launches = mesh_cluster_phase(cfg, n_rules, seed, errors)
+        say(f"phase 4m (i): {time.perf_counter() - t0:.1f} s")
+        with tempfile.TemporaryDirectory(prefix="vpp_tpu_torch_mesh_") as d:
+            agent_sum, agent_launches = mesh_agent_phase(seed, Path(d))
+    finally:
+        capture.debug_dump_dir = dump
+    say(f"phase 4m: {time.perf_counter() - t0:.1f} s")
+    return {"cluster": clus_sum, "agent": agent_sum,
+            "seconds": time.perf_counter() - t0}, launches
+
+
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -7935,6 +8619,12 @@ def main(argv=None) -> int:
     for k in FLEET_KERNELS:
         if not fleet_launches[k]:
             raise AssertionError(f"the fleet path never launched {k}")
+
+    # 4m. the single-host mesh: a 4 x 2 cluster at the slice's widths on
+    # the card (the auto and mxu rungs, budget 0 and an overflowing one)
+    # against its CPU twin, timed captured and eager; a 2 x 2 mesh agent
+    # runtime with its ClusterPump against a CPU twin runtime
+    mesh_sum, mesh_launches = mesh_phase(cfg, n_rules, args.seed, errors)
     graphs = check_graphs({"pallas": [gpu, cap_p], "mxu": [gpu_m, cap_m],
                            "pallas+ml": [ml_p], "mxu+ml": [ml_m],
                            "pallas+tnt": [tnt_p], "mxu+tnt": [tnt_m]})
@@ -8152,6 +8842,9 @@ def main(argv=None) -> int:
         row["launches_remote"] = remote_launches[name]
         row["launches_wire"] = wire_launches[name]
         row["launches_fleet"] = fleet_launches[name]
+        row["launches_mesh"] = mesh_launches[name]
+        if name == "mxu_first_match":
+            row["mesh_shard_operand"] = mesh_sum["cluster"]["shards"]
         if name == "sess_probe_ways":
             row["tenant_form"] = {f"P={n}": timed[("sess_probe_ways.tenant",
                                                    n)] for n in (VEC, BIG_VEC)}
@@ -8205,6 +8898,7 @@ def main(argv=None) -> int:
                     "wire": wire_sum,
                     "hoststack": vcl_sum,
                     "fleet": fleet_sum,
+                    "mesh": mesh_sum,
                     "captures": graphs, "power": smi}))
     if any(n != 1 for n in capture.capture_counts().values()):
         raise AssertionError("the timing captured a key again")

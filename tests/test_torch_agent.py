@@ -101,8 +101,33 @@ class CpuSessionRuleEngine(tsr.SessionRuleEngine):
         super().__init__(capacity, device=device)
 
 
+def cpu_cluster_mesh(n_nodes, rule_shards=1, devices=None):
+    """The port's ``cluster_mesh`` with every position on the CPU unless
+    told otherwise (the reference's tests mesh its virtual CPU
+    devices)."""
+    from vpp_tpu_torch.parallel.mesh import cluster_mesh
+
+    return cluster_mesh(n_nodes, rule_shards,
+                        devices or ["cpu"] * (n_nodes * rule_shards))
+
+
+def _cpu_mesh_runtime():
+    from vpp_tpu_torch.parallel.runtime import MeshRuntime
+
+    class CpuMeshRuntime(MeshRuntime):
+        """The port's MeshRuntime on a CPU mesh unless told otherwise."""
+
+        def __init__(self, n_nodes, base_config, rule_shards=1, store=None,
+                     devices=None):
+            super().__init__(n_nodes, base_config, rule_shards, store,
+                             devices or ["cpu"] * (n_nodes * rule_shards))
+
+    return CpuMeshRuntime
+
+
 CPU_OVERRIDES = {"Dataplane": CpuDataplane, "ContivAgent": CpuAgent,
-                 "SessionRuleEngine": CpuSessionRuleEngine}
+                 "SessionRuleEngine": CpuSessionRuleEngine,
+                 "cluster_mesh": cpu_cluster_mesh}
 
 
 def _port_modules():
@@ -141,6 +166,8 @@ def port_alias(ref_name: str):
             for k, v in CPU_OVERRIDES.items():
                 if k in alias.__dict__:
                     alias.__dict__[k] = v
+            if "MeshRuntime" in alias.__dict__:
+                alias.__dict__["MeshRuntime"] = _cpu_mesh_runtime()
             _ALIASES[ref] = alias
     return _ALIASES.get(ref_name)
 
@@ -317,7 +344,7 @@ UNCOMPARED = {
     "vpp_tpu_device_transfer_bytes_total":
         "process-wide transfer counters of each package",
     "vpp_tpu_partition_info":
-        "the partition manifest belongs to the mesh (ROADMAP item 10)",
+        "the port's manifest adds its five derived table fields",
 }
 # wall-clock histograms: their _bucket and _sum lines are timings; their
 # _count lines (observations) are compared

@@ -184,8 +184,10 @@ COMMANDS = [
 # (command, line prefix) -> why the port's line differs; every other
 # line is compared
 DIFFERS = {
-    ("show partitions", ""): "the partition layer waits for the mesh "
-                             "(ROADMAP Queue 1 item 10)",
+    ("show partitions", "  [      rule] ^glb_mxu_op$"):
+        "the port's derived MXU operand has a rule of its own",
+    ("show partitions", "  [replicated] ^fib_lpm_(lens|stk_cnt"):
+        "the port's derived LPM stack has a rule of its own",
     ("show kernels", "kernel implementation ladders"):
         "names the card (or cpu) and the CUDA kernels, where the "
         "reference names the jax backend and Pallas",
@@ -209,11 +211,19 @@ _TIMING = re.compile(r" *\d+\.\d+ ?ms\b")
 _TRACE_ID = re.compile(r"\bt\d{6}\b")
 
 
+# commands whose lines are compared as a sorted list, and why
+ORDER_FREE = {
+    "show partitions": "its rule groups follow each package's "
+                       "DataplaneTables field order, which differ",
+}
+
+
 def _compared(cmd: str, text: str) -> list:
-    return [_TRACE_ID.sub("t<id>", _TIMING.sub(" <t> ms", ln))
-            for ln in text.splitlines()
-            if not any(c == cmd and ln.startswith(p)
-                       for c, p in DIFFERS)]
+    lines = [_TRACE_ID.sub("t<id>", _TIMING.sub(" <t> ms", ln))
+             for ln in text.splitlines()
+             if not any(c == cmd and ln.startswith(p)
+                        for c, p in DIFFERS)]
+    return sorted(lines) if cmd in ORDER_FREE else lines
 
 
 def _session_of(port: bool, seed: int = 0) -> dict:
@@ -251,13 +261,16 @@ def test_every_command_prints_what_the_reference_prints():
 
 
 def test_show_partitions_names_the_mesh_item():
-    """The port's `show partitions` names ROADMAP item 10 and imports
-    nothing of the partition layer."""
+    """The port's `show partitions` of a standalone dataplane lists the
+    canonical placements, the port's derived fields under their own
+    rules, and cites no ROADMAP item (the mesh is ported)."""
     P = _package(True)
     cli, dp, _, _ = _world(P, 0)
     out = cli.run("show partitions")
-    assert "ROADMAP Queue 1 item 10 (Mesh / cluster)" in out
-    assert "standalone" in out and "cpu" in out
+    assert out.startswith("standalone dataplane (no mesh attached)")
+    assert "^glb_mxu_op$  (1 fields)" in out
+    assert "^fib_lpm_(lens|stk_cnt|stk_pfx|stk_slot)$  (4 fields)" in out
+    assert "ROADMAP" not in out
 
 
 def test_ctl_runs_lines_over_a_served_socket(tmp_path, capsys):

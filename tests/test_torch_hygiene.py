@@ -21,18 +21,19 @@
   a CPU run of the fused-kernel rungs leaves each launch counter at 0.
 * Every stage knob is ported (the ML stage, telemetry, tenancy, the
   overlay, service VIPs, ECMP groups): each constructs, and a bad value
-  raises the reference's ``ValueError`` naming the knob. What is still
-  refused (the sharded session, NAT and ML forms, also under the newly
-  ported knobs) names its ``ROADMAP.md`` Queue 1 item, number and
-  title. The ring form and its telemetry rider run under every knob:
+  raises the reference's ``ValueError`` naming the knob. The ring form
+  and its telemetry rider run under every knob:
   tests/test_torch_persistent.py holds them against the reference.
-* Every agent value that reaches a module not ported yet (the mesh)
-  raises ``NotImplementedError`` naming its ROADMAP item before the
-  agent starts a thread, writes to its store or touches a device; so
-  does the init supervisor for a mesh configuration, and the CLI's
-  ``show partitions`` names the mesh's item in its text. The values
-  and setters this slice lifted (the VCL socket, ``set_vcl``,
-  ``set_fleet``) boot or attach the real thing on the CPU.
+* What is still refused, the multi-host mesh (``mesh.coordinator`` in
+  the init supervisor, ``--coordinator`` in the mesh agent), raises
+  ``NotImplementedError`` naming its ``ROADMAP.md`` Queue 1 item,
+  number and title, before anything is spawned or touches a device.
+  The values, setters and forms earlier slices lifted (the VCL socket,
+  ``set_vcl``, ``set_fleet``) and this one lifted (the mesh: an
+  injected node handle, the mesh node resolver, ``mesh.enabled``, the
+  init supervisor's single-host mesh plan, ``set_cluster``, ``show
+  partitions``, the sharded session, NAT and ML forms) boot, attach or
+  run the real thing on the CPU. The scan covers ``parallel/``.
 
 Every quantity compared is an integer: the tolerance is exact equality.
 """
@@ -100,10 +101,13 @@ def test_scan_sees_the_whole_package():
             "io_daemon.py", "wiring.py", "stn_netlink.py", "init_main.py",
             "_lazy.py", "vcl.py", "admission.py", "preload.py",
             "scenarios.py", "ldpreload_inject.py", "hashring.py",
-            "membership.py", "steering.py", "fleet.py"} <= names
+            "membership.py", "steering.py", "fleet.py", "partition.py",
+            "mesh.py", "cluster.py", "runtime.py", "cluster_pump.py",
+            "mesh_main.py"} <= names
     for sub in ("io", "native", "net", "ksr", "policy", "renderer",
                 "service", "trace", "cmd", "cni", "kvstore", "stats",
-                "health", "hoststack", "agent", "ipam", "fleet"):
+                "health", "hoststack", "agent", "ipam", "fleet",
+                "parallel"):
         assert (ROOT / "vpp_tpu_torch" / sub / "__init__.py") in PORT_FILES
     assert (ROOT / "vpp_tpu_torch" / "ml" / "model.py") in PORT_FILES
     for rel in ("hoststack/vcl.py", "hoststack/admission.py",
@@ -240,96 +244,28 @@ def _queue1_titles():
             re.findall(r"^(\d+)\. \*\*(.+?)\*\*", section, re.M)}
 
 
-def _refusal(kind, arg):
-    """The NotImplementedError message of one remaining refusal (for
-    ``cli``, the text of the command)."""
-    if kind == "cli":
-        from vpp_tpu_torch.cli import DebugCLI
+def _refusal(kind, arg=None):
+    """The NotImplementedError message of one remaining refusal: the
+    multi-host mesh, in the init supervisor or the mesh agent."""
+    from vpp_tpu_torch.cmd import AgentConfig
 
-        return DebugCLI(tdp.Dataplane(ttables.DataplaneConfig(**_SMALL),
-                                      device="cpu")).run(arg)
     with pytest.raises(NotImplementedError) as err:
-        if kind == "agent":
-            _agent_refusal(arg)
-        elif kind == "ml":
-            pkts = tvector.make_packet_vector([], n=8)
-            t = tdp.Dataplane(ttables.DataplaneConfig(**_SMALL),
-                              device="cpu").tables
-            tml.ml_score(t, pkts, pkts.valid, pkts.proto, shard=True)
-        elif kind == "shard":
-            # the sharded forms of the tenant-sliced session and NAT
-            # paths (tenancy on)
-            from vpp_tpu_torch.ops import nat44 as tnat
+        if kind == "init":
+            from vpp_tpu_torch.cmd.init_main import InitSupervisor
 
-            pkts = tvector.make_packet_vector([], n=8)
-            t = tdp.Dataplane(ttables.DataplaneConfig(**dict(
-                _SMALL, tenancy="on")), device="cpu").tables
-            if arg == "nat44_reverse":
-                tnat.nat44_reverse(t, pkts, pkts.valid, 1, shard=True,
-                                   tnt=True)
-            elif arg == "nat44_record":
-                tnat.nat44_record(t, pkts, *pkts[:4], pkts.proto,
-                                  pkts.valid, 1, shard=True, tnt=True)
-            elif arg == "session_insert":
-                tsess.session_insert(t, pkts, pkts.valid, 1, shard=True,
-                                     tnt=True)
-            else:
-                tsess.session_lookup_reverse_idx(t, pkts, 1, shard=True,
-                                                 tnt=True)
+            InitSupervisor(AgentConfig.from_dict({"mesh": {
+                "nodes": 2, "coordinator": "127.0.0.1:1"}}), None,
+                spawn=None)
         else:
-            tsess._refuse(**arg)
+            from vpp_tpu_torch.cmd import mesh_main
+
+            mesh_main.main(["--coordinator", "127.0.0.1:1", "--nodes", "2"])
     return str(err.value)
 
 
-# the agent's refused values: (AgentConfig keyword arguments, other
-# ContivAgent arguments)
-_AGENT_REFUSED = {
-    "mesh.enabled": ({"mesh": {"enabled": True}}, {}),
-    "dataplane": ({}, {"dataplane": "mesh node handle"}),
-    "mesh_node_resolver": ({}, {"mesh_node_resolver": lambda n: n}),
-}
-
-
-def _agent_refusal(arg):
-    """One refused agent value, or another refused seam of the slice."""
-    from vpp_tpu_torch.cmd import AgentConfig, ContivAgent
-    from vpp_tpu_torch.kvstore import KVStore
-
-    if arg == "init mesh":
-        from vpp_tpu_torch.cmd import AgentConfig
-        from vpp_tpu_torch.cmd.init_main import InitSupervisor
-
-        InitSupervisor(AgentConfig.from_dict({"mesh": {"nodes": 2}}), None,
-                       spawn=None)
-    elif arg == "set_cluster":
-        from vpp_tpu_torch.stats import StatsCollector
-
-        coll = StatsCollector(tdp.Dataplane(ttables.DataplaneConfig(
-            **_SMALL), device="cpu"))
-        getattr(coll, arg)(object())
-    else:
-        cfg, kw = _AGENT_REFUSED[arg]
-        ContivAgent(AgentConfig.from_dict(dict(
-            {"serve_http": False}, **cfg)), store=KVStore(),
-            device="cpu", **kw)
-
-
 _REFUSALS = {
-    # the node agent's slice (ROADMAP Queue 1 items 12 and 10)
-    **{f"agent-{k}": ("agent", k) for k in _AGENT_REFUSED},
-    **{f"agent-{k}": ("agent", k) for k in ("init mesh", "set_cluster")},
-    # the debug CLI's page of the mesh's partition layer (a text, not
-    # an exception)
-    "cli-show_partitions": ("cli", "show partitions"),
-    # every stage knob and step form is ported; what is still refused:
-    # the sharded (mesh) forms, also under each knob ported since
-    "ml_stage": ("ml", "shard"),
-    "gate-ml_mode": ("ml", "shard"),
-    "gate-tnt_mode": ("shard", "nat44_reverse"),
-    "gate-overlay": ("shard", "nat44_record"),
-    "entry-overlay-sidecar": ("shard", "session_insert"),
-    "session-shard": ("session", dict(shard=True)),
-    "session-tnt": ("shard", "session_lookup_reverse_idx"),
+    "init-coordinator": ("init",),
+    "mesh_main-coordinator": ("mesh_main",),
 }
 
 
@@ -345,25 +281,15 @@ def test_refusals_name_their_roadmap_item(case):
         assert titles.get(int(n)) == title, (msg, titles)
 
 
-@pytest.mark.parametrize("value", sorted(_AGENT_REFUSED))
-def test_unported_agent_values_refuse(value, monkeypatch):
-    """Each refused agent value raises ``NotImplementedError`` naming the
-    module it waits for before the agent starts: no thread, no store
-    write, no device (it refuses the same on a machine without a card,
-    where resolving the device would raise instead)."""
+@pytest.mark.parametrize("case", sorted(_REFUSALS))
+def test_multihost_refuses_before_anything_starts(case, monkeypatch):
+    """The multi-host forms refuse before a thread, a child process or
+    a device: with no card they refuse the same."""
     import threading
 
-    from vpp_tpu_torch.cmd import AgentConfig, ContivAgent
-    from vpp_tpu_torch.kvstore import KVStore
-
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg, kw = _AGENT_REFUSED[value]
-    store = KVStore()
     threads = threading.active_count()
-    with pytest.raises(NotImplementedError, match=value.split(".")[-1]):
-        ContivAgent(AgentConfig.from_dict(dict({"serve_http": True}, **cfg)),
-                    store=store, **kw)
-    assert store.revision == 0 and store.dump()["data"] == {}
+    assert "coordinator" in _refusal(*_REFUSALS[case])
     assert threading.active_count() == threads
 
 
@@ -451,10 +377,193 @@ def _lifted_set_fleet(tmp_path):
     assert 'vpp_tpu_fleet_drops_total{cause="no_owner"} 0' in text
 
 
+def _cpu_cluster(n=2, shards=2, **kw):
+    from vpp_tpu_torch.parallel import ClusterDataplane, cluster_mesh
+
+    cfg = ttables.DataplaneConfig(**dict(
+        _SMALL, max_global_rules=64, **kw))
+    clus = ClusterDataplane(cluster_mesh(n, shards, ["cpu"] * n * shards),
+                            cfg)
+    for i in range(n):
+        clus.node(i).add_uplink()
+    clus.swap()
+    return clus
+
+
+def _lifted_mesh_enabled(tmp_path):
+    """An agent with a ``mesh:`` section runs standalone, as the
+    reference's does (the section is the mesh agent's)."""
+    from vpp_tpu_torch.cmd import AgentConfig, ContivAgent
+    from vpp_tpu_torch.kvstore import KVStore
+
+    agent = ContivAgent(AgentConfig.from_dict({
+        "serve_http": False, "mesh": {"enabled": True}}), store=KVStore(),
+        device="cpu")
+    assert agent.dataplane.tables is not None and agent.mesh_runtime is None
+
+
+def _lifted_dataplane(tmp_path):
+    """An injected cluster node handle: the agent stages through it and
+    its commits publish the cluster epoch."""
+    from vpp_tpu_torch.cmd import AgentConfig, ContivAgent
+    from vpp_tpu_torch.kvstore import KVStore
+
+    clus = _cpu_cluster()
+    agent = ContivAgent(AgentConfig.from_dict({"serve_http": False}),
+                        store=KVStore(), dataplane=clus.node(0))
+    assert agent.dataplane is clus.node(0) and agent.device.type == "cpu"
+    assert agent.snapshotter is None and agent.dataplane.tables is None
+    epoch = clus.epoch
+    with agent.dataplane.commit_lock:
+        agent.dataplane.builder.add_route(
+            "10.9.0.0/24", agent.uplink_if, tvector.Disposition.LOCAL)
+        agent.dataplane.swap()
+    assert clus.epoch == epoch + 1
+
+
+def _lifted_resolver(tmp_path):
+    """The resolver routes an on-mesh peer into the fabric (its mesh
+    row, no next hop) and an off-mesh one to the edge (node id -1)."""
+    from vpp_tpu_torch.cmd import AgentConfig, ContivAgent
+    from vpp_tpu_torch.kvstore import KVStore
+
+    clus = _cpu_cluster()
+    agent = ContivAgent(AgentConfig.from_dict({"serve_http": False}),
+                        store=KVStore(), dataplane=clus.node(0),
+                        mesh_node_resolver={7: 1}.get)
+    agent.mesh_node_resolver = lambda nid: {7: 1}.get(nid, -1)
+    agent._apply_node(7, {})
+    agent._apply_node(9, {})
+    b = clus.node(0).builder
+    live = b.fib_plen >= 0
+    rows = set(zip(b.fib_node_id[live].tolist(),
+                   b.fib_next_hop[live].tolist()))
+    assert (1, 0) in rows
+    assert any(n == -1 and h != 0 for n, h in rows)
+
+
+def _lifted_init_mesh(tmp_path):
+    """The init supervisor runs the mesh agent for a single-host mesh
+    and waits for one IO plan per node."""
+    from vpp_tpu_torch.cmd import AgentConfig
+    from vpp_tpu_torch.cmd.init_main import InitSupervisor
+
+    plan = tmp_path / "plan.json"
+    sup = InitSupervisor(AgentConfig.from_dict({
+        "mesh": {"nodes": 2}, "io": {"plan_path": str(plan)}}), None,
+        spawn=None, plan_timeout_s=0.5)
+    assert "vpp_tpu_torch.cmd.mesh_main" in sup.agent_argv()
+    for i in range(2):
+        (tmp_path / f"plan.json.{i}").write_text('{"shm": "x"}')
+    (tmp_path / "plan.json.tmp").write_text("{}")
+    assert sorted(sup.read_plans()) == ["io:0", "io:1"]
+
+
+def _lifted_set_cluster(tmp_path):
+    from vpp_tpu_torch.stats.collector import STATS_PATH
+
+    clus = _cpu_cluster()
+    coll = _collector()
+    coll.set_cluster(clus)
+    coll.publish()
+    assert coll.partition_gauge.get(field="glb_mxu_op", axis="rule",
+                                    shards="2") == 1.0
+    assert coll.shard_rule_bytes_gauge.get(shard="1") > 0
+    assert "vpp_tpu_shard_sessions_resident" in coll.registry.render(
+        STATS_PATH)
+
+
+def _lifted_show_partitions(tmp_path):
+    import types
+
+    from vpp_tpu_torch.cli import DebugCLI
+
+    clus = _cpu_cluster()
+    page = DebugCLI(clus.node(0), mesh_runtime=types.SimpleNamespace(
+        cluster=clus)).run("show partitions")
+    assert "2 nodes x 2 rule shards" in page
+    assert "per-shard sessions resident: shard 0: 0, shard 1: 0" in page
+
+
+def _lifted_ml(tmp_path):
+    """``ml_score`` with a shard context: the per-shard partial scores
+    sum to the whole model's score."""
+    from vpp_tpu_torch.ml.train import train_and_pack
+    from vpp_tpu_torch.parallel.partition import ShardCtx
+
+    cfg = ttables.DataplaneConfig(**dict(_SMALL, ml_stage="score",
+                                         ml_hidden=8))
+    dp = tdp.Dataplane(cfg, device="cpu")
+    dp.builder.set_ml_model(train_and_pack(kind="mlp", hidden=8, seed=3)[0])
+    dp.swap()
+    pkts = tvector.make_packet_vector(
+        [dict(src=f"10.0.0.{i}", dst="10.1.0.1", sport=1000 + i,
+              dport=80 + i) for i in range(8)], n=8)
+    age = torch.arange(8, dtype=torch.int32)
+    whole = tml.ml_score(dp.tables, pkts, pkts.valid, age)
+    assert torch.equal(whole, tml.ml_score(
+        dp.tables, pkts, pkts.valid, age, shard=ShardCtx("rule", 2)))
+
+
+def _lifted_shard_op(op):
+    """A sharded session or NAT form (tenancy on) against its whole-table
+    form on clones of the same tables: equal results and state."""
+    def run(tmp_path):
+        from vpp_tpu_torch.ops import nat44 as tnat
+        from vpp_tpu_torch.parallel.partition import ShardCtx
+
+        dp = tdp.Dataplane(ttables.DataplaneConfig(**dict(
+            _SMALL, tenancy="on")), device="cpu")
+        pkts = tvector.make_packet_vector(
+            [dict(src=f"10.0.{i}.1", dst="10.1.0.1", sport=1000 + i,
+                  dport=80) for i in range(8)], n=8)
+        outs, states = [], []
+        for shard in (None, ShardCtx("rule", 2)):
+            t = dp.tables._replace(**{f: getattr(dp.tables, f).clone()
+                                      for f in ttables.SESSION_FIELDS})
+            for _ in range(2):
+                if op == "nat44_record":
+                    out = tnat.nat44_record(t, pkts, *pkts[:4], pkts.proto,
+                                            pkts.valid, 1, shard=shard,
+                                            tnt=True)[1:]
+                elif op == "nat44_reverse":
+                    out = tnat.nat44_reverse(t, pkts, pkts.valid, 1,
+                                             shard=shard, tnt=True)[1]
+                elif op == "session_insert":
+                    out = tsess.session_insert(t, pkts, pkts.valid, 1,
+                                               shard=shard, tnt=True)[1:]
+                else:
+                    tsess.session_insert(t, pkts, pkts.valid, 1,
+                                         shard=shard, tnt=op == "tnt")
+                    out = tsess.session_lookup_reverse_idx(
+                        t, pkts, 1, shard=shard, tnt=op == "tnt")[0]
+            outs.append(out)
+            states.append([getattr(t, f) for f in ttables.SESSION_FIELDS])
+        assert all(torch.equal(a, b) for a, b in zip(
+            torch.utils._pytree.tree_leaves(outs[0]),
+            torch.utils._pytree.tree_leaves(outs[1])))
+        assert all(torch.equal(a, b) for a, b in zip(*states))
+    return run
+
+
 _LIFTED = {
     "agent-vcl_socket": _lifted_vcl_socket,
     "agent-set_vcl": _lifted_set_vcl,
     "agent-set_fleet": _lifted_set_fleet,
+    # the mesh (this slice)
+    "agent-mesh.enabled": _lifted_mesh_enabled,
+    "agent-dataplane": _lifted_dataplane,
+    "agent-mesh_node_resolver": _lifted_resolver,
+    "agent-init mesh": _lifted_init_mesh,
+    "agent-set_cluster": _lifted_set_cluster,
+    "cli-show_partitions": _lifted_show_partitions,
+    "ml_stage": _lifted_ml,
+    "gate-ml_mode": _lifted_ml,
+    "gate-tnt_mode": _lifted_shard_op("nat44_reverse"),
+    "gate-overlay": _lifted_shard_op("nat44_record"),
+    "entry-overlay-sidecar": _lifted_shard_op("session_insert"),
+    "session-shard": _lifted_shard_op("lookup"),
+    "session-tnt": _lifted_shard_op("tnt"),
 }
 
 
@@ -771,7 +880,8 @@ def test_packaging_names_the_port():
                             "vpp-tpu-torch-kvwitness", "vpp-tpu-torch-ctl",
                             "vpp-tpu-torch-ml-train", "vpp-tpu-torch-io",
                             "vpp-tpu-torch-init",
-                            "vpp-tpu-torch-ldpreload-inject"}
+                            "vpp-tpu-torch-ldpreload-inject",
+                            "vpp-tpu-torch-mesh-agent"}
     for target in scripts.values():
         mod, fn = target.split(":")
         assert callable(getattr(importlib.import_module(mod), fn))

@@ -7,9 +7,10 @@ tests.
   agent, then its plan file, then the IO daemon from the plan), the
   plan timeout, supervision (an agent death restarts the daemon too, a
   daemon death restarts that daemon alone, from its plan) and the
-  reverse-order teardown, and the uplink pre-configuration. The mesh
-  cases (a mesh agent, one daemon per node plan) must raise the
-  port's refusal naming its ROADMAP items: the mesh agent is not ported.
+  reverse-order teardown, and the uplink pre-configuration, and the
+  single-host mesh cases (the mesh agent, one daemon per node plan).
+  The multi-host case (``mesh.coordinator``) must raise the port's
+  refusal naming its ROADMAP item: the multi-host mesh is not ported.
 * The argv the supervisor spawns is the reference's with each module
   renamed to the port's, and names no reference module.
 
@@ -36,8 +37,8 @@ CASES = case_names(jinit_tests)
 MESH = {"TestMeshBoot.test_mesh_agent_and_per_node_io",
         "TestMeshBoot.test_one_io_death_respawns_only_it",
         "TestMeshBoot.test_mesh_agent_death_restarts_all_io",
-        "test_mesh_plans_straggle_past_settle_window",
-        "test_multihost_waits_for_local_plans_only"}
+        "test_mesh_plans_straggle_past_settle_window"}
+MULTIHOST = {"test_multihost_waits_for_local_plans_only"}
 
 
 def _port_class(cls):
@@ -50,18 +51,17 @@ def _port_class(cls):
 
 
 def test_case_list():
-    assert len(CASES) == 12 and MESH <= set(CASES)
+    assert len(CASES) == 12 and MESH | MULTIHOST <= set(CASES)
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_reference_init_cases(case, request):
     run = lambda: run_port_case(  # noqa: E731
         jinit_tests, case, request, wrap={"FakeSpawner": _port_class})
-    if case in MESH:
+    if case in MULTIHOST:
         with pytest.raises(NotImplementedError) as err:
             run()
-        assert "item 10 (Mesh / cluster)" in str(err.value)
-        assert "sub-item 7" in str(err.value)
+        assert "item 14 (Multi-host mesh)" in str(err.value)
     else:
         run()
 
@@ -85,8 +85,14 @@ def test_argv_is_the_references_with_the_port_modules(tmp_path):
 
 
 def test_mesh_is_refused_before_anything_spawns():
+    """The multi-host mesh refuses before a spawn; the single-host mesh
+    spawns the port's mesh agent."""
     spawned = []
-    cfg = tconfig.AgentConfig.from_dict({"mesh": {"enabled": True}})
-    with pytest.raises(NotImplementedError, match="mesh_main"):
+    cfg = tconfig.AgentConfig.from_dict({"mesh": {
+        "nodes": 2, "coordinator": "127.0.0.1:1"}})
+    with pytest.raises(NotImplementedError, match="coordinator"):
         tinit.InitSupervisor(cfg, None, spawn=spawned.append)
     assert spawned == []
+    sup = tinit.InitSupervisor(tconfig.AgentConfig.from_dict(
+        {"mesh": {"nodes": 2}}), None, spawn=spawned.append)
+    assert sup.agent_argv()[2] == "vpp_tpu_torch.cmd.mesh_main"

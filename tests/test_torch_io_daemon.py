@@ -196,6 +196,12 @@ def exchange(nodes, wire: str, frame: bytes, icmp: int = 0) -> dict:
             time.sleep(0.002)
         got[side] = node.drain()
     assert got["port"] == got["ref"]
+    # a daemon's tx thread counts the frame (tx_frames) only after the
+    # packet counters that ``accounted`` reads: wait for both to settle
+    deadline = time.monotonic() + DEADLINE
+    while (nodes["port"].daemon.stats != nodes["ref"].daemon.stats
+           and time.monotonic() < deadline):
+        time.sleep(0.002)
     assert nodes["port"].daemon.stats == nodes["ref"].daemon.stats
     for key in tio.pump.PUMP_DROP_KEYS + ("icmp_errors",):
         assert nodes["port"].pump.stats.get(key) == \

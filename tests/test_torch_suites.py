@@ -19,7 +19,8 @@ the table builder on the CPU):
   ``test_codec_fuzz.py`` (hypothesis) and ``test_concurrency.py``.
 
 ``NOT_RUN`` names every case that does not run here, with the reason;
-``test_two_node_e2e.py`` is not run at all (see ``SUITES_NOT_RUN``).
+``test_two_node_e2e.py`` is not run here but in
+``tests/test_torch_two_node_e2e.py`` (see ``SUITES_NOT_RUN``).
 Every quantity compared is an integer or a boolean: the tolerance is
 exact equality.
 """
@@ -228,8 +229,8 @@ SUITES_NOT_RUN = {
         "two init-supervised node processes on host-global names (netns "
         "vppt2-poda/b, veth vppt2-faba/b, /tmp/vppt2-run): run beside "
         "the reference's own copy under parallel workers, either would "
-        "take the other's netns and links. Its port run needs those "
-        "names rewritten (ROADMAP Queue 3 item 10)",
+        "take the other's netns and links. Its port run, with those "
+        "names rewritten, is tests/test_torch_two_node_e2e.py",
 }
 
 CASES = [(name, c, kw) for name, (m, *_) in SUITES.items()

@@ -15,8 +15,8 @@ copy; ``test connectivity`` builds its probe on the dataplane's device
 and ``Dataplane.probe`` steps it under the same lock. ``show kernels``
 names the card (or ``cpu``) as its backend, ``show io`` lists the
 captured step programs where the reference lists its jit compiles, and
-``show partitions`` names the ROADMAP item of the mesh (the partition
-layer is not ported).
+``show partitions`` lists the port's five derived table fields under
+their own two rules beside the reference's groups.
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ from vpp_tpu_torch.pipeline.tables import InterfaceType
 from vpp_tpu_torch.pipeline.vector import Disposition, ip4_str
 
 
-MESH_ITEM = "ROADMAP Queue 1 item 10 (Mesh / cluster)"
 
 _M32 = 0xFFFFFFFF
 
@@ -422,14 +421,46 @@ class DebugCLI:
         return "\n".join(lines) or "mesh runtime attached, no state"
 
     def show_partitions(self) -> str:
-        """The partition-rule layer's resolved placements: the mesh's
-        page. The partition layer (``parallel/partition.py``) and the
-        mesh runtime are not ported, so the port names their ROADMAP
-        item and imports nothing."""
-        return ("partition layer: not ported (parallel/partition.py and "
-                f"the mesh runtime wait for {MESH_ITEM}); this dataplane "
-                "is standalone, every table field lives whole on "
-                f"{self.dp.device}")
+        """The partition-rule layer's resolved placements: every
+        DataplaneTables field's spec grouped by the rule that assigned
+        it, and on a mesh the live selection and the per-shard session
+        residency (the reference's page; the port's five derived fields
+        add their two rules' lines)."""
+        from vpp_tpu_torch.parallel.partition import RULE_AXIS, spec_manifest
+
+        rt = self.mesh_runtime
+        cluster = getattr(rt, "cluster", None) if rt is not None else None
+        lines = []
+        if cluster is None:
+            lines.append("standalone dataplane (no mesh attached); "
+                         "canonical placements:")
+            shards = 1
+            eff = None
+        else:
+            shards = int(getattr(cluster, "rule_shards", 1))
+            lines.append(
+                f"mesh: {cluster.n_nodes} nodes x {shards} rule "
+                f"shards, epoch {cluster.epoch}")
+            lines.append(
+                "selection: classifier="
+                f"{getattr(cluster, 'classifier_impl', '?')} "
+                f"fastpath={getattr(cluster, 'fastpath_selected', '?')} "
+                f"ml={getattr(cluster, 'ml_selected', '?')}")
+            eff = getattr(cluster, "specs", None)
+        by_rule = {}
+        for f, entry in spec_manifest().items():
+            spec = getattr(eff, f) if eff is not None else entry.spec
+            key = (RULE_AXIS if RULE_AXIS in tuple(spec) else "replicated",
+                   entry.pattern, entry.reason)
+            by_rule.setdefault(key, []).append(f)
+        for (axis, pattern, reason), fields in by_rule.items():
+            lines.append(f"  [{axis:>10}] {pattern}  ({len(fields)} "
+                         f"fields) — {reason}")
+        if cluster is not None and cluster.tables is not None:
+            resident = cluster.shard_sessions_resident()
+            lines.append("per-shard sessions resident: " + ", ".join(
+                f"shard {s}: {resident[s]}" for s in range(shards)))
+        return "\n".join(lines)
 
     def show_session_rules(self) -> str:
         """The `show session rules` analog: the VPPTCP renderer's

@@ -26,12 +26,17 @@ through its device (never a thread's current device) and under its
 (``io/control.py``, its own process started by ``vpp-tpu-torch-init``):
 CNI Adds wire veth pairs (``cni/wiring.py``), ``io.host_interconnect``
 wires the host stack's veth, and the collector reads the daemon's
-counters. Configuration that reaches a module not ported yet raises
-``NotImplementedError`` naming its ROADMAP item in ``__init__``, before
-any thread, socket, store write or device allocation (``refusal``): the
-mesh (its config, an injected dataplane handle, a mesh node resolver).
-``vcl_socket`` serves the VCL admission socket
+counters. ``vcl_socket`` serves the VCL admission socket
 (``hoststack/admission.py``) over the agent's session-rule engine.
+
+Mesh mode (parallel/runtime.py ``MeshRuntime``): ``dataplane`` injects a
+cluster node handle, whose swap publishes the cluster epoch;
+``mesh_node_resolver`` maps a peer's allocator node id to its mesh row,
+so on-mesh peers route into the fabric (``node_id`` = the row, no
+VXLAN next hop) and off-mesh peers get edge routes (``node_id`` -1);
+the runtime sets ``mesh_runtime`` (``show mesh``) and ``_external_io``
+(its ``ClusterPump`` bridges every node's rings, so the agent makes no
+pump of its own).
 """
 
 from __future__ import annotations
@@ -76,28 +81,6 @@ log = logging.getLogger("vpp_tpu_torch.agent")
 KSR_PREFIX = "ksr/"
 
 
-MESH_ITEM = "ROADMAP Queue 1 item 10 (Mesh / cluster)"
-
-
-def refusal(config: AgentConfig, dataplane=None,
-            mesh_node_resolver=None) -> Optional[str]:
-    """The message of the first configured value that reaches a module
-    the port does not have yet, or None. Each names its ROADMAP item."""
-    c = config
-    checks = (
-        (c.mesh.enabled, "mesh.enabled: the mesh runtime is not ported "
-         f"yet ({MESH_ITEM})"),
-        (dataplane is not None, "dataplane: an injected (mesh node) "
-         f"dataplane handle is not ported yet ({MESH_ITEM})"),
-        (mesh_node_resolver is not None, "mesh_node_resolver: mesh "
-         f"fabric routing is not ported yet ({MESH_ITEM})"),
-    )
-    for refused, msg in checks:
-        if refused:
-            return msg
-    return None
-
-
 def _ksr_key(ev_key: str) -> str:
     """Strip the KSR store prefix off a watched key for parse_key()."""
     return ev_key[len(KSR_PREFIX):] if ev_key.startswith(KSR_PREFIX) else ev_key
@@ -115,16 +98,18 @@ class ContivAgent:
 
         ``device`` places the dataplane and the session-rule engine:
         None is the card (raises without one), ``"cpu"`` runs the plain
-        versions. ``dataplane`` and ``mesh_node_resolver`` are the
-        reference's mesh-mode seams and raise (``refusal``)."""
+        versions; an injected ``dataplane`` brings its own.
+
+        ``dataplane`` injection is the mesh-mode path (a cluster node
+        handle); ``mesh_node_resolver`` maps a peer's allocator node id
+        to its mesh row, -1 off the mesh (module doc)."""
         self.config = config or AgentConfig()
         c = self.config
-        refused = refusal(c, dataplane, mesh_node_resolver)
-        if refused is not None:
-            raise NotImplementedError(f"ContivAgent: {refused}")
+        self.mesh_node_resolver = mesh_node_resolver
         # the card, or the CPU when asked: resolved before the store
         # sees this node, so an agent without a card leaves no trace
-        self.device = resolve_device(device)
+        self.device = (dataplane.device if dataplane is not None
+                       and device is None else resolve_device(device))
 
         # --- data store + proxy (cn-infra kvdbsync analog) ---
         if store is None:
@@ -150,7 +135,8 @@ class ContivAgent:
         self.ipam = IPAM(self.node_id, c.ipam, broker=broker)
 
         # --- data plane + renderers ---
-        self.dataplane = Dataplane(c.dataplane, device=self.device)
+        self.dataplane = (dataplane if dataplane is not None
+                          else Dataplane(c.dataplane, device=self.device))
         # api-trace: enabled BEFORE any staging so the journal opens with
         # this agent's base vswitch config and replays to identical
         # tables (reference contiv-vswitch.conf:13-15 `api-trace { on }`)
@@ -255,10 +241,12 @@ class ContivAgent:
         self.cni_transport: Optional[CNITransportServer] = None
         self.cli_transport: Optional[CNITransportServer] = None
         self.vcl_admission = None  # VclAdmissionServer when vcl_socket set
+        self.mesh_runtime = None   # set by MeshRuntime (show mesh)
 
         # --- crash-consistent session snapshot/restore (ISSUE 8) ---
+        # a mesh node handle's sessions belong to the cluster epoch
         self.snapshotter = None
-        if c.snapshot_path:
+        if c.snapshot_path and self.dataplane.tables is not None:
             from vpp_tpu_torch.pipeline.snapshot import SessionSnapshotter
 
             self.snapshotter = SessionSnapshotter(
@@ -268,10 +256,11 @@ class ContivAgent:
             )
 
         # --- per-packet ML model source (ml/loader.py) ---
-        # only with the stage configured on
+        # only with the stage configured on and a standalone dataplane
         self.ml_source = None
         if (c.ml_model_path
-                and getattr(c.dataplane, "ml_stage", "off") != "off"):
+                and getattr(c.dataplane, "ml_stage", "off") != "off"
+                and self.dataplane.tables is not None):
             from vpp_tpu_torch.ml.loader import MlModelSource
 
             self.ml_source = MlModelSource(self.dataplane,
@@ -301,6 +290,9 @@ class ContivAgent:
         # --- packet IO (rings + pump, created in start() when enabled) ---
         self.io_rings = None
         self.io_pump = None
+        # mesh mode: the MeshRuntime's ClusterPump bridges every node's
+        # rings; this agent makes no pump of its own
+        self._external_io = False
 
         # peers with installed routes: node_id -> peer vtep ip
         self._peer_routes = {}
@@ -366,7 +358,7 @@ class ContivAgent:
         # owns the NIC/TAP endpoints). Created before the
         # CNI resync: resync re-attaches pod veths through the daemon's
         # control socket and those packets land in these rings.
-        if c.io.enabled:
+        if c.io.enabled and not self._external_io:
             from vpp_tpu_torch.io.pump import DataplanePump
             from vpp_tpu_torch.io.rings import IORingPair
 
@@ -439,8 +431,9 @@ class ContivAgent:
             # vpp-tpu-init waits for this file to launch the node's
             # vpp-tpu-io daemon
             self._write_io_plan()
-        if self.io_pump is not None:
-            # export pump counters over Prometheus
+        if self.io_pump is not None and not self._external_io:
+            # export pump counters over Prometheus (the shared
+            # ClusterPump's from one collector only: MeshRuntime)
             self.stats.set_pump(self.io_pump)
         if self.io_ctl is not None:
             # the rx_full drop cause is counted in the IO daemon (a
@@ -572,6 +565,7 @@ class ContivAgent:
             io_ctl=self.io_ctl,
             session_engine=self.session_engine, store=self.store,
             snapshotter=self.snapshotter, ml_source=self.ml_source,
+            mesh_runtime=self.mesh_runtime,
         )
 
         def _cli_dispatch(method: str, params: dict) -> dict:
@@ -786,7 +780,8 @@ class ContivAgent:
             self.vcl_admission.stop()
         self.proxy.close()
         pump_stopped = True
-        if self.io_pump is not None:
+        if self.io_pump is not None and not self._external_io:
+            # the shared ClusterPump's lifecycle is the MeshRuntime's
             pump_stopped = self.io_pump.stop(join_timeout=30.0)
         if self.io_rings is not None:
             if pump_stopped:
@@ -890,21 +885,34 @@ class ContivAgent:
 
     def _apply_node(self, node_id: int, info: dict) -> None:
         """Install routes to another node's pod + vpp/host subnets over
-        the uplink: every peer is a VXLAN peer (the reference's
-        full-mesh, node_events.go:184-250; its mesh-fabric branch waits
-        for the mesh)."""
+        the uplink. Mesh mode (a resolver set): on-mesh peers route into
+        the fabric (``node_id`` = the mesh row, next hop 0, so the host's
+        VXLAN encap leaves them alone) and off-mesh peers get edge
+        routes (``node_id`` -1); otherwise every peer is a VXLAN peer
+        (the reference's full-mesh, node_events.go:184-250)."""
         if node_id == self.node_id or not isinstance(info, dict):
             return
         peer_vtep = int(self.ipam.vxlan_ip_address(node_id))
         if self._peer_routes.get(node_id) == peer_vtep:
             return  # already installed (IP update without vtep change)
-        with_hop = dict(
-            tx_if=self.uplink_if,
-            disposition=Disposition.REMOTE,
-            next_hop=peer_vtep,
-            # the allocator id as observability metadata
-            node_id=node_id,
-        )
+        mesh_pos = -1
+        if self.mesh_node_resolver is not None:
+            mesh_pos = int(self.mesh_node_resolver(node_id))
+        if mesh_pos >= 0:
+            with_hop = dict(tx_if=self.uplink_if,
+                            disposition=Disposition.REMOTE, next_hop=0,
+                            node_id=mesh_pos)
+        else:
+            with_hop = dict(
+                tx_if=self.uplink_if,
+                disposition=Disposition.REMOTE,
+                next_hop=peer_vtep,
+                # edge peers are -1 on a mesh (an allocator id would
+                # alias a fabric row); standalone, the allocator id as
+                # observability metadata
+                node_id=-1 if self.mesh_node_resolver is not None
+                else node_id,
+            )
         with self.dataplane.commit_lock:
             self.dataplane.builder.txn_label = f"node-event add {node_id}"
             self.dataplane.builder.add_route(
@@ -915,7 +923,9 @@ class ContivAgent:
             )
             self.dataplane.swap()
         self._peer_routes[node_id] = peer_vtep
-        log.info("node %d added: routes via vtep %s", node_id, peer_vtep)
+        log.info("node %d added: %s", node_id,
+                 f"fabric row {mesh_pos}" if mesh_pos >= 0
+                 else f"routes via vtep {peer_vtep}")
 
     def _remove_node(self, node_id: int) -> None:
         if self._peer_routes.pop(node_id, None) is None:
@@ -1003,19 +1013,23 @@ class ContivAgent:
 
 def main(argv=None) -> int:
     """contiv-agent main: config flag, event loop, SIGTERM close. The
-    dataplane runs on the card; without one the agent raises."""
+    dataplane runs on the card (without one the agent raises) unless
+    ``--device cpu`` asks for the CPU."""
     import argparse
 
     from vpp_tpu_torch.cmd.config import load_config
 
     parser = argparse.ArgumentParser(prog="vpp-tpu-torch-agent")
     parser.add_argument("--config", default=None, help="agent YAML config")
+    parser.add_argument("--device", default=None,
+                        help="torch device of the dataplane (default: the "
+                             "card)")
     args = parser.parse_args(argv)
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
     )
-    agent = ContivAgent(load_config(args.config))
+    agent = ContivAgent(load_config(args.config), device=args.device)
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: stop.set())

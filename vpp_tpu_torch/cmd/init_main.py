@@ -3,8 +3,11 @@
 The port's copy of ``vpp_tpu/cmd/init_main.py``: it starts the port's
 agent (``vpp_tpu_torch.cmd.agent``, the data plane on the card) and the
 port's IO daemon (``vpp_tpu_torch.cmd.io_daemon``) on the agent's rings.
-A mesh configuration raises ``NotImplementedError`` naming its ROADMAP
-item before anything is spawned: the mesh agent is not ported yet.
+A ``mesh:`` section starts the port's mesh agent
+(``vpp_tpu_torch.cmd.mesh_main``) and one IO daemon per mesh node, each
+on its node's plan (``plan_path.<n>``). The multi-host form
+(``mesh.coordinator``) raises ``NotImplementedError`` before anything is
+spawned: ROADMAP Queue 1 item 14 (Multi-host mesh).
 
 Reference: cmd/contiv-init is PID 1 of the vswitch container
 (main.go:201-273): parse the STN config, optionally steal the NIC,
@@ -53,10 +56,10 @@ from vpp_tpu_torch.cmd.config import AgentConfig, load_config
 
 log = logging.getLogger("vpp_tpu_torch.init")
 
-MESH_REFUSAL = (
-    "mesh: the mesh agent (cmd/mesh_main.py, ROADMAP Queue 1 item 12 "
-    "(Agent) sub-item 7) is not ported yet (ROADMAP Queue 1 item 10 "
-    "(Mesh / cluster))")
+MULTIHOST_REFUSAL = (
+    "mesh.coordinator: the multi-host mesh (parallel/multihost.py, its "
+    "lockstep driver and the init supervisor's multi-host plan) is not "
+    "ported yet (ROADMAP Queue 1 item 14 (Multi-host mesh))")
 
 
 def configure_uplink(cfg: AgentConfig, run=subprocess.run) -> dict:
@@ -111,8 +114,8 @@ class InitSupervisor:
     ):
         self.config = config
         self.config_path = config_path
-        if self._is_mesh():
-            raise NotImplementedError(f"InitSupervisor: {MESH_REFUSAL}")
+        if self.config.mesh.coordinator:
+            raise NotImplementedError(f"InitSupervisor: {MULTIHOST_REFUSAL}")
         self.spawn = spawn or (lambda argv: subprocess.Popen(argv))
         self.plan_timeout_s = plan_timeout_s
         self.procs: Dict[str, "subprocess.Popen"] = {}
@@ -126,7 +129,11 @@ class InitSupervisor:
                     or m.rule_shards > 1)
 
     def agent_argv(self) -> List[str]:
-        argv = [sys.executable, "-m", "vpp_tpu_torch.cmd.agent"]
+        # a mesh: section means the vswitch is the mesh agent: the same
+        # supervision contract, one process driving every mesh node
+        module = ("vpp_tpu_torch.cmd.mesh_main" if self._is_mesh()
+                  else "vpp_tpu_torch.cmd.agent")
+        argv = [sys.executable, "-m", module]
         if self.config_path:
             argv += ["--config", self.config_path]
         return argv
@@ -150,28 +157,75 @@ class InitSupervisor:
             argv += ["--control", plan["control_socket"]]
         return argv
 
+    def _plan_files(self) -> List[str]:
+        """Plan files the running agent has written: ONE at plan_path
+        for a standalone agent; plan_path.<node> per mesh node (the
+        runtimes suffix per-node endpoints, parallel/runtime.py)."""
+        import glob as _glob
+
+        base = self.config.io.plan_path
+        if not self._is_mesh():
+            return [base] if os.path.exists(base) else []
+        # ONLY digit suffixes are node plans (plan_path.<n>); anything
+        # else — the agents' atomic-write temp files especially — must
+        # not become a phantom io daemon sharing a live daemon's rings
+        return sorted(p for p in _glob.glob(base + ".*")
+                      if p[len(base) + 1:].isdigit())
+
     def read_plans(self) -> dict:
-        """Wait for the agent's IO plan file; returns {"io": (path,
-        plan)} (the reference's shape: one entry per node, and the port
-        runs one node per agent)."""
+        """Wait for the agent's IO plan file(s); returns
+        {proc_name: (path, plan)}. With a KNOWN node count
+        (mesh.nodes > 0) we wait for exactly that many plans — a
+        settle heuristic would commit to a partial set whenever node
+        boots straggle (e.g. a host-interconnect wire wait between
+        them), leaving later nodes without io daemons. Only the
+        auto-size mode (nodes=0) falls back to waiting for the set to
+        stop growing."""
         deadline = time.monotonic() + self.plan_timeout_s
-        path = self.config.io.plan_path
+        if not self._is_mesh():
+            want = 1
+        else:
+            want = self.config.mesh.nodes
+        seen: List[str] = []
+        stable_since = 0.0
         while time.monotonic() < deadline and not self._stop.is_set():
-            if os.path.exists(path):
-                with open(path) as f:
-                    return {"io": (path, json.load(f))}
+            paths = self._plan_files()
+            if paths and not self._is_mesh():
+                with open(paths[0]) as f:
+                    return {"io": (paths[0], json.load(f))}
+            done = False
+            if paths and want > 0:
+                done = len(paths) >= want
+            elif paths:
+                if paths != seen:
+                    seen = paths
+                    stable_since = time.monotonic()
+                else:
+                    done = time.monotonic() - stable_since > 1.5
+            if done:
+                out = {}
+                for p in paths:
+                    with open(p) as f:
+                        out[f"io:{p.rsplit('.', 1)[1]}"] = (
+                            p, json.load(f))
+                return out
             time.sleep(0.2)
         raise TimeoutError(
             f"agent never wrote IO plan at {self.config.io.plan_path}")
 
     def _clear_plan(self) -> None:
-        """Remove any stale plan file BEFORE (re)spawning the agent, so
-        read_plans() waits for the plan of the agent actually running —
-        a leftover from a previous boot would describe dead rings."""
-        try:
-            os.remove(self.config.io.plan_path)
-        except OSError:
-            pass
+        """Remove any stale plan file(s) BEFORE (re)spawning the agent,
+        so read_plans() waits for the plans of the agent actually
+        running — a leftover from a previous boot would describe dead
+        rings."""
+        import glob as _glob
+
+        base = self.config.io.plan_path
+        for p in [base] + _glob.glob(base + ".*"):
+            try:
+                os.remove(p)
+            except OSError:
+                pass
 
     def _spawn_agent(self) -> None:
         self._clear_plan()

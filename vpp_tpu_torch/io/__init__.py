@@ -18,7 +18,8 @@ in both modes (the dispatch ladder and the persistent ring,
 pipeline/persistent.py), the latency governor and priority lane
 (``LatencyGovernor``, ``PriorityFilter``) and host ICMP error
 generation (io/icmp.py) serve the agent's side; the ``FleetPump``
-(io/fleet.py) fronts a gateway fleet's instances.
+(io/fleet.py) fronts a gateway fleet's instances, and the
+``ClusterPump`` (io/cluster_pump.py) bridges a mesh's per-node rings.
 """
 
 from vpp_tpu_torch._lazy import lazy_exports

@@ -5,6 +5,11 @@ compare (the classifier ladder's ``dense`` rung) and the verdict
 assembly the BV rungs reuse, so deny / permit / unmatched-default stay
 in lockstep across rungs. Unmatched traffic: an empty table allows all;
 a non-empty table denies unmatched TCP/UDP and permits other protocols.
+
+On the mesh (vpp_tpu_torch/parallel/cluster.py) each rule shard
+first-matches its block of rows and encodes the verdict as
+``abs_idx << 1 | deny`` (``acl_encode_shard``), so a min over the
+shards' encodings is the cluster-wide first match.
 """
 
 from __future__ import annotations
@@ -14,6 +19,11 @@ from typing import NamedTuple
 import torch
 
 from vpp_tpu_torch.pipeline.vector import PacketVector, gather_index
+
+
+# Encoded "no rule matched" of a shard verdict: above every
+# ``abs_idx << 1 | deny`` (rule indices stay below 2**30).
+ENC_NO_MATCH = 0x7FFFFFFF
 
 
 class AclVerdict(NamedTuple):
@@ -47,6 +57,22 @@ def acl_unmatched_default(pkts: PacketVector, nrules) -> torch.Tensor:
     empty = nrules == 0
     non_l4 = (pkts.proto != 6) & (pkts.proto != 17)
     return empty | non_l4
+
+
+def acl_encode_shard(pkts: PacketVector, src_net, src_mask, dst_net,
+                     dst_mask, proto, sport_lo, sport_hi, dport_lo,
+                     dport_hi, action, base_idx: int) -> torch.Tensor:
+    """First match over one rule shard, encoded for the min recombine:
+    ``(base_idx + first) << 1 | deny`` where the shard's rows (starting
+    at absolute index ``base_idx``) match, ``ENC_NO_MATCH`` elsewhere
+    (int32 [P])."""
+    m = _match_mask(pkts, src_net, src_mask, dst_net, dst_mask, proto,
+                    sport_lo, sport_hi, dport_lo, dport_hi)
+    first = first_true(m)
+    matched = torch.gather(m, 1, first[:, None])[:, 0]
+    act = torch.gather(action.expand(m.shape), 1, first[:, None])[:, 0]
+    enc = ((first + int(base_idx)) << 1) | (act != 1).to(torch.int64)
+    return torch.where(matched, enc, ENC_NO_MATCH).to(torch.int32)
 
 
 def _first_match(pkts: PacketVector, src_net, src_mask, dst_net, dst_mask,

@@ -298,6 +298,19 @@ def _segment_of(bnd: torch.Tensor, vals: torch.Tensor, n,
     return torch.minimum(i, n.to(torch.int64) - 1).to(torch.int32)
 
 
+_LUTS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _mod37_lut(device: torch.device) -> torch.Tensor:
+    """The mod-37 bit-index table on ``device``, uploaded once (a copy
+    from the host inside a step would break its CUDA-graph capture:
+    the mesh captures this plain version on the card)."""
+    lut = _LUTS.get(device)
+    if lut is None:
+        lut = _LUTS[device] = torch.as_tensor(_MOD37_BIT, device=device)
+    return lut
+
+
 def bv_first_set_plain(bm_src, bm_dst, bm_sport, bm_dport, bm_proto,
                        row_src, row_dst, row_sport, row_dport, row_proto,
                        table=None) -> torch.Tensor:
@@ -316,8 +329,7 @@ def bv_first_set_plain(bm_src, bm_dst, bm_sport, bm_dport, bm_proto,
                  & bm_proto[t, row_proto.long()])
     w = u32(words)
     low = w & (-w)                       # isolated lowest set bit
-    lut = torch.as_tensor(_MOD37_BIT, device=w.device)
-    bit = lut[low % 37]
+    bit = _mod37_lut(w.device)[low % 37]
     col = torch.arange(w.shape[1], device=w.device, dtype=torch.int64)
     cand = torch.where(w != 0, col[None, :] * 32 + bit, BV_ENC_MISS)
     if cand.shape[1] == 0:

@@ -42,8 +42,14 @@ and a captured step must see the new values.
 
 ``ml_features``, ``_centered``, ``_mlp_partial``, ``_forest_partial``,
 ``ml_score`` and ``ml_policy`` keep the reference's signatures (the
-tests hold each against its twin). Not ported: the sharded weight planes
-(``shard``, ROADMAP Queue 1 item 10 (Mesh / cluster)).
+tests hold each against its twin). On the mesh (``shard``, a
+``parallel.partition.ShardCtx``) the hidden axis (MLP: W1 columns, b1
+and W2 rows) or the tree axis (forest) is split over the rule shards:
+each shard computes its partial score from its block of the planes, the
+partials sum in int32 (the reference's psum: integer adds, so the sum is
+the standalone score bit for bit) and the output bias lands once. That
+form is plain PyTorch on every device, as the reference's is plain
+``jnp`` (``ml_stage_sharded``).
 """
 
 from __future__ import annotations
@@ -88,13 +94,6 @@ ML_TNT_INHERIT = 0
 ML_TNT_OFF = 1
 ML_TNT_ENFORCE = 3
 ML_TNT_THRESH_INHERIT = -(1 << 31)
-
-
-def _refuse(shard=None) -> None:
-    if shard is not None:
-        raise NotImplementedError(
-            "sharded ML weight planes are not ported to vpp_tpu_torch "
-            "yet: ROADMAP Queue 1 item 10 (Mesh / cluster)")
 
 
 def ml_features(pkts: PacketVector, established: torch.Tensor,
@@ -336,11 +335,49 @@ def ml_stage(tables, pkts: PacketVector, alive: torch.Tensor,
 ml_stage.launches = 0
 
 
+# the planes each kind splits over the rule shards (partition.py):
+# the MLP's hidden axis (W1's columns, b1 and W2), the forest's trees
+_SHARD_PLANES = {"mlp": (("glb_ml_w1", 1), ("glb_ml_b1", 0),
+                         ("glb_ml_w2", 0)),
+                 "forest": (("glb_ml_f_feat", 0), ("glb_ml_f_thresh", 0),
+                            ("glb_ml_f_leaf", 0))}
+
+
+def ml_shard_tables(tables, kind: str, s: int, shards: int):
+    """Rule shard ``s``'s view of the model planes: its block of the
+    hidden (MLP) or tree (forest) axis, everything else whole."""
+    def block(t, dim):
+        n = t.shape[dim] // shards
+        return t.narrow(dim, s * n, n)
+
+    return tables._replace(**{f: block(getattr(tables, f), dim)
+                              for f, dim in _SHARD_PLANES[kind]})
+
+
 def ml_score(tables, pkts: PacketVector, established: torch.Tensor,
              sess_age: torch.Tensor, kind: str = "mlp",
              shard=None) -> torch.Tensor:
     """Score one packet vector: int32 [P] (the reference's signature;
-    on CUDA tensors through the ``ml_stage`` kernel)."""
-    _refuse(shard=shard)
-    alive = torch.ones_like(established)
-    return ml_stage(tables, pkts, alive, established, sess_age, kind)[0]
+    on CUDA tensors through the ``ml_stage`` kernel). With ``shard`` the
+    per-shard partial scores sum, then the output bias (module doc)."""
+    if shard is None:
+        alive = torch.ones_like(established)
+        return ml_stage(tables, pkts, alive, established, sess_age,
+                        kind)[0]
+    xc = _centered(ml_features(pkts, established, sess_age))
+    partial_fn = _forest_partial if kind == "forest" else _mlp_partial
+    partials = torch.stack([
+        partial_fn(ml_shard_tables(tables, kind, s, shard.shards), xc)
+        for s in range(shard.shards)])
+    return to_i32(partials.to(torch.int64).sum(dim=0)
+                  + tables.glb_ml_b2.to(torch.int64))
+
+
+def ml_stage_sharded(tables, pkts: PacketVector, alive: torch.Tensor,
+                     established: torch.Tensor, sess_age: torch.Tensor,
+                     kind: str = "mlp", shard=None, tid=None):
+    """The mesh's ML stage: (scores, flagged, drop_wanted) from the
+    sharded partial scores and the policy (module doc)."""
+    scores = ml_score(tables, pkts, established, sess_age, kind, shard)
+    flagged, drop_wanted = ml_policy(tables, pkts, alive, scores, tid=tid)
+    return scores, flagged, drop_wanted

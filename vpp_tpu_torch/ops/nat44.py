@@ -9,12 +9,15 @@ will present, so replies are un-NATed. The service-VIP planes
 mappings: an exact (ip, port, proto) row picks backend way ``flow hash
 & (B - 1)``. With tenancy on (``tnt=True``) a NAT key's bucket lies in
 its tenant's slice (``tnt_nat_base`` / ``tnt_nat_mask``). The mesh form
-(``shard=``) raises. Session-table writes are in place (ops/session.py
-module doc).
+(``shard``) is the bucket-sharded table of ops/session.py's module doc:
+the record elects per shard, and the reverse reads the owning shard's
+row, so every shard leaves with the identical packet vector.
+Session-table writes are in place (ops/session.py module doc).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -25,8 +28,9 @@ from vpp_tpu_torch.ops.session import (
     _bucket,
     _hash_mix,
     _mul32,
+    _insert_sharded,
+    _owned_idx,
     _pack_ports,
-    _refuse,
     _scatter_set,
     _slice_bucket,
     hashmap_insert,
@@ -152,12 +156,14 @@ def nat44_record(tables, pkts: PacketVector, orig_dst, orig_dport,
     flows, keyed as the reply will present them. Returns (tables,
     conflict, failed, evict_expired, evict_victim). With ``tnt`` the
     reply key lands in its tenant's NAT slice, the one the reply's
-    ``nat44_reverse`` hashes (the same unordered address pair)."""
-    _refuse(shard)
+    ``nat44_reverse`` hashes (the same unordered address pair). With
+    ``shard`` each shard elects the keys whose bucket it owns."""
     key_vals = (pkts.dst_ip, pkts.src_ip,
                 _pack_ports(pkts.dport, pkts.sport), pkts.proto)
     h = _nat_bucket(tables, key_vals, tnt)
-    _, conflict, failed, ev_exp, ev_vic = hashmap_insert(
+    insert = (hashmap_insert if shard is None
+              else functools.partial(_insert_sharded, shard=shard))
+    _, conflict, failed, ev_exp, ev_vic = insert(
         tables.natsess_valid, tables.natsess_time,
         (tables.natsess_a, tables.natsess_b, tables.natsess_ports,
          tables.natsess_proto),
@@ -174,8 +180,9 @@ def nat44_reverse(tables, pkts: PacketVector, eligible, now=None,
     """Untranslate NAT'd return traffic. Returns (pkts, applied,
     hit_idx) with ``hit_idx`` the matched flat slot (bucket·W + way).
     ``kt``: the tenant of the packets' address pairs, where the caller
-    has it (with ``tnt``)."""
-    _refuse(shard)
+    has it (with ``tnt``). With ``shard`` the reads are the owning
+    shard's and ``hit_idx`` is 0 on a miss, as the reference's psum of
+    owner-masked values gives."""
     n_buckets, ways = tables.natsess_valid.shape
     key_vals = (pkts.src_ip, pkts.dst_ip,
                 _pack_ports(pkts.sport, pkts.dport), pkts.proto)
@@ -192,6 +199,8 @@ def nat44_reverse(tables, pkts: PacketVector, eligible, now=None,
     found = slot_ok.any(dim=1)
     first = first_true(slot_ok)
     hit_idx = b * ways + first.to(torch.int32)
+    if shard is not None:
+        hit_idx = _owned_idx(found, hit_idx)
     applied = found & eligible
     kind = torch.where(applied, tables.natsess_kind[bl, first], 0)
     orig_ip = tables.natsess_orig_ip[bl, first]
@@ -211,7 +220,6 @@ def nat44_reverse(tables, pkts: PacketVector, eligible, now=None,
 
 def nat44_touch(tables, hit_idx, mask, now, shard=None):
     """Refresh natsess_time of sessions hit by reply traffic (in
-    place)."""
-    _refuse(shard)
+    place; with ``shard`` into the owning shard's block)."""
     _scatter_set(tables.natsess_time.view(-1), hit_idx, mask, now)
     return tables

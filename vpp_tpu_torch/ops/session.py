@@ -7,8 +7,23 @@ election round (the reference's module doc explains the rep / leader /
 rank scheme; only its ``sort`` election — the ``auto`` choice — is
 ported). With tenancy on (``tnt=True``) a key's bucket lies in its
 tenant's slice: ``tenant_bucket``, ``base[kt] + (mix & mask[kt])`` with
-``kt`` the tenant of the key's address pair. The mesh form (``shard=``)
-is a later slice and raises here.
+``kt`` the tenant of the key's address pair.
+
+The mesh form (``shard``, a ``parallel.partition.ShardCtx``): the bucket
+axis is split over the rule shards in blocks, shard ``s`` owning global
+buckets ``[s * NB/S, (s + 1) * NB/S)``. A node's session columns keep
+the global ``[NB, W]`` layout, so shard ``s``'s columns are the
+contiguous row block ``shard_view(col, shard)[s]``. The flow hash is
+taken over the node's whole (global) bucket count, the reference's
+``global_buckets``, so a flow lands in the bucket it would have
+standalone and exactly one shard owns it (``shard_buckets``): a
+lookup's gather at the global bucket is the
+owning shard's probe, and the owner's values are what the reference's
+psum of owner-masked values gives (a miss reads slot 0, as there).
+Inserts elect per shard, each over the packets whose bucket it owns (a
+bucket's contenders all live on its owner), and ``shard_combine_mask``
+folds the [S, P] per-shard outcomes; the in-step sweep ages the same
+stride of every shard's block from the one replicated cursor.
 
 In place. JAX arrays are immutable, so the reference returns new
 columns; here the touch, insert and sweep scatters write the session
@@ -37,6 +52,7 @@ budget and no such gate.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -49,11 +65,55 @@ _BIG = 0x7FFFFFFF
 _M32 = 0xFFFFFFFF
 
 
-def _refuse(shard=None) -> None:
-    if shard is not None:
-        raise NotImplementedError(
-            "sharded (mesh) session tables are not ported to "
-            "vpp_tpu_torch yet: ROADMAP Queue 1 item 10 (Mesh / cluster)")
+# --- bucket-axis sharding (module doc) ---------------------------------
+
+
+def shard_buckets(h_global: torch.Tensor, n_local: int, shard):
+    """(owner [P] int32, local bucket [P] int32) of globally hashed
+    buckets: blocked ownership, so the owner is the high bits and the
+    local row the low bits (``n_local`` is a power of two)."""
+    del shard  # the geometry is n_local's
+    return ((h_global // n_local).to(torch.int32),
+            (h_global & (n_local - 1)).to(torch.int32))
+
+
+def shard_view(col: torch.Tensor, shard) -> torch.Tensor:
+    """``[S, NB/S, ...]``: shard s's block of a node's bucket grid at
+    ``[s]`` (a view)."""
+    return col.view(shard.shards, col.shape[0] // shard.shards,
+                    *col.shape[1:])
+
+
+def shard_combine_mask(masks: torch.Tensor, shard) -> torch.Tensor:
+    """Recombine per-shard ownership-masked bool masks ``[S, P]``: at
+    most one shard asserts a packet, so the sum of the int forms is
+    0 or 1 (the reference's psum)."""
+    if shard is None:
+        return masks
+    return masks.to(torch.int32).sum(dim=0) > 0
+
+
+def _owned_idx(found: torch.Tensor, hit_idx: torch.Tensor) -> torch.Tensor:
+    """The psum of the owner's masked slot: the slot where found, 0
+    elsewhere (the reference's sharded ``hit_idx``)."""
+    return torch.where(found, hit_idx, 0).to(torch.int32)
+
+
+def _insert_sharded(valid, time, keys, key_vals, extras, extra_vals, h,
+                    want, now, max_age, shard) -> tuple:
+    """``hashmap_insert`` on a bucket-sharded grid: each shard elects
+    over its own block the packets whose global bucket ``h`` it owns,
+    and the five [S, P] outcome masks recombine."""
+    owner, hl = shard_buckets(h, valid.shape[0] // shard.shards, shard)
+    outs = []
+    for s in range(shard.shards):
+        outs.append(hashmap_insert(
+            shard_view(valid, shard)[s], shard_view(time, shard)[s],
+            tuple(shard_view(a, shard)[s] for a in keys), key_vals,
+            tuple(shard_view(a, shard)[s] for a in extras), extra_vals,
+            hl, want & (owner == s), now, max_age=max_age))
+    return tuple(shard_combine_mask(torch.stack(m), shard)
+                 for m in zip(*outs))
 
 
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -331,12 +391,16 @@ def session_lookup_reverse_idx(tables, pkts: PacketVector, now,
     ``pallas`` looks up through ``sess_probe_ways``, ``gather`` through
     its plain version. With ``tnt`` the bucket lies in the slice of the
     key's tenant (``tenant_bucket``); ``kt``, where given, is that
-    tenant (the pipeline derives it once a step)."""
-    _refuse(shard)
+    tenant (the pipeline derives it once a step). With ``shard`` a miss
+    reads slot 0 (module doc); ``validate_partitioning`` keeps the
+    ``pallas`` rung off a mesh."""
     probe = sess_probe_ways if impl == "pallas" else sess_probe_reverse_plain
-    return probe(*pkts.five_tuple, *_columns(tables), now,
-                 tables.sess_max_age, sym=sym,
-                 tnt=_probe_slice(tables, pkts, tnt, kt))
+    found, hit_idx = probe(*pkts.five_tuple, *_columns(tables), now,
+                           tables.sess_max_age, sym=sym,
+                           tnt=_probe_slice(tables, pkts, tnt, kt))
+    if shard is not None:
+        hit_idx = _owned_idx(found, hit_idx)
+    return found, hit_idx
 
 
 def session_batch_summary(tables, pkts: PacketVector, alive, now,
@@ -359,16 +423,17 @@ def session_batch_summary(tables, pkts: PacketVector, alive, now,
 
 def session_hit_age(tables, hit_idx, mask, now, shard=None) -> torch.Tensor:
     """Ticks since the matched session's last hit (int32 [P]; 0 where
-    ``mask`` is False). Read before ``session_touch``."""
-    _refuse(shard)
+    ``mask`` is False). Read before ``session_touch``. ``hit_idx`` is the
+    global flat slot in both modes: with ``shard`` its gather is the
+    owning shard's (module doc)."""
     n = tables.sess_time.numel()
     t = tables.sess_time.reshape(-1)[torch.clamp(hit_idx, 0, n - 1).long()]
     return torch.where(mask, _age(now, t), 0).to(torch.int32)
 
 
 def session_touch(tables, hit_idx, mask, now, shard=None):
-    """Refresh sess_time of matched sessions (in place)."""
-    _refuse(shard)
+    """Refresh sess_time of matched sessions (in place); with ``shard``
+    each write lands in the owning shard's block at its global slot."""
     _scatter_set(tables.sess_time.view(-1), hit_idx, mask, now)
     return tables
 
@@ -491,8 +556,8 @@ def session_insert(tables, pkts: PacketVector, want, now, shard=None,
                    tnt: bool = False, sym: bool = False) -> tuple:
     """Insert the forward 5-tuples of ``want`` packets (in place);
     returns (tables, inserted, failed, evict_expired, evict_victim).
-    With ``tnt`` the key's bucket lies in its tenant's slice."""
-    _refuse(shard)
+    With ``tnt`` the key's bucket lies in its tenant's slice; with
+    ``shard`` each shard elects the packets it owns (module doc)."""
     key_vals = (pkts.src_ip, pkts.dst_ip,
                 _pack_ports(pkts.sport, pkts.dport), pkts.proto)
     if sym:
@@ -505,7 +570,9 @@ def session_insert(tables, pkts: PacketVector, want, now, shard=None,
                           tables.tnt_sess_base, tables.tnt_sess_mask)
     else:
         h = _bucket(mix, tables.sess_valid.shape[0])
-    inserted, _, failed, ev_exp, ev_vic = hashmap_insert(
+    insert = (hashmap_insert if shard is None
+              else functools.partial(_insert_sharded, shard=shard))
+    inserted, _, failed, ev_exp, ev_vic = insert(
         tables.sess_valid, tables.sess_time,
         (tables.sess_src, tables.sess_dst, tables.sess_ports,
          tables.sess_proto),
@@ -516,41 +583,53 @@ def session_insert(tables, pkts: PacketVector, want, now, shard=None,
 # --- aging ---------------------------------------------------------------
 
 
-def _sweep_one(valid, time, cursor, now, max_age, stride: int) -> None:
+def _sweep_one(valid, time, cursor, now, max_age, stride: int,
+               shard=None) -> None:
     """Age ONE stride of buckets from ``cursor`` and advance it, in
     place (the cursor stays on the device: no host sync). The start
-    clamps to ``n_buckets - s`` as ``lax.dynamic_slice`` clamps it."""
-    n_buckets = valid.shape[0]
+    clamps to ``n_buckets - s`` as ``lax.dynamic_slice`` clamps it.
+    With ``shard`` every shard ages the same local rows of its own
+    block (its ring is the block; the cursor is replicated)."""
+    if shard is not None:
+        valid, time = shard_view(valid, shard), shard_view(time, shard)
+    else:
+        valid, time = valid[None], time[None]
+    n_buckets = valid.shape[1]
     s = min(int(stride), n_buckets)
     start = torch.clamp(cursor.to(torch.int64), 0, n_buckets - s)
     rows = start + torch.arange(s, device=valid.device)
-    v = valid[rows]
-    stale = (v == 1) & (_age(now, time[rows]) > max_age)
-    valid.index_copy_(0, rows, torch.where(stale, 0, v))
+    v = valid[:, rows]
+    stale = (v == 1) & (_age(now, time[:, rows]) > max_age)
+    valid.index_copy_(1, rows, torch.where(stale, 0, v))
     cursor.copy_((cursor + s) % n_buckets)
 
 
-def session_sweep(tables, now, stride: int):
+def session_sweep(tables, now, stride: int, shard=None):
     """Amortized aging inside the step: clear idle-expired entries in
     one stride of buckets per table (reflective + NAT) and advance the
     sweep cursors. ``stride`` 0 disables."""
     if not stride:
         return tables
     _sweep_one(tables.sess_valid, tables.sess_time,
-               tables.sess_sweep_cursor, now, tables.sess_max_age, stride)
+               tables.sess_sweep_cursor, now, tables.sess_max_age, stride,
+               shard)
     _sweep_one(tables.natsess_valid, tables.natsess_time,
                tables.natsess_sweep_cursor, now, tables.sess_max_age,
-               stride)
+               stride, shard)
     return tables
 
 
-def sweep_covered(steps: int, stride: int, tables) -> bool:
-    """True when ``steps`` steps of ``stride`` buckets have cycled the
-    whole ring of both session tables."""
+def sweep_covered(steps: int, stride: int, tables, bucket_axis: int = 0,
+                  passes: int = 1) -> bool:
+    """True when ``steps`` steps of ``passes`` pipeline passes, each
+    sweeping ``stride`` buckets, have cycled the whole ring of both
+    session tables (a cluster steps two passes and stacks its nodes
+    ahead of the bucket axis)."""
     if not stride:
         return False
-    n = max(tables.sess_valid.shape[0], tables.natsess_valid.shape[0])
-    return steps * stride >= n
+    n = max(tables.sess_valid.shape[bucket_axis],
+            tables.natsess_valid.shape[bucket_axis])
+    return steps * passes * stride >= n
 
 
 def session_expire(tables, now, max_age):

@@ -14,7 +14,10 @@ numpy helpers (``PACKED_*``, ``packed_input_zeros``,
 ``Dataplane(config, device=None, graphs=True)`` runs on the card:
 ``device`` None resolves to ``cuda`` and raises when no GPU is present.
 Tests pass ``device="cpu"``, where every kernel wrapper takes its plain
-version.
+version. ``materialize=False`` uploads nothing: a cluster node's staging
+handle (parallel/cluster.py), whose ``swap`` delegates to the owning
+``ClusterDataplane`` (``_swap_delegate``) and whose commits serialise on
+the cluster's lock (``commit_lock``), as the reference's do.
 
 The step program cache (pipeline/capture.py) is the counterpart of the
 reference's jit cache: with ``graphs`` (the default) ``process``,
@@ -238,7 +241,7 @@ class Dataplane:
     TICKS_PER_SEC = 10
 
     def __init__(self, config: Optional[DataplaneConfig] = None,
-                 device=None, graphs: bool = True):
+                 device=None, graphs: bool = True, materialize: bool = True):
         self.device = resolve_device(device)
         # the step program cache (module doc): key -> capture.Program
         self.graphs = bool(graphs)
@@ -251,10 +254,14 @@ class Dataplane:
         self._upload = _PinnedUpload()
         self.config = config or DataplaneConfig()
         self.builder = TableBuilder(self.config, device=self.device)
-        self.tables = self.builder.to_device()
+        self.tables = self.builder.to_device() if materialize else None
         self.epoch = 0
         self._lock = threading.RLock()
+        # guards a whole stage-then-swap commit; a ClusterDataplane
+        # points every node handle at its own lock
         self.commit_lock = self._lock
+        # a cluster node handle's swap publishes the cluster epoch
+        self._swap_delegate = None
         c = self.config
         self.classifier = c.classifier
         self.mxu_threshold = 512
@@ -407,27 +414,17 @@ class Dataplane:
         that no longer hold the live tables are dropped. With a journal
         the ops staged since the last swap are recorded under the lock,
         in epoch order. The swap runs in an ``epoch-swap`` span and
-        feeds the collector's histograms when they are set."""
+        feeds the collector's histograms when they are set. On a cluster
+        node handle the owning ClusterDataplane publishes (the span and
+        histograms still record this commit)."""
         span = spans.RECORDER.begin("swap", "epoch-swap")
         try:
-            with self._lock:
-                self.tables = self.builder.to_device(sessions=self.tables,
-                                                     into=self.tables)
-                self._refresh_selection()
-                self._programs = {k: p for k, p in self._programs.items()
-                                  if p.holds(self.tables)}
-                if (self.fib_churn_hist is not None
-                        and self.builder.fib_last_shipped):
-                    self.fib_churn_hist.observe(float(
-                        self.builder.fib_upload.get("ms", 0.0)) / 1e3)
-                self.epoch += 1
-                span.attrs["epoch"] = self.epoch
-                span.name = f"epoch {self.epoch}"
-                if self.journal is not None:
-                    txn = self.builder.drain_recording()
-                    if txn is not None:
-                        self.journal.record(txn, self.epoch)
-                epoch = self.epoch
+            if self._swap_delegate is not None:
+                epoch = self._swap_delegate()
+                span.attrs["epoch"] = epoch
+                span.name = f"epoch {epoch} (cluster)"
+            else:
+                epoch = self._swap_local(span)
         finally:
             # the enclosing trace's root (a KSR event, a CNI add) holds
             # the config event's time; a swap that is the root itself
@@ -441,6 +438,31 @@ class Dataplane:
             self.propagation_hist.observe(_time.time() - root.t_wall,
                                           source=root.stage)
         return epoch
+
+    def _swap_local(self, span) -> int:
+        """The standalone swap under the lock (``swap``)."""
+        if self.tables is None:
+            raise RuntimeError(
+                "this Dataplane has no live tables and no swap delegate "
+                "(materialize=False without a managing ClusterDataplane)")
+        with self._lock:
+            self.tables = self.builder.to_device(sessions=self.tables,
+                                                 into=self.tables)
+            self._refresh_selection()
+            self._programs = {k: p for k, p in self._programs.items()
+                              if p.holds(self.tables)}
+            if (self.fib_churn_hist is not None
+                    and self.builder.fib_last_shipped):
+                self.fib_churn_hist.observe(float(
+                    self.builder.fib_upload.get("ms", 0.0)) / 1e3)
+            self.epoch += 1
+            span.attrs["epoch"] = self.epoch
+            span.name = f"epoch {self.epoch}"
+            if self.journal is not None:
+                txn = self.builder.drain_recording()
+                if txn is not None:
+                    self.journal.record(txn, self.epoch)
+            return self.epoch
 
     def adopt_sessions(self, sessions) -> int:
         """Publish restored session state into the live tables (the
@@ -1047,13 +1069,16 @@ class Dataplane:
                 "plane_bytes": lpm_plane_bytes(self.config),
                 "upload": dict(b.fib_upload),
             }
-            ecmp_c = t.fib_ecmp_c.cpu().numpy().astype(np.int64)
-        count_device_transfer("fib.snapshot", ecmp_c)
-        snap["ecmp_c"] = ecmp_c
-        for g, members in groups.items():
-            for m in members:
-                if m["ways"]:
-                    m["pkts"] = int(ecmp_c[g, m["ways"]].sum())
+            # a cluster node handle has no tables of its own
+            ecmp_c = (None if t is None
+                      else t.fib_ecmp_c.cpu().numpy().astype(np.int64))
+        if ecmp_c is not None:
+            count_device_transfer("fib.snapshot", ecmp_c)
+            snap["ecmp_c"] = ecmp_c
+            for g, members in groups.items():
+                for m in members:
+                    if m["ways"]:
+                        m["pkts"] = int(ecmp_c[g, m["ways"]].sum())
         return snap
 
     def tenant_snapshot(self) -> Optional[dict]:

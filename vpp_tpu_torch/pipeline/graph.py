@@ -25,6 +25,12 @@ admitted fails closed, DROP_OVERLAY; a decapped packet's tenant is its
 VNI's) and encaps REMOTE packets with a tunnel next hop in the tail,
 resolving the outer header by a second walk over the same FIB planes.
 
+On the mesh (``shard``, a ``parallel.partition.ShardCtx``; the cluster
+step of parallel/cluster.py) the session and NAT tables are bucket-
+sharded, the ML planes hidden- or tree-sharded and the global classify
+rule-sharded: every stage that reads them takes ``shard`` and recombines
+its shards' results in process (ops/session.py, ops/mlscore.py).
+
 PyTorch runs eagerly, so the step is plain Python over tensors; the
 full chain never synchronises with the device (every counter stays a
 0-d tensor, and the clock ``now`` is a 0-d int32 tensor, as the
@@ -58,7 +64,7 @@ import torch
 from vpp_tpu_torch.ops.acl import acl_classify_global, acl_classify_local
 from vpp_tpu_torch.ops.fib import fib_lookup_dense
 from vpp_tpu_torch.ops.ip4 import ip4_input
-from vpp_tpu_torch.ops.mlscore import ML_KINDS, ml_stage
+from vpp_tpu_torch.ops.mlscore import ML_KINDS, ml_stage, ml_stage_sharded
 from vpp_tpu_torch.ops.nat44 import (
     nat44_dnat,
     nat44_dnat_match,
@@ -289,17 +295,25 @@ class MlEval(NamedTuple):
 
 
 def _ml_eval(tables, pkts: PacketVector, alive, established, sess_age,
-             ml_mode: str, ml_kind: str, tid=None) -> Optional[MlEval]:
+             ml_mode: str, ml_kind: str, tid=None,
+             shard=None) -> Optional[MlEval]:
     """The one ML-stage evaluation both tiers share: the post-NAT-reverse
     header and the session hit and its pre-touch age through
     ``ml_stage`` (one kernel launch on the card), per tenant with
     ``tid``. None when the stage is off; under "score" the policy's drop
     requests are dropped here (the compiled mode is every tenant's
-    ceiling)."""
+    ceiling). With ``shard`` the partial scores of the sharded planes
+    sum (plain PyTorch, as the reference's mesh stage is plain)."""
     if ml_mode == "off":
         return None
-    scores, flagged, drop_wanted = ml_stage(
-        tables, pkts, alive, established, sess_age, kind=ml_kind, tid=tid)
+    if shard is not None:
+        scores, flagged, drop_wanted = ml_stage_sharded(
+            tables, pkts, alive, established, sess_age, kind=ml_kind,
+            shard=shard, tid=tid)
+    else:
+        scores, flagged, drop_wanted = ml_stage(
+            tables, pkts, alive, established, sess_age, kind=ml_kind,
+            tid=tid)
     if ml_mode != "enforce":
         drop_wanted = torch.zeros_like(alive)
     return MlEval(flagged, drop_wanted, scores)
@@ -315,7 +329,7 @@ def _finish_step(tables, pkts: PacketVector, now, alive, drop_ip4,
                  ml_dropped=None, tel_mode: str = "off", tid=None,
                  tnt_dropped=None, tnt_qfail=None, overlay: str = "off",
                  fib_fn=fib_lookup_dense, ovl_dropped=None,
-                 ovl_decapped=None) -> StepResult:
+                 ovl_decapped=None, shard=None) -> StepResult:
     """Shared tail: the overlay encap, session sweep, ECMP member
     accounting, the flow sketch (``tel_mode`` full), the per-tenant
     accounting, drop attribution, counters and the StepResult.
@@ -354,7 +368,7 @@ def _finish_step(tables, pkts: PacketVector, now, alive, drop_ip4,
                else tables.tnt_vni[:1].expand(alive.shape))
         vni = torch.where(vni >= 0, vni, DEFAULT_VNI)
         ovl_vni = torch.where(ovl_encap, vni, -1).to(torch.int32)
-    session_sweep(tables, now, sweep_stride)
+    session_sweep(tables, now, sweep_stride, shard)
     # per-member ECMP accounting into the carried [G, W] plane
     n_grp, n_way = tables.fib_ecmp_c.shape
     sel = forwarded & (fib.grp >= 0)
@@ -479,7 +493,8 @@ def pipeline_step(tables, pkts: PacketVector, now,
                   ml_kind: str = "mlp", tel_mode: str = "off",
                   tnt_mode: str = "off", overlay: str = "off",
                   ovl_inner=None, ovl_vni=None,
-                  ingress: Optional[Ingress] = None) -> StepResult:
+                  ingress: Optional[Ingress] = None,
+                  shard=None) -> StepResult:
     """Process one packet vector through the full forwarding chain.
     ``now`` is the session clock in ticks: a 0-d int32 tensor on the
     tables' device (an int still works, for direct callers).
@@ -487,7 +502,7 @@ def pipeline_step(tables, pkts: PacketVector, now,
     (``overlay`` vxlan). ``ingress``: the stages ahead of the session
     lookup already ran (the two-tier dispatcher's prefix): the chain
     takes their result, so the tokens are spent once; ``pkts`` and the
-    sidecar are then unused."""
+    sidecar are then unused. ``shard``: the mesh form (module doc)."""
     sym = sess_hash == "sym"
     ing = ingress if ingress is not None else _stage_in(
         tables, pkts, now, tnt_mode, overlay, ovl_inner, ovl_vni)
@@ -496,21 +511,23 @@ def pipeline_step(tables, pkts: PacketVector, now,
 
     # reflective session bypass, looked up on the raw (pre-NAT) header
     established, sess_hit_idx = session_lookup_reverse_idx(
-        tables, pkts, now, tnt=tnt, impl=sess_impl, sym=sym, kt=ing.kt)
+        tables, pkts, now, shard=shard, tnt=tnt, impl=sess_impl, sym=sym,
+        kt=ing.kt)
     established = established & alive
     # the ML age feature: the touch below rewrites the time in place,
     # so the age is read before it, in stream order
-    sess_age = (session_hit_age(tables, sess_hit_idx, established, now)
+    sess_age = (session_hit_age(tables, sess_hit_idx, established, now,
+                                shard=shard)
                 if ml_mode != "off" else None)
-    session_touch(tables, sess_hit_idx, established, now)
+    session_touch(tables, sess_hit_idx, established, now, shard=shard)
 
     # NAT44: reverse-translate return traffic, then DNAT new flows
-    pkts, nat_reversed, nat_hit_idx = nat44_reverse(tables, pkts, alive,
-                                                    now, tnt=tnt, kt=ing.kt)
-    nat44_touch(tables, nat_hit_idx, nat_reversed, now)
+    pkts, nat_reversed, nat_hit_idx = nat44_reverse(
+        tables, pkts, alive, now, shard=shard, tnt=tnt, kt=ing.kt)
+    nat44_touch(tables, nat_hit_idx, nat_reversed, now, shard=shard)
     # the ML stage scores the post-reverse header, as the fast tier does
     ml = _ml_eval(tables, pkts, alive, established, sess_age, ml_mode,
-                  ml_kind, tid)
+                  ml_kind, tid, shard)
     orig_dst, orig_dport = pkts.dst_ip, pkts.dport
     pkts, dnat_applied, dnat_self_snat = nat44_dnat(
         tables, pkts, alive & ~nat_reversed)
@@ -548,12 +565,13 @@ def pipeline_step(tables, pkts: PacketVector, now,
     # tenancy in the slice of the key's tenant, not the billing tenant)
     want_sess = forwarded & ~established & nat_capable & ~nat_unsupported
     _, _, sess_fail, sess_ev_exp, sess_ev_vic = session_insert(
-        tables, pkts, want_sess, now, tnt=tnt, sym=sym)
+        tables, pkts, want_sess, now, shard=shard, tnt=tnt, sym=sym)
     nat_kind = (torch.where(dnat_applied, 1, 0)
                 + torch.where(snat_applied, 2, 0)).to(torch.int32)
     _, nat_conflict, natsess_fail, nat_ev_exp, nat_ev_vic = nat44_record(
         tables, pkts, orig_dst, orig_dport, orig_src, orig_sport,
-        nat_kind, (dnat_applied | snat_applied) & forwarded, now, tnt=tnt)
+        nat_kind, (dnat_applied | snat_applied) & forwarded, now,
+        shard=shard, tnt=tnt)
     # fail closed on reply-key collisions
     dropped_nat = nat_conflict | nat_unsupported
     forwarded = forwarded & ~dropped_nat
@@ -571,7 +589,7 @@ def pipeline_step(tables, pkts: PacketVector, now,
         # the per-tenant congestion signal: slice insert failures
         tnt_qfail=(sess_fail | natsess_fail) if tnt else None,
         overlay=overlay, fib_fn=fib_fn, ovl_dropped=ing.ovl_dropped,
-        ovl_decapped=ing.ovl_decapped)
+        ovl_decapped=ing.ovl_decapped, shard=shard)
 
 
 # --- two-tier established-flow fast path ----------------------------
@@ -589,7 +607,7 @@ def _pipeline_fast_finish(tables, ing: Ingress, pkts: PacketVector, now,
                           sweep_stride: int = SWEEP_STRIDE_DEFAULT,
                           fib_fn=fib_lookup_dense, ml_mode: str = "off",
                           ml_kind: str = "mlp", tel_mode: str = "off",
-                          overlay: str = "off") -> StepResult:
+                          overlay: str = "off", shard=None) -> StepResult:
     """Tail of the classify-free tier, from the post-reverse header
     ``pkts`` on (``ing``: the step's ingress). Valid ONLY under the
     dispatch invariant (every alive packet is established, none
@@ -600,14 +618,15 @@ def _pipeline_fast_finish(tables, ing: Ingress, pkts: PacketVector, now,
     (and enforces) as the full chain does, with the age read before the
     touch at the same point."""
     alive = ing.alive
-    sess_age = (session_hit_age(tables, sess_hit_idx, established, now)
+    sess_age = (session_hit_age(tables, sess_hit_idx, established, now,
+                                shard=shard)
                 if ml_mode != "off" else None)
-    session_touch(tables, sess_hit_idx, established, now)
-    nat44_touch(tables, nat_hit_idx, nat_reversed, now)
+    session_touch(tables, sess_hit_idx, established, now, shard=shard)
+    nat44_touch(tables, nat_hit_idx, nat_reversed, now, shard=shard)
     permit = established
     drop_acl = alive & ~permit
     ml = _ml_eval(tables, pkts, alive, established, sess_age, ml_mode,
-                  ml_kind, ing.tid)
+                  ml_kind, ing.tid, shard)
     ml_dropped = None if ml is None else ml.drop_wanted & permit & alive
     fib = fib_fn(tables, pkts)
     forwarded = (alive & permit & fib.matched
@@ -627,7 +646,7 @@ def _pipeline_fast_finish(tables, ing: Ingress, pkts: PacketVector, now,
         # the fast tier inserts nothing: no slice insert fails
         tnt_dropped=ing.tnt_dropped, tnt_qfail=None, overlay=overlay,
         fib_fn=fib_fn, ovl_dropped=ing.ovl_dropped,
-        ovl_decapped=ing.ovl_decapped)
+        ovl_decapped=ing.ovl_decapped, shard=shard)
 
 
 def pipeline_step_fast(tables, pkts: PacketVector, now,
@@ -636,7 +655,8 @@ def pipeline_step_fast(tables, pkts: PacketVector, now,
                        sess_hash: str = "fwd", ml_mode: str = "off",
                        ml_kind: str = "mlp", tel_mode: str = "off",
                        tnt_mode: str = "off", overlay: str = "off",
-                       ovl_inner=None, ovl_vni=None) -> StepResult:
+                       ovl_inner=None, ovl_vni=None,
+                       shard=None) -> StepResult:
     """The classify-free tier on its own: [overlay decap] -> ip4-input
     -> [tenant stage] -> session lookup/touch -> NAT reverse/touch ->
     FIB -> tx [-> overlay encap]. Equal to ``pipeline_step`` ONLY under
@@ -645,16 +665,16 @@ def pipeline_step_fast(tables, pkts: PacketVector, now,
                     ovl_vni)
     tnt = ing.tid is not None
     established, sess_hit_idx = session_lookup_reverse_idx(
-        tables, ing.pkts, now, tnt=tnt, impl=sess_impl,
+        tables, ing.pkts, now, shard=shard, tnt=tnt, impl=sess_impl,
         sym=sess_hash == "sym", kt=ing.kt)
     established = established & ing.alive
     rpkts, nat_reversed, nat_hit_idx = nat44_reverse(
-        tables, ing.pkts, ing.alive, now, tnt=tnt, kt=ing.kt)
+        tables, ing.pkts, ing.alive, now, shard=shard, tnt=tnt, kt=ing.kt)
     return _pipeline_fast_finish(
         tables, ing, rpkts, now, established, sess_hit_idx, nat_reversed,
         nat_hit_idx, sweep_stride=sweep_stride, fib_fn=fib_fn,
         ml_mode=ml_mode, ml_kind=ml_kind, tel_mode=tel_mode,
-        overlay=overlay)
+        overlay=overlay, shard=shard)
 
 
 class AutoPrefix(NamedTuple):
@@ -674,22 +694,25 @@ class AutoPrefix(NamedTuple):
 def auto_prefix(tables, pkts: PacketVector, now, sess_impl: str = "gather",
                 sess_hash: str = "fwd", tnt_mode: str = "off",
                 overlay: str = "off", ovl_inner=None,
-                ovl_vni=None) -> AutoPrefix:
+                ovl_vni=None, shard=None) -> AutoPrefix:
     """The dispatch prefix: the overlay decap, ip4-input, the tenant
     stage (which WRITES the token buckets: the one state this prefix
     moves), the session summary, NAT reverse and the DNAT probe;
     ``ok = all_hit & ~any(dnat_would)`` over the post-limit alive set,
-    exactly as the reference computes its ``lax.cond`` predicate."""
+    exactly as the reference computes its ``lax.cond`` predicate. With
+    ``shard`` the reference also min-reduces the flag over the rule
+    shards; here the node's one recombined summary is every shard's
+    view, so the min of its shards' equal flags is the flag itself."""
     ing = _stage_in(tables, pkts, now, tnt_mode, overlay, ovl_inner,
                     ovl_vni)
     tnt = ing.tid is not None
     hits, sess_hit_idx, all_hit = session_batch_summary(
-        tables, ing.pkts, ing.alive, now, tnt=tnt, impl=sess_impl,
-        sym=sess_hash == "sym", kt=ing.kt)
+        tables, ing.pkts, ing.alive, now, shard=shard, tnt=tnt,
+        impl=sess_impl, sym=sess_hash == "sym", kt=ing.kt)
     # NAT reverse runs before the DNAT probe: the un-NAT'd header is
     # what the full chain would hand nat44_dnat
     rpkts, nat_reversed, nat_hit_idx = nat44_reverse(
-        tables, ing.pkts, ing.alive, now, tnt=tnt, kt=ing.kt)
+        tables, ing.pkts, ing.alive, now, shard=shard, tnt=tnt, kt=ing.kt)
     dnat_would = nat44_dnat_match(tables, rpkts, ing.alive & ~nat_reversed)
     return AutoPrefix(ing, rpkts, hits, sess_hit_idx, nat_reversed,
                       nat_hit_idx, all_hit & ~dnat_would.any())
@@ -699,14 +722,14 @@ def auto_fast(tables, pre: AutoPrefix, now,
               sweep_stride: int = SWEEP_STRIDE_DEFAULT,
               fib_fn=fib_lookup_dense, ml_mode: str = "off",
               ml_kind: str = "mlp", tel_mode: str = "off",
-              overlay: str = "off") -> StepResult:
+              overlay: str = "off", shard=None) -> StepResult:
     """The fast tier behind the prefix: it reuses the prefix's lookups
     (valid only where ``pre.ok`` holds)."""
     return _pipeline_fast_finish(
         tables, pre.ingress, pre.pkts, now, pre.hits, pre.sess_hit_idx,
         pre.nat_reversed, pre.nat_hit_idx, sweep_stride=sweep_stride,
         fib_fn=fib_fn, ml_mode=ml_mode, ml_kind=ml_kind, tel_mode=tel_mode,
-        overlay=overlay)
+        overlay=overlay, shard=shard)
 
 
 def auto_full(tables, pre: AutoPrefix, now, **gates) -> StepResult:
@@ -725,7 +748,8 @@ def pipeline_step_auto(tables, pkts: PacketVector, now,
                        sess_hash: str = "fwd", ml_mode: str = "off",
                        ml_kind: str = "mlp", tel_mode: str = "off",
                        tnt_mode: str = "off", overlay: str = "off",
-                       ovl_inner=None, ovl_vni=None) -> StepResult:
+                       ovl_inner=None, ovl_vni=None,
+                       shard=None) -> StepResult:
     """Two-tier dispatch: the fast tier when the whole batch rides
     established sessions, the full chain otherwise.
 
@@ -740,9 +764,11 @@ def pipeline_step_auto(tables, pkts: PacketVector, now,
     in the prefix)."""
     pre = auto_prefix(tables, pkts, now, sess_impl=sess_impl,
                       sess_hash=sess_hash, tnt_mode=tnt_mode,
-                      overlay=overlay, ovl_inner=ovl_inner, ovl_vni=ovl_vni)
+                      overlay=overlay, ovl_inner=ovl_inner, ovl_vni=ovl_vni,
+                      shard=shard)
     gates = dict(sweep_stride=sweep_stride, fib_fn=fib_fn, ml_mode=ml_mode,
-                 ml_kind=ml_kind, tel_mode=tel_mode, overlay=overlay)
+                 ml_kind=ml_kind, tel_mode=tel_mode, overlay=overlay,
+                 shard=shard)
     if bool(pre.ok):  # the step's one host sync (docstring)
         return auto_fast(tables, pre, now, **gates)
     return auto_full(tables, pre, now, acl_global_fn=acl_global_fn,

@@ -155,9 +155,17 @@ def _geometry_of(config) -> Dict[str, int]:
 
 
 def _mesh_of(dp) -> Optional[Dict[str, int]]:
-    """The mesh geometry recorded in the manifest: None, the port has no
-    mesh (ROADMAP Queue 1 item 10 (Mesh / cluster))."""
-    return None
+    """The mesh geometry of a cluster handle (None for a standalone
+    Dataplane), recorded in the manifest and REFUSED on mismatch at
+    restore: a per-shard drain's bucket ranges mean something only on
+    the mesh that drained them."""
+    mesh = getattr(dp, "mesh", None)
+    if mesh is None:
+        return None
+    from vpp_tpu_torch.parallel.partition import NODE_AXIS, RULE_AXIS
+
+    return {"n_nodes": int(mesh.shape[NODE_AXIS]),
+            "rule_shards": int(mesh.shape[RULE_AXIS])}
 
 
 def _to_host(block: torch.Tensor) -> np.ndarray:
@@ -346,15 +354,23 @@ class SessionSnapshotter:
             "config": geometry,
             "mesh": mesh,
             "chunk_buckets": self.chunk_buckets,
-            "scalars": {f: int(clone[f]) for f in SCALAR_FIELDS},
+            # a cluster's cursors are per node ([N])
+            "scalars": {f: (clone[f].tolist() if clone[f].dim()
+                            else int(clone[f])) for f in SCALAR_FIELDS},
             "tables": {},
         }
         written = skipped = wbytes = 0
         t_chunks = 0.0
+        # a cluster drains per (node, shard) bucket range: chunks are
+        # capped to a shard's range, so no chunk file straddles a shard
+        # boundary, and each entry records its node and shard
+        nodes = (None,) if mesh is None else tuple(range(mesh["n_nodes"]))
+        shards = 1 if mesh is None else mesh["rule_shards"]
         for table, fields in TABLE_COLS.items():
-            cols = tuple(clone[f] for f in fields)
-            n_buckets = int(cols[0].shape[0])
-            cb = min(self.chunk_buckets, n_buckets)
+            all_cols = tuple(clone[f] for f in fields)
+            n_buckets = int(all_cols[0].shape[-2])
+            per_shard = n_buckets // shards
+            cb = min(self.chunk_buckets, per_shard)
             n_chunks = n_buckets // cb
             flagged = int(clone[f"{table}_valid"].sum())
             prev_tab = (prev["tables"].get(table)
@@ -364,31 +380,40 @@ class SessionSnapshotter:
                            and prev_tab.get("chunk_buckets") == cb
                            else None)
             fetch = _fetch_fn(cb)
-            digests = _digest_fn(cb)(cols).cpu().numpy()
             entries = []
-            for idx in range(n_chunks):
-                d = int(digests[idx])
-                if prev_chunks is not None and idx < len(prev_chunks) \
-                        and prev_chunks[idx]["digest"] == d:
-                    # unchanged since the published generation: its file
-                    # keeps serving the chunk
-                    entries.append(dict(prev_chunks[idx]))
-                    skipped += 1
-                    continue
-                t0 = time.perf_counter()
-                host = _to_host(fetch(cols, idx * cb))
-                count_device_transfer("snapshot.drain", host)
-                payload = host.tobytes()
-                name = _chunk_name(table, idx, gen)
-                crc = self._write_chunk(
-                    os.path.join(self.directory, name), payload)
-                t_chunks += time.perf_counter() - t0
-                entries.append({"file": name, "digest": d, "crc": crc,
-                                "start": idx * cb, "shard": 0})
-                written += 1
-                wbytes += len(payload)
-                if self.pace_s:
-                    time.sleep(self.pace_s)
+            for node in nodes:
+                cols = (all_cols if node is None
+                        else tuple(c[node] for c in all_cols))
+                digests = _digest_fn(cb)(cols).cpu().numpy()
+                for idx in range(n_chunks):
+                    flat = (0 if node is None else node) * n_chunks + idx
+                    d = int(digests[idx])
+                    if prev_chunks is not None and \
+                            flat < len(prev_chunks) and \
+                            prev_chunks[flat]["digest"] == d:
+                        # unchanged since the published generation: its
+                        # file keeps serving the chunk
+                        entries.append(dict(prev_chunks[flat]))
+                        skipped += 1
+                        continue
+                    t0 = time.perf_counter()
+                    host = _to_host(fetch(cols, idx * cb))
+                    count_device_transfer("snapshot.drain", host)
+                    payload = host.tobytes()
+                    name = _chunk_name(table, idx, gen, node)
+                    crc = self._write_chunk(
+                        os.path.join(self.directory, name), payload)
+                    t_chunks += time.perf_counter() - t0
+                    entry = {"file": name, "digest": d, "crc": crc,
+                             "start": idx * cb,
+                             "shard": (idx * cb) // per_shard}
+                    if node is not None:
+                        entry["node"] = node
+                    entries.append(entry)
+                    written += 1
+                    wbytes += len(payload)
+                    if self.pace_s:
+                        time.sleep(self.pace_s)
             manifest["tables"][table] = {
                 "chunk_buckets": cb,
                 "n_chunks": n_chunks,
@@ -508,12 +533,13 @@ class SessionSnapshotter:
             return None, "geometry"
         snap_now = int(m.get("now", 0))
         shapes = state_shapes(self.dp.config)
+        leading = () if mesh is None else (mesh["n_nodes"],)
         sessions: Dict[str, np.ndarray] = {}
         try:
             for table, fields in TABLE_COLS.items():
                 tinfo = m["tables"][table]
                 cb = int(tinfo["chunk_buckets"])
-                arrs = {f: np.zeros(shapes[f], SESSION_FIELDS[f])
+                arrs = {f: np.zeros(leading + shapes[f], SESSION_FIELDS[f])
                         for f in fields}
                 for entry in tinfo["chunks"]:
                     block = self._read_chunk(entry, len(fields), cb,
@@ -525,7 +551,9 @@ class SessionSnapshotter:
                         return None, "crc_mismatch"
                     start = int(entry["start"])
                     for i, f in enumerate(fields):
-                        arrs[f][start:start + cb] = \
+                        dst = (arrs[f] if mesh is None
+                               else arrs[f][int(entry["node"])])
+                        dst[start:start + cb] = \
                             block[i].view(SESSION_FIELDS[f])
                 sessions.update(arrs)
         except FileNotFoundError as e:
@@ -540,7 +568,9 @@ class SessionSnapshotter:
                            - snap_now).astype(np.int32)
         for f in SCALAR_FIELDS:
             v = m["scalars"].get(f, 0)
-            sessions[f] = np.int32(v if not isinstance(v, list) else v[0])
+            sessions[f] = (np.asarray(v, np.int32) if mesh is not None
+                           else np.int32(v if not isinstance(v, list)
+                                         else v[0]))
         self._count_restore("restored")
         return sessions, "restored"
 

@@ -28,9 +28,11 @@ the reference's name. Where the reference reads JAX:
 
 The fleet and VCL sources (``set_fleet``, ``set_vcl``) export the
 reference's ``vpp_tpu_fleet_*`` and ``vpp_tpu_vcl_*`` families from
-their host counters. The mesh source (``set_cluster``) and the
-partition manifest behind ``vpp_tpu_partition_info`` are not ported:
-the setter raises, and that family stays registered with no samples.
+their host counters. ``vpp_tpu_partition_info`` exports the partition
+manifest (parallel/partition.py) on every node, the port's five derived
+fields included; with a mesh attached (``set_cluster``) its shard count
+and placements are the mesh's, and the per-shard session residency and
+rule-plane bytes are read off the cluster's live tensors.
 """
 
 from __future__ import annotations
@@ -974,6 +976,7 @@ class StatsCollector:
                   "device bytes of rule-axis-sharded classifier/ML "
                   "planes held per rule shard (summed across nodes)"),
         )
+        self._cluster = None  # set_cluster: the mesh this node is in
         # degraded-state sources: the cluster store (set_store), the
         # snapshotter (set_snapshotter) and the ML model source
         # (set_ml); the pump is already attached via set_pump
@@ -1057,14 +1060,11 @@ class StatsCollector:
         self.vcl = server
 
     def set_cluster(self, cluster) -> None:
-        """Attach the ClusterDataplane (vpp_tpu/parallel/cluster.py)
+        """Attach the ClusterDataplane (vpp_tpu_torch/parallel/cluster.py)
         so publish() exports the per-shard session residency and
-        rule-plane bytes of the mesh this node is part of. Not ported:
-        the mesh waits for ROADMAP Queue 1 item 10."""
-        raise NotImplementedError(
-            "StatsCollector.set_cluster: the mesh and its partition "
-            "manifest are not ported yet (ROADMAP Queue 1 item 10 "
-            "(Mesh / cluster))")
+        rule-plane bytes of the mesh this node is part of; the partition
+        info gauge then reports the mesh's shard count instead of 1."""
+        self._cluster = cluster
 
     def set_fleet(self, steering, pump=None) -> None:
         """Attach the fleet steering tier (vpp_tpu_torch/fleet/steering.py)
@@ -1264,9 +1264,30 @@ class StatsCollector:
             for group, member in self._fib_pub_members - pub:
                 self.fib_ecmp_gauge.remove(group=group, member=member)
             self._fib_pub_members = pub
-        # partition-rule layer: the manifest and the per-shard gauges
-        # belong to the mesh (ROADMAP Queue 1 item 10); the families
-        # stay registered with no samples
+        # partition-rule layer: field placements from the ONE manifest;
+        # per-shard residency and bytes only with a live cluster
+        # attached (scalars cross to the host, never columns)
+        from vpp_tpu_torch.parallel.partition import RULE_AXIS, spec_manifest
+
+        cluster = self._cluster
+        shards = int(getattr(cluster, "rule_shards", 1) or 1)
+        for f, entry in spec_manifest().items():
+            # the mesh's effective spec: a BV word axis that cannot
+            # shard, an ML stage that is off, replicate those planes
+            spec = (getattr(cluster.specs, f) if cluster is not None
+                    else entry.spec)
+            self.partition_gauge.set(
+                1.0, field=f,
+                axis=RULE_AXIS if RULE_AXIS in tuple(spec) else "replicated",
+                shards=str(shards))
+        if cluster is not None and cluster.tables is not None:
+            resident = cluster.shard_sessions_resident()
+            plane_bytes = cluster.shard_rule_plane_bytes()
+            for s in range(shards):
+                self.shard_sessions_gauge.set(float(resident[s]),
+                                              shard=str(s))
+                self.shard_rule_bytes_gauge.set(float(plane_bytes[s]),
+                                                shard=str(s))
         # ML stage (ISSUE 10): live mode + the LIVE epoch's model
         # version (read off the published tables ref — immutable, so
         # no race with a load staging a model the swap hasn't
