@@ -162,9 +162,9 @@ raises on failure:
    the final state bit-exact (the two start equal: the pumps' grafts
    and the twin's replay agree on every plane). Then, after each
    path's twin checks, a steady window per mode: a new pump on the same
-   dataplane, capturing nothing, drains 2,048 frames of fresh forward
+   dataplane, capturing nothing, drains 1,024 frames of fresh forward
    flows pushed as fast as the rx ring takes them (seconds of backlog),
-   every frame once and in order, then 256 more under the profiler.
+   every frame once and in order, then 128 more under the profiler.
    Printed per cell: for the rounds Mpps, batch latency, windows and
    fill, H2D and D2H bytes per window, the stager's host ms per window
    and host reads per window (counted where the flag is read); for the
@@ -377,6 +377,34 @@ raises on failure:
    geometry and is refused on another. The steps, the session planes
    and the frames out of node 1 must equal the twin's; printed: the
    pump's Mpps and fabric-step p50 / p99;
+4n. the multi-host mesh (parallel/multihost.py), two ranks, each a
+   process of one ``gloo`` group started by this script
+   (``vpp_tpu_torch.testing.multihost``), both on the one card: (i) 4m
+   (i)'s 4 x 2 cluster, rank 0 holding nodes 0 and 1, rank 1 nodes 2
+   and 3, each staged by ``mesh_stage``, replays 4m's steps on both
+   rungs (the budget-32 round included): every ClusterStepResult field
+   of each rank's rows and its session / NAT / ECMP planes must equal
+   4m's single-process rows, and ``mxu_first_match`` must launch in both
+   ranks on the mxu rung; printed: ms and Mpps per cluster step, rank by
+   rank, captured and eager, at 256 and 4,096 packets a node (4m's
+   vectors), beside the exchange's host hops (the wait for pass 1,
+   device-to-host, ``all_to_all``, host-to-device), the bytes a rank
+   sends a step, graph launches and host syncs a step, and 4m's
+   single-process step. (ii) the lockstep over a KV server process:
+   rank 1 denies node 3 and requests a commit, both ranks publish on the
+   same tick and the cross-rank flow is cut on it; a stale stop counter
+   does not halt the fleet, ``request_stop`` stops both. (iii) two
+   ``vpp-tpu-torch-mesh-agent --coordinator`` ranks with ``io.enabled``
+   (4 nodes, a KV server process, pods through the CNI socket) beside a
+   CPU twin pair: 32 frames of 256 UDP packets written into node 0's rx
+   ring leave node 2's tx ring with their bodies intact, then a
+   NetworkPolicy through the store cuts them; the frames, and both
+   ranks' ``ClusterPump`` counters over each stage (frames, packets,
+   fabric packets, tx-ring-full, errors, read from ``show io``), must
+   equal the twin pair's and the counts the traffic implies, both ranks
+   exit 0 on SIGTERM and leave no ring; printed:
+   frames a second, a frame ring to ring p50 / p99 and node 2's
+   fabric-step p50 / p99;
 5. timing with CUDA events: ms per ``process`` step and Mpps (valid
    packets per device second) at P = 256 and 4,096, captured and eager,
    and a ``torch.profiler`` window per size (device operations, graph
@@ -418,6 +446,7 @@ import dataclasses
 import functools
 import ipaddress
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -518,6 +547,7 @@ from vpp_tpu_torch.pipeline.vector import (  # noqa: E402
     VEC,
     Disposition,
     PacketVector,
+    as_i32,
     bias,
     gather_index,
     ip4,
@@ -539,8 +569,8 @@ TC_INT8_OPS = 1979e12
 
 BIG_VEC = 4096
 ROUNDS = 4            # (forward, 2 replies) rounds per size: 24 main-path steps
-TIMED_STEPS = 30      # timed process steps (and eager calls) per size
-PROFILED_STEPS = 10   # profiled process steps per size
+TIMED_STEPS = 20      # timed process steps (and eager calls) per size
+PROFILED_STEPS = 5    # profiled process steps per size
 VIP = "10.96.0.10"
 N_PODS = 8
 N_BACKENDS = 100
@@ -3215,8 +3245,8 @@ def upload_snapshot_path(cfg: DataplaneConfig, n_rules: int, n_nodes: int,
 RING_SLOTS = 8        # slots per ring window (io.io_ring_slots)
 PUMP_SNAP = 640       # payload bytes a frame slot keeps (pkt_len 512 + 14)
 PUMP_DEADLINE = 120.0  # seconds a pump stage may take to drain
-STEADY_FRAMES = 2048  # VEC-packet frames in a steady window (seconds)
-STEADY_TRACE = 256    # frames in the profiled steady window (one trace)
+STEADY_FRAMES = 1024  # VEC-packet frames in a steady window (seconds)
+STEADY_TRACE = 128    # frames in the profiled steady window (one trace)
 PUMP_NOW = 200_000    # the pinned clock of phase 4g (far past 4f's)
 PUMP_TEL_US = 1 << 20  # the pinned telemetry clock of phase 4g (µs)
 
@@ -8042,7 +8072,11 @@ def mesh_mxu_shards(dev, errors: Errors, seed: int) -> dict:
 
 def mesh_cluster_phase(cfg: DataplaneConfig, n_rules: int, seed: int,
                        errors: Errors, device="cuda"):
-    """Phase 4m (i) (module doc). Returns (summary, launches)."""
+    """Phase 4m (i) (module doc). Returns (summary, launches, records):
+    ``records[rung]`` holds what phase 4n replays across two ranks (the
+    config, every step's inputs, budget and result, the state planes
+    after the drive and after the budget round, the timing vectors and
+    cells and this phase's times)."""
     dev = torch.device(device)
     mcfg = cfg._replace(classifier="auto", fastpath=True, fib_impl="auto",
                         session_impl="auto")
@@ -8051,6 +8085,7 @@ def mesh_cluster_phase(cfg: DataplaneConfig, n_rules: int, seed: int,
                    mcfg, n_rules, seed + 3, dev)}
     launches = {k: 0 for k in WRAPPERS}
     rungs = {}
+    records = {}
     for rung, knob in (("auto", "auto"), ("mxu", "mxu")):
         t0 = time.perf_counter()
         clus, up, pods = mesh_cluster(mcfg._replace(classifier=knob), dev,
@@ -8073,6 +8108,10 @@ def mesh_cluster_phase(cfg: DataplaneConfig, n_rules: int, seed: int,
         for k, v in got.items():
             launches[k] += v
         state = mesh_state(clus)
+        rec = records[rung] = dict(
+            cfg=mcfg._replace(classifier=knob),
+            steps=[(cols, now, 0) for cols, now in inputs], snaps=snaps,
+            states={len(inputs) - 1: state}, vectors={}, timing=[])
         twin, tsnaps = mesh_twin(mcfg._replace(classifier=knob), n_rules,
                                  inputs, 0)
         for k, (a, b) in enumerate(zip(snaps, tsnaps)):
@@ -8114,9 +8153,13 @@ def mesh_cluster_phase(cfg: DataplaneConfig, n_rules: int, seed: int,
                 b = mesh_snapshot(twin.step(mesh_vector(cols, twin.device),
                                             now=now, budget=MESH_BUDGET))
                 assert_equal(a, b, f"mesh budget {MESH_BUDGET} step {k}")
-            assert_equal(mesh_state(clus), mesh_state(twin),
+            b_state = mesh_state(clus)
+            assert_equal(b_state, mesh_state(twin),
                          f"mesh budget {MESH_BUDGET} state")
             del twin
+            rec["steps"] += [(cols, now, MESH_BUDGET) for cols, now in b_in]
+            rec["snaps"] += b_snaps
+            rec["states"][len(rec["steps"]) - 1] = b_state
             over = int(b_snaps[0]["fabric_overflow"].sum())
             sent_b = int(b_snaps[0]["fabric_sent"].sum())
             if not over or sent_b != MESH_NODES * MESH_BUDGET:
@@ -8133,12 +8176,18 @@ def mesh_cluster_phase(cfg: DataplaneConfig, n_rules: int, seed: int,
             fwd = mesh_forward(n, up, seed + 31 * n, MESH_NODES)
             first = mesh_snapshot(clus.step(mesh_vector(fwd, dev), now=now))
             rep = mesh_replies(first, pods, "forwarded", n)
+            rec["vectors"].update({f"fwd.{n}": fwd, f"rep.{n}": rep})
+            rec["timing"].append(dict(input=f"fwd.{n}", now=now))
             now += 1
             for tier, cols in (("full", fwd), ("fast", rep)):
                 vec = mesh_vector(cols, dev)
                 valid = int(sum(np.count_nonzero(c["flags"]) for c in cols))
                 for mode in ("captured", "eager"):
                     clus.graphs = mode == "captured"
+                    rec["timing"].append(dict(
+                        label=f"{tier} {mode} P={n}", graphs=clus.graphs,
+                        input=f"{'fwd' if tier == 'full' else 'rep'}.{n}",
+                        now=now, steps=MESH_TIMED, valid=valid))
                     ms = mesh_time(clus, vec, MESH_TIMED, now)
                     now += MESH_TIMED + 5
                     key = f"{tier} {mode} P={n}"
@@ -8154,6 +8203,7 @@ def mesh_cluster_phase(cfg: DataplaneConfig, n_rules: int, seed: int,
                 say(f"mesh {rung} {tier} P={n}: {g} graph launches per "
                     f"cluster step")
         cell["times"] = times
+        rec["times"] = times
         # a swap per churn: one node's global table, one node's route
         churn = {}
         for name, fn in (
@@ -8181,7 +8231,7 @@ def mesh_cluster_phase(cfg: DataplaneConfig, n_rules: int, seed: int,
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     summary["rungs"] = rungs
-    return summary, launches
+    return summary, launches, records
 
 
 def mesh_agent_config(root: Path, io: bool) -> AgentConfig:
@@ -8401,7 +8451,8 @@ def mesh_phase(cfg: DataplaneConfig, n_rules: int, seed: int,
     t0 = time.perf_counter()
     dump, capture.debug_dump_dir = capture.debug_dump_dir, None
     try:
-        clus_sum, launches = mesh_cluster_phase(cfg, n_rules, seed, errors)
+        clus_sum, launches, records = mesh_cluster_phase(cfg, n_rules, seed,
+                                                         errors)
         say(f"phase 4m (i): {time.perf_counter() - t0:.1f} s")
         with tempfile.TemporaryDirectory(prefix="vpp_tpu_torch_mesh_") as d:
             agent_sum, agent_launches = mesh_agent_phase(seed, Path(d))
@@ -8409,7 +8460,549 @@ def mesh_phase(cfg: DataplaneConfig, n_rules: int, seed: int,
         capture.debug_dump_dir = dump
     say(f"phase 4m: {time.perf_counter() - t0:.1f} s")
     return {"cluster": clus_sum, "agent": agent_sum,
-            "seconds": time.perf_counter() - t0}, launches
+            "seconds": time.perf_counter() - t0}, launches, records
+
+
+# --- phase 4n: the multi-host mesh -----------------------------------------
+
+MH_WORLD = 2                      # ranks, each a process on the one card
+MH_DEADLINE = 400.0               # seconds a rank run may take
+MH_GROUP_TIMEOUT = 300            # the process group's timeout, seconds
+MH_LOCKSTEP_NODE = 3              # the node rank 1 denies in (ii)
+MH_AGENT_FRAMES = 32              # frames of VEC through the deployed form
+MH_AGENT_SPACED = 16              # single frames timed ring to ring
+MH_AGENT_NOW = 1_000_000
+
+
+def mesh_cols(cols_list) -> np.ndarray:
+    """A node-stacked ``[N, 9, P]`` int32 block of per-node columns."""
+    return np.stack([np.stack([as_i32(np.asarray(c[f]))
+                               for f in PacketVector._fields])
+                     for c in cols_list])
+
+
+def mh_fabric(records, n_rules: int, root: Path, device: str = "cuda"):
+    """Phase 4n (i) (module doc). Returns (summary, launches per rank)."""
+    from vpp_tpu_torch.testing import multihost as mh
+
+    fields = list(SESSION_FIELDS) + ["fib_ecmp_c"]
+    for rung, rec in records.items():
+        inputs = {f"cols.{k}": mesh_cols(cols)
+                  for k, (cols, _, _) in enumerate(rec["steps"])}
+        inputs.update({k: mesh_cols(c) for k, c in rec["vectors"].items()})
+        mh.write_spec(root / rung, dict(
+            config=rec["cfg"]._asdict(), n_nodes=MESH_NODES,
+            rule_shards=MESH_SHARDS, stager="chip_smoke:mesh_stage",
+            stage_args={"n_rules": n_rules}, state_fields=fields,
+            steps=[dict(now=now, budget=b) for _, now, b in rec["steps"]],
+            timing=[{k: v for k, v in c.items() if k != "valid"}
+                    for c in rec["timing"]]), inputs)
+    t0 = time.perf_counter()
+    ranks = mh.start_ranks("replay", MH_WORLD,
+                           [str(root / r) for r in records], device=device,
+                           group_timeout=MH_GROUP_TIMEOUT)
+    verdicts = [mh.verdict_of(out)["cases"]
+                for out, _ in ranks.wait(MH_DEADLINE)]
+    run_s = time.perf_counter() - t0
+    n_local = MESH_NODES // MH_WORLD
+    summary = {"run_s": run_s, "rungs": {}}
+    launches = [{k: 0 for k in WRAPPERS} for _ in range(MH_WORLD)]
+    for rung, rec in records.items():
+        for r in range(MH_WORLD):
+            v = verdicts[r][rung]
+            rows = slice(r * n_local, (r + 1) * n_local)
+            if v["local_nodes"] != list(range(rows.start, rows.stop)):
+                raise AssertionError(f"rank {r} holds {v['local_nodes']}")
+            got = mh.replay_rows(root / rung, r)
+            for k, snap in enumerate(rec["snaps"]):
+                assert_equal({f: got[f"{k}.{f}"] for f in snap},
+                             {f: a[rows] for f, a in snap.items()},
+                             f"multihost {rung} rank {r} step {k}")
+            for k, state in rec["states"].items():
+                assert_equal({f: got[f"{k}.state.{f}"] for f in state},
+                             {f: a[rows] for f, a in state.items()},
+                             f"multihost {rung} rank {r} planes after "
+                             f"step {k}")
+            for name, w in WRAPPERS.items():
+                launches[r][NAME_OF[w]] += v["launches"].get(
+                    w.__name__, 0)
+        want = {"auto": "bv", "mxu": "mxu"}[rung]
+        sel = [(v[rung]["classifier"], v[rung]["fast"]) for v in verdicts]
+        if sel != [(want, True)] * MH_WORLD:
+            raise AssertionError(f"multihost {rung}: selections {sel}")
+        mxu = [v[rung]["launches"].get("mxu_first_match", 0)
+               for v in verdicts]
+        if rung == "mxu" and device == "cuda" and not all(mxu):
+            raise AssertionError(f"multihost mxu: mxu_first_match launches "
+                                 f"per rank {mxu}")
+        budget = [int(s["fabric_overflow"].sum()) for s, (_, _, b) in
+                  zip(rec["snaps"], rec["steps"]) if b]
+        say(f"multihost {rung} (classifier {want}): {len(rec['steps'])} "
+            f"steps of {MH_WORLD} ranks x {n_local} nodes x {VEC} equal "
+            f"phase 4m's single-process rows (every ClusterStepResult "
+            f"field; the session, NAT and ECMP planes after the drive"
+            f"{' and after the budget round, overflow ' + str(budget) if budget else ''}"
+            f"); mxu_first_match launches per rank {mxu}; staged in "
+            f"{[round(v[rung]['stage_s'], 2) for v in verdicts]} s, "
+            f"published in "
+            f"{[round(v[rung]['publish_s'] * 1e3, 1) for v in verdicts]} ms")
+        cells = {}
+        for cell in rec["timing"]:
+            if "label" not in cell:
+                continue
+            label, valid = cell["label"], cell["valid"]
+            ref = rec["times"][label]["ms"]
+            per = [v[rung]["timing"][label] for v in verdicts]
+            cells[label] = dict(valid=valid, single_ms=ref, ranks=per)
+            for r, t in enumerate(per):
+                hops = ""
+                if "all_to_all_ms" in t:
+                    hops = (f"; exchange: wait {t['wait_ms']:.4f} + d2h "
+                            f"{t['d2h_ms']:.4f} + all_to_all "
+                            f"{t['all_to_all_ms']:.4f} + h2d "
+                            f"{t['h2d_ms']:.4f} ms, "
+                            f"{t['bytes_sent']:.0f} bytes sent")
+                if "graph_launches" in t:
+                    hops += (f"; {t['graph_launches']:g} graph launches, "
+                             f"{t['host_syncs']:g} host syncs per step")
+                say(f"multihost {rung} step {label} rank {r} ({valid} valid "
+                    f"over {MESH_NODES} nodes): {t['ms']:.4f} ms, "
+                    f"{valid / (t['ms'] * 1e3):.4f} Mpps{hops}; 4m single "
+                    f"process {ref:.4f} ms")
+        summary["rungs"][rung] = dict(
+            selection=sel, mxu_launches=mxu, budget_overflow=budget,
+            stage_s=[v[rung]["stage_s"] for v in verdicts],
+            publish_s=[v[rung]["publish_s"] for v in verdicts], cells=cells)
+    return summary, launches
+
+
+def mh_lockstep(root: Path, device: str = "cuda") -> dict:
+    """Phase 4n (ii) (module doc)."""
+    from vpp_tpu_torch.testing import multihost as mh
+
+    t0 = time.perf_counter()
+    with mh.store_process(root) as (_, kv_port):
+        outs = mh.run_ranks("lockstep", MH_WORLD, [kv_port, MH_LOCKSTEP_NODE],
+                            device=device, timeout=MH_DEADLINE,
+                            group_timeout=MH_GROUP_TIMEOUT)
+    v = outs[1]
+    want = dict(t1_delivered=1, t2_epoch=2, t2_delivered=0, t2_acl_drops=1,
+                t3_delivered=0, applied=1)
+    got = {k: v.get(k) for k in want}
+    if got != want or [o["t2_epoch"] for o in outs] != [2] * MH_WORLD or \
+            [o["applied"] for o in outs] != [1] * MH_WORLD or \
+            not all(o["stop"] and o["ticks"] == 3 for o in outs):
+        raise AssertionError(f"multihost lockstep: {outs}")
+    secs = time.perf_counter() - t0
+    say(f"multihost lockstep: rank 1 denied node {MH_LOCKSTEP_NODE}; both "
+        f"ranks published epoch 2 on tick 2 and the cross-rank flow was "
+        f"cut on it ({got}); the previous fleet's stop counter "
+        f"{outs[0]['stop_base']} did not halt the ticks, request_stop "
+        f"stopped both; {secs:.1f} s with the KV server process")
+    return {"ranks": outs, "seconds": secs}
+
+
+def free_run(k: int) -> int:
+    """The first of ``k`` consecutive free ports, from one the kernel
+    hands out (a mesh agent's nodes serve base + row)."""
+    import socket
+
+    for _ in range(50):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1]
+        try:
+            socks = []
+            for i in range(k):
+                t = socket.socket()
+                socks.append(t)
+                t.bind(("127.0.0.1", base + i))
+            return base
+        except OSError:
+            continue
+        finally:
+            for t in socks:
+                t.close()
+    raise AssertionError(f"no {k} consecutive free ports")
+
+
+class MhDeployment:
+    """Two ``vpp-tpu-torch-mesh-agent --coordinator`` ranks (one side:
+    the card, or the CPU twin with ``--device cpu``) over a KV server
+    process, 4 nodes with ``io.enabled``, their CNI and CLI sockets and
+    rings under ``root``; the pods w0 (node 0) and w2 (node 2) through
+    the CNI."""
+
+    def __init__(self, side: str, root: Path, stack, device=None):
+        from vpp_tpu_torch.testing import multihost as mh
+
+        self.side, self.root = side, root
+        _, self.kv_port = stack.enter_context(
+            mh.store_process(root, name=f"kv-{side}"))
+        self.shm = f"vpptt-4n-{os.getpid()}-{side}"
+        self.cni = str(root / f"cni-{side}.sock")
+        self.cli = str(root / f"cli-{side}.sock")
+        cfg = root / f"mesh-{side}.json"
+        cfg.write_text(json.dumps({
+            "node_name": f"mh{side}", "serve_http": True,
+            "cni_socket": self.cni, "cli_socket": self.cli,
+            "stats_port": free_run(MESH_NODES),
+            "health_port": free_run(MESH_NODES),
+            "store_url": f"tcp://127.0.0.1:{self.kv_port}",
+            "node_liveness_ttl_s": AGENT_TTL_S,
+            "dataplane": dict(max_tables=8, max_rules=32,
+                              max_global_rules=1024, max_ifaces=32,
+                              fib_slots=256, sess_slots=1 << 16,
+                              nat_mappings=16, nat_backends=64),
+            "io": {"enabled": True, "n_slots": 64, "snap": PUMP_SNAP,
+                   "shm_name": self.shm},
+            "mesh": {"nodes": MESH_NODES}}))
+        coord = f"127.0.0.1:{mh.free_port()}"
+        dev = [] if device is None else ["--device", device]
+        self.t0 = time.perf_counter()
+        self.ranks = mh.Ranks([
+            [sys.executable, "-m", "vpp_tpu_torch.cmd.mesh_main", "--config",
+             str(cfg), "--coordinator", coord, "--num-processes",
+             str(MH_WORLD), "--process-id", str(r), *dev]
+            for r in range(MH_WORLD)])
+        stack.callback(self.ranks.kill)
+        self.rings = {}
+
+    def wait_up(self) -> float:
+        deadline = time.monotonic() + MH_DEADLINE
+        while not all("mesh agent up" in self.ranks.output(r)[1]
+                      for r in range(MH_WORLD)):
+            dead = [r for r, p in enumerate(self.ranks.procs)
+                    if p.poll() is not None]
+            if dead or time.monotonic() > deadline:
+                raise AssertionError(
+                    f"mesh agent {self.side} ranks {dead} did not boot: "
+                    f"{self.ranks.output(dead[0] if dead else 0)[1][-3000:]}")
+            time.sleep(0.2)
+        return time.perf_counter() - self.t0
+
+    def cli_run(self, node: int, line: str) -> str:
+        from vpp_tpu_torch.cni.transport import cni_call
+
+        reply = cni_call(f"{self.cli}.{node}", "run", {"line": line},
+                         timeout=60)
+        if reply.get("result") != 0:
+            raise AssertionError(f"{self.side} node {node} {line!r}: "
+                                 f"{reply}")
+        return reply.get("output", "")
+
+    def add_pod(self, node: int, name: str) -> str:
+        env = {"CNI_COMMAND": "ADD", "CNI_CONTAINERID": f"cid-{name}" * 2,
+               "CNI_NETNS": f"/var/run/netns/{name}", "CNI_IFNAME": "eth0",
+               "CNI_ARGS": f"IgnoreUnknown=1;K8S_POD_NAMESPACE=default;"
+                           f"K8S_POD_NAME={name}"}
+        conf = {"cniVersion": cni_shim.CNI_VERSION, "name": "vpp-tpu",
+                "type": "vpp-tpu-torch-cni", "grpcServer": f"{self.cni}.{node}"}
+        out, code = cni_shim.run(env, json.dumps(conf).encode())
+        if code != 0:
+            raise AssertionError(f"{self.side} CNI ADD {name}: {out}")
+        return json.loads(out)["ips"][0]["address"].split("/")[0]
+
+    def ring(self, node: int) -> IORingPair:
+        if node not in self.rings:
+            self.rings[node] = IORingPair(n_slots=64, snap=PUMP_SNAP,
+                                          shm_name=f"{self.shm}.{node}",
+                                          create=False)
+        return self.rings[node]
+
+    def close(self) -> list:
+        """SIGTERM rank 0 (its close stops the fleet); both must exit 0
+        and leave no ring behind."""
+        import signal
+
+        for r in self.rings.values():
+            r.close(unlink=False)
+        self.rings = {}
+        self.ranks.procs[0].send_signal(signal.SIGTERM)
+        self.ranks.wait(MH_DEADLINE)
+        left = [p.name for p in Path("/dev/shm").glob(f"{self.shm}*")]
+        if left:
+            raise AssertionError(f"mesh agent {self.side} left rings {left}")
+        return [p.returncode for p in self.ranks.procs]
+
+
+def mh_frames(d: MhDeployment, src: str, dst: str, sports, if0: int):
+    """UDP frames w0 -> w2 (one a sport, its id in the body) into node
+    0's rx ring, VEC a ring frame."""
+    from vpp_tpu_torch.testing.multihost import udp_frame
+
+    codec = PacketCodec(snap=PUMP_SNAP)
+    sports = list(sports)
+    for off in range(0, len(sports), VEC):
+        chunk = sports[off:off + VEC]
+        scratch = np.zeros((VEC, PUMP_SNAP), np.uint8)
+        lens = np.zeros(VEC, np.uint32)
+        for i, sp in enumerate(chunk):
+            f = udp_frame(src, dst, sp, 5000, b"vp4n" + sp.to_bytes(4, "big")
+                          + bytes(24))
+            scratch[i, :len(f)] = np.frombuffer(f, np.uint8)
+            lens[i] = len(f)
+        cols, k = codec.parse_inplace(scratch, lens, len(chunk), if0)
+        deadline = time.monotonic() + PUMP_DEADLINE
+        while not d.ring(0).rx.push(cols, k, payload=scratch):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{d.side}: node 0's rx ring stays full")
+            time.sleep(0.0005)
+
+
+def mh_drain(d: MhDeployment, dst: str) -> list:
+    """Every frame out of node 2's tx ring: the (sport, body id) of each
+    packet delivered to ``dst`` with its UDP body intact."""
+    want = ip4(dst)
+    got = []
+    tx = d.ring(2).tx
+    while True:
+        fr = tx.peek()
+        if fr is None:
+            return got
+        for i in range(fr.n):
+            if (int(fr.cols["dst_ip"][i]) == want
+                    and fr.cols["disp"][i] == int(Disposition.LOCAL)
+                    and fr.cols["proto"][i] == 17):
+                body = bytes(fr.payload[i, 42:50])
+                if body[:4] != b"vp4n":
+                    raise AssertionError(f"{d.side}: a UDP body arrived "
+                                         f"damaged: {body!r}")
+                got.append((int(fr.cols["sport"][i]),
+                            int.from_bytes(body[4:8], "big")))
+        tx.release()
+
+
+def mh_release(d: MhDeployment, node: int) -> int:
+    """Release every frame out of ``node``'s tx ring (what the node's IO
+    daemon would send on); returns how many."""
+    tx, k = d.ring(node).tx, 0
+    while tx.peek() is not None:
+        tx.release()
+        k += 1
+    return k
+
+
+def mh_collect(d: MhDeployment, dst: str, n: int, deadline_s: float):
+    got = []
+    deadline = time.monotonic() + deadline_s
+    while len(got) < n and time.monotonic() < deadline:
+        mh_release(d, 0)
+        got += mh_drain(d, dst)
+        time.sleep(0.002)
+    return got
+
+
+MH_PUMP_LINE = re.compile(
+    r"pump \([^)]*\): (\d+) frames, (\d+) pkts, \d+ batches "
+    r"\(max coalesce \d+\), tx-ring-full (\d+), errors (\d+)")
+
+
+def mh_counters(d: MhDeployment) -> dict:
+    """Each rank's ``ClusterPump`` counters (``show io`` on node 0 for
+    rank 0, node 2 for rank 1) once two reads 0.3 s apart agree; the
+    idle ticks' steps and batches are left out."""
+    deadline = time.monotonic() + PUMP_DEADLINE
+    last = None
+    while True:
+        got = {}
+        for rank, node in ((0, 0), (1, 2)):
+            mh_release(d, 0)
+            io = d.cli_run(node, "show io")
+            m = MH_PUMP_LINE.search(io)
+            if m is None:
+                raise AssertionError(f"{d.side} node {node}: no pump line "
+                                     f"in {io!r}")
+            fab = re.search(r"fabric (\d+) pkts", io)
+            got[f"rank {rank}"] = dict(
+                zip(("frames", "pkts", "tx_ring_full", "errors"),
+                    map(int, m.groups())),
+                fabric_pkts=int(fab.group(1)) if fab else 0)
+        if got == last:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{d.side}: the pump counters never "
+                                 f"settled: {got}")
+        last = got
+        time.sleep(0.3)
+
+
+def mh_delta(after: dict, before: dict) -> dict:
+    return {r: {k: v - before[r][k] for k, v in c.items()}
+            for r, c in after.items()}
+
+
+def mh_deployed_side(side: str, root: Path, stack, device=None) -> dict:
+    """One side of phase 4n (iii) (module doc)."""
+    d = MhDeployment(side, root, stack, device)
+    boot_s = d.wait_up()
+    w0, w2 = d.add_pod(0, "w0"), d.add_pod(2, "w2")
+    if0 = mh_pod_if(d, 0, "w0")
+    # converge: probe frames (sports below 10000, uncounted) until one
+    # crosses the fabric; then drain
+    deadline = time.monotonic() + MH_DEADLINE
+    probe = 1000
+    while not mh_collect(d, w2, 1, 1.0):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{side}: no probe crossed the fabric")
+        mh_frames(d, w0, w2, [probe], if0)
+        probe += 1
+    time.sleep(0.5)
+    mh_drain(d, w2)
+    before = mh_counters(d)
+    # stage 1: MH_AGENT_FRAMES ring frames of VEC packets
+    sports = range(20000, 20000 + MH_AGENT_FRAMES * VEC)
+    t0 = time.perf_counter()
+    mh_frames(d, w0, w2, sports, if0)
+    got = mh_collect(d, w2, len(sports), PUMP_DEADLINE)
+    secs = time.perf_counter() - t0
+    # ring to ring, one frame at a time
+    lat = []
+    for j in range(MH_AGENT_SPACED):
+        t = time.perf_counter()
+        mh_frames(d, w0, w2, [40000 + j], if0)
+        one = mh_collect(d, w2, 1, 30.0)
+        lat.append((time.perf_counter() - t) * 1e3)
+        got += one
+    counters = {"traffic": mh_delta(mh_counters(d), before)}
+    io = d.cli_run(2, "show io")
+    m = re.search(r"p50 (\d+)us p99 (\d+)us over (\d+) batches", io)
+    mesh = d.cli_run(2, "show mesh")
+    # stage 2: a NetworkPolicy through the store isolates w2
+    from vpp_tpu_torch.kvstore.client import RemoteKVStore
+
+    store = RemoteKVStore("127.0.0.1", d.kv_port)
+    ksr = KsrAgent(store=store, serve_http=False)
+    ksr.start()
+    try:
+        ksr.sources[km.Pod.TYPE].add("default/w2", km.Pod(
+            name="w2", namespace="default", labels={"app": "w2"},
+            ip_address=w2))
+        ksr.sources[km.Policy.TYPE].add("default/iso", km.Policy(
+            name="iso", namespace="default",
+            pods=km.LabelSelector(match_labels={"app": "w2"}),
+            policy_type=km.POLICY_INGRESS, ingress_rules=[]))
+        # converge: waves of fresh sports until a whole wave is cut
+        wave, sport = 0, 50000
+        while True:
+            wave += 1
+            mh_frames(d, w0, w2, range(sport, sport + 4), if0)
+            sport += 4
+            if not mh_collect(d, w2, 4, 3.0):
+                break
+            if wave > 100:
+                raise AssertionError(f"{side}: the policy never cut w2")
+        mh_drain(d, w2)
+        before = mh_counters(d)
+        cut_sports = range(60000, 60000 + 2 * VEC)
+        mh_frames(d, w0, w2, cut_sports, if0)
+        after = mh_collect(d, w2, 1, 3.0)
+        counters["cut"] = mh_delta(mh_counters(d), before)
+    finally:
+        ksr.close()
+        store.close()
+    rcs = d.close()
+    return dict(boot_s=boot_s, pods=[w0, w2], frames=MH_AGENT_FRAMES,
+                pkts=len(sports), seconds=secs,
+                fps=MH_AGENT_FRAMES / secs, mpps=len(sports) / secs / 1e6,
+                keys=sorted(got), ring_ms=lat,
+                step_p50_us=int(m.group(1)) if m else None,
+                step_p99_us=int(m.group(2)) if m else None,
+                show_mesh=mesh.splitlines(), cut_waves=wave,
+                after_cut=len(after), counters=counters, exit_codes=rcs,
+                probes=probe - 1000)
+
+
+def mh_pod_if(d: MhDeployment, node: int, pod: str) -> int:
+    """The interface index of ``pod`` on ``node`` from its agent's
+    ``show interface`` page."""
+    page = d.cli_run(node, "show interface")
+    for line in page.splitlines():
+        if pod in line:
+            nums = re.findall(r"\b(\d+)\b", line)
+            if nums:
+                return int(nums[0])
+    raise AssertionError(f"{d.side}: no interface of {pod} in {page!r}")
+
+
+def mh_deployed(root: Path, card_device=None) -> dict:
+    """Phase 4n (iii) (module doc); ``card_device`` None is the card."""
+    out = {}
+    for side, dev in (("card", card_device), ("twin", "cpu")):
+        with contextlib.ExitStack() as stack:
+            out[side] = mh_deployed_side(side, root / side, stack, dev)
+    card, twin = out["card"], out["twin"]
+    if card["keys"] != twin["keys"]:
+        raise AssertionError("the frames out of node 2 differ from the "
+                             "CPU twin pair's")
+    want = set((sp, sp) for sp in range(20000, 20000 + MH_AGENT_FRAMES * VEC))
+    want |= set((sp, sp) for sp in range(40000, 40000 + MH_AGENT_SPACED))
+    if set(card["keys"]) != want:
+        raise AssertionError(f"card: {len(card['keys'])} packets of "
+                             f"{len(want)} left node 2's ring intact")
+    # the pump counters of both ranks over each stage: every frame in at
+    # node 0 leaves it once (its fabric packets marked), every packet
+    # crosses to node 2 and leaves there; after the cut none does
+    n, frames = len(want), MH_AGENT_FRAMES + MH_AGENT_SPACED
+    ok = dict(tx_ring_full=0, errors=0)
+    expect = {
+        "traffic": {"rank 0": dict(frames=frames, pkts=n, fabric_pkts=0, **ok),
+                    "rank 1": dict(frames=frames, pkts=n, fabric_pkts=n, **ok)},
+        "cut": {"rank 0": dict(frames=2, pkts=2 * VEC, fabric_pkts=0, **ok),
+                "rank 1": dict(frames=0, pkts=0, fabric_pkts=0, **ok)}}
+    if card["counters"] != twin["counters"]:
+        raise AssertionError(f"the pump counters differ from the CPU twin "
+                             f"pair's: card {card['counters']}, twin "
+                             f"{twin['counters']}")
+    if card["counters"] != expect:
+        raise AssertionError(f"the pump counters {card['counters']} are "
+                             f"not {expect}")
+    for side in ("card", "twin"):
+        o = out[side]
+        if o["after_cut"] or o["exit_codes"] != [0] * MH_WORLD:
+            raise AssertionError(f"{side}: after the cut {o['after_cut']} "
+                                 f"delivered; exit codes {o['exit_codes']}")
+        say(f"multihost deployed {side}: 2 mesh_main --coordinator ranks "
+            f"up in {o['boot_s']:.1f} s; {o['pkts']} packets in "
+            f"{o['frames']} frames ring to ring in {o['seconds']:.3f} s "
+            f"({o['fps']:.2f} frames/s, {o['mpps']:.5f} Mpps), UDP bodies "
+            f"intact; a frame ring to ring p50 / p99 "
+            f"{np.percentile(o['ring_ms'], 50):.1f} / "
+            f"{np.percentile(o['ring_ms'], 99):.1f} ms over "
+            f"{MH_AGENT_SPACED}; node 2's fabric step p50 / p99 "
+            f"{o['step_p50_us']} / {o['step_p99_us']} us; the policy cut "
+            f"after {o['cut_waves']} waves, then 0 of {2 * VEC} delivered; "
+            f"SIGTERM: exit codes {o['exit_codes']}, no rings left")
+    say(f"multihost deployed: the frames out of node 2 and both ranks' "
+        f"pump counters over each stage equal the CPU twin pair's: "
+        f"{json.dumps(card['counters'])}")
+    for o in out.values():
+        o.pop("keys")
+    return out
+
+
+def multihost_phase(records, n_rules: int, seed: int):
+    """Phase 4n: the multi-host mesh. Returns (summary, launches: the
+    sum over the ranks of (i)'s recorded steps)."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="vpp_tpu_torch_mh_") as d:
+        root = Path(d)
+        out["fabric"], per_rank = mh_fabric(records, n_rules, root / "i")
+        say(f"phase 4n (i): {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        (root / "ii").mkdir()
+        out["lockstep"] = mh_lockstep(root / "ii")
+        (root / "iii").mkdir()
+        (root / "iii" / "card").mkdir()
+        (root / "iii" / "twin").mkdir()
+        out["deployed"] = mh_deployed(root / "iii")
+        say(f"phase 4n (ii) + (iii): {time.perf_counter() - t1:.1f} s")
+    out["seconds"] = time.perf_counter() - t0
+    launches = {k: sum(r[k] for r in per_rank) for k in per_rank[0]}
+    out["launches_per_rank"] = per_rank
+    say(f"phase 4n: {out['seconds']:.1f} s; launches per rank {per_rank}")
+    return out, launches
 
 
 def _sync(dev) -> None:
@@ -8507,8 +9100,11 @@ def main(argv=None) -> int:
     n_rules, sess_slots, n_nodes = 10240, 1 << 20, 3744
     cfg = slice_config(n_rules, sess_slots)
     errors = Errors()
+    t3 = time.perf_counter()
     check_kernels(dev, errors, args.seed, n_rules,
                   sess_slots // cfg.sess_ways, cfg.fib_slots)
+    say(f"phase 3: {time.perf_counter() - t3:.1f} s")
+    t4 = time.perf_counter()
 
     # 4. the main path on the card, then the same on the CPU
     gpu, up, pods, inputs, gsnaps, launches = run_path(
@@ -8550,6 +9146,8 @@ def main(argv=None) -> int:
     say(f"mxu path: tiers per step {tiers}; every result field, counter "
         f"(but stats.fastpath) and the final state equal the pallas "
         f"path's")
+    say(f"phase 4 + 4b: {time.perf_counter() - t4:.1f} s")
+    t4 = time.perf_counter()
 
     # 4c. eager against captured, on each path; the graphs
     cap_p, eager_p, _ = eager_vs_captured(cfg, "pallas", n_rules, n_nodes,
@@ -8560,6 +9158,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"mxu chain tiers {chain_tiers}: the replies "
                              f"to forwarded packets must ride the fast "
                              f"tier, those to dropped ones the full chain")
+    say(f"phase 4c: {time.perf_counter() - t4:.1f} s")
 
     # 4d. the ML stage and telemetry on the slice, on each path
     t4d = time.perf_counter()
@@ -8624,7 +9223,15 @@ def main(argv=None) -> int:
     # the card (the auto and mxu rungs, budget 0 and an overflowing one)
     # against its CPU twin, timed captured and eager; a 2 x 2 mesh agent
     # runtime with its ClusterPump against a CPU twin runtime
-    mesh_sum, mesh_launches = mesh_phase(cfg, n_rules, args.seed, errors)
+    mesh_sum, mesh_launches, mesh_records = mesh_phase(cfg, n_rules,
+                                                       args.seed, errors)
+
+    # 4n. the multi-host mesh: 4m's 4 x 2 cluster over two ranks on the
+    # card (each rank a process of one gloo group, two nodes a rank)
+    # against 4m's single-process rows; the lockstep commit and stop
+    # over a KV server process; two mesh agents in their --coordinator
+    # form with io.enabled, frames ring to ring, against a CPU twin pair
+    mh_sum, mh_launches = multihost_phase(mesh_records, n_rules, args.seed)
     graphs = check_graphs({"pallas": [gpu, cap_p], "mxu": [gpu_m, cap_m],
                            "pallas+ml": [ml_p], "mxu+ml": [ml_m],
                            "pallas+tnt": [tnt_p], "mxu+tnt": [tnt_m]})
@@ -8634,6 +9241,7 @@ def main(argv=None) -> int:
         say(f"graph {json.dumps(row)}")
 
     # 5. timing, captured (the phase 4 / 4b dataplanes) and eager (4c's)
+    t5 = time.perf_counter()
     say(f"timing on {smi}")
     steps = {}
     now = 10_000
@@ -8666,6 +9274,8 @@ def main(argv=None) -> int:
             if prof["host_syncs_per_step"] != 0:
                 raise AssertionError(f"the {mode} full chain synchronised "
                                      f"with the host")
+    say(f"phase 5 pallas steps: {time.perf_counter() - t5:.1f} s")
+    t5_part = time.perf_counter()
     mxu_steps = {}
     for n in (VEC, BIG_VEC):
         fwd = feeds[n][0]
@@ -8699,6 +9309,8 @@ def main(argv=None) -> int:
                 mxu_steps[f"graphs P={n}"] = graph_times(dp, n)
                 say(f"mxu graph replay P={n}: "
                     f"{json.dumps(mxu_steps[f'graphs P={n}'])}")
+    say(f"phase 5 mxu steps: {time.perf_counter() - t5_part:.1f} s")
+    t5_part = time.perf_counter()
 
     # the ML stage's and telemetry's cost: each path with both on (the
     # phase 4d dataplanes, the trained MLP swapped back in: the bench's
@@ -8757,6 +9369,8 @@ def main(argv=None) -> int:
                                     tnt_pods, n_nodes, args.seed, now)
     tnt_layers, now = four_stage_layers(ml_p, tnt_p, tnt_up, tnt_pods,
                                         n_nodes, args.seed, now)
+    say(f"phase 5 stage costs: {time.perf_counter() - t5_part:.1f} s")
+    t5_part = time.perf_counter()
 
     rows = []
     timed = {}
@@ -8822,6 +9436,7 @@ def main(argv=None) -> int:
         timed.update(tnt_kernel_times(tnt_p, tnt_feeds[n][1], n, errors,
                                       now))
 
+    say(f"phase 5 kernels: {time.perf_counter() - t5_part:.1f} s")
     for name, meta in KERNELS.items():
         main = timed[(name, VEC)]
         on_path = launches if name in PATH_KERNELS["pallas"] else m_launches
@@ -8843,6 +9458,7 @@ def main(argv=None) -> int:
         row["launches_wire"] = wire_launches[name]
         row["launches_fleet"] = fleet_launches[name]
         row["launches_mesh"] = mesh_launches[name]
+        row["launches_multihost"] = mh_launches[name]
         if name == "mxu_first_match":
             row["mesh_shard_operand"] = mesh_sum["cluster"]["shards"]
         if name == "sess_probe_ways":
@@ -8899,9 +9515,11 @@ def main(argv=None) -> int:
                     "hoststack": vcl_sum,
                     "fleet": fleet_sum,
                     "mesh": mesh_sum,
+                    "multihost": mh_sum,
                     "captures": graphs, "power": smi}))
     if any(n != 1 for n in capture.capture_counts().values()):
         raise AssertionError("the timing captured a key again")
+    say(f"phase 5: {time.perf_counter() - t5:.1f} s")
     capture.debug_dump_dir = None
     dumps.cleanup()
     say(f"smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -24,16 +24,16 @@
   raises the reference's ``ValueError`` naming the knob. The ring form
   and its telemetry rider run under every knob:
   tests/test_torch_persistent.py holds them against the reference.
-* What is still refused, the multi-host mesh (``mesh.coordinator`` in
-  the init supervisor, ``--coordinator`` in the mesh agent), raises
-  ``NotImplementedError`` naming its ``ROADMAP.md`` Queue 1 item,
-  number and title, before anything is spawned or touches a device.
-  The values, setters and forms earlier slices lifted (the VCL socket,
-  ``set_vcl``, ``set_fleet``) and this one lifted (the mesh: an
-  injected node handle, the mesh node resolver, ``mesh.enabled``, the
-  init supervisor's single-host mesh plan, ``set_cluster``, ``show
-  partitions``, the sharded session, NAT and ML forms) boot, attach or
-  run the real thing on the CPU. The scan covers ``parallel/``.
+* Nothing is refused any more. The values, setters and forms earlier
+  slices lifted (the VCL socket, ``set_vcl``, ``set_fleet``; the mesh:
+  an injected node handle, the mesh node resolver, ``mesh.enabled``,
+  the init supervisor's single-host mesh plan, ``set_cluster``, ``show
+  partitions``, the sharded session, NAT and ML forms) and the last
+  one, the multi-host mesh (the mesh agent's ``--coordinator`` form,
+  the init supervisor's ``mesh.coordinator`` plan), boot, attach or run
+  the real thing on the CPU. The scan covers ``parallel/`` and
+  ``testing/multihost.py``, and no file of the package cites a Queue 1
+  item that ROADMAP.md no longer lists.
 
 Every quantity compared is an integer: the tolerance is exact equality.
 """
@@ -103,7 +103,7 @@ def test_scan_sees_the_whole_package():
             "scenarios.py", "ldpreload_inject.py", "hashring.py",
             "membership.py", "steering.py", "fleet.py", "partition.py",
             "mesh.py", "cluster.py", "runtime.py", "cluster_pump.py",
-            "mesh_main.py"} <= names
+            "mesh_main.py", "multihost.py"} <= names
     for sub in ("io", "native", "net", "ksr", "policy", "renderer",
                 "service", "trace", "cmd", "cni", "kvstore", "stats",
                 "health", "hoststack", "agent", "ipam", "fleet",
@@ -113,7 +113,8 @@ def test_scan_sees_the_whole_package():
     for rel in ("hoststack/vcl.py", "hoststack/admission.py",
                 "hoststack/preload.py", "hoststack/scenarios.py",
                 "cmd/ldpreload_inject.py", "fleet/hashring.py",
-                "fleet/membership.py", "fleet/steering.py", "io/fleet.py"):
+                "fleet/membership.py", "fleet/steering.py", "io/fleet.py",
+                "parallel/multihost.py", "testing/multihost.py"):
         assert (ROOT / "vpp_tpu_torch" / rel) in PORT_FILES, rel
     assert (ROOT / "vpp_tpu_torch" / "native" / "vcl_preload.c").exists()
     assert all(p.exists() for p in PORT_FILES)
@@ -242,55 +243,6 @@ def _queue1_titles():
     section = text[start:text.index("\n### ", start + 1)]
     return {int(n): t.rstrip(".:") for n, t in
             re.findall(r"^(\d+)\. \*\*(.+?)\*\*", section, re.M)}
-
-
-def _refusal(kind, arg=None):
-    """The NotImplementedError message of one remaining refusal: the
-    multi-host mesh, in the init supervisor or the mesh agent."""
-    from vpp_tpu_torch.cmd import AgentConfig
-
-    with pytest.raises(NotImplementedError) as err:
-        if kind == "init":
-            from vpp_tpu_torch.cmd.init_main import InitSupervisor
-
-            InitSupervisor(AgentConfig.from_dict({"mesh": {
-                "nodes": 2, "coordinator": "127.0.0.1:1"}}), None,
-                spawn=None)
-        else:
-            from vpp_tpu_torch.cmd import mesh_main
-
-            mesh_main.main(["--coordinator", "127.0.0.1:1", "--nodes", "2"])
-    return str(err.value)
-
-
-_REFUSALS = {
-    "init-coordinator": ("init",),
-    "mesh_main-coordinator": ("mesh_main",),
-}
-
-
-@pytest.mark.parametrize("case", sorted(_REFUSALS))
-def test_refusals_name_their_roadmap_item(case):
-    """Every remaining refusal cites ``Queue 1 item N (Title)`` and
-    ROADMAP.md's Queue 1 lists item N under that title."""
-    msg = _refusal(*_REFUSALS[case])
-    cited = re.findall(r"item (\d+) \(([^)]+)\)", msg)
-    assert cited, msg
-    titles = _queue1_titles()
-    for n, title in cited:
-        assert titles.get(int(n)) == title, (msg, titles)
-
-
-@pytest.mark.parametrize("case", sorted(_REFUSALS))
-def test_multihost_refuses_before_anything_starts(case, monkeypatch):
-    """The multi-host forms refuse before a thread, a child process or
-    a device: with no card they refuse the same."""
-    import threading
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    threads = threading.active_count()
-    assert "coordinator" in _refusal(*_REFUSALS[case])
-    assert threading.active_count() == threads
 
 
 def _collector():
@@ -459,6 +411,37 @@ def _lifted_init_mesh(tmp_path):
     assert sorted(sup.read_plans()) == ["io:0", "io:1"]
 
 
+def _lifted_init_coordinator(tmp_path):
+    """The init supervisor takes a multi-host config: it runs the mesh
+    agent and settles on the plans of the rows this host owns (two of
+    the cluster's four)."""
+    from vpp_tpu_torch.cmd import AgentConfig
+    from vpp_tpu_torch.cmd.init_main import InitSupervisor
+
+    plan = tmp_path / "plan.json"
+    sup = InitSupervisor(AgentConfig.from_dict({
+        "mesh": {"nodes": 4, "coordinator": "127.0.0.1:1",
+                 "num_processes": 2, "process_id": 0},
+        "io": {"plan_path": str(plan)}}), None, spawn=None,
+        plan_timeout_s=10.0)
+    assert "vpp_tpu_torch.cmd.mesh_main" in sup.agent_argv()
+    for i in range(2):
+        (tmp_path / f"plan.json.{i}").write_text('{"shm": "x"}')
+    assert sorted(sup.read_plans()) == ["io:0", "io:1"]
+
+
+def _lifted_mesh_main_coordinator(tmp_path):
+    """The mesh agent's ``--coordinator`` form reads its process flags:
+    without them, or with a rank outside the world, it stops at the
+    argument check (a real boot: tests/test_torch_multihost.py)."""
+    from vpp_tpu_torch.cmd import mesh_main
+
+    for argv in ([], ["--num-processes", "2", "--process-id", "2"]):
+        with pytest.raises(SystemExit) as err:
+            mesh_main.main(["--coordinator", "127.0.0.1:1", *argv])
+        assert err.value.code == 2
+
+
 def _lifted_set_cluster(tmp_path):
     from vpp_tpu_torch.stats.collector import STATS_PATH
 
@@ -555,6 +538,9 @@ _LIFTED = {
     "agent-dataplane": _lifted_dataplane,
     "agent-mesh_node_resolver": _lifted_resolver,
     "agent-init mesh": _lifted_init_mesh,
+    # the multi-host mesh (the last refusal)
+    "init-coordinator": _lifted_init_coordinator,
+    "mesh_main-coordinator": _lifted_mesh_main_coordinator,
     "agent-set_cluster": _lifted_set_cluster,
     "cli-show_partitions": _lifted_show_partitions,
     "ml_stage": _lifted_ml,
@@ -750,16 +736,17 @@ def test_launch_arguments_match_the_c_declarations(entry, monkeypatch):
 def test_step_pairs_alternates_sides_and_counts_wins(monkeypatch, capsys):
     """``step_pairs`` alternates which checkout runs first, and its
     summary counts the pairs each side won per cell (ties for
-    neither); the run snippet it hands each checkout compiles."""
+    neither); the run snippets it hands each checkout compile."""
     import json
 
     from vpp_tpu_torch import step_pairs
 
-    compile(step_pairs._RUN.replace("STEPS", "3"), "<run>", "exec")
+    for body in (step_pairs._RUN, step_pairs._MESH_RUN):
+        compile(body.replace("STEPS", "3"), "<run>", "exec")
     calls = []
     fake = {"this": [5.0, 3.0, 4.0, 2.0], "other": [4.0, 4.0, 4.0, 4.0]}
 
-    def run(root, steps):
+    def run(root, steps, body=step_pairs._RUN):
         side = "this" if root == step_pairs.Path.cwd() else "other"
         calls.append(side)
         return {"cell": fake[side][sum(c == side for c in calls) - 1]}

@@ -8,11 +8,12 @@ tests.
   plan timeout, supervision (an agent death restarts the daemon too, a
   daemon death restarts that daemon alone, from its plan) and the
   reverse-order teardown, and the uplink pre-configuration, and the
-  single-host mesh cases (the mesh agent, one daemon per node plan).
-  The multi-host case (``mesh.coordinator``) must raise the port's
-  refusal naming its ROADMAP item: the multi-host mesh is not ported.
+  single-host mesh cases (the mesh agent, one daemon per node plan), and
+  the multi-host case (``mesh.coordinator``: the supervisor waits for the
+  plans of the rows this host owns, not the cluster's count).
 * The argv the supervisor spawns is the reference's with each module
-  renamed to the port's, and names no reference module.
+  renamed to the port's, and names no reference module; a coordinator
+  config spawns the port's mesh agent.
 
 Every quantity compared is a string or an integer: the tolerance is
 exact equality.
@@ -56,14 +57,8 @@ def test_case_list():
 
 @pytest.mark.parametrize("case", CASES)
 def test_reference_init_cases(case, request):
-    run = lambda: run_port_case(  # noqa: E731
-        jinit_tests, case, request, wrap={"FakeSpawner": _port_class})
-    if case in MULTIHOST:
-        with pytest.raises(NotImplementedError) as err:
-            run()
-        assert "item 14 (Multi-host mesh)" in str(err.value)
-    else:
-        run()
+    run_port_case(jinit_tests, case, request,
+                  wrap={"FakeSpawner": _port_class})
 
 
 def test_argv_is_the_references_with_the_port_modules(tmp_path):
@@ -84,15 +79,17 @@ def test_argv_is_the_references_with_the_port_modules(tmp_path):
     assert port.io_argv(plan)[2] == "vpp_tpu_torch.cmd.io_daemon"
 
 
-def test_mesh_is_refused_before_anything_spawns():
-    """The multi-host mesh refuses before a spawn; the single-host mesh
-    spawns the port's mesh agent."""
-    spawned = []
-    cfg = tconfig.AgentConfig.from_dict({"mesh": {
-        "nodes": 2, "coordinator": "127.0.0.1:1"}})
-    with pytest.raises(NotImplementedError, match="coordinator"):
-        tinit.InitSupervisor(cfg, None, spawn=spawned.append)
-    assert spawned == []
-    sup = tinit.InitSupervisor(tconfig.AgentConfig.from_dict(
-        {"mesh": {"nodes": 2}}), None, spawn=spawned.append)
-    assert sup.agent_argv()[2] == "vpp_tpu_torch.cmd.mesh_main"
+def test_mesh_is_refused_before_anything_spawns(tmp_path):
+    """Nothing is refused any more: the multi-host config (a coordinator,
+    two processes) and the single-host mesh both spawn the port's mesh
+    agent, with the config path it reads its ``mesh.*`` keys from."""
+    for mesh in ({"nodes": 2, "coordinator": "127.0.0.1:1",
+                  "num_processes": 2, "process_id": 1}, {"nodes": 2}):
+        spawned = []
+        sup = tinit.InitSupervisor(tconfig.AgentConfig.from_dict(
+            {"mesh": mesh, "io": {"plan_path": str(tmp_path / "plan")}}),
+            "/etc/c.yaml", spawn=spawned.append)
+        assert spawned == []
+        sup._spawn_agent()
+        assert [argv[2:] for argv in spawned] == [
+            ["vpp_tpu_torch.cmd.mesh_main", "--config", "/etc/c.yaml"]]

@@ -16,6 +16,7 @@ nothing outside its own paths.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Optional
 
 from vpp_tpu_torch.ipam.ipam import IpamConfig
@@ -473,10 +474,16 @@ def apply_tuned_profile(d: dict, profile: dict) -> None:
 
 
 def load_config(path: Optional[str]) -> AgentConfig:
+    """The AgentConfig of a YAML file; a JSON one (JSON is YAML) reads
+    without PyYAML, which a node need not have."""
     if not path:
         return AgentConfig()
-    import yaml
-
     with open(path) as f:
-        data = yaml.safe_load(f)
+        text = f.read()
+    try:
+        data = json.loads(text)
+    except ValueError:
+        import yaml
+
+        data = yaml.safe_load(text)
     return AgentConfig.from_dict(data)

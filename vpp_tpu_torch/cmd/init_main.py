@@ -5,9 +5,10 @@ agent (``vpp_tpu_torch.cmd.agent``, the data plane on the card) and the
 port's IO daemon (``vpp_tpu_torch.cmd.io_daemon``) on the agent's rings.
 A ``mesh:`` section starts the port's mesh agent
 (``vpp_tpu_torch.cmd.mesh_main``) and one IO daemon per mesh node, each
-on its node's plan (``plan_path.<n>``). The multi-host form
-(``mesh.coordinator``) raises ``NotImplementedError`` before anything is
-spawned: ROADMAP Queue 1 item 14 (Multi-host mesh).
+on its node's plan (``plan_path.<n>``). With ``mesh.coordinator`` set
+it is one host's rank of a multi-host mesh: the mesh agent runs its
+``--coordinator`` form and the supervisor waits for the plans of the
+rows this host owns (the set of plan files stops growing).
 
 Reference: cmd/contiv-init is PID 1 of the vswitch container
 (main.go:201-273): parse the STN config, optionally steal the NIC,
@@ -55,11 +56,6 @@ from typing import Callable, Dict, List, Optional
 from vpp_tpu_torch.cmd.config import AgentConfig, load_config
 
 log = logging.getLogger("vpp_tpu_torch.init")
-
-MULTIHOST_REFUSAL = (
-    "mesh.coordinator: the multi-host mesh (parallel/multihost.py, its "
-    "lockstep driver and the init supervisor's multi-host plan) is not "
-    "ported yet (ROADMAP Queue 1 item 14 (Multi-host mesh))")
 
 
 def configure_uplink(cfg: AgentConfig, run=subprocess.run) -> dict:
@@ -114,8 +110,6 @@ class InitSupervisor:
     ):
         self.config = config
         self.config_path = config_path
-        if self.config.mesh.coordinator:
-            raise NotImplementedError(f"InitSupervisor: {MULTIHOST_REFUSAL}")
         self.spawn = spawn or (lambda argv: subprocess.Popen(argv))
         self.plan_timeout_s = plan_timeout_s
         self.procs: Dict[str, "subprocess.Popen"] = {}
@@ -180,12 +174,20 @@ class InitSupervisor:
         boots straggle (e.g. a host-interconnect wire wait between
         them), leaving later nodes without io daemons. Only the
         auto-size mode (nodes=0) falls back to waiting for the set to
-        stop growing."""
+        stop growing. Multi-host (mesh.coordinator set) also settles:
+        mesh.nodes counts the WHOLE cluster's rows but this host's
+        MultiHostRuntime writes plan_path.<n> only for the rows its rank
+        owns — waiting for the global count would time out on every
+        host and leave the deployment with no io daemons at all."""
         deadline = time.monotonic() + self.plan_timeout_s
+        mesh = self.config.mesh
         if not self._is_mesh():
             want = 1
+        elif mesh.coordinator:
+            want = 0  # per-host row count is decided by the rank at
+            #           runtime, not config — settle
         else:
-            want = self.config.mesh.nodes
+            want = mesh.nodes
         seen: List[str] = []
         stable_since = 0.0
         while time.monotonic() < deadline and not self._stop.is_set():

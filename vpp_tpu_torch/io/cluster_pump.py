@@ -166,18 +166,42 @@ class ClusterPump:
         return PacketVector(*t.unbind(1))
 
     def warm(self) -> None:
-        """Capture the wire step at BOTH coalesce buckets before serving
-        traffic (the live loop's shapes): a capture mid-traffic would
-        stall the rings. A step over all-invalid frames moves no state
-        but the sweep cursors."""
-        for p in (VEC, VEC * MAX_FRAMES):
+        """Capture the wire step at every coalesce bucket the pump will
+        stage (both, or the VEC one alone at ``max_frames_per_ring``
+        1) before serving traffic (the live loop's shapes): a capture
+        mid-traffic would stall the rings. A step over all-invalid
+        frames moves no state but the sweep cursors."""
+        buckets = ((VEC,) if self.max_frames_per_ring <= 1
+                   else (VEC, VEC * MAX_FRAMES))
+        for p in buckets:
             cols, payload = self._stage_buffers(p)
             self.cluster.step_wire(self._pv_from(cols), payload, now=0)
 
     # --- lifecycle ---
-    def start(self) -> "ClusterPump":
-        for fn, name in ((self._dispatch_loop, "cluster-pump-dispatch"),
-                         (self._write_loop, "cluster-pump-tx")):
+    # multi-host tick mode (parallel/multihost.py MultiHostRuntime sets
+    # the three): the step is a COLLECTIVE, so an idle host must still
+    # dispatch (empty staging) to pair with a peer that has traffic —
+    # the tick driver, not this class, owns the cadence
+    step_when_idle = False
+    # a swallowed staging/dispatch error would desync the fleet's
+    # collective sequence SILENTLY (this host skips a step its peers
+    # issued; their writers block forever): the tick driver must see
+    # the exception and halt loudly
+    raise_on_error = False
+    # the coalesce bucket must be FLEET-AGREED: p_cap derived from the
+    # LOCAL backlog would make hosts stage different shapes and issue
+    # mismatched collectives. 1 pins every host to the VEC bucket.
+    max_frames_per_ring = MAX_FRAMES
+
+    def start(self, dispatch: bool = True) -> "ClusterPump":
+        """``dispatch=False``: the writer thread only — an external tick
+        driver calls ``_dispatch_once()`` itself (multi-host lockstep,
+        where the fabric step must interleave deterministically with
+        the driver's other collectives)."""
+        loops = [(self._write_loop, "cluster-pump-tx")]
+        if dispatch:
+            loops.insert(0, (self._dispatch_loop, "cluster-pump-dispatch"))
+        for fn, name in loops:
             t = threading.Thread(target=fn, daemon=True, name=name)
             t.start()
             self._threads.append(t)
@@ -197,7 +221,8 @@ class ClusterPump:
 
     def has_pending(self) -> bool:
         """Any un-dispatched rx frame (held ones excluded) or queued
-        ICMP error (``show mesh``'s pending flag).
+        ICMP error (``show mesh``'s pending flag; the multi-host idle
+        skip's local has-work signal).
         Owns the same locking the dispatch peek does."""
         with self._held_lock:
             for i, r in enumerate(self.rings):
@@ -220,7 +245,7 @@ class ClusterPump:
     def _dispatch_once(self) -> bool:
         n = self.cluster.n_nodes
         per_node: List[list] = []   # (frame, from_ring) pairs
-        cap = MAX_FRAMES
+        cap = self.max_frames_per_ring
         with self._err_lock:
             err_frames = [
                 self._err_q[i][:cap] for i in range(n)
@@ -243,7 +268,7 @@ class ClusterPump:
                     taken += 1
                 self._held[i] += taken
                 per_node.append(lst)
-        if all(not lst for lst in per_node):
+        if all(not lst for lst in per_node) and not self.step_when_idle:
             return False
         t0 = time.perf_counter()
         try:
@@ -280,6 +305,22 @@ class ClusterPump:
             item = (None, None,
                     [[(0, f, fr) for f, fr in lst]
                      for lst in per_node], t0)
+            if self.raise_on_error:
+                # ordered cleanup first, then surface: the lockstep
+                # driver has no way to resync a fleet whose collective
+                # sequences diverged
+                with self._lat_lock:
+                    self.stats["inflight"] += 1
+                while True:
+                    try:
+                        self._inflight.put(item, timeout=0.05)
+                        break
+                    except queue.Full:
+                        if self._stop.is_set():
+                            with self._lat_lock:
+                                self.stats["inflight"] -= 1
+                            break
+                raise
         # count the step in flight BEFORE the hand-off (the writer can
         # complete + decrement it the instant the put lands)
         with self._lat_lock:

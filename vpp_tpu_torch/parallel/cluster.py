@@ -277,6 +277,33 @@ class Exchange(NamedTuple):
     payload: Optional[torch.Tensor]  # uint8 [N, N*B, snap] or None
 
 
+class Packed(NamedTuple):
+    """What the pack hands the swap, each source's rows for every
+    destination: ``hdr`` uint8 ``[n_src, N, B, 4 K]`` (the K
+    ``_FABRIC_FIELDS`` columns of each of B slots as int32 bytes),
+    ``pay`` uint8 ``[n_src, N, B, snap]`` or None, and the per-source
+    counts."""
+
+    hdr: torch.Tensor
+    pay: Optional[torch.Tensor]
+    overflow: torch.Tensor        # int32 [n_src]
+    sent: torch.Tensor            # int32 [n_src]
+
+
+# the header columns that cross the fabric (rx_if is the destination's
+# uplink, set at the unpack; flags marks the slots that hold a packet)
+_FABRIC_FIELDS = ("src_ip", "dst_ip", "proto", "sport", "dport", "ttl",
+                  "pkt_len", "flags")
+
+
+def swap_in_process(packed: Packed):
+    """The in-process swap: each ``[src, dst, ...]`` block viewed as
+    ``[1, dst, src, ...]``, the ``all_to_all`` of a mesh whose rows all
+    live here (the leading axis is the source process). No copy."""
+    return tuple(None if a is None else a.transpose(0, 1).unsqueeze(0)
+                 for a in (packed.hdr, packed.pay))
+
+
 class ClusterStep:
     """One cluster-step variant (the reference's ``make_cluster_step``
     program): ``step(node_tables, pkts, now, uplinks[, payload])``
@@ -286,20 +313,26 @@ class ClusterStep:
     results and the exchange (``ClusterDataplane.step`` assembles the
     ClusterStepResult). Its parts (``pass1``, ``exchange``, ``pass2``,
     and on the auto path ``prefix`` / ``fast`` / ``slow`` per node) are
-    what ``ClusterProgram`` captures."""
+    what ``ClusterProgram`` captures.
+
+    ``world`` > 1: the mesh's ``n_nodes * world`` rows are split over
+    ``world`` processes, this one stepping ``n_nodes`` of them; the
+    exchange's swap then crosses processes (``exchange``'s ``swap``)."""
 
     def __init__(self, n_nodes: int, rule_shards: int, budget: int = 0,
                  with_payload: bool = False,
                  sweep_stride: int = SWEEP_STRIDE_DEFAULT,
                  impl: str = "dense", fast: bool = False,
                  ml_mode: str = "off", ml_kind: str = "mlp",
-                 bv_sharded: bool = False, fib: str = "dense"):
+                 bv_sharded: bool = False, fib: str = "dense",
+                 world: int = 1):
         if impl == "bv" and not bv_sharded:
             raise ValueError(
                 "impl='bv' requires word-sharded BV planes (bv_sharded)")
         if fib not in ("dense", "lpm"):
             raise ValueError(f"fib rung {fib!r} does not run on a mesh")
         self.n_nodes, self.rule_shards = n_nodes, rule_shards
+        self.world, self.n_global = world, n_nodes * world
         self.budget, self.with_payload = int(budget), with_payload
         self.fast = fast
         shard = ShardCtx(RULE_AXIS, rule_shards)
@@ -317,7 +350,7 @@ class ClusterStep:
             self.prefix = functools.partial(auto_prefix, shard=shard)
             self.fast_tier = functools.partial(auto_fast, **tier)
             self.slow_tier = functools.partial(auto_full, **chain)
-        self.__name__ = "cluster_step_{}x{}_{}{}{}{}{}{}{}".format(
+        self.__name__ = "cluster_step_{}x{}_{}{}{}{}{}{}{}{}".format(
             n_nodes, rule_shards, impl, "_auto" if fast else "",
             "" if ml_mode == "off" else f"_ml{ml_mode}"
             + ("_forest" if ml_kind == "forest" else ""),
@@ -325,7 +358,8 @@ class ClusterStep:
             f"_b{budget}" if budget else "",
             "_wire" if with_payload else "",
             "" if sweep_stride == SWEEP_STRIDE_DEFAULT
-            else f"_sw{sweep_stride}")
+            else f"_sw{sweep_stride}",
+            f"_of{world}" if world > 1 else "")
 
     # the parts
     def prefixes(self, node_tables, pvs, now):
@@ -347,15 +381,15 @@ class ClusterStep:
         return [self.tier(t, pre, now, f)
                 for t, pre, f in zip(node_tables, pres, flags)]
 
-    def exchange(self, local: NodeTx, uplinks: torch.Tensor,
-                 payload: Optional[torch.Tensor] = None) -> Exchange:
+    def pack(self, local: NodeTx,
+             payload: Optional[torch.Tensor] = None) -> Packed:
         """Pack each source's REMOTE packets into ``B`` slots per
         destination (position = the running count; the overflow dropped
-        and counted), swap the rows across the node axis, and hand each
-        destination its ``N * B`` received packets on its uplink."""
-        n = self.n_nodes
+        and counted): one scatter of the header columns and one of the
+        payload rows, each packet to its own destination's slot."""
+        n = self.n_global
         rp = local.pkts
-        p = rp.src_ip.shape[1]
+        n_src, p = rp.src_ip.shape
         b = self.budget if self.budget > 0 else p
         dev = local.disp.device
         dests = torch.arange(n, dtype=torch.int32, device=dev)
@@ -364,51 +398,70 @@ class ClusterStep:
         dest_mask = remote[:, None, :] & (
             local.node_id[:, None, :] == dests[None, :, None])
         pos = torch.cumsum(dest_mask.to(torch.int32), dim=2) - 1
-        keep = dest_mask & (pos < b)
-        overflow = (dest_mask & (pos >= b)).sum(dim=(1, 2),
-                                                dtype=torch.int32)
-        sent = keep.sum(dim=(1, 2), dtype=torch.int32)
+        # each packet's own position (a packet has at most one dest)
+        to_dst = dest_mask.any(dim=1)
+        pos = torch.gather(pos, 1, local.node_id.clamp(0, n - 1)
+                           .to(torch.int64)[:, None, :])[:, 0]
+        keep = to_dst & (pos < b)
+        overflow = (to_dst & (pos >= b)).sum(dim=1, dtype=torch.int32)
+        sent = keep.sum(dim=1, dtype=torch.int32)
         # the drop slot n*b takes every other lane, then is sliced off
-        idx = torch.where(keep, dests[None, :, None].to(torch.int64) * b
-                          + pos, n * b).reshape(n, n * p)
-
-        def pack(a):
-            out = torch.zeros((n, n * b + 1), dtype=a.dtype, device=dev)
-            src = a[:, None, :].expand(n, n, p).reshape(n, n * p)
-            out.scatter_(1, idx, src)
-            # [src, dst, B] -> [dst, src, B]: the all_to_all
-            return out[:, :n * b].view(n, n, b).transpose(0, 1).reshape(
-                n, n * b)
-
+        idx = torch.where(keep, local.node_id.to(torch.int64) * b + pos,
+                          n * b)[:, :, None]
         valid = torch.full_like(rp.flags, FLAG_VALID)
-        recv = PacketVector(
-            src_ip=pack(rp.src_ip), dst_ip=pack(rp.dst_ip),
-            proto=pack(rp.proto), sport=pack(rp.sport),
-            dport=pack(rp.dport), ttl=pack(rp.ttl),
-            pkt_len=pack(rp.pkt_len),
-            # fabric traffic enters through the node's uplink
-            rx_if=uplinks[:, None].expand(n, n * b).to(torch.int32)
-            .contiguous(),
-            flags=pack(valid))
-        deliv_pay = None
+        cols = torch.stack([valid if f == "flags" else getattr(rp, f)
+                            for f in _FABRIC_FIELDS], dim=2)
+        k = len(_FABRIC_FIELDS)
+        hdr = torch.zeros((n_src, n * b + 1, k), dtype=torch.int32,
+                          device=dev)
+        hdr.scatter_(1, idx.expand(n_src, p, k), cols)
+        pay = None
         if payload is not None:
             snap = payload.shape[2]
-            out = torch.zeros((n, n * b + 1, snap), dtype=payload.dtype,
+            pay = torch.zeros((n_src, n * b + 1, snap), dtype=payload.dtype,
                               device=dev)
-            src = payload[:, None].expand(n, n, p, snap).reshape(
-                n, n * p, snap)
-            out.scatter_(1, idx[:, :, None].expand(n, n * p, snap), src)
-            deliv_pay = out[:, :n * b].view(n, n, b, snap).transpose(
-                0, 1).reshape(n, n * b, snap)
-        return Exchange(recv, overflow, sent, deliv_pay)
+            pay.scatter_(1, idx.expand(n_src, p, snap), payload)
+            pay = pay[:, :n * b].view(n_src, n, b, snap)
+        return Packed(hdr[:, :n * b].view(n_src, n, b, k)
+                      .view(torch.uint8), pay, overflow, sent)
+
+    def unpack(self, recv_hdr: torch.Tensor,
+               recv_pay: Optional[torch.Tensor], uplinks: torch.Tensor):
+        """Each local destination's ``N * B`` received packets on its
+        uplink, in global source order, and their payload bytes (None
+        without): ``recv_hdr`` / ``recv_pay`` are the swap's ``[world,
+        n_dst, n_src, B, ...]`` (the leading axis the source process).
+        One copy for the header columns, one for the payload."""
+        n, k = self.n_global, len(_FABRIC_FIELDS)
+        world, n_dst, n_src, b, _ = recv_hdr.shape
+        cols = recv_hdr.reshape(world, n_dst, n_src, b, k, 4) \
+            .permute(4, 1, 0, 2, 3, 5).contiguous().view(torch.int32) \
+            .view(k, n_dst, n * b)
+        pkts = PacketVector(
+            **dict(zip(_FABRIC_FIELDS, cols.unbind(0))),
+            # fabric traffic enters through the node's uplink
+            rx_if=uplinks[:, None].expand(n_dst, n * b).to(torch.int32)
+            .contiguous())
+        pay = (None if recv_pay is None else recv_pay.transpose(0, 1)
+               .reshape(n_dst, n * b, recv_pay.shape[-1]))
+        return pkts, pay
+
+    def exchange(self, local: NodeTx, uplinks: torch.Tensor,
+                 payload: Optional[torch.Tensor] = None,
+                 swap=swap_in_process) -> Exchange:
+        """Pack, swap the rows across the node axis, unpack: each
+        destination's ``N * B`` received packets on its uplink."""
+        packed = self.pack(local, payload)
+        pkts, pay = self.unpack(*swap(packed), uplinks)
+        return Exchange(pkts, packed.overflow, packed.sent, pay)
 
     def __call__(self, node_tables, pkts: PacketVector, now, uplinks,
-                 payload=None):
+                 payload=None, swap=swap_in_process):
         """The eager step: (pass-1 results, exchange, pass-2 results)."""
         n = self.n_nodes
         res1 = self.run_pass(node_tables, [PacketVector(*(f[i] for f in pkts))
                                            for i in range(n)], now)
-        ex = self.exchange(_tx_of(res1), uplinks, payload)
+        ex = self.exchange(_tx_of(res1), uplinks, payload, swap)
         res2 = self.run_pass(node_tables,
                              [PacketVector(*(f[i] for f in ex.pkts))
                               for i in range(n)], now)
@@ -422,12 +475,13 @@ def make_cluster_step(n_nodes: int, rule_shards: int, budget: int = 0,
                       impl: str = "dense", fast: bool = False,
                       ml_mode: str = "off", ml_kind: str = "mlp",
                       bv_sharded: bool = False,
-                      fib: str = "dense") -> ClusterStep:
+                      fib: str = "dense", world: int = 1) -> ClusterStep:
     """The cluster-step variant of these gates, one per process (the
-    reference's memoized factory; its mesh key is the geometry here)."""
+    reference's memoized factory; its mesh key is the geometry here:
+    ``n_nodes`` rows here of ``n_nodes * world``)."""
     return ClusterStep(n_nodes, rule_shards, budget, with_payload,
                        sweep_stride, impl, fast, ml_mode, ml_kind,
-                       bv_sharded, fib)
+                       bv_sharded, fib, world)
 
 
 def make_cluster_step_wire(n_nodes: int, rule_shards: int, budget: int = 0,
@@ -491,7 +545,7 @@ class ClusterProgram:
 
     def __init__(self, label: str, sig: tuple, step: ClusterStep,
                  node_tables, uplinks: torch.Tensor, shape, snap: int,
-                 device: torch.device):
+                 device: torch.device, swap=None):
         n = step.n_nodes
         self.step, self.node_tables = step, node_tables
         self.tables = None  # set by the owner: what holds() compares
@@ -506,6 +560,10 @@ class ClusterProgram:
         self.stage2 = [_Staged() for _ in range(n)]
         self.host_reads = 0
         self.parts: List[capture.Part] = []
+        # the swap across processes (None: in-process, inside the parts)
+        # and the received rows it writes, the pass-2 parts' input
+        self.swap = swap
+        self.recv: Optional[tuple] = None
 
         def part(name, fn):
             p = capture.Part(f"{label}:{name}", sig, fn, cuda)
@@ -515,31 +573,60 @@ class ClusterProgram:
         def rows(x):
             return [PacketVector(*x[i].unbind(0)) for i in range(n)]
 
-        def exchange_rows(now):
-            local = _tx_of([st.get(st.buf, t) for st, t in
-                            zip(self.stage1, node_tables)])
-            ex = step.exchange(local, self.uplinks, self.pay)
-            return ex, [PacketVector(*(f[i] for f in ex.pkts))
-                        for i in range(n)]
+        def pack():
+            return step.pack(_tx_of([st.get(st.buf, t) for st, t in
+                                     zip(self.stage1, node_tables)]),
+                             self.pay)
 
-        if not step.fast:
+        def exchange_rows(recv=None):
+            """The pass-2 rows: in-process the pack, the transpose and
+            the unpack; across processes the unpack of ``recv`` (the
+            counts come from the pack's own part)."""
+            counts = (None, None)
+            if recv is None:
+                packed = pack()
+                recv, counts = swap_in_process(packed), packed[2:4]
+            pkts, pay = step.unpack(*recv, self.uplinks)
+            return Exchange(pkts, *counts, pay), [
+                PacketVector(*(f[i] for f in pkts)) for i in range(n)]
+
+        def pass1(x, now):
+            for st, r in zip(self.stage1, step.run_pass(node_tables,
+                                                        rows(x), now)):
+                st.put(r)
+
+        def pass2(pvs, now):
+            for st, r in zip(self.stage2, step.run_pass(node_tables, pvs,
+                                                        now)):
+                st.put(r)
+
+        if not step.fast and swap is None:
             def whole(x, now):
-                for st, r in zip(self.stage1, step.run_pass(
-                        node_tables, rows(x), now)):
-                    st.put(r)
-                ex, pvs = exchange_rows(now)
-                for st, r in zip(self.stage2, step.run_pass(
-                        node_tables, pvs, now)):
-                    st.put(r)
+                pass1(x, now)
+                ex, pvs = exchange_rows()
+                pass2(pvs, now)
                 return ex
             self.whole = part("step", whole)
+            return
+        if not step.fast:
+            # the captured parts end at the pack and start again at the
+            # unpack; the swap between them runs eagerly
+            def p1(x, now):
+                pass1(x, now)
+                return pack()
+
+            def p2(now):
+                ex, pvs = exchange_rows(self.recv)
+                pass2(pvs, now)
+                return ex
+            self.p1, self.p2 = part("p1", p1), part("p2", p2)
             return
 
         def p1_prefix(x, now):
             return step.prefixes(node_tables, rows(x), now)
 
         def p2_prefix(now):
-            ex, pvs = exchange_rows(now)
+            ex, pvs = exchange_rows(None if swap is None else self.recv)
             pres, flags = step.prefixes(node_tables, pvs, now)
             return ex, pres, flags
 
@@ -550,6 +637,8 @@ class ClusterProgram:
             return fn
 
         self.p1 = part("p1:prefix", p1_prefix)
+        if swap is not None:
+            self.pack = part("pack", pack)
         self.p2 = part("p2:prefix", p2_prefix)
         self.tiers = {
             (k, i, f): part(f"p{k}:{'fast' if f else 'full'}:{i}",
@@ -571,15 +660,31 @@ class ClusterProgram:
                 (pres[i], self.now),
                 None if static is None else (static[i], self.now))
 
+    def _swap(self, packed: Packed) -> None:
+        """The eager swap between the captured parts: the received rows
+        into ``recv``, the pass-2 parts' static input."""
+        self.recv = self.swap(packed)
+
     def replay(self) -> Exchange:
         """Run the parts on the static inputs (graph memory once
         captured: the next replay overwrites it)."""
         if not self.step.fast:
-            return self.whole((self.x, self.now))
-        self._tiers(1, self.p1, self.p1((self.x, self.now)))
-        out = self.p2((self.now,))
-        self._tiers(2, self.p2, out)
-        return out[0]
+            if self.swap is None:
+                return self.whole((self.x, self.now))
+            packed = self.p1((self.x, self.now))
+            self._swap(packed)
+            ex = self.p2((self.now,))
+        else:
+            self._tiers(1, self.p1, self.p1((self.x, self.now)))
+            if self.swap is not None:
+                packed = self.pack(())
+                self._swap(packed)
+            out = self.p2((self.now,))
+            self._tiers(2, self.p2, out)
+            ex = out[0]
+        if self.swap is None:
+            return ex
+        return ex._replace(overflow=packed.overflow, sent=packed.sent)
 
     def run(self, now: int, pkts: PacketVector, payload=None):
         """Copy in, run the parts, and return (pass-1 results, exchange,
@@ -616,10 +721,13 @@ class ClusterDataplane:
     rebuilt per shard for the nodes whose global table shipped, and the
     live session state carries over in place. ``graphs`` (default on)
     runs every step variant through a ``ClusterProgram``; ``graphs=False``
-    steps eagerly."""
+    steps eagerly. ``fabric``: the exchange's swap across processes
+    (parallel/multihost.py ``FabricSwap``, whose ``world`` is the number
+    of processes the mesh's rows span; this plane steps its share);
+    None swaps in-process."""
 
     def __init__(self, mesh: Mesh, config: Optional[DataplaneConfig] = None,
-                 graphs: bool = True):
+                 graphs: bool = True, fabric=None):
         from vpp_tpu_torch.ops.acl_mxu import mxu_rule_capacity
 
         self.mesh = mesh
@@ -688,6 +796,8 @@ class ClusterDataplane:
                                               "fib_lpm_min_routes", 256))
         self.upload_stats = {"fields_shipped": 0, "fields_reused": 0}
         self.specs = mesh_table_specs(self._bv_sharded, self._ml_sharded)
+        self._swap = fabric
+        self._world = 1 if fabric is None else fabric.world
 
     def node(self, i: int) -> Dataplane:
         return self.nodes[i]
@@ -753,40 +863,54 @@ class ClusterDataplane:
                     out[s] += blk.numel() * blk.element_size()
             return out
 
-    def _refresh_selection(self) -> None:
+    def _selection_bits(self) -> List[int]:
+        """This plane's eligibility for every cluster-wide choice, the
+        row a multi-host fleet gathers (the reference's six columns):
+        MXU ok, BV ok, the largest global table, the ML kind (-1 when
+        the nodes staged mixed kinds), LPM ok, the largest route
+        count."""
+        kinds = {int(n.builder.ml_kind) for n in self.nodes}
+        return [int(all(n.builder.mxu_enabled and n.builder.glb_mxu.ok
+                        for n in self.nodes)),
+                int(all(n.builder.bv_ok() for n in self.nodes)),
+                max(n.builder.glb_nrules for n in self.nodes),
+                kinds.pop() if len(kinds) == 1 else -1,
+                int(all(n.builder.lpm_ok() for n in self.nodes)),
+                max(n.builder.fib_route_count() for n in self.nodes)]
+
+    def _refresh_selection(self, rows=None) -> None:
         """Re-gate every cluster-wide choice against the staged node
         builders (agreed across nodes: one step variant serves all):
         the classifier ladder (BV needs every node's structure and the
         word-shard alignment), the fast path against the LARGEST global
         table, the ML stage when every node staged one kind, the FIB
-        ladder on collective bits. ``pallas_ok`` stays False."""
+        ladder on collective bits. ``pallas_ok`` stays False. ``rows``:
+        the ``_selection_bits`` of every process of a multi-host fleet
+        (None: this plane's alone), folded by min and max."""
         c = self.config
-        mxu_ok = all(n.builder.mxu_enabled and n.builder.glb_mxu.ok
-                     for n in self.nodes)
-        bv_ok = self._bv_sharded and all(n.builder.bv_ok()
-                                         for n in self.nodes)
-        nmax = max(n.builder.glb_nrules for n in self.nodes)
-        self._impl = select_impl(getattr(c, "classifier", "auto"), bv_ok,
-                                 mxu_ok, nmax, self.bv_min_rules,
-                                 self.mxu_threshold)
+        rows = np.asarray(rows if rows is not None
+                          else [self._selection_bits()], np.int64)
+        nmax = int(rows[:, 2].max())
+        self._impl = select_impl(
+            getattr(c, "classifier", "auto"),
+            self._bv_sharded and bool(rows[:, 1].min()),
+            bool(rows[:, 0].min()), nmax, self.bv_min_rules,
+            self.mxu_threshold)
         self._use_mxu = self._impl == "mxu"
         self._use_fast = bool(getattr(c, "fastpath", True)) and \
             nmax >= int(getattr(c, "fastpath_min_rules", 0))
         self._ml_mode, self._ml_kind = agree_ml(
-            getattr(c, "ml_stage", "off"),
-            {int(n.builder.ml_kind) for n in self.nodes})
+            getattr(c, "ml_stage", "off"), rows[:, 3])
         self._fib_impl = select_fib_impl(
-            getattr(c, "fib_impl", "auto"),
-            all(n.builder.lpm_ok() for n in self.nodes),
-            max(n.builder.fib_route_count() for n in self.nodes),
-            self.fib_lpm_min_routes, pallas_ok=False)
+            getattr(c, "fib_impl", "auto"), bool(rows[:, 4].min()),
+            int(rows[:, 5].max()), self.fib_lpm_min_routes, pallas_ok=False)
 
     def _get_step(self, with_payload: bool = False,
                   budget: int = 0) -> ClusterStep:
         return make_cluster_step(
             self.n_nodes, self.rule_shards, budget, with_payload,
             self._sweep_stride, self._impl, self._use_fast, self._ml_mode,
-            self._ml_kind, self._bv_sharded, self._fib_impl)
+            self._ml_kind, self._bv_sharded, self._fib_impl, self._world)
 
     # --- epochs ---
     def _guard_uplinks(self) -> None:
@@ -820,50 +944,61 @@ class ClusterDataplane:
         and swap, so no node publishes a peer's half-applied staging."""
         with self._lock:
             self._guard_uplinks()
-            first = self.tables is None
-            n, dev = self.n_nodes, self.device
-            state = None
-            if first:
-                shapes = state_shapes(self.config)
-                state = {f: torch.zeros((n,) + shapes[f], dtype=torch.int32,
-                                        device=dev) for f in STATE_FIELDS}
-                held = [SimpleNamespace(**{f: state[f][i] for f in state})
-                        for i in range(n)]
-            else:
-                held = self._node_tables
-            outs, shipped = [], set()
-            for i, node in enumerate(self.nodes):
-                with node._lock:
-                    outs.append(node.builder.to_device(
-                        sessions=held[i], into=None if first else held[i]))
-                    for group, rec in node.builder.last_upload.items():
-                        if rec["bytes"]:
-                            shipped.update(rec["fields"] or ())
-                            if "blob_bytes" in rec:
-                                shipped.update(_UPLOAD_GROUPS[group])
-            total = sum(len(v) for v in _UPLOAD_GROUPS.values())
-            self.upload_stats["fields_shipped"] = len(shipped)
-            self.upload_stats["fields_reused"] = total - len(shipped)
-            self._publish(outs, state)
+            self._upload()
             self._refresh_selection()
-            self._programs = {k: p for k, p in self._programs.items()
-                              if p.holds(self.tables)}
-            ups = [nd.uplink_if if nd.uplink_if is not None else 0
-                   for nd in self.nodes]
-            if self._uplinks is None:
-                self._uplinks = torch.tensor(ups, dtype=torch.int32,
-                                             device=dev)
-            else:
-                self._uplinks.copy_(torch.tensor(ups, dtype=torch.int32))
-            self.epoch += 1
-            # each node's journal records its ops under the CLUSTER epoch
-            for node in self.nodes:
-                if node.journal is not None:
-                    with node._lock:
-                        txn = node.builder.drain_recording()
-                    if txn is not None:
-                        node.journal.record(txn, self.epoch)
-            return self.epoch
+            return self._commit_epoch()
+
+    def _upload(self) -> None:
+        """Every node builder's dirty groups into the node-stacked
+        tensors (the zero state and a fresh stack on the first epoch)."""
+        first = self.tables is None
+        n, dev = self.n_nodes, self.device
+        state = None
+        if first:
+            shapes = state_shapes(self.config)
+            state = {f: torch.zeros((n,) + shapes[f], dtype=torch.int32,
+                                    device=dev) for f in STATE_FIELDS}
+            held = [SimpleNamespace(**{f: state[f][i] for f in state})
+                    for i in range(n)]
+        else:
+            held = self._node_tables
+        outs, shipped = [], set()
+        for i, node in enumerate(self.nodes):
+            with node._lock:
+                outs.append(node.builder.to_device(
+                    sessions=held[i], into=None if first else held[i]))
+                for group, rec in node.builder.last_upload.items():
+                    if rec["bytes"]:
+                        shipped.update(rec["fields"] or ())
+                        if "blob_bytes" in rec:
+                            shipped.update(_UPLOAD_GROUPS[group])
+        total = sum(len(v) for v in _UPLOAD_GROUPS.values())
+        self.upload_stats["fields_shipped"] = len(shipped)
+        self.upload_stats["fields_reused"] = total - len(shipped)
+        self._publish(outs, state)
+
+    def _commit_epoch(self) -> int:
+        """After an upload and a selection: drop the programs of tables
+        that are gone, set the uplinks, move the epoch, and journal each
+        node's staged ops under it."""
+        self._programs = {k: p for k, p in self._programs.items()
+                          if p.holds(self.tables)}
+        ups = [nd.uplink_if if nd.uplink_if is not None else 0
+               for nd in self.nodes]
+        if self._uplinks is None:
+            self._uplinks = torch.tensor(ups, dtype=torch.int32,
+                                         device=self.device)
+        else:
+            self._uplinks.copy_(torch.tensor(ups, dtype=torch.int32))
+        self.epoch += 1
+        # each node's journal records its ops under the CLUSTER epoch
+        for node in self.nodes:
+            if node.journal is not None:
+                with node._lock:
+                    txn = node.builder.drain_recording()
+                if txn is not None:
+                    node.journal.record(txn, self.epoch)
+        return self.epoch
 
     def _publish(self, outs: List[DataplaneTables], state) -> None:
         """Stack the node builders' outputs: a field whose tensors are no
@@ -924,12 +1059,13 @@ class ClusterDataplane:
         self._t0 -= seconds
 
     def expire_sessions(self, max_age: Optional[int] = None,
-                        lazy: bool = False) -> int:
+                        lazy: bool = False, now: Optional[int] = None) -> int:
         """Bulk aging of every node's session tables (reflective + NAT);
         returns how many expired. ``lazy`` skips the bulk pass when the
         in-step sweep (two passes a step) has covered the ring since the
-        last call. The valid columns are written in place, so the
-        captured programs stay valid."""
+        last call; ``now`` is the tick to age at (None: this cluster's
+        clock). The valid columns are written in place, so the captured
+        programs stay valid."""
         from vpp_tpu_torch.ops.session import session_expire, sweep_covered
 
         if max_age is None:
@@ -943,9 +1079,11 @@ class ClusterDataplane:
                 if sweep_covered(steps, self._sweep_stride, self.tables,
                                  bucket_axis=1, passes=2):
                     return 0
-            self._now = max(self._now, self.clock_ticks())
+            if now is None:
+                self._now = max(self._now, self.clock_ticks())
+                now = self._now
             t = self.tables
-            after = session_expire(t, self._now, max_age)
+            after = session_expire(t, now, max_age)
             expired = int((t.sess_valid - after.sess_valid).sum()
                           + (t.natsess_valid - after.natsess_valid).sum())
             if expired:
@@ -969,7 +1107,7 @@ class ClusterDataplane:
                    capture.table_signature(self.tables))
             prog = ClusterProgram(step.__name__, sig, step,
                                   self._node_tables, self._uplinks, shape,
-                                  snap, self.device)
+                                  snap, self.device, self._swap)
             prog.tables = self.tables
             self._programs[key] = prog
         return prog
@@ -999,7 +1137,8 @@ class ClusterDataplane:
                            else torch.from_numpy(np.asarray(payload)))
                     pay = pay.to(self.device)
                 res1, ex, res2 = step(self._node_tables, pkts, t_now,
-                                      self._uplinks, pay)
+                                      self._uplinks, pay,
+                                      self._swap or swap_in_process)
             return _result(step, res1, ex, res2, self.tables), ex.payload
 
     def step(self, pkts: PacketVector, now: Optional[int] = None,

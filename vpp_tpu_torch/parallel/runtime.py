@@ -17,8 +17,9 @@ the fabric over all of them; the agents make no pump of their own
 (``expire_sessions(lazy=True)``): the agents' own loops act on their
 node handles, whose sessions belong to the cluster.
 
-This port runs one process on one device (parallel/mesh.py); the
-multi-host form is ROADMAP Queue 1 item 14 (Multi-host mesh).
+This runtime is one process on one device (parallel/mesh.py); the
+multi-host form, one process per host, is parallel/multihost.py
+``MultiHostRuntime``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Step time of two checkouts of the port, in alternating pairs on one card.
 
-    python3 -m vpp_tpu_torch.step_pairs OTHER_CHECKOUT [--pairs 10]
+    python3 -m vpp_tpu_torch.step_pairs OTHER_CHECKOUT [--pairs 10] \
+        [--cells process|mesh]
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper card
 and the CUDA toolkit; OTHER_CHECKOUT is another checkout's root (say, a
@@ -14,6 +15,13 @@ packets, at P = 256 and 4,096. Each cell runs the checkout's default
 step — the captured one where the checkout has the step program cache,
 the eager one before it — and, where the checkout has the cache, the
 same cell again with the dataplane stepping eagerly (``eager`` cells).
+With ``--cells mesh`` a run times ``chip_smoke.py``'s single-host mesh
+instead (phase 4m (i)'s 4 x 2 cluster on the ``auto`` rung, fast path
+on): ``ClusterDataplane.step`` on a forward vector a quarter across the
+fabric (``full``) and on the replies to its forwarded packets
+(``fast``), and ``step_wire`` on the forward vector with PUMP_SNAP
+payload bytes a packet (``wire``), captured and eager, at P = 256 and
+4,096 a node (CUDA events around each step, median of ``--steps``).
 The pairs alternate which checkout runs first. Prints one JSON line per
 run, then a summary per cell: each side's median and quartiles over
 the runs, and, for a cell both sides ran, the pairs this checkout won
@@ -62,10 +70,58 @@ print(json.dumps(out))
 """
 
 
-def run(root: Path, steps: int) -> dict:
+# one run of the mesh cells (the helpers are the same in every checkout
+# since the single-host mesh's slice)
+_MESH_RUN = """
+import json, sys
+sys.path.insert(0, ".")
+import numpy as np, torch
+import chip_smoke as cs
+dev = torch.device("cuda")
+cfg = cs.slice_config()._replace(classifier="auto", fastpath=True,
+                                 fib_impl="auto", session_impl="auto")
+clus, up, pods = cs.mesh_cluster(cfg, dev, 10240)
+
+
+def time_wire(vec, pay, now):
+    ms = []
+    for i in range(STEPS + 2):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        clus.step_wire(vec, pay, now=now + i)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    return float(np.median(ms[2:]))
+
+
+out = {}
+now = cs.MESH_NOW
+for n in (cs.VEC, cs.BIG_VEC):
+    fwd = cs.mesh_forward(n, up, 31 * n, cs.MESH_NODES)
+    first = cs.mesh_snapshot(clus.step(cs.mesh_vector(fwd, dev), now=now))
+    rep = cs.mesh_replies(first, pods, "forwarded", n)
+    pay = torch.from_numpy(np.random.default_rng(n).integers(
+        0, 256, (cs.MESH_NODES, n, cs.PUMP_SNAP), dtype=np.uint8)).to(dev)
+    now += 1
+    for mode in ("", "eager "):
+        clus.graphs = mode == ""
+        for tier, cols in (("full", fwd), ("fast", rep)):
+            out[f"{mode}mesh {tier} P={n}"] = cs.mesh_time(
+                clus, cs.mesh_vector(cols, dev), STEPS, now)
+            now += STEPS + 5
+        out[f"{mode}mesh wire P={n}"] = time_wire(
+            cs.mesh_vector(fwd, dev), pay, now)
+        now += STEPS + 5
+print(json.dumps(out))
+"""
+
+
+def run(root: Path, steps: int, body: str = _RUN) -> dict:
     """One run in the checkout at ``root``: {cell: median step ms}."""
     proc = subprocess.run(
-        [sys.executable, "-c", _RUN.replace("STEPS", str(steps))],
+        [sys.executable, "-c", body.replace("STEPS", str(steps))],
         cwd=root, capture_output=True, text=True, timeout=600)
     if proc.returncode:
         raise RuntimeError(f"run in {root} failed:\n{proc.stderr[-3000:]}")
@@ -78,13 +134,16 @@ def main(argv=None) -> int:
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--steps", type=int, default=30,
                     help="timed process steps a cell in each run")
+    ap.add_argument("--cells", choices=("process", "mesh"),
+                    default="process")
     args = ap.parse_args(argv)
+    body = _MESH_RUN if args.cells == "mesh" else _RUN
     sides = {"this": Path.cwd(), "other": args.other.resolve()}
     runs = {"this": [], "other": []}
     for k in range(args.pairs):
         order = ("other", "this") if k % 2 == 0 else ("this", "other")
         for side in order:
-            ms = run(sides[side], args.steps)
+            ms = run(sides[side], args.steps, body)
             runs[side].append(ms)
             print(json.dumps({"pair": k, "side": side, "ms": ms}),
                   flush=True)
