@@ -405,6 +405,28 @@ raises on failure:
    exit 0 on SIGTERM and leave no ring; printed:
    frames a second, a frame ring to ring p50 / p99 and node 2's
    fabric-step p50 / p99;
+4o. the port as Kubernetes deploys it: ``python -m
+   vpp_tpu_torch.deploy.render`` with the node's free ports set; the
+   rendered List as processes of this host (``testing/deploy.py``:
+   volumes as directories of one temporary root, each pod a loopback
+   address, the Services their pods' addresses, ``NODE_NAME`` from the
+   downward API, ``CUDA_VISIBLE_DEVICES`` by the GPU limit): the
+   ``cni-install`` init container, the witness, the store primary and
+   standby (no card), the vswitch's ``init_main`` (the supervisor spawns
+   the agent alone: the manifest's config leaves io off) polled on its
+   readiness and liveness probes, and the KSR, whose in-cluster API is a
+   kubeconfig for a fake API server, polled on its liveness probe; two
+   kubelet-style CNI ADDs exec the installed shim with the installed
+   netconf (each address inside the pod subnet); two pods and then a
+   NetworkPolicy through the fake API, and ``vpp-tpu-torch-ctl test
+   connectivity`` over the manifest's CLI socket before and after it,
+   against the rule oracle; the agent's scrape and its node name in the
+   store (the downward API's, never ``${NODE_NAME}``); the kernels of
+   the rungs ``show kernels`` names must have launched in the agent
+   process (its ``/debug/kernels``); every process exits 0 on SIGTERM;
+   printed: the ``deploy`` line (render, store trio up, supervisor to
+   ready, KSR to first reflected pod, CNI ADD, policy to verdict and
+   teardown ms, and the agent's launches);
 5. timing with CUDA events: ms per ``process`` step and Mpps (valid
    packets per device second) at P = 256 and 4,096, captured and eager,
    and a ``torch.profiler`` window per size (device operations, graph
@@ -2702,7 +2724,7 @@ def four_stage_cost(ml_p: Dataplane, ml_m: Dataplane, tnt_p: Dataplane,
     """The cost of tenancy, the overlay, service VIPs and ECMP: each path
     with them on (phase 4e's dataplanes) against the same path with them
     off (phase 4d's: the ML stage enforcing the trained MLP and telemetry
-    full on both sides), in turns (off, on, on, off, off, on), ms per
+    full on both sides), in turns (off, on, on, off), ms per
     step and device operations per step. The overlay side takes the
     framed forward vector with its sidecar, the other side its inner
     headers; the pallas cells alternate it with the replies to all of
@@ -2723,8 +2745,7 @@ def four_stage_cost(ml_p: Dataplane, ml_m: Dataplane, tnt_p: Dataplane,
         for name, fast, off_dp, on_dp in cells:
             got = {}
             for side, dp in (("off", off_dp), ("on", on_dp),
-                             ("on", on_dp), ("off", off_dp),
-                             ("off", off_dp), ("on", on_dp)):
+                             ("on", on_dp), ("off", off_dp)):
                 fwd = (tnt_ovl_pv(dp, outer, inner, vni) if side == "on"
                        else packet_vector_from_numpy(inner, dev))
                 if fast is None:
@@ -7805,7 +7826,7 @@ def fleet_phase(seed: int, device=None, twin_device="cpu", **sizes):
 MESH_NODES, MESH_SHARDS = 4, 2    # the cluster: 4 nodes x 2 rule shards
 MESH_BUDGET = 32                  # the fabric budget that overflows
 MESH_ROUNDS = 2                   # (forward, 2 replies) rounds a rung
-MESH_TIMED = 10                   # timed cluster steps a cell
+MESH_TIMED = 6                    # timed cluster steps a cell
 MESH_NOW = 900_000                # the pinned step clock (past 4l's)
 MESH_AGENT = (2, 2)               # the mesh agent's runtime
 MESH_AGENT_FRAMES = 64            # frames through the ClusterPump
@@ -9005,6 +9026,372 @@ def multihost_phase(records, n_rules: int, seed: int):
     return out, launches
 
 
+# --- phase 4o: the port as Kubernetes deploys it ----------------------------
+
+DEPLOY_NODE = "gpu-node-1"     # the node name the downward API hands out
+DEPLOY_WAIT_S = 120.0          # the longest a process may take to serve
+DEPLOY_PODS = {("default", "client"): {"app": "client"},
+               ("default", "web"): {"app": "web"}}
+DEPLOY_PROBES = (("client", "web", 80), ("client", "web", 22),
+                 ("web", "client", 80))
+DEPLOY_SERVED = ("vpp-tpu-torch-kvwitness/kvwitness",
+                 "vpp-tpu-torch-kvstore/kvstore",
+                 "vpp-tpu-torch-kvstore-standby/kvstore",
+                 "vpp-tpu-torch-ksr/ksr")
+
+
+def proc_children(pid: int) -> list:
+    """The command lines of the processes ``pid`` started: the thread
+    groups of what its threads' ``children`` files list (some kernels,
+    gVisor's among them, list a child's threads there; one that ended
+    since is passed over)."""
+    def read(path):
+        try:
+            return Path(path).read_text()
+        except FileNotFoundError:
+            return ""
+
+    out = {}
+    for task in Path(f"/proc/{pid}/task").iterdir():
+        for p in read(task / "children").split():
+            tgid = re.search(r"^Tgid:\s+(\d+)", read(f"/proc/{p}/status"),
+                             re.M)
+            argv = tgid and read(f"/proc/{tgid[1]}/cmdline")
+            if argv:
+                out[int(tgid[1])] = argv.split("\0")
+    return [out[t] for t in sorted(out)]
+
+
+def deploy_policy() -> km.Policy:
+    """web's ingress: from the client pods, TCP 80 only."""
+    return _policy("default", "web-from-client", "web",
+                   [_peer_pods(app="client")], [80])
+
+
+def deploy_oracle(policies, ips: dict) -> dict:
+    """The ingress rules each pod the policies isolate gets, as the rule
+    oracle (``ir.rule.rule_matches``) reads them: a PERMIT of each
+    selected peer's /32 on each port, then a DENY of everything."""
+    out = {}
+    for (ns, name), labels in DEPLOY_PODS.items():
+        applying = [p for p in policies if p.namespace == ns
+                    and p.pods.matches(labels)]
+        if not applying:
+            continue
+        rules = []
+        for pol in applying:
+            for rule in pol.ingress_rules:
+                for peer in rule.peers:
+                    for (pns, pname), plabels in DEPLOY_PODS.items():
+                        if pns == pol.namespace and peer.pods.matches(plabels):
+                            rules += [ContivRule(
+                                action=Action.PERMIT,
+                                src_network=ipaddress.ip_network(
+                                    f"{ips[pname]}/32"),
+                                protocol=Protocol.TCP, dest_port=p.port)
+                                for p in rule.ports]
+        out[name] = rules + [ContivRule(action=Action.DENY,
+                                        protocol=Protocol.ANY)]
+    return out
+
+
+def deploy_want(rules: dict, ips: dict, src: str, dst: str,
+                port: int) -> str:
+    """FORWARDED or DROPPED: the first rule of ``dst``'s that matches (a
+    pod no policy isolates admits everything)."""
+    if dst not in rules:
+        return "FORWARDED"
+    hit = next(r for r in rules[dst] if rule_matches(
+        r, ips[src], ips[dst], Protocol.TCP, 40000, port))
+    return "FORWARDED" if hit.action == Action.PERMIT else "DROPPED"
+
+
+def deploy_ctl(sock: str, *words) -> str:
+    """``vpp-tpu-torch-ctl --socket <sock> <words>`` as its own process,
+    as an operator on the node runs it."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(Path(__file__).resolve().parent))
+    r = subprocess.run([sys.executable, "-m", "vpp_tpu_torch.cmd.ctl",
+                        "--socket", sock, *map(str, words)],
+                       capture_output=True, text=True, env=env, timeout=60)
+    if r.returncode != 0:
+        raise AssertionError(f"ctl {' '.join(map(str, words))}: "
+                             f"{r.stderr.strip()}")
+    return r.stdout
+
+
+def deploy_verdicts(sock: str, ips: dict) -> dict:
+    out = {}
+    for src, dst, port in DEPLOY_PROBES:
+        page = deploy_ctl(sock, "test", "connectivity", ips[src], ips[dst],
+                          "tcp", port)
+        out[(src, dst, port)] = page.strip().splitlines()[-1]
+    return out
+
+
+def deploy_phase(device=None) -> tuple:
+    """Phase 4o (module doc): the rendered manifest booted on this host.
+    ``device`` "cpu" rehearses it with the agent on the CPU (the
+    supervisor's agent command gains ``--device cpu``; nothing launches).
+    Returns (summary, launches of the deployed agent)."""
+    from vpp_tpu_torch.kvstore.client import connect_store
+    from vpp_tpu_torch.testing import deploy as dep
+
+    t_phase = time.perf_counter()
+    times = {}
+    tmp = tempfile.TemporaryDirectory(prefix="vpp_tpu_torch_deploy_")
+    root = Path(tmp.name)
+    fake = FakeApiServer()
+    hc = None
+    store = None
+    try:
+        # 1. render, with the node's free ports set as an operator would
+        n_pods = 4   # the store trio and the KSR: 127.0.0.2 .. 127.0.0.5
+        addrs = ["127.0.0.1"] + [f"127.0.0.{k}" for k in range(2, 2 + n_pods)]
+        kv_port, w_port, stats_port, health_port = dep.free_ports(addrs, 4)
+        t0 = time.perf_counter()
+        manifest = root / "vpp-tpu-torch.json"
+        r = subprocess.run(
+            [sys.executable, "-m", "vpp_tpu_torch.deploy.render",
+             "--set", f"kvstore_port={kv_port}",
+             "--set", f"witness_port={w_port}",
+             "--set", f"stats_port={stats_port}",
+             "--set", f"health_port={health_port}", "-o", str(manifest)],
+            capture_output=True, text=True, timeout=60,
+            cwd=str(Path(__file__).resolve().parent))
+        if r.returncode != 0:
+            raise AssertionError(f"deploy render: {r.stderr}")
+        times["render_ms"] = (time.perf_counter() - t0) * 1e3
+        kc = root / "kubeconfig.json"
+        kc.write_text(json.dumps({
+            "current-context": "deploy",
+            "contexts": [{"name": "deploy", "context": {
+                "cluster": "deploy", "user": "ksr"}}],
+            "clusters": [{"name": "deploy",
+                          "cluster": {"server": fake.url}}],
+            "users": [{"name": "ksr", "user": {"token": REMOTE_TOKEN}}]}))
+        hc = dep.HostCluster(dep.load_manifest(manifest), root / "node",
+                             node_name=DEPLOY_NODE, kubeconfig=str(kc))
+        hc.materialize()
+        plan = {f"{c.pod}/{c.name}": c for c in hc.plan()}
+        if sorted(plan) != sorted(DEPLOY_SERVED + (
+                "vpp-tpu-torch-vswitch/cni-install",
+                "vpp-tpu-torch-vswitch/vswitch")):
+            raise AssertionError(f"deploy: containers {sorted(plan)}")
+        vsw = plan["vpp-tpu-torch-vswitch/vswitch"]
+        gpu_seen = {n: c.env["CUDA_VISIBLE_DEVICES"] for n, c in plan.items()}
+        if gpu_seen.pop("vpp-tpu-torch-vswitch/vswitch") != "0" or any(
+                gpu_seen.values()):
+            raise AssertionError(f"deploy: the card is visible to "
+                                 f"{gpu_seen}, not to the vswitch alone")
+
+        # 2. the init container installs the shim and the netconf
+        cni = plan["vpp-tpu-torch-vswitch/cni-install"]
+        proc = hc.spawn(cni)
+        if proc.wait(timeout=60) != 0:
+            raise AssertionError(f"cni-install exited {proc.returncode}: "
+                                 f"{hc.log('vpp-tpu-torch-vswitch/cni-install')}")
+        bin_dir = cni.mounts["/host/opt/cni/bin"]
+        conf_dir = cni.mounts["/host/etc/cni/net.d"]
+        netconf = json.loads((conf_dir / "10-vpp-tpu.conf").read_text())
+        shim = bin_dir / netconf["type"]
+        if not os.access(shim, os.X_OK):
+            raise AssertionError(f"cni-install: no executable {shim}")
+
+        # 3. the store trio, each from its Deployment's command, no card
+        t0 = time.perf_counter()
+        for name in DEPLOY_SERVED[:3]:
+            hc.spawn(plan[name])
+        cfg_text = (vsw.mounts["/etc/vpp-tpu"] / "contiv.yaml").read_text()
+        agent_cfg = json.loads(cfg_text)
+        store = connect_store(agent_cfg["store_url"])
+
+        def store_up():
+            try:
+                store.put("deploy/probe", 1)
+                return store.get("deploy/probe") == 1
+            except Exception:  # noqa: BLE001 — not serving yet
+                return False
+
+        dep.wait_until(store_up, "the store trio", DEPLOY_WAIT_S,
+                       every_s=0.1, cluster=hc)
+        times["store_trio_up_ms"] = (time.perf_counter() - t0) * 1e3
+
+        # 4-5. the vswitch's supervisor, polled as the kubelet would
+        t0 = time.perf_counter()
+        argv = None
+        if device == "cpu":
+            argv = [sys.executable, "-c", (
+                "import sys; from vpp_tpu_torch.cmd import init_main as m; "
+                "f = m.InitSupervisor.agent_argv; "
+                "m.InitSupervisor.agent_argv = "
+                "lambda self: f(self) + ['--device', 'cpu']; "
+                "sys.exit(m.main(sys.argv[1:]))"), *vsw.argv[3:]]
+        sup = hc.spawn(vsw, argv)
+        (addr, port, path), = [vsw.probes["readiness"]]
+        dep.wait_until(lambda: dep.http_status(addr, port, path) == 200,
+                       "the vswitch's readiness", DEPLOY_WAIT_S, every_s=0.1,
+                       cluster=hc)
+        times["supervisor_to_ready_ms"] = (time.perf_counter() - t0) * 1e3
+        live = dep.http_status(*vsw.probes["liveness"])
+        if live != 200:
+            raise AssertionError(f"vswitch liveness {live}")
+        child_argvs = proc_children(sup.pid)
+        agents = [a for a in child_argvs if "vpp_tpu_torch.cmd.agent" in a]
+        if len(agents) != 1 or len(child_argvs) != 1:
+            raise AssertionError(f"the supervisor runs {child_argvs}, not "
+                                 f"the agent alone (io is off)")
+
+        # 6. the KSR, its in-cluster API a kubeconfig for the fake server
+        t0 = time.perf_counter()
+        ksr = plan["vpp-tpu-torch-ksr/ksr"]
+        hc.spawn(ksr)
+        dep.wait_until(lambda: dep.http_status(*ksr.probes["liveness"])
+                       == 200, "the KSR's liveness", DEPLOY_WAIT_S,
+                       every_s=0.1, cluster=hc)
+        times["ksr_live_ms"] = (time.perf_counter() - t0) * 1e3
+
+        # 7. kubelet-style CNI ADDs through the installed shim
+        subnet = ipaddress.ip_network(agent_cfg["ipam"]["pod_subnet_cidr"])
+        ips, add_ms = {}, []
+        for k, (ns, name) in enumerate(DEPLOY_PODS):
+            cid = f"deploy{k:02d}" + "0" * 56
+            env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+                   "CNI_COMMAND": "ADD", "CNI_CONTAINERID": cid,
+                   "CNI_NETNS": f"/var/run/netns/cni-{cid[:12]}",
+                   "CNI_IFNAME": "eth0", "CNI_PATH": str(bin_dir),
+                   "CNI_ARGS": (f"IgnoreUnknown=1;K8S_POD_NAMESPACE={ns};"
+                                f"K8S_POD_NAME={name};"
+                                f"K8S_POD_INFRA_CONTAINER_ID={cid}")}
+            t0 = time.perf_counter()
+            r = subprocess.run([str(shim)], input=(
+                conf_dir / "10-vpp-tpu.conf").read_bytes(), env=env,
+                capture_output=True, timeout=60)
+            add_ms.append((time.perf_counter() - t0) * 1e3)
+            if r.returncode != 0:
+                raise AssertionError(f"CNI ADD {name}: {r.stdout!r} "
+                                     f"{r.stderr!r}")
+            res = json.loads(r.stdout)
+            ip = ipaddress.ip_interface(res["ips"][0]["address"]).ip
+            if ip not in subnet:
+                raise AssertionError(f"CNI ADD {name}: {ip} outside "
+                                     f"{subnet}")
+            ips[name] = str(ip)
+        times["cni_add_ms"] = add_ms
+
+        # 8. the pods, then a policy, through the fake API; the verdicts
+        # through the manifest's CLI socket against the rule oracle
+        sock = agent_cfg["cli_socket"]
+        api_put(fake, km.Namespace(name="default"), "ADDED")
+        t0 = time.perf_counter()
+        for (ns, name), labels in DEPLOY_PODS.items():
+            api_put(fake, km.Pod(name=name, namespace=ns, labels=labels,
+                                 ip_address=ips[name],
+                                 host_ip_address="127.0.0.1"), "ADDED")
+        first = km.Pod(name="client", namespace="default").key()
+        dep.wait_until(lambda: store.get("ksr/" + first) is not None,
+                       "the KSR's first pod", DEPLOY_WAIT_S, every_s=0.01,
+                       cluster=hc)
+        times["ksr_first_pod_ms"] = (time.perf_counter() - t0) * 1e3
+        verdicts = {"before": deploy_verdicts(sock, ips)}
+        policies = []
+        checks = 0
+        for stage in ("before", "after"):
+            if stage == "after":
+                policies = [deploy_policy()]
+                t0 = time.perf_counter()
+                api_put(fake, policies[0], "ADDED")
+                rules = deploy_oracle(policies, ips)
+                probe = ("client", "web", 22)
+                dep.wait_until(lambda: deploy_want(rules, ips, *probe) in
+                               deploy_verdicts(sock, ips)[probe],
+                               "the policy's verdict", DEPLOY_WAIT_S,
+                               every_s=0.01, cluster=hc)
+                times["policy_to_verdict_ms"] = \
+                    (time.perf_counter() - t0) * 1e3
+                verdicts["after"] = deploy_verdicts(sock, ips)
+            rules = deploy_oracle(policies, ips)
+            for (src, dst, port), line in verdicts[stage].items():
+                want = deploy_want(rules, ips, src, dst, port)
+                if not line.startswith(f"verdict: {want}"):
+                    raise AssertionError(f"deploy {stage} {src} -> {dst} "
+                                         f"tcp/{port}: {line}, the oracle "
+                                         f"says {want}")
+                checks += 1
+
+        # 9. the agent's scrape, and its identity in the store
+        text = http_get(stats_port, "/stats")   # the node's address
+        families = sorted(set(re.findall(r"^# TYPE (\w+)", text, re.M)))
+        for fam in ("vpp_tpu_node_rx_packets", "vpp_tpu_build_info"):
+            if fam not in families:
+                raise AssertionError(f"deploy scrape: no {fam}")
+        names = [v.get("name") for v in store.list_values(
+            "allocatedIDs/").values() if isinstance(v, dict)]
+        if names != [DEPLOY_NODE] or store.list_keys(
+                "agent/${NODE_NAME}/"):
+            raise AssertionError(f"deploy: node names in the store "
+                                 f"{names}")
+        launched = json.loads(http_get(stats_port,
+                                       "/debug/kernels"))["launches"]
+        by_fn = {w.__name__: k for k, w in WRAPPERS.items()}
+        launches = {by_fn[k]: v for k, v in launched.items()}
+        rungs = dict(re.findall(r"^\s+(classifier|fib|session)\s+\S+\s+(\S+)",
+                                deploy_ctl(sock, "show", "kernels"), re.M))
+        want = sorted(RUNG_KERNELS[r] for r in rungs.items()
+                      if r in RUNG_KERNELS)
+        if device is None and (not want or any(launches[k] <= 0
+                                               for k in want)):
+            raise AssertionError(f"deploy: rungs {want}, launches "
+                                 f"{launches}")
+
+        # 10. the store and the KSR served (steps 3, 6, 8) with no card
+        # visible: each running process's own environment says so
+        served = {}
+        for c, p in hc.procs:
+            if not c.init:
+                env = dict(kv.split("=", 1) for kv in Path(
+                    f"/proc/{p.pid}/environ").read_text().split("\0")
+                    if "=" in kv)
+                served[f"{c.pod}/{c.name}"] = env.get("CUDA_VISIBLE_DEVICES")
+        want_env = dict.fromkeys(DEPLOY_SERVED, "")
+        want_env["vpp-tpu-torch-vswitch/vswitch"] = "0"
+        if served != want_env:
+            raise AssertionError(f"deploy: CUDA_VISIBLE_DEVICES {served}")
+        # 11. teardown: every process stops on SIGTERM with 0
+        if hc.exited():
+            raise AssertionError(f"deploy: exited early {hc.exited()}")
+        if "exited rc=" in hc.log("vpp-tpu-torch-vswitch/vswitch"):
+            raise AssertionError("deploy: the supervisor restarted a child")
+        store.close()
+        store = None
+        t0 = time.perf_counter()
+        codes = hc.teardown()
+        times["teardown_ms"] = (time.perf_counter() - t0) * 1e3
+        hc = None
+        if any(codes.values()):
+            raise AssertionError(f"deploy teardown: exit codes {codes}")
+    finally:
+        if store is not None:
+            store.close()
+        if hc is not None:
+            hc.teardown(timeout=10)
+        fake.close()
+        tmp.cleanup()
+    summary = dict(times, node=DEPLOY_NODE, ips=ips,
+                   ports=dict(kvstore=kv_port, witness=w_port,
+                              stats=stats_port, health=health_port),
+                   verdicts={s: {f"{a}->{b}:{p}": v for (a, b, p), v in
+                                 d.items()} for s, d in verdicts.items()},
+                   oracle_checks=checks, families=len(families),
+                   cuda_visible_devices=served, rungs=rungs,
+                   kernels=want,
+                   launches=launches, exit_codes=codes,
+                   seconds=time.perf_counter() - t_phase)
+    say("deploy " + json.dumps(summary))
+    say(f"phase 4o: {summary['seconds']:.1f} s")
+    return summary, launches
+
+
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -9232,6 +9619,13 @@ def main(argv=None) -> int:
     # over a KV server process; two mesh agents in their --coordinator
     # form with io.enabled, frames ring to ring, against a CPU twin pair
     mh_sum, mh_launches = multihost_phase(mesh_records, n_rules, args.seed)
+
+    # 4o. the port as Kubernetes deploys it: the rendered manifest's
+    # containers as processes of this host (the store trio and the KSR
+    # with no card, the vswitch's supervisor and its agent on the card),
+    # a kubelet-style CNI ADD through the installed shim, a policy from
+    # a fake API server to the CLI's verdicts
+    deploy_sum, deploy_launches = deploy_phase()
     graphs = check_graphs({"pallas": [gpu, cap_p], "mxu": [gpu_m, cap_m],
                            "pallas+ml": [ml_p], "mxu+ml": [ml_m],
                            "pallas+tnt": [tnt_p], "mxu+tnt": [tnt_m]})
@@ -9331,8 +9725,7 @@ def main(argv=None) -> int:
         for name, fast, off_dp, on_dp, cols in cells:
             got = {}
             for side, dp in (("off", off_dp), ("on", on_dp),
-                             ("on", on_dp), ("off", off_dp),
-                             ("off", off_dp), ("on", on_dp)):
+                             ("on", on_dp), ("off", off_dp)):
                 if cols is None:  # the replies to this dataplane's own
                     first = dp.process(packet_vector_from_numpy(fwd, dev),
                                        now=now)
@@ -9459,6 +9852,7 @@ def main(argv=None) -> int:
         row["launches_fleet"] = fleet_launches[name]
         row["launches_mesh"] = mesh_launches[name]
         row["launches_multihost"] = mh_launches[name]
+        row["launches_deploy"] = deploy_launches[name]
         if name == "mxu_first_match":
             row["mesh_shard_operand"] = mesh_sum["cluster"]["shards"]
         if name == "sess_probe_ways":
@@ -9516,6 +9910,7 @@ def main(argv=None) -> int:
                     "fleet": fleet_sum,
                     "mesh": mesh_sum,
                     "multihost": mh_sum,
+                    "deploy": deploy_sum,
                     "captures": graphs, "power": smi}))
     if any(n != 1 for n in capture.capture_counts().values()):
         raise AssertionError("the timing captured a key again")

@@ -161,8 +161,14 @@ def port_alias(ref_name: str):
                                    for n in getattr(port, "__all__", ())})
             alias.__name__ = ref
             if hasattr(port, "__path__"):
-                # a submodule the port lacks loads from the reference
-                alias.__path__ = list(importlib.import_module(ref).__path__)
+                # a submodule the port lacks loads from the reference; a
+                # package the reference lacks (``deploy``: its chart is
+                # ``k8s/``, no module) has nothing more to load
+                try:
+                    alias.__path__ = list(
+                        importlib.import_module(ref).__path__)
+                except ModuleNotFoundError:
+                    alias.__path__ = []
             for k, v in CPU_OVERRIDES.items():
                 if k in alias.__dict__:
                     alias.__dict__[k] = v

@@ -114,7 +114,9 @@ def test_scan_sees_the_whole_package():
                 "hoststack/preload.py", "hoststack/scenarios.py",
                 "cmd/ldpreload_inject.py", "fleet/hashring.py",
                 "fleet/membership.py", "fleet/steering.py", "io/fleet.py",
-                "parallel/multihost.py", "testing/multihost.py"):
+                "parallel/multihost.py", "testing/multihost.py",
+                "deploy/__init__.py", "deploy/render.py",
+                "testing/deploy.py"):
         assert (ROOT / "vpp_tpu_torch" / rel) in PORT_FILES, rel
     assert (ROOT / "vpp_tpu_torch" / "native" / "vcl_preload.c").exists()
     assert all(p.exists() for p in PORT_FILES)
@@ -858,7 +860,11 @@ def test_packaging_names_the_port():
                + sorted(pkg.glob("native/*.c"))]
     assert {"native/frame_ring.cpp", "native/pkt_io.cpp",
             "native/vcl_preload.c"} <= set(sources)
+    # the deployment: the chart and its committed render
+    sources += ["deploy/chart/vpp-tpu-torch.yaml.tmpl",
+                "deploy/chart/values.yaml", "deploy/vpp-tpu-torch.json"]
     for src in sources:
+        assert (pkg / src).exists(), src
         assert any(fnmatch.fnmatch(src, g) for g in globs), src
     scripts = {k: v for k, v in cfg["project"]["scripts"].items()
                if v.startswith("vpp_tpu_torch.")}

@@ -172,10 +172,18 @@ def _wait(pred, timeout=10.0):
     raise AssertionError("timed out")
 
 
-def _ksr_run(k8s_mod, ksr_mod, store_mod, tmp_path) -> dict:
+def _ksr_run(k8s_mod, ksr_mod, store_mod, tmp_path,
+             prime: bool = False) -> dict:
     """The script, against a fake API server of its own, for one
     package's KSR: {key: [(op, value), ...]}, the final store and the
-    reflector counters."""
+    reflector counters.
+
+    ``prime`` lists every source once before the KSR starts. The
+    reference needs it to be deterministic: unprimed, its watch threads'
+    first lists dispatch adds into reflectors whose resyncs are still
+    running, and each listed object is written one to three times as
+    the threads happen to run (a reference fault the port does not
+    copy; ``test_port_writes_each_listed_object_once``)."""
     fake = jk8s_tests.FakeK8sApiServer()
     store = store_mod.KVStore()
     log = {}
@@ -187,11 +195,18 @@ def _ksr_run(k8s_mod, ksr_mod, store_mod, tmp_path) -> dict:
         kubeconfig=_kubeconfig(tmp_path, fake.url))
     for lw in sources.values():
         lw.RECONNECT_BACKOFF = (0.05, 0.2)
+    if prime:
+        for lw in sources.values():
+            lw.list()
     ksr = ksr_mod.KsrAgent(store=store, sources=sources, serve_http=False)
     pod = "ksr/k8s/pod/{}/namespace/prod"
     try:
         ksr.start()
-        _wait(lambda: len(store.list_keys("ksr/")) == 7)
+        # every reflector synced, not just every key written: an event
+        # reaching a reflector before its resync returns only starts
+        # another resync, which lists the fake's unchanged objects
+        _wait(lambda: len(store.list_keys("ksr/")) == 7
+              and ksr.registry.all_synced())
         fake.push_event(PATHS["pod"], "MODIFIED",
                         _pod("a", "10.1.1.9", {"app": "a", "v": "2"}))
         _wait(lambda: (store.get(pod.format("a")) or {}).get(
@@ -233,7 +248,74 @@ def _ksr_run(k8s_mod, ksr_mod, store_mod, tmp_path) -> dict:
 def test_both_packages_reflect_the_same_events(tmp_path):
     """KSR over each package's sources turns the same API-server script
     into the same store events, key by key."""
-    ref = _ksr_run(jk8s, jksr, jstore, tmp_path)
+    ref = _ksr_run(jk8s, jksr, jstore, tmp_path, prime=True)
     port = _ksr_run(tk8s, tksr, tstore, tmp_path)
     assert port == ref
     assert len(ref["log"]) == 9  # the 7 listed objects, pods c and d
+
+
+def _start_after_first_list(self):
+    """``Reflector.start`` with the watch thread's first list finished
+    before the resync begins: the order that makes the reference write
+    a listed object twice."""
+    lw = self.list_watch
+    done = threading.Event()
+    relist = lw._relist_and_diff
+
+    def first(*a, **k):
+        try:
+            return relist(*a, **k)
+        finally:
+            done.set()
+
+    lw._relist_and_diff = first
+    lw.subscribe(self._on_add, self._on_update, self._on_delete)
+    assert done.wait(10.0), "the watch thread never listed"
+    self.resync()
+
+
+@pytest.mark.parametrize("package", ["reference", "port"])
+def test_port_writes_each_listed_object_once(package, tmp_path,
+                                             monkeypatch):
+    """A KSR start whose watch threads list before the reflectors'
+    resyncs: the port writes each listed object once and counts one
+    update for it; the reference writes pod b (the second pod listed)
+    twice, through an add dispatched after its first resync."""
+    k8s_mod, ksr_mod, store_mod = ((jk8s, jksr, jstore)
+                                   if package == "reference"
+                                   else (tk8s, tksr, tstore))
+    from vpp_tpu.ksr import reflector as jrefl
+    from vpp_tpu_torch.ksr import reflector as trefl
+
+    refl_mod = jrefl if package == "reference" else trefl
+    monkeypatch.setattr(refl_mod.Reflector, "start", _start_after_first_list)
+    fake = jk8s_tests.FakeK8sApiServer()
+    store = store_mod.KVStore()
+    log = {}
+    store.watch("ksr/", lambda ev: log.setdefault(ev.key, []).append(
+        ev.op.name))
+    for t, objs in WORLD.items():
+        fake.set_objects(PATHS[t], copy.deepcopy(objs))
+    sources = k8s_mod.make_k8s_sources(
+        kubeconfig=_kubeconfig(tmp_path, fake.url))
+    ksr = ksr_mod.KsrAgent(store=store, sources=sources, serve_http=False)
+    try:
+        ksr.start()   # synchronous here: every list and resync is done
+        assert ksr.registry.all_synced()
+        stats = {t: (r.stats.adds, r.stats.updates)
+                 for t, r in ksr.registry.reflectors.items()}
+    finally:
+        ksr.close()
+        for lw in sources.values():
+            lw.stop()
+        for p in PATHS.values():
+            fake.end_stream(p)
+        fake.close()
+    pod_b = "ksr/k8s/pod/b/namespace/prod"
+    assert len(log) == 7
+    if package == "port":
+        assert all(ops == ["PUT"] for ops in log.values()), log
+        assert stats == {t: (0, len(objs)) for t, objs in WORLD.items()}
+    else:
+        assert log[pod_b] == ["PUT", "PUT"]
+        assert stats["pod"] == (1, 2)

@@ -79,3 +79,41 @@ def test_node_swap_is_refused_and_step_needs_a_publish():
 def test_refuses_what_the_reference_refuses(kw, match):
     with pytest.raises(ValueError, match=match):
         CpuMultiHostCluster(2, DataplaneConfig(**SMALL, **kw), rule_shards=2)
+
+
+def test_a_row_published_after_the_node_event_reroutes_the_peer():
+    """A peer whose node event arrives before its mesh row is published
+    gets edge routes (the resolver answers -1); once the row appears the
+    runtime's watch has every agent re-resolve it, and the peer's pod
+    network routes into the fabric at that row, with no next hop. The
+    reference's runtime keeps the edge routes."""
+    from vpp_tpu_torch.cmd import AgentConfig
+    from vpp_tpu_torch.kvstore import KVStore
+
+    store = KVStore()
+    cfg = AgentConfig(node_name="mh", serve_http=False,
+                      node_liveness_ttl_s=120.0,
+                      dataplane=DataplaneConfig(**SMALL))
+    rt = tmh.MultiHostRuntime(3, cfg, store=store, device="cpu")
+    late = rt.agents[2].node_id
+    store.delete(rt.POS_PREFIX + str(late))   # its row: not yet published
+    rt.start()
+    try:
+        agent = rt.agents[0]
+        net = agent.ipam.other_node_pod_network(late)
+
+        def route():
+            b = agent.dataplane.builder
+            slot = [i for i in range(len(b.fib_plen))
+                    if b.fib_plen[i] == net.prefixlen
+                    and (int(b.fib_prefix[i]) & 0xFFFFFFFF)
+                    == int(net.network_address)]
+            assert len(slot) == 1, slot
+            return int(b.fib_node_id[slot[0]]), int(b.fib_next_hop[slot[0]])
+
+        node, hop = route()
+        assert node == -1 and hop != 0                 # an edge route
+        store.put(rt.POS_PREFIX + str(late), 2)
+        assert route() == (2, 0)                       # the fabric, row 2
+    finally:
+        rt.close()

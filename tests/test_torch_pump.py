@@ -21,6 +21,7 @@ wait has a deadline of at most 30 s. Every quantity compared is an
 integer: the tolerance is exact equality.
 """
 
+import threading
 import time
 
 import numpy as np
@@ -223,6 +224,46 @@ def test_config_swap_restarts_the_ring_without_loss():
         assert [int(c["sport"][0]) for c, _n, _e in got] == [20000, 20001]
         out[side] = got
     assert_same_frames(out["port"], out["ref"])
+
+
+def test_frames_after_a_swap_step_on_the_new_epoch():
+    """A swap that lands after the persistent dispatch loop checked the
+    epoch: the frame pushed after ``swap()`` returned is submitted to a
+    ring of the new epoch (the loop is held right after its check until
+    the frame is in). The reference's loop submits it to the old ring;
+    its run of this order is what made
+    ``test_config_swap_restarts_the_ring_without_loss`` fail under load."""
+    dp, a, b = forwarding_dp("port")
+    rings = tio.IORingPair(n_slots=32)
+    pump = tio.DataplanePump(dp, rings, mode="persistent")
+    pump.warm()
+    pump.start()
+    held, release = threading.Event(), threading.Event()
+    tick = pump._governor_tick
+
+    def hold_after_the_check():
+        if not release.is_set():
+            held.set()
+            assert release.wait(DEADLINE)
+        tick()
+
+    try:
+        push_frames("port", rings, a, 1, per=4)
+        got = drain(rings, 1)
+        epoch0 = pump._persist_epoch
+        pump._governor_tick = hold_after_the_check
+        assert held.wait(DEADLINE)   # past its epoch check, held
+        dp.builder.add_route("10.9.9.9/32", b, Disposition.LOCAL)
+        dp.swap()
+        push_frames("port", rings, a, 1, per=4, k0=1)
+        release.set()
+        got += drain(rings, 1)
+        assert pump._persist_epoch == dp.epoch > epoch0
+    finally:
+        release.set()
+        assert pump.stop(join_timeout=DEADLINE)
+        rings.close()
+    assert [int(c["sport"][0]) for c, _n, _e in got] == [20000, 20001]
 
 
 def test_in_order_loss_free_under_slow_fetch():

@@ -532,6 +532,8 @@ class ContivAgent:
             self.stats_http.add_page("/debug/spans", self.debug_spans_json)
             self.stats_http.add_page("/debug/txns", self.debug_txns_json)
             self.stats_http.add_page("/debug/jit", self.debug_jit_json)
+            self.stats_http.add_page("/debug/kernels",
+                                     self.debug_kernels_json)
             self.stats_http.start()
             self.health_http = HealthHTTPServer(
                 self.statuscheck, port=c.health_port, host=c.http_host
@@ -637,6 +639,19 @@ class ContivAgent:
     def debug_spans_json() -> str:
         """/debug/spans: recorded span timelines grouped by trace."""
         return spans.RECORDER.to_json()
+
+    @staticmethod
+    def debug_kernels_json() -> str:
+        """/debug/kernels: each kernel wrapper's launch count in this
+        process (``pipeline/capture.WRAPPERS``; a graph replay counts
+        the launches captured in it), what ``chip_smoke.py`` reads of a
+        deployed agent. The reference has no such page."""
+        import json as _json
+
+        from vpp_tpu_torch.pipeline.capture import WRAPPERS
+
+        return _json.dumps({"launches": {w.__name__: int(w.launches)
+                                         for w in WRAPPERS}})
 
     @staticmethod
     def debug_jit_json() -> str:
@@ -893,11 +908,16 @@ class ContivAgent:
         if node_id == self.node_id or not isinstance(info, dict):
             return
         peer_vtep = int(self.ipam.vxlan_ip_address(node_id))
-        if self._peer_routes.get(node_id) == peer_vtep:
-            return  # already installed (IP update without vtep change)
         mesh_pos = -1
         if self.mesh_node_resolver is not None:
             mesh_pos = int(self.mesh_node_resolver(node_id))
+        installed = self._peer_routes.get(node_id)
+        if installed == (peer_vtep, mesh_pos):
+            return  # already installed (IP update without vtep change)
+        if installed is not None:
+            # the peer's mesh row became known after its routes went in
+            # as edge routes (``reresolve_peer``): replace them
+            self._remove_node(node_id)
         if mesh_pos >= 0:
             with_hop = dict(tx_if=self.uplink_if,
                             disposition=Disposition.REMOTE, next_hop=0,
@@ -922,10 +942,21 @@ class ContivAgent:
                 str(self.ipam.other_node_vpp_host_network(node_id)), **with_hop
             )
             self.dataplane.swap()
-        self._peer_routes[node_id] = peer_vtep
+        self._peer_routes[node_id] = (peer_vtep, mesh_pos)
         log.info("node %d added: %s", node_id,
                  f"fabric row {mesh_pos}" if mesh_pos >= 0
                  else f"routes via vtep {peer_vtep}")
+
+    def reresolve_peer(self, node_id: int) -> None:
+        """Ask the mesh resolver again for a peer whose routes are in:
+        a peer's node event can arrive before its mesh row is published
+        (its allocator id comes first), and its routes then went in as
+        edge routes. A no-op for a peer without routes or whose row is
+        unchanged. The reference has no such call, and its multi-host
+        agents keep those edge routes."""
+        if node_id in self._peer_routes:
+            self._apply_node(node_id, self.store.get(
+                node_id_mod.ID_PREFIX + str(int(node_id))) or {})
 
     def _remove_node(self, node_id: int) -> None:
         if self._peer_routes.pop(node_id, None) is None:

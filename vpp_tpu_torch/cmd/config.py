@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Optional
 
 from vpp_tpu_torch.ipam.ipam import IpamConfig
@@ -473,9 +474,40 @@ def apply_tuned_profile(d: dict, profile: dict) -> None:
             d[section] = raw
 
 
+NODE_NAME_PLACEHOLDER = "${NODE_NAME}"
+
+
+def resolve_node_name(data, env=None):
+    """``data`` with every string value that is exactly ``${NODE_NAME}``
+    replaced by the environment's ``NODE_NAME``, which the deployment's
+    DaemonSet sets from the downward API (``spec.nodeName``). Raises
+    ``ValueError`` naming the variable when it is unset or empty: a node
+    must not boot under a name that every other node shares. The
+    reference's ``load_config`` leaves the placeholder as it is."""
+    env = os.environ if env is None else env
+
+    def walk(v):
+        if isinstance(v, dict):
+            return {k: walk(x) for k, x in v.items()}
+        if isinstance(v, list):
+            return [walk(x) for x in v]
+        if v == NODE_NAME_PLACEHOLDER:
+            name = env.get("NODE_NAME", "")
+            if not name:
+                raise ValueError(
+                    f"config value {NODE_NAME_PLACEHOLDER} needs the "
+                    "environment variable NODE_NAME, which is unset")
+            return name
+        return v
+
+    return walk(data)
+
+
 def load_config(path: Optional[str]) -> AgentConfig:
     """The AgentConfig of a YAML file; a JSON one (JSON is YAML) reads
-    without PyYAML, which a node need not have."""
+    without PyYAML, which a node need not have. A value of exactly
+    ``${NODE_NAME}`` is the environment's ``NODE_NAME``
+    (``resolve_node_name``)."""
     if not path:
         return AgentConfig()
     with open(path) as f:
@@ -486,4 +518,4 @@ def load_config(path: Optional[str]) -> AgentConfig:
         import yaml
 
         data = yaml.safe_load(text)
-    return AgentConfig.from_dict(data)
+    return AgentConfig.from_dict(resolve_node_name(data))

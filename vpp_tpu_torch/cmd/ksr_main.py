@@ -9,6 +9,9 @@ MockK8sListWatch.
 The port's copy of ``vpp_tpu/cmd/ksr_main.py``: ``--kubeconfig`` reads
 a live API server through ``ksr/k8s_client.py`` (standard library HTTP),
 ``--store-url`` shares a ``tcp://`` KV server (``kvstore/client.py``).
+The process serves its health and stats pages on every address, so the
+deployment's liveness probe, which the kubelet sends to the pod's
+address, reaches them; the reference's serve on loopback alone.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ class KsrAgent:
         stats_port: int = 9998,
         health_port: int = 9192,
         serve_http: bool = True,
+        http_host: str = "127.0.0.1",
     ):
         if store is None:
             from vpp_tpu_torch.kvstore.client import connect_store
@@ -66,11 +70,14 @@ class KsrAgent:
         self._serve_http = serve_http
         self._stats_port = stats_port
         self._health_port = health_port
+        self._http_host = http_host
 
     def start(self) -> None:
         self.registry.start_all()
         if self._serve_http:
-            self.stats_http = StatsHTTPServer(self.metrics, port=self._stats_port)
+            self.stats_http = StatsHTTPServer(self.metrics,
+                                              port=self._stats_port,
+                                              host=self._http_host)
             # the KSR leg of config-path span timelines (in a separate
             # KSR process the trace ends at the store write; in-process
             # deployments see the full chain here too)
@@ -79,7 +86,8 @@ class KsrAgent:
             self.stats_http.add_page("/debug/spans", spans.RECORDER.to_json)
             self.stats_http.start()
             self.health_http = HealthHTTPServer(
-                self.statuscheck, port=self._health_port
+                self.statuscheck, port=self._health_port,
+                host=self._http_host,
             )
             self.health_http.start()
         self._report(
@@ -114,8 +122,12 @@ def main(argv=None) -> int:
         from vpp_tpu_torch.ksr.k8s_client import make_k8s_sources
 
         sources = make_k8s_sources(kubeconfig=args.kubeconfig)
+    # the kubelet probes the pod's address: the process serves on every
+    # address, where the reference's serves on loopback alone and its
+    # deployment's liveness probe can never answer
     agent = KsrAgent(
-        persist_path=args.persist, store_url=args.store_url, sources=sources
+        persist_path=args.persist, store_url=args.store_url, sources=sources,
+        http_host="0.0.0.0",
     )
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):

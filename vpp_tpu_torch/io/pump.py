@@ -1359,6 +1359,12 @@ class DataplanePump:
         ticketed, so the dispatch-mode loop that takes over re-peeks
         and serves them; nothing is dropped by the mode switch
         itself)."""
+        if self.dp.epoch != self._persist_epoch:
+            # a swap landed after the dispatch loop's epoch check: these
+            # frames were taken after it returned, so they step on the
+            # new epoch's ring (the reference's can submit them to the
+            # old one)
+            self._persist_restart()
         tp0 = time.perf_counter()
         # rx-enqueue stamp: taken at pack start so the
         # device-side wire-latency histogram covers pack + submit

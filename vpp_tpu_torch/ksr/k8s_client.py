@@ -13,7 +13,13 @@ converters), ksr_reflector.go:185-232 (resync on reconnect). Reconnect
 handling follows the informer pattern: on stream loss or 410 Gone the
 source re-lists and *diffs against its own cache*, synthesizing
 add/update/delete callbacks — so the Reflector above never needs to know
-a reconnect happened.
+a reconnect happened. A subscriber's baseline is what ``list()`` returns
+(the reflector's resync lists right after it subscribes): the watch
+thread's first list, when it runs before any ``list()``, only fills the
+cache. The reference's dispatches an add for every object into a
+reflector whose resync is still running, so its KSR writes each listed
+object once, twice or three times, as its threads happen to run; the
+port writes it once.
 
 Auth: kubeconfig file (token / client cert / CA, with inline base64
 ``*-data`` variants; JSON, or YAML where PyYAML is installed) or the
@@ -473,6 +479,10 @@ class KubernetesListWatch(K8sListWatch):
         self._handlers: List[Tuple[Callable, Callable, Callable]] = []
         self._cache: Dict[str, Any] = {}
         self._rv = "0"
+        # whether the cache is a baseline a subscriber has seen (set by
+        # list() and by the watch thread's first re-list): a re-list
+        # diffs, and dispatches, only against one
+        self._baseline = False
         # One RLock serializes every cache mutation WITH its fetch and
         # dispatch: a reflector-driven list() racing the watch thread's
         # re-list could otherwise swap the cache backwards (stale fetch
@@ -490,6 +500,7 @@ class KubernetesListWatch(K8sListWatch):
                      for o in raw.get("items") or []]
             self._rv = (raw.get("metadata") or {}).get("resourceVersion", "0")
             self._cache = {m.key(): m for m in items}
+            self._baseline = True
             return items
 
     def subscribe(self, on_add, on_update, on_delete) -> None:
@@ -522,6 +533,11 @@ class KubernetesListWatch(K8sListWatch):
             self._cache = items
             self._rv = (raw.get("metadata") or {}).get(
                 "resourceVersion", "0")
+            if not self._baseline:
+                # no list() yet: the subscriber's own list is its
+                # baseline, and adds dispatched now would race it
+                self._baseline = True
+                return
             for key, m in items.items():
                 prev = old.get(key)
                 if prev is None:

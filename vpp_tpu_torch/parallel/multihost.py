@@ -602,6 +602,7 @@ class MultiHostRuntime:
         self._pending: Dict[int, list] = {
             i: [] for i in self.cluster.local_nodes}
         self._tick_thread: Optional[threading.Thread] = None
+        self._watch_cancel: Optional[Callable[[], None]] = None
         # packet IO (io.enabled): per-LOCAL-node ring pairs + ONE
         # tick-driven ClusterPump over the local wire view; the fabric
         # step is issued by the tick loop so it interleaves
@@ -653,7 +654,27 @@ class MultiHostRuntime:
             return out
 
     # --- lifecycle ---
+    def _on_position(self, ev) -> None:
+        """A mesh row published: every local agent re-asks its resolver
+        for that peer (``ContivAgent.reresolve_peer``), since the peer's
+        node event may have come first and left edge routes."""
+        from vpp_tpu_torch.kvstore.store import Op
+
+        if ev.op != Op.PUT:
+            return
+        try:
+            nid = int(ev.key[len(self.POS_PREFIX):])
+        except ValueError:
+            return
+        for agent in self.agents:
+            if agent.node_id != nid:
+                agent.reresolve_peer(nid)
+
     def start(self) -> "MultiHostRuntime":
+        # before the agents start: a row published after an agent took
+        # its peer's node event must still reach it
+        self._watch_cancel = self.store.watch(self.POS_PREFIX,
+                                              self._on_position)
         for agent in self.agents:
             agent.start()
         if self.cluster_pump is not None:
@@ -706,6 +727,8 @@ class MultiHostRuntime:
             self.halted.set()
 
     def close(self, join_timeout: float = 60.0) -> None:
+        if self._watch_cancel is not None:
+            self._watch_cancel()
         if self._tick_thread is not None:
             self.driver.request_stop()
             self._tick_thread.join(timeout=join_timeout)

@@ -669,8 +669,10 @@ def _runtime_body(ctx, runtime, store, collector):
         txn.render(("default", "pod2"), ipaddress.ip_network(f"{my_ip}/32"),
                    ingress=[], egress=[ContivRule(action=Action.DENY)])
         txn.commit()
-        applied_before = runtime.driver.applied
-        wait_for(lambda: runtime.driver.applied > applied_before,
+        # the commit request this commit made (or a later one): the tick
+        # thread may publish it before this thread reads anything back
+        req = int(store.get(runtime.driver.req_key) or 0)
+        wait_for(lambda: runtime.driver.applied >= req,
                  "policy epoch applied")
         pre_count = collector.count_for(my_ip)
         pre_drops = collector.drop_acl
@@ -814,6 +816,9 @@ def _wire_body(ctx, runtime, store):
         from vpp_tpu_torch.ksr import model as m
 
         steps_before_commit = runtime.cluster_pump.stats["steps"]
+        # read before the objects go in: the agents may render and the
+        # fleet publish before this thread reads anything back
+        applied0 = runtime.driver.applied
         ksr = KsrAgent(store=store, serve_http=False)
         ksr.start()
         try:
@@ -825,7 +830,6 @@ def _wire_body(ctx, runtime, store):
                 pods=m.LabelSelector(match_labels={"app": "pod2"}),
                 policy_type=m.POLICY_INGRESS, ingress_rules=[]))
             # a commit tick must STEP even on an idle fleet
-            applied0 = runtime.driver.applied
             wait_for(lambda: runtime.driver.applied > applied0,
                      "policy epoch applied", 120)
             wait_for(lambda: runtime.cluster_pump.stats["steps"]
