@@ -55,3 +55,18 @@ autotune:
 # config loader the agent boots with (knobs land, floor clamps).
 autotune-check:
 	$(PY) tools/autotune.py --check tuned/cpu.json
+
+# The PyTorch/CUDA port (vpp_tpu_torch/): its static-analysis gate (the
+# style pass and every pass of vpp_tpu_torch/analysis/, exit 1 on any
+# finding), its CPU tests, and its smoke on one H100 (chip_smoke.py
+# exits nonzero without a card).
+.PHONY: lint-torch test-torch smoke
+
+lint-torch:
+	$(PY) -m vpp_tpu_torch.analysis --all
+
+test-torch:
+	$(PY) -m pytest tests/test_torch_*.py -q
+
+smoke:
+	python3 chip_smoke.py

@@ -11,7 +11,8 @@ raises on failure:
 
 1. the card: torch's device name, and nvidia-smi's name and power limit;
 2. build: every ``vpp_tpu_torch/csrc/*.cu`` compiled for sm_90a, one
-   ``nvcc`` per source, all started together, into ``csrc/build/``;
+   ``nvcc`` per source, all started together, into ``csrc/build/``, and
+   each kernel manifest entry's library loaded;
 3. each kernel against its plain PyTorch version on the card, bit-exact,
    at edge shapes and at the slice's shapes on random data
    (``sess_probe_ways`` on header columns with high addresses and
@@ -427,6 +428,15 @@ raises on failure:
    printed: the ``deploy`` line (render, store trio up, supervisor to
    ready, KSR to first reflected pod, CNI ADD, policy to verdict and
    teardown ms, and the agent's launches);
+4p. the kernel manifest against the card (``KERNELS`` of
+   ``vpp_tpu_torch/analysis/capture_manifest.py``, from which phase 2
+   loads the libraries): the launch counters phases 4, 4b, 4d and 4e
+   recorded, each run's launched set equal to the kernels the
+   manifest's knob values name for the rungs the run selected, and to
+   the path's own expectation (the pallas path no ``mxu_first_match``,
+   the MXU path no ``bv_first_set``, 4d ``ml_score``); no step runs.
+   Printed: ``phase 4p: <s> s on <nvidia-smi's name, power limit>`` and
+   a ``manifest <run>`` line per run;
 5. timing with CUDA events: ms per ``process`` step and Mpps (valid
    packets per device second) at P = 256 and 4,096, captured and eager,
    and a ``torch.profiler`` window per size (device operations, graph
@@ -494,6 +504,7 @@ from vpp_tpu_torch.ml.model import (  # noqa: E402
     score_oracle,
 )
 from vpp_tpu_torch.ml.train import train_and_pack  # noqa: E402
+from vpp_tpu_torch.analysis.capture_manifest import KERNELS  # noqa: E402
 from vpp_tpu_torch.cli import DebugCLI  # noqa: E402
 from vpp_tpu_torch.interop import (  # noqa: E402
     cluster_result_to_numpy,
@@ -606,30 +617,10 @@ SVC_BACKEND_NET = "10.200.0.0/16"
 TENANT_NETS = {t: f"172.{15 + t}.0.0/16" for t in (1, 2, 3, 4)}
 UNKNOWN_VNI = 999
 
-KERNELS = {
-    "sess_probe_ways": dict(
-        source="vpp_tpu_torch/csrc/sess_probe.cu",
-        replaces="vpp_tpu/ops/session.py:1032"),
-    "bv_first_set": dict(
-        source="vpp_tpu_torch/csrc/bv_first_set.cu",
-        replaces="vpp_tpu/ops/acl_bv.py:449"),
-    "lpm_fused_lookup": dict(
-        source="vpp_tpu_torch/csrc/lpm_lookup.cu",
-        replaces="vpp_tpu/ops/lpm.py:372"),
-    "mxu_first_match": dict(
-        source="vpp_tpu_torch/csrc/mxu_first_match.cu",
-        replaces="vpp_tpu/ops/acl_mxu.py:246"),
-    # no Pallas counterpart: the reference's stage is plain jnp
-    # (ml_score and ml_policy)
-    "ml_score": dict(
-        source="vpp_tpu_torch/csrc/ml_score.cu",
-        replaces="vpp_tpu/ops/mlscore.py:167"),
-}
-WRAPPERS = {"sess_probe_ways": session.sess_probe_ways,
-            "bv_first_set": acl_bv.bv_first_set,
-            "lpm_fused_lookup": lpm.lpm_fused_lookup,
-            "mxu_first_match": acl_mxu.mxu_first_match,
-            "ml_score": mlscore.ml_stage}
+# the kernels (analysis/capture_manifest.py KERNELS: source, library,
+# wrapper, the knob values that select each, the TPU kernel it replaces)
+# and their wrappers, in the manifest's order (capture.WRAPPERS)
+WRAPPERS = dict(zip(KERNELS, capture.WRAPPERS))
 NAME_OF = {w: k for k, w in WRAPPERS.items()}
 # the kernels each main path runs (phase 4: pallas rungs; 4b: mxu; 4d:
 # the same with the ML stage and telemetry on)
@@ -9444,6 +9435,63 @@ def check_graphs(paths) -> list:
     return rows
 
 
+# --- phase 4p: the kernel manifest against the card ----------------------
+
+
+def selection(dp) -> dict:
+    """The resolved rung of each kernel's knob on ``dp`` (the manifest's
+    ``rung`` attributes), taken right after a main path's run."""
+    return {e["rung"]: getattr(dp, e["rung"]) for e in KERNELS.values()}
+
+
+def manifest_phase(runs: dict, smi: str) -> dict:
+    """Phase 4p: every main path's launches against the kernel manifest,
+    from the counters phases 4, 4b, 4d and 4e already recorded (no step
+    runs here). ``runs``: label -> (the path of PATH_KERNELS, the
+    selection, the launches). A kernel launched iff the manifest's knob
+    values name the rung the run selected, and that set is the path's
+    own PATH_KERNELS (the pallas path's has no ``mxu_first_match``, the
+    MXU path's no ``bv_first_set``, 4d's ``ml_score``); every entry
+    launched in some run, and the wrappers and the graph symbols cover
+    every entry. A mismatch raises."""
+    t0 = time.perf_counter()
+    names = list(KERNELS)
+    for what, table in (("WRAPPERS", WRAPPERS), ("KERNEL_SYMBOLS",
+                                                 KERNEL_SYMBOLS)):
+        if list(table) != names:
+            raise AssertionError(f"phase 4p: {what} {list(table)} is not "
+                                 f"the manifest's {names}")
+    checked = {}
+    for label, (path, rungs, launches) in runs.items():
+        if sorted(launches) != sorted(names):
+            raise AssertionError(f"phase 4p: {label} counted "
+                                 f"{sorted(launches)}, not every entry")
+        want = sorted(n for n, e in KERNELS.items()
+                      if rungs[e["rung"]] in e["values"])
+        got = sorted(n for n, c in launches.items() if c > 0)
+        if want != sorted(PATH_KERNELS[path]):
+            raise AssertionError(f"phase 4p: the manifest selects {want} "
+                                 f"for {label} (rungs {rungs}), the path "
+                                 f"expects {sorted(PATH_KERNELS[path])}")
+        if got != want:
+            raise AssertionError(f"phase 4p: {label} launched {launches}; "
+                                 f"the manifest names {want} for rungs "
+                                 f"{rungs}")
+        checked[label] = dict(rungs=rungs, kernels=want,
+                              launches={n: launches[n] for n in want})
+    covered = set().union(*(c["kernels"] for c in checked.values()))
+    if covered != set(names):
+        raise AssertionError(f"phase 4p: no run launched "
+                             f"{sorted(set(names) - covered)}")
+    seconds = time.perf_counter() - t0
+    say(f"phase 4p: {seconds:.4f} s on {smi}; {len(checked)} runs held to "
+        f"the manifest's {len(names)} kernels")
+    for label, c in checked.items():
+        say(f"manifest {label}: rungs {c['rungs']} -> {c['kernels']}, "
+            f"launches {c['launches']}")
+    return dict(seconds=seconds, runs=checked)
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -9477,9 +9525,8 @@ def main(argv=None) -> int:
     # 2. build
     t0 = time.perf_counter()
     built = _cuda.build_all()
-    for name in ("sess_probe", "bv_first_set", "lpm_lookup",
-                 "mxu_first_match"):
-        _cuda.library(name)
+    for meta in KERNELS.values():
+        _cuda.library(meta["library"])
     say(f"build: {len(list(_cuda.CSRC.glob('*.cu')))} kernels, nvcc "
         f"{built:.2f} s, loaded in {time.perf_counter() - t0:.2f} s")
 
@@ -9496,6 +9543,9 @@ def main(argv=None) -> int:
     # 4. the main path on the card, then the same on the CPU
     gpu, up, pods, inputs, gsnaps, launches = run_path(
         cfg, "pallas", n_rules, n_nodes, args.seed + 1)
+    # what phase 4p holds to the kernel manifest: each main path's
+    # selection and launches, recorded as its run ends
+    runs = {"4 pallas": ("pallas", selection(gpu), launches)}
     gstate = state_of(gpu)
     totals = {f: int(sum(int(s[f"stats.{f}"].sum()) for s in gsnaps))
               for f in ("rx", "tx", "drop_acl", "sess_hits", "dnat",
@@ -9517,6 +9567,7 @@ def main(argv=None) -> int:
     mcfg = cfg._replace(classifier="mxu", fastpath=True)
     gpu_m, up_m, pods_m, m_inputs, msnaps, m_launches = run_path(
         mcfg, "mxu", n_rules, n_nodes, args.seed + 1)
+    runs["4b mxu"] = ("mxu", selection(gpu_m), m_launches)
     if not gpu_m._use_fastpath or (up_m, pods_m) != (up, pods):
         raise AssertionError("the MXU path did not engage the fast path")
     tiers = [int(s["stats.fastpath"]) for s in msnaps]
@@ -9553,6 +9604,8 @@ def main(argv=None) -> int:
         cfg, "pallas", n_rules, n_nodes, args.seed)
     ml_m, _, _, ml_m_launches, ml_sum_m = ml_tel_path(
         mcfg, "mxu", n_rules, n_nodes, args.seed)
+    runs["4d pallas+ml"] = ("pallas+ml", selection(ml_p), ml_launches)
+    runs["4d mxu+ml"] = ("mxu+ml", selection(ml_m), ml_m_launches)
     say(f"phase 4d: {time.perf_counter() - t4d:.1f} s")
 
     # 4e. tenancy, the overlay, service VIPs and ECMP, on each path
@@ -9561,6 +9614,8 @@ def main(argv=None) -> int:
         tnt_ovl_path(cfg, "pallas", n_rules, n_nodes, args.seed)
     tnt_m, _, _, tnt_m_launches, tnt_sum_m, _ = tnt_ovl_path(
         mcfg, "mxu", n_rules, n_nodes, args.seed)
+    runs["4e pallas+tnt"] = ("pallas+tnt", selection(tnt_p), tnt_launches)
+    runs["4e mxu+tnt"] = ("mxu+tnt", selection(tnt_m), tnt_m_launches)
     say(f"phase 4e: {time.perf_counter() - t4e:.1f} s")
 
     # 4f. incremental uploads into the live tensors, snapshots, restore
@@ -9626,6 +9681,10 @@ def main(argv=None) -> int:
     # a kubelet-style CNI ADD through the installed shim, a policy from
     # a fake API server to the CLI's verdicts
     deploy_sum, deploy_launches = deploy_phase()
+
+    # 4p. the kernel manifest against the card: every recorded main
+    # path's launches against the kernels its selected rungs name
+    manifest_sum = manifest_phase(runs, smi)
     graphs = check_graphs({"pallas": [gpu, cap_p], "mxu": [gpu_m, cap_m],
                            "pallas+ml": [ml_p], "mxu+ml": [ml_m],
                            "pallas+tnt": [tnt_p], "mxu+tnt": [tnt_m]})
@@ -9876,6 +9935,8 @@ def main(argv=None) -> int:
         else:
             row["launches_mxu_path"] = m_launches[name]
         rows.append(row)
+    if [r["name"] for r in rows] != list(KERNELS):
+        raise AssertionError("the kernels rows do not cover the manifest")
     for summ in (tnt_sum_p, tnt_sum_m):
         summ.pop("launches_per_call")
     # the swap, snapshot, restore and migration times of phase 4f
@@ -9911,6 +9972,7 @@ def main(argv=None) -> int:
                     "mesh": mesh_sum,
                     "multihost": mh_sum,
                     "deploy": deploy_sum,
+                    "manifest": manifest_sum,
                     "captures": graphs, "power": smi}))
     if any(n != 1 for n in capture.capture_counts().values()):
         raise AssertionError("the timing captured a key again")

@@ -53,7 +53,6 @@ from test_torch_agent import case_names, port_globals, port_imports
 from test_torch_kvserver import _port_strings, _port_text
 from vpp_tpu.hoststack import admission as jadm
 from vpp_tpu.hoststack import session_rules as jsr
-from vpp_tpu_torch.cmd import ldpreload_inject as tinject
 from vpp_tpu_torch.hoststack import admission as tadm
 from vpp_tpu_torch.hoststack import preload as tpreload
 from vpp_tpu_torch.hoststack import scenarios as tscen

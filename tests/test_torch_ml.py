@@ -53,7 +53,7 @@ from test_ml_stage import (
     proto_model,
 )
 from test_torch_pipeline import _assert_results
-from test_torch_tables import CPU, assert_same, packet_pair
+from test_torch_tables import assert_same, packet_pair
 
 F = jmodel.ML_FEATURES
 N = 32

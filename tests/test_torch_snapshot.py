@@ -37,7 +37,6 @@ import numpy as np
 import pytest
 import torch
 
-from vpp_tpu.pipeline import dataplane as jdp
 from vpp_tpu.pipeline import snapshot as jsnap
 from vpp_tpu.pipeline import tables as jtables
 from vpp_tpu.pipeline import vector as jvector

@@ -30,7 +30,6 @@ import torch
 import jax.numpy as jnp
 
 from vpp_tpu.ops import telemetry as jtel
-from vpp_tpu.pipeline import dataplane as jdp
 from vpp_tpu.pipeline import tables as jtables
 from vpp_tpu.pipeline import vector as jvector
 from vpp_tpu_torch.ops import telemetry as ttel

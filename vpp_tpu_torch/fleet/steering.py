@@ -317,7 +317,8 @@ class FleetSteering:
                 tables.natsess_orig_port.reshape(-1) & 0xFFFF,
                 tables.natsess_proto.reshape(-1) & 0xFF)
             b = mix & (self.n_buckets - 1)
-            # one device-reduced scalar crosses, not the columns
+            # transfer-ok: one device-reduced scalar crosses, not the
+            # columns
             return int((live & (b >= start)
                         & (b < start + n_buckets)).sum().item())
 

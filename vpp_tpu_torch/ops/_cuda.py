@@ -27,7 +27,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -125,8 +125,9 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
-def require(t: torch.Tensor, name: str, dtype=torch.int32, ndim=None,
-            device=None) -> None:
+def require(t: torch.Tensor, name: str, dtype=torch.int32,
+            ndim: Optional[int] = None,
+            device: Optional[torch.device] = None) -> None:
     """The wrapper-side argument check: a contiguous CUDA tensor of
     ``dtype`` (and rank ``ndim``) on ``device``."""
     if not t.is_cuda:

@@ -53,7 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -464,8 +464,9 @@ def _bucket_reps(h: torch.Tensor, pending: torch.Tensor,
     return out
 
 
-def hashmap_insert(valid, time, keys, key_vals, extras, extra_vals, h,
-                   want, now, max_age=None) -> tuple:
+def hashmap_insert(valid, time, keys, key_vals, extras,
+                   extra_vals: Sequence[torch.Tensor], h, want, now,
+                   max_age=None) -> tuple:
     """Generic W-way set-associative batch insert, IN PLACE on the
     columns (the reference's ``hashmap_insert`` semantics: idempotent
     refresh, fail-closed payload conflicts, expired/victim reclaim,

@@ -35,5 +35,6 @@ def __getattr__(name):
 
 __all__ = [
     "cluster_mesh", "table_specs", "ClusterDataplane", "cluster_step",
-    "MeshRuntime", *_MULTIHOST,
+    "MeshRuntime", "MultiHostCluster", "LockstepDriver", "MultiHostRuntime",
+    "init_multihost", "barrier",
 ]

@@ -377,7 +377,11 @@ class ClusterStep:
         if not self.fast:
             return [self.full(t, p, now) for t, p in zip(node_tables, pvs)]
         pres, flags = self.prefixes(node_tables, pvs, now)
-        flags = flags.tolist()  # the pass's one host sync
+        # capture-ok: the eager auto path's one host read; a captured
+        # program never runs this pass on the auto path, it captures the
+        # prefixes and each node's tiers apart and reads the flags
+        # between them outside every graph (ClusterProgram._tiers)
+        flags = flags.tolist()
         return [self.tier(t, pre, now, f)
                 for t, pre, f in zip(node_tables, pres, flags)]
 
@@ -980,7 +984,7 @@ class ClusterDataplane:
     def _commit_epoch(self) -> int:
         """After an upload and a selection: drop the programs of tables
         that are gone, set the uplinks, move the epoch, and journal each
-        node's staged ops under it."""
+        node's staged ops under it. Call under ``_lock``."""
         self._programs = {k: p for k, p in self._programs.items()
                           if p.holds(self.tables)}
         ups = [nd.uplink_if if nd.uplink_if is not None else 0
@@ -990,15 +994,17 @@ class ClusterDataplane:
                                          device=self.device)
         else:
             self._uplinks.copy_(torch.tensor(ups, dtype=torch.int32))
-        self.epoch += 1
+        # unlocked: both callers hold self._lock (swap,
+        # MultiHostCluster.publish)
+        self.epoch = epoch = self.epoch + 1
         # each node's journal records its ops under the CLUSTER epoch
         for node in self.nodes:
             if node.journal is not None:
                 with node._lock:
                     txn = node.builder.drain_recording()
                 if txn is not None:
-                    node.journal.record(txn, self.epoch)
-        return self.epoch
+                    node.journal.record(txn, epoch)
+        return epoch
 
     def _publish(self, outs: List[DataplaneTables], state) -> None:
         """Stack the node builders' outputs: a field whose tensors are no
@@ -1084,6 +1090,7 @@ class ClusterDataplane:
                 now = self._now
             t = self.tables
             after = session_expire(t, now, max_age)
+            # transfer-ok: one device reduction, one scalar crosses
             expired = int((t.sess_valid - after.sess_valid).sum()
                           + (t.natsess_valid - after.natsess_valid).sum())
             if expired:
@@ -1092,11 +1099,13 @@ class ClusterDataplane:
         return expired
 
     def _clock(self, now: Optional[int]) -> int:
+        """The step's clock (``Dataplane._clock``). Call under
+        ``_lock``."""
         if self.tables is None:
             self.swap()
         if now is None:
-            self._now = max(self._now, self.clock_ticks())
-            now = self._now
+            # unlocked: the one caller holds self._lock (_run)
+            self._now = now = max(self._now, self.clock_ticks())
         return int(now)
 
     def _program(self, step: ClusterStep, shape, snap: int) -> ClusterProgram:

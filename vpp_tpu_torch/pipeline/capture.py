@@ -69,6 +69,7 @@ and a budget also raises when its scope captures one key twice.
 from __future__ import annotations
 
 import gc
+import importlib
 import itertools
 import math
 import os
@@ -78,7 +79,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from vpp_tpu_torch.ops import acl_bv, acl_mxu, lpm, mlscore, session
+from vpp_tpu_torch.analysis.capture_manifest import KERNELS, module_name
 from vpp_tpu_torch.pipeline.graph import (
     SWEEP_STRIDE_DEFAULT,
     packed_fields,
@@ -89,10 +90,10 @@ from vpp_tpu_torch.pipeline.graph import (
 )
 from vpp_tpu_torch.pipeline.vector import PacketVector
 
-# the kernel wrappers whose launch counters replays keep
-WRAPPERS = (session.sess_probe_ways, acl_bv.bv_first_set,
-            lpm.lpm_fused_lookup, acl_mxu.mxu_first_match,
-            mlscore.ml_stage)
+# the kernel wrappers whose launch counters replays keep: one per
+# csrc/*.cu, in the kernel manifest's order
+WRAPPERS = tuple(getattr(importlib.import_module(module_name(k["module"])),
+                         k["wrapper"]) for k in KERNELS.values())
 
 # (label, signature) -> captures in this process
 _CAPTURES: Dict[tuple, int] = {}
@@ -231,7 +232,7 @@ class Packing:
         return out
 
 
-def encode_packed(results, observed=None) -> torch.Tensor:
+def encode_packed(results, observed: Optional[list] = None) -> torch.Tensor:
     """The packed output of ``K`` results as one int32 buffer: the
     ``[5, B]`` rows of each, then the ``[12]`` aux rows of each
     (``observed``: each result's ``tel_observe`` count, or None)."""

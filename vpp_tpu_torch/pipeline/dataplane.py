@@ -441,6 +441,9 @@ class Dataplane:
 
     def _swap_local(self, span) -> int:
         """The standalone swap under the lock (``swap``)."""
+        # unlocked: whether a dataplane has tables is fixed when it is
+        # built (materialize); no write stores None, so the check needs
+        # no lock
         if self.tables is None:
             raise RuntimeError(
                 "this Dataplane has no live tables and no swap delegate "
@@ -514,6 +517,7 @@ class Dataplane:
             self._now = max(self._now, self.clock_ticks())
             before = self.tables
             after = session_expire(before, self._now, max_age)
+            # transfer-ok: one device reduction, one scalar crosses
             expired = int(
                 (before.sess_valid - after.sess_valid).sum()
                 + (before.natsess_valid - after.natsess_valid).sum())
@@ -623,8 +627,8 @@ class Dataplane:
         with self._lock:
             tables = self.tables
             impl = self._classifier_impl
+            uplink = self.uplink_if if self.uplink_if is not None else 0
         fn = _classifier_fns(impl)[0]
-        uplink = self.uplink_if if self.uplink_if is not None else 0
         pkts = make_packet_vector(
             [{"src": "172.16.0.9", "dst": "10.1.1.2", "proto": 6,
               "sport": 40000 + i, "dport": 8000 + (i % 20),
@@ -666,9 +670,9 @@ class Dataplane:
         """The cache key of a program of the current selection: the step
         variant (classifier, local-skip, tier, form and every gate), the
         input shape and the table signature. Call under ``_lock``."""
-        if self._signed[0] is not self.tables:
-            self._signed = (self.tables,
-                            capture.table_signature(self.tables))
+        tables = self.tables  # unlocked: _program, ring_checkout hold it
+        if self._signed[0] is not tables:
+            self._signed = (tables, capture.table_signature(tables))
         return (self._classifier_impl, skip, fast, form, self._sweep_stride,
                 self._fib_impl, self._session_impl, self._sess_hash,
                 self._ml_mode, self._ml_kind, self._tel_mode,
@@ -689,15 +693,18 @@ class Dataplane:
                 " (a ring window program is checked out with "
                 "ring_checkout)" if form == "ring" else ""))
         shape = tuple(shape)
+        # unlocked: every caller holds _lock (process, process_packed,
+        # process_packed_chain, prime)
+        programs, tables = self._programs, self.tables
         skip = self._skip_local
-        if skip and self._key(fast, True, form, shape) not in self._programs \
-                and self._key(fast, False, form, shape) in self._programs:
+        if skip and self._key(fast, True, form, shape) not in programs \
+                and self._key(fast, False, form, shape) in programs:
             skip = False
         key = self._key(fast, skip, form, shape)
-        prog = self._programs.get(key)
-        if prog is None or not prog.holds(self.tables):
-            prog = self._new_program(self.tables, fast, skip, form, shape)
-            self._programs[key] = prog
+        prog = programs.get(key)
+        if prog is None or not prog.holds(tables):
+            prog = self._new_program(tables, fast, skip, form, shape)
+            programs[key] = prog
         return prog
 
     def _new_program(self, tables, fast: bool, skip: bool, form: str,
@@ -811,10 +818,11 @@ class Dataplane:
 
     def _clock(self, now: Optional[int]) -> int:
         """The step's clock: ``now``, else the wall-clock ticks, kept
-        monotone."""
+        monotone. Call under ``_lock``."""
         if now is None:
-            self._now = max(self._now, self.clock_ticks())
-            now = self._now
+            # unlocked: every caller holds _lock (process,
+            # process_packed, process_packed_chain)
+            self._now = now = max(self._now, self.clock_ticks())
         return int(now)
 
     def _now_tensor(self, now: int) -> torch.Tensor:
@@ -822,8 +830,9 @@ class Dataplane:
                           device=self.device)
 
     def _scratch(self):
-        """The live tables with copies of the state a step mutates."""
-        t = self.tables
+        """The live tables with copies of the state a step mutates.
+        Call under ``_lock``."""
+        t = self.tables  # unlocked: probe, process_packed hold it
         return t._replace(**{f: getattr(t, f).clone()
                              for f in _MUTABLE_FIELDS})
 
@@ -1032,12 +1041,16 @@ class Dataplane:
         """The outer-header vector of a step's REMOTE-disposed packets
         with a tunnel next hop (plain tensor code on the step's device);
         lanes with next hop 0 (e.g. an SNAT'd default route) leave as
-        plain IP and come back invalid."""
-        if self._vtep is None:
+        plain IP and come back invalid. The VTEP is read once, under the
+        lock ``set_vtep`` writes it under: the check and the encap see
+        one value."""
+        with self._lock:
+            vtep = self._vtep
+        if vtep is None:
             raise RuntimeError("set_vtep() before encap_remote()")
         mask = ((result.disp == int(Disposition.REMOTE))
                 & (result.next_hop != 0))
-        return vxlan_encap(result.pkts, mask, self._vtep, result.next_hop)
+        return vxlan_encap(result.pkts, mask, vtep, result.next_hop)
 
     # --- snapshots ---
     def fib_snapshot(self) -> dict:

@@ -793,7 +793,7 @@ def result_fields(res: StepResult) -> list:
             + list(res.stats) + ovl)
 
 
-def result_of(fields, tables) -> StepResult:
+def result_of(fields: list, tables) -> StepResult:
     """The inverse of ``result_fields`` over ``tables``."""
     n_pk, n_res = len(PacketVector._fields), len(_RESULT_FIELDS)
     n_st = n_pk + n_res + len(StepStats._fields)

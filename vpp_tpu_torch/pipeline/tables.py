@@ -1076,6 +1076,11 @@ class TableBuilder:
                 self.glb_mxu, bad = compile_bitplanes_update(
                     self.glb, cap, self.glb_mxu, self._glb_bad, changed)
             if self.bv_enabled:
+                # upload-ok: compile_bv reuses the previous planes for
+                # every dimension it did not rebuild, so with `rebuilt`
+                # empty the device copies are still equal and leaving
+                # glb_bv unmarked is the zero-reship design, not a stale
+                # plane; a rebuilt dimension marks the group below
                 self.glb_bv, self._bv_cols, rebuilt = compile_bv(
                     self.glb, cap, prev=self.glb_bv,
                     prev_cols=self._bv_cols)

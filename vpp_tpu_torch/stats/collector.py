@@ -1216,6 +1216,7 @@ class StatsCollector:
             # step writes the session tensors in place, so the count is
             # one whole step's state, never a step's half-written planes
             with self.dp._lock:
+                # transfer-ok: one device reduction, one .item() per scrape
                 active = int(self.dp.tables.sess_valid.sum().item())
             self.node_gauges["vpp_tpu_node_sessions_active"].set(active)
         impl = getattr(self.dp, "classifier_impl", "dense")
